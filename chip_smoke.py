@@ -1,0 +1,452 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout on a machine with one CUDA card (an H100
+for the numbers in PERF.md).  It imports ``repro_torch`` from ``src/`` and
+nothing of JAX.  Phases, each of which fails loudly:
+
+1. the card's name and power limit; build every CUDA kernel of the main
+   path from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, all
+   at once) and print the build seconds and ptxas' register report;
+2. every kernel against its plain PyTorch version on the card, at the main
+   path's shapes and one larger shape: max abs error against the stated
+   tolerance, kernel / plain / library time (CUDA events) and the bound;
+3. the main path — ``run_experiment`` on the fleet plane: the quickstart
+   configuration (fcn, α=0.3, 6000 samples, N=M=8, 8 rounds) for fedavg and
+   feddif, 2 rounds each of feddif_stc and stc, 2 rounds of feddif on cnn.
+   Launch counters are zeroed right before each run and read right after;
+   every run must launch mix_aggregate, the STC runs the stc_rows kernels,
+   params must be finite and FedDif's peak accuracy must beat FedAvg's;
+4. a small feddif_stc run on the card against the same run on the CPU
+   (plain versions) from the same init: equal ledgers, params within the
+   fleet plane's tolerance;
+5. a measurement, not a check: one FedDif round under ``torch.profiler``
+   (device busy time, idle share, kernel count, top kernels).
+
+Then one ``{"kernels": [...]}`` line, the card line, and as the last line
+``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
+repository around it, it exits non-zero and prints no result.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
+FP32_FLOPS_PER_S = 67e12         # H100 SXM fp32, outside the tensor cores
+KERNEL_SOURCE = "src/repro_torch/kernels/csrc"
+
+# Every run_experiment call this script makes on the card, as (strategy,
+# task, rounds, clients = models); phase 2 checks each kernel at the shapes
+# these runs give it (see path_shapes).
+WARMUP_RUNS = (("feddif_stc", "fcn", 1, 4), ("feddif_stc", "cnn", 1, 4))
+MAIN_RUNS = (("fedavg", "fcn", 8, 8), ("feddif", "fcn", 8, 8),
+             ("feddif_stc", "fcn", 2, 8), ("stc", "fcn", 2, 8),
+             ("feddif", "cnn", 2, 8))
+CARD_VS_CPU_RUN = ("feddif_stc", "fcn", 2, 5)
+
+
+def _fail(msg: str) -> None:
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
+    sys.exit(1)
+
+
+def _card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    if out.returncode != 0:
+        _fail(f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
+def _time_ms(torch, fn, iters: int = 200, warmup: int = 10) -> float:
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _device_ms(torch, fn, inner: int = 20, reps: int = 10):
+    """Device time per call: ``inner`` calls captured in one CUDA graph and
+    replayed, so the host's per-call cost (Python, checks, launch) drops
+    out.  Returns ``(ms, None)``, or ``(None, error)`` if capture fails —
+    a timing that could not be taken, never a correctness verdict."""
+    try:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(3):
+                fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(inner):
+                fn()
+        graph.replay()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / (reps * inner), None
+    except Exception as exc:            # noqa: BLE001 — reported, not hidden
+        return None, f"{type(exc).__name__}: {exc}"
+
+
+def _timings(torch, kernel, plain, library=None) -> dict:
+    """Device ms (CUDA graph) of the kernel, its plain version and the
+    library call, plus host-inclusive ms per wrapper call (CUDA events
+    around back-to-back calls)."""
+    out = {}
+    for key, fn in (("kernel_ms", kernel), ("plain_ms", plain),
+                    ("library_ms", library)):
+        if fn is None:
+            out[key] = None
+            continue
+        out[key], err = _device_ms(torch, fn)
+        if err is not None:
+            out[key.replace("ms", "device_error")] = err
+    out["call_ms"] = _time_ms(torch, kernel)
+    out["plain_call_ms"] = _time_ms(torch, plain)
+    return out
+
+
+def _bound(nbytes: float, flops: float) -> tuple[float, str]:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def path_shapes(torch, port) -> tuple[list, list]:
+    """The shapes the driven runs give the kernels: ``mix_aggregate`` gets
+    the (C, F, 1) Eq.-11 row of each run's fleet (F = the task's parameter
+    count), ``stc_rows`` a (C, n) block per leaf of size n in the STC runs.
+    The fleet plane has one slot per client."""
+    from repro_torch.tree import tree_leaves
+    mix, stc = set(), set()
+    for strategy, task, _, clients in (WARMUP_RUNS + MAIN_RUNS
+                                       + (CARD_VS_CPU_RUN,)):
+        init = port.build_task_model(task).init(torch.Generator())
+        sizes = [x.numel() for x in tree_leaves(init)]
+        mix.add((clients, sum(sizes), 1))
+        if "stc" in strategy:
+            stc.update((clients, n) for n in sizes)
+    return sorted(mix), sorted(stc)
+
+
+def check_kernels(torch, kd, kref, port) -> list[dict]:
+    """Phase 2: each kernel against its plain version on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    mix_shapes, stc_shapes = path_shapes(torch, port)
+    print(json.dumps({"path_shapes": {"mix_aggregate": mix_shapes,
+                                      "stc_rows": stc_shapes}}))
+    rows = []
+
+    def record(row):
+        print(json.dumps(row))
+        if not row["ok"]:
+            _fail(f"{row['name']} {row['shape']}: max_abs_err "
+                  f"{row['max_abs_err']} > tol {row['tol']}")
+        rows.append(row)
+
+    # mix_aggregate: the driven runs' Eq.-11 rows (G=1), then a MixOp (G=C)
+    # on the fcn fleet, a fleet large enough to time (107 MB, twice the
+    # 50 MB L2), and ragged shapes (C not a multiple of the 8 warps, G not a
+    # multiple of the tile).
+    for c, f, g in mix_shapes + [(8, 26122, 8), (1024, 26122, 1),
+                                 (5, 1000, 5), (37, 1001, 11)]:
+        x = torch.randn((c, f), generator=gen, device="cuda")
+        w = torch.rand((g, c), generator=gen, device="cuda")
+        w = w / w.sum(dim=1, keepdim=True)      # row-stochastic, as Eq. 10/11
+        out = kd.mix_aggregate_cuda(x, w)
+        plain = kref.mix_aggregate_ref(x, w)
+        torch.cuda.synchronize()
+        err = float((out - plain).abs().max())
+        tol = 1e-5 * (1.0 + float(plain.abs().max()))
+        bound, by = _bound(4.0 * (c * f + g * c + g * f), 2.0 * g * c * f)
+        record({"name": "mix_aggregate", "shape": [c, f, g],
+                "max_abs_err": err, "tol": tol, "ok": err <= tol,
+                **_timings(torch, lambda: kd.mix_aggregate_cuda(x, w),
+                           lambda: kref.mix_aggregate_ref(x, w),
+                           lambda: w @ x),
+                "bound_ms": bound, "bound_by": by})
+
+    # stc_rows: every leaf of the driven STC runs, a (1024, 8192) leaf
+    # (34 MB, which stays in the 50 MB L2 across timed calls) and a
+    # (1024, 16384) leaf (67 MB, beyond L2).  Tie-free data: ref + Gaussian
+    # noise.
+    sparsity = 0.01
+    for c, n in stc_shapes + [(1024, 8192), (1024, 16384)]:
+        ref_row = torch.randn((n,), generator=gen, device="cuda")
+        x = ref_row[None, :] + 0.1 * torch.randn((c, n), generator=gen,
+                                                  device="cuda")
+        mask = (torch.arange(c, device="cuda") % 2 == 0)
+        mask32 = mask.to(torch.int32)
+        k = max(1, int(n * sparsity))
+        thr = kref.stc_rows_threshold(x, ref_row, sparsity)
+        ssum, cnt = kd.stc_rows_reduce_cuda(x, ref_row, thr)
+        p_sum, p_cnt = kref.stc_rows_reduce_ref(x, ref_row, thr)
+        torch.cuda.synchronize()
+        if not torch.equal(cnt, p_cnt) or not bool((cnt == k).all()):
+            _fail(f"stc_rows_reduce ({c}, {n}): survivor counts "
+                  f"{cnt.tolist()[:4]} differ from the plain version or k={k}")
+        err = float((ssum - p_sum).abs().max())
+        tol = 1e-5 * (1.0 + float(p_sum.abs().max()))
+        bound, by = _bound(4.0 * (c * n + n + 3 * c), 3.0 * c * n)
+        record({"name": "stc_rows_reduce", "shape": [c, n],
+                "max_abs_err": err, "tol": tol, "ok": err <= tol,
+                **_timings(torch,
+                           lambda: kd.stc_rows_reduce_cuda(x, ref_row, thr),
+                           lambda: kref.stc_rows_reduce_ref(x, ref_row, thr)),
+                "bound_ms": bound, "bound_by": by})
+
+        out = kd.stc_rows_apply_cuda(x, ref_row, thr, ssum, cnt, mask32)
+        plain = kref.stc_rows_apply_ref(x, ref_row, thr, ssum, cnt, mask32)
+        torch.cuda.synchronize()
+        if not torch.equal(out[~mask], x[~mask]):
+            _fail(f"stc_rows_apply ({c}, {n}): unmasked rows changed")
+        err = float((out - plain).abs().max())
+        # Same inputs, same fp32 operations: the apply must be exact.
+        bound, by = _bound(4.0 * (2 * c * n + n + 4 * c), 4.0 * c * n)
+        record({"name": "stc_rows_apply", "shape": [c, n],
+                "max_abs_err": err, "tol": 0.0, "ok": err == 0.0,
+                **_timings(torch,
+                           lambda: kd.stc_rows_apply_cuda(
+                               x, ref_row, thr, ssum, cnt, mask32),
+                           lambda: kref.stc_rows_apply_ref(
+                               x, ref_row, thr, ssum, cnt, mask32)),
+                "bound_ms": bound, "bound_by": by})
+
+        # The composite (τ + reduce + apply) against the exact-k plain STC.
+        whole = kd.stc_rows_cuda(x, ref_row, mask, sparsity)
+        want = kref.stc_rows_ref(x, ref_row, mask, sparsity)
+        torch.cuda.synchronize()
+        err = float((whole - want).abs().max())
+        tol = 1e-5 * (1.0 + float(want.abs().max()))
+        print(json.dumps({"name": "stc_rows", "shape": [c, n],
+                          "max_abs_err": err, "tol": tol, "ok": err <= tol}))
+        if err > tol:
+            _fail(f"stc_rows ({c}, {n}) disagrees with stc_rows_ref")
+    return rows
+
+
+def main_path(torch, kd, port) -> dict:
+    """Phase 3: the port's main path through run_experiment on the card."""
+    from repro_torch.tree import tree_leaves
+    FLConfig, ExperimentSpec = port.FLConfig, port.ExperimentSpec
+    launches = {name: 0 for name in kd.LAUNCHES}
+    peak = {}
+    # One untimed round of each task first: CUDA context, cuBLAS/cuDNN
+    # handles and functorch's first transforms stay out of the timed runs.
+    for strategy, task, rounds, clients in WARMUP_RUNS:
+        port.run_experiment(ExperimentSpec(
+            task=task, alpha=0.3, num_samples=1200,
+            fl=FLConfig(strategy=strategy, rounds=rounds,
+                        num_clients=clients, num_models=clients, seed=1)))
+    for strategy, task, rounds, clients in MAIN_RUNS:
+        spec = ExperimentSpec(
+            task=task, alpha=0.3, num_samples=6000,
+            fl=FLConfig(strategy=strategy, rounds=rounds,
+                        num_clients=clients, num_models=clients,
+                        epsilon=0.04, gamma_min=1.0, seed=0))
+        kd.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = port.run_experiment(spec)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(kd.LAUNCHES)
+        finite = all(bool(torch.isfinite(x).all())
+                     for x in tree_leaves(res.final_params))
+        print(json.dumps({
+            "run": f"{strategy}/{task}", "rounds": rounds,
+            "peak_accuracy": max(res.accuracy), "accuracy": res.accuracy,
+            "ledger": res.ledger.as_dict(),
+            "diffusion_rounds": res.diffusion_rounds,
+            "mean_round_wall_s": sum(res.round_wall_s) / rounds,
+            "round_wall_s": res.round_wall_s,
+            "run_wall_s": wall, "launches": counts, "finite": finite}))
+        if not finite:
+            _fail(f"{strategy}/{task}: non-finite parameters")
+        if counts["mix_aggregate"] < rounds:
+            _fail(f"{strategy}/{task}: mix_aggregate launched "
+                  f"{counts['mix_aggregate']} times in {rounds} rounds")
+        if "stc" in strategy and (counts["stc_rows_reduce"] == 0
+                                  or counts["stc_rows_apply"] == 0):
+            _fail(f"{strategy}/{task}: the stc_rows kernels never launched")
+        for name in launches:
+            launches[name] += counts[name]
+        peak[(strategy, task)] = max(res.accuracy)
+    fedavg, feddif = peak[("fedavg", "fcn")], peak[("feddif", "fcn")]
+    print(json.dumps({"quickstart_peak_accuracy": {"fedavg": fedavg,
+                                                   "feddif": feddif}}))
+    if not feddif > fedavg:
+        _fail(f"FedDif peak accuracy {feddif} does not beat FedAvg {fedavg}")
+    return launches
+
+
+def card_vs_cpu(torch, port) -> None:
+    """Phase 4: the kernel path on the card against the plain path on the
+    CPU, from one init, on a small feddif_stc run."""
+    from repro_torch.tree import tree_leaves
+    strategy, task, rounds, clients = CARD_VS_CPU_RUN
+    spec = port.ExperimentSpec(
+        task=task, alpha=0.3, num_samples=1200,
+        fl=port.FLConfig(strategy=strategy, rounds=rounds,
+                         num_clients=clients, num_models=clients, seed=0,
+                         topology_seed=3))
+    model = port.build_task_model(task)
+    init = port.params_to_numpy(model.init(torch.Generator().manual_seed(0)))
+    gpu = port.run_experiment(
+        spec, init_fn=lambda g: port.params_from_numpy(init))
+    cpu = port.run_experiment(
+        spec, device="cpu", init_fn=lambda g: port.params_from_numpy(init))
+    if gpu.ledger.as_dict() != cpu.ledger.as_dict():
+        _fail("card and CPU runs charge different ledgers")
+    err = 0.0
+    for a, b in zip(tree_leaves(gpu.final_params),
+                    tree_leaves(cpu.final_params)):
+        a = a.cpu()
+        err = max(err, float((a - b).abs().max()))
+        if not torch.allclose(a, b, atol=2e-4, rtol=2e-3):
+            _fail(f"card and CPU params differ by {err}")
+    print(json.dumps({"check": f"card_vs_cpu {strategy}/{task}",
+                      "max_abs_err": err,
+                      "atol": 2e-4, "rtol": 2e-3,
+                      "accuracy": [gpu.accuracy, cpu.accuracy]}))
+
+
+def profile_round(torch, port) -> None:
+    """Phase 5 (a measurement, not a check): one FedDif round of the
+    quickstart cell under torch.profiler — device busy time (the union of
+    kernel intervals), idle share of the round's host wall time, kernel
+    count and the kernels with the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+    spec = port.ExperimentSpec(
+        task="fcn", alpha=0.3, num_samples=6000,
+        fl=port.FLConfig(strategy="feddif", rounds=1, num_clients=8,
+                         num_models=8, epsilon=0.04, gamma_min=1.0, seed=0))
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            res = port.run_experiment(spec)
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        spans = sorted((e.time_range.start, e.time_range.end)
+                       for e in kernels)
+        busy_us, cur_s, cur_e = 0.0, None, None
+        for a, b in spans:
+            if cur_e is None or a > cur_e:
+                if cur_e is not None:
+                    busy_us += cur_e - cur_s
+                cur_s, cur_e = a, b
+            else:
+                cur_e = max(cur_e, b)
+        if cur_e is not None:
+            busy_us += cur_e - cur_s
+        by_name: dict = {}
+        for e in kernels:
+            by_name[e.name] = by_name.get(e.name, 0.0) + (
+                e.time_range.end - e.time_range.start)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+        run_s = spans[-1][1] / 1e6 - spans[0][0] / 1e6 if spans else None
+        print(json.dumps({
+            "profile": "feddif/fcn 1 round (quickstart cell)",
+            "round_wall_s_profiled": res.round_wall_s[0],
+            "device_busy_s": busy_us / 1e6,
+            "first_to_last_kernel_s": run_s,
+            "device_idle_share_of_span": (None if not run_s
+                                          else 1.0 - busy_us / 1e6 / run_s),
+            "kernel_launches": len(kernels),
+            "top_kernels_us": [[n[:80], t] for n, t in top]}))
+    except Exception as exc:            # noqa: BLE001 — reported, not hidden
+        print(json.dumps({"profile": "not measured",
+                          "error": f"{type(exc).__name__}: {exc}"}))
+
+
+def main() -> None:
+    sys.stdout.reconfigure(line_buffering=True)
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        _fail("src/repro_torch is missing: run from a checkout of the repo")
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    if not torch.cuda.is_available():
+        _fail("torch.cuda.is_available() is false: this smoke needs a GPU")
+
+    from repro_torch.device import set_full_fp32
+    from repro_torch.kernels import build
+    from repro_torch.kernels import diffusion as kd
+    from repro_torch.kernels import ref as kref
+    import repro_torch.fl as port
+    set_full_fp32()
+
+    card = _card_line()
+    print(f"card: {card}")
+    print(json.dumps({"torch": torch.__version__, "cuda": torch.version.cuda,
+                      "device": torch.cuda.get_device_name(0)}))
+
+    build_s = build.build_all()
+    print(json.dumps({"phase": "build", "seconds": build_s,
+                      "sources": sorted(build.SOURCES.values())}))
+    for name, log in sorted(build.PTXAS_INFO.items()):
+        for line in log.splitlines():
+            if "registers" in line or "Compiling entry" in line:
+                print(f"ptxas[{name}]: {line.strip()}")
+
+    rows = check_kernels(torch, kd, kref, port)
+    launches = main_path(torch, kd, port)
+    card_vs_cpu(torch, port)
+    profile_round(torch, port)
+
+    replaces = {
+        "mix_aggregate": ("mix_aggregate.cu",
+                          "src/repro/kernels/diffusion.py:119"),
+        "stc_rows_reduce": ("stc_rows.cu",
+                            "src/repro/kernels/diffusion.py:177"),
+        "stc_rows_apply": ("stc_rows.cu",
+                           "src/repro/kernels/diffusion.py:200"),
+    }
+    # The summary row of each kernel is its main-path shape: the (8, 26122)
+    # Eq.-11 row of the fcn fleet, and the largest fcn leaf (8, 16384).
+    main_shape = {"mix_aggregate": [8, 26122, 1],
+                  "stc_rows_reduce": [8, 16384], "stc_rows_apply": [8, 16384]}
+    summary = []
+    for name, (src, rep) in replaces.items():
+        row = next(r for r in rows
+                   if r["name"] == name and r["shape"] == main_shape[name])
+        if launches[name] == 0:
+            _fail(f"{name} was never launched on the main path")
+        summary.append({
+            "name": name, "route": "cuda",
+            "source": f"{KERNEL_SOURCE}/{src}", "replaces": rep,
+            "launches": launches[name], "max_abs_err": row["max_abs_err"],
+            "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"], "shape": row["shape"],
+            "ok": all(r["ok"] for r in rows if r["name"] == name)})
+    print(json.dumps({"kernels": summary}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

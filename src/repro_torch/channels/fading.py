@@ -1,0 +1,58 @@
+"""D2D channel model — Eqs. (12)–(14) of the paper.
+
+Counterpart of the numpy half of ``repro.channels.fading``:
+``g = sqrt(beta)·h`` with Rayleigh small-scale fading ``h ~ CN(0,1)`` and
+log-distance large-scale fading ``beta[dB] = beta0 − 10·kappa·log10(d/d0)``.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+__all__ = ["ChannelParams", "ChannelModel"]
+
+
+@dataclasses.dataclass
+class ChannelParams:
+    beta0_db: float = -30.0        # large-scale pathloss @ reference distance
+    d0_m: float = 1.0              # reference distance
+    kappa: float = 3.0             # pathloss exponent (urban)
+    tx_power_dbm: float = 23.0     # UE max Tx power (3GPP)
+    noise_psd_dbm_hz: float = -174.0   # AWGN PSD
+    bandwidth_hz: float = 180e3    # per-PRB bandwidth (numerology 0)
+
+    @property
+    def tx_power_w(self) -> float:
+        return 10 ** ((self.tx_power_dbm - 30.0) / 10.0)
+
+    @property
+    def noise_w(self) -> float:
+        psd_w = 10 ** ((self.noise_psd_dbm_hz - 30.0) / 10.0)
+        return psd_w * self.bandwidth_hz
+
+
+class ChannelModel:
+    """Samples channel gains and SNRs between user pairs."""
+
+    def __init__(self, params: ChannelParams | None = None):
+        self.params = params or ChannelParams()
+
+    def large_scale_db(self, dist_m: np.ndarray) -> np.ndarray:
+        """Eq. (13): beta in dB as a function of pairwise distance."""
+        p = self.params
+        return p.beta0_db - 10.0 * p.kappa * np.log10(
+            np.maximum(dist_m, p.d0_m) / p.d0_m)
+
+    def sample_gains(self, dist_m: np.ndarray, rng: np.random.Generator
+                     ) -> np.ndarray:
+        """Eq. (12): |g|² = beta·|h|², h ~ CN(0,1) (Rayleigh power ~Exp(1))."""
+        beta = 10 ** (self.large_scale_db(dist_m) / 10.0)
+        h2 = rng.exponential(scale=1.0, size=dist_m.shape)
+        return beta * h2
+
+    def snr(self, gains_sq: np.ndarray,
+            interference: np.ndarray | float = 0.0) -> np.ndarray:
+        """|g|² p / (sigma² + I) — Eq. (14) generalized to SINR."""
+        p = self.params
+        return gains_sq * p.tx_power_w / (p.noise_w + interference)

@@ -1,0 +1,36 @@
+"""Cell topology: PUE placement and CUE arrivals (Sec. VI-A).
+
+Counterpart of the numpy half of ``repro.channels.topology``: users are
+placed uniformly at random in a circular cell of radius 250 m each
+communication round.  The CUE arrivals of the underlay mode come with
+ROADMAP item A15.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+__all__ = ["CellTopology"]
+
+
+@dataclasses.dataclass
+class CellTopology:
+    """Uniform-disc user placement."""
+    radius_m: float = 250.0
+    num_pues: int = 10
+
+    def sample_positions(self, rng: np.random.Generator, n: int | None = None
+                         ) -> np.ndarray:
+        """(n, 2) uniform positions on the disc (inverse-CDF radius)."""
+        n = self.num_pues if n is None else n
+        r = self.radius_m * np.sqrt(rng.uniform(size=n))
+        theta = rng.uniform(0.0, 2 * np.pi, size=n)
+        return np.stack([r * np.cos(theta), r * np.sin(theta)], axis=-1)
+
+    def pairwise_distances(self, pos: np.ndarray) -> np.ndarray:
+        """(n, n) Euclidean distance matrix with a safe diagonal."""
+        diff = pos[:, None, :] - pos[None, :, :]
+        d = np.linalg.norm(diff, axis=-1)
+        np.fill_diagonal(d, 1.0)  # self-links never used; avoid log(0)
+        return d

@@ -1,0 +1,135 @@
+"""RoundSchedule — the strategy-agnostic IR between schedulers and executors.
+
+Counterpart of ``repro.core.schedule``.  A scheduler expresses one
+communication round as slot-level *ops* (train / permute+train; the
+group-mix op of gossip and TT-HF comes with ROADMAP item A6),
+the *wire events* to charge against the
+:class:`~repro_torch.channels.resources.ResourceLedger`, and the final
+aggregation weights.  Scheduling is pure numpy: the same object is charged
+once (:func:`charge_schedule`) and replayed by the executor on the device.
+
+Slot ``c`` always draws client ``c``'s batches.  Partial hop sets are
+completed to slot bijections by :func:`complete_round_permutation`
+(displaced idle models are parked on free slots, which the ledger never
+charges).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+__all__ = ["WireEvent", "TrainOp", "PermuteOp", "RoundSchedule",
+           "complete_round_permutation", "charge_schedule"]
+
+
+@dataclasses.dataclass(frozen=True)
+class WireEvent:
+    """One charged transmission: ``kind`` in {"d2d", "uplink", "downlink"}.
+    ``gamma`` is already clamped to the feasibility floor; ``src`` is the
+    sending client slot (-1: the BS)."""
+    kind: str
+    bits: float
+    gamma: float
+    n_users: int = 1
+    src: int = -1
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainOp:
+    """Local update at every slot where ``train_mask`` is True."""
+    train_mask: np.ndarray          # (C,) bool
+
+
+@dataclasses.dataclass(frozen=True)
+class PermuteOp:
+    """One diffusion round: slot ``c`` receives the model held by slot
+    ``src_of_dst[c]``, then the slots in ``train_mask`` train.
+
+    ``compress`` marks STC-compressed hops (``feddif_stc``): payloads feeding
+    a trained destination become ``ref + STC(params − ref)`` before the
+    move, ``ref`` being the round-start global every PUE holds."""
+    src_of_dst: np.ndarray          # (C,) int — bijection over slots
+    train_mask: np.ndarray          # (C,) bool
+    compress: bool = False
+
+    def compress_src_mask(self) -> np.ndarray:
+        """(C,) bool — slots whose outgoing payload is STC-compressed."""
+        mask = np.zeros_like(self.train_mask)
+        mask[self.src_of_dst[self.train_mask]] = True
+        return mask
+
+
+@dataclasses.dataclass
+class RoundSchedule:
+    """One communication round, strategy-agnostic.
+
+    ``agg`` holds ordered ``(slot, weight)`` pairs of the Eq.-(11)
+    aggregation; ``agg_mode`` is "params" or "stc_delta" (weighted mean of
+    STC-compressed deltas against the round-start global — the STC uplink).
+    The reference's ``persistent`` slots (gossip, TT-HF) come with ROADMAP
+    item A6."""
+    num_slots: int
+    ops: list
+    wire: list
+    agg: list
+    agg_mode: str = "params"
+    stc_sparsity: float = 0.01
+    diffusion_rounds: int = 0
+    mean_iid: float = 0.0
+
+    def slot_weights(self) -> np.ndarray:
+        """Dense (C,) aggregation weight vector (zero for empty slots)."""
+        w = np.zeros(self.num_slots, np.float64)
+        for slot, weight in self.agg:
+            w[slot] += weight
+        return w
+
+
+def complete_round_permutation(hops: list, slot_of_model: np.ndarray,
+                               num_slots: int
+                               ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Complete ``(model, dst_client)`` hops into a slot bijection.
+
+    Returns ``(src_of_dst, train_mask, new_slot_of_model)``.  Unscheduled
+    sources stay put when possible, otherwise they are parked on a free
+    destination."""
+    mask = np.zeros(num_slots, dtype=bool)
+    dst_of_src = np.full(num_slots, -1, dtype=np.int64)
+    used_dst: set[int] = set()
+    for model, dst in hops:
+        src = int(slot_of_model[model])
+        assert dst not in used_dst, "matching must be 1-1 over dsts"
+        assert dst_of_src[src] == -1, "slot invariant violated"
+        dst_of_src[src] = dst
+        used_dst.add(int(dst))
+        mask[dst] = True
+    free = [d for d in range(num_slots) if d not in used_dst]
+    for src in range(num_slots):
+        if dst_of_src[src] >= 0:
+            continue
+        if src not in used_dst:
+            dst_of_src[src] = src
+            used_dst.add(src)
+            free.remove(src)
+        else:
+            dst_of_src[src] = free.pop(0)
+            used_dst.add(int(dst_of_src[src]))
+    assert sorted(dst_of_src.tolist()) == list(range(num_slots)), dst_of_src
+    new_slot_of_model = dst_of_src[slot_of_model]
+    src_of_dst = np.argsort(dst_of_src)
+    return src_of_dst, mask, new_slot_of_model
+
+
+def charge_schedule(ledger, schedule: RoundSchedule) -> None:
+    """Replay a schedule's wire events into a ResourceLedger — the one
+    charging path, so communication cost belongs to the schedule."""
+    for ev in schedule.wire:
+        if ev.kind == "d2d":
+            ledger.charge_d2d(ev.bits, ev.gamma)
+        elif ev.kind == "uplink":
+            ledger.charge_uplink(ev.bits, ev.gamma)
+        elif ev.kind == "downlink":
+            ledger.charge_downlink(ev.bits, ev.gamma, ev.n_users)
+        else:
+            raise ValueError(f"unknown wire event kind {ev.kind!r}")

@@ -1,0 +1,57 @@
+"""Per-client data pipeline: shuffled epoch iterators with a cyclic pad.
+
+Counterpart of ``repro.data.pipeline`` (host numpy, the same batch order for
+the same seed).  Batches are numpy dicts; the fleet executor stacks them
+and moves them to the device.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Iterator
+
+import numpy as np
+
+from repro_torch.data.partitioner import ClientPartition
+from repro_torch.data.synthetic import ImageDataset
+
+__all__ = ["ClientLoader", "make_client_loaders"]
+
+
+@dataclasses.dataclass
+class ClientLoader:
+    x: np.ndarray
+    y: np.ndarray
+    batch_size: int
+    seed: int
+    _epoch: int = 0
+
+    @property
+    def epochs_drawn(self) -> int:
+        """Epoch ``k`` shuffles with ``default_rng(seed + k)``; this is k."""
+        return self._epoch
+
+    def num_batches(self) -> int:
+        if not len(self.y):
+            return 0
+        return max(1, len(self.y) // self.batch_size)
+
+    def epoch(self) -> Iterator[dict]:
+        if not len(self.y):      # empty shard: no local session this client
+            return
+        rng = np.random.default_rng(self.seed + self._epoch)
+        self._epoch += 1
+        perm = rng.permutation(len(self.y))
+        for i in range(self.num_batches()):
+            idx = perm[i * self.batch_size:(i + 1) * self.batch_size]
+            if len(idx) < self.batch_size:
+                # Cyclic wrap-around pad: every batch has batch_size rows,
+                # as the stacked executor needs rectangular steps.
+                pad = np.resize(perm, self.batch_size - len(idx))
+                idx = np.concatenate([idx, pad])
+            yield {"x": self.x[idx], "y": self.y[idx]}
+
+
+def make_client_loaders(ds: ImageDataset, part: ClientPartition,
+                        batch_size: int, seed: int = 0) -> list[ClientLoader]:
+    return [ClientLoader(ds.x[ix], ds.y[ix], batch_size, seed + 1000 * i)
+            for i, ix in enumerate(part.indices)]

@@ -1,0 +1,190 @@
+"""The FL diffusion data plane's kernels on Hopper (Eq. 10/11 + STC hops).
+
+Counterpart of ``repro.kernels.diffusion``.  The two kernels on the main
+path are hand-written CUDA C++ for ``sm_90a`` (``csrc/``), built by
+``nvcc`` and bound with ``ctypes`` (:mod:`repro_torch.kernels.build`):
+
+* :func:`mix_aggregate_cuda` — ``out[g, f] = Σ_c w[g, c]·x[c, f]`` over the
+  :func:`stack_ravel`-flattened client-stacked fleet.  Replaces
+  ``repro/kernels/diffusion.py::_mix_kernel`` (``mix_aggregate_pallas``).
+  Memory-bound: at G = 1 (Eq.-11 aggregation) it is a GEMV that reads
+  C·F·4 bytes once; see the source for the design.
+* :func:`stc_rows_cuda` — masked per-row STC against a shared reference row.
+  τ_c (the k-th largest ``|x_c − ref|``) comes from ``torch.topk`` outside
+  the kernels, as the reference leaves it to an XLA sort; then
+  :func:`stc_rows_reduce_cuda` (replaces ``_stc_reduce_kernel``) and
+  :func:`stc_rows_apply_cuda` (replaces ``_stc_apply_kernel``).  Both are
+  memory-bound passes over (C, n) fp32.  Like the Pallas kernels they keep
+  every ``|Δ| ≥ τ_c``; the plain version keeps exactly k — they differ
+  only where ``|Δ|`` ties at τ_c.
+
+Every wrapper takes CUDA tensors only, checks them, allocates its outputs
+with ``torch.empty``, launches on PyTorch's current stream, raises if
+``cudaGetLastError()`` is not 0, and adds one to its entry of
+:data:`LAUNCHES` per launch.  Dispatch by device lives in
+:mod:`repro_torch.kernels.ops`.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.ref import stc_rows_threshold
+from repro_torch.tree import tree_flatten, tree_unflatten
+
+__all__ = ["stack_ravel", "stack_unravel", "mix_aggregate_cuda",
+           "stc_rows_cuda", "stc_rows_reduce_cuda", "stc_rows_apply_cuda",
+           "LAUNCHES", "reset_launch_counts"]
+
+#: Launches of each kernel since the last :func:`reset_launch_counts`.
+LAUNCHES = {"mix_aggregate": 0, "stc_rows_reduce": 0, "stc_rows_apply": 0}
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def stack_ravel(params) -> tuple[torch.Tensor, tuple]:
+    """Flatten a client-stacked tree to one (C, F) fp32 block.
+
+    Every leaf (C, *shape) is raveled to (C, n) and concatenated on the
+    feature axis in the reference's leaf order.  Returns ``(flat, spec)``;
+    :func:`stack_unravel` inverts it."""
+    leaves, treedef = tree_flatten(params)
+    c = leaves[0].shape[0]
+    flat = torch.cat([x.reshape(c, -1).to(torch.float32) for x in leaves],
+                     dim=1)
+    meta = tuple((tuple(x.shape[1:]), x.dtype) for x in leaves)
+    return flat, (treedef, meta)
+
+
+def stack_unravel(flat: torch.Tensor, spec: tuple, *, collapse: bool = False,
+                  keep_float32: bool = False):
+    """Inverse of :func:`stack_ravel`.
+
+    ``flat`` may carry any leading slot count G.  ``collapse=True`` drops
+    the leading axis (requires G = 1) — explicit, because a one-slot MixOp
+    also has G = 1 and must stay stacked.  ``keep_float32`` skips the
+    restore to each leaf's stored dtype."""
+    treedef, meta = spec
+    g = flat.shape[0]
+    if collapse and g != 1:
+        raise ValueError(f"collapse=True needs one output row, got {g}")
+    leaves, off = [], 0
+    for shape, dtype in meta:
+        n = math.prod(shape)
+        blk = flat[:, off:off + n]
+        off += n
+        blk = blk.reshape(shape) if collapse else blk.reshape((g,) + shape)
+        leaves.append(blk if keep_float32 else blk.to(dtype))
+    return tree_unflatten(treedef, leaves)
+
+
+# ----------------------------------------------------------------- wrappers
+
+def _check(t: torch.Tensor, name: str, ndim: int,
+           dtype: torch.dtype = torch.float32) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    if t.dtype != dtype or t.dim() != ndim or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous {ndim}-d {dtype} "
+                         f"tensor, got {t.dtype} {tuple(t.shape)} "
+                         f"contiguous={t.is_contiguous()}")
+
+
+def _int32(v: int, name: str) -> int:
+    if not 0 <= v < 2 ** 31:
+        raise ValueError(f"{name}={v} does not fit the kernel's int32")
+    return v
+
+
+def _raise_on(err: int, kernel: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{kernel} launch failed: cudaError {err}")
+
+
+def mix_aggregate_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``w @ x`` by the hand-written kernel: x (C, F), w (G, C) → (G, F)."""
+    _check(x, "x", 2)
+    _check(w, "w", 2)
+    c, f = x.shape
+    g = w.shape[0]
+    if w.shape[1] != c or w.device != x.device:
+        raise ValueError(f"w {tuple(w.shape)} does not match x "
+                         f"{tuple(x.shape)}")
+    if g > 65535 * 8:
+        raise ValueError(f"G={g} exceeds the kernel's grid")
+    out = torch.empty((g, f), device=x.device, dtype=torch.float32)
+    lib = build.load("mix_aggregate")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.repro_mix_aggregate_f32(
+            x.data_ptr(), w.data_ptr(), out.data_ptr(), _int32(c, "C"),
+            _int32(f, "F"), _int32(g, "G"), stream)
+    _raise_on(err, "mix_aggregate")
+    LAUNCHES["mix_aggregate"] += 1
+    return out
+
+
+def stc_rows_reduce_cuda(x: torch.Tensor, ref_row: torch.Tensor,
+                         thr: torch.Tensor
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per row: survivor sum ``Σ|Δ|·1[|Δ| ≥ τ_c]`` and count, (C,) fp32."""
+    _check(x, "x", 2)
+    _check(ref_row, "ref_row", 1)
+    _check(thr, "thr", 1)
+    c, n = x.shape
+    if ref_row.shape[0] != n or thr.shape[0] != c:
+        raise ValueError("ref_row / thr do not match x")
+    ssum = torch.empty((c,), device=x.device, dtype=torch.float32)
+    cnt = torch.empty((c,), device=x.device, dtype=torch.float32)
+    lib = build.load("stc_rows")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.repro_stc_rows_reduce_f32(
+            x.data_ptr(), ref_row.data_ptr(), thr.data_ptr(), ssum.data_ptr(),
+            cnt.data_ptr(), _int32(c, "C"), _int32(n, "n"), stream)
+    _raise_on(err, "stc_rows_reduce")
+    LAUNCHES["stc_rows_reduce"] += 1
+    return ssum, cnt
+
+
+def stc_rows_apply_cuda(x: torch.Tensor, ref_row: torch.Tensor,
+                        thr: torch.Tensor, ssum: torch.Tensor,
+                        cnt: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Ternarize masked rows at τ_c with ``μ_c = ssum_c / max(cnt_c, 1)``
+    and blend; unmasked rows come out bit for bit untouched."""
+    _check(x, "x", 2)
+    _check(ref_row, "ref_row", 1)
+    for t, name in ((thr, "thr"), (ssum, "ssum"), (cnt, "cnt")):
+        _check(t, name, 1)
+    _check(mask, "mask", 1, torch.int32)
+    c, n = x.shape
+    if c > 65535:
+        raise ValueError(f"C={c} exceeds the apply kernel's grid")
+    out = torch.empty_like(x)
+    lib = build.load("stc_rows")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.repro_stc_rows_apply_f32(
+            x.data_ptr(), ref_row.data_ptr(), thr.data_ptr(), ssum.data_ptr(),
+            cnt.data_ptr(), mask.data_ptr(), out.data_ptr(), _int32(c, "C"),
+            _int32(n, "n"), stream)
+    _raise_on(err, "stc_rows_apply")
+    LAUNCHES["stc_rows_apply"] += 1
+    return out
+
+
+def stc_rows_cuda(x: torch.Tensor, ref_row: torch.Tensor, mask: torch.Tensor,
+                  sparsity: float) -> torch.Tensor:
+    """Masked per-row STC: τ by ``torch.topk``, then the reduce and apply
+    kernels.  x (C, n) fp32; ref_row (n,); mask (C,) bool or int."""
+    x = x.contiguous()
+    ref_row = ref_row.to(torch.float32).contiguous()
+    thr = stc_rows_threshold(x, ref_row, sparsity)
+    ssum, cnt = stc_rows_reduce_cuda(x, ref_row, thr)
+    mask32 = mask.to(device=x.device, dtype=torch.int32).contiguous()
+    return stc_rows_apply_cuda(x, ref_row, thr, ssum, cnt, mask32)

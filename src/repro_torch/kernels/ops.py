@@ -1,0 +1,60 @@
+"""Public kernel ops: dispatch by the tensor's device and nothing else.
+
+A CPU tensor goes to the plain PyTorch version (``kernels/ref.py``); a CUDA
+tensor goes to the hand-written kernel (``kernels/diffusion.py``), or the
+call raises.  There is no override and no fallback.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import diffusion, ref
+from repro_torch.kernels.diffusion import stack_ravel, stack_unravel
+
+__all__ = ["mix_aggregate", "mix_aggregate_tree", "stc_topk"]
+
+
+def _route(t: torch.Tensor) -> str:
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel route for device {t.device}")
+    return t.device.type
+
+
+def mix_aggregate(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Eq. (10)/(11) fused mix/aggregate: x (C, F) client-stacked flat
+    params, w (G, C) weights → (G, F) fp32 in one pass."""
+    if _route(x) == "cuda":
+        return diffusion.mix_aggregate_cuda(
+            x.to(torch.float32).contiguous(),
+            w.to(device=x.device, dtype=torch.float32).contiguous())
+    return ref.mix_aggregate_ref(x, w)
+
+
+def mix_aggregate_tree(params, w: torch.Tensor, *, collapse: bool = False,
+                       keep_float32: bool = False):
+    """Tree-level Eq. (10)/(11): mix/aggregate a client-stacked tree.
+
+    ``w`` is (G, C): a MixOp matrix or a (1, C) Eq.-11 aggregation row.
+    The fleet is flattened once with :func:`stack_ravel` and reduced in one
+    :func:`mix_aggregate` call (one kernel launch on the card), as the
+    reference's Pallas placement does.  ``collapse=True`` (aggregation)
+    drops the leading slot axis; ``keep_float32=True`` returns fp32 leaves,
+    otherwise leaf dtypes are preserved."""
+    if collapse and w.shape[0] != 1:
+        raise ValueError(f"collapse=True needs a (1, C) row, got "
+                         f"{tuple(w.shape)}")
+    flat, spec = stack_ravel(params)
+    out = mix_aggregate(flat, w)
+    return stack_unravel(out, spec, collapse=collapse,
+                         keep_float32=keep_float32)
+
+
+def stc_topk(x: torch.Tensor, ref_row: torch.Tensor, mask: torch.Tensor,
+             sparsity: float = 0.01) -> torch.Tensor:
+    """Masked per-row (per-client) STC against a shared reference row —
+    the D2D hop compression of ``fedshard.masked_stc_compress`` on one
+    flattened leaf.  x (C, n); ref_row (n,); mask (C,) bool."""
+    if _route(x) == "cuda":
+        return diffusion.stc_rows_cuda(x.to(torch.float32), ref_row, mask,
+                                       sparsity).to(x.dtype)
+    return ref.stc_rows_ref(x, ref_row, mask, sparsity)

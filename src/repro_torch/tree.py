@@ -1,0 +1,56 @@
+"""Minimal pytree helpers over nested dicts, lists and tuples of tensors.
+
+Leaves are visited in the JAX package's order: dict entries by sorted key,
+lists and tuples in sequence.  The parameter trees of ``repro_torch.fl``
+therefore flatten to the same leaf sequence as the reference's
+``jax.tree.leaves`` — what ``stack_ravel``'s feature layout and the
+STC bit accounting depend on.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable
+
+__all__ = ["tree_leaves", "tree_map", "tree_flatten", "tree_unflatten"]
+
+
+def tree_flatten(tree: Any) -> tuple[list, Any]:
+    """``(leaves, treedef)``; ``treedef`` rebuilds the nesting."""
+    leaves: list = []
+
+    def walk(node):
+        if isinstance(node, dict):
+            keys = sorted(node)
+            return ("dict", keys, [walk(node[k]) for k in keys])
+        if isinstance(node, (list, tuple)):
+            return (type(node).__name__, None, [walk(x) for x in node])
+        leaves.append(node)
+        return ("leaf", None, None)
+
+    return leaves, walk(tree)
+
+
+def tree_unflatten(treedef: Any, leaves: list) -> Any:
+    it = iter(leaves)
+
+    def build(node):
+        kind, keys, children = node
+        if kind == "leaf":
+            return next(it)
+        built = [build(c) for c in children]
+        if kind == "dict":
+            return dict(zip(keys, built))
+        return built if kind == "list" else tuple(built)
+
+    return build(treedef)
+
+
+def tree_leaves(tree: Any) -> list:
+    return tree_flatten(tree)[0]
+
+
+def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
+    leaves, treedef = tree_flatten(tree)
+    others = [tree_leaves(r) for r in rest]
+    return tree_unflatten(treedef,
+                          [fn(x, *(o[i] for o in others))
+                           for i, x in enumerate(leaves)])

@@ -1,0 +1,115 @@
+"""The slice as a whole: the port's run_experiment on the fleet plane (CPU,
+plain kernel versions) against ``repro.fl.run_experiment(engine="fleet")``.
+
+Same config as ``tests/test_executors.py``'s ``_spec`` (fcn, N=M=5,
+2 rounds, topology_seed 3), the reference's init carried into the port:
+ledgers and diffusion rounds equal, final params within the reference's
+own host-vs-fleet tolerance (atol 2e-4, rtol 2e-3), accuracy within 0.05.
+"""
+import dataclasses
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.fl import ExperimentSpec as JSpec
+from repro.fl import FLConfig as JConfig
+from repro.fl import run_experiment as j_run
+from repro.fl.models import build_task_model as j_build
+from repro_torch.device import resolve_device
+from repro_torch.fl import (ExperimentSpec, FLConfig, params_from_numpy,
+                            params_to_numpy, run_experiment)
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+def _specs(strategy, task="fcn", rounds=2, clients=5):
+    fl = dict(strategy=strategy, rounds=rounds, num_clients=clients,
+              num_models=clients, seed=0, topology_seed=3)
+    data = dict(task=task, alpha=0.3, num_samples=1200)
+    return (JSpec(fl=JConfig(engine="fleet", **fl), **data),
+            ExperimentSpec(fl=FLConfig(**fl), **data))
+
+
+@pytest.mark.parametrize("strategy,task,rounds", [
+    ("fedavg", "fcn", 2), ("feddif", "fcn", 2), ("feddif_stc", "fcn", 2),
+    ("stc", "fcn", 2), ("feddif", "cnn", 1)])
+def test_port_matches_reference_fleet(strategy, task, rounds):
+    j_spec, t_spec = _specs(strategy, task, rounds)
+    ref = j_run(j_spec)
+    init = jax.tree.map(np.asarray,
+                        j_build(task).init(jax.random.PRNGKey(0)))
+    port = run_experiment(t_spec, device="cpu",
+                          init_fn=lambda gen: params_from_numpy(init))
+    assert port.ledger.as_dict() == ref.ledger.as_dict()
+    assert port.diffusion_rounds == ref.diffusion_rounds
+    np.testing.assert_allclose(port.iid_distance, ref.iid_distance, atol=1e-6)
+    ref_leaves = jax.tree.leaves(ref.final_params)
+    port_leaves = jax.tree.leaves(params_to_numpy(port.final_params))
+    assert len(ref_leaves) == len(port_leaves)
+    for a, b in zip(ref_leaves, port_leaves):
+        np.testing.assert_allclose(b, np.asarray(a, np.float32),
+                                   atol=2e-4, rtol=2e-3)
+    np.testing.assert_allclose(port.accuracy, ref.accuracy, atol=0.05)
+    assert len(port.round_wall_s) == rounds
+
+
+def test_own_init_runs_and_learns():
+    """The port's own init (a torch.Generator from cfg.seed): finite params,
+    one accuracy per round, and the same init for the same seed."""
+    _, spec = _specs("feddif", rounds=1)
+    a = run_experiment(spec, device="cpu")
+    b = run_experiment(spec, device="cpu")
+    assert len(a.accuracy) == 1 and 0.0 <= a.accuracy[0] <= 1.0
+    for x, y in zip(jax.tree.leaves(params_to_numpy(a.final_params)),
+                    jax.tree.leaves(params_to_numpy(b.final_params))):
+        assert np.isfinite(x).all()
+        np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.parametrize("change,item", [
+    (dict(strategy="gossip"), "A6"), (dict(strategy="fedswap"), "A6"),
+    (dict(executor="host"), "A6"), (dict(planner="jax"), "A8"),
+    (dict(scenario="mobile"), "A11"), (dict(churn_rate=0.1), "A11"),
+    (dict(hop_quant="int8"), "A9"), (dict(checkpoint_every=2), "A10"),
+    (dict(uncertainty_weight=0.5), "A8"), (dict(metric="kld"), "A15"),
+    (dict(underlay=True), "A15"), (dict(engine="async"), "A6")])
+def test_unported_config_values_raise(change, item):
+    _, spec = _specs("feddif", rounds=1)
+    spec = dataclasses.replace(spec, fl=dataclasses.replace(spec.fl,
+                                                            **change))
+    with pytest.raises(NotImplementedError, match=item):
+        run_experiment(spec, device="cpu")
+
+
+def test_lm_task_raises():
+    with pytest.raises(NotImplementedError, match="A9"):
+        ExperimentSpec(task="lm")
+
+
+def test_rejects_more_models_than_clients():
+    _, spec = _specs("feddif", rounds=1, clients=4)
+    spec = dataclasses.replace(spec, fl=dataclasses.replace(spec.fl,
+                                                            num_models=8))
+    with pytest.raises(ValueError, match="num_models"):
+        run_experiment(spec, device="cpu")
+
+
+def test_default_device_is_cuda_and_never_falls_back():
+    """Without ``device="cpu"`` the entry points want the GPU: on a machine
+    without one they raise rather than run on the CPU."""
+    if torch.cuda.is_available():
+        assert resolve_device(None).type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device(None)
+    _, spec = _specs("fedavg", rounds=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_experiment(spec)
