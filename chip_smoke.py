@@ -14,15 +14,26 @@ nothing of JAX.  Phases, each of which fails loudly:
    path's shapes and one larger shape: max abs error against the stated
    tolerance, kernel / plain / library time (CUDA events) and the bound;
 3. the main path — ``run_experiment`` on the fleet plane: the quickstart
-   configuration (fcn, α=0.3, 6000 samples, N=M=8, 8 rounds) for fedavg and
-   feddif, 2 rounds each of feddif_stc and stc, 2 rounds of feddif on cnn.
-   Launch counters are zeroed right before each run and read right after;
-   every run must launch mix_aggregate, the STC runs the stc_rows kernels,
-   params must be finite and FedDif's peak accuracy must beat FedAvg's;
+   configuration (fcn, α=0.3, 6000 samples, N=M=8, 8 rounds) for fedavg,
+   feddif with the host planner and feddif with the device planner
+   (``planner="jax"``) and learning-value bids (``uncertainty_weight=0.5``),
+   2 rounds each of feddif_stc and stc, 2 rounds of feddif on cnn.  Launch
+   counters are zeroed right before each run and read right after; every
+   run must launch mix_aggregate, the STC runs the stc_rows kernels, the
+   device-planner run dol_bid_scores once per diffusion round or more and
+   bid_value_fuse as often; params must be finite and both FedDif runs'
+   peak accuracy must beat FedAvg's.  The two FedDif runs print the
+   planner's seconds per communication round and auction iterations;
 4. a small feddif_stc run on the card against the same run on the CPU
    (plain versions) from the same init: equal ledgers, params within the
-   fleet plane's tolerance;
-5. a measurement, not a check: one FedDif round under ``torch.profiler``
+   fleet plane's tolerance; then the device planner on the card (with its
+   kernels) against the host planner on the CPU, on the N=M=C=10
+   default-config inputs (seeds 0-2) and the 16 plans of the N=M=20
+   ``planner_speedup`` cells: exact hop-list agreement is printed, and the
+   plans must be equivalent (same rounds, same hop count, total Eq.-17
+   decrement within 1e-6 relative);
+5. a measurement, not a check: one FedDif round with each planner under
+   ``torch.profiler``
    (device busy time, idle share, kernel count, top kernels).
 
 Then one ``{"kernels": [...]}`` line, the card line, and as the last line
@@ -50,6 +61,16 @@ MAIN_RUNS = (("fedavg", "fcn", 8, 8), ("feddif", "fcn", 8, 8),
              ("feddif_stc", "fcn", 2, 8), ("stc", "fcn", 2, 8),
              ("feddif", "cnn", 2, 8))
 CARD_VS_CPU_RUN = ("feddif_stc", "fcn", 2, 5)
+# The device-planner run of phase 3 (planner="jax", uncertainty_weight=0.5),
+# and the planner checks of phase 4: (clients = models, classes, max
+# diffusion rounds, [(data seed, channel seed), ...]).
+DEVICE_PLANNER_RUN = ("feddif", "fcn", 8, 8)
+VALUE_WEIGHT = 0.5
+NUM_CLASSES = 10
+PLANNER_CASES = (
+    ("default_config", 10, None, [(s, s) for s in range(3)]),
+    ("planner_speedup", 20, 24, [(i, t) for i in range(8) for t in range(2)]),
+)
 
 
 def _fail(msg: str) -> None:
@@ -115,7 +136,7 @@ def _timings(torch, kernel, plain, library=None) -> dict:
     library call, plus host-inclusive ms per wrapper call (CUDA events
     around back-to-back calls)."""
     out = {}
-    for key, fn in (("kernel_ms", kernel), ("plain_ms", plain),
+    for key, fn in (("ms", kernel), ("plain_ms", plain),
                     ("library_ms", library)):
         if fn is None:
             out[key] = None
@@ -134,29 +155,37 @@ def _bound(nbytes: float, flops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def path_shapes(torch, port) -> tuple[list, list]:
+def path_shapes(torch, port) -> tuple[list, list, list]:
     """The shapes the driven runs give the kernels: ``mix_aggregate`` gets
     the (C, F, 1) Eq.-11 row of each run's fleet (F = the task's parameter
-    count), ``stc_rows`` a (C, n) block per leaf of size n in the STC runs.
-    The fleet plane has one slot per client."""
+    count), ``stc_rows`` a (C, n) block per leaf of size n in the STC runs,
+    and the device planner's bid kernels an (M, N, classes) problem per
+    device-planner run and planner check.  The fleet plane has one slot per
+    client."""
     from repro_torch.tree import tree_leaves
     mix, stc = set(), set()
     for strategy, task, _, clients in (WARMUP_RUNS + MAIN_RUNS
-                                       + (CARD_VS_CPU_RUN,)):
+                                       + (CARD_VS_CPU_RUN,
+                                          DEVICE_PLANNER_RUN)):
         init = port.build_task_model(task).init(torch.Generator())
         sizes = [x.numel() for x in tree_leaves(init)]
         mix.add((clients, sum(sizes), 1))
         if "stc" in strategy:
             stc.update((clients, n) for n in sizes)
-    return sorted(mix), sorted(stc)
+    bids = {(DEVICE_PLANNER_RUN[3],) * 2 + (NUM_CLASSES,)}
+    bids.update((n, n, NUM_CLASSES) for _, n, _, _ in PLANNER_CASES)
+    return sorted(mix), sorted(stc), sorted(bids)
 
 
 def check_kernels(torch, kd, kref, port) -> list[dict]:
     """Phase 2: each kernel against its plain version on the card."""
     gen = torch.Generator(device="cuda").manual_seed(0)
-    mix_shapes, stc_shapes = path_shapes(torch, port)
+    mix_shapes, stc_shapes, bid_shapes = path_shapes(torch, port)
     print(json.dumps({"path_shapes": {"mix_aggregate": mix_shapes,
-                                      "stc_rows": stc_shapes}}))
+                                      "stc_rows": stc_shapes,
+                                      "dol_bid_scores": bid_shapes,
+                                      "bid_value_fuse": [list(s[:2]) for s
+                                                         in bid_shapes]}}))
     rows = []
 
     def record(row):
@@ -244,7 +273,82 @@ def check_kernels(torch, kd, kref, port) -> list[dict]:
                           "max_abs_err": err, "tol": tol, "ok": err <= tol}))
         if err > tol:
             _fail(f"stc_rows ({c}, {n}) disagrees with stc_rows_ref")
+
+    # dol_bid_scores: every planner shape of the driven runs and checks,
+    # and the N=1024 population where fig7_scaling gives up the host
+    # planner.  A never-trained model (dol 0, chain 0) and empty clients
+    # keep the δ terms live; atol 2e-5 is the reference's own bar.  Then a
+    # near-uniform case (dist → 0), where the centered form must not cancel:
+    # atol 1e-7.  Bound: inputs read and (M, N) written once, 2·M·N·C
+    # flops of the contraction plus ~30 per output of epilogue.
+    for m, n, c in bid_shapes + [(1024, 1024, NUM_CLASSES)]:
+        args = _bid_inputs(torch, gen, m, n, c)
+        out = kd.dol_bid_scores_cuda(*args)
+        plain = kref.dol_bid_scores_fused_ref(*args)
+        torch.cuda.synchronize()
+        err = float((out - plain).abs().max())
+        bound, by = _bound(4.0 * (m * c + m + n * c + n + m * n),
+                           2.0 * m * n * c + 30.0 * m * n)
+        record({"name": "dol_bid_scores", "shape": [m, n, c],
+                "max_abs_err": err, "tol": 2e-5, "ok": err <= 2e-5,
+                "max_abs_err_vs_composite": float(
+                    (out - kref.dol_bid_scores_ref(*args)).abs().max()),
+                **_timings(torch, lambda: kd.dol_bid_scores_cuda(*args),
+                           lambda: kref.dol_bid_scores_fused_ref(*args)),
+                "bound_ms": bound, "bound_by": by})
+    m, n, c = 8, 12, NUM_CLASSES
+    dol = torch.full((m, c), 1.0 / c, device="cuda") + 1e-4 * torch.randn(
+        (m, c), generator=gen, device="cuda")
+    dol = dol / dol.sum(dim=1, keepdim=True)
+    args = (dol, torch.randint(100, 500, (m,), generator=gen,
+                               device="cuda").float(),
+            torch.full((n, c), 1.0 / c, device="cuda"),
+            torch.randint(50, 100, (n,), generator=gen, device="cuda").float())
+    err = float((kd.dol_bid_scores_cuda(*args)
+                 - kref.dol_bid_scores_fused_ref(*args)).abs().max())
+    print(json.dumps({"name": "dol_bid_scores", "case": "near_uniform",
+                      "shape": [m, n, c], "max_abs_err": err, "tol": 1e-7,
+                      "ok": err <= 1e-7}))
+    if err > 1e-7:
+        _fail(f"dol_bid_scores near-uniform: max_abs_err {err} > 1e-7")
+
+    # bid_value_fuse: the same (M, N) shapes.  Same inputs, the same three
+    # rounded fp32 operations: bit-exact.  Library: torch.addcmul, the same
+    # function up to rounding (it is not used by the port).
+    for m, n, _ in bid_shapes + [(1024, 1024, NUM_CLASSES)]:
+        bids = torch.randn((m, n), generator=gen, device="cuda")
+        value = torch.rand((n,), generator=gen, device="cuda")
+        w = VALUE_WEIGHT
+        out = kd.bid_value_fuse_cuda(bids, value, w)
+        plain = kref.bid_value_fuse_ref(bids, value, w)
+        torch.cuda.synchronize()
+        err = float((out - plain).abs().max())
+        bound, by = _bound(4.0 * (2 * m * n + n), 3.0 * m * n)
+        record({"name": "bid_value_fuse", "shape": [m, n],
+                "max_abs_err": err, "tol": 0.0,
+                "ok": bool(torch.equal(out, plain)),
+                **_timings(torch, lambda: kd.bid_value_fuse_cuda(bids, value,
+                                                                 w),
+                           lambda: kref.bid_value_fuse_ref(bids, value, w),
+                           lambda: torch.addcmul(bids, bids, value[None, :],
+                                                 value=w)),
+                "bound_ms": bound, "bound_by": by})
     return rows
+
+
+def _bid_inputs(torch, gen, m, n, c):
+    """Planner-shaped bid inputs on the card: DoLs and DSIs on the simplex,
+    chains and data sizes as the planner sees them, with model 0 never
+    trained (dol 0, chain 0) and client 0 empty."""
+    dol = torch.rand((m, c), generator=gen, device="cuda")
+    dol = dol / dol.sum(dim=1, keepdim=True)
+    chain = torch.randint(200, 5000, (m,), generator=gen,
+                          device="cuda").float()
+    dsi = torch.rand((n, c), generator=gen, device="cuda") ** 4
+    dsi = dsi / dsi.sum(dim=1, keepdim=True)
+    size = torch.randint(0, 800, (n,), generator=gen, device="cuda").float()
+    dol[0], chain[0], size[0] = 0.0, 0.0, 0.0
+    return dol, chain, dsi, size
 
 
 def main_path(torch, kd, port) -> dict:
@@ -253,19 +357,27 @@ def main_path(torch, kd, port) -> dict:
     FLConfig, ExperimentSpec = port.FLConfig, port.ExperimentSpec
     launches = {name: 0 for name in kd.LAUNCHES}
     peak = {}
-    # One untimed round of each task first: CUDA context, cuBLAS/cuDNN
-    # handles and functorch's first transforms stay out of the timed runs.
+    # One untimed round of each task and of the device planner first: CUDA
+    # context, cuBLAS/cuDNN handles, functorch's first transforms and the
+    # planner's first kernels stay out of the timed runs.
     for strategy, task, rounds, clients in WARMUP_RUNS:
         port.run_experiment(ExperimentSpec(
             task=task, alpha=0.3, num_samples=1200,
             fl=FLConfig(strategy=strategy, rounds=rounds,
                         num_clients=clients, num_models=clients, seed=1)))
-    for strategy, task, rounds, clients in MAIN_RUNS:
+    port.run_experiment(ExperimentSpec(
+        task="fcn", alpha=0.3, num_samples=1200,
+        fl=FLConfig(strategy="feddif", rounds=1, num_clients=8, num_models=8,
+                    seed=1, planner="jax", uncertainty_weight=VALUE_WEIGHT)))
+    runs = [(*r, "host", 0.0) for r in MAIN_RUNS]
+    runs.insert(2, (*DEVICE_PLANNER_RUN, "jax", VALUE_WEIGHT))
+    for strategy, task, rounds, clients, planner, weight in runs:
         spec = ExperimentSpec(
             task=task, alpha=0.3, num_samples=6000,
             fl=FLConfig(strategy=strategy, rounds=rounds,
                         num_clients=clients, num_models=clients,
-                        epsilon=0.04, gamma_min=1.0, seed=0))
+                        epsilon=0.04, gamma_min=1.0, seed=0, planner=planner,
+                        uncertainty_weight=weight))
         kd.reset_launch_counts()
         t0 = time.perf_counter()
         res = port.run_experiment(spec)
@@ -274,30 +386,52 @@ def main_path(torch, kd, port) -> dict:
         counts = dict(kd.LAUNCHES)
         finite = all(bool(torch.isfinite(x).all())
                      for x in tree_leaves(res.final_params))
+        name = f"{strategy}/{task}" + (f" planner={planner} w={weight}"
+                                       if planner != "host" else "")
+        st = res.planner_stats
+        plans = max(st.get("plans", 0), 1)
         print(json.dumps({
-            "run": f"{strategy}/{task}", "rounds": rounds,
+            "run": name, "rounds": rounds,
             "peak_accuracy": max(res.accuracy), "accuracy": res.accuracy,
             "ledger": res.ledger.as_dict(),
             "diffusion_rounds": res.diffusion_rounds,
             "mean_round_wall_s": sum(res.round_wall_s) / rounds,
             "round_wall_s": res.round_wall_s,
+            "planner_s_per_round": st.get("seconds", 0.0) / plans,
+            "auction_iterations_per_plan":
+                st.get("auction_iterations", 0) / plans,
+            "auction_host_reads_per_plan":
+                st.get("auction_host_reads", 0) / plans,
+            "planner_stats": st,
             "run_wall_s": wall, "launches": counts, "finite": finite}))
         if not finite:
-            _fail(f"{strategy}/{task}: non-finite parameters")
+            _fail(f"{name}: non-finite parameters")
         if counts["mix_aggregate"] < rounds:
-            _fail(f"{strategy}/{task}: mix_aggregate launched "
+            _fail(f"{name}: mix_aggregate launched "
                   f"{counts['mix_aggregate']} times in {rounds} rounds")
         if "stc" in strategy and (counts["stc_rows_reduce"] == 0
                                   or counts["stc_rows_apply"] == 0):
-            _fail(f"{strategy}/{task}: the stc_rows kernels never launched")
-        for name in launches:
-            launches[name] += counts[name]
-        peak[(strategy, task)] = max(res.accuracy)
-    fedavg, feddif = peak[("fedavg", "fcn")], peak[("feddif", "fcn")]
-    print(json.dumps({"quickstart_peak_accuracy": {"fedavg": fedavg,
-                                                   "feddif": feddif}}))
-    if not feddif > fedavg:
-        _fail(f"FedDif peak accuracy {feddif} does not beat FedAvg {fedavg}")
+            _fail(f"{name}: the stc_rows kernels never launched")
+        if planner == "jax":
+            if counts["dol_bid_scores"] < max(sum(res.diffusion_rounds),
+                                              rounds):
+                _fail(f"{name}: dol_bid_scores launched "
+                      f"{counts['dol_bid_scores']} times over "
+                      f"{sum(res.diffusion_rounds)} diffusion rounds")
+            if counts["bid_value_fuse"] != counts["dol_bid_scores"]:
+                _fail(f"{name}: bid_value_fuse launched "
+                      f"{counts['bid_value_fuse']} times, dol_bid_scores "
+                      f"{counts['dol_bid_scores']}")
+        for k in launches:
+            launches[k] += counts[k]
+        peak[name] = max(res.accuracy)
+    fedavg = peak["fedavg/fcn"]
+    feddif = {k: v for k, v in peak.items() if k.startswith("feddif/fcn")}
+    print(json.dumps({"quickstart_peak_accuracy": {"fedavg/fcn": fedavg,
+                                                   **feddif}}))
+    for k, v in feddif.items():
+        if not v > fedavg:
+            _fail(f"{k} peak accuracy {v} does not beat FedAvg {fedavg}")
     return launches
 
 
@@ -332,16 +466,91 @@ def card_vs_cpu(torch, port) -> None:
                       "accuracy": [gpu.accuracy, cpu.accuracy]}))
 
 
-def profile_round(torch, port) -> None:
+def planners_card_vs_cpu(torch) -> None:
+    """Phase 4, second half: the device planner on the card (its bids from
+    the kernels) against the host planner on the CPU, on the default-config
+    inputs of tests/test_planner_jax.py and the planner_speedup cells of
+    benchmarks/run.py.  The card's bids differ from the composite's by
+    float32 rounding, so plans are held to the reference's equivalence
+    rule; exact hop-list agreement is printed beside it."""
+    import numpy as np
+    from repro_torch.channels.topology import CellTopology
+    from repro_torch.core.diffusion import DiffusionPlanner
+    from repro_torch.core.dol import DiffusionState
+    c = NUM_CLASSES
+    for case, n, max_rounds, seeds in PLANNER_CASES:
+        equal = equivalent = 0
+        card_s = host_s = 0.0
+        worst = 0.0
+        card_planner = DiffusionPlanner(epsilon=0.04, max_rounds=max_rounds,
+                                        mode="jax", device="cuda")
+        host_planner = DiffusionPlanner(epsilon=0.04, max_rounds=max_rounds)
+        for data_seed, chan_seed in seeds:
+            rng = np.random.default_rng(data_seed)
+            dsi = rng.dirichlet(np.ones(c) * 0.5, n).astype(np.float32)
+            sizes = rng.integers(200, 800, n).astype(np.float64)
+            plans = []
+            for planner in (card_planner, host_planner):
+                state = DiffusionState.init(n, n, c)
+                for mi in range(n):
+                    state.record_training(mi, mi % n, dsi[mi % n],
+                                          float(sizes[mi % n]))
+                if case == "default_config":
+                    pos = CellTopology().sample_positions(
+                        np.random.default_rng(chan_seed + 50), n)
+                    plan_rng = np.random.default_rng(chan_seed + 7)
+                else:
+                    plan_rng = np.random.default_rng([data_seed, chan_seed])
+                    pos = planner.topology.sample_positions(plan_rng, n)
+                t0 = time.perf_counter()
+                plans.append(planner.plan_communication_round(
+                    state, dsi, sizes, plan_rng, positions=pos))
+                if planner is card_planner:
+                    card_s += time.perf_counter() - t0
+                else:
+                    host_s += time.perf_counter() - t0
+            card, host = plans
+            hops = [[(h.model, h.src, h.dst, h.round_index) for h in p.hops]
+                    for p in plans]
+            dec = [sum(h.decrement for h in p.hops) for p in plans]
+            rel = abs(dec[0] - dec[1]) / max(dec[1], 1e-12)
+            worst = max(worst, rel)
+            equal += hops[0] == hops[1]
+            ok = (card.num_rounds == host.num_rounds
+                  and len(card.hops) == len(host.hops) and rel <= 1e-6)
+            equivalent += ok
+            if not ok:
+                _fail(f"planners {case} seed {(data_seed, chan_seed)}: card "
+                      f"{card.num_rounds} rounds / {len(card.hops)} hops / "
+                      f"decrement {dec[0]} vs CPU host {host.num_rounds} / "
+                      f"{len(host.hops)} / {dec[1]}")
+        st = card_planner.stats
+        print(json.dumps({
+            "check": f"device planner (card) vs host planner (CPU), {case}",
+            "clients": n, "models": n, "plans": len(seeds),
+            "hop_lists_equal": equal, "plans_equivalent": equivalent,
+            "max_rel_decrement_diff": worst, "rel_tol": 1e-6,
+            "card_planner_s_per_plan": card_s / len(seeds),
+            "host_planner_s_per_plan": host_s / len(seeds),
+            "auction_iterations_per_plan":
+                st["auction_iterations"] / st["plans"],
+            "loop_iterations_per_plan": st["loop_iterations"] / st["plans"]
+        }))
+
+
+def profile_round(torch, port, planner: str = "host",
+                  weight: float = 0.0) -> None:
     """Phase 5 (a measurement, not a check): one FedDif round of the
-    quickstart cell under torch.profiler — device busy time (the union of
-    kernel intervals), idle share of the round's host wall time, kernel
-    count and the kernels with the most device time."""
+    quickstart cell under torch.profiler, with the host or the device
+    planner — device busy time (the union of kernel intervals), idle share
+    of the span from the first to the last kernel, kernel count and the
+    kernels with the most device time."""
     from torch.profiler import ProfilerActivity, profile
     spec = port.ExperimentSpec(
         task="fcn", alpha=0.3, num_samples=6000,
         fl=port.FLConfig(strategy="feddif", rounds=1, num_clients=8,
-                         num_models=8, epsilon=0.04, gamma_min=1.0, seed=0))
+                         num_models=8, epsilon=0.04, gamma_min=1.0, seed=0,
+                         planner=planner, uncertainty_weight=weight))
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -368,7 +577,9 @@ def profile_round(torch, port) -> None:
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
         run_s = spans[-1][1] / 1e6 - spans[0][0] / 1e6 if spans else None
         print(json.dumps({
-            "profile": "feddif/fcn 1 round (quickstart cell)",
+            "profile": f"feddif/fcn 1 round (quickstart cell), planner="
+                       f"{planner} w={weight}",
+            "planner_s": res.planner_stats["seconds"],
             "round_wall_s_profiled": res.round_wall_s[0],
             "device_busy_s": busy_us / 1e6,
             "first_to_last_kernel_s": run_s,
@@ -413,7 +624,9 @@ def main() -> None:
     rows = check_kernels(torch, kd, kref, port)
     launches = main_path(torch, kd, port)
     card_vs_cpu(torch, port)
+    planners_card_vs_cpu(torch)
     profile_round(torch, port)
+    profile_round(torch, port, "jax", VALUE_WEIGHT)
 
     replaces = {
         "mix_aggregate": ("mix_aggregate.cu",
@@ -422,11 +635,18 @@ def main() -> None:
                             "src/repro/kernels/diffusion.py:177"),
         "stc_rows_apply": ("stc_rows.cu",
                            "src/repro/kernels/diffusion.py:200"),
+        "dol_bid_scores": ("dol_bid_scores.cu",
+                           "src/repro/kernels/diffusion.py:316"),
+        "bid_value_fuse": ("bid_value_fuse.cu",
+                           "src/repro/kernels/diffusion.py:377"),
     }
     # The summary row of each kernel is its main-path shape: the (8, 26122)
-    # Eq.-11 row of the fcn fleet, and the largest fcn leaf (8, 16384).
+    # Eq.-11 row of the fcn fleet, the largest fcn leaf (8, 16384), and the
+    # device planner's (8, 8) bids over 10 classes in the quickstart cell.
     main_shape = {"mix_aggregate": [8, 26122, 1],
-                  "stc_rows_reduce": [8, 16384], "stc_rows_apply": [8, 16384]}
+                  "stc_rows_reduce": [8, 16384], "stc_rows_apply": [8, 16384],
+                  "dol_bid_scores": [8, 8, NUM_CLASSES],
+                  "bid_value_fuse": [8, 8]}
     summary = []
     for name, (src, rep) in replaces.items():
         row = next(r for r in rows
@@ -437,7 +657,7 @@ def main() -> None:
             "name": name, "route": "cuda",
             "source": f"{KERNEL_SOURCE}/{src}", "replaces": rep,
             "launches": launches[name], "max_abs_err": row["max_abs_err"],
-            "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "shape": row["shape"],
             "ok": all(r["ok"] for r in rows if r["name"] == name)})

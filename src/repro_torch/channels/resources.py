@@ -11,9 +11,12 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 __all__ = ["spectral_efficiency", "required_bandwidth", "outage_probability",
-           "ResourceLedger", "GAMMA_FLOOR", "TX_POWER_W", "PRB_HZ"]
+           "spectral_efficiency_t", "required_bandwidth_t",
+           "outage_probability_t", "ResourceLedger", "GAMMA_FLOOR",
+           "TX_POWER_W", "PRB_HZ"]
 
 SUBFRAME_S = 1e-3          # 1 ms
 PRB_HZ = 180e3             # physical resource block bandwidth
@@ -40,6 +43,35 @@ def outage_probability(gamma_min: np.ndarray | float, snr: np.ndarray
     thr = 2.0 ** np.asarray(gamma_min, np.float64) - 1.0
     snr = np.maximum(np.asarray(snr, np.float64), 1e-12)
     return 1.0 - np.exp(-thr / snr)
+
+
+# ------------------------------------------------------------ tensor twins
+#
+# The device planner's float32 forms: the reference's jnp twins
+# (``spectral_efficiency_jax`` …), whose arithmetic they copy as it is.  The
+# numpy versions above stay the ledger's float64 oracle.
+
+
+def spectral_efficiency_t(snr: torch.Tensor) -> torch.Tensor:
+    """Eq. (14) on tensors: γ = log2(1 + SNR)."""
+    return torch.log2(1.0 + snr)
+
+
+def required_bandwidth_t(model_bits: torch.Tensor | float,
+                         gamma: torch.Tensor) -> torch.Tensor:
+    """Eq. (15)/(37) on tensors: B = S / γ, ∞ on dead links."""
+    return torch.where(gamma > 1e-9,
+                       model_bits / torch.clamp(gamma, min=1e-9),
+                       torch.inf)
+
+
+def outage_probability_t(gamma_min: torch.Tensor, snr: torch.Tensor
+                         ) -> torch.Tensor:
+    """Eq. (39) on tensors, float32 ``-expm1(-(2^γ_min − 1)/SNR̄)`` as the
+    reference's jnp twin computes it (it drifts from the float64 numpy
+    form by more than 1e-6; the planner is held to the jnp arithmetic)."""
+    thr = torch.pow(2.0, gamma_min) - 1.0
+    return -torch.expm1(-thr / torch.clamp(snr, min=1e-12))
 
 
 @dataclasses.dataclass

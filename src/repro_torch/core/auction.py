@@ -20,7 +20,8 @@ from repro_torch.channels.resources import (outage_probability,
 from repro_torch.core import dol as dol_lib
 from repro_torch.core.matching import max_weight_matching
 
-__all__ = ["AuctionConfig", "AuctionResult", "compute_bids", "run_auction"]
+__all__ = ["AuctionConfig", "AuctionResult", "compute_bids",
+           "fuse_learning_value", "run_auction"]
 
 
 @dataclasses.dataclass
@@ -55,17 +56,31 @@ def compute_bids(state: dol_lib.DiffusionState, dsi: np.ndarray,
     return cur[:, None] - cand
 
 
+def fuse_learning_value(bids: np.ndarray, values: np.ndarray | None,
+                        value_weight: float) -> np.ndarray:
+    """Learning-value bid fusion ``bids · (1 + w · value[i])``, the host
+    oracle of ``kernels.ops.bid_value_fuse``.  ``values`` is a per-client
+    predictive-uncertainty score in [0, 1]; with no values or ``w = 0`` the
+    bids come back untouched."""
+    if values is None or value_weight == 0.0:
+        return bids
+    return bids * (1.0 + value_weight * np.asarray(values)[None, :])
+
+
 def run_auction(state: dol_lib.DiffusionState, dsi: np.ndarray,
                 data_sizes: np.ndarray, gains_sq: np.ndarray,
                 mean_snr: np.ndarray, snr: np.ndarray,
-                config: AuctionConfig) -> AuctionResult:
+                config: AuctionConfig, values: np.ndarray | None = None,
+                value_weight: float = 0.0) -> AuctionResult:
     """One diffusion-configuration step (Algorithm 1).
 
     ``gains_sq`` (N, N) sampled |g|²; ``mean_snr`` (N, N) large-scale mean
     SNR for the Eq.-39 outage; ``snr`` (N, N) instantaneous SNR for the
-    Eq.-14 rate."""
+    Eq.-14 rate; ``values``/``value_weight`` fuse the learning value into
+    the bids (:func:`fuse_learning_value`)."""
     m_models, n_pues = state.visited.shape
     bids = compute_bids(state, dsi, data_sizes, config.metric)      # (M,N)
+    bids = fuse_learning_value(bids, values, value_weight)
 
     gamma = spectral_efficiency(snr)                                 # (N,N)
     hold = state.holder                          # edge (m, i): holder(m) → i

@@ -1,17 +1,22 @@
 """Diffusion-round planner — the control plane of Algorithm 2 (lines 14–26).
 
-Counterpart of the host mode of ``repro.core.diffusion``.
+Counterpart of ``repro.core.diffusion``.
 :meth:`DiffusionPlanner.plan_communication_round` runs the DoL-broadcast →
 bid → auction → schedule loop until ``W1(ψ, U) ≤ ε`` holds for every model
 (or no feasible pair remains) and returns a :class:`DiffusionPlan`.  The
-plan is pure scheduling; no training happens here.  The plan cache and the
-device planner of the reference are queued in ROADMAP.md.
+plan is pure scheduling; no training happens here.  ``mode="host"`` runs
+the numpy loop with the Hungarian matching; ``mode="jax"`` (the reference's
+name, kept as specs and sweeps carry it) runs the device planner of
+:mod:`repro_torch.core.planner` on the planner's device.  The plan cache of
+the reference is queued in ROADMAP.md (A6).
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
+import torch
 
 from repro_torch.channels.fading import ChannelModel
 from repro_torch.channels.resources import spectral_efficiency
@@ -19,7 +24,10 @@ from repro_torch.channels.topology import CellTopology
 from repro_torch.core import dol as dol_lib
 from repro_torch.core.auction import AuctionConfig, run_auction
 
-__all__ = ["DiffusionHop", "DiffusionPlan", "DiffusionPlanner"]
+__all__ = ["DiffusionHop", "DiffusionPlan", "DiffusionPlanner",
+           "PLANNER_MODES"]
+
+PLANNER_MODES = ("host", "jax")
 
 
 @dataclasses.dataclass
@@ -45,26 +53,65 @@ class DiffusionPlan:
 
 
 class DiffusionPlanner:
-    """Plans all diffusion rounds of one communication round (host mode)."""
+    """Plans all diffusion rounds of one communication round.
+
+    The device mode runs on ``device``: the CUDA device unless the caller
+    passes ``device="cpu"`` (resolved at planning time, so a host-mode
+    planner never needs one).
+
+    ``stats`` accumulates, over the planner's life, the ``plans`` made and
+    their wall ``seconds`` (host clock; the device mode ends every plan by
+    reading it back), and for the device mode the ``loop_iterations`` of
+    its diffusion-round loop (one host read each), the auction's
+    ``auction_iterations`` (bidding iterations) and its
+    ``auction_host_reads``."""
 
     def __init__(self, topology: CellTopology | None = None,
                  channel: ChannelModel | None = None,
                  auction: AuctionConfig | None = None,
                  epsilon: float = 0.04,
-                 max_rounds: int | None = None):
+                 max_rounds: int | None = None,
+                 mode: str = "host",
+                 device: torch.device | str | None = None):
+        if mode not in PLANNER_MODES:
+            raise ValueError(f"planner mode {mode!r}: expected one of "
+                             f"{PLANNER_MODES}")
         self.topology = topology or CellTopology()
         self.channel = channel or ChannelModel()
         self.auction = auction or AuctionConfig()
         self.epsilon = epsilon          # minimum tolerable IID distance
         self.max_rounds = max_rounds
+        self.mode = mode                # "host" oracle | "jax" device plane
+        self.device = device            # the device mode's; None = CUDA
+        self.stats: dict = {"plans": 0, "seconds": 0.0}
 
     def plan_communication_round(
             self, state: dol_lib.DiffusionState, dsi: np.ndarray,
             data_sizes: np.ndarray, rng: np.random.Generator,
-            positions: np.ndarray | None = None) -> DiffusionPlan:
+            positions: np.ndarray | None = None,
+            values: np.ndarray | None = None,
+            value_weight: float = 0.0) -> DiffusionPlan:
         """Run auctions until halting; mutates ``state`` (DoLs, visited
-        sets, holders).  Consumes ``rng`` exactly as the reference's host
-        mode: one gain draw per diffusion round."""
+        sets, holders).  ``values``/``value_weight`` fuse the per-client
+        learning value into the bids.  The host mode consumes ``rng`` as
+        the reference's host mode does (one gain draw per diffusion round);
+        the device mode pre-draws ``max_rounds`` rounds of it, as the
+        reference's ``mode="jax"`` does."""
+        t0 = time.perf_counter()
+        if self.mode == "jax":
+            from repro_torch.core.planner import plan_communication_round_jax
+            plan = plan_communication_round_jax(
+                self, state, dsi, data_sizes, rng, positions=positions,
+                values=values, value_weight=value_weight)
+        else:
+            plan = self._plan_host(state, dsi, data_sizes, rng, positions,
+                                   values, value_weight)
+        self.stats["plans"] += 1
+        self.stats["seconds"] += time.perf_counter() - t0
+        return plan
+
+    def _plan_host(self, state, dsi, data_sizes, rng, positions, values,
+                   value_weight) -> DiffusionPlan:
         n = dsi.shape[0]
         if positions is None:
             positions = self.topology.sample_positions(rng, n)
@@ -88,7 +135,8 @@ class DiffusionPlanner:
             gains = self.channel.sample_gains(dist, rng)
             snr = self.channel.snr(gains)
             result = run_auction(state, dsi, data_sizes, gains, mean_snr,
-                                 snr, self.auction)
+                                 snr, self.auction, values=values,
+                                 value_weight=value_weight)
             scheduled = [(m, i) for m, i in result.pairs if active[m]]
             if not scheduled:
                 break

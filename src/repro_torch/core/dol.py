@@ -4,6 +4,9 @@ Counterpart of the host half of ``repro.core.dol``: the Eq.-(2) DoL update,
 the Eq.-(B.1) IID distance ``‖ψ − U‖₂`` and the mutable
 :class:`DiffusionState` the host planner runs on.
 
+The tensor twins (``*_t`` and :class:`PlannerState`) carry the same math
+for the device planner.
+
 The reference computes this math in jnp float32, and the planner's auction
 decisions hang on it: one ulp can flip a near-tie bid and change a hop.  So
 it is reproduced here bit for bit in numpy float32:
@@ -18,11 +21,14 @@ it is reproduced here bit for bit in numpy float32:
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import numpy as np
+import torch
 
-__all__ = ["DiffusionState", "update_dol", "iid_distance",
-           "iid_distance_candidates"]
+__all__ = ["DiffusionState", "PlannerState", "update_dol", "iid_distance",
+           "iid_distance_candidates", "update_dol_t", "iid_distance_t",
+           "iid_distance_candidates_t"]
 
 _F32 = np.float32
 
@@ -73,6 +79,125 @@ def iid_distance_candidates(dol: np.ndarray, chain_size: np.ndarray,
     return iid_distance(cand, metric)
 
 
+# ------------------------------------------------------------ tensor twins
+#
+# The device planner (:mod:`repro_torch.core.planner`) runs the same math on
+# float32 tensors, on the card or on the CPU.  On the CPU these give the
+# numpy versions' bits; the fused multiply-adds are emulated in float64,
+# where the product of two float32 values is exact, then rounded once.
+
+
+def _fma_t(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor
+           ) -> torch.Tensor:
+    """``fma(a, b, c)`` in float32 (one rounding of the exact product)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def update_dol_t(dol: torch.Tensor, chain_size: torch.Tensor,
+                 dsi: torch.Tensor, data_size: torch.Tensor
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Tensor Eq. (2), elementwise float32 as :func:`update_dol`."""
+    new_size = chain_size + data_size
+    num = chain_size[..., None] * dol + data_size[..., None] * dsi
+    return num / torch.clamp(new_size[..., None], min=1.0), new_size
+
+
+def _w1_norm_t(p: torch.Tensor) -> torch.Tensor:
+    """Tensor Eq. (B.1) in the sequential-fma order of :func:`_w1_norm`."""
+    u = torch.tensor(1.0 / p.shape[-1], dtype=torch.float32, device=p.device)
+    d = p - u
+    acc = torch.zeros(d.shape[:-1], dtype=torch.float32, device=p.device)
+    for j in range(d.shape[-1]):
+        acc = _fma_t(d[..., j], d[..., j], acc)
+    # float32 sqrt correctly rounded: through float64, whose double
+    # rounding is exact for sqrt (torch's vectorized float32 sqrt on the
+    # CPU is within 0.5001 ulp, and one ulp flips near-tie bids).
+    return torch.sqrt(acc.double()).float()
+
+
+def iid_distance_t(dol: torch.Tensor, metric: str = "w1_norm"
+                   ) -> torch.Tensor:
+    """Tensor twin of :func:`iid_distance`."""
+    if metric != "w1_norm":
+        raise NotImplementedError(
+            f"IID metric {metric!r}: the Appendix-C metrics (kld, jsd, "
+            f"w1_true) are queued as ROADMAP item A15")
+    return _w1_norm_t(dol.to(torch.float32))
+
+
+def iid_distance_candidates_t(dol: torch.Tensor, chain_size: torch.Tensor,
+                              dsi: torch.Tensor, data_size: torch.Tensor,
+                              metric: str = "w1_norm") -> torch.Tensor:
+    """Tensor twin of :func:`iid_distance_candidates`: the (M, N, C)
+    broadcast composite, (M, N) out."""
+    cand, _ = update_dol_t(dol[:, None, :], chain_size[:, None],
+                           dsi[None, :, :], data_size[None, :])
+    return iid_distance_t(cand, metric)
+
+
+class PlannerState(NamedTuple):
+    """Functional twin of :class:`DiffusionState` on tensors, for the
+    device planner's round loop: every field is a fixed-shape tensor on one
+    device, and every update returns a new state."""
+    dol: torch.Tensor            # (M, C) float32
+    chain_size: torch.Tensor     # (M,) float32
+    visited: torch.Tensor        # (M, N) bool
+    holder: torch.Tensor         # (M,) int64
+
+    @classmethod
+    def init(cls, num_models: int, num_clients: int, num_classes: int,
+             device: torch.device | str = "cpu") -> "PlannerState":
+        return cls(
+            dol=torch.zeros((num_models, num_classes), dtype=torch.float32,
+                            device=device),
+            chain_size=torch.zeros((num_models,), dtype=torch.float32,
+                                   device=device),
+            visited=torch.zeros((num_models, num_clients), dtype=torch.bool,
+                                device=device),
+            holder=torch.arange(num_models, device=device)
+            % max(num_clients, 1))
+
+    def record_training(self, model: int, client: int, dsi: torch.Tensor,
+                        data_size: float) -> "PlannerState":
+        """Eq. (2) fold of one (model, client) pair."""
+        size = torch.tensor(data_size, dtype=torch.float32,
+                            device=self.dol.device)
+        new_dol, new_size = update_dol_t(self.dol[model],
+                                         self.chain_size[model], dsi, size)
+        dol, chain = self.dol.clone(), self.chain_size.clone()
+        visited, holder = self.visited.clone(), self.holder.clone()
+        dol[model] = new_dol
+        chain[model] = new_size
+        visited[model, client] = True
+        holder[model] = client
+        return PlannerState(dol, chain, visited, holder)
+
+    def record_round(self, dst: torch.Tensor, mask: torch.Tensor,
+                     dsi: torch.Tensor, data_sizes: torch.Tensor
+                     ) -> "PlannerState":
+        """Fold one diffusion round of hops in one masked update: model m
+        trains on ``dst[m]`` where ``mask[m]`` (``dst`` must be a valid
+        index everywhere; constraint 18d keeps destinations unique)."""
+        # Eq. (2) as XLA compiles it inside the reference's jitted loop,
+        # where one product and the sum contract to a fused multiply-add:
+        # ψ' = fma(D_i, d_i, D_{k-1}·ψ) / max(D_{k-1} + D_i, 1).  The eager
+        # form (update_dol_t) differs from it by an ulp in some entries,
+        # and later bids inherit the ulp.
+        size = data_sizes[dst]
+        new_size = self.chain_size + size
+        num = _fma_t(size[:, None].expand_as(self.dol), dsi[dst],
+                     self.chain_size[:, None] * self.dol)
+        new_dol = num / torch.clamp(new_size[:, None], min=1.0)
+        rows = torch.arange(self.dol.shape[0], device=self.dol.device)
+        visited = self.visited.clone()
+        visited[rows, dst] = self.visited[rows, dst] | mask
+        return PlannerState(
+            dol=torch.where(mask[:, None], new_dol, self.dol),
+            chain_size=torch.where(mask, new_size, self.chain_size),
+            visited=visited,
+            holder=torch.where(mask, dst, self.holder))
+
+
 @dataclasses.dataclass
 class DiffusionState:
     """Host-side bookkeeping for one communication round of FedDif.
@@ -106,3 +231,25 @@ class DiffusionState:
 
     def iid_distances(self, metric: str = "w1_norm") -> np.ndarray:
         return iid_distance(self.dol, metric)
+
+    def functional(self, device: torch.device | str = "cpu"
+                   ) -> PlannerState:
+        """Tensor view on ``device`` for the device planner."""
+        return PlannerState(
+            dol=torch.as_tensor(self.dol, dtype=torch.float32,
+                                device=device),
+            chain_size=torch.as_tensor(self.chain_size, dtype=torch.float32,
+                                       device=device),
+            visited=torch.as_tensor(self.visited, dtype=torch.bool,
+                                    device=device),
+            holder=torch.as_tensor(self.holder, dtype=torch.int64,
+                                   device=device))
+
+    def update_from(self, fstate: PlannerState, rounds_advanced: int = 0
+                    ) -> None:
+        """Adopt a post-plan :class:`PlannerState` (in place, host arrays)."""
+        self.dol = fstate.dol.cpu().numpy().astype(_F32)
+        self.chain_size = fstate.chain_size.cpu().numpy().astype(_F32)
+        self.visited = fstate.visited.cpu().numpy().astype(bool)
+        self.holder = fstate.holder.cpu().numpy().astype(np.int64)
+        self.round_index += int(rounds_advanced)

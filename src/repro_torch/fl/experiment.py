@@ -8,6 +8,7 @@ same datasets, partitions and batch order.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable
 
 import numpy as np
@@ -72,7 +73,7 @@ def run_experiment(spec: ExperimentSpec,
     ``torch.Generator`` seeded with ``spec.fl.seed``): the tests pass the
     reference's initial params through it."""
     dev = resolve_device(device)
-    _, test, part, loaders = load_experiment_data(spec)
+    train, test, part, loaders = load_experiment_data(spec)
     model = build_task_model(spec.task, spec.dim, spec.num_classes)
     test_batch = {"x": torch.as_tensor(test.x, device=dev),
                   "y": torch.as_tensor(test.y, device=dev)}
@@ -86,7 +87,24 @@ def run_experiment(spec: ExperimentSpec,
             loss = model.loss(params, test_batch)
         return float(acc), float(loss)
 
+    value_fn = None
+    if spec.fl.uncertainty_weight > 0.0:
+        # Learning-value probe: a fixed 32-sample draw from each client's
+        # shard (np.resize wraps small shards); the value is the global
+        # model's mean predictive entropy on it over log C, in [0, 1].
+        probe = torch.as_tensor(np.stack([train.x[np.resize(idx, 32)]
+                                          for idx in part.indices]),
+                                device=dev)                  # (N, 32, dim)
+
+        def value_fn(params):
+            with torch.no_grad():
+                lg = model.logits(params, probe.reshape(-1, probe.shape[-1]))
+                logp = torch.log_softmax(lg, dim=-1)
+                ent = -(logp.exp() * logp).sum(dim=-1)
+                ent = ent.reshape(probe.shape[0], -1).mean(dim=1)
+                return (ent / math.log(lg.shape[-1])).cpu().numpy()
+
     return run_federated(init_fn or model.init, model.loss,
                          [client_epoch(i) for i in range(spec.fl.num_clients)],
                          part.dsi, part.data_sizes, eval_fn, spec.fl,
-                         device=dev)
+                         device=dev, value_fn=value_fn)

@@ -41,6 +41,9 @@ class RoundContext:
     planner: DiffusionPlanner
     model_bits: float
     param_template: object
+    # Per-client learning value in [0, 1] (fl/experiment.py's probe), fused
+    # into the FedDif bids with FLConfig.uncertainty_weight.
+    learning_value: np.ndarray | None = None
 
 
 def _mean_partition_iid(ctx: RoundContext) -> float:
@@ -114,7 +117,9 @@ def schedule_feddif(ctx: RoundContext) -> RoundSchedule:
     wire: list = [_downlink(ctx)]
 
     plan = ctx.planner.plan_communication_round(
-        state, ctx.dsi, ctx.data_sizes, ctx.rng, positions=ctx.pos)
+        state, ctx.dsi, ctx.data_sizes, ctx.rng, positions=ctx.pos,
+        values=ctx.learning_value,
+        value_weight=float(cfg.uncertainty_weight))
 
     slot_of_model = np.arange(m) % max(n, 1)
     for k in range(plan.num_rounds):

@@ -12,7 +12,8 @@ stages, as in the reference:
    ops on the client-stacked params on the device.
 
 This slice covers the strategies ``fedavg``, ``feddif``, ``stc`` and
-``feddif_stc`` with the host planner in the static world.  Every other
+``feddif_stc`` with the host or the device planner (``planner="jax"``) and
+learning-value bids (``uncertainty_weight > 0``) in the static world.  Every other
 :class:`FLConfig` value raises ``NotImplementedError`` naming the ROADMAP
 item that ports it; nothing falls back to something else.
 """
@@ -98,13 +99,11 @@ class FLConfig:
 _UNPORTED = (
     ("executor", "fleet", "A6 (host executor) / A12 (sharded plane)"),
     ("engine", None, "A6 (fl/engine.py)"),
-    ("planner", "host", "A8 (device planner)"),
     ("scenario", "static", "A11 (world scenarios)"),
     ("energy_budget_j", None, "A11 (world scenarios)"),
     ("churn_rate", 0.0, "A11 (churn)"),
     ("hop_quant", "none", "A9 (adapter hop plane, B5/B6)"),
     ("checkpoint_every", 0, "A10 (experiments + durability)"),
-    ("uncertainty_weight", 0.0, "A8 (learning-value bids, B4)"),
     ("metric", "w1_norm", "A15 (Appendix-C metrics)"),
     ("underlay", False, "A15 (underlay planner)"),
     ("profile_phases", False, "A15 (phase profiling)"),
@@ -130,8 +129,8 @@ def check_supported(cfg: FLConfig) -> None:
 
 @dataclasses.dataclass
 class RunResult:
-    """What one run returns: final params, the Eq.-15 ledger and the
-    per-round curves."""
+    """What one run returns: final params, the Eq.-15 ledger, the
+    per-round curves and the planner's :attr:`DiffusionPlanner.stats`."""
     final_params: Params
     ledger: ResourceLedger
     accuracy: list
@@ -139,6 +138,7 @@ class RunResult:
     diffusion_rounds: list
     iid_distance: list
     round_wall_s: list
+    planner_stats: dict = dataclasses.field(default_factory=dict)
 
 
 def static_round_draws(topology: CellTopology, channel: ChannelModel,
@@ -160,7 +160,8 @@ def run_federated(init_fn: Callable[[torch.Generator], Params],
                   client_batches: Sequence[Callable[[], list[dict]]],
                   dsi: np.ndarray, data_sizes: np.ndarray,
                   eval_fn: Callable[[Params], tuple[float, float]],
-                  cfg: FLConfig, device: str | torch.device | None = None
+                  cfg: FLConfig, device: str | torch.device | None = None,
+                  value_fn: Callable[[Params], np.ndarray] | None = None
                   ) -> RunResult:
     """Run one FL experiment on ``device`` (the CUDA device by default).
 
@@ -169,7 +170,9 @@ def run_federated(init_fn: Callable[[torch.Generator], Params],
     plane consumes ``np.random.default_rng(cfg.seed)`` — or, with
     ``cfg.topology_seed`` set, ``default_rng([topology_seed, t])`` per round
     — in the reference's order: positions, uplink gains, then the
-    scheduler's draws."""
+    scheduler's draws.  ``value_fn`` (params → (N,) learning value in
+    [0, 1]) is called once per round when ``cfg.uncertainty_weight > 0``;
+    FedDif fuses its values into the bids."""
     check_supported(cfg)
     dev = resolve_device(device)
     n = cfg.num_clients
@@ -180,7 +183,8 @@ def run_federated(init_fn: Callable[[torch.Generator], Params],
                             allow_retraining=cfg.allow_retraining)
     planner = DiffusionPlanner(topology, channel, auction,
                                epsilon=cfg.epsilon,
-                               max_rounds=cfg.max_diffusion_rounds)
+                               max_rounds=cfg.max_diffusion_rounds,
+                               mode=cfg.planner, device=dev)
     executor = FleetExecutor(loss_fn, client_batches, cfg, dev)
     ledger = ResourceLedger()
 
@@ -195,11 +199,15 @@ def run_federated(init_fn: Callable[[torch.Generator], Params],
         ctrl_rng = (np.random.default_rng([cfg.topology_seed, t])
                     if cfg.topology_seed is not None else rng)
         pos, up_gamma = static_round_draws(topology, channel, ctrl_rng, n)
+        learning_value = None
+        if value_fn is not None and cfg.uncertainty_weight > 0.0:
+            learning_value = np.asarray(value_fn(global_params), np.float64)
         ctx = RoundContext(cfg=cfg, t=t, dsi=dsi, data_sizes=data_sizes,
                            pos=pos, rng=ctrl_rng, up_gamma=up_gamma,
                            topology=topology, channel=channel,
                            planner=planner, model_bits=bits,
-                           param_template=global_params)
+                           param_template=global_params,
+                           learning_value=learning_value)
         schedule = apply_round_churn(ctx, SCHEDULERS[cfg.strategy](ctx))
         charge_schedule(ledger, schedule)
         t_exec = time.perf_counter()
@@ -217,4 +225,5 @@ def run_federated(init_fn: Callable[[torch.Generator], Params],
     return RunResult(final_params=global_params, ledger=ledger,
                      accuracy=acc_hist, loss=loss_hist,
                      diffusion_rounds=dif_hist, iid_distance=iid_hist,
-                     round_wall_s=round_wall)
+                     round_wall_s=round_wall,
+                     planner_stats=dict(planner.stats))

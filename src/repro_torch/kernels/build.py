@@ -27,11 +27,14 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 
-SOURCES = {"mix_aggregate": "mix_aggregate.cu", "stc_rows": "stc_rows.cu"}
+SOURCES = {"mix_aggregate": "mix_aggregate.cu", "stc_rows": "stc_rows.cu",
+           "dol_bid_scores": "dol_bid_scores.cu",
+           "bid_value_fuse": "bid_value_fuse.cu"}
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points of each library: name -> argument types (pointers and the
-# stream as void*, sizes as int); every entry point returns cudaError_t.
+# stream as void*, sizes as int, scalars as float); every entry point returns
+# cudaError_t.
 _SIGNATURES = {
     "mix_aggregate": {
         "repro_mix_aggregate_f32": [_P, _P, _P, _I, _I, _I, _P]},
@@ -39,6 +42,10 @@ _SIGNATURES = {
         "repro_stc_rows_reduce_f32": [_P, _P, _P, _P, _P, _I, _I, _P],
         "repro_stc_rows_apply_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I,
                                      _P]},
+    "dol_bid_scores": {
+        "repro_dol_bid_scores_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _P]},
+    "bid_value_fuse": {
+        "repro_bid_value_fuse_f32": [_P, _P, _F, _P, _I, _I, _P]},
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -1,8 +1,9 @@
-"""The FL diffusion data plane's kernels on Hopper (Eq. 10/11 + STC hops).
+"""The FL diffusion data plane's kernels on Hopper (Eq. 10/11, STC hops and
+the device planner's bids).
 
-Counterpart of ``repro.kernels.diffusion``.  The two kernels on the main
-path are hand-written CUDA C++ for ``sm_90a`` (``csrc/``), built by
-``nvcc`` and bound with ``ctypes`` (:mod:`repro_torch.kernels.build`):
+Counterpart of ``repro.kernels.diffusion``.  Every kernel is hand-written
+CUDA C++ for ``sm_90a`` (``csrc/``), built by ``nvcc`` and bound with
+``ctypes`` (:mod:`repro_torch.kernels.build`):
 
 * :func:`mix_aggregate_cuda` — ``out[g, f] = Σ_c w[g, c]·x[c, f]`` over the
   :func:`stack_ravel`-flattened client-stacked fleet.  Replaces
@@ -17,6 +18,11 @@ path are hand-written CUDA C++ for ``sm_90a`` (``csrc/``), built by
   memory-bound passes over (C, n) fp32.  Like the Pallas kernels they keep
   every ``|Δ| ≥ τ_c``; the plain version keeps exactly k — they differ
   only where ``|Δ|`` ties at τ_c.
+* :func:`dol_bid_scores_cuda` — the device planner's (M, N) candidate IID
+  distances (Eq. 2 + B.1, w1_norm) by the centered contraction, one thread
+  per output.  Replaces ``_bid_kernel`` (``dol_bid_scores_pallas``).
+* :func:`bid_value_fuse_cuda` — ``bids·(1 + w·value[None, :])``, one thread
+  per element.  Replaces ``_bid_value_kernel`` (``bid_value_fuse_pallas``).
 
 Every wrapper takes CUDA tensors only, checks them, allocates its outputs
 with ``torch.empty``, launches on PyTorch's current stream, raises if
@@ -36,10 +42,12 @@ from repro_torch.tree import tree_flatten, tree_unflatten
 
 __all__ = ["stack_ravel", "stack_unravel", "mix_aggregate_cuda",
            "stc_rows_cuda", "stc_rows_reduce_cuda", "stc_rows_apply_cuda",
-           "LAUNCHES", "reset_launch_counts"]
+           "dol_bid_scores_cuda", "bid_value_fuse_cuda", "LAUNCHES",
+           "reset_launch_counts"]
 
 #: Launches of each kernel since the last :func:`reset_launch_counts`.
-LAUNCHES = {"mix_aggregate": 0, "stc_rows_reduce": 0, "stc_rows_apply": 0}
+LAUNCHES = {"mix_aggregate": 0, "stc_rows_reduce": 0, "stc_rows_apply": 0,
+            "dol_bid_scores": 0, "bid_value_fuse": 0}
 
 
 def reset_launch_counts() -> None:
@@ -188,3 +196,57 @@ def stc_rows_cuda(x: torch.Tensor, ref_row: torch.Tensor, mask: torch.Tensor,
     ssum, cnt = stc_rows_reduce_cuda(x, ref_row, thr)
     mask32 = mask.to(device=x.device, dtype=torch.int32).contiguous()
     return stc_rows_apply_cuda(x, ref_row, thr, ssum, cnt, mask32)
+
+
+def dol_bid_scores_cuda(dol: torch.Tensor, chain_size: torch.Tensor,
+                        dsi: torch.Tensor, data_size: torch.Tensor
+                        ) -> torch.Tensor:
+    """(M, N) candidate IID distances (w1_norm) by the hand-written kernel:
+    dol (M, C), chain_size (M,), dsi (N, C), data_size (N,) → (M, N)."""
+    _check(dol, "dol", 2)
+    _check(chain_size, "chain_size", 1)
+    _check(dsi, "dsi", 2)
+    _check(data_size, "data_size", 1)
+    m, c = dol.shape
+    n = dsi.shape[0]
+    if (dsi.shape[1] != c or chain_size.shape[0] != m
+            or data_size.shape[0] != n):
+        raise ValueError(f"dol {tuple(dol.shape)}, chain_size "
+                         f"{tuple(chain_size.shape)}, dsi "
+                         f"{tuple(dsi.shape)} and data_size "
+                         f"{tuple(data_size.shape)} do not match")
+    if (m + 7) // 8 > 65535:
+        raise ValueError(f"M={m} exceeds the kernel's grid")
+    out = torch.empty((m, n), device=dol.device, dtype=torch.float32)
+    lib = build.load("dol_bid_scores")
+    with torch.cuda.device(dol.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.repro_dol_bid_scores_f32(
+            dol.data_ptr(), chain_size.data_ptr(), dsi.data_ptr(),
+            data_size.data_ptr(), out.data_ptr(), _int32(m, "M"),
+            _int32(n, "N"), _int32(c, "C"), stream)
+    _raise_on(err, "dol_bid_scores")
+    LAUNCHES["dol_bid_scores"] += 1
+    return out
+
+
+def bid_value_fuse_cuda(bids: torch.Tensor, value: torch.Tensor,
+                        weight: float) -> torch.Tensor:
+    """``bids · (1 + weight · value[None, :])`` by the hand-written kernel:
+    bids (M, N), value (N,), a host float weight → (M, N) fp32."""
+    _check(bids, "bids", 2)
+    _check(value, "value", 1)
+    m, n = bids.shape
+    if value.shape[0] != n or value.device != bids.device:
+        raise ValueError(f"value {tuple(value.shape)} does not match bids "
+                         f"{tuple(bids.shape)}")
+    out = torch.empty_like(bids)
+    lib = build.load("bid_value_fuse")
+    with torch.cuda.device(bids.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.repro_bid_value_fuse_f32(
+            bids.data_ptr(), value.data_ptr(), float(weight), out.data_ptr(),
+            _int32(m, "M"), _int32(n, "N"), stream)
+    _raise_on(err, "bid_value_fuse")
+    LAUNCHES["bid_value_fuse"] += 1
+    return out

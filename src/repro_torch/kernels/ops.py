@@ -11,7 +11,8 @@ import torch
 from repro_torch.kernels import diffusion, ref
 from repro_torch.kernels.diffusion import stack_ravel, stack_unravel
 
-__all__ = ["mix_aggregate", "mix_aggregate_tree", "stc_topk"]
+__all__ = ["mix_aggregate", "mix_aggregate_tree", "stc_topk",
+           "dol_bid_scores", "bid_value_fuse"]
 
 
 def _route(t: torch.Tensor) -> str:
@@ -58,3 +59,36 @@ def stc_topk(x: torch.Tensor, ref_row: torch.Tensor, mask: torch.Tensor,
         return diffusion.stc_rows_cuda(x.to(torch.float32), ref_row, mask,
                                        sparsity).to(x.dtype)
     return ref.stc_rows_ref(x, ref_row, mask, sparsity)
+
+
+def dol_bid_scores(dol: torch.Tensor, chain_size: torch.Tensor,
+                   dsi: torch.Tensor, data_size: torch.Tensor, *,
+                   metric: str = "w1_norm") -> torch.Tensor:
+    """The planner's (M, N) candidate IID-distance matrix (Eq. 32 bids).
+
+    A CPU tensor takes the broadcast composite, bit for bit the host
+    planner's (as the reference's CPU ``"auto"`` does); a CUDA tensor takes
+    the centered-contraction kernel.  Only the paper's ``w1_norm`` metric
+    (Eq. B.1) is ported (the others are ROADMAP item A15)."""
+    if metric != "w1_norm":
+        raise NotImplementedError(
+            f"IID metric {metric!r}: the Appendix-C metrics (kld, jsd, "
+            f"w1_true) are queued as ROADMAP item A15")
+    if _route(dol) == "cuda":
+        f32 = torch.float32
+        return diffusion.dol_bid_scores_cuda(
+            dol.to(f32).contiguous(), chain_size.to(f32).contiguous(),
+            dsi.to(f32).contiguous(), data_size.to(f32).contiguous())
+    return ref.dol_bid_scores_ref(dol, chain_size, dsi, data_size, metric)
+
+
+def bid_value_fuse(bids: torch.Tensor, value: torch.Tensor,
+                   weight: float) -> torch.Tensor:
+    """Fuse the per-client learning value into the planner's bid matrix:
+    ``bids · (1 + weight · value[None, :])``, ``weight`` a host float."""
+    if _route(bids) == "cuda":
+        return diffusion.bid_value_fuse_cuda(
+            bids.to(torch.float32).contiguous(),
+            value.to(device=bids.device, dtype=torch.float32).contiguous(),
+            weight)
+    return ref.bid_value_fuse_ref(bids, value, weight)

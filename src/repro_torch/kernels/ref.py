@@ -11,8 +11,12 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.dol import iid_distance_candidates_t
+
 __all__ = ["mix_aggregate_ref", "stc_compress_ref", "stc_rows_ref",
-           "stc_rows_threshold", "stc_rows_reduce_ref", "stc_rows_apply_ref"]
+           "stc_rows_threshold", "stc_rows_reduce_ref", "stc_rows_apply_ref",
+           "dol_bid_scores_ref", "dol_bid_scores_fused_ref",
+           "bid_value_fuse_ref"]
 
 
 def mix_aggregate_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -80,3 +84,63 @@ def stc_rows_apply_ref(x: torch.Tensor, ref_row: torch.Tensor,
     mu = (ssum / torch.clamp(cnt, min=1.0)).reshape(-1, 1)
     tern = torch.where(d.abs() >= thr.reshape(-1, 1), torch.sign(d) * mu, 0.0)
     return torch.where(mask.reshape(-1, 1) != 0, (r + tern).to(x.dtype), x)
+
+
+def dol_bid_scores_ref(dol: torch.Tensor, chain_size: torch.Tensor,
+                       dsi: torch.Tensor, data_size: torch.Tensor,
+                       metric: str = "w1_norm") -> torch.Tensor:
+    """The planner's (M, N) candidate IID distances by the (M, N, C)
+    broadcast composite — ``repro_torch.core.dol.iid_distance_candidates_t``,
+    the semantics of record for the Eq.-32 bids.  The CPU path runs it."""
+    return iid_distance_candidates_t(dol, chain_size, dsi, data_size, metric)
+
+
+def _center_stats(dol, chain_size, dsi, data_size):
+    """Centered operands and the row statistics of the fused expansion."""
+    u = 1.0 / dol.shape[1]
+    psi_c = dol.to(torch.float32) - u                         # (M, C)
+    d_c = dsi.to(torch.float32) - u                           # (N, C)
+    a = chain_size.to(torch.float32).reshape(-1, 1)           # (M, 1)
+    b = data_size.to(torch.float32).reshape(1, -1)            # (1, N)
+    p_psi = (psi_c * psi_c).sum(dim=1, keepdim=True)          # (M, 1)
+    s_psi = psi_c.sum(dim=1, keepdim=True)                    # (M, 1)
+    p_d = (d_c * d_c).sum(dim=1).reshape(1, -1)               # (1, N)
+    s_d = d_c.sum(dim=1).reshape(1, -1)                       # (1, N)
+    return psi_c, d_c, a, b, p_psi, s_psi, p_d, s_d
+
+
+def _bid_scores_from_stats(cross, a, b, p_psi, s_psi, p_d, s_d, u):
+    """dist(cand, U) from the centered statistics (w1_norm):
+    with ``s = a + b``, ``sp = max(s, 1)`` and ``δ = s/sp − 1``,
+    ``dist² = (a²P_ψ + 2ab·cross + b²P_d)/sp² + 2uδ(aS_ψ + bS_d)/sp
+    + C·u²δ²`` — the δ terms live only where ``s < 1``."""
+    s = a + b                                                 # (M, N)
+    sp = torch.clamp(s, min=1.0)
+    delta = s / sp - 1.0
+    core = (a * a * p_psi + 2.0 * a * b * cross + b * b * p_d) / (sp * sp)
+    lin = 2.0 * u * delta * (a * s_psi + b * s_d) / sp
+    quad = (1.0 / u) * (u * delta) ** 2
+    return torch.sqrt(torch.clamp(core + lin + quad, min=0.0))
+
+
+def dol_bid_scores_fused_ref(dol: torch.Tensor, chain_size: torch.Tensor,
+                             dsi: torch.Tensor, data_size: torch.Tensor
+                             ) -> torch.Tensor:
+    """The CUDA kernel's own algebra in plain PyTorch: centering on U turns
+    Eq. 2 + B.1 into one ``ψ_c @ d_cᵀ`` contraction plus rank-1 statistics,
+    with no (M, N, C) tensor and no cancellation as dist → 0.  Twin of the
+    reference's ``dol_bid_scores_xla_fused``; ``chip_smoke.py`` holds the
+    kernel to it."""
+    psi_c, d_c, a, b, p_psi, s_psi, p_d, s_d = _center_stats(
+        dol, chain_size, dsi, data_size)
+    return _bid_scores_from_stats(psi_c @ d_c.T, a, b, p_psi, s_psi, p_d,
+                                  s_d, 1.0 / dol.shape[1])
+
+
+def bid_value_fuse_ref(bids: torch.Tensor, value: torch.Tensor,
+                       weight: float) -> torch.Tensor:
+    """Learning-value bid fusion ``bids · (1 + w · value[None, :])`` in
+    float32: multiply, add, multiply, each rounded (the kernel does the
+    same, so it equals this bit for bit)."""
+    return bids.to(torch.float32) * (
+        1.0 + float(weight) * value.to(torch.float32)[None, :])

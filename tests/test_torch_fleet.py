@@ -76,10 +76,10 @@ def test_own_init_runs_and_learns():
 
 @pytest.mark.parametrize("change,item", [
     (dict(strategy="gossip"), "A6"), (dict(strategy="fedswap"), "A6"),
-    (dict(executor="host"), "A6"), (dict(planner="jax"), "A8"),
+    (dict(executor="host"), "A6"),
     (dict(scenario="mobile"), "A11"), (dict(churn_rate=0.1), "A11"),
     (dict(hop_quant="int8"), "A9"), (dict(checkpoint_every=2), "A10"),
-    (dict(uncertainty_weight=0.5), "A8"), (dict(metric="kld"), "A15"),
+    (dict(metric="kld"), "A15"),
     (dict(underlay=True), "A15"), (dict(engine="async"), "A6")])
 def test_unported_config_values_raise(change, item):
     _, spec = _specs("feddif", rounds=1)
@@ -87,6 +87,53 @@ def test_unported_config_values_raise(change, item):
                                                             **change))
     with pytest.raises(NotImplementedError, match=item):
         run_experiment(spec, device="cpu")
+
+
+def test_device_planner_with_learning_values_matches_reference(monkeypatch):
+    """feddif with the device planner and learning-value bids (fcn, 4
+    clients, 2 rounds, topology_seed 3), the port on the CPU from the
+    reference's init: equal ledgers and diffusion rounds, params within the
+    fleet tolerance, and the round-0 learning values of both probes within
+    1e-5."""
+    import repro.fl.experiment as j_experiment
+    import repro_torch.fl.experiment as t_experiment
+    fl = dict(strategy="feddif", rounds=2, num_clients=4, num_models=4,
+              seed=0, topology_seed=3, planner="jax", uncertainty_weight=0.5)
+    data = dict(task="fcn", alpha=0.3, num_samples=1200)
+    values = {"ref": [], "port": []}
+
+    def spy(module, key):
+        inner = module.run_federated
+
+        def run(*args, value_fn=None, **kw):
+            def recorded(params):
+                out = value_fn(params)
+                values[key].append(np.asarray(out, np.float64))
+                return out
+            return inner(*args, value_fn=recorded, **kw)
+        monkeypatch.setattr(module, "run_federated", run)
+
+    spy(j_experiment, "ref")
+    spy(t_experiment, "port")
+    ref = j_run(JSpec(fl=JConfig(engine="fleet", **fl), **data))
+    init = jax.tree.map(np.asarray,
+                        j_build("fcn").init(jax.random.PRNGKey(0)))
+    port = run_experiment(ExperimentSpec(fl=FLConfig(**fl), **data),
+                          device="cpu",
+                          init_fn=lambda gen: params_from_numpy(init))
+    assert port.ledger.as_dict() == ref.ledger.as_dict()
+    assert port.diffusion_rounds == ref.diffusion_rounds
+    assert len(values["port"]) == len(values["ref"]) == 2
+    np.testing.assert_allclose(values["port"][0], values["ref"][0],
+                               atol=1e-5, rtol=0)
+    assert 0.0 < values["port"][0].min() <= values["port"][0].max() <= 1.0
+    for a, b in zip(jax.tree.leaves(ref.final_params),
+                    jax.tree.leaves(params_to_numpy(port.final_params))):
+        np.testing.assert_allclose(b, np.asarray(a, np.float32),
+                                   atol=2e-4, rtol=2e-3)
+    np.testing.assert_allclose(port.accuracy, ref.accuracy, atol=0.05)
+    stats = port.planner_stats
+    assert stats["plans"] == 2 and stats["auction_iterations"] > 0
 
 
 def test_lm_task_raises():
