@@ -23,18 +23,29 @@ nothing of JAX.  Phases, each of which fails loudly:
    device-planner run dol_bid_scores once per diffusion round or more and
    bid_value_fuse as often; params must be finite and both FedDif runs'
    peak accuracy must beat FedAvg's.  The two FedDif runs print the
-   planner's seconds per communication round and auction iterations;
-4. a small feddif_stc run on the card against the same run on the CPU
-   (plain versions) from the same init: equal ledgers, params within the
-   fleet plane's tolerance; then the device planner on the card (with its
+   planner's seconds per communication round and auction iterations.
+   Then the adapter hop plane: FedDif on the LoRA ``lm`` task at the
+   ``lm_hops`` bench's full cell (α=0.5, 32 tokens per document, 4096
+   documents, N=M=8, 6 rounds) in its three arms — adapter hops packed to
+   int8, adapter hops in fp32, the full model in fp32 — and feddif/fcn
+   with int8 hops at the quickstart configuration.  Every int8 run must
+   launch quant_pack and quant_unpack exactly once per diffusion round (one
+   roundtrip per PermuteOp), every run's ledger must decompose into
+   ``uplinks·(fp32 payload) + D2D hops·(hop payload)``, the full-f32 hop
+   must be ≥ 50x the int8 adapter hop, and the int8 arm's peak next-token
+   accuracy must be within 0.02 of the fp32 adapter arm's;
+4. a small feddif_stc run and a small lm int8 run on the card against the
+   same runs on the CPU (plain versions) from one init: equal ledgers,
+   params within the fleet plane's tolerance; then the device planner on
+   the card (with its
    kernels) against the host planner on the CPU, on the N=M=C=10
    default-config inputs (seeds 0-2) and the 16 plans of the N=M=20
    ``planner_speedup`` cells: exact hop-list agreement is printed, and the
    plans must be equivalent (same rounds, same hop count, total Eq.-17
    decrement within 1e-6 relative);
-5. a measurement, not a check: one FedDif round with each planner under
-   ``torch.profiler``
-   (device busy time, idle share, kernel count, top kernels).
+5. a measurement, not a check: one FedDif round with each planner, and
+   one of the lm int8 arm, under ``torch.profiler`` (device busy time,
+   idle share, kernel count, top kernels).
 
 Then one ``{"kernels": [...]}`` line, the card line, and as the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -71,6 +82,22 @@ PLANNER_CASES = (
     ("default_config", 10, None, [(s, s) for s in range(3)]),
     ("planner_speedup", 20, 24, [(i, t) for i in range(8) for t in range(2)]),
 )
+# The adapter hop plane: the lm_hops bench's full cell (benchmarks/run.py)
+# and its arms, arm -> (adapter_hops, hop_quant); feddif/fcn with int8 hops
+# at the quickstart configuration; phase 4's small lm int8 cell (the
+# reference's tests/test_adapter_hops.py cell).
+LM_DATA = dict(task="lm", alpha=0.5, dim=32, num_samples=4096)
+LM_FL = dict(strategy="feddif", rounds=6, num_clients=8, num_models=8,
+             seed=0, topology_seed=0, max_diffusion_rounds=4)
+LM_ARMS = {"adapter_int8": (True, "int8"), "adapter_f32": (True, "none"),
+           "full_f32": (False, "none")}
+FCN_INT8_RUN = ("feddif", "fcn", 8, 8)
+LM_SMALL_DATA = dict(task="lm", alpha=0.5, dim=16, num_samples=640)
+LM_SMALL_FL = dict(strategy="feddif", rounds=2, num_clients=4, num_models=4,
+                   seed=0, topology_seed=1, max_diffusion_rounds=3,
+                   hop_quant="int8")
+LM_ACC_GAP = 0.02            # int8 vs fp32 adapter arm, peak accuracy
+HOP_RATIO_GATE = 50.0        # full-f32 hop / int8 adapter hop
 
 
 def _fail(msg: str) -> None:
@@ -155,15 +182,30 @@ def _bound(nbytes: float, flops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def path_shapes(torch, port) -> tuple[list, list, list]:
-    """The shapes the driven runs give the kernels: ``mix_aggregate`` gets
-    the (C, F, 1) Eq.-11 row of each run's fleet (F = the task's parameter
-    count), ``stc_rows`` a (C, n) block per leaf of size n in the STC runs,
-    and the device planner's bid kernels an (M, N, classes) problem per
-    device-planner run and planner check.  The fleet plane has one slot per
-    client."""
+def _payload_size(torch, port, task: str, adapter_hops: bool) -> int:
+    """Values in the tree a run trains and hops: the LoRA adapter of the
+    lm task under adapter hops, the whole model otherwise."""
     from repro_torch.tree import tree_leaves
-    mix, stc = set(), set()
+    model = port.build_task_model(task)
+    params = model.init(torch.Generator())
+    if adapter_hops and model.split is not None:
+        params = model.split(params)[1]
+    return sum(x.numel() for x in tree_leaves(params))
+
+
+def path_shapes(torch, port) -> tuple[list, list, list, list]:
+    """The shapes the driven runs give the kernels: ``mix_aggregate`` gets
+    the (C, F, 1) Eq.-11 row of each run's fleet (F = the size of the tree
+    it trains: the task's parameters, or the lm adapter), ``stc_rows`` a
+    (C, n) block per leaf of size n in the STC runs, the device planner's
+    bid kernels an (M, N, classes) problem per device-planner run and
+    planner check, and the quant kernels a (C·⌈F/512⌉, 512) block per
+    int8 run.  The fleet plane has one slot per client.  The quant list
+    adds the whole lm model's block, (1208, 512), which int8 hops without
+    the adapter view would pack."""
+    from repro_torch.tree import tree_leaves
+    from repro_torch.kernels.quant import QUANT_BLOCK
+    mix, stc, quant = set(), set(), set()
     for strategy, task, _, clients in (WARMUP_RUNS + MAIN_RUNS
                                        + (CARD_VS_CPU_RUN,
                                           DEVICE_PLANNER_RUN)):
@@ -172,20 +214,32 @@ def path_shapes(torch, port) -> tuple[list, list, list]:
         mix.add((clients, sum(sizes), 1))
         if "stc" in strategy:
             stc.update((clients, n) for n in sizes)
+    int8_runs = [("fcn", False, FCN_INT8_RUN[3]),
+                 ("lm", True, LM_SMALL_FL["num_clients"]),
+                 ("lm", False, LM_FL["num_clients"])]
+    for adapter_hops, _ in LM_ARMS.values():
+        f = _payload_size(torch, port, "lm", adapter_hops)
+        mix.add((LM_FL["num_clients"], f, 1))
+        int8_runs.append(("lm", adapter_hops, LM_FL["num_clients"]))
+    for task, adapter_hops, clients in int8_runs:
+        f = _payload_size(torch, port, task, adapter_hops)
+        quant.add((clients * -(-f // QUANT_BLOCK), QUANT_BLOCK))
     bids = {(DEVICE_PLANNER_RUN[3],) * 2 + (NUM_CLASSES,)}
     bids.update((n, n, NUM_CLASSES) for _, n, _, _ in PLANNER_CASES)
-    return sorted(mix), sorted(stc), sorted(bids)
+    return sorted(mix), sorted(stc), sorted(bids), sorted(quant)
 
 
-def check_kernels(torch, kd, kref, port) -> list[dict]:
+def check_kernels(torch, kd, kq, kref, port) -> list[dict]:
     """Phase 2: each kernel against its plain version on the card."""
     gen = torch.Generator(device="cuda").manual_seed(0)
-    mix_shapes, stc_shapes, bid_shapes = path_shapes(torch, port)
+    mix_shapes, stc_shapes, bid_shapes, quant_shapes = path_shapes(torch,
+                                                                   port)
     print(json.dumps({"path_shapes": {"mix_aggregate": mix_shapes,
                                       "stc_rows": stc_shapes,
                                       "dol_bid_scores": bid_shapes,
                                       "bid_value_fuse": [list(s[:2]) for s
-                                                         in bid_shapes]}}))
+                                                         in bid_shapes],
+                                      "quant_pack": quant_shapes}}))
     rows = []
 
     def record(row):
@@ -219,13 +273,20 @@ def check_kernels(torch, kd, kref, port) -> list[dict]:
 
     # stc_rows: every leaf of the driven STC runs, a (1024, 8192) leaf
     # (34 MB, which stays in the 50 MB L2 across timed calls) and a
-    # (1024, 16384) leaf (67 MB, beyond L2).  Tie-free data: ref + Gaussian
-    # noise.
+    # (1024, 16384) leaf (67 MB, beyond L2).  Tie-free by construction (the
+    # kernels keep every |Δ| ≥ τ, the plain version exactly k): each row's
+    # |Δ| is a permutation of n distinct multiples of 2^-e ≤ 1, and ref
+    # lies on the same grid, so x = ref ± |Δ| and x − ref are exact in fp32.
     sparsity = 0.01
     for c, n in stc_shapes + [(1024, 8192), (1024, 16384)]:
-        ref_row = torch.randn((n,), generator=gen, device="cuda")
-        x = ref_row[None, :] + 0.1 * torch.randn((c, n), generator=gen,
-                                                  device="cuda")
+        step = 2.0 ** -max(1, (n - 1).bit_length())
+        ref_row = torch.randint(-2 * 2 ** 14, 2 * 2 ** 14, (n,),
+                                generator=gen, device="cuda") * 2.0 ** -14
+        mags = (torch.rand((c, n), generator=gen, device="cuda")
+                .argsort(dim=1) + 1).float() * step
+        signs = torch.randint(0, 2, (c, n), generator=gen,
+                              device="cuda").float() * 2.0 - 1.0
+        x = ref_row[None, :] + signs * mags
         mask = (torch.arange(c, device="cuda") % 2 == 0)
         mask32 = mask.to(torch.int32)
         k = max(1, int(n * sparsity))
@@ -333,6 +394,50 @@ def check_kernels(torch, kd, kref, port) -> list[dict]:
                            lambda: torch.addcmul(bids, bids, value[None, :],
                                                  value=w)),
                 "bound_ms": bound, "bound_by": by})
+
+    # quant_pack / quant_unpack: every int8 block of the driven runs, a
+    # (65536, 512) block (128 MB of fp32, beyond L2), and the reference
+    # tests' ragged shapes (3, 8) and (16, 128).  Rows of random scale,
+    # one all-zero row, one row of exact .5 ties at scale 1/8 with both
+    # clip ends.  Same inputs, the same rounded fp32 operations: codes,
+    # scales and decoded values must be bit-exact.  Library: none for the
+    # pack (no single PyTorch call); torch.mul with type promotion for the
+    # unpack.
+    for r, b in quant_shapes + [(65536, 512), (3, 8), (16, 128)]:
+        x = torch.randn((r, b), generator=gen, device="cuda") * (
+            10.0 ** torch.empty((r, 1), device="cuda").uniform_(
+                -2, 2, generator=gen))
+        x[0] = 0.0
+        if r > 1:
+            ties = (torch.arange(b, device="cuda") % 9 - 4.5) / 8.0
+            ties[0], ties[-1] = 15.875, -15.875
+            x[1] = ties
+        q, sc = kq.quant_pack_cuda(x)
+        p_q, p_sc = kref.quant_pack_ref(x)
+        torch.cuda.synchronize()
+        ok = (torch.equal(q, p_q)
+              and torch.equal(sc.view(torch.int32), p_sc.view(torch.int32)))
+        err = float(max((q.int() - p_q.int()).abs().max(),
+                        (sc - p_sc).abs().max()))
+        bound, by = _bound(5.0 * r * b + 4.0 * r, 6.0 * r * b)
+        record({"name": "quant_pack", "shape": [r, b],
+                "max_abs_err": err, "tol": 0.0, "ok": ok,
+                **_timings(torch, lambda: kq.quant_pack_cuda(x),
+                           lambda: kref.quant_pack_ref(x)),
+                "bound_ms": bound, "bound_by": by})
+        out = kq.quant_unpack_cuda(p_q, p_sc)
+        plain = kref.quant_unpack_ref(p_q, p_sc)
+        torch.cuda.synchronize()
+        err = float((out - plain).abs().max())
+        bound, by = _bound(5.0 * r * b + 4.0 * r, 1.0 * r * b)
+        record({"name": "quant_unpack", "shape": [r, b],
+                "max_abs_err": err, "tol": 0.0,
+                "ok": bool(torch.equal(out.view(torch.int32),
+                                       plain.view(torch.int32))),
+                **_timings(torch, lambda: kq.quant_unpack_cuda(p_q, p_sc),
+                           lambda: kref.quant_unpack_ref(p_q, p_sc),
+                           lambda: torch.mul(p_q, p_sc[:, None])),
+                "bound_ms": bound, "bound_by": by})
     return rows
 
 
@@ -412,6 +517,8 @@ def main_path(torch, kd, port) -> dict:
         if "stc" in strategy and (counts["stc_rows_reduce"] == 0
                                   or counts["stc_rows_apply"] == 0):
             _fail(f"{name}: the stc_rows kernels never launched")
+        if counts["quant_pack"] or counts["quant_unpack"]:
+            _fail(f"{name}: fp32 hops launched the quant kernels")
         if planner == "jax":
             if counts["dol_bid_scores"] < max(sum(res.diffusion_rounds),
                                               rounds):
@@ -432,6 +539,94 @@ def main_path(torch, kd, port) -> dict:
     for k, v in feddif.items():
         if not v > fedavg:
             _fail(f"{k} peak accuracy {v} does not beat FedAvg {fedavg}")
+    return launches
+
+
+def hop_plane_path(torch, kd, port) -> dict:
+    """Phase 3, second half: the adapter hop plane on the card — the
+    lm_hops arms and feddif/fcn with int8 hops.  Counters are zeroed right
+    before each run and read right after."""
+    import dataclasses
+    from repro_torch.tree import tree_leaves
+    FLConfig, ExperimentSpec = port.FLConfig, port.ExperimentSpec
+    launches = {name: 0 for name in kd.LAUNCHES}
+    # One untimed round of the lm task first (functorch's first transforms
+    # of the transformer, the quant library's load).
+    port.run_experiment(ExperimentSpec(**LM_SMALL_DATA, fl=FLConfig(
+        **{**LM_SMALL_FL, "rounds": 1, "seed": 1})))
+    strategy, task, rounds, clients = FCN_INT8_RUN
+    runs = [(f"feddif/lm {arm}", ExperimentSpec(
+        **LM_DATA, adapter_hops=adapter_hops,
+        fl=FLConfig(**LM_FL, hop_quant=quant)))
+        for arm, (adapter_hops, quant) in LM_ARMS.items()]
+    runs.append((f"{strategy}/{task} hop_quant=int8", ExperimentSpec(
+        task=task, alpha=0.3, num_samples=6000,
+        fl=FLConfig(strategy=strategy, rounds=rounds, num_clients=clients,
+                    num_models=clients, epsilon=0.04, gamma_min=1.0, seed=0,
+                    hop_quant="int8"))))
+    hop_bits, peak = {}, {}
+    for name, spec in runs:
+        kd.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = port.run_experiment(spec)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(kd.LAUNCHES)
+        finite = all(bool(torch.isfinite(x).all())
+                     for x in tree_leaves(res.final_params))
+        led = res.ledger.as_dict()
+        hop = port.spec_adapter_bits(spec)
+        f32 = port.spec_adapter_bits(dataclasses.replace(
+            spec, fl=dataclasses.replace(spec.fl, hop_quant="none")))
+        d2d = led["transmitted_models"] - led["uplink_models"]
+        expected = led["uplink_models"] * f32 + d2d * hop
+        rel = abs(led["transmitted_bits"] - expected) / expected
+        hop_bits[name], peak[name] = hop, max(res.accuracy)
+        diffusion = sum(res.diffusion_rounds)
+        print(json.dumps({
+            "run": name, "rounds": spec.fl.rounds,
+            "hop_quant": spec.fl.hop_quant,
+            "adapter_hops": spec.adapter_hops,
+            "peak_accuracy": max(res.accuracy), "accuracy": res.accuracy,
+            "ledger": led, "diffusion_rounds": res.diffusion_rounds,
+            "hop_bits": hop, "payload_f32_bits": f32, "d2d_hops": d2d,
+            "ledger_decomposition_rel_err": rel,
+            "mean_round_wall_s": sum(res.round_wall_s) / spec.fl.rounds,
+            "round_wall_s": res.round_wall_s,
+            "planner_s_per_round": res.planner_stats.get("seconds", 0.0)
+            / max(res.planner_stats.get("plans", 0), 1),
+            "run_wall_s": wall, "launches": counts, "finite": finite}))
+        if not finite:
+            _fail(f"{name}: non-finite parameters")
+        if counts["mix_aggregate"] < spec.fl.rounds:
+            _fail(f"{name}: mix_aggregate launched "
+                  f"{counts['mix_aggregate']} times in {spec.fl.rounds} "
+                  f"rounds")
+        want = diffusion if spec.fl.hop_quant == "int8" else 0
+        if counts["quant_pack"] != want or counts["quant_unpack"] != want:
+            _fail(f"{name}: quant_pack / quant_unpack launched "
+                  f"{counts['quant_pack']} / {counts['quant_unpack']} "
+                  f"times over {diffusion} diffusion rounds (want {want})")
+        if spec.fl.hop_quant == "int8" and diffusion == 0:
+            _fail(f"{name}: no diffusion round, so no int8 hop was driven")
+        if rel > 1e-9:
+            _fail(f"{name}: transmitted_bits {led['transmitted_bits']} != "
+                  f"uplinks·{f32} + {d2d}·{hop} (rel err {rel})")
+        for k in launches:
+            launches[k] += counts[k]
+    int8, f32 = peak["feddif/lm adapter_int8"], peak["feddif/lm adapter_f32"]
+    ratio = hop_bits["feddif/lm full_f32"] / hop_bits["feddif/lm adapter_int8"]
+    print(json.dumps({"lm_hops": {
+        "peak_accuracy": {k: v for k, v in peak.items() if "/lm " in k},
+        "int8_vs_f32_accuracy_gap": int8 - f32, "gap_tol": LM_ACC_GAP,
+        "bytes_per_hop": {k: v / 8.0 for k, v in hop_bits.items()},
+        "full_f32_over_adapter_int8_hop_bits": ratio,
+        "gate": HOP_RATIO_GATE}}))
+    if ratio < HOP_RATIO_GATE:
+        _fail(f"full_f32 / adapter_int8 hop bits {ratio} < {HOP_RATIO_GATE}")
+    if abs(int8 - f32) > LM_ACC_GAP:
+        _fail(f"lm adapter_int8 peak accuracy {int8} is not within "
+              f"{LM_ACC_GAP} of adapter_f32's {f32}")
     return launches
 
 
@@ -463,6 +658,43 @@ def card_vs_cpu(torch, port) -> None:
     print(json.dumps({"check": f"card_vs_cpu {strategy}/{task}",
                       "max_abs_err": err,
                       "atol": 2e-4, "rtol": 2e-3,
+                      "accuracy": [gpu.accuracy, cpu.accuracy]}))
+
+
+def lm_card_vs_cpu(torch, port) -> None:
+    """Phase 4: the small lm int8 cell on the card (its kernels) against
+    the CPU (plain versions) from one init: equal ledgers and diffusion
+    rounds, adapters within the reference's cross-executor tolerance
+    (atol 5e-4, rtol 5e-3).  Also counts the int8 codes on which packs of
+    the two final adapters differ."""
+    from repro_torch.fl.adapters import pack_rows
+    from repro_torch.kernels.diffusion import stack_ravel
+    from repro_torch.tree import tree_leaves, tree_map
+    spec = port.ExperimentSpec(**LM_SMALL_DATA,
+                               fl=port.FLConfig(**LM_SMALL_FL))
+    model = port.build_task_model("lm")
+    init = port.params_to_numpy(model.init(torch.Generator().manual_seed(0)))
+    gpu = port.run_experiment(
+        spec, init_fn=lambda g: port.params_from_numpy(init))
+    cpu = port.run_experiment(
+        spec, device="cpu", init_fn=lambda g: port.params_from_numpy(init))
+    if gpu.ledger.as_dict() != cpu.ledger.as_dict():
+        _fail("lm int8: card and CPU runs charge different ledgers")
+    if gpu.diffusion_rounds != cpu.diffusion_rounds:
+        _fail("lm int8: card and CPU runs plan different diffusion rounds")
+    card = tree_map(lambda x: x.cpu(), gpu.final_params)
+    err = 0.0
+    for a, b in zip(tree_leaves(card), tree_leaves(cpu.final_params)):
+        err = max(err, float((a - b).abs().max()))
+        if not torch.allclose(a, b, atol=5e-4, rtol=5e-3):
+            _fail(f"lm int8: card and CPU adapters differ by {err}")
+    codes = [pack_rows(stack_ravel(tree_map(lambda x: x[None], p))[0])[0]
+             for p in (card, cpu.final_params)]
+    print(json.dumps({"check": "card_vs_cpu feddif/lm hop_quant=int8",
+                      "max_abs_err": err, "atol": 5e-4, "rtol": 5e-3,
+                      "final_adapter_code_flips": int(
+                          (codes[0] != codes[1]).sum()),
+                      "diffusion_rounds": gpu.diffusion_rounds,
                       "accuracy": [gpu.accuracy, cpu.accuracy]}))
 
 
@@ -539,18 +771,27 @@ def planners_card_vs_cpu(torch) -> None:
 
 
 def profile_round(torch, port, planner: str = "host",
-                  weight: float = 0.0) -> None:
-    """Phase 5 (a measurement, not a check): one FedDif round of the
-    quickstart cell under torch.profiler, with the host or the device
-    planner — device busy time (the union of kernel intervals), idle share
-    of the span from the first to the last kernel, kernel count and the
-    kernels with the most device time."""
+                  weight: float = 0.0, lm_int8: bool = False) -> None:
+    """Phase 5 (a measurement, not a check): one FedDif round under
+    torch.profiler — of the quickstart cell with the host or the device
+    planner, or of the lm_hops adapter_int8 arm — device busy time (the
+    union of kernel intervals), idle share of the span from the first to
+    the last kernel, kernel count and the kernels with the most device
+    time."""
     from torch.profiler import ProfilerActivity, profile
-    spec = port.ExperimentSpec(
-        task="fcn", alpha=0.3, num_samples=6000,
-        fl=port.FLConfig(strategy="feddif", rounds=1, num_clients=8,
-                         num_models=8, epsilon=0.04, gamma_min=1.0, seed=0,
-                         planner=planner, uncertainty_weight=weight))
+    if lm_int8:
+        spec = port.ExperimentSpec(**LM_DATA, fl=port.FLConfig(
+            **{**LM_FL, "rounds": 1}, hop_quant="int8"))
+        label = "feddif/lm adapter_int8 1 round (lm_hops cell)"
+    else:
+        spec = port.ExperimentSpec(
+            task="fcn", alpha=0.3, num_samples=6000,
+            fl=port.FLConfig(strategy="feddif", rounds=1, num_clients=8,
+                             num_models=8, epsilon=0.04, gamma_min=1.0,
+                             seed=0, planner=planner,
+                             uncertainty_weight=weight))
+        label = (f"feddif/fcn 1 round (quickstart cell), planner={planner} "
+                 f"w={weight}")
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -577,8 +818,7 @@ def profile_round(torch, port, planner: str = "host",
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
         run_s = spans[-1][1] / 1e6 - spans[0][0] / 1e6 if spans else None
         print(json.dumps({
-            "profile": f"feddif/fcn 1 round (quickstart cell), planner="
-                       f"{planner} w={weight}",
+            "profile": label,
             "planner_s": res.planner_stats["seconds"],
             "round_wall_s_profiled": res.round_wall_s[0],
             "device_busy_s": busy_us / 1e6,
@@ -604,6 +844,7 @@ def main() -> None:
     from repro_torch.device import set_full_fp32
     from repro_torch.kernels import build
     from repro_torch.kernels import diffusion as kd
+    from repro_torch.kernels import quant as kq
     from repro_torch.kernels import ref as kref
     import repro_torch.fl as port
     set_full_fp32()
@@ -621,12 +862,16 @@ def main() -> None:
             if "registers" in line or "Compiling entry" in line:
                 print(f"ptxas[{name}]: {line.strip()}")
 
-    rows = check_kernels(torch, kd, kref, port)
+    rows = check_kernels(torch, kd, kq, kref, port)
     launches = main_path(torch, kd, port)
+    for k, v in hop_plane_path(torch, kd, port).items():
+        launches[k] += v
     card_vs_cpu(torch, port)
+    lm_card_vs_cpu(torch, port)
     planners_card_vs_cpu(torch)
     profile_round(torch, port)
     profile_round(torch, port, "jax", VALUE_WEIGHT)
+    profile_round(torch, port, lm_int8=True)
 
     replaces = {
         "mix_aggregate": ("mix_aggregate.cu",
@@ -639,14 +884,18 @@ def main() -> None:
                            "src/repro/kernels/diffusion.py:316"),
         "bid_value_fuse": ("bid_value_fuse.cu",
                            "src/repro/kernels/diffusion.py:377"),
+        "quant_pack": ("quant.cu", "src/repro/kernels/quant.py:32"),
+        "quant_unpack": ("quant.cu", "src/repro/kernels/quant.py:43"),
     }
     # The summary row of each kernel is its main-path shape: the (8, 26122)
-    # Eq.-11 row of the fcn fleet, the largest fcn leaf (8, 16384), and the
-    # device planner's (8, 8) bids over 10 classes in the quickstart cell.
+    # Eq.-11 row of the fcn fleet, the largest fcn leaf (8, 16384), the
+    # device planner's (8, 8) bids over 10 classes in the quickstart cell,
+    # and the lm adapter's (8·7, 512) int8 block in the lm_hops cell.
     main_shape = {"mix_aggregate": [8, 26122, 1],
                   "stc_rows_reduce": [8, 16384], "stc_rows_apply": [8, 16384],
                   "dol_bid_scores": [8, 8, NUM_CLASSES],
-                  "bid_value_fuse": [8, 8]}
+                  "bid_value_fuse": [8, 8], "quant_pack": [56, 512],
+                  "quant_unpack": [56, 512]}
     summary = []
     for name, (src, rep) in replaces.items():
         row = next(r for r in rows

@@ -13,10 +13,10 @@ it is reproduced here bit for bit in numpy float32:
 
 * the Eq.-(2) update is elementwise float32 (multiply, multiply, add,
   divide), exactly as the reference's eager jnp ops;
-* the norm matches XLA's CPU reduction of ``jnp.linalg.norm``: a sequential
-  fused multiply-add over the class axis, ``acc = fma(x_j, x_j, acc)``.  The
-  fma is emulated in float64, where the product of two float32 values is
-  exact, and rounded once to float32.
+* the norm matches XLA's CPU reduction of ``jnp.linalg.norm``, whose sum
+  order depends on the class count C (:func:`_sum_squares`).  A fused
+  multiply-add is emulated in float64, where the product of two float32
+  values is exact, and rounded once to float32.
 """
 from __future__ import annotations
 
@@ -48,14 +48,73 @@ def update_dol(dol: np.ndarray, chain_size, dsi: np.ndarray, data_size
     return new_dol, new_size
 
 
-def _w1_norm(p: np.ndarray, num_classes: int) -> np.ndarray:
-    """Eq. (B.1): ``‖ψ − U‖₂``, summed in XLA's order (see module doc)."""
-    d = p - _F32(1.0 / num_classes)
+# XLA-CPU's reduction of ``jnp.linalg.norm(x, axis=-1)`` over C classes:
+#
+# * C > 32: the squares are rounded in a fusion of their own, then summed in
+#   windows of 32 (a reduce-window whose padding is split evenly, the odd
+#   element high), window sums in order, repeated until at most 32 remain;
+#   those are added in order;
+# * 5 ≤ C ≤ 8: LLVM vectorizes the loop over the innermost kept axis of
+#   length > 1, and in the vector body the squares are rounded before the
+#   sequential add; the scalar remainder contracts each step to
+#   ``fma(x, x, acc)``.  :func:`_vector_body` gives the body's length, as
+#   measured on x86-64 with AVX-512 (ROADMAP C1 lists what it misses);
+# * otherwise a sequential fused multiply-add over the class axis.
+_WINDOW = 32
+# Below this inner-axis length the vectorizer adds a 4-wide epilogue to its
+# 8-wide body (5 ≤ C ≤ 8).
+_EPILOGUE4_BELOW = {5: 40, 6: 40, 7: 96, 8: 88}
+
+
+def _vector_body(k: int, c: int) -> int:
+    """Leading positions of an inner kept axis of length ``k`` that XLA-CPU's
+    vector loop covers when 5 ≤ C ≤ 8 (the rest run scalar)."""
+    if k < 16:
+        return k if k in (2, 4, 8) else 0
+    if k % 8 >= 4 and k < _EPILOGUE4_BELOW[c]:
+        return k // 4 * 4
+    return k // 8 * 8
+
+
+def _window_pad(c: int) -> tuple[int, int]:
+    total = -(-c // _WINDOW) * _WINDOW - c
+    return total // 2, total - total // 2
+
+
+def _seq_add(x: np.ndarray) -> np.ndarray:
+    acc = np.zeros(x.shape[:-1], _F32)
+    for j in range(x.shape[-1]):
+        acc = acc + x[..., j]
+    return acc
+
+
+def _sum_squares(d: np.ndarray) -> np.ndarray:
+    """``Σ_j d_j²`` over the last axis in XLA-CPU's float32 order."""
+    c = d.shape[-1]
+    if c > _WINDOW:
+        sq = d * d
+        while sq.shape[-1] > _WINDOW:
+            lo, hi = _window_pad(sq.shape[-1])
+            sq = np.pad(sq, [(0, 0)] * (sq.ndim - 1) + [(lo, hi)])
+            sq = _seq_add(sq.reshape(sq.shape[:-1] + (-1, _WINDOW)))
+        return _seq_add(sq)
     acc = np.zeros(d.shape[:-1], _F32)
-    for j in range(d.shape[-1]):
+    for j in range(c):
         x = d[..., j].astype(np.float64)
         acc = (x * x + acc.astype(np.float64)).astype(_F32)
-    return np.sqrt(acc)
+    kept = [k for k in d.shape[:-1] if k != 1]
+    if 5 <= c <= 8 and kept:
+        body = _vector_body(kept[-1], c)
+        head = d.reshape(kept + [c])[..., :body, :]
+        acc = acc.reshape(kept)
+        acc[..., :body] = _seq_add(head * head)
+        acc = acc.reshape(d.shape[:-1])
+    return acc
+
+
+def _w1_norm(p: np.ndarray, num_classes: int) -> np.ndarray:
+    """Eq. (B.1): ``‖ψ − U‖₂``, summed in XLA's order (see module doc)."""
+    return np.sqrt(_sum_squares(p - _F32(1.0 / num_classes)))
 
 
 def iid_distance(dol: np.ndarray, metric: str = "w1_norm") -> np.ndarray:
@@ -102,13 +161,39 @@ def update_dol_t(dol: torch.Tensor, chain_size: torch.Tensor,
     return num / torch.clamp(new_size[..., None], min=1.0), new_size
 
 
-def _w1_norm_t(p: torch.Tensor) -> torch.Tensor:
-    """Tensor Eq. (B.1) in the sequential-fma order of :func:`_w1_norm`."""
-    u = torch.tensor(1.0 / p.shape[-1], dtype=torch.float32, device=p.device)
-    d = p - u
-    acc = torch.zeros(d.shape[:-1], dtype=torch.float32, device=p.device)
-    for j in range(d.shape[-1]):
+def _seq_add_t(x: torch.Tensor) -> torch.Tensor:
+    acc = torch.zeros(x.shape[:-1], dtype=torch.float32, device=x.device)
+    for j in range(x.shape[-1]):
+        acc = acc + x[..., j]
+    return acc
+
+
+def _sum_squares_t(d: torch.Tensor) -> torch.Tensor:
+    """Tensor twin of :func:`_sum_squares` (XLA-CPU's order)."""
+    c = d.shape[-1]
+    if c > _WINDOW:
+        sq = d * d
+        while sq.shape[-1] > _WINDOW:
+            sq = torch.nn.functional.pad(sq, _window_pad(sq.shape[-1]))
+            sq = _seq_add_t(sq.reshape(sq.shape[:-1] + (-1, _WINDOW)))
+        return _seq_add_t(sq)
+    acc = torch.zeros(d.shape[:-1], dtype=torch.float32, device=d.device)
+    for j in range(c):
         acc = _fma_t(d[..., j], d[..., j], acc)
+    kept = [k for k in d.shape[:-1] if k != 1]
+    if 5 <= c <= 8 and kept:
+        body = _vector_body(kept[-1], c)
+        head = d.reshape(kept + [c])[..., :body, :]
+        acc = torch.cat([_seq_add_t(head * head),
+                         acc.reshape(kept)[..., body:]], dim=-1)
+        acc = acc.reshape(d.shape[:-1])
+    return acc
+
+
+def _w1_norm_t(p: torch.Tensor) -> torch.Tensor:
+    """Tensor Eq. (B.1) in the order of :func:`_w1_norm`."""
+    u = torch.tensor(1.0 / p.shape[-1], dtype=torch.float32, device=p.device)
+    acc = _sum_squares_t(p - u)
     # float32 sqrt correctly rounded: through float64, whose double
     # rounding is exact for sqrt (torch's vectorized float32 sqrt on the
     # CPU is within 0.5001 ulp, and one ulp flips near-tie bids).

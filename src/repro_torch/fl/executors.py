@@ -9,7 +9,10 @@ in one params tree with a leading client axis, on one device:
   epochs are padded with zero batches and masked out per step
   (``torch.where(active, new, old)``), so each slot's math is its own loop;
 * a diffusion hop is :func:`~repro_torch.distributed.fedshard.diffuse_params`
-  (a row gather), STC-compressed hops and the STC uplink go through
+  (a row gather); with ``hop_quant="int8"`` the stacked payload first makes
+  one int8 pack→unpack roundtrip per client row
+  (:func:`~repro_torch.fl.adapters.quant_roundtrip_tree`: the ``quant``
+  kernels on the card); STC-compressed hops and the STC uplink go through
   :func:`~repro_torch.distributed.fedshard.masked_stc_compress` (the
   ``stc_rows`` kernels on the card);
 * the Eq.-(11) aggregation is one ``kernels.ops.mix_aggregate_tree`` call
@@ -29,6 +32,7 @@ from torch.func import grad_and_value, vmap
 from repro_torch.core.schedule import PermuteOp, RoundSchedule, TrainOp
 from repro_torch.distributed.fedshard import (diffuse_params,
                                               masked_stc_compress)
+from repro_torch.fl.adapters import quant_roundtrip_tree
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.train import optimizer as opt_lib
 from repro_torch.tree import tree_map
@@ -49,6 +53,7 @@ class FleetExecutor:
         self.client_batches = client_batches
         self.cfg = cfg
         self.device = device
+        self.quant = cfg.hop_quant == "int8"
         opt = opt_lib.sgd(momentum=cfg.momentum)
         lr = float(cfg.lr)
 
@@ -107,6 +112,10 @@ class FleetExecutor:
             (num_slots,) + tuple(x.shape)).contiguous(), global_params)
 
     def _permute(self, params: Params, op: PermuteOp) -> Params:
+        if self.quant:
+            # int8 wire: roundtrip the stacked payload per client row, then
+            # move the decoded rows (packing commutes with the row gather).
+            params = quant_roundtrip_tree(params)
         return diffuse_params(params, torch.as_tensor(
             np.asarray(op.src_of_dst, np.int64), device=self.device))
 

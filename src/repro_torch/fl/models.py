@@ -1,4 +1,5 @@
-"""The paper's evaluation models (Sec. VI-A): FCN, CNN, LSTM, SVM, logistic.
+"""The paper's evaluation models (Sec. VI-A): FCN, CNN, LSTM, SVM, logistic,
+and the ``lm`` task: a small pre-norm transformer with LoRA adapters.
 
 Counterpart of ``repro.fl.models``.  Each model is a pure function of a
 params tree with the reference's nesting, leaf names and layouts — dense
@@ -8,6 +9,13 @@ the reference's own weights (:func:`params_from_numpy`).
 
 ``init(gen)`` draws from an explicit ``torch.Generator`` on the CPU: the
 reference's distributions, not its bits.
+
+The ``lm`` transformer (tied embeddings, causal attention, next-token
+cross-entropy over ``data/synthetic.lm_corpus`` rows) carries rank-``LM_RANK``
+LoRA factors on its attention and MLP projections; ``split``/``merge``
+expose the frozen-base / trainable-adapter view that the FL executors hop
+instead of the full model (:mod:`repro_torch.fl.adapters`).  It is plain
+tensor code, as the reference's is.
 """
 from __future__ import annotations
 
@@ -24,9 +32,19 @@ from repro_torch.tree import tree_map
 Params = Any
 
 __all__ = ["TaskModel", "build_task_model", "TASK_MODELS",
-           "params_from_numpy", "params_to_numpy"]
+           "params_from_numpy", "params_to_numpy", "LM_VOCAB", "LM_WIDTH",
+           "LM_FF", "LM_LAYERS", "LM_HEADS", "LM_RANK"]
 
-TASK_MODELS = ("logistic", "svm", "fcn", "lstm", "cnn")
+TASK_MODELS = ("logistic", "svm", "fcn", "lstm", "cnn", "lm")
+
+# The small-LM config of the reference: a 2-layer, 64-wide tied-embedding
+# transformer with rank-2 LoRA adapters.
+LM_VOCAB = 128
+LM_WIDTH = 64
+LM_FF = 128
+LM_LAYERS = 2
+LM_HEADS = 2
+LM_RANK = 2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,12 +53,23 @@ class TaskModel:
     init: Callable[[torch.Generator], Params]
     logits: Callable[[Params, torch.Tensor], torch.Tensor]
     loss: Callable[[Params, dict], torch.Tensor]
+    # Frozen-base / trainable-adapter view (repro_torch.fl.adapters):
+    # ``split`` maps params -> (base, adapter), ``merge`` inverts it.
+    # ``None`` means full-params: the view is the identity.
+    split: Callable[[Params], tuple[Params, Params]] | None = None
+    merge: Callable[[Params, Params], Params] | None = None
+    # Task-specific accuracy (next-token accuracy for "lm"); ``None`` means
+    # argmax-class accuracy from ``logits``.
+    accuracy_fn: Callable[[Params, torch.Tensor, torch.Tensor],
+                          torch.Tensor] | None = None
 
     def predict(self, params: Params, x: torch.Tensor) -> torch.Tensor:
         return torch.argmax(self.logits(params, x), dim=-1)
 
     def accuracy(self, params: Params, x: torch.Tensor,
                  y: torch.Tensor) -> torch.Tensor:
+        if self.accuracy_fn is not None:
+            return self.accuracy_fn(params, x, y)
         return (self.predict(params, x) == y).to(torch.float32).mean()
 
 
@@ -161,6 +190,68 @@ def build_task_model(name: str, dim: int = 64, num_classes: int = 10,
                          lambda p, b: _xent(logits(p, b["x"]), b["y"]))
 
     if name == "lm":
-        raise NotImplementedError("task 'lm' (the LoRA transformer and its "
-                                  "adapter hop plane) is ROADMAP item A9")
+        return _lm_task_model()
     raise ValueError(f"unknown task model {name!r}")
+
+
+def _lm_task_model() -> TaskModel:
+    """The ``lm`` task: reference ``repro.fl.models`` (``name == "lm"``)."""
+    v, d, ff = LM_VOCAB, LM_WIDTH, LM_FF
+    nl, nh, r = LM_LAYERS, LM_HEADS, LM_RANK
+    hd = d // nh
+    shapes = (("wq", (d, d)), ("wk", (d, d)), ("wv", (d, d)),
+              ("wo", (d, d)), ("w1", (d, ff)), ("w2", (ff, d)))
+
+    def init(gen):
+        base = {"embed": torch.randn((v, d), generator=gen) * 0.02,
+                "layers": [{n: torch.randn(s, generator=gen) / math.sqrt(s[0])
+                            for n, s in shapes} for _ in range(nl)]}
+        # b zero-init: the adapter starts as an exact zero delta.
+        lora = [{n: {"a": torch.randn((s[0], r), generator=gen)
+                     / math.sqrt(s[0]),
+                     "b": torch.zeros((r, s[1]))}
+                 for n, s in shapes} for _ in range(nl)]
+        return {"base": base, "lora": lora}
+
+    def _rms(h):
+        return h * torch.rsqrt(torch.mean(h * h, dim=-1, keepdim=True) + 1e-6)
+
+    def _proj(h, bl, lo, n):
+        return h @ bl[n] + (h @ lo[n]["a"]) @ lo[n]["b"]
+
+    def logits(p, x):
+        base, lora = p["base"], p["lora"]
+        tok = x.to(torch.int64)
+        b, s = tok.shape
+        h = F.embedding(tok, base["embed"])                      # (B, S, D)
+        mask = torch.tril(torch.ones((s, s), dtype=torch.bool,
+                                     device=h.device))
+        for bl, lo in zip(base["layers"], lora):
+            hn = _rms(h)
+            q = _proj(hn, bl, lo, "wq").reshape(b, s, nh, hd)
+            k = _proj(hn, bl, lo, "wk").reshape(b, s, nh, hd)
+            vv = _proj(hn, bl, lo, "wv").reshape(b, s, nh, hd)
+            att = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(hd)
+            att = torch.softmax(torch.where(mask, att, -torch.inf), dim=-1)
+            o = torch.einsum("bhqk,bkhd->bqhd", att, vv).reshape(b, s, d)
+            h = h + _proj(o, bl, lo, "wo")
+            h = h + _proj(torch.relu(_proj(_rms(h), bl, lo, "w1")),
+                          bl, lo, "w2")
+        return _rms(h) @ base["embed"].T                         # tied head
+
+    def loss(p, batch):
+        tok = batch["x"].to(torch.int64)        # next-token CE; no "y"
+        lg = logits(p, tok[:, :-1])
+        logz = torch.logsumexp(lg, dim=-1)
+        gold = torch.gather(lg, -1, tok[:, 1:, None])[..., 0]
+        return torch.mean(logz - gold)
+
+    def accuracy_fn(p, x, y):
+        tok = x.to(torch.int64)
+        pred = torch.argmax(logits(p, tok[:, :-1]), dim=-1)
+        return (pred == tok[:, 1:]).to(torch.float32).mean()
+
+    return TaskModel("lm", init, logits, loss,
+                     split=lambda p: (p["base"], p["lora"]),
+                     merge=lambda base, lora: {"base": base, "lora": lora},
+                     accuracy_fn=accuracy_fn)

@@ -41,9 +41,18 @@ class RoundContext:
     planner: DiffusionPlanner
     model_bits: float
     param_template: object
+    # Per-hop D2D payload bits when the wire format differs from fp32
+    # params (int8-packed adapter hops, FLConfig.hop_quant); None charges
+    # model_bits.  Up/downlinks always charge model_bits.
+    hop_bits: float | None = None
     # Per-client learning value in [0, 1] (fl/experiment.py's probe), fused
     # into the FedDif bids with FLConfig.uncertainty_weight.
     learning_value: np.ndarray | None = None
+
+    def d2d_bits(self) -> float:
+        """Eq.-15 payload size S of one D2D hop under the active wire
+        format (``repro_torch.fl.adapters.packed_bits`` for int8 hops)."""
+        return self.model_bits if self.hop_bits is None else self.hop_bits
 
 
 def _mean_partition_iid(ctx: RoundContext) -> float:
@@ -104,7 +113,7 @@ def schedule_feddif(ctx: RoundContext) -> RoundSchedule:
     n, m = cfg.num_clients, cfg.num_models
     compress = cfg.strategy == "feddif_stc"
     hop_bits = (compressed_bits(ctx.param_template, cfg.stc_sparsity)
-                if compress else ctx.model_bits)
+                if compress else ctx.d2d_bits())
 
     state = DiffusionState.init(m, n, ctx.dsi.shape[1])
     init_mask = np.zeros(n, dtype=bool)

@@ -12,8 +12,9 @@ stages, as in the reference:
    ops on the client-stacked params on the device.
 
 This slice covers the strategies ``fedavg``, ``feddif``, ``stc`` and
-``feddif_stc`` with the host or the device planner (``planner="jax"``) and
-learning-value bids (``uncertainty_weight > 0``) in the static world.  Every other
+``feddif_stc`` with the host or the device planner (``planner="jax"``),
+learning-value bids (``uncertainty_weight > 0``) and int8-packed hops
+(``hop_quant="int8"``) in the static world.  Every other
 :class:`FLConfig` value raises ``NotImplementedError`` naming the ROADMAP
 item that ports it; nothing falls back to something else.
 """
@@ -33,8 +34,9 @@ from repro_torch.channels.topology import CellTopology
 from repro_torch.core.aggregation import model_bits as model_bits_of
 from repro_torch.core.auction import AuctionConfig
 from repro_torch.core.diffusion import DiffusionPlanner
-from repro_torch.core.schedule import charge_schedule
+from repro_torch.core.schedule import WireEvent, charge_schedule
 from repro_torch.device import resolve_device
+from repro_torch.fl.adapters import packed_bits
 from repro_torch.fl.executors import FleetExecutor
 from repro_torch.fl.schedulers import (SCHEDULERS, RoundContext,
                                        apply_round_churn)
@@ -43,9 +45,11 @@ from repro_torch.tree import tree_map
 Params = Any
 
 __all__ = ["FLConfig", "RunResult", "run_federated", "STRATEGIES",
-           "check_supported", "static_round_draws"]
+           "HOP_QUANTS", "check_supported", "static_round_draws"]
 
 STRATEGIES = tuple(SCHEDULERS)
+#: D2D hop wire formats: fp32 params, or int8 codes + a scale per row-block.
+HOP_QUANTS = ("none", "int8")
 
 
 @dataclasses.dataclass
@@ -102,7 +106,6 @@ _UNPORTED = (
     ("scenario", "static", "A11 (world scenarios)"),
     ("energy_budget_j", None, "A11 (world scenarios)"),
     ("churn_rate", 0.0, "A11 (churn)"),
-    ("hop_quant", "none", "A9 (adapter hop plane, B5/B6)"),
     ("checkpoint_every", 0, "A10 (experiments + durability)"),
     ("metric", "w1_norm", "A15 (Appendix-C metrics)"),
     ("underlay", False, "A15 (underlay planner)"),
@@ -121,6 +124,9 @@ def check_supported(cfg: FLConfig) -> None:
             raise NotImplementedError(
                 f"FLConfig.{field}={getattr(cfg, field)!r} is ROADMAP item "
                 f"{item}; this slice runs {field}={value!r}")
+    if cfg.hop_quant not in HOP_QUANTS:
+        raise ValueError(f"hop_quant={cfg.hop_quant!r}; expected one of "
+                         f"{HOP_QUANTS}")
     if cfg.num_models > cfg.num_clients:
         raise ValueError(
             f"num_models={cfg.num_models} > num_clients={cfg.num_clients}; "
@@ -161,8 +167,8 @@ def run_federated(init_fn: Callable[[torch.Generator], Params],
                   dsi: np.ndarray, data_sizes: np.ndarray,
                   eval_fn: Callable[[Params], tuple[float, float]],
                   cfg: FLConfig, device: str | torch.device | None = None,
-                  value_fn: Callable[[Params], np.ndarray] | None = None
-                  ) -> RunResult:
+                  value_fn: Callable[[Params], np.ndarray] | None = None,
+                  base_bits: float = 0.0) -> RunResult:
     """Run one FL experiment on ``device`` (the CUDA device by default).
 
     ``init_fn`` takes a ``torch.Generator`` seeded with ``cfg.seed`` and
@@ -172,7 +178,9 @@ def run_federated(init_fn: Callable[[torch.Generator], Params],
     — in the reference's order: positions, uplink gains, then the
     scheduler's draws.  ``value_fn`` (params → (N,) learning value in
     [0, 1]) is called once per round when ``cfg.uncertainty_weight > 0``;
-    FedDif fuses its values into the bids."""
+    FedDif fuses its values into the bids.  ``base_bits`` is the size of
+    the frozen base under an adapter view (``fl/adapters.py``): it is
+    charged once, as a round-0 downlink."""
     check_supported(cfg)
     dev = resolve_device(device)
     n = cfg.num_clients
@@ -191,7 +199,12 @@ def run_federated(init_fn: Callable[[torch.Generator], Params],
     gen = torch.Generator().manual_seed(cfg.seed)
     global_params = tree_map(lambda x: x.to(dev), init_fn(gen))
     bits = model_bits_of(global_params, cfg.bits_per_param)
-    auction.model_bits = bits
+    # What one D2D hop moves: the int8-packed wire size under hop_quant,
+    # the fp32 payload otherwise.  The auction prices hops (Eq. 15) at it;
+    # up/downlinks keep charging ``bits``.
+    hop_bits = (packed_bits(global_params) if cfg.hop_quant == "int8"
+                else bits)
+    auction.model_bits = hop_bits
 
     acc_hist, loss_hist, dif_hist, iid_hist = [], [], [], []
     round_wall: list[float] = []
@@ -206,9 +219,14 @@ def run_federated(init_fn: Callable[[torch.Generator], Params],
                            pos=pos, rng=ctrl_rng, up_gamma=up_gamma,
                            topology=topology, channel=channel,
                            planner=planner, model_bits=bits,
-                           param_template=global_params,
+                           param_template=global_params, hop_bits=hop_bits,
                            learning_value=learning_value)
-        schedule = apply_round_churn(ctx, SCHEDULERS[cfg.strategy](ctx))
+        schedule = SCHEDULERS[cfg.strategy](ctx)
+        if t == 0 and base_bits > 0.0:
+            # The frozen base ships once, on the round-0 downlink.
+            schedule.wire.append(WireEvent("downlink", float(base_bits),
+                                           float(np.median(up_gamma)), n))
+        schedule = apply_round_churn(ctx, schedule)
         charge_schedule(ledger, schedule)
         t_exec = time.perf_counter()
         global_params = executor.run_round(schedule, global_params)

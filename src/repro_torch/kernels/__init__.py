@@ -1,6 +1,12 @@
 """Kernels of the port: hand-written CUDA for Hopper beside plain versions.
 
-``ops`` dispatches by device, ``diffusion`` holds the CUDA wrappers and the
-flatten/unflatten pair, ``ref`` the plain PyTorch versions, ``build`` the
-``nvcc`` + ``ctypes`` loader.  No CUDA work happens at import time.
+``ops`` dispatches by device; ``diffusion`` (the FL data plane and the
+device planner's bids, with the flatten/unflatten pair) and ``quant`` (the
+int8 hop wire) hold the CUDA wrappers, ``ref`` the plain PyTorch versions,
+``launch`` the wrappers' checks and launch counters, ``build`` the ``nvcc``
++ ``ctypes`` loader.  No CUDA work happens at import time.
 """
+from repro_torch.kernels.launch import LAUNCHES, reset_launch_counts
+from repro_torch.kernels.quant import QUANT_BLOCK
+
+__all__ = ["LAUNCHES", "reset_launch_counts", "QUANT_BLOCK"]

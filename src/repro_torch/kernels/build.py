@@ -29,7 +29,7 @@ NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 
 SOURCES = {"mix_aggregate": "mix_aggregate.cu", "stc_rows": "stc_rows.cu",
            "dol_bid_scores": "dol_bid_scores.cu",
-           "bid_value_fuse": "bid_value_fuse.cu"}
+           "bid_value_fuse": "bid_value_fuse.cu", "quant": "quant.cu"}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points of each library: name -> argument types (pointers and the
@@ -46,6 +46,9 @@ _SIGNATURES = {
         "repro_dol_bid_scores_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _P]},
     "bid_value_fuse": {
         "repro_bid_value_fuse_f32": [_P, _P, _F, _P, _I, _I, _P]},
+    "quant": {
+        "repro_quant_pack_f32": [_P, _P, _P, _I, _I, _P],
+        "repro_quant_unpack_f32": [_P, _P, _P, _I, _I, _P]},
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

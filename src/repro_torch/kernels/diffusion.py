@@ -27,8 +27,8 @@ CUDA C++ for ``sm_90a`` (``csrc/``), built by ``nvcc`` and bound with
 Every wrapper takes CUDA tensors only, checks them, allocates its outputs
 with ``torch.empty``, launches on PyTorch's current stream, raises if
 ``cudaGetLastError()`` is not 0, and adds one to its entry of
-:data:`LAUNCHES` per launch.  Dispatch by device lives in
-:mod:`repro_torch.kernels.ops`.
+:data:`~repro_torch.kernels.launch.LAUNCHES` per launch (re-exported here).
+Dispatch by device lives in :mod:`repro_torch.kernels.ops`.
 """
 from __future__ import annotations
 
@@ -37,6 +37,8 @@ import math
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.launch import (LAUNCHES, check_tensor, int32,
+                                        raise_on, reset_launch_counts)
 from repro_torch.kernels.ref import stc_rows_threshold
 from repro_torch.tree import tree_flatten, tree_unflatten
 
@@ -44,15 +46,6 @@ __all__ = ["stack_ravel", "stack_unravel", "mix_aggregate_cuda",
            "stc_rows_cuda", "stc_rows_reduce_cuda", "stc_rows_apply_cuda",
            "dol_bid_scores_cuda", "bid_value_fuse_cuda", "LAUNCHES",
            "reset_launch_counts"]
-
-#: Launches of each kernel since the last :func:`reset_launch_counts`.
-LAUNCHES = {"mix_aggregate": 0, "stc_rows_reduce": 0, "stc_rows_apply": 0,
-            "dol_bid_scores": 0, "bid_value_fuse": 0}
-
-
-def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
 
 
 def stack_ravel(params) -> tuple[torch.Tensor, tuple]:
@@ -93,31 +86,10 @@ def stack_unravel(flat: torch.Tensor, spec: tuple, *, collapse: bool = False,
 
 # ----------------------------------------------------------------- wrappers
 
-def _check(t: torch.Tensor, name: str, ndim: int,
-           dtype: torch.dtype = torch.float32) -> None:
-    if t.device.type != "cuda":
-        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
-    if t.dtype != dtype or t.dim() != ndim or not t.is_contiguous():
-        raise ValueError(f"{name} must be a contiguous {ndim}-d {dtype} "
-                         f"tensor, got {t.dtype} {tuple(t.shape)} "
-                         f"contiguous={t.is_contiguous()}")
-
-
-def _int32(v: int, name: str) -> int:
-    if not 0 <= v < 2 ** 31:
-        raise ValueError(f"{name}={v} does not fit the kernel's int32")
-    return v
-
-
-def _raise_on(err: int, kernel: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{kernel} launch failed: cudaError {err}")
-
-
 def mix_aggregate_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``w @ x`` by the hand-written kernel: x (C, F), w (G, C) → (G, F)."""
-    _check(x, "x", 2)
-    _check(w, "w", 2)
+    check_tensor(x, "x", 2)
+    check_tensor(w, "w", 2)
     c, f = x.shape
     g = w.shape[0]
     if w.shape[1] != c or w.device != x.device:
@@ -130,9 +102,9 @@ def mix_aggregate_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.repro_mix_aggregate_f32(
-            x.data_ptr(), w.data_ptr(), out.data_ptr(), _int32(c, "C"),
-            _int32(f, "F"), _int32(g, "G"), stream)
-    _raise_on(err, "mix_aggregate")
+            x.data_ptr(), w.data_ptr(), out.data_ptr(), int32(c, "C"),
+            int32(f, "F"), int32(g, "G"), stream)
+    raise_on(err, "mix_aggregate")
     LAUNCHES["mix_aggregate"] += 1
     return out
 
@@ -141,9 +113,9 @@ def stc_rows_reduce_cuda(x: torch.Tensor, ref_row: torch.Tensor,
                          thr: torch.Tensor
                          ) -> tuple[torch.Tensor, torch.Tensor]:
     """Per row: survivor sum ``Σ|Δ|·1[|Δ| ≥ τ_c]`` and count, (C,) fp32."""
-    _check(x, "x", 2)
-    _check(ref_row, "ref_row", 1)
-    _check(thr, "thr", 1)
+    check_tensor(x, "x", 2)
+    check_tensor(ref_row, "ref_row", 1)
+    check_tensor(thr, "thr", 1)
     c, n = x.shape
     if ref_row.shape[0] != n or thr.shape[0] != c:
         raise ValueError("ref_row / thr do not match x")
@@ -154,8 +126,8 @@ def stc_rows_reduce_cuda(x: torch.Tensor, ref_row: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.repro_stc_rows_reduce_f32(
             x.data_ptr(), ref_row.data_ptr(), thr.data_ptr(), ssum.data_ptr(),
-            cnt.data_ptr(), _int32(c, "C"), _int32(n, "n"), stream)
-    _raise_on(err, "stc_rows_reduce")
+            cnt.data_ptr(), int32(c, "C"), int32(n, "n"), stream)
+    raise_on(err, "stc_rows_reduce")
     LAUNCHES["stc_rows_reduce"] += 1
     return ssum, cnt
 
@@ -165,11 +137,11 @@ def stc_rows_apply_cuda(x: torch.Tensor, ref_row: torch.Tensor,
                         cnt: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Ternarize masked rows at τ_c with ``μ_c = ssum_c / max(cnt_c, 1)``
     and blend; unmasked rows come out bit for bit untouched."""
-    _check(x, "x", 2)
-    _check(ref_row, "ref_row", 1)
+    check_tensor(x, "x", 2)
+    check_tensor(ref_row, "ref_row", 1)
     for t, name in ((thr, "thr"), (ssum, "ssum"), (cnt, "cnt")):
-        _check(t, name, 1)
-    _check(mask, "mask", 1, torch.int32)
+        check_tensor(t, name, 1)
+    check_tensor(mask, "mask", 1, torch.int32)
     c, n = x.shape
     if c > 65535:
         raise ValueError(f"C={c} exceeds the apply kernel's grid")
@@ -179,9 +151,9 @@ def stc_rows_apply_cuda(x: torch.Tensor, ref_row: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.repro_stc_rows_apply_f32(
             x.data_ptr(), ref_row.data_ptr(), thr.data_ptr(), ssum.data_ptr(),
-            cnt.data_ptr(), mask.data_ptr(), out.data_ptr(), _int32(c, "C"),
-            _int32(n, "n"), stream)
-    _raise_on(err, "stc_rows_apply")
+            cnt.data_ptr(), mask.data_ptr(), out.data_ptr(), int32(c, "C"),
+            int32(n, "n"), stream)
+    raise_on(err, "stc_rows_apply")
     LAUNCHES["stc_rows_apply"] += 1
     return out
 
@@ -203,10 +175,10 @@ def dol_bid_scores_cuda(dol: torch.Tensor, chain_size: torch.Tensor,
                         ) -> torch.Tensor:
     """(M, N) candidate IID distances (w1_norm) by the hand-written kernel:
     dol (M, C), chain_size (M,), dsi (N, C), data_size (N,) → (M, N)."""
-    _check(dol, "dol", 2)
-    _check(chain_size, "chain_size", 1)
-    _check(dsi, "dsi", 2)
-    _check(data_size, "data_size", 1)
+    check_tensor(dol, "dol", 2)
+    check_tensor(chain_size, "chain_size", 1)
+    check_tensor(dsi, "dsi", 2)
+    check_tensor(data_size, "data_size", 1)
     m, c = dol.shape
     n = dsi.shape[0]
     if (dsi.shape[1] != c or chain_size.shape[0] != m
@@ -223,9 +195,9 @@ def dol_bid_scores_cuda(dol: torch.Tensor, chain_size: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.repro_dol_bid_scores_f32(
             dol.data_ptr(), chain_size.data_ptr(), dsi.data_ptr(),
-            data_size.data_ptr(), out.data_ptr(), _int32(m, "M"),
-            _int32(n, "N"), _int32(c, "C"), stream)
-    _raise_on(err, "dol_bid_scores")
+            data_size.data_ptr(), out.data_ptr(), int32(m, "M"),
+            int32(n, "N"), int32(c, "C"), stream)
+    raise_on(err, "dol_bid_scores")
     LAUNCHES["dol_bid_scores"] += 1
     return out
 
@@ -234,8 +206,8 @@ def bid_value_fuse_cuda(bids: torch.Tensor, value: torch.Tensor,
                         weight: float) -> torch.Tensor:
     """``bids · (1 + weight · value[None, :])`` by the hand-written kernel:
     bids (M, N), value (N,), a host float weight → (M, N) fp32."""
-    _check(bids, "bids", 2)
-    _check(value, "value", 1)
+    check_tensor(bids, "bids", 2)
+    check_tensor(value, "value", 1)
     m, n = bids.shape
     if value.shape[0] != n or value.device != bids.device:
         raise ValueError(f"value {tuple(value.shape)} does not match bids "
@@ -246,7 +218,7 @@ def bid_value_fuse_cuda(bids: torch.Tensor, value: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.repro_bid_value_fuse_f32(
             bids.data_ptr(), value.data_ptr(), float(weight), out.data_ptr(),
-            _int32(m, "M"), _int32(n, "N"), stream)
-    _raise_on(err, "bid_value_fuse")
+            int32(m, "M"), int32(n, "N"), stream)
+    raise_on(err, "bid_value_fuse")
     LAUNCHES["bid_value_fuse"] += 1
     return out

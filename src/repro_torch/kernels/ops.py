@@ -1,18 +1,19 @@
 """Public kernel ops: dispatch by the tensor's device and nothing else.
 
 A CPU tensor goes to the plain PyTorch version (``kernels/ref.py``); a CUDA
-tensor goes to the hand-written kernel (``kernels/diffusion.py``), or the
-call raises.  There is no override and no fallback.
+tensor goes to the hand-written kernel (``kernels/diffusion.py``,
+``kernels/quant.py``), or the call raises.  There is no override and no fallback.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import diffusion, ref
+from repro_torch.kernels import diffusion, quant, ref
 from repro_torch.kernels.diffusion import stack_ravel, stack_unravel
 
 __all__ = ["mix_aggregate", "mix_aggregate_tree", "stc_topk",
-           "dol_bid_scores", "bid_value_fuse"]
+           "dol_bid_scores", "bid_value_fuse", "quant_pack",
+           "quant_unpack"]
 
 
 def _route(t: torch.Tensor) -> str:
@@ -92,3 +93,22 @@ def bid_value_fuse(bids: torch.Tensor, value: torch.Tensor,
             value.to(device=bids.device, dtype=torch.float32).contiguous(),
             weight)
     return ref.bid_value_fuse_ref(bids, value, weight)
+
+
+def quant_pack(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-row int8 absmax pack — the adapter hop wire format.  x (R, B)
+    fp32 → (q (R, B) int8, scale (R,) fp32); rows are the QUANT_BLOCK
+    row-blocks of a flattened adapter (``fl/adapters.pack_rows``)."""
+    if _route(x) == "cuda":
+        return quant.quant_pack_cuda(x.to(torch.float32).contiguous())
+    return ref.quant_pack_ref(x)
+
+
+def quant_unpack(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`quant_pack`: (q (R, B) int8, scale (R,)) → (R, B)
+    fp32 at the hop destination."""
+    if _route(q) == "cuda":
+        return quant.quant_unpack_cuda(
+            q.contiguous(),
+            scale.to(device=q.device, dtype=torch.float32).contiguous())
+    return ref.quant_unpack_ref(q, scale)

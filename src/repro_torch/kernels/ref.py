@@ -16,7 +16,7 @@ from repro_torch.core.dol import iid_distance_candidates_t
 __all__ = ["mix_aggregate_ref", "stc_compress_ref", "stc_rows_ref",
            "stc_rows_threshold", "stc_rows_reduce_ref", "stc_rows_apply_ref",
            "dol_bid_scores_ref", "dol_bid_scores_fused_ref",
-           "bid_value_fuse_ref"]
+           "bid_value_fuse_ref", "quant_pack_ref", "quant_unpack_ref"]
 
 
 def mix_aggregate_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -144,3 +144,26 @@ def bid_value_fuse_ref(bids: torch.Tensor, value: torch.Tensor,
     same, so it equals this bit for bit)."""
     return bids.to(torch.float32) * (
         1.0 + float(weight) * value.to(torch.float32)[None, :])
+
+
+#: float32(1/127) (bits 0x3c010204) as a Python float: the scale is a
+#: multiply by it, never a division by 127, as in the reference (which keeps
+#: its wire bit for bit).  A float32 tensor times this scalar rounds the
+#: exact product once to float32, on the CPU and on the card.
+_INV127 = torch.tensor(1.0 / 127.0, dtype=torch.float32).item()
+
+
+def quant_pack_ref(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-row int8 absmax pack — the adapter hop wire format.  x (R, B)
+    fp32 → (q (R, B) int8, scale (R,) fp32) with ``scale = max(absmax,
+    1e-12)·f32(1/127)`` and ``q = clip(round_half_even(x/scale), ±127)``;
+    all-zero rows hit the floor and quantize to exact zeros."""
+    x = x.to(torch.float32)
+    scale = torch.clamp(x.abs().amax(dim=1), min=1e-12) * _INV127
+    q = torch.clamp(torch.round(x / scale[:, None]), -127.0, 127.0)
+    return q.to(torch.int8), scale
+
+
+def quant_unpack_ref(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """(q (R, B) int8, scale (R,)) → (R, B) fp32 dequantized payload."""
+    return q.to(torch.float32) * scale.to(torch.float32)[:, None]

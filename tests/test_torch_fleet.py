@@ -78,7 +78,7 @@ def test_own_init_runs_and_learns():
     (dict(strategy="gossip"), "A6"), (dict(strategy="fedswap"), "A6"),
     (dict(executor="host"), "A6"),
     (dict(scenario="mobile"), "A11"), (dict(churn_rate=0.1), "A11"),
-    (dict(hop_quant="int8"), "A9"), (dict(checkpoint_every=2), "A10"),
+    (dict(strategy="tthf"), "A6"), (dict(checkpoint_every=2), "A10"),
     (dict(metric="kld"), "A15"),
     (dict(underlay=True), "A15"), (dict(engine="async"), "A6")])
 def test_unported_config_values_raise(change, item):
@@ -137,8 +137,14 @@ def test_device_planner_with_learning_values_matches_reference(monkeypatch):
 
 
 def test_lm_task_raises():
-    with pytest.raises(NotImplementedError, match="A9"):
-        ExperimentSpec(task="lm")
+    """The lm task constructs and validates; an unknown hop wire format
+    is refused."""
+    spec = ExperimentSpec(task="lm", dim=16, num_samples=64)
+    assert spec.adapter_hops and spec.fl.hop_quant == "none"
+    spec = dataclasses.replace(spec, fl=dataclasses.replace(
+        spec.fl, hop_quant="int4", rounds=1, num_clients=2, num_models=2))
+    with pytest.raises(ValueError, match="hop_quant"):
+        run_experiment(spec, device="cpu")
 
 
 def test_rejects_more_models_than_clients():

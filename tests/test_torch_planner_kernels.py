@@ -48,18 +48,18 @@ def _both(arrays):
             [torch.from_numpy(a) for a in arrays])
 
 
-@pytest.mark.parametrize("m,n,c", [(4, 10, 10), (16, 130, 5), (64, 256, 10)])
+@pytest.mark.parametrize("m,n,c", [
+    (4, 10, 10), (16, 130, 5), (64, 256, 10), (8, 40, 3), (8, 44, 5),
+    (8, 40, 8), (8, 24, 16), (8, 24, 32), (8, 24, 64)])
 def test_dol_bid_scores_plain_versions_match_reference(m, n, c):
     j_in, t_in = _both(_planner_inputs(m, n, c, seed=m + n + c))
     want = np.asarray(jref.dol_bid_scores_ref(*j_in))
     composite = tref.dol_bid_scores_ref(*t_in).numpy()
     fused = tref.dol_bid_scores_fused_ref(*t_in).numpy()
     assert composite.shape == fused.shape == (m, n)
-    # The composite is the reference's own arithmetic.  At C = 10 it gives
-    # its bits (the sum order of the norm is XLA-CPU's there; at C = 5 XLA
-    # rounds each square apart, an ulp away: ROADMAP queue C).
-    if c == 10:
-        np.testing.assert_array_equal(composite, want)
+    # The composite is the reference's own arithmetic, with the norm summed
+    # in XLA-CPU's order for each class count: it gives the reference's bits.
+    np.testing.assert_array_equal(composite, want)
     # Both twins against every reference form at the reference's bar.
     np.testing.assert_allclose(composite, want, atol=2e-5, rtol=0)
     for other in (want, np.asarray(dol_bid_scores_xla_fused(*j_in)),
