@@ -45,7 +45,26 @@ nothing of JAX.  Phases, each of which fails loudly:
    decrement within 1e-6 relative);
 5. a measurement, not a check: one FedDif round with each planner, and
    one of the lm int8 arm, under ``torch.profiler`` (device busy time,
-   idle share, kernel count, top kernels).
+   idle share, kernel count, top kernels);
+6. the LM zoo's prefill forward at the published widths: flash_attention,
+   ssm_scan and ssd_scan against their plain versions on the card (at the
+   zoo's shapes and a few more: bf16 and fp32, a window, Sq < Sk, D = 80,
+   a ragged chunk, a ragged channel block), with attention held per
+   element against its row's scale and normwise, and a planted fault (one
+   kv tile dropped for the rows past S/2) that the attention bars must
+   reject; then ``make_prefill_step`` of qwen3_0_6b (28 layers, B = 2,
+   S = 4096), zamba2_2_7b (54 mamba2 + 9 shared attention, B = 1,
+   S = 4096) and falcon_mamba_7b (64 mamba1 layers, B = 1, S = 4096) from
+   random params drawn on the card, one after another, under
+   ``torch.inference_mode()``: loss finite, prefill tokens/s, peak memory,
+   and each kernel launched exactly once per layer that runs it; a 2-layer
+   cut of each config at B = 1, S = 256 on the card against the CPU (plain
+   versions) from one init, in bf16 and in fp32 compute, loss and final
+   hidden states within bars set from readings, and the same cut with the
+   family's kernel output one step late (and in fp32 also with its
+   sequence halves run apart, a kernel that loses its context at S/2),
+   which those bars must reject; one qwen3 prefill under
+   ``torch.profiler``.
 
 Then one ``{"kernels": [...]}`` line, the card line, and as the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -53,7 +72,9 @@ repository around it, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import itertools
 import json
+import math
 import subprocess
 import sys
 import time
@@ -98,6 +119,48 @@ LM_SMALL_FL = dict(strategy="feddif", rounds=2, num_clients=4, num_models=4,
                    hop_quant="int8")
 LM_ACC_GAP = 0.02            # int8 vs fp32 adapter arm, peak accuracy
 HOP_RATIO_GATE = 50.0        # full-f32 hop / int8 adapter hop
+# Phase 6, the LM zoo's prefill: (arch, batch, sequence, launches of each
+# kernel per forward).  4096 is SHAPES["train_4k"]'s sequence.  The batch
+# is small so that the plain versions in the kernel checks, at the same
+# shapes, stay small (flash_attention_ref holds fp32 (B, H, S, S) scores).
+ZOO_RUNS = (("qwen3_0_6b", 2, 4096, {"flash_attention": 28}),
+            ("zamba2_2_7b", 1, 4096, {"ssd_scan_cb": 54, "ssd_scan": 54,
+                                      "flash_attention": 9}),
+            ("falcon_mamba_7b", 1, 4096, {"ssm_scan": 64}))
+# The card-vs-CPU cuts: 2 layers of each full-width config (zamba2's with
+# attn_period 2, so the cut keeps the shared attention block), B=1, S=256.
+ZOO_CUTS = (("qwen3_0_6b", {}), ("zamba2_2_7b", {"attn_period": 2}),
+            ("falcon_mamba_7b", {}))
+ZOO_CUT_SEQ = 256
+# Card against CPU on the cuts, by compute dtype: the prefill loss within
+# loss_abs, the final hidden states within hidden_rel_l2 normwise
+# (‖card − cpu‖₂ / ‖cpu‖₂) and hidden_max_abs at any element.  Set from
+# readings on an H100 (PERF.md §6).  bf16: losses within 8.1e-4,
+# hidden states within 9.8e-3 normwise and 0.0625 at |h| ≈ 4.5 (two bf16
+# ulps there).  fp32: losses within 3.4e-5, hidden states within 4.4e-6
+# normwise and 7.1e-5 at an element; the controls' smallest normwise
+# error there was 3.7e-3.  CONTROLS_REJECTED names the controls each
+# dtype's bars must reject.
+ZOO_BARS = {"bfloat16": {"loss_abs": 3e-3, "hidden_rel_l2": 2e-2,
+                         "hidden_max_abs": 0.1},
+            "float32": {"loss_abs": 1e-4, "hidden_rel_l2": 1e-4,
+                        "hidden_max_abs": 1e-3}}
+CONTROLS_REJECTED = {"bfloat16": ("one_step_late",),
+                     "float32": ("one_step_late", "halves_apart")}
+# The op each cut's control runs wrongly (its two sequence halves apart).
+ZOO_CONTROL_OP = {"qwen3_0_6b": "flash_attention", "zamba2_2_7b": "ssd_scan",
+                  "falcon_mamba_7b": "ssm_scan"}
+# flash_attention's bars by input type: (rel, rel_row, rel_l2).  An element
+# passes when |out − plain| ≤ rel·|plain| + rel_row·rms(its row of D
+# plain values), the whole output when ‖out − plain‖₂ ≤ rel_l2·‖plain‖₂.
+# bf16: rel is one bf16 ulp at worst (kernel and plain both round an fp32
+# result to bf16); the kernel also rounds P to bf16 before P·V (unit
+# roundoff 2⁻⁸ per weight), an error of std ≈ 2⁻⁸/√3·rms(row) whose
+# maximum over 10⁷ elements is ≈ 0.012·rms(row), under rel_row = 2⁻⁵.
+# fp32: the same softmax summed in another order.
+ATTN_BARS = {"bfloat16": (2.0 ** -7, 2.0 ** -5, 1e-2),
+             "float32": (2e-5, 4e-5, 1e-5)}
+BF16_FLOPS_PER_S = 989e12    # H100 SXM dense bf16 tensor-core peak
 
 
 def _fail(msg: str) -> None:
@@ -158,27 +221,30 @@ def _device_ms(torch, fn, inner: int = 20, reps: int = 10):
         return None, f"{type(exc).__name__}: {exc}"
 
 
-def _timings(torch, kernel, plain, library=None) -> dict:
-    """Device ms (CUDA graph) of the kernel, its plain version and the
-    library call, plus host-inclusive ms per wrapper call (CUDA events
-    around back-to-back calls)."""
+def _timings(torch, kernel, plain, library=None, *, inner: int = 20,
+             reps: int = 10, iters: int = 200) -> dict:
+    """Device ms (CUDA graph of ``inner`` calls, replayed ``reps`` times)
+    of the kernel, its plain version and the library call, plus
+    host-inclusive ms per wrapper call (CUDA events around ``iters``
+    back-to-back calls).  Heavy shapes pass smaller counts."""
     out = {}
     for key, fn in (("ms", kernel), ("plain_ms", plain),
                     ("library_ms", library)):
         if fn is None:
             out[key] = None
             continue
-        out[key], err = _device_ms(torch, fn)
+        out[key], err = _device_ms(torch, fn, inner, reps)
         if err is not None:
             out[key.replace("ms", "device_error")] = err
-    out["call_ms"] = _time_ms(torch, kernel)
-    out["plain_call_ms"] = _time_ms(torch, plain)
+    out["call_ms"] = _time_ms(torch, kernel, iters, min(10, iters))
+    out["plain_call_ms"] = _time_ms(torch, plain, iters, min(10, iters))
     return out
 
 
-def _bound(nbytes: float, flops: float) -> tuple[float, str]:
+def _bound(nbytes: float, flops: float,
+           flops_per_s: float = FP32_FLOPS_PER_S) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    t_ops = flops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -797,39 +863,417 @@ def profile_round(torch, port, planner: str = "host",
                                  ProfilerActivity.CUDA]) as prof:
             res = port.run_experiment(spec)
             torch.cuda.synchronize()
-        kernels = [e for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
-        spans = sorted((e.time_range.start, e.time_range.end)
-                       for e in kernels)
-        busy_us, cur_s, cur_e = 0.0, None, None
-        for a, b in spans:
-            if cur_e is None or a > cur_e:
-                if cur_e is not None:
-                    busy_us += cur_e - cur_s
-                cur_s, cur_e = a, b
-            else:
-                cur_e = max(cur_e, b)
-        if cur_e is not None:
-            busy_us += cur_e - cur_s
-        by_name: dict = {}
-        for e in kernels:
-            by_name[e.name] = by_name.get(e.name, 0.0) + (
-                e.time_range.end - e.time_range.start)
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-        run_s = spans[-1][1] / 1e6 - spans[0][0] / 1e6 if spans else None
         print(json.dumps({
             "profile": label,
             "planner_s": res.planner_stats["seconds"],
             "round_wall_s_profiled": res.round_wall_s[0],
-            "device_busy_s": busy_us / 1e6,
+            **_trace_summary(torch, prof)}))
+    except Exception as exc:            # noqa: BLE001 — reported, not hidden
+        print(json.dumps({"profile": "not measured",
+                          "error": f"{type(exc).__name__}: {exc}"}))
+
+
+def _trace_summary(torch, prof) -> dict:
+    """Device busy time (the union of kernel intervals), the span from the
+    first to the last kernel, the idle share of that span, the kernel count
+    and the kernels with the most device time, from a torch.profiler run."""
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy_us, cur_s, cur_e = 0.0, None, None
+    for a, b in spans:
+        if cur_e is None or a > cur_e:
+            if cur_e is not None:
+                busy_us += cur_e - cur_s
+            cur_s, cur_e = a, b
+        else:
+            cur_e = max(cur_e, b)
+    if cur_e is not None:
+        busy_us += cur_e - cur_s
+    by_name: dict = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + (
+            e.time_range.end - e.time_range.start)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    run_s = spans[-1][1] / 1e6 - spans[0][0] / 1e6 if spans else None
+    return {"device_busy_s": busy_us / 1e6,
             "first_to_last_kernel_s": run_s,
             "device_idle_share_of_span": (None if not run_s
                                           else 1.0 - busy_us / 1e6 / run_s),
             "kernel_launches": len(kernels),
-            "top_kernels_us": [[n[:80], t] for n, t in top]}))
-    except Exception as exc:            # noqa: BLE001 — reported, not hidden
-        print(json.dumps({"profile": "not measured",
-                          "error": f"{type(exc).__name__}: {exc}"}))
+            "top_kernels_us": [[n[:80], t] for n, t in top]}
+
+
+def _visible_pairs(sq: int, sk: int, causal: bool, window) -> int:
+    """(query, key) pairs the attention mask lets through, per (b, h):
+    q right-aligned to the end of the keys."""
+    total = 0
+    for i in range(sq):
+        q_pos = i + sk - sq
+        hi = min(sk, q_pos + 1) if causal else sk
+        lo = max(0, q_pos - window + 1) if window else 0
+        total += max(0, hi - lo)
+    return total
+
+
+def _ssd_flops(b, s, h, p, n, chunk) -> float:
+    """Operations of the chunked SSD form on this shape: the lower triangle
+    of C·Bᵀ per chunk and batch row, the masked (L, L) product with X, the
+    carried state's contribution and the state update (2 flops per FMA)."""
+    flops = 0.0
+    for t0 in range(0, s, chunk):
+        lv = min(chunk, s - t0)
+        tri = lv * (lv + 1) / 2
+        flops += 2.0 * b * (n * tri + h * p * tri + 2 * h * p * n * lv)
+    return flops
+
+
+def _attn_err(torch, out, plain, dt: str) -> dict:
+    """flash_attention's output against its plain version under
+    ATTN_BARS[dt]: the max abs error, the largest ratio of an element's
+    error to its bar, and the normwise relative error."""
+    rel, rel_row, rel_l2 = ATTN_BARS[dt]
+    o, p = out.float(), plain.float()
+    err = (o - p).abs()
+    bar = rel * p.abs() + rel_row * p.pow(2).mean(-1, keepdim=True).sqrt()
+    ratio = float(torch.where(err > 0, err / bar.clamp_min(1e-30), 0.0).max())
+    l2 = float(torch.linalg.vector_norm(o - p)
+               / torch.linalg.vector_norm(p).clamp_min(1e-30))
+    return {"max_abs_err": float(err.max()), "bar_ratio": ratio,
+            "rel_l2_err": l2, "bars": [rel, rel_row, rel_l2],
+            "ok": ratio <= 1.0 and l2 <= rel_l2}
+
+
+def _attention_tile_dropped(torch, q, k, v, tile: int = 64):
+    """Causal attention as the plain version computes it, except that keys
+    [Sk/4, Sk/4 + tile) are hidden from the queries past Sq/2: what a kernel
+    that skipped one kv tile for those rows would return."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / d ** 0.5
+    rows = torch.arange(sq, device=q.device)[:, None]
+    k_pos = torch.arange(sk, device=q.device)[None, :]
+    dropped = (rows >= sq // 2) & (k_pos >= sk // 4) & (k_pos < sk // 4 + tile)
+    s = s.masked_fill(~(k_pos <= rows + (sk - sq)) | dropped, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    del s
+    return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
+
+
+def check_lm_kernels(torch, kref) -> list[dict]:
+    """Phase 6a: the zoo's kernels against their plain versions on the card,
+    at the prefill runs' shapes, the card-vs-CPU cuts' shapes and a few
+    more.  flash_attention is held per element against its row's scale and
+    normwise (ATTN_BARS), and at the two prefill shapes a planted fault
+    (one kv tile dropped for the rows past S/2) must fail those bars.
+    Tolerances of the scans: ssm_scan 1e-6·(1 + max|plain|) (it rounds as
+    the plain version does, so it is expected bit-exact); ssd_scan
+    5e-5·(1 + max|plain|) (fp32, sums and the cumulative decay in another
+    order; the plain version is within 3.2e-6·(1 + max|y|) of float64 at
+    S = 4096 on the CPU)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.ssd_scan import ssd_scan_cuda
+    from repro_torch.kernels.ssm_scan import ssm_scan_cuda
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rows = []
+
+    def record(row):
+        print(json.dumps(row))
+        if not row["ok"]:
+            _fail(f"{row['name']} {row['shape']} disagrees with its plain "
+                  f"version beyond its bars: {json.dumps(row)}")
+        control = row.get("control_tile_dropped")
+        if control is not None and control["ok"]:
+            _fail(f"{row['name']} {row['shape']}: the bars did not reject "
+                  f"a dropped kv tile: {json.dumps(control)}")
+        rows.append(row)
+
+    heavy = dict(inner=5, reps=4, iters=10)
+    light = dict(inner=10, reps=5, iters=20)
+    # flash_attention: (B, Sq, Sk, H, D, causal, window, dtype).  The bf16
+    # qwen3 prefill shape comes first: it is the summary row.  The two
+    # prefill shapes also run the planted-fault control.
+    for b, sq, sk, h, d, causal, window, dt in (
+            (2, 4096, 4096, 16, 128, True, None, "bfloat16"),  # qwen3
+            (1, 4096, 4096, 32, 80, True, None, "bfloat16"),   # zamba2
+            (1, 256, 256, 16, 128, True, None, "bfloat16"),    # qwen3 cut
+            (1, 256, 256, 32, 80, True, None, "bfloat16"),     # zamba2 cut
+            (2, 4096, 4096, 16, 128, True, None, "float32"),
+            (1, 1024, 1024, 8, 64, True, 256, "bfloat16"),     # window
+            (1, 512, 2048, 8, 80, True, None, "float32"),      # Sq < Sk
+            (1, 300, 1000, 4, 64, True, 128, "bfloat16"),      # both, ragged
+            (2, 200, 200, 2, 32, False, None, "float32"),      # non-causal
+            (1, 200, 700, 4, 80, True, None, "bfloat16"),      # Sq < Sk, D=80
+            (2, 100, 100, 2, 128, False, None, "bfloat16")):   # non-causal
+        dtype = getattr(torch, dt)
+        q = torch.randn((b, sq, h, d), generator=gen, device="cuda").to(dtype)
+        k = torch.randn((b, sk, h, d), generator=gen, device="cuda").to(dtype)
+        v = torch.randn((b, sk, h, d), generator=gen, device="cuda").to(dtype)
+        kw = dict(causal=causal, window=window)
+        out = flash_attention_cuda(q, k, v, **kw)
+        plain = kref.flash_attention_ref(q, k, v, **kw)
+        torch.cuda.synchronize()
+        check = _attn_err(torch, out, plain, dt)
+        if sq == 4096 and dt == "bfloat16":
+            check["control_tile_dropped"] = _attn_err(
+                torch, _attention_tile_dropped(torch, q, k, v), plain, dt)
+        pairs = b * h * _visible_pairs(sq, sk, causal, window)
+        bound, by = _bound(q.element_size() * 2.0 * h * d * b * (sq + sk),
+                           4.0 * d * pairs,
+                           BF16_FLOPS_PER_S if dt == "bfloat16"
+                           else FP32_FLOPS_PER_S)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        if window is None and (sq == sk or not causal):
+            mask = None
+        else:
+            q_pos = torch.arange(sq, device="cuda")[:, None] + (sk - sq)
+            k_pos = torch.arange(sk, device="cuda")[None, :]
+            mask = k_pos <= q_pos
+            if window is not None:
+                mask &= k_pos > q_pos - window
+        sizes = heavy if sq * sk >= 2 ** 20 else light
+        record({"name": "flash_attention", "shape": [b, sq, sk, h, d],
+                "dtype": dt, "causal": causal, "window": window, **check,
+                **_timings(torch,
+                           lambda: flash_attention_cuda(q, k, v, **kw),
+                           lambda: kref.flash_attention_ref(q, k, v, **kw),
+                           lambda: F.scaled_dot_product_attention(
+                               qt, kt, vt, attn_mask=mask,
+                               is_causal=causal and mask is None),
+                           **sizes),
+                "bound_ms": bound, "bound_by": by, "flops": 4.0 * d * pairs})
+
+    # ssm_scan: falcon's prefill (1, 4096, 8192, 16), its cut, and D·N not
+    # a multiple of the 256-thread block.  da in (0, 1) as exp(Δ·A) is.
+    for b, s, d, n in ((1, 4096, 8192, 16), (1, 256, 8192, 16),
+                       (2, 100, 1000, 16), (1, 37, 3, 5)):
+        da = torch.exp(-torch.rand((b, s, d, n), generator=gen,
+                                   device="cuda"))
+        dbx = 0.1 * torch.randn((b, s, d, n), generator=gen, device="cuda")
+        out = ssm_scan_cuda(da, dbx)
+        plain = kref.ssm_scan_ref(da, dbx)
+        torch.cuda.synchronize()
+        err = float((out - plain).abs().max())
+        tol = 1e-6 * (1.0 + float(plain.abs().max()))
+        bound, by = _bound(12.0 * b * s * d * n, 2.0 * b * s * d * n)
+        record({"name": "ssm_scan", "shape": [b, s, d, n],
+                "max_abs_err": err, "tol": tol, "ok": err <= tol,
+                "bit_exact": bool(torch.equal(out, plain)),
+                **_timings(torch, lambda: ssm_scan_cuda(da, dbx),
+                           lambda: kref.ssm_scan_ref(da, dbx),
+                           **(dict(inner=2, reps=2, iters=3) if s > 1000
+                              else light)),
+                "bound_ms": bound, "bound_by": by})
+
+    # ssd_scan: zamba2's prefill (B, S, H, P, N, chunk) = (1, 4096, 80, 64,
+    # 64, 128), its cut, S not a multiple of the chunk, and P not a multiple
+    # of the 16-row tile.  Inputs shaped as the model's streams: Δ =
+    # softplus(·), a = −Δ·A with A in [1, 16] by head, x scaled by Δ.
+    for b, s, h, p, n, chunk in ((1, 4096, 80, 64, 64, 128),
+                                 (1, 256, 80, 64, 64, 128),
+                                 (1, 1000, 8, 64, 64, 128),
+                                 (2, 300, 3, 20, 16, 64)):
+        dt_ = F.softplus(0.5 * torch.randn((b, s, h), generator=gen,
+                                           device="cuda") - 1.0)
+        a = -dt_ * torch.exp(torch.linspace(0.0, 2.772588722, h,
+                                            device="cuda"))
+        xh = torch.randn((b, s, h, p), generator=gen,
+                         device="cuda") * dt_[..., None]
+        bm = F.silu(torch.randn((b, s, n), generator=gen, device="cuda"))
+        cm = F.silu(torch.randn((b, s, n), generator=gen, device="cuda"))
+        out = ssd_scan_cuda(xh, a, bm, cm, chunk=chunk)
+        plain = kref.ssd_scan_ref(xh, a, bm, cm, chunk)
+        torch.cuda.synchronize()
+        err = float((out - plain).abs().max())
+        tol = 5e-5 * (1.0 + float(plain.abs().max()))
+        bound, by = _bound(4.0 * (2 * b * s * h * p + b * s * h
+                                  + 2 * b * s * n),
+                           _ssd_flops(b, s, h, p, n, chunk))
+        record({"name": "ssd_scan", "shape": [b, s, h, p, n, chunk],
+                "max_abs_err": err, "tol": tol, "ok": err <= tol,
+                **_timings(torch,
+                           lambda: ssd_scan_cuda(xh, a, bm, cm, chunk=chunk),
+                           lambda: kref.ssd_scan_ref(xh, a, bm, cm, chunk),
+                           **(heavy if s >= 1000 else light)),
+                "bound_ms": bound, "bound_by": by})
+    return rows
+
+
+def zoo_prefill(torch, kd) -> dict:
+    """Phase 6b: ``make_prefill_step`` of each full-width config on the
+    card, from random params drawn there, under inference_mode.  One
+    untimed forward first (cuBLAS handles, first launches), then the
+    counters are zeroed, one forward is timed on the host clock (ending in
+    a synchronize), and the counters are read: each kernel must have
+    launched once per layer that runs it.  The qwen3 run is then profiled.
+    Each model is freed before the next."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.models.zoo import build_model
+    from repro_torch.train.trainstep import make_prefill_step
+    from repro_torch.tree import tree_leaves
+    from torch.profiler import ProfilerActivity, profile
+    launches = {name: 0 for name in kd.LAUNCHES}
+    for arch, b, s, want in ZOO_RUNS:
+        cfg = get_config(arch)
+        model = build_model(cfg)
+        step = make_prefill_step(model)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            params = model.init(gen)
+            torch.cuda.synchronize()
+            init_s = time.perf_counter() - t0
+            batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s),
+                                             generator=gen, device="cuda")}
+            step(params, batch)
+            torch.cuda.synchronize()
+            kd.reset_launch_counts()
+            t0 = time.perf_counter()
+            loss = float(step(params, batch))
+            wall = time.perf_counter() - t0
+            counts = {k: v for k, v in kd.LAUNCHES.items() if v}
+            peak = torch.cuda.max_memory_allocated()
+            n_params = sum(x.numel() for x in tree_leaves(params))
+            print(json.dumps({
+                "run": f"prefill {arch}", "layers": cfg.num_layers,
+                "batch": b, "seq": s, "train_4k_seq":
+                    SHAPES["train_4k"].seq_len, "params": n_params,
+                "compute_dtype": cfg.compute_dtype, "loss": loss,
+                "prefill_s": wall, "tokens_per_s": b * s / wall,
+                "init_s": init_s, "peak_memory_gb": peak / 2 ** 30,
+                "launches": counts, "want_launches": want}))
+            if not math.isfinite(loss):
+                _fail(f"prefill {arch}: loss {loss} is not finite")
+            if counts != want:
+                _fail(f"prefill {arch}: launches {counts}, want {want}")
+            for k, v in counts.items():
+                launches[k] += v
+            if arch == "qwen3_0_6b":
+                try:
+                    with profile(activities=[ProfilerActivity.CPU,
+                                             ProfilerActivity.CUDA]) as prof:
+                        t0 = time.perf_counter()
+                        step(params, batch)
+                        torch.cuda.synchronize()
+                        wall = time.perf_counter() - t0
+                    print(json.dumps({
+                        "profile": f"prefill {arch} B={b} S={s}",
+                        "prefill_s_profiled": wall,
+                        **_trace_summary(torch, prof)}))
+                except Exception as exc:    # noqa: BLE001 — reported
+                    print(json.dumps({"profile": "not measured",
+                                      "error": f"{type(exc).__name__}: "
+                                               f"{exc}"}))
+        del params, batch
+        torch.cuda.empty_cache()
+    return launches
+
+
+def _one_step_late(torch, op):
+    """A wrong variant of a sequence op (output sequence on axis 1): its
+    output one position late, zeros at the first, as an off-by-one in a
+    kernel's position index would give."""
+    def wrong(*args, **kw):
+        out = op(*args, **kw)
+        return torch.cat([torch.zeros_like(out[:, :1]), out[:, :-1]], dim=1)
+    return wrong
+
+
+def _halves_apart(torch, op):
+    """A wrong variant of a sequence op (every argument has the sequence on
+    axis 1): the two halves of the sequence run apart, so the second half
+    loses the first half's context, as a kernel that dropped its carried
+    state or its earlier kv tiles at S/2 would."""
+    def wrong(*args, **kw):
+        m = args[0].shape[1] // 2
+        return torch.cat([op(*(x[:, :m].contiguous() for x in args), **kw),
+                          op(*(x[:, m:].contiguous() for x in args), **kw)],
+                         dim=1)
+    return wrong
+
+
+def _hidden_check(got, want, bars: dict) -> dict:
+    """A run's (final hidden states, loss) against the CPU's under one
+    entry of ZOO_BARS."""
+    (h, loss), (h_ref, loss_ref) = got, want
+    err = (h - h_ref).abs()
+    rel_l2 = float((h - h_ref).norm() / h_ref.norm())
+    loss_err = abs(loss - loss_ref)
+    return {"loss_abs_err": loss_err, "hidden_rel_l2_err": rel_l2,
+            "hidden_max_abs_err": float(err.max()),
+            "hidden_mean_abs_err": float(err.mean()),
+            "ok": (loss_err <= bars["loss_abs"]
+                   and rel_l2 <= bars["hidden_rel_l2"]
+                   and float(err.max()) <= bars["hidden_max_abs"])}
+
+
+def zoo_card_vs_cpu(torch) -> None:
+    """Phase 6c: a 2-layer cut of each full-width config (B = 1, S = 256)
+    on the card (its kernels) against the CPU (plain versions), from one
+    init drawn on the card, in the config's bf16 compute and in fp32
+    compute (where card and CPU differ only by fp32 sum orders): the
+    prefill loss and the final hidden states within ZOO_BARS.  Then two
+    controls on the card with the family's kernel op (ZOO_CONTROL_OP)
+    swapped for a wrong variant: its output one step late, and its
+    sequence halves run apart.  The bars must reject the controls named in
+    CONTROLS_REJECTED; the others' readings are printed (in bf16 a Mamba
+    state dropped at S/2 fades within a few steps, below the bf16 noise of
+    the final hidden states)."""
+    import dataclasses
+    from unittest import mock
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.zoo import build_model
+    from repro_torch.train.trainstep import make_prefill_step
+    from repro_torch.tree import tree_map
+    for (arch, extra), dtype in itertools.product(ZOO_CUTS, ZOO_BARS):
+        cfg = dataclasses.replace(get_config(arch), num_layers=2,
+                                  compute_dtype=dtype, **extra)
+        model = build_model(cfg)
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        op = ZOO_CONTROL_OP[arch]
+        out = {}
+        with torch.inference_mode():
+            params = model.init(gen)
+            tokens = torch.randint(0, cfg.vocab_size, (1, ZOO_CUT_SEQ),
+                                   generator=gen, device="cuda")
+            variants = {"card": getattr(ops, op), "cpu": getattr(ops, op),
+                        "one_step_late": _one_step_late(torch, getattr(ops, op)),
+                        "halves_apart": _halves_apart(torch, getattr(ops, op))}
+            for where, variant in variants.items():
+                p = params if where != "cpu" else tree_map(
+                    lambda x: x.cpu(), params)
+                t = tokens if where != "cpu" else tokens.cpu()
+                batch = {"tokens": t, "labels": torch.roll(t, -1, dims=1)}
+                with mock.patch.object(ops, op, variant):
+                    x = tf._embed_inputs(p, cfg, batch)
+                    pos = torch.arange(ZOO_CUT_SEQ, device=t.device)[None]
+                    hidden, _ = tf.forward_hidden(p, cfg, x, pos)
+                    loss = float(make_prefill_step(model)(p, batch))
+                out[where] = (hidden.float().cpu(), loss)
+        bars = ZOO_BARS[dtype]
+        check = _hidden_check(out["card"], out["cpu"], bars)
+        controls = {name: {**_hidden_check(out[name], out["cpu"], bars),
+                           "must_fail": name in CONTROLS_REJECTED[dtype]}
+                    for name in ("one_step_late", "halves_apart")}
+        print(json.dumps({
+            "check": f"card_vs_cpu prefill {arch} 2-layer cut {dtype}",
+            "plan": [[list(k), c] for k, c in tf.build_plan(cfg)],
+            "loss": [out["card"][1], out["cpu"][1]], "bars": bars,
+            **check, "control_op": op, "controls": controls}))
+        if not check["ok"]:
+            _fail(f"card_vs_cpu prefill {arch} {dtype}: card and CPU "
+                  f"disagree")
+        for name, c in controls.items():
+            if c["must_fail"] and c["ok"]:
+                _fail(f"card_vs_cpu prefill {arch} {dtype}: the bars did "
+                      f"not reject the control {name} of {op}")
+        del params
+        torch.cuda.empty_cache()
 
 
 def main() -> None:
@@ -872,6 +1316,10 @@ def main() -> None:
     profile_round(torch, port)
     profile_round(torch, port, "jax", VALUE_WEIGHT)
     profile_round(torch, port, lm_int8=True)
+    rows += check_lm_kernels(torch, kref)
+    for k, v in zoo_prefill(torch, kd).items():
+        launches[k] += v
+    zoo_card_vs_cpu(torch)
 
     replaces = {
         "mix_aggregate": ("mix_aggregate.cu",
@@ -886,22 +1334,35 @@ def main() -> None:
                            "src/repro/kernels/diffusion.py:377"),
         "quant_pack": ("quant.cu", "src/repro/kernels/quant.py:32"),
         "quant_unpack": ("quant.cu", "src/repro/kernels/quant.py:43"),
+        "flash_attention": ("flash_attention.cu",
+                            "src/repro/kernels/flash_attention.py:33"),
+        "ssd_scan": ("ssd_scan.cu", "src/repro/kernels/ssd_scan.py:53"),
+        "ssm_scan": ("ssm_scan.cu", "src/repro/kernels/ssm_scan.py:29"),
     }
     # The summary row of each kernel is its main-path shape: the (8, 26122)
     # Eq.-11 row of the fcn fleet, the largest fcn leaf (8, 16384), the
     # device planner's (8, 8) bids over 10 classes in the quickstart cell,
-    # and the lm adapter's (8·7, 512) int8 block in the lm_hops cell.
+    # the lm adapter's (8·7, 512) int8 block in the lm_hops cell, and the
+    # zoo's prefill shapes: qwen3's bf16 attention (B, Sq, Sk, H, D),
+    # zamba2's SSD (B, S, H, P, N, chunk) and falcon's scan (B, S, D, N).
     main_shape = {"mix_aggregate": [8, 26122, 1],
                   "stc_rows_reduce": [8, 16384], "stc_rows_apply": [8, 16384],
                   "dol_bid_scores": [8, 8, NUM_CLASSES],
                   "bid_value_fuse": [8, 8], "quant_pack": [56, 512],
-                  "quant_unpack": [56, 512]}
+                  "quant_unpack": [56, 512],
+                  "flash_attention": [2, 4096, 4096, 16, 128],
+                  "ssd_scan": [1, 4096, 80, 64, 64, 128],
+                  "ssm_scan": [1, 4096, 8192, 16]}
+    # Kernels that another kernel's wrapper launches in the same call: their
+    # launches stand in that kernel's row, whose times cover both.
+    helpers = {"ssd_scan": ("ssd_scan_cb",)}
     summary = []
     for name, (src, rep) in replaces.items():
         row = next(r for r in rows
                    if r["name"] == name and r["shape"] == main_shape[name])
-        if launches[name] == 0:
-            _fail(f"{name} was never launched on the main path")
+        for k in (name, *helpers.get(name, ())):
+            if launches[k] == 0:
+                _fail(f"{k} was never launched on the main path")
         summary.append({
             "name": name, "route": "cuda",
             "source": f"{KERNEL_SOURCE}/{src}", "replaces": rep,
@@ -909,6 +1370,8 @@ def main() -> None:
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "shape": row["shape"],
+            **({"helper_launches": {k: launches[k] for k in helpers[name]}}
+               if name in helpers else {}),
             "ok": all(r["ok"] for r in rows if r["name"] == name)})
     print(json.dumps({"kernels": summary}))
     print(card)

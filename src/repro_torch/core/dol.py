@@ -58,7 +58,9 @@ def update_dol(dol: np.ndarray, chain_size, dsi: np.ndarray, data_size
 #   length > 1, and in the vector body the squares are rounded before the
 #   sequential add; the scalar remainder contracts each step to
 #   ``fma(x, x, acc)``.  :func:`_vector_body` gives the body's length, as
-#   measured on x86-64 with AVX-512 (ROADMAP C1 lists what it misses);
+#   measured on x86-64 with AVX-512; at C = 5 with an inner kept axis of
+#   length 2 behind an outer one the loop runs over the classes instead
+#   (:func:`_class_vector_body`);
 # * otherwise a sequential fused multiply-add over the class axis.
 _WINDOW = 32
 # Below this inner-axis length the vectorizer adds a 4-wide epilogue to its
@@ -74,6 +76,14 @@ def _vector_body(k: int, c: int) -> int:
     if k % 8 >= 4 and k < _EPILOGUE4_BELOW[c]:
         return k // 4 * 4
     return k // 8 * 8
+
+
+def _class_vector_body(kept: list[int], c: int) -> bool:
+    """True where XLA-CPU vectorizes over the class axis instead: C = 5 with
+    an inner kept axis of length 2 behind an outer one.  A 4-wide body
+    rounds the squares of classes 0-3 and adds them in order; the scalar
+    remainder adds class 4 as an fma."""
+    return c == 5 and len(kept) >= 2 and kept[-1] == 2
 
 
 def _window_pad(c: int) -> tuple[int, int]:
@@ -98,11 +108,16 @@ def _sum_squares(d: np.ndarray) -> np.ndarray:
             sq = np.pad(sq, [(0, 0)] * (sq.ndim - 1) + [(lo, hi)])
             sq = _seq_add(sq.reshape(sq.shape[:-1] + (-1, _WINDOW)))
         return _seq_add(sq)
+    kept = [k for k in d.shape[:-1] if k != 1]
+    if _class_vector_body(kept, c):
+        # Classes 0-3 rounded and added in order, class 4 as an fma.
+        acc = _seq_add(d[..., :4] * d[..., :4]).astype(np.float64)
+        x = d[..., 4].astype(np.float64)
+        return (x * x + acc).astype(_F32)
     acc = np.zeros(d.shape[:-1], _F32)
     for j in range(c):
         x = d[..., j].astype(np.float64)
         acc = (x * x + acc.astype(np.float64)).astype(_F32)
-    kept = [k for k in d.shape[:-1] if k != 1]
     if 5 <= c <= 8 and kept:
         body = _vector_body(kept[-1], c)
         head = d.reshape(kept + [c])[..., :body, :]
@@ -177,10 +192,13 @@ def _sum_squares_t(d: torch.Tensor) -> torch.Tensor:
             sq = torch.nn.functional.pad(sq, _window_pad(sq.shape[-1]))
             sq = _seq_add_t(sq.reshape(sq.shape[:-1] + (-1, _WINDOW)))
         return _seq_add_t(sq)
+    kept = [k for k in d.shape[:-1] if k != 1]
+    if _class_vector_body(kept, c):
+        head = d[..., :4]
+        return _fma_t(d[..., 4], d[..., 4], _seq_add_t(head * head))
     acc = torch.zeros(d.shape[:-1], dtype=torch.float32, device=d.device)
     for j in range(c):
         acc = _fma_t(d[..., j], d[..., j], acc)
-    kept = [k for k in d.shape[:-1] if k != 1]
     if 5 <= c <= 8 and kept:
         body = _vector_body(kept[-1], c)
         head = d.reshape(kept + [c])[..., :body, :]

@@ -23,11 +23,10 @@ import dataclasses
 import math
 from typing import Any, Callable
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.tree import tree_map
+from repro_torch.tree import params_from_numpy, params_to_numpy
 
 Params = Any
 
@@ -71,17 +70,6 @@ class TaskModel:
         if self.accuracy_fn is not None:
             return self.accuracy_fn(params, x, y)
         return (self.predict(params, x) == y).to(torch.float32).mean()
-
-
-def params_from_numpy(tree: Params, device: str | torch.device = "cpu"
-                      ) -> Params:
-    """Reference params (nested dicts/lists of numpy arrays) → tensors."""
-    return tree_map(lambda a: torch.from_numpy(np.array(a)).to(device), tree)
-
-
-def params_to_numpy(tree: Params) -> Params:
-    """Port params → nested dicts/lists of numpy arrays, leaf for leaf."""
-    return tree_map(lambda t: t.detach().cpu().numpy(), tree)
 
 
 def _xent(logits: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

@@ -29,12 +29,14 @@ NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 
 SOURCES = {"mix_aggregate": "mix_aggregate.cu", "stc_rows": "stc_rows.cu",
            "dol_bid_scores": "dol_bid_scores.cu",
-           "bid_value_fuse": "bid_value_fuse.cu", "quant": "quant.cu"}
+           "bid_value_fuse": "bid_value_fuse.cu", "quant": "quant.cu",
+           "flash_attention": "flash_attention.cu",
+           "ssm_scan": "ssm_scan.cu", "ssd_scan": "ssd_scan.cu"}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points of each library: name -> argument types (pointers and the
-# stream as void*, sizes as int, scalars as float); every entry point returns
-# cudaError_t.
+# stream as void*, sizes as int, scalars as float); every launching entry
+# point returns cudaError_t (repro_ssd_scan_smem_bytes returns bytes).
 _SIGNATURES = {
     "mix_aggregate": {
         "repro_mix_aggregate_f32": [_P, _P, _P, _I, _I, _I, _P]},
@@ -49,6 +51,15 @@ _SIGNATURES = {
     "quant": {
         "repro_quant_pack_f32": [_P, _P, _P, _I, _I, _P],
         "repro_quant_unpack_f32": [_P, _P, _P, _I, _I, _P]},
+    "flash_attention": {
+        "repro_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                  _F, _I, _I, _P]},
+    "ssm_scan": {
+        "repro_ssm_scan_f32": [_P, _P, _P, _I, _I, _I, _P]},
+    "ssd_scan": {
+        "repro_ssd_scan_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                               _I, _P],
+        "repro_ssd_scan_smem_bytes": [_I, _I]},
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

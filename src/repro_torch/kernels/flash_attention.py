@@ -1,0 +1,75 @@
+"""Causal / sliding-window attention on Hopper — the LM zoo's prefill.
+
+Counterpart of ``repro.kernels.flash_attention``.
+:func:`flash_attention_cuda` computes what ``_attn_kernel``
+(``flash_attention_pallas``) computes: online-softmax attention of q
+(B, Sq, H, D) against k/v (B, Sk, H, D) in bf16 or fp32, with q
+right-aligned to the end of the keys, causal and sliding-window masks,
+fp32 softmax, and 0 for a row that sees no key; the output has q's dtype.
+Heads are pre-repeated for GQA by the caller.  The kernel is hand-written
+CUDA C++ for ``sm_90a`` (``csrc/flash_attention.cu``), built by ``nvcc`` and
+bound with ``ctypes``: bf16 runs on the tensor cores (``mma.sync``) and
+takes D in {64, 80, 128} (the zoo's calls) with 16-byte aligned k/v; fp32
+runs as FMAs on the CUDA cores and takes D % 4 == 0 up to 128.  The plain
+version is
+:func:`repro_torch.kernels.ref.flash_attention_ref`.  The wrapper takes CUDA
+tensors only, checks them, allocates the output, launches on PyTorch's
+current stream, raises on a launch error and adds one to
+``LAUNCHES["flash_attention"]``.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.launch import LAUNCHES, check_tensor, int32, raise_on
+
+__all__ = ["flash_attention_cuda", "HEAD_DIM_MAX", "BF16_HEAD_DIMS"]
+
+#: Largest head dim the fp32 kernel takes (it also needs D % 4 == 0).
+HEAD_DIM_MAX = 128
+#: Head dims the bf16 (tensor-core) kernel takes.
+BF16_HEAD_DIMS = (64, 80, 128)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True, window: int | None = None,
+                         scale: float | None = None) -> torch.Tensor:
+    """q (B, Sq, H, D), k/v (B, Sk, H, D) → (B, Sq, H, D) in q's dtype."""
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"flash_attention takes bf16 or fp32, got {q.dtype}")
+    check_tensor(q, "q", 4, q.dtype)
+    check_tensor(k, "k", 4, q.dtype)
+    check_tensor(v, "v", 4, q.dtype)
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    if (k.shape != (b, sk, h, d) or v.shape != k.shape
+            or k.device != q.device or v.device != q.device):
+        raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not "
+                         f"match q {tuple(q.shape)}")
+    if d % 4 or d > HEAD_DIM_MAX or b * h > 65535 or sq == 0 or sk == 0:
+        raise ValueError(f"flash_attention kernel takes D % 4 == 0, "
+                         f"D <= {HEAD_DIM_MAX}, B·H <= 65535 and non-empty "
+                         f"sequences, got {tuple(q.shape)} / {tuple(k.shape)}")
+    if q.dtype == torch.bfloat16 and (
+            d not in BF16_HEAD_DIMS or k.data_ptr() % 16 or v.data_ptr() % 16):
+        raise ValueError(f"the bf16 flash_attention kernel takes D in "
+                         f"{BF16_HEAD_DIMS} and 16-byte aligned k/v, got D={d}"
+                         f", k/v at {k.data_ptr() % 16}/{v.data_ptr() % 16} "
+                         f"bytes past 16")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    scale = 1.0 / d ** 0.5 if scale is None else float(scale)
+    out = torch.empty_like(q)
+    lib = build.load("flash_attention")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.repro_flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            _DTYPES[q.dtype], int32(b, "B"), int32(h, "H"), int32(sq, "Sq"),
+            int32(sk, "Sk"), int32(d, "D"), scale, int(bool(causal)),
+            0 if window is None else int32(window, "window"), stream)
+    raise_on(err, "flash_attention")
+    LAUNCHES["flash_attention"] += 1
+    return out

@@ -2,24 +2,40 @@
 
 A CPU tensor goes to the plain PyTorch version (``kernels/ref.py``); a CUDA
 tensor goes to the hand-written kernel (``kernels/diffusion.py``,
-``kernels/quant.py``), or the call raises.  There is no override and no fallback.
+``kernels/quant.py``, ``kernels/flash_attention.py``, ``kernels/ssm_scan.py``,
+``kernels/ssd_scan.py``), or the call raises.  There is no override and no
+fallback.  The LM zoo's kernels have no backward yet: on a CUDA tensor they
+raise if autograd would need one (ROADMAP A13c).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import diffusion, quant, ref
+from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.ssd_scan import ssd_scan_cuda
+from repro_torch.kernels.ssm_scan import ssm_scan_cuda
 from repro_torch.kernels.diffusion import stack_ravel, stack_unravel
 
 __all__ = ["mix_aggregate", "mix_aggregate_tree", "stc_topk",
            "dol_bid_scores", "bid_value_fuse", "quant_pack",
-           "quant_unpack"]
+           "quant_unpack", "flash_attention", "ssm_scan", "ssd_scan"]
 
 
 def _route(t: torch.Tensor) -> str:
     if t.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no kernel route for device {t.device}")
     return t.device.type
+
+
+def _forward_only(name: str, *tensors: torch.Tensor) -> None:
+    """The LM kernels have no backward: refuse a call autograd would need
+    to differentiate, rather than return a result without gradients."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{name} on the card is forward-only: training through the zoo "
+            f"(backward kernels) is queued as ROADMAP item A13c; run the "
+            f"forward under torch.inference_mode() or torch.no_grad()")
 
 
 def mix_aggregate(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -112,3 +128,41 @@ def quant_unpack(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
             q.contiguous(),
             scale.to(device=q.device, dtype=torch.float32).contiguous())
     return ref.quant_unpack_ref(q, scale)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int | None = None,
+                    scale: float | None = None) -> torch.Tensor:
+    """Causal / sliding-window attention, q (B, Sq, H, D) right-aligned to
+    k/v (B, Sk, H, D) with heads pre-repeated for GQA; bf16 or fp32 in, q's
+    dtype out, fp32 softmax."""
+    if _route(q) == "cuda":
+        _forward_only("flash_attention", q, k, v)
+        return flash_attention_cuda(q.contiguous(), k.to(q.dtype).contiguous(),
+                                    v.to(q.dtype).contiguous(), causal=causal,
+                                    window=window, scale=scale)
+    return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   scale=scale)
+
+
+def ssm_scan(da: torch.Tensor, dbx: torch.Tensor) -> torch.Tensor:
+    """Mamba-1 recurrence ``h_t = da_t ⊙ h_{t−1} + dbx_t`` from 0: da/dbx
+    (B, S, D, N) → every state (B, S, D, N) fp32."""
+    if _route(da) == "cuda":
+        _forward_only("ssm_scan", da, dbx)
+        return ssm_scan_cuda(da.to(torch.float32).contiguous(),
+                             dbx.to(torch.float32).contiguous())
+    return ref.ssm_scan_ref(da, dbx)
+
+
+def ssd_scan(xh: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
+             cmat: torch.Tensor, *, chunk: int = 128) -> torch.Tensor:
+    """Mamba-2 SSD chunk scan from a zero state: xh (B, S, H, P), a
+    (B, S, H), b/c (B, S, N) → y (B, S, H, P) fp32."""
+    if _route(xh) == "cuda":
+        _forward_only("ssd_scan", xh, a, bmat, cmat)
+        f32 = torch.float32
+        return ssd_scan_cuda(xh.to(f32).contiguous(), a.to(f32).contiguous(),
+                             bmat.to(f32).contiguous(),
+                             cmat.to(f32).contiguous(), chunk=chunk)
+    return ref.ssd_scan_ref(xh, a, bmat, cmat, chunk)

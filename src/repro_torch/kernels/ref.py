@@ -1,11 +1,12 @@
-"""Plain PyTorch versions of the FL data-plane kernels.
+"""Plain PyTorch versions of the port's kernels: the FL data plane's and
+the LM zoo's (attention, the Mamba-1 scan, the Mamba-2 SSD scan).
 
 These are the semantics of record on the port's side, as
 ``repro.kernels.ref`` is on the reference's: the CPU path runs them, the
 tests hold them to the JAX package, and ``chip_smoke.py`` holds each CUDA
 kernel to them on the card.  They run on any device, but nothing on the
 main path calls them with a CUDA tensor: there the wrappers in
-``repro_torch.kernels.diffusion`` launch the hand-written kernels.
+``repro_torch.kernels`` launch the hand-written kernels.
 """
 from __future__ import annotations
 
@@ -16,7 +17,8 @@ from repro_torch.core.dol import iid_distance_candidates_t
 __all__ = ["mix_aggregate_ref", "stc_compress_ref", "stc_rows_ref",
            "stc_rows_threshold", "stc_rows_reduce_ref", "stc_rows_apply_ref",
            "dol_bid_scores_ref", "dol_bid_scores_fused_ref",
-           "bid_value_fuse_ref", "quant_pack_ref", "quant_unpack_ref"]
+           "bid_value_fuse_ref", "quant_pack_ref", "quant_unpack_ref",
+           "flash_attention_ref", "ssm_scan_ref", "ssd_scan_ref"]
 
 
 def mix_aggregate_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -167,3 +169,91 @@ def quant_pack_ref(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 def quant_unpack_ref(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """(q (R, B) int8, scale (R,)) → (R, B) fp32 dequantized payload."""
     return q.to(torch.float32) * scale.to(torch.float32)[:, None]
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: int | None = None,
+                        scale: float | None = None) -> torch.Tensor:
+    """Naive softmax attention.  q: (B, Sq, H, D); k/v: (B, Sk, H, D).
+
+    fp32 scores over the whole (Sq, Sk) rectangle, q right-aligned to the
+    end of the keys; a fully masked row returns 0; output in q's dtype —
+    ``repro.kernels.ref.flash_attention_ref``."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    scale = 1.0 / d ** 0.5 if scale is None else scale
+    s = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32),
+                     k.to(torch.float32)) * scale
+    q_pos = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
+    k_pos = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window is not None:
+        mask &= k_pos > q_pos - window
+    s = s.masked_fill(~mask, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    p = torch.nan_to_num(p, nan=0.0)                # fully masked rows
+    out = torch.einsum("bhqk,bkhd->bqhd", p, v.to(torch.float32))
+    return out.to(q.dtype)
+
+
+def ssm_scan_ref(da: torch.Tensor, dbx: torch.Tensor) -> torch.Tensor:
+    """Diagonal linear recurrence ``h_t = da_t·h_{t−1} + dbx_t`` from 0.
+
+    da/dbx: (B, S, D, N) fp32.  Returns all states (B, S, D, N): a multiply
+    then an add per step, each rounded (the CUDA kernel does the same)."""
+    da = da.to(torch.float32)
+    dbx = dbx.to(torch.float32)
+    hs = torch.empty_like(da)
+    h = torch.zeros_like(da[:, 0])
+    for t in range(da.shape[1]):
+        h = da[:, t] * h + dbx[:, t]
+        hs[:, t] = h
+    return hs
+
+
+def ssd_scan_ref(xh: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
+                 cmat: torch.Tensor, chunk: int = 128) -> torch.Tensor:
+    """Chunked SSD (Mamba-2) scan from a zero state — the model layer's
+    form, ``repro.models.ssm._ssd_chunk_scan`` with ``h0 = 0``.
+
+    xh (B, S, H, P) value stream, a (B, S, H) per-step log decay, bmat /
+    cmat (B, S, N) input / output projections, all fp32 → y (B, S, H, P).
+    S is padded to a multiple of ``chunk``; the triangle is masked before
+    ``exp``, as the reference does."""
+    b, s, h, p = xh.shape
+    n = bmat.shape[-1]
+    f32 = torch.float32
+    xh, a, bmat, cmat = (t.to(f32) for t in (xh, a, bmat, cmat))
+    pad = (-s) % chunk
+    if pad:
+        xh = torch.nn.functional.pad(xh, (0, 0, 0, 0, 0, pad))
+        a = torch.nn.functional.pad(a, (0, 0, 0, pad))
+        bmat = torch.nn.functional.pad(bmat, (0, 0, 0, pad))
+        cmat = torch.nn.functional.pad(cmat, (0, 0, 0, pad))
+    nc = xh.shape[1] // chunk
+    x_c = xh.reshape(b, nc, chunk, h, p)
+    a_c = a.reshape(b, nc, chunk, h)
+    b_c = bmat.reshape(b, nc, chunk, n)
+    c_c = cmat.reshape(b, nc, chunk, n)
+    ltri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                 device=xh.device))[None, :, :, None]
+    hprev = torch.zeros((b, h, p, n), dtype=f32, device=xh.device)
+    ys = []
+    for i in range(nc):
+        x_i, a_i, b_i, c_i = x_c[:, i], a_c[:, i], b_c[:, i], c_c[:, i]
+        acum = torch.cumsum(a_i, dim=1)                      # (B,L,H)
+        rel = acum[:, :, None, :] - acum[:, None, :, :]      # (B,Lq,Lk,H)
+        dec = torch.exp(torch.where(ltri, rel, -1e30))
+        cb = torch.einsum("bqn,bkn->bqk", c_i, b_i)          # (B,Lq,Lk)
+        w = cb[..., None] * dec                              # (B,Lq,Lk,H)
+        y_intra = torch.einsum("bqkh,bkhp->bqhp", w, x_i)
+        y_state = torch.einsum("bqn,bhpn,bqh->bqhp", c_i, hprev,
+                               torch.exp(acum))
+        tot = torch.exp(acum[:, -1])                         # (B,H)
+        decay_k = torch.exp(acum[:, -1:, :] - acum)          # (B,L,H)
+        hprev = tot[:, :, None, None] * hprev + torch.einsum(
+            "bkn,bkhp,bkh->bhpn", b_i, x_i, decay_k)
+        ys.append(y_intra + y_state)
+    return torch.cat(ys, dim=1)[:, :s]

@@ -1,0 +1,160 @@
+"""Shared building blocks of the LM zoo, as pure functions of a params tree.
+
+Counterpart of ``repro.models.layers``.  Parameters are plain nested dicts of
+tensors in the reference's layout; every function takes ``(params, inputs)``.
+Compute runs in ``compute_dtype`` (bf16 by default) with fp32 master params
+and fp32 norm / softmax accumulation.  The reference's ``REPRO_PERF_OPTS``
+toggles are fixed at their default (``all``): the cross-entropy chunks over
+the sequence with the batch intact, and ``embed_dshard`` (an opt-in sharding
+hint) does not exist here.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+Params = Any
+
+__all__ = ["silu", "init_dense", "dense", "init_rmsnorm", "rmsnorm",
+           "init_embedding", "embed", "unembed_logits", "rope_freqs",
+           "apply_rope", "init_swiglu", "swiglu", "chunked_cross_entropy",
+           "torch_dtype", "init_normal"]
+
+
+def torch_dtype(name: str | torch.dtype) -> torch.dtype:
+    """``"bfloat16"`` / ``"float32"`` (a config's dtype names) → torch."""
+    return name if isinstance(name, torch.dtype) else getattr(torch, name)
+
+
+def init_normal(gen: torch.Generator, shape, scale: float) -> torch.Tensor:
+    return torch.randn(shape, generator=gen, device=gen.device).mul_(scale)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.sigmoid(x)
+
+
+# ---------------------------------------------------------------- dense
+
+def init_dense(gen: torch.Generator, d_in: int, d_out: int,
+               scale: float | None = None, stack: tuple = ()) -> Params:
+    """``{"w": (d_in, d_out)}`` ~ N(0, 1/d_in); ``stack`` prepends layer
+    axes (a segment's stacked layers)."""
+    scale = scale if scale is not None else 1.0 / d_in ** 0.5
+    return {"w": init_normal(gen, (*stack, d_in, d_out), scale)}
+
+
+def dense(p: Params, x: torch.Tensor,
+          compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    return x.to(compute_dtype) @ p["w"].to(compute_dtype)
+
+
+# ---------------------------------------------------------------- norms
+
+def init_rmsnorm(d: int, stack: tuple = (),
+                 device: torch.device | str = "cpu") -> Params:
+    return {"scale": torch.ones((*stack, d), device=device)}
+
+
+def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps) * p["scale"]
+    return y.to(x.dtype)
+
+
+# ---------------------------------------------------------------- embedding
+
+def init_embedding(gen: torch.Generator, vocab: int, d: int) -> Params:
+    return {"table": init_normal(gen, (vocab, d), 0.02)}
+
+
+def embed(p: Params, tokens: torch.Tensor,
+          compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    # Gather, then cast: the same values as the reference's cast-then-gather
+    # without a bf16 copy of the whole table.
+    return p["table"][tokens].to(compute_dtype)
+
+
+def unembed_logits(p: Params, x: torch.Tensor,
+                   compute_dtype: torch.dtype = torch.bfloat16
+                   ) -> torch.Tensor:
+    """Tied-embedding readout: x @ tableᵀ."""
+    return x.to(compute_dtype) @ p["table"].to(compute_dtype).T
+
+
+# ---------------------------------------------------------------- RoPE
+
+def rope_freqs(head_dim: int, theta: float, positions: torch.Tensor):
+    """cos / sin tables (..., S, head_dim/2) of the reference's
+    ``_rope_table``: ``freqs = θ^(−i/half)`` in fp32."""
+    half = head_dim // 2
+    exps = -torch.arange(0, half, dtype=torch.float32,
+                         device=positions.device) / half
+    freqs = torch.pow(torch.tensor(float(theta), dtype=torch.float32,
+                                   device=positions.device), exps)
+    ang = positions.to(torch.float32)[..., None] * freqs    # (..., S, half)
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor) -> torch.Tensor:
+    """x: (..., S, H, Dh); cos/sin: (..., S, Dh/2) broadcast over heads.
+    Half-split rotation, as the reference."""
+    xf = x.to(torch.float32)
+    x1, x2 = torch.chunk(xf, 2, dim=-1)
+    c = cos[..., :, None, :]
+    s = sin[..., :, None, :]
+    out = torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------- SwiGLU
+
+def init_swiglu(gen: torch.Generator, d: int, d_ff: int,
+                stack: tuple = ()) -> Params:
+    return {"w_gate": init_dense(gen, d, d_ff, stack=stack),
+            "w_up": init_dense(gen, d, d_ff, stack=stack),
+            "w_down": init_dense(gen, d_ff, d, stack=stack)}
+
+
+def swiglu(p: Params, x: torch.Tensor,
+           compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    g = dense(p["w_gate"], x, compute_dtype)
+    u = dense(p["w_up"], x, compute_dtype)
+    return dense(p["w_down"], silu(g) * u, compute_dtype)
+
+
+# ---------------------------------------------------------------- loss
+
+def chunked_cross_entropy(emb_or_head: Params, hidden: torch.Tensor,
+                          labels: torch.Tensor, *, tie: bool,
+                          chunk: int = 512,
+                          compute_dtype: torch.dtype = torch.bfloat16,
+                          mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean next-token cross-entropy without materializing (B, S, V) logits.
+
+    ``hidden``: (B, S, D); ``labels``: (B, S) int.  The loop runs over
+    sequence chunks with the batch intact, as the reference's default; one
+    chunk's (B, chunk, V) fp32 logits is the largest live tensor."""
+    b, s, _ = hidden.shape
+    m = (torch.ones((b, s), dtype=torch.float32, device=hidden.device)
+         if mask is None else mask.to(torch.float32))
+    if tie:
+        w = emb_or_head["table"].to(compute_dtype).T          # (D, V)
+    else:
+        w = emb_or_head["w"].to(compute_dtype)                # (D, V)
+    chunk = min(chunk, s)
+    loss_sum = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    count = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for s0 in range(0, s, chunk):
+        h = hidden[:, s0:s0 + chunk].to(compute_dtype)
+        y = labels[:, s0:s0 + chunk].long()
+        msk = m[:, s0:s0 + chunk]
+        logits = (h @ w).to(torch.float32)
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, y[..., None])[..., 0]
+        loss_sum = loss_sum + torch.sum((logz - gold) * msk)
+        count = count + torch.sum(msk)
+    return loss_sum / torch.clamp(count, min=1.0)

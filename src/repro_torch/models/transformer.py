@@ -1,0 +1,211 @@
+"""Decoder-only stack of the LM zoo, built as *segments* of stacked layers:
+the full-context (prefill) forward and the loss.
+
+Counterpart of ``repro.models.transformer``.  A segment is
+``(kinds, count)``: a tuple of layer kinds forming one body, repeated
+``count`` times with stacked parameters (leading axis ``count``), in the
+reference's params layout.  The reference scans a body with ``lax.scan``;
+here a Python loop walks the stacked layers.
+
+Layer kinds ported: ``attn`` (full-causal GQA attention + SwiGLU),
+``mamba1``, ``mamba2`` and ``shared`` (the hybrid's one attention + MLP
+block, ``params["shared_block"]``, reused at every occurrence).  The MoE
+MLP, ``swa`` (sliding window) and the local/global pattern raise
+:class:`NotImplementedError` naming ROADMAP item A13d; decode (caches and
+``decode_step``) is A13b.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
+from repro_torch.models import ssm as ssm_lib
+from repro_torch.models.attention import AttnSpec, attn_forward, init_attention
+
+Params = Any
+
+__all__ = ["Segment", "build_plan", "specs_for", "init_lm", "forward_hidden",
+           "lm_loss", "check_supported"]
+
+Segment = tuple[tuple[str, ...], int]
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise for the families and layer kinds this slice does not port."""
+    what = None
+    if cfg.family in ("audio", "vlm") or cfg.frontend is not None:
+        what = f"the {cfg.family} family ({cfg.frontend} frontend)"
+    elif cfg.moe is not None:
+        what = "the MoE family"
+    elif cfg.sliding_window or cfg.local_global_ratio:
+        what = "sliding-window and local/global attention (swa)"
+    if what is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: {what} is queued as ROADMAP item A13d")
+
+
+def build_plan(cfg: ModelConfig) -> list[Segment]:
+    n = cfg.num_layers
+    if cfg.family == "ssm":
+        return [(("mamba1",), n)]
+    if cfg.family == "hybrid":
+        period = cfg.attn_period or 6
+        groups, rem = divmod(n, period)
+        plan: list[Segment] = []
+        if groups:
+            plan.append((("mamba2",) * period + ("shared",), groups))
+        if rem:
+            plan.append((("mamba2",) * rem, 1))
+        return plan
+    if cfg.local_global_ratio > 0:
+        r = cfg.local_global_ratio
+        groups, rem = divmod(n, r + 1)
+        plan = []
+        if groups:
+            plan.append((("swa",) * r + ("attn",), groups))
+        if rem:
+            plan.append((("swa",) * rem, 1))
+        return plan
+    kind = "swa" if cfg.sliding_window else "attn"
+    return [((kind,), n)]
+
+
+def specs_for(cfg: ModelConfig):
+    """Attention and SSM specs of a ModelConfig: ``(attn, m1, m2)`` (the
+    reference's windowed ``swa`` spec and MoE spec are A13d)."""
+    cd = L.torch_dtype(cfg.compute_dtype)
+    attn = AttnSpec(
+        d_model=cfg.d_model, num_heads=cfg.num_heads,
+        num_kv_heads=cfg.num_kv_heads, head_dim=cfg.resolved_head_dim,
+        qk_norm=cfg.qk_norm, rope_theta=cfg.rope_theta,
+        use_rope=cfg.family != "audio", causal=True, window=None,
+        norm_eps=cfg.norm_eps, compute_dtype=cd)
+    m1 = m2 = None
+    if cfg.ssm is not None:
+        if cfg.ssm.version == 1:
+            m1 = ssm_lib.Mamba1Spec(
+                d_model=cfg.d_model, d_state=cfg.ssm.d_state,
+                d_conv=cfg.ssm.d_conv, expand=cfg.ssm.expand,
+                dt_rank=cfg.ssm.dt_rank, compute_dtype=cd)
+        else:
+            m2 = ssm_lib.Mamba2Spec(
+                d_model=cfg.d_model, d_state=cfg.ssm.d_state,
+                d_conv=cfg.ssm.d_conv, expand=cfg.ssm.expand,
+                head_dim=cfg.ssm.head_dim, chunk=cfg.ssm.chunk,
+                compute_dtype=cd)
+    return attn, m1, m2
+
+
+# ------------------------------------------------------------------ init
+
+def _init_layer(gen: torch.Generator, kind: str, cfg: ModelConfig,
+                stack: tuple = ()) -> Params:
+    attn, m1, m2 = specs_for(cfg)
+    dev = gen.device
+    if kind in ("attn", "shared"):
+        return {"ln1": L.init_rmsnorm(cfg.d_model, stack, dev),
+                "attn": init_attention(gen, attn, stack),
+                "ln2": L.init_rmsnorm(cfg.d_model, stack, dev),
+                "mlp": L.init_swiglu(gen, cfg.d_model,
+                                     cfg.d_ff or 4 * cfg.d_model, stack)}
+    if kind == "mamba1":
+        return {"ln": L.init_rmsnorm(cfg.d_model, stack, dev),
+                "mamba": ssm_lib.init_mamba1(gen, m1, stack)}
+    if kind == "mamba2":
+        return {"ln": L.init_rmsnorm(cfg.d_model, stack, dev),
+                "mamba": ssm_lib.init_mamba2(gen, m2, stack)}
+    raise ValueError(kind)
+
+
+def init_lm(gen: torch.Generator, cfg: ModelConfig) -> Params:
+    """Random params in the reference's layout, drawn from ``gen`` on its
+    device: ``embed``, ``segments`` (a list of {``"{i}_{kind}"``: stacked
+    layer params}), ``shared_block`` (hybrid), ``final_norm`` and
+    ``lm_head`` (untied).  The values differ from the reference's
+    ``jax.random`` draws; parity tests inject those instead."""
+    check_supported(cfg)
+    params: Params = {"embed": L.init_embedding(gen, cfg.vocab_size,
+                                                cfg.d_model)}
+    plan = build_plan(cfg)
+    params["segments"] = [
+        {f"{pi}_{kind}": _init_layer(gen, kind, cfg, (count,))
+         for pi, kind in enumerate(kinds) if kind != "shared"}
+        for kinds, count in plan]
+    if any("shared" in kinds for kinds, _ in plan):
+        params["shared_block"] = _init_layer(gen, "shared", cfg)
+    params["final_norm"] = L.init_rmsnorm(cfg.d_model, device=gen.device)
+    if not cfg.tie_embeddings:
+        params["lm_head"] = L.init_dense(gen, cfg.d_model, cfg.vocab_size,
+                                         scale=0.02)
+    return params
+
+
+# ------------------------------------------------------------------ forward
+
+def _apply_layer(p: Params, kind: str, cfg: ModelConfig, x: torch.Tensor,
+                 positions: torch.Tensor | None) -> torch.Tensor:
+    attn, m1, m2 = specs_for(cfg)
+    if kind in ("attn", "shared"):
+        x = x + attn_forward(p["attn"], attn,
+                             L.rmsnorm(p["ln1"], x, cfg.norm_eps), positions)
+        h = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
+        return x + L.swiglu(p["mlp"], h, attn.compute_dtype)
+    if kind == "mamba1":
+        return x + ssm_lib.mamba1_forward(
+            p["mamba"], m1, L.rmsnorm(p["ln"], x, cfg.norm_eps))
+    if kind == "mamba2":
+        return x + ssm_lib.mamba2_forward(
+            p["mamba"], m2, L.rmsnorm(p["ln"], x, cfg.norm_eps))
+    raise ValueError(kind)
+
+
+def _layer(stacked: Params, i: int) -> Params:
+    """Layer ``i`` of a segment's stacked params (views, no copies)."""
+    if isinstance(stacked, dict):
+        return {k: _layer(v, i) for k, v in stacked.items()}
+    return stacked[i]
+
+
+def forward_hidden(params: Params, cfg: ModelConfig, x: torch.Tensor,
+                   positions: torch.Tensor | None = None, *,
+                   remat: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
+    """Embedded inputs (B,S,D) -> final hidden (B,S,D), aux loss (0: no
+    MoE).  ``remat`` is accepted for the reference's signature and has no
+    effect in a forward-only pass."""
+    check_supported(cfg)
+    for seg_p, (kinds, count) in zip(params["segments"], build_plan(cfg)):
+        for i in range(count):
+            for pi, kind in enumerate(kinds):
+                p = (params["shared_block"] if kind == "shared"
+                     else _layer(seg_p[f"{pi}_{kind}"], i))
+                x = _apply_layer(p, kind, cfg, x, positions)
+    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _embed_inputs(params: Params, cfg: ModelConfig,
+                  batch: dict) -> torch.Tensor:
+    # No ported family scales its embeddings (gemma3's scale is A13d).
+    return L.embed(params["embed"], batch["tokens"],
+                   L.torch_dtype(cfg.compute_dtype))
+
+
+def lm_loss(params: Params, cfg: ModelConfig, batch: dict, *,
+            remat: bool = True) -> torch.Tensor:
+    """Next-token CE loss.  batch: tokens (B,S), labels (B,S) [, mask]."""
+    x = _embed_inputs(params, cfg, batch)
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    hidden, aux = forward_hidden(params, cfg, x, positions, remat=remat)
+    n_text = batch["tokens"].shape[1]
+    hidden = hidden[:, -n_text:]
+    head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    # The readout runs in bf16 whatever cfg.compute_dtype is, as in the
+    # reference (its lm_loss leaves chunked_cross_entropy at the default).
+    ce = L.chunked_cross_entropy(head, hidden, batch["labels"],
+                                 tie=cfg.tie_embeddings,
+                                 mask=batch.get("mask"))
+    return ce + aux

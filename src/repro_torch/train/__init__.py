@@ -1,1 +1,2 @@
-"""Local solver pieces of the port (SGD with momentum, clipping)."""
+"""Local solver pieces of the port (SGD with momentum, clipping) and the
+LM zoo's step builders (``trainstep``)."""

@@ -10,7 +10,11 @@ from __future__ import annotations
 
 from typing import Any, Callable
 
-__all__ = ["tree_leaves", "tree_map", "tree_flatten", "tree_unflatten"]
+import numpy as np
+import torch
+
+__all__ = ["tree_leaves", "tree_map", "tree_flatten", "tree_unflatten",
+           "params_from_numpy", "params_to_numpy"]
 
 
 def tree_flatten(tree: Any) -> tuple[list, Any]:
@@ -54,3 +58,14 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
     return tree_unflatten(treedef,
                           [fn(x, *(o[i] for o in others))
                            for i, x in enumerate(leaves)])
+
+
+def params_from_numpy(tree: Any, device: str | torch.device = "cpu") -> Any:
+    """Reference params (nested dicts/lists of numpy arrays) → tensors on
+    ``device``, leaf for leaf."""
+    return tree_map(lambda a: torch.from_numpy(np.array(a)).to(device), tree)
+
+
+def params_to_numpy(tree: Any) -> Any:
+    """Port params → nested dicts/lists of numpy arrays, leaf for leaf."""
+    return tree_map(lambda t: t.detach().cpu().numpy(), tree)

@@ -70,6 +70,27 @@ def test_dol_bid_scores_plain_versions_match_reference(m, n, c):
                                   composite)
 
 
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("shape", [
+    (2, 5), (2, 2, 5), (3, 2, 5), (8, 2, 5), (16, 2, 5), (1000, 2, 5),
+    (4, 1000, 2, 5), (1000, 2, 6), (1000, 2, 7), (1000, 2, 8)], ids=str)
+def test_iid_distance_bits_match_reference(shape, seed):
+    """C = 5 with a 2-long inner axis behind an outer one: XLA-CPU runs its
+    vector loop over the classes there (ROADMAP C1); C = 6-8 at the same
+    shape keep the inner-axis rule.  Both the numpy and the tensor norm give
+    ``repro.core.dol.iid_distance``'s bits."""
+    from repro.core import dol as jdol
+    from repro_torch.core import dol as tdol
+    rng = np.random.default_rng(seed)
+    rows = int(np.prod(shape[:-1]))
+    dol = rng.dirichlet(np.ones(shape[-1]), rows).astype(np.float32)
+    dol = dol.reshape(shape)
+    want = np.asarray(jdol.iid_distance(jnp.asarray(dol)))
+    np.testing.assert_array_equal(tdol.iid_distance(dol), want)
+    np.testing.assert_array_equal(
+        tdol.iid_distance_t(torch.from_numpy(dol)).numpy(), want)
+
+
 def test_dol_bid_scores_near_uniform_no_cancellation():
     """As DoLs converge to uniform (dist → 0) the centered expansion keeps
     its precision — the regime every diffusion round ends in."""

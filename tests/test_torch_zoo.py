@@ -1,0 +1,168 @@
+"""The port's LM zoo forward against the JAX package's, on the CPU.
+
+For the dense (qwen3-smoke: GQA 4/2, qk-norm, tied; smollm-smoke: GQA 3/1),
+hybrid (zamba2-smoke: mamba2 + the shared attention block) and ssm
+(falcon-mamba-smoke: mamba1) smoke configs, the reference's
+``build_model(cfg).init(PRNGKey(0))`` is carried into the port with
+``params_from_numpy``; then ``make_prefill_step``, ``make_eval_step`` and
+``forward_hidden`` of both packages see the same numpy tokens.  S = 40 is
+no multiple of zamba2-smoke's SSD chunk (16).
+
+Tolerances, measured on this CPU and stated here:
+* ``compute_dtype="float32"``: loss within 2e-5 and hidden states within
+  5e-5 (measured ≤ 4e-6 and ≤ 1.5e-5: fp32 sums in another order, the
+  scans unchunked; the loss's readout is bf16 in both packages);
+* ``compute_dtype="bfloat16"`` (the configs' own): loss within 3e-3
+  (measured ≤ 1.2e-3) and hidden states within 0.1·max|h| at any element
+  and 0.05·mean|h| on average (measured ≤ 0.023 and ≤ 0.019).  XLA keeps
+  fp32 inside fused bf16 elementwise chains and rounds scores to bf16;
+  torch rounds per op and the attention's scores stay fp32.
+"""
+import dataclasses
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import ARCH_IDS as J_ARCH_IDS
+from repro.configs import SHAPES as J_SHAPES
+from repro.configs import get_config as j_get_config
+from repro.configs import get_smoke_config as j_get_smoke
+from repro.models import transformer as jtf
+from repro.models.zoo import build_model as j_build
+from repro.train import trainstep as jts
+from repro_torch.configs import ARCH_IDS, SHAPES, get_config, get_smoke_config
+from repro_torch.models import transformer as ttf
+from repro_torch.models.zoo import build_model, params_from_numpy
+from repro_torch.train import trainstep as tts
+
+PORTED = ["qwen3_0_6b", "smollm_360m", "zamba2_2_7b", "falcon_mamba_7b"]
+UNPORTED = [a for a in J_ARCH_IDS if a not in PORTED]
+BATCH, SEQ = 2, 40
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+@pytest.mark.parametrize("arch", J_ARCH_IDS)
+def test_configs_equal_reference(arch):
+    assert dataclasses.asdict(get_config(arch)) == dataclasses.asdict(
+        j_get_config(arch))
+    assert dataclasses.asdict(get_smoke_config(arch)) == dataclasses.asdict(
+        j_get_smoke(arch))
+    assert get_config(arch).param_count() == j_get_config(arch).param_count()
+
+
+def test_arch_ids_and_shapes_equal_reference():
+    assert ARCH_IDS == J_ARCH_IDS
+    assert {k: dataclasses.asdict(v) for k, v in SHAPES.items()} == {
+        k: dataclasses.asdict(v) for k, v in J_SHAPES.items()}
+
+
+def _configs(arch, dtype):
+    return (dataclasses.replace(j_get_smoke(arch), compute_dtype=dtype),
+            dataclasses.replace(get_smoke_config(arch), compute_dtype=dtype))
+
+
+def _batch(vocab):
+    rng = np.random.default_rng(7)
+    tokens = rng.integers(0, vocab, (BATCH, SEQ)).astype(np.int32)
+    labels = rng.integers(0, vocab, (BATCH, SEQ)).astype(np.int32)
+    mask = (rng.uniform(size=(BATCH, SEQ)) < 0.8).astype(np.float32)
+    return tokens, labels, mask
+
+
+@functools.lru_cache(maxsize=None)
+def _reference(arch, dtype):
+    """The reference's params (numpy), prefill / eval losses and final
+    hidden states on the shared batch."""
+    jcfg, _ = _configs(arch, dtype)
+    model = j_build(jcfg)
+    params = model.init(jax.random.PRNGKey(0))
+    tokens, labels, mask = (jnp.asarray(x) for x in _batch(jcfg.vocab_size))
+    prefill = float(jts.make_prefill_step(model)(params, {"tokens": tokens}))
+    evaluate = float(jts.make_eval_step(model)(
+        params, {"tokens": tokens, "labels": labels, "mask": mask}))
+    x = jtf._embed_inputs(params, jcfg, {"tokens": tokens})
+    pos = jnp.broadcast_to(jnp.arange(SEQ)[None], (BATCH, SEQ))
+    hidden, _ = jtf.forward_hidden(params, jcfg, x, pos, remat=False)
+    return (jax.tree.map(np.asarray, params), prefill, evaluate,
+            np.asarray(x.astype(jnp.float32)),
+            np.asarray(hidden.astype(jnp.float32)))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", PORTED)
+def test_prefill_eval_and_hidden_match_reference(arch, dtype):
+    params_np, prefill, evaluate, x, hidden = _reference(arch, dtype)
+    _, cfg = _configs(arch, dtype)
+    model = build_model(cfg)
+    params = params_from_numpy(params_np)
+    tokens, labels, mask = (torch.from_numpy(a) for a in _batch(
+        cfg.vocab_size))
+    got_prefill = float(tts.make_prefill_step(model)(params,
+                                                     {"tokens": tokens}))
+    got_eval = float(tts.make_eval_step(model)(
+        params, {"tokens": tokens, "labels": labels, "mask": mask}))
+    td = getattr(torch, dtype)
+    got_x = ttf._embed_inputs(params, cfg, {"tokens": tokens})
+    assert got_x.dtype == td
+    np.testing.assert_array_equal(got_x.float().numpy(), x)
+    pos = torch.arange(SEQ)[None].expand(BATCH, SEQ)
+    got_h, aux = ttf.forward_hidden(params, cfg, got_x, pos)
+    assert got_h.dtype == td and float(aux) == 0.0
+    got_h = got_h.float().numpy()
+    err = np.abs(got_h - hidden)
+    if dtype == "float32":
+        loss_tol = 2e-5
+        assert err.max() <= 5e-5, err.max()
+    else:
+        loss_tol = 3e-3
+        assert err.max() <= 0.1 * np.abs(hidden).max(), err.max()
+        assert err.mean() <= 0.05 * np.abs(hidden).mean(), err.mean()
+    assert abs(got_prefill - prefill) <= loss_tol, (got_prefill, prefill)
+    assert abs(got_eval - evaluate) <= loss_tol, (got_eval, evaluate)
+
+
+@pytest.mark.parametrize("arch", PORTED)
+def test_init_draws_the_reference_layout(arch):
+    """The port's own init (a torch.Generator) gives the reference's tree:
+    the same leaves, shapes and dtypes."""
+    cfg = get_smoke_config(arch)
+    jcfg = j_get_smoke(arch)
+    want = jax.eval_shape(lambda: j_build(jcfg).init(jax.random.PRNGKey(0)))
+    got = build_model(cfg).init(torch.Generator().manual_seed(0))
+    want_leaves, want_def = jax.tree.flatten(want)
+    got_leaves, got_def = jax.tree.flatten(
+        jax.tree.map(lambda t: np.zeros(0), got,
+                     is_leaf=lambda t: isinstance(t, torch.Tensor)))
+    assert str(got_def) == str(want_def)
+    got_tensors = jax.tree.leaves(got, is_leaf=lambda t: isinstance(
+        t, torch.Tensor))
+    for w, g in zip(want_leaves, got_tensors):
+        assert tuple(g.shape) == w.shape and g.dtype == torch.float32
+        assert bool(torch.isfinite(g).all())
+
+
+@pytest.mark.parametrize("arch", UNPORTED)
+def test_unported_families_raise(arch):
+    with pytest.raises(NotImplementedError, match="A13d"):
+        build_model(get_smoke_config(arch))
+
+
+def test_decode_and_training_raise():
+    model = build_model(get_smoke_config("qwen3_0_6b"))
+    with pytest.raises(NotImplementedError, match="A13b"):
+        model.init_cache(None, 1, 16)
+    with pytest.raises(NotImplementedError, match="A13b"):
+        model.decode_step(None, None, None, 0)
+    with pytest.raises(NotImplementedError, match="A13c"):
+        tts.make_train_step(model, None)
