@@ -12,7 +12,11 @@ nothing of JAX.  Phases, each of which fails loudly:
    at once) and print the build seconds and ptxas' register report;
 2. every kernel against its plain PyTorch version on the card, at the main
    path's shapes and one larger shape: max abs error against the stated
-   tolerance, kernel / plain / library time (CUDA events) and the bound;
+   tolerance, kernel / plain / library time (CUDA events) and the bound.
+   The host plane's ``stc_reduce`` / ``stc_apply`` run at every fcn leaf
+   size, 2^24 and 155,582,464 (qwen3_0_6b's tied embedding) on tie-free
+   data: count == k, the exact-k plain STC's support, μ within 1e-5
+   relative of the plain version's and of a float64 sum, apply bit-exact;
 3. the main path — ``run_experiment`` on the fleet plane: the quickstart
    configuration (fcn, α=0.3, 6000 samples, N=M=8, 8 rounds) for fedavg,
    feddif with the host planner and feddif with the device planner
@@ -33,18 +37,31 @@ nothing of JAX.  Phases, each of which fails loudly:
    roundtrip per PermuteOp), every run's ledger must decompose into
    ``uplinks·(fp32 payload) + D2D hops·(hop payload)``, the full-f32 hop
    must be ≥ 50x the int8 adapter hop, and the int8 arm's peak next-token
-   accuracy must be within 0.02 of the fp32 adapter arm's;
-4. a small feddif_stc run and a small lm int8 run on the card against the
+   accuracy must be within 0.02 of the fp32 adapter arm's.
+   Then the host plane (``executor="host"``, the reference's default): the
+   quickstart's fedavg and feddif (FedDif's peak must beat FedAvg's), two
+   rounds each of stc, feddif_stc, fedswap, d2d_random_walk, fedprox and
+   feddif_prox, gossip (2 rounds) and tthf (4 rounds) on both planes, and
+   feddif with int8 hops.  On the host plane ``stc_reduce`` / ``stc_apply``
+   must launch once per compressed leaf (per hop or uplink the ledger
+   counts), ``mix_aggregate`` and ``stc_rows_*`` never; on the fleet plane
+   ``mix_aggregate`` once per MixOp plus once per round; int8 hops launch
+   the quant kernels once per slot per PermuteOp;
+4. a small feddif_stc run on each plane and a small lm int8 run on the
+   card against the
    same runs on the CPU (plain versions) from one init: equal ledgers,
-   params within the fleet plane's tolerance; then the device planner on
+   params within the fleet plane's tolerance; the host plane against the
+   fleet plane on the card (feddif/fcn, N=M=8, 2 rounds, one init: equal
+   ledgers, params within atol 2e-4, rtol 2e-3); then the device planner on
    the card (with its
    kernels) against the host planner on the CPU, on the N=M=C=10
    default-config inputs (seeds 0-2) and the 16 plans of the N=M=20
    ``planner_speedup`` cells: exact hop-list agreement is printed, and the
    plans must be equivalent (same rounds, same hop count, total Eq.-17
    decrement within 1e-6 relative);
-5. a measurement, not a check: one FedDif round with each planner, and
-   one of the lm int8 arm, under ``torch.profiler`` (device busy time,
+5. a measurement, not a check: one FedDif round with each planner, one on
+   the host plane, and one of the lm int8 arm, under ``torch.profiler``
+   (device busy time,
    idle share, kernel count, top kernels);
 6. the LM zoo's prefill forward at the published widths: flash_attention,
    ssm_scan and ssd_scan against their plain versions on the card (at the
@@ -108,15 +125,15 @@ PLANNER_CASES = (
 # at the quickstart configuration; phase 4's small lm int8 cell (the
 # reference's tests/test_adapter_hops.py cell).
 LM_DATA = dict(task="lm", alpha=0.5, dim=32, num_samples=4096)
-LM_FL = dict(strategy="feddif", rounds=6, num_clients=8, num_models=8,
-             seed=0, topology_seed=0, max_diffusion_rounds=4)
+LM_FL = dict(executor="fleet", strategy="feddif", rounds=6, num_clients=8,
+             num_models=8, seed=0, topology_seed=0, max_diffusion_rounds=4)
 LM_ARMS = {"adapter_int8": (True, "int8"), "adapter_f32": (True, "none"),
            "full_f32": (False, "none")}
 FCN_INT8_RUN = ("feddif", "fcn", 8, 8)
 LM_SMALL_DATA = dict(task="lm", alpha=0.5, dim=16, num_samples=640)
-LM_SMALL_FL = dict(strategy="feddif", rounds=2, num_clients=4, num_models=4,
-                   seed=0, topology_seed=1, max_diffusion_rounds=3,
-                   hop_quant="int8")
+LM_SMALL_FL = dict(executor="fleet", strategy="feddif", rounds=2,
+                   num_clients=4, num_models=4, seed=0, topology_seed=1,
+                   max_diffusion_rounds=3, hop_quant="int8")
 LM_ACC_GAP = 0.02            # int8 vs fp32 adapter arm, peak accuracy
 HOP_RATIO_GATE = 50.0        # full-f32 hop / int8 adapter hop
 # Phase 6, the LM zoo's prefill: (arch, batch, sequence, launches of each
@@ -161,6 +178,17 @@ ZOO_CONTROL_OP = {"qwen3_0_6b": "flash_attention", "zamba2_2_7b": "ssd_scan",
 ATTN_BARS = {"bfloat16": (2.0 ** -7, 2.0 ** -5, 1e-2),
              "float32": (2e-5, 4e-5, 1e-5)}
 BF16_FLOPS_PER_S = 989e12    # H100 SXM dense bf16 tensor-core peak
+# The host plane (phase 3b): FLConfig.stc_sparsity's default, which every
+# STC run here uses; the quickstart and the two-round runs of every
+# strategy on the host plane; gossip and TT-HF also on the fleet plane
+# (TT-HF for 4 rounds, so its global MixOp runs once); the host-vs-fleet
+# parity run.
+STC_SPARSITY = 0.01
+HOST_QUICKSTART = (("fedavg", 8), ("feddif", 8))
+HOST_TWO_ROUND = ("stc", "feddif_stc", "fedswap", "d2d_random_walk",
+                  "fedprox", "feddif_prox")
+MIX_RUNS = (("gossip", 2), ("tthf", 4))
+HOST_VS_FLEET_RUN = ("feddif", "fcn", 2, 8)
 
 
 def _fail(msg: str) -> None:
@@ -293,6 +321,139 @@ def path_shapes(torch, port) -> tuple[list, list, list, list]:
     bids = {(DEVICE_PLANNER_RUN[3],) * 2 + (NUM_CLASSES,)}
     bids.update((n, n, NUM_CLASSES) for _, n, _, _ in PLANNER_CASES)
     return sorted(mix), sorted(stc), sorted(bids), sorted(quant)
+
+
+def _stc_tie_free(torch, gen, n: int):
+    """n fp32 values with distinct magnitudes, randomly permuted, with random
+    signs: the bit patterns from that of 1e-3 upward, so no magnitude ties
+    at any threshold."""
+    base = int(torch.tensor([1e-3]).view(torch.int32)[0])
+    bits = base + torch.randperm(n, generator=gen, device="cuda").to(
+        torch.int32)
+    signs = torch.randint(0, 2, (n,), generator=gen, device="cuda")
+    return bits.view(torch.float32) * (signs.float() * 2.0 - 1.0)
+
+
+def check_stc_compress(torch, kref, port) -> list[dict]:
+    """Phase 2, the host plane's whole-tensor STC: ``stc_reduce`` and
+    ``stc_apply`` against their plain versions at every leaf size of the
+    fcn model (the host-plane STC runs' shapes; the 10-element leaf gives
+    k = 1), at 2^24 and at qwen3_0_6b's tied embedding (151936 × 1024).
+    Tie-free data: the survivor count must be k exactly, the support that
+    of the exact-k plain STC, μ within 1e-5 relative of the plain
+    version's and of a float64 sum, and the apply bit for bit (same τ, sum
+    and count in)."""
+    from repro_torch.kernels import stc_compress as ks
+    from repro_torch.tree import tree_leaves
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    init = port.build_task_model("fcn").init(torch.Generator())
+    sizes = sorted({x.numel() for x in tree_leaves(init)}, reverse=True)
+    rows = []
+    for n in sizes + [2 ** 24, 151936 * 1024]:
+        big = n > 2 ** 20
+        reps = dict(inner=4, reps=3, iters=5) if big else {}
+        x = _stc_tie_free(torch, gen, n)
+        k = max(1, int(n * STC_SPARSITY))
+        thr = kref.stc_threshold(x, STC_SPARSITY)
+        ssum, cnt = ks.stc_reduce_cuda(x, thr)
+        p_sum, p_cnt = kref.stc_reduce_ref(x, thr)
+        a = x.abs()
+        sum64 = float(a.double()[a >= thr].sum())
+        del a
+        torch.cuda.synchronize()
+        mu = float(ssum[0]) / max(int(cnt[0]), 1)
+        mu_plain = float(p_sum[0]) / max(int(p_cnt[0]), 1)
+        rel = max(abs(mu - mu_plain) / mu_plain, abs(mu - sum64 / k) / mu)
+        ok = int(cnt[0]) == int(p_cnt[0]) == k and rel <= 1e-5
+        bound, by = _bound(4.0 * n + 12.0, 3.0 * n)
+        # max_abs_err: the survivor sum against the plain version's; the
+        # bar is on μ, relative (mu_rel_tol), and on the count, exact.
+        row = {"name": "stc_reduce", "shape": [n], "k": k,
+               "count": int(cnt[0]), "mu_rel_err": rel, "mu_rel_tol": 1e-5,
+               "max_abs_err": abs(float(ssum[0]) - float(p_sum[0])),
+               "ok": ok, **_timings(torch, lambda: ks.stc_reduce_cuda(x, thr),
+                                    lambda: kref.stc_reduce_ref(x, thr),
+                                    **reps),
+               "bound_ms": bound, "bound_by": by}
+        print(json.dumps(row))
+        if not ok:
+            _fail(f"stc_reduce [{n}]: count {int(cnt[0])} (k={k}), "
+                  f"mu rel err {rel}")
+        rows.append(row)
+
+        out = ks.stc_apply_cuda(x, thr, ssum, cnt, k)
+        mu_t = kref.stc_mu_ref(ssum, cnt, thr, k)
+        plain = kref.stc_apply_ref(x, thr, mu_t)
+        exact_k = kref.stc_compress_ref(x, STC_SPARSITY)
+        torch.cuda.synchronize()
+        same = bool(torch.equal(out, plain))
+        support = bool(torch.equal(out != 0, exact_k != 0))
+        err = float((out - plain).abs().max())
+        err_k = float((out - exact_k).abs().max())
+        del exact_k
+        bound, by = _bound(8.0 * n + 12.0, 3.0 * n)
+        row = {"name": "stc_apply", "shape": [n], "max_abs_err": err,
+               "tol": 0.0, "max_abs_err_vs_exact_k": err_k,
+               "same_support_as_exact_k": support, "ok": same and support,
+               **_timings(torch,
+                          lambda: ks.stc_apply_cuda(x, thr, ssum, cnt, k),
+                          lambda: kref.stc_apply_ref(x, thr, mu_t),
+                          **reps),
+               "bound_ms": bound, "bound_by": by}
+        print(json.dumps(row))
+        if not row["ok"]:
+            _fail(f"stc_apply [{n}]: equal to the plain version {same}, "
+                  f"same support as exact-k STC {support}")
+        rows.append(row)
+        del x, out, plain
+        torch.cuda.empty_cache()
+    _stc_ties(torch, kref, ks, gen)
+    return rows
+
+
+def _stc_ties(torch, kref, ks, gen) -> None:
+    """The kernels' μ against the exact-k STC of record where magnitudes
+    tie at τ: a [16384] leaf with 50 nonzeros (k = 163, so τ = 0 and every
+    zero survives — μ = sum/count would be n/k times too small) and one
+    with seven magnitudes tied at the k-th.  μ within 1e-5 relative of
+    the exact-k μ in both; at τ = 0 the outputs agree element by element,
+    at the tie the kernels send the exact-k support plus the tied rest."""
+    n = 16384
+    k = max(1, int(n * STC_SPARSITY))
+    zeros = torch.zeros(n, device="cuda")
+    idx = torch.randperm(n, generator=gen, device="cuda")[:50]
+    zeros[idx] = _stc_tie_free(torch, gen, 50)
+    tied = _stc_tie_free(torch, gen, n)
+    order = torch.argsort(tied.abs(), descending=True)
+    at = order[k - 4:k + 3]
+    tied[at] = tied[at].sign() * tied[order[k - 4]].abs()
+    for case, x in (("tau_zero", zeros), ("tied_at_tau", tied)):
+        thr = kref.stc_threshold(x, STC_SPARSITY)
+        ssum, cnt = ks.stc_reduce_cuda(x, thr)
+        out = ks.stc_apply_cuda(x, thr, ssum, cnt, k)
+        exact_k = kref.stc_compress_ref(x, STC_SPARSITY)
+        torch.cuda.synchronize()
+        mu = float(out.abs().max())
+        mu_k = float(exact_k.abs().max())
+        rel = abs(mu - mu_k) / mu_k
+        sent, sent_k = int((out != 0).sum()), int((exact_k != 0).sum())
+        superset = bool(((exact_k != 0) <= (out != 0)).all())
+        extra = int(cnt[0]) - k
+        if case == "tau_zero":
+            ok = (float(thr[0]) == 0.0 and sent == sent_k and superset
+                  and float((out - exact_k).abs().max()) <= 1e-5 * mu_k)
+        else:
+            ok = sent == sent_k + extra == k + 3 and superset
+        row = {"name": "stc_ties", "case": case, "shape": [n], "k": k,
+               "tau": float(thr[0]), "count": int(cnt[0]), "sent": sent,
+               "sent_exact_k": sent_k, "mu": mu, "mu_exact_k": mu_k,
+               "mu_sum_over_count": float(ssum[0]) / int(cnt[0]),
+               "mu_rel_err": rel, "mu_rel_tol": 1e-5,
+               "ok": bool(ok and rel <= 1e-5)}
+        print(json.dumps(row))
+        if not row["ok"]:
+            _fail(f"stc ties ({case}): mu {mu} vs exact-k {mu_k}, sent "
+                  f"{sent} vs {sent_k}, count {int(cnt[0])} (k={k})")
 
 
 def check_kernels(torch, kd, kq, kref, port) -> list[dict]:
@@ -534,18 +695,19 @@ def main_path(torch, kd, port) -> dict:
     for strategy, task, rounds, clients in WARMUP_RUNS:
         port.run_experiment(ExperimentSpec(
             task=task, alpha=0.3, num_samples=1200,
-            fl=FLConfig(strategy=strategy, rounds=rounds,
+            fl=FLConfig(executor="fleet", strategy=strategy, rounds=rounds,
                         num_clients=clients, num_models=clients, seed=1)))
     port.run_experiment(ExperimentSpec(
         task="fcn", alpha=0.3, num_samples=1200,
-        fl=FLConfig(strategy="feddif", rounds=1, num_clients=8, num_models=8,
-                    seed=1, planner="jax", uncertainty_weight=VALUE_WEIGHT)))
+        fl=FLConfig(executor="fleet", strategy="feddif", rounds=1,
+                    num_clients=8, num_models=8, seed=1, planner="jax",
+                    uncertainty_weight=VALUE_WEIGHT)))
     runs = [(*r, "host", 0.0) for r in MAIN_RUNS]
     runs.insert(2, (*DEVICE_PLANNER_RUN, "jax", VALUE_WEIGHT))
     for strategy, task, rounds, clients, planner, weight in runs:
         spec = ExperimentSpec(
             task=task, alpha=0.3, num_samples=6000,
-            fl=FLConfig(strategy=strategy, rounds=rounds,
+            fl=FLConfig(executor="fleet", strategy=strategy, rounds=rounds,
                         num_clients=clients, num_models=clients,
                         epsilon=0.04, gamma_min=1.0, seed=0, planner=planner,
                         uncertainty_weight=weight))
@@ -627,9 +789,9 @@ def hop_plane_path(torch, kd, port) -> dict:
         for arm, (adapter_hops, quant) in LM_ARMS.items()]
     runs.append((f"{strategy}/{task} hop_quant=int8", ExperimentSpec(
         task=task, alpha=0.3, num_samples=6000,
-        fl=FLConfig(strategy=strategy, rounds=rounds, num_clients=clients,
-                    num_models=clients, epsilon=0.04, gamma_min=1.0, seed=0,
-                    hop_quant="int8"))))
+        fl=FLConfig(executor="fleet", strategy=strategy, rounds=rounds,
+                    num_clients=clients, num_models=clients, epsilon=0.04,
+                    gamma_min=1.0, seed=0, hop_quant="int8"))))
     hop_bits, peak = {}, {}
     for name, spec in runs:
         kd.reset_launch_counts()
@@ -696,14 +858,165 @@ def hop_plane_path(torch, kd, port) -> dict:
     return launches
 
 
-def card_vs_cpu(torch, port) -> None:
+def _run_line(torch, port, kd, name: str, spec) -> tuple:
+    """One counted run: counters zeroed right before, read right after.
+    Prints its JSON line and returns ``(result, launches)``."""
+    from repro_torch.tree import tree_leaves
+    kd.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = port.run_experiment(spec)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(kd.LAUNCHES)
+    finite = all(bool(torch.isfinite(x).all())
+                 for x in tree_leaves(res.final_params))
+    rounds = spec.fl.rounds
+    print(json.dumps({
+        "run": name, "executor": res.engine.mode, "rounds": rounds,
+        "peak_accuracy": max(res.accuracy), "accuracy": res.accuracy,
+        "ledger": res.ledger.as_dict(),
+        "diffusion_rounds": res.diffusion_rounds,
+        "mean_round_wall_s": sum(res.round_wall_s) / rounds,
+        "round_wall_s": res.round_wall_s,
+        "planner_s_per_round": res.planner_stats.get("seconds", 0.0)
+        / max(res.planner_stats.get("plans", 0), 1),
+        "run_wall_s": wall, "launches": counts, "finite": finite}))
+    if not finite:
+        _fail(f"{name}: non-finite parameters")
+    return res, counts
+
+
+def host_plane_path(torch, kd, port) -> dict:
+    """Phase 3b: the host plane (``executor="host"``, the reference's
+    default) through run_experiment on the card — the quickstart pair,
+    two rounds of the STC arms and of the other four strategies, gossip and
+    TT-HF on both planes, and int8 hops.  Checks: finite params; FedDif's
+    peak accuracy beats FedAvg's; on the host plane ``stc_reduce`` and
+    ``stc_apply`` launch once per compressed leaf (per hop for
+    feddif_stc, per uplink for stc, as the ledger counts them) and
+    ``stc_rows_*`` and ``mix_aggregate`` never (MixOps and Eq. 11 are plain
+    tensor ops there); on the fleet plane ``mix_aggregate`` launches once
+    per MixOp plus once per round; int8 hops launch the quant kernels once
+    per slot per PermuteOp."""
+    from repro_torch.tree import tree_leaves
+    FLConfig, ExperimentSpec = port.FLConfig, port.ExperimentSpec
+    launches = {name: 0 for name in kd.LAUNCHES}
+    leaves = len(tree_leaves(port.build_task_model("fcn").init(
+        torch.Generator())))
+
+    def spec(strategy, rounds, executor="host", **kw):
+        return ExperimentSpec(task="fcn", alpha=0.3, num_samples=6000,
+                              fl=FLConfig(strategy=strategy, rounds=rounds,
+                                          num_clients=8, num_models=8,
+                                          epsilon=0.04, gamma_min=1.0, seed=0,
+                                          executor=executor, **kw))
+
+    # One untimed host-plane round first (the stc_compress library's load,
+    # the eager step's first call).
+    port.run_experiment(ExperimentSpec(
+        task="fcn", alpha=0.3, num_samples=1200, fl=FLConfig(
+            strategy="feddif_stc", rounds=1, num_clients=4, num_models=4,
+            seed=1, executor="host")))
+    runs = [(f"{st}/fcn host", spec(st, r)) for st, r in HOST_QUICKSTART]
+    runs += [(f"{st}/fcn host", spec(st, 2)) for st in HOST_TWO_ROUND]
+    for st, r in MIX_RUNS:
+        runs += [(f"{st}/fcn {ex}", spec(st, r, ex))
+                 for ex in ("host", "fleet")]
+    runs.append(("feddif/fcn host hop_quant=int8",
+                 spec("feddif", 2, hop_quant="int8")))
+    peak = {}
+    for name, sp in runs:
+        res, counts = _run_line(torch, port, kd, name, sp)
+        led, st, host = res.ledger.as_dict(), sp.fl.strategy, \
+            res.engine.mode == "host"
+        compressions = 0
+        if st == "stc":
+            compressions = led["uplink_models"] * leaves
+        elif st == "feddif_stc":
+            compressions = (led["transmitted_models"]
+                            - led["uplink_models"]) * leaves
+        if counts["stc_reduce"] != compressions or \
+                counts["stc_apply"] != compressions:
+            _fail(f"{name}: stc_reduce / stc_apply launched "
+                  f"{counts['stc_reduce']} / {counts['stc_apply']} times, "
+                  f"the schedules imply {compressions}")
+        if "stc" in st and compressions == 0:
+            _fail(f"{name}: no STC compression was driven")
+        mixes = sum(1 + (st == "tthf" and (t + 1) % 4 == 0)
+                    for t in range(sp.fl.rounds)) if st in dict(MIX_RUNS) \
+            else 0
+        want_mix = 0 if host else mixes + sp.fl.rounds
+        if counts["mix_aggregate"] != want_mix:
+            _fail(f"{name}: mix_aggregate launched {counts['mix_aggregate']} "
+                  f"times, want {want_mix}")
+        if counts["stc_rows_reduce"] or counts["stc_rows_apply"]:
+            _fail(f"{name}: the fleet plane's stc_rows kernels launched")
+        want_q = (8 * sum(res.diffusion_rounds)
+                  if sp.fl.hop_quant == "int8" else 0)
+        if counts["quant_pack"] != want_q or counts["quant_unpack"] != want_q:
+            _fail(f"{name}: quant_pack / quant_unpack launched "
+                  f"{counts['quant_pack']} / {counts['quant_unpack']} times, "
+                  f"want {want_q}")
+        if want_q == 0 and sp.fl.hop_quant == "int8":
+            _fail(f"{name}: no diffusion round, so no int8 hop was driven")
+        for k in launches:
+            launches[k] += counts[k]
+        peak[name] = max(res.accuracy)
+    fedavg, feddif = peak["fedavg/fcn host"], peak["feddif/fcn host"]
+    print(json.dumps({"host_quickstart_peak_accuracy": {
+        "fedavg/fcn host": fedavg, "feddif/fcn host": feddif}}))
+    if not feddif > fedavg:
+        _fail(f"host plane: FedDif peak accuracy {feddif} does not beat "
+              f"FedAvg {fedavg}")
+    return launches
+
+
+def host_vs_fleet(torch, port) -> None:
+    """Phase 4: the port's two planes on the card from one init — FedDif,
+    fcn, N=M=8, 2 rounds: equal ledgers and diffusion rounds, params within
+    the reference's own host-vs-fleet bar (atol 2e-4, rtol 2e-3)."""
+    from repro_torch.tree import tree_leaves
+    strategy, task, rounds, clients = HOST_VS_FLEET_RUN
+    init = port.params_to_numpy(port.build_task_model(task).init(
+        torch.Generator().manual_seed(0)))
+    res = {}
+    for ex in ("host", "fleet"):
+        res[ex] = port.run_experiment(
+            port.ExperimentSpec(
+                task=task, alpha=0.3, num_samples=6000,
+                fl=port.FLConfig(strategy=strategy, rounds=rounds,
+                                 num_clients=clients, num_models=clients,
+                                 seed=0, topology_seed=3, executor=ex)),
+            init_fn=lambda g: port.params_from_numpy(init))
+    host, fleet = res["host"], res["fleet"]
+    if host.ledger.as_dict() != fleet.ledger.as_dict():
+        _fail("host and fleet planes charge different ledgers")
+    if host.diffusion_rounds != fleet.diffusion_rounds:
+        _fail("host and fleet planes plan different diffusion rounds")
+    err = 0.0
+    for a, b in zip(tree_leaves(host.final_params),
+                    tree_leaves(fleet.final_params)):
+        err = max(err, float((a - b).abs().max()))
+        if not torch.allclose(a, b, atol=2e-4, rtol=2e-3):
+            _fail(f"host and fleet planes' params differ by {err}")
+    print(json.dumps({"check": f"host_vs_fleet {strategy}/{task}",
+                      "max_abs_err": err, "atol": 2e-4, "rtol": 2e-3,
+                      "diffusion_rounds": host.diffusion_rounds,
+                      "accuracy": [host.accuracy, fleet.accuracy],
+                      "round_wall_s": [host.round_wall_s,
+                                       fleet.round_wall_s]}))
+
+
+def card_vs_cpu(torch, port, executor: str = "fleet") -> None:
     """Phase 4: the kernel path on the card against the plain path on the
-    CPU, from one init, on a small feddif_stc run."""
+    CPU, from one init, on a small feddif_stc run on one data plane (the
+    fleet plane's stc_rows kernels, or the host plane's stc_reduce /
+    stc_apply)."""
     from repro_torch.tree import tree_leaves
     strategy, task, rounds, clients = CARD_VS_CPU_RUN
     spec = port.ExperimentSpec(
         task=task, alpha=0.3, num_samples=1200,
-        fl=port.FLConfig(strategy=strategy, rounds=rounds,
+        fl=port.FLConfig(executor=executor, strategy=strategy, rounds=rounds,
                          num_clients=clients, num_models=clients, seed=0,
                          topology_seed=3))
     model = port.build_task_model(task)
@@ -722,7 +1035,7 @@ def card_vs_cpu(torch, port) -> None:
         if not torch.allclose(a, b, atol=2e-4, rtol=2e-3):
             _fail(f"card and CPU params differ by {err}")
     print(json.dumps({"check": f"card_vs_cpu {strategy}/{task}",
-                      "max_abs_err": err,
+                      "executor": executor, "max_abs_err": err,
                       "atol": 2e-4, "rtol": 2e-3,
                       "accuracy": [gpu.accuracy, cpu.accuracy]}))
 
@@ -837,10 +1150,12 @@ def planners_card_vs_cpu(torch) -> None:
 
 
 def profile_round(torch, port, planner: str = "host",
-                  weight: float = 0.0, lm_int8: bool = False) -> None:
+                  weight: float = 0.0, lm_int8: bool = False,
+                  executor: str = "fleet") -> None:
     """Phase 5 (a measurement, not a check): one FedDif round under
-    torch.profiler — of the quickstart cell with the host or the device
-    planner, or of the lm_hops adapter_int8 arm — device busy time (the
+    torch.profiler — of the quickstart cell on the fleet plane with the
+    host or the device planner or on the host plane, or of the lm_hops
+    adapter_int8 arm — device busy time (the
     union of kernel intervals), idle share of the span from the first to
     the last kernel, kernel count and the kernels with the most device
     time."""
@@ -852,12 +1167,12 @@ def profile_round(torch, port, planner: str = "host",
     else:
         spec = port.ExperimentSpec(
             task="fcn", alpha=0.3, num_samples=6000,
-            fl=port.FLConfig(strategy="feddif", rounds=1, num_clients=8,
-                             num_models=8, epsilon=0.04, gamma_min=1.0,
-                             seed=0, planner=planner,
+            fl=port.FLConfig(executor=executor, strategy="feddif", rounds=1,
+                             num_clients=8, num_models=8, epsilon=0.04,
+                             gamma_min=1.0, seed=0, planner=planner,
                              uncertainty_weight=weight))
-        label = (f"feddif/fcn 1 round (quickstart cell), planner={planner} "
-                 f"w={weight}")
+        label = (f"feddif/fcn 1 round (quickstart cell), {executor} plane, "
+                 f"planner={planner} w={weight}")
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -1307,14 +1622,20 @@ def main() -> None:
                 print(f"ptxas[{name}]: {line.strip()}")
 
     rows = check_kernels(torch, kd, kq, kref, port)
+    rows += check_stc_compress(torch, kref, port)
     launches = main_path(torch, kd, port)
     for k, v in hop_plane_path(torch, kd, port).items():
         launches[k] += v
+    for k, v in host_plane_path(torch, kd, port).items():
+        launches[k] += v
     card_vs_cpu(torch, port)
+    card_vs_cpu(torch, port, "host")
+    host_vs_fleet(torch, port)
     lm_card_vs_cpu(torch, port)
     planners_card_vs_cpu(torch)
     profile_round(torch, port)
     profile_round(torch, port, "jax", VALUE_WEIGHT)
+    profile_round(torch, port, executor="host")
     profile_round(torch, port, lm_int8=True)
     rows += check_lm_kernels(torch, kref)
     for k, v in zoo_prefill(torch, kd).items():
@@ -1328,6 +1649,10 @@ def main() -> None:
                             "src/repro/kernels/diffusion.py:177"),
         "stc_rows_apply": ("stc_rows.cu",
                            "src/repro/kernels/diffusion.py:200"),
+        "stc_reduce": ("stc_compress.cu",
+                       "src/repro/kernels/stc_compress.py:30"),
+        "stc_apply": ("stc_compress.cu",
+                      "src/repro/kernels/stc_compress.py:47"),
         "dol_bid_scores": ("dol_bid_scores.cu",
                            "src/repro/kernels/diffusion.py:316"),
         "bid_value_fuse": ("bid_value_fuse.cu",
@@ -1340,13 +1665,15 @@ def main() -> None:
         "ssm_scan": ("ssm_scan.cu", "src/repro/kernels/ssm_scan.py:29"),
     }
     # The summary row of each kernel is its main-path shape: the (8, 26122)
-    # Eq.-11 row of the fcn fleet, the largest fcn leaf (8, 16384), the
+    # Eq.-11 row of the fcn fleet, the largest fcn leaf (8, 16384) stacked
+    # on the fleet plane and [16384] alone on the host plane, the
     # device planner's (8, 8) bids over 10 classes in the quickstart cell,
     # the lm adapter's (8·7, 512) int8 block in the lm_hops cell, and the
     # zoo's prefill shapes: qwen3's bf16 attention (B, Sq, Sk, H, D),
     # zamba2's SSD (B, S, H, P, N, chunk) and falcon's scan (B, S, D, N).
     main_shape = {"mix_aggregate": [8, 26122, 1],
                   "stc_rows_reduce": [8, 16384], "stc_rows_apply": [8, 16384],
+                  "stc_reduce": [16384], "stc_apply": [16384],
                   "dol_bid_scores": [8, 8, NUM_CLASSES],
                   "bid_value_fuse": [8, 8], "quant_pack": [56, 512],
                   "quant_unpack": [56, 512],

@@ -1,23 +1,28 @@
 """FedDif's control plane: DoL state, auction, planner and the schedule IR."""
-from repro_torch.core.aggregation import model_bits
+from repro_torch.core.aggregation import (divergence_bound, fedavg,
+                                          model_bits, weight_distance)
 from repro_torch.core.auction import (AuctionConfig, AuctionResult,
                                       compute_bids, fuse_learning_value,
                                       run_auction)
 from repro_torch.core.diffusion import (PLANNER_MODES, DiffusionHop,
-                                        DiffusionPlan, DiffusionPlanner)
+                                        DiffusionPlan, DiffusionPlanner,
+                                        PlanCache, feddif_cache_key,
+                                        plan_cache_key)
 from repro_torch.core.dol import (DiffusionState, PlannerState, iid_distance,
                                   iid_distance_candidates, update_dol)
 from repro_torch.core.matching import (auction_assign, hungarian_min_cost,
                                        max_weight_matching)
-from repro_torch.core.schedule import (PermuteOp, RoundSchedule, TrainOp,
-                                       WireEvent, charge_schedule,
+from repro_torch.core.schedule import (MixOp, PermuteOp, RoundSchedule,
+                                       TrainOp, WireEvent, charge_schedule,
                                        complete_round_permutation)
 
-__all__ = ["model_bits", "AuctionConfig", "AuctionResult", "compute_bids",
+__all__ = ["model_bits", "fedavg", "weight_distance", "divergence_bound",
+           "AuctionConfig", "AuctionResult", "compute_bids",
            "fuse_learning_value", "run_auction", "PLANNER_MODES",
-           "DiffusionHop", "DiffusionPlan", "DiffusionPlanner",
+           "DiffusionHop", "DiffusionPlan", "DiffusionPlanner", "PlanCache",
+           "plan_cache_key", "feddif_cache_key",
            "DiffusionState", "PlannerState", "iid_distance",
            "iid_distance_candidates", "update_dol", "auction_assign",
            "hungarian_min_cost", "max_weight_matching",
-           "PermuteOp", "RoundSchedule", "TrainOp", "WireEvent",
+           "MixOp", "PermuteOp", "RoundSchedule", "TrainOp", "WireEvent",
            "charge_schedule", "complete_round_permutation"]

@@ -7,13 +7,17 @@ bid → auction → schedule loop until ``W1(ψ, U) ≤ ε`` holds for every mod
 plan is pure scheduling; no training happens here.  ``mode="host"`` runs
 the numpy loop with the Hungarian matching; ``mode="jax"`` (the reference's
 name, kept as specs and sweeps carry it) runs the device planner of
-:mod:`repro_torch.core.planner` on the planner's device.  The plan cache of
-the reference is queued in ROADMAP.md (A6).
+:mod:`repro_torch.core.planner` on the planner's device.  Either mode
+consults a :class:`PlanCache` when given one and a key
+(:func:`feddif_cache_key`): a hit replays the stored plan and post-plan
+state instead of planning.
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import time
+from collections import OrderedDict
 
 import numpy as np
 import torch
@@ -24,8 +28,8 @@ from repro_torch.channels.topology import CellTopology
 from repro_torch.core import dol as dol_lib
 from repro_torch.core.auction import AuctionConfig, run_auction
 
-__all__ = ["DiffusionHop", "DiffusionPlan", "DiffusionPlanner",
-           "PLANNER_MODES"]
+__all__ = ["DiffusionHop", "DiffusionPlan", "DiffusionPlanner", "PlanCache",
+           "plan_cache_key", "feddif_cache_key", "PLANNER_MODES"]
 
 PLANNER_MODES = ("host", "jax")
 
@@ -47,9 +51,179 @@ class DiffusionPlan:
     num_rounds: int
     final_iid_distance: np.ndarray      # (M,)
     efficiency_per_round: list[float]
+    num_models: int | None = None       # M — set by the planner
 
     def hops_in_round(self, k: int) -> list[DiffusionHop]:
         return [h for h in self.hops if h.round_index == k]
+
+
+def plan_cache_key(topology_seed: int, round_index: int, dsi: np.ndarray,
+                   data_sizes: np.ndarray, epsilon: float, gamma_min: float,
+                   metric: str, extra: tuple = ()) -> tuple:
+    """Cache key for one communication round's :class:`DiffusionPlan`.
+
+    A plan is a pure function of the control-plane inputs: the channel draw
+    (from ``(topology_seed, round_index)``), the client DSIs and data sizes
+    (fixed by the data seed) and the planner knobs.  It does not depend on
+    the model-init seed, so replicate seeds of one sweep cell can share
+    plans."""
+    h = hashlib.sha1()
+    h.update(np.ascontiguousarray(dsi, np.float32).tobytes())
+    h.update(np.ascontiguousarray(data_sizes, np.float64).tobytes())
+    return (int(topology_seed), int(round_index), float(epsilon),
+            float(gamma_min), str(metric), h.hexdigest(), tuple(extra))
+
+
+def feddif_cache_key(cfg, t: int, dsi: np.ndarray, data_sizes: np.ndarray,
+                     model_bits: float, auction: AuctionConfig,
+                     values: np.ndarray | None = None) -> tuple:
+    """The :func:`plan_cache_key` of a FedDif round, key for key the
+    reference's: the sizing knobs, the whole :class:`AuctionConfig`
+    surface, the world scenario, the learning-value weight and the planner
+    mode (host and device plans never share a line).  When the value signal
+    is on, the digest of the round's ``values`` joins the key; they depend
+    on the model params, so such plans are not shared across seeds."""
+    vdigest = ""
+    if values is not None and getattr(cfg, "uncertainty_weight", 0.0):
+        vdigest = hashlib.sha1(
+            np.ascontiguousarray(values, np.float32).tobytes()).hexdigest()
+    return plan_cache_key(
+        cfg.topology_seed, t, dsi, data_sizes, cfg.epsilon, cfg.gamma_min,
+        cfg.metric,
+        extra=(cfg.num_clients, cfg.num_models, float(model_bits),
+               cfg.max_diffusion_rounds, cfg.allow_retraining, cfg.underlay,
+               float(auction.outage_max), float(auction.bandwidth_budget),
+               getattr(cfg, "planner", "host"),
+               getattr(cfg, "scenario", "static"),
+               float(getattr(cfg, "uncertainty_weight", 0.0)), vdigest))
+
+
+class PlanCache:
+    """LRU memo of ``(DiffusionPlan, post-plan DiffusionState)`` snapshots.
+
+    :meth:`DiffusionPlanner.plan_communication_round` consults it when given
+    a key: on a hit it returns the stored plan and fast-forwards the
+    caller's :class:`~repro_torch.core.dol.DiffusionState` to the stored
+    post-plan snapshot, skipping the auction loop.  :meth:`state_dict` /
+    :meth:`load_state_dict` round-trip it through plain JSON-able data, in
+    the reference's layout."""
+
+    def __init__(self, max_entries: int = 256):
+        self.max_entries = max_entries
+        self._store: OrderedDict[tuple, tuple] = OrderedDict()
+        self.hits = 0
+        self.misses = 0
+
+    def __len__(self) -> int:
+        return len(self._store)
+
+    def __contains__(self, key: tuple) -> bool:
+        """Presence probe that touches neither the counters nor LRU order."""
+        return key in self._store
+
+    def lookup(self, key: tuple):
+        """Return ``(plan, post_state)`` or ``None``; counts hits/misses."""
+        entry = self._store.get(key)
+        if entry is None:
+            self.misses += 1
+            return None
+        self._store.move_to_end(key)
+        self.hits += 1
+        return entry
+
+    def store(self, key: tuple, plan: DiffusionPlan,
+              post_state: dol_lib.DiffusionState) -> None:
+        self._store[key] = (plan, post_state.snapshot())
+        self._store.move_to_end(key)
+        while len(self._store) > self.max_entries:
+            self._store.popitem(last=False)
+
+    def stats(self) -> dict:
+        return {"hits": self.hits, "misses": self.misses,
+                "entries": len(self._store)}
+
+    def state_dict(self) -> dict:
+        entries = []
+        for key, (plan, state) in self._store.items():
+            entries.append({
+                "key": _key_jsonable(key),
+                "plan": {
+                    "hops": [[h.model, h.src, h.dst, h.gamma, h.bandwidth,
+                              h.decrement, h.round_index]
+                             for h in plan.hops],
+                    "num_rounds": int(plan.num_rounds),
+                    "final_iid_distance":
+                        np.asarray(plan.final_iid_distance,
+                                   np.float32).tolist(),
+                    "efficiency_per_round":
+                        [float(e) for e in plan.efficiency_per_round],
+                    "num_models": plan.num_models,
+                },
+                "state": {
+                    "dol": np.asarray(state.dol, np.float32).tolist(),
+                    "chain_size":
+                        np.asarray(state.chain_size, np.float32).tolist(),
+                    "visited": np.asarray(state.visited, bool).tolist(),
+                    "holder": np.asarray(state.holder, np.int64).tolist(),
+                    "round_index": int(state.round_index),
+                },
+            })
+        return {"version": 1, "max_entries": self.max_entries,
+                "hits": self.hits, "misses": self.misses,
+                "entries": entries}
+
+    def load_state_dict(self, state: dict) -> None:
+        """Merge serialized entries into this cache (counters adopted too)."""
+        self.max_entries = int(state.get("max_entries", self.max_entries))
+        self.hits = int(state.get("hits", 0))
+        self.misses = int(state.get("misses", 0))
+        for e in state["entries"]:
+            key = _key_from_jsonable(e["key"])
+            p, s = e["plan"], e["state"]
+            plan = DiffusionPlan(
+                hops=[DiffusionHop(model=int(h[0]), src=int(h[1]),
+                                   dst=int(h[2]), gamma=float(h[3]),
+                                   bandwidth=float(h[4]),
+                                   decrement=float(h[5]),
+                                   round_index=int(h[6]))
+                      for h in p["hops"]],
+                num_rounds=int(p["num_rounds"]),
+                final_iid_distance=np.asarray(p["final_iid_distance"],
+                                              np.float32),
+                efficiency_per_round=[float(x)
+                                      for x in p["efficiency_per_round"]],
+                num_models=(None if p["num_models"] is None
+                            else int(p["num_models"])))
+            post = dol_lib.DiffusionState(
+                dol=np.asarray(s["dol"], np.float32),
+                chain_size=np.asarray(s["chain_size"], np.float32),
+                visited=np.asarray(s["visited"], bool),
+                holder=np.asarray(s["holder"], np.int64),
+                round_index=int(s["round_index"]))
+            self._store[key] = (plan, post)
+            self._store.move_to_end(key)
+        while len(self._store) > self.max_entries:
+            self._store.popitem(last=False)
+
+    @classmethod
+    def from_state_dict(cls, state: dict) -> "PlanCache":
+        cache = cls(max_entries=int(state.get("max_entries", 256)))
+        cache.load_state_dict(state)
+        return cache
+
+
+def _key_jsonable(key):
+    """Keys are nested tuples of scalars; JSON keeps every scalar type, only
+    tuples become lists."""
+    if isinstance(key, tuple):
+        return [_key_jsonable(k) for k in key]
+    return key
+
+
+def _key_from_jsonable(key):
+    if isinstance(key, list):
+        return tuple(_key_from_jsonable(k) for k in key)
+    return key
 
 
 class DiffusionPlanner:
@@ -89,6 +263,8 @@ class DiffusionPlanner:
             self, state: dol_lib.DiffusionState, dsi: np.ndarray,
             data_sizes: np.ndarray, rng: np.random.Generator,
             positions: np.ndarray | None = None,
+            cache: PlanCache | None = None,
+            cache_key: tuple | None = None,
             values: np.ndarray | None = None,
             value_weight: float = 0.0) -> DiffusionPlan:
         """Run auctions until halting; mutates ``state`` (DoLs, visited
@@ -96,7 +272,19 @@ class DiffusionPlanner:
         learning value into the bids.  The host mode consumes ``rng`` as
         the reference's host mode does (one gain draw per diffusion round);
         the device mode pre-draws ``max_rounds`` rounds of it, as the
-        reference's ``mode="jax"`` does."""
+        reference's ``mode="jax"`` does.
+
+        With ``cache`` and ``cache_key`` (:func:`feddif_cache_key`), a hit
+        returns the cached plan and fast-forwards ``state`` to the cached
+        post-plan snapshot, drawing nothing from ``rng``; a miss plans and
+        stores.  Only plans made count in :attr:`stats`."""
+        use_cache = cache is not None and cache_key is not None
+        if use_cache:
+            entry = cache.lookup(cache_key)
+            if entry is not None:
+                plan, post_state = entry
+                state.restore(post_state)
+                return plan
         t0 = time.perf_counter()
         if self.mode == "jax":
             from repro_torch.core.planner import plan_communication_round_jax
@@ -108,6 +296,8 @@ class DiffusionPlanner:
                                    values, value_weight)
         self.stats["plans"] += 1
         self.stats["seconds"] += time.perf_counter() - t0
+        if use_cache:
+            cache.store(cache_key, plan, state)
         return plan
 
     def _plan_host(self, state, dsi, data_sizes, rng, positions, values,
@@ -156,4 +346,5 @@ class DiffusionPlanner:
         return DiffusionPlan(hops=hops, num_rounds=k,
                              final_iid_distance=state.iid_distances(
                                  self.auction.metric),
-                             efficiency_per_round=eff_hist)
+                             efficiency_per_round=eff_hist,
+                             num_models=int(state.dol.shape[0]))

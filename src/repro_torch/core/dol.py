@@ -335,6 +335,22 @@ class DiffusionState:
     def iid_distances(self, metric: str = "w1_norm") -> np.ndarray:
         return iid_distance(self.dol, metric)
 
+    def snapshot(self) -> "DiffusionState":
+        """Deep copy — the plan cache stores post-plan state as one."""
+        return DiffusionState(dol=self.dol.copy(),
+                              chain_size=self.chain_size.copy(),
+                              visited=self.visited.copy(),
+                              holder=self.holder.copy(),
+                              round_index=self.round_index)
+
+    def restore(self, other: "DiffusionState") -> None:
+        """Overwrite this state in place from a snapshot (cache replay)."""
+        self.dol = other.dol.copy()
+        self.chain_size = other.chain_size.copy()
+        self.visited = other.visited.copy()
+        self.holder = other.holder.copy()
+        self.round_index = other.round_index
+
     def functional(self, device: torch.device | str = "cpu"
                    ) -> PlannerState:
         """Tensor view on ``device`` for the device planner."""

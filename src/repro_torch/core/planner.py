@@ -277,7 +277,8 @@ def decode_plan(out: PlanOutputs, gamma_seq64: np.ndarray,
     return DiffusionPlan(
         hops=hops, num_rounds=k,
         final_iid_distance=out.final_iid.cpu().numpy(),
-        efficiency_per_round=[float(e) for e in eff[:k]])
+        efficiency_per_round=[float(e) for e in eff[:k]],
+        num_models=int(out.final_iid.shape[0]))
 
 
 def plan_communication_round_jax(planner, state, dsi: np.ndarray,

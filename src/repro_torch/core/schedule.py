@@ -1,9 +1,8 @@
 """RoundSchedule — the strategy-agnostic IR between schedulers and executors.
 
 Counterpart of ``repro.core.schedule``.  A scheduler expresses one
-communication round as slot-level *ops* (train / permute+train; the
-group-mix op of gossip and TT-HF comes with ROADMAP item A6),
-the *wire events* to charge against the
+communication round as slot-level *ops* (train / permute+train /
+group-mix), the *wire events* to charge against the
 :class:`~repro_torch.channels.resources.ResourceLedger`, and the final
 aggregation weights.  Scheduling is pure numpy: the same object is charged
 once (:func:`charge_schedule`) and replayed by the executor on the device.
@@ -19,7 +18,7 @@ import dataclasses
 
 import numpy as np
 
-__all__ = ["WireEvent", "TrainOp", "PermuteOp", "RoundSchedule",
+__all__ = ["WireEvent", "TrainOp", "PermuteOp", "MixOp", "RoundSchedule",
            "complete_round_permutation", "charge_schedule"]
 
 
@@ -60,6 +59,27 @@ class PermuteOp:
         return mask
 
 
+@dataclasses.dataclass(frozen=True)
+class MixOp:
+    """In-place group averaging: every slot in a group is overwritten by the
+    group's data-size-weighted mean (gossip pairs, TT-HF clusters, the BS
+    broadcast when one group spans all slots)."""
+    groups: tuple                   # of (members: tuple[int], weights: tuple[float])
+
+    def matrix(self, num_slots: int) -> np.ndarray:
+        """(C, C) row-stochastic mixing matrix for the stacked executor:
+        identity rows outside every group, each member's row the group's
+        weights normalized in float64 and cast to fp32."""
+        w = np.eye(num_slots, dtype=np.float32)
+        for members, weights in self.groups:
+            ws = np.asarray(weights, np.float64)
+            ws = (ws / ws.sum()).astype(np.float32)
+            for i in members:
+                w[i, :] = 0.0
+                w[i, list(members)] = ws
+        return w
+
+
 @dataclasses.dataclass
 class RoundSchedule:
     """One communication round, strategy-agnostic.
@@ -67,13 +87,15 @@ class RoundSchedule:
     ``agg`` holds ordered ``(slot, weight)`` pairs of the Eq.-(11)
     aggregation; ``agg_mode`` is "params" or "stc_delta" (weighted mean of
     STC-compressed deltas against the round-start global — the STC uplink).
-    The reference's ``persistent`` slots (gossip, TT-HF) come with ROADMAP
-    item A6."""
+    With ``persistent=True`` (gossip, TT-HF) slots carry their state across
+    communication rounds and the aggregate is only reported (evaluated);
+    otherwise each round starts from a broadcast of the global."""
     num_slots: int
     ops: list
     wire: list
     agg: list
     agg_mode: str = "params"
+    persistent: bool = False
     stc_sparsity: float = 0.01
     diffusion_rounds: int = 0
     mean_iid: float = 0.0

@@ -75,7 +75,7 @@ def quant_roundtrip_tree(params: Params) -> Params:
 
 
 def quant_roundtrip_slot(params: Params) -> Params:
-    """Roundtrip one unstacked slot tree (the host executor, ROADMAP A6).
+    """Roundtrip one unstacked slot tree (the host executor).
     Flattens in ``stack_ravel``'s leaf-concat order, so the row-block
     boundaries, and the decoded values, are the stacked executor's."""
     leaves, treedef = tree_flatten(params)

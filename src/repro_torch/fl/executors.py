@@ -1,25 +1,41 @@
-"""The fleet executor: run one :class:`RoundSchedule` on client-stacked params.
+"""Executors: run one :class:`RoundSchedule` on params, on the device.
 
-Counterpart of ``repro.fl.executors.FleetExecutor``.  All client slots live
-in one params tree with a leading client axis, on one device:
+Counterpart of ``repro.fl.executors`` (``HostExecutor``, ``FleetExecutor``,
+``make_executor``).  Both planes consume the same schedule object:
 
-* a local session (one epoch of batches per trained slot, momentum reset,
-  per-slot gradient clipping at 10) is ``torch.func.vmap`` of one
-  ``grad_and_value`` step over the client axis.  Clients with shorter
-  epochs are padded with zero batches and masked out per step
-  (``torch.where(active, new, old)``), so each slot's math is its own loop;
-* a diffusion hop is :func:`~repro_torch.distributed.fedshard.diffuse_params`
-  (a row gather); with ``hop_quant="int8"`` the stacked payload first makes
-  one int8 pack→unpack roundtrip per client row
-  (:func:`~repro_torch.fl.adapters.quant_roundtrip_tree`: the ``quant``
-  kernels on the card); STC-compressed hops and the STC uplink go through
-  :func:`~repro_torch.distributed.fedshard.masked_stc_compress` (the
-  ``stc_rows`` kernels on the card);
-* the Eq.-(11) aggregation is one ``kernels.ops.mix_aggregate_tree`` call
-  (one ``mix_aggregate`` kernel launch on the card).  The MixOp of gossip
-  and TT-HF, the same call with a (C, C) matrix, comes with ROADMAP A6.
+* :class:`HostExecutor` — the reference semantics.  One param tree per
+  client slot (a list of trees on the device), local sessions through
+  :mod:`repro_torch.fl.client` / :mod:`repro_torch.fl.fedprox` one client
+  at a time, STC-compressed hops and the STC uplink per slot and per leaf
+  through ``fl.compression.stc_compress`` (the ``stc_reduce``/``stc_apply``
+  kernels on the card), int8 hops through ``fl.adapters.
+  quant_roundtrip_slot`` (the ``quant`` kernels), and MixOps and the
+  Eq.-(11) aggregation through ``core.aggregation.fedavg`` in plain tensor
+  ops, as the reference computes them outside any Pallas kernel.
+* :class:`FleetExecutor` — client-stacked.  All slots live in one params
+  tree with a leading client axis:
 
-Ledger charging lives elsewhere (``core.schedule.charge_schedule``).
+  - a local session (one epoch of batches per trained slot, momentum
+    reset, per-slot gradient clipping at 10, the proximal term for
+    ``fedprox``/``feddif_prox`` anchored at the session's incoming params)
+    is ``torch.func.vmap`` of one ``grad_and_value`` step over the client
+    axis.  Clients with shorter epochs are padded with zero batches and
+    masked out per step (``torch.where(active, new, old)``), so each
+    slot's math is its own loop;
+  - a diffusion hop is :func:`~repro_torch.distributed.fedshard.
+    diffuse_params` (a row gather); with ``hop_quant="int8"`` the stacked
+    payload first makes one int8 pack→unpack roundtrip per client row
+    (:func:`~repro_torch.fl.adapters.quant_roundtrip_tree`: the ``quant``
+    kernels on the card); STC-compressed hops and the STC uplink go through
+    :func:`~repro_torch.distributed.fedshard.masked_stc_compress` (the
+    ``stc_rows`` kernels on the card);
+  - a MixOp and the Eq.-(11) aggregation are one
+    ``kernels.ops.mix_aggregate_tree`` call each (one ``mix_aggregate``
+    launch on the card), with the (C, C) MixOp matrix or a (1, C) row.
+
+Persistent schedules (gossip, TT-HF) carry the slots across rounds on
+either plane.  Ledger charging lives elsewhere
+(``core.schedule.charge_schedule``).
 """
 from __future__ import annotations
 
@@ -29,20 +45,107 @@ import numpy as np
 import torch
 from torch.func import grad_and_value, vmap
 
-from repro_torch.core.schedule import PermuteOp, RoundSchedule, TrainOp
+from repro_torch.core import aggregation as agg
+from repro_torch.core.schedule import MixOp, PermuteOp, RoundSchedule, TrainOp
 from repro_torch.distributed.fedshard import (diffuse_params,
                                               masked_stc_compress)
-from repro_torch.fl.adapters import quant_roundtrip_tree
+from repro_torch.fl.adapters import quant_roundtrip_slot, quant_roundtrip_tree
+from repro_torch.fl.compression import stc_compress
+from repro_torch.fl.fedprox import prox_objective
+from repro_torch.fl.schedulers import PROX_STRATEGIES
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.train import optimizer as opt_lib
 from repro_torch.tree import tree_map
 
 Params = Any
 
-__all__ = ["FleetExecutor"]
+__all__ = ["HostExecutor", "FleetExecutor", "make_executor", "EXECUTORS",
+           "CLIP_NORM"]
+
+#: The data planes of the port; the reference's third, "sharded", is
+#: ROADMAP item A12.
+EXECUTORS = ("host", "fleet")
 
 #: Per-slot global-norm gradient clip of every local step.
 CLIP_NORM = 10.0
+
+
+def _tree_sub(a, b):
+    return tree_map(lambda x, y: x - y, a, b)
+
+
+def _tree_add(a, b):
+    return tree_map(lambda x, y: x + y, a, b)
+
+
+class HostExecutor:
+    """Per-slot list-of-trees execution — the reference semantics."""
+
+    def __init__(self, local_update: Callable,
+                 client_batches: Sequence[Callable], cfg,
+                 device: torch.device):
+        self.local_update = local_update
+        self.client_batches = client_batches
+        self.cfg = cfg
+        self.device = device
+        self.quant = cfg.hop_quant == "int8"
+
+    def _train(self, slots: list, mask: np.ndarray) -> None:
+        for c in np.flatnonzero(mask):
+            slots[c], _ = self.local_update(
+                slots[c], self.client_batches[c](), self.cfg.lr)
+
+    # ------------------------------------------------------------------ round
+
+    def run_ops(self, sched: RoundSchedule, global_params: Params,
+                slots: list | None) -> list:
+        """Replay the schedule's op list; return the post-op slot list."""
+        c_slots = sched.num_slots
+        if not sched.persistent or slots is None:
+            slots = [tree_map(torch.clone, global_params)
+                     for _ in range(c_slots)]
+        ref = global_params
+        for op in sched.ops:
+            if isinstance(op, TrainOp):
+                self._train(slots, op.train_mask)
+            elif isinstance(op, PermuteOp):
+                if op.compress:
+                    for s in np.flatnonzero(op.compress_src_mask()):
+                        delta = stc_compress(_tree_sub(slots[s], ref),
+                                             sched.stc_sparsity)
+                        slots[s] = _tree_add(ref, delta)
+                if self.quant:
+                    # int8 wire: each destination decodes the pack→unpack
+                    # of its payload (the hop is a bijection, so every slot
+                    # moves and is roundtripped exactly once).
+                    slots = [quant_roundtrip_slot(s) for s in slots]
+                slots = [slots[int(op.src_of_dst[c])] for c in range(c_slots)]
+                self._train(slots, op.train_mask)
+            elif isinstance(op, MixOp):
+                for members, weights in op.groups:
+                    avg = agg.fedavg([slots[i] for i in members],
+                                     list(weights))
+                    for i in members:
+                        slots[i] = avg
+            else:
+                raise TypeError(f"unknown op {type(op).__name__}")
+        return slots
+
+    def aggregate(self, sched: RoundSchedule, slots: list,
+                  ref: Params) -> Params:
+        """Eq. (11) over the schedule's ``agg`` entries, in entry order."""
+        weights = [w for _, w in sched.agg]
+        if sched.agg_mode == "stc_delta":
+            deltas = [stc_compress(_tree_sub(slots[s], ref),
+                                   sched.stc_sparsity) for s, _ in sched.agg]
+            return _tree_add(ref, agg.fedavg(deltas, weights))
+        return agg.fedavg([slots[s] for s, _ in sched.agg], weights)
+
+    def run_round(self, sched: RoundSchedule, global_params: Params,
+                  slots: list | None) -> tuple[Params, list | None]:
+        slots = self.run_ops(sched, global_params, slots)
+        new_global = self.aggregate(sched, slots, global_params)
+        return new_global, (slots if sched.persistent else None)
 
 
 class FleetExecutor:
@@ -54,11 +157,16 @@ class FleetExecutor:
         self.cfg = cfg
         self.device = device
         self.quant = cfg.hop_quant == "int8"
+        self.prox = cfg.strategy in PROX_STRATEGIES
         opt = opt_lib.sgd(momentum=cfg.momentum)
         lr = float(cfg.lr)
+        objective = prox_objective(loss_fn, float(cfg.prox_mu))
 
-        def one(p, mom, batch, active):
-            grads, loss = grad_and_value(loss_fn)(p, batch)
+        def one(p, mom, batch, active, anchor=None):
+            if anchor is None:
+                grads, loss = grad_and_value(loss_fn)(p, batch)
+            else:
+                grads, loss = grad_and_value(objective)(p, batch, anchor)
             grads, _ = opt_lib.clip_by_global_norm(grads, CLIP_NORM)
             updates, new_state = opt.update(grads, {"mu": mom}, p, lr)
             p2 = opt_lib.apply_updates(p, updates)
@@ -68,6 +176,8 @@ class FleetExecutor:
             return (tree_map(sel, p2, p), tree_map(sel, new_state["mu"], mom),
                     loss)
 
+        # ``_step(params, mom, batch, active[, anchor])``: the proximal
+        # strategies pass the anchor, the others leave it out.
         self._step = vmap(one)
 
     # ---------------------------------------------------------------- batches
@@ -101,8 +211,10 @@ class FleetExecutor:
         steps, actives = self._draw_session(mask)
         mom = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
                        params)
+        # The proximal anchor is the received model, as on the host plane.
+        extra = (params,) if self.prox else ()
         for batch, active in zip(steps, actives):
-            params, mom, _ = self._step(params, mom, batch, active)
+            params, mom, _ = self._step(params, mom, batch, active, *extra)
         return params
 
     # ------------------------------------------------------------- primitives
@@ -119,6 +231,11 @@ class FleetExecutor:
         return diffuse_params(params, torch.as_tensor(
             np.asarray(op.src_of_dst, np.int64), device=self.device))
 
+    def _mix(self, params: Params, op: MixOp, num_slots: int) -> Params:
+        # Eq. (10): the (C, C) MixOp matrix through the same kernel.
+        w = torch.as_tensor(op.matrix(num_slots), device=self.device)
+        return kernel_ops.mix_aggregate_tree(params, w)
+
     def _aggregate(self, payload: Params, w: torch.Tensor) -> Params:
         # Eq. (11): the same kernel with one output row.
         return kernel_ops.mix_aggregate_tree(payload, w.reshape(1, -1),
@@ -126,9 +243,14 @@ class FleetExecutor:
 
     # ------------------------------------------------------------------ round
 
-    def run_ops(self, sched: RoundSchedule, global_params: Params) -> Params:
+    def run_ops(self, sched: RoundSchedule, global_params: Params,
+                slots: Params | None) -> Params:
         """Replay the op list on the client-stacked tree."""
-        params = self._broadcast(global_params, sched.num_slots)
+        c_slots = sched.num_slots
+        if sched.persistent and slots is not None:
+            params = slots
+        else:
+            params = self._broadcast(global_params, c_slots)
         ref = global_params
         for op in sched.ops:
             if isinstance(op, TrainOp):
@@ -140,6 +262,8 @@ class FleetExecutor:
                                                  sched.stc_sparsity)
                 params = self._permute(params, op)
                 params = self._session(params, op.train_mask)
+            elif isinstance(op, MixOp):
+                params = self._mix(params, op, c_slots)
             else:
                 raise TypeError(f"unknown op {type(op).__name__}")
         return params
@@ -154,6 +278,23 @@ class FleetExecutor:
                                          sched.stc_sparsity)
         return self._aggregate(params, w)
 
-    def run_round(self, sched: RoundSchedule, global_params: Params) -> Params:
-        params = self.run_ops(sched, global_params)
-        return self.aggregate(sched, params, global_params)
+    def run_round(self, sched: RoundSchedule, global_params: Params,
+                  slots: Params | None) -> tuple[Params, Params | None]:
+        params = self.run_ops(sched, global_params, slots)
+        new_global = self.aggregate(sched, params, global_params)
+        return new_global, (params if sched.persistent else None)
+
+
+def make_executor(name: str, loss_fn: Callable, local_update: Callable,
+                  client_batches: Sequence[Callable], cfg,
+                  device: torch.device):
+    """Build the executor of the resolved engine mode."""
+    if name == "host":
+        return HostExecutor(local_update, client_batches, cfg, device)
+    if name == "fleet":
+        return FleetExecutor(loss_fn, client_batches, cfg, device)
+    if name == "sharded":
+        raise NotImplementedError(
+            "the sharded data plane is ROADMAP item A12")
+    raise ValueError(f"unknown executor {name!r}; expected one of "
+                     f"{EXECUTORS}")

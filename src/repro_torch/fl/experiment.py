@@ -19,6 +19,7 @@ import torch
 from repro_torch.data.partitioner import dirichlet_partition
 from repro_torch.data.pipeline import make_client_loaders
 from repro_torch.core.aggregation import model_bits
+from repro_torch.core.diffusion import PlanCache
 from repro_torch.data.synthetic import (ImageDataset, class_labels_for_lm,
                                         gaussian_image_dataset, lm_corpus)
 from repro_torch.device import resolve_device
@@ -107,11 +108,16 @@ def spec_adapter_bits(spec: ExperimentSpec) -> float:
     return model_bits(params, spec.fl.bits_per_param)
 
 
-def run_experiment(spec: ExperimentSpec,
+def run_experiment(spec: ExperimentSpec, plan_cache: PlanCache | None = None,
                    device: str | torch.device | None = None,
                    init_fn: Callable | None = None) -> RunResult:
     """Run one cell on ``device`` (the CUDA device by default).
 
+    ``plan_cache`` is forwarded to :func:`run_federated`: with
+    ``spec.fl.topology_seed`` set, replicate seeds of one cell replay its
+    FedDif plans instead of planning again.  ``spec.fl`` picks the data
+    plane (``executor``/``engine``: the host plane by default, as in the
+    reference); schedules and ledgers are the same either way.
     ``init_fn`` replaces the task model's own init of the full params (it
     receives the ``torch.Generator`` seeded with ``spec.fl.seed``): the
     tests pass the reference's initial params through it."""
@@ -155,4 +161,4 @@ def run_experiment(spec: ExperimentSpec,
                          [client_epoch(i) for i in range(spec.fl.num_clients)],
                          part.dsi, part.data_sizes, eval_fn, spec.fl,
                          device=dev, value_fn=value_fn,
-                         base_bits=view.base_bits)
+                         base_bits=view.base_bits, plan_cache=plan_cache)

@@ -1,4 +1,4 @@
-"""FL server runtime: :func:`run_federated` on the fleet plane.
+"""FL server runtime: :func:`run_federated` on the host or the fleet plane.
 
 Counterpart of ``repro.fl.server``.  Each communication round runs in three
 stages, as in the reference:
@@ -8,15 +8,18 @@ stages, as in the reference:
    :class:`~repro_torch.core.schedule.RoundSchedule`;
 2. **charge** — :func:`~repro_torch.core.schedule.charge_schedule` replays
    its wire events into the :class:`ResourceLedger`;
-3. **execute** — :class:`~repro_torch.fl.executors.FleetExecutor` runs the
-   ops on the client-stacked params on the device.
+3. **execute** — the executor of the resolved engine
+   (:func:`~repro_torch.fl.engine.resolve_engine`,
+   :func:`~repro_torch.fl.executors.make_executor`) runs the ops on the
+   device: ``"host"`` one param tree per slot (the reference's default),
+   ``"fleet"`` the client-stacked tree.
 
-This slice covers the strategies ``fedavg``, ``feddif``, ``stc`` and
-``feddif_stc`` with the host or the device planner (``planner="jax"``),
-learning-value bids (``uncertainty_weight > 0``) and int8-packed hops
-(``hop_quant="int8"``) in the static world.  Every other
-:class:`FLConfig` value raises ``NotImplementedError`` naming the ROADMAP
-item that ports it; nothing falls back to something else.
+All ten strategies run, with the host or the device planner
+(``planner="jax"``), learning-value bids (``uncertainty_weight > 0``),
+int8-packed hops (``hop_quant="int8"``) and a :class:`~repro_torch.core.
+diffusion.PlanCache`, in the static world.  Every other :class:`FLConfig`
+value raises ``NotImplementedError`` naming the ROADMAP item that ports it;
+nothing falls back to something else.
 """
 from __future__ import annotations
 
@@ -33,32 +36,38 @@ from repro_torch.channels.resources import (GAMMA_FLOOR, ResourceLedger,
 from repro_torch.channels.topology import CellTopology
 from repro_torch.core.aggregation import model_bits as model_bits_of
 from repro_torch.core.auction import AuctionConfig
-from repro_torch.core.diffusion import DiffusionPlanner
+from repro_torch.core.diffusion import DiffusionPlanner, PlanCache
 from repro_torch.core.schedule import WireEvent, charge_schedule
 from repro_torch.device import resolve_device
 from repro_torch.fl.adapters import packed_bits
-from repro_torch.fl.executors import FleetExecutor
-from repro_torch.fl.schedulers import (SCHEDULERS, RoundContext,
-                                       apply_round_churn)
+from repro_torch.fl.client import make_local_update
+from repro_torch.fl.engine import (EngineSpec, RunHistory, RunResult,
+                                   resolve_engine)
+from repro_torch.fl.executors import make_executor
+from repro_torch.fl.fedprox import make_prox_local_update
+from repro_torch.fl.schedulers import (PROX_STRATEGIES, SCHEDULERS,
+                                       RoundContext, apply_round_churn)
 from repro_torch.tree import tree_map
 
 Params = Any
 
-__all__ = ["FLConfig", "RunResult", "run_federated", "STRATEGIES",
-           "HOP_QUANTS", "check_supported", "static_round_draws"]
+__all__ = ["FLConfig", "RunResult", "EngineSpec",
+           "run_federated", "STRATEGIES", "HOP_QUANTS", "check_supported",
+           "static_round_draws"]
 
-STRATEGIES = tuple(SCHEDULERS)
+STRATEGIES = ("feddif", "fedavg", "fedswap", "stc", "tthf", "gossip",
+              "feddif_stc", "fedprox", "feddif_prox", "d2d_random_walk")
 #: D2D hop wire formats: fp32 params, or int8 codes + a scale per row-block.
 HOP_QUANTS = ("none", "int8")
 
 
 @dataclasses.dataclass
 class FLConfig:
-    """The reference's ``FLConfig`` fields.  :func:`check_supported` lists
-    the values this slice runs; fields that only unported strategies or
-    planes read (``prox_mu``, ``tthf_*``, ``random_walk_hops``,
-    ``shard_*``, ``mesh_model_axis``) are ignored here, as the reference's
-    fleet plane ignores them for these strategies."""
+    """The reference's ``FLConfig`` fields and defaults.
+    :func:`check_supported` lists the values the port runs; the sharded
+    plane's fields (``shard_*``, ``mesh_model_axis``) come with that plane
+    (ROADMAP A12).  ``engine`` (a spec or a preset name) wins over the
+    legacy ``executor``/``planner`` fields."""
     strategy: str = "feddif"
     num_clients: int = 10
     num_models: int = 10               # M (FedDif trains M ≤ N models)
@@ -81,11 +90,7 @@ class FLConfig:
     random_walk_hops: int = 3
     max_diffusion_rounds: int | None = None
     eval_every: int = 1
-    executor: str = "fleet"            # the port's data plane
-    shard_microbatch: int = 32
-    mesh_model_axis: int = 1
-    shard_overlap: str = "auto"
-    shard_hop_transport: str = "auto"
+    executor: str = "host"             # "host" (reference) | "fleet"
     profile_phases: bool = False
     churn_rate: float = 0.0
     scenario: str = "static"
@@ -99,10 +104,8 @@ class FLConfig:
     engine: Any = None
 
 
-# (field, value this slice runs, ROADMAP item that ports the others)
+# (field, value the port runs, ROADMAP item that ports the others)
 _UNPORTED = (
-    ("executor", "fleet", "A6 (host executor) / A12 (sharded plane)"),
-    ("engine", None, "A6 (fl/engine.py)"),
     ("scenario", "static", "A11 (world scenarios)"),
     ("energy_budget_j", None, "A11 (world scenarios)"),
     ("churn_rate", 0.0, "A11 (churn)"),
@@ -113,17 +116,28 @@ _UNPORTED = (
 )
 
 
-def check_supported(cfg: FLConfig) -> None:
-    """Raise ``NotImplementedError`` for any value this slice does not run."""
+# Engine modes the port does not run, with their ROADMAP items.
+_UNPORTED_MODES = {"async": "A11 (the buffered-async plane)",
+                   "sharded": "A12 (the sharded plane)"}
+
+
+def check_supported(cfg: FLConfig) -> EngineSpec:
+    """Raise ``NotImplementedError`` for any value the port does not run;
+    return the resolved :class:`EngineSpec`."""
     if cfg.strategy not in STRATEGIES:
+        raise ValueError(f"unknown strategy {cfg.strategy!r}; expected one "
+                         f"of {STRATEGIES}")
+    espec = resolve_engine(cfg)
+    if espec.mode in _UNPORTED_MODES:
         raise NotImplementedError(
-            f"strategy {cfg.strategy!r} is ROADMAP item A6 (this slice runs "
-            f"{STRATEGIES})")
+            f"engine mode {espec.mode!r} is ROADMAP item "
+            f"{_UNPORTED_MODES[espec.mode]}; the port runs 'host' and "
+            f"'fleet'")
     for field, value, item in _UNPORTED:
         if getattr(cfg, field) != value:
             raise NotImplementedError(
                 f"FLConfig.{field}={getattr(cfg, field)!r} is ROADMAP item "
-                f"{item}; this slice runs {field}={value!r}")
+                f"{item}; the port runs {field}={value!r}")
     if cfg.hop_quant not in HOP_QUANTS:
         raise ValueError(f"hop_quant={cfg.hop_quant!r}; expected one of "
                          f"{HOP_QUANTS}")
@@ -131,20 +145,7 @@ def check_supported(cfg: FLConfig) -> None:
         raise ValueError(
             f"num_models={cfg.num_models} > num_clients={cfg.num_clients}; "
             f"FedDif requires M ≤ N (set num_models <= num_clients)")
-
-
-@dataclasses.dataclass
-class RunResult:
-    """What one run returns: final params, the Eq.-15 ledger, the
-    per-round curves and the planner's :attr:`DiffusionPlanner.stats`."""
-    final_params: Params
-    ledger: ResourceLedger
-    accuracy: list
-    loss: list
-    diffusion_rounds: list
-    iid_distance: list
-    round_wall_s: list
-    planner_stats: dict = dataclasses.field(default_factory=dict)
+    return espec
 
 
 def static_round_draws(topology: CellTopology, channel: ChannelModel,
@@ -168,7 +169,8 @@ def run_federated(init_fn: Callable[[torch.Generator], Params],
                   eval_fn: Callable[[Params], tuple[float, float]],
                   cfg: FLConfig, device: str | torch.device | None = None,
                   value_fn: Callable[[Params], np.ndarray] | None = None,
-                  base_bits: float = 0.0) -> RunResult:
+                  base_bits: float = 0.0,
+                  plan_cache: PlanCache | None = None) -> RunResult:
     """Run one FL experiment on ``device`` (the CUDA device by default).
 
     ``init_fn`` takes a ``torch.Generator`` seeded with ``cfg.seed`` and
@@ -176,12 +178,16 @@ def run_federated(init_fn: Callable[[torch.Generator], Params],
     plane consumes ``np.random.default_rng(cfg.seed)`` — or, with
     ``cfg.topology_seed`` set, ``default_rng([topology_seed, t])`` per round
     — in the reference's order: positions, uplink gains, then the
-    scheduler's draws.  ``value_fn`` (params → (N,) learning value in
-    [0, 1]) is called once per round when ``cfg.uncertainty_weight > 0``;
-    FedDif fuses its values into the bids.  ``base_bits`` is the size of
-    the frozen base under an adapter view (``fl/adapters.py``): it is
-    charged once, as a round-0 downlink."""
-    check_supported(cfg)
+    scheduler's draws.  The engine (:func:`resolve_engine`) picks the data
+    plane and the planner; the local solver is FedProx's for
+    :data:`PROX_STRATEGIES`; persistent schedules (gossip, TT-HF) carry the
+    slots from round to round.  ``value_fn`` (params → (N,) learning value
+    in [0, 1]) is called once per round when ``cfg.uncertainty_weight >
+    0``; FedDif fuses its values into the bids.  ``base_bits`` is the size
+    of the frozen base under an adapter view (``fl/adapters.py``), charged
+    once as a round-0 downlink.  ``plan_cache`` memoizes FedDif plans
+    across runs when ``cfg.topology_seed`` is set."""
+    espec = check_supported(cfg)
     dev = resolve_device(device)
     n = cfg.num_clients
     rng = np.random.default_rng(cfg.seed)
@@ -192,8 +198,14 @@ def run_federated(init_fn: Callable[[torch.Generator], Params],
     planner = DiffusionPlanner(topology, channel, auction,
                                epsilon=cfg.epsilon,
                                max_rounds=cfg.max_diffusion_rounds,
-                               mode=cfg.planner, device=dev)
-    executor = FleetExecutor(loss_fn, client_batches, cfg, dev)
+                               mode=espec.planner, device=dev)
+    if cfg.strategy in PROX_STRATEGIES:
+        local_update = make_prox_local_update(loss_fn, cfg.prox_mu,
+                                              cfg.momentum)
+    else:
+        local_update = make_local_update(loss_fn, cfg.momentum)
+    executor = make_executor(espec.mode, loss_fn, local_update,
+                             client_batches, cfg, dev)
     ledger = ResourceLedger()
 
     gen = torch.Generator().manual_seed(cfg.seed)
@@ -206,8 +218,8 @@ def run_federated(init_fn: Callable[[torch.Generator], Params],
                 else bits)
     auction.model_bits = hop_bits
 
-    acc_hist, loss_hist, dif_hist, iid_hist = [], [], [], []
-    round_wall: list[float] = []
+    hist = RunHistory()
+    slots = None            # persistent per-slot state (gossip / tthf)
     for t in range(cfg.rounds):
         ctrl_rng = (np.random.default_rng([cfg.topology_seed, t])
                     if cfg.topology_seed is not None else rng)
@@ -219,7 +231,8 @@ def run_federated(init_fn: Callable[[torch.Generator], Params],
                            pos=pos, rng=ctrl_rng, up_gamma=up_gamma,
                            topology=topology, channel=channel,
                            planner=planner, model_bits=bits,
-                           param_template=global_params, hop_bits=hop_bits,
+                           param_template=global_params,
+                           plan_cache=plan_cache, hop_bits=hop_bits,
                            learning_value=learning_value)
         schedule = SCHEDULERS[cfg.strategy](ctx)
         if t == 0 and base_bits > 0.0:
@@ -229,19 +242,18 @@ def run_federated(init_fn: Callable[[torch.Generator], Params],
         schedule = apply_round_churn(ctx, schedule)
         charge_schedule(ledger, schedule)
         t_exec = time.perf_counter()
-        global_params = executor.run_round(schedule, global_params)
+        global_params, slots = executor.run_round(schedule, global_params,
+                                                  slots)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
-        round_wall.append(time.perf_counter() - t_exec)
-        dif_hist.append(schedule.diffusion_rounds)
-        iid_hist.append(schedule.mean_iid)
+        hist.round_wall_s.append(time.perf_counter() - t_exec)
+        hist.diffusion_rounds.append(schedule.diffusion_rounds)
+        hist.iid_distance.append(schedule.mean_iid)
         if (t + 1) % cfg.eval_every == 0 or t == cfg.rounds - 1:
             a, l = eval_fn(global_params)
-            acc_hist.append(float(a))
-            loss_hist.append(float(l))
+            hist.accuracy.append(float(a))
+            hist.loss.append(float(l))
 
-    return RunResult(final_params=global_params, ledger=ledger,
-                     accuracy=acc_hist, loss=loss_hist,
-                     diffusion_rounds=dif_hist, iid_distance=iid_hist,
-                     round_wall_s=round_wall,
+    return RunResult(params=global_params, ledger=ledger, history=hist,
+                     engine=espec, config=cfg,
                      planner_stats=dict(planner.stats))

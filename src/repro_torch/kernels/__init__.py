@@ -1,8 +1,9 @@
 """Kernels of the port: hand-written CUDA for Hopper beside plain versions.
 
 ``ops`` dispatches by device; ``diffusion`` (the FL data plane and the
-device planner's bids, with the flatten/unflatten pair) and ``quant`` (the
-int8 hop wire) hold the CUDA wrappers, ``ref`` the plain PyTorch versions,
+device planner's bids, with the flatten/unflatten pair), ``stc_compress``
+(the host plane's whole-tensor STC) and ``quant`` (the int8 hop wire) hold
+the FL plane's CUDA wrappers, ``ref`` the plain PyTorch versions,
 ``launch`` the wrappers' checks and launch counters, ``build`` the ``nvcc``
 + ``ctypes`` loader.  No CUDA work happens at import time.
 """

@@ -28,15 +28,18 @@ NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 
 SOURCES = {"mix_aggregate": "mix_aggregate.cu", "stc_rows": "stc_rows.cu",
+           "stc_compress": "stc_compress.cu",
            "dol_bid_scores": "dol_bid_scores.cu",
            "bid_value_fuse": "bid_value_fuse.cu", "quant": "quant.cu",
            "flash_attention": "flash_attention.cu",
            "ssm_scan": "ssm_scan.cu", "ssd_scan": "ssd_scan.cu"}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 # C entry points of each library: name -> argument types (pointers and the
-# stream as void*, sizes as int, scalars as float); every launching entry
-# point returns cudaError_t (repro_ssd_scan_smem_bytes returns bytes).
+# stream as void*, sizes as int or long long, scalars as float); every
+# launching entry point returns cudaError_t (repro_ssd_scan_smem_bytes
+# returns bytes, repro_stc_reduce_max_blocks a block count).
 _SIGNATURES = {
     "mix_aggregate": {
         "repro_mix_aggregate_f32": [_P, _P, _P, _I, _I, _I, _P]},
@@ -44,6 +47,10 @@ _SIGNATURES = {
         "repro_stc_rows_reduce_f32": [_P, _P, _P, _P, _P, _I, _I, _P],
         "repro_stc_rows_apply_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I,
                                      _P]},
+    "stc_compress": {
+        "repro_stc_reduce_f32": [_P, _P, _P, _P, _P, _P, _P, _L, _P],
+        "repro_stc_apply_f32": [_P, _P, _P, _P, _I, _P, _L, _P],
+        "repro_stc_reduce_max_blocks": []},
     "dol_bid_scores": {
         "repro_dol_bid_scores_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _P]},
     "bid_value_fuse": {

@@ -2,7 +2,7 @@
 
 A CPU tensor goes to the plain PyTorch version (``kernels/ref.py``); a CUDA
 tensor goes to the hand-written kernel (``kernels/diffusion.py``,
-``kernels/quant.py``, ``kernels/flash_attention.py``, ``kernels/ssm_scan.py``,
+``kernels/stc_compress.py``, ``kernels/quant.py``, ``kernels/flash_attention.py``, ``kernels/ssm_scan.py``,
 ``kernels/ssd_scan.py``), or the call raises.  There is no override and no
 fallback.  The LM zoo's kernels have no backward yet: on a CUDA tensor they
 raise if autograd would need one (ROADMAP A13c).
@@ -15,9 +15,10 @@ from repro_torch.kernels import diffusion, quant, ref
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.ssd_scan import ssd_scan_cuda
 from repro_torch.kernels.ssm_scan import ssm_scan_cuda
+from repro_torch.kernels.stc_compress import stc_compress_cuda
 from repro_torch.kernels.diffusion import stack_ravel, stack_unravel
 
-__all__ = ["mix_aggregate", "mix_aggregate_tree", "stc_topk",
+__all__ = ["mix_aggregate", "mix_aggregate_tree", "stc_compress", "stc_topk",
            "dol_bid_scores", "bid_value_fuse", "quant_pack",
            "quant_unpack", "flash_attention", "ssm_scan", "ssd_scan"]
 
@@ -65,6 +66,19 @@ def mix_aggregate_tree(params, w: torch.Tensor, *, collapse: bool = False,
     out = mix_aggregate(flat, w)
     return stack_unravel(out, spec, collapse=collapse,
                          keep_float32=keep_float32)
+
+
+def stc_compress(x: torch.Tensor, sparsity: float = 0.01) -> torch.Tensor:
+    """Whole-tensor sparse ternary compression — the host plane's STC
+    (``fl/compression.py``).  A CPU tensor takes ``ref.stc_compress_ref``,
+    the semantics of record, which keeps exactly k entries; a CUDA tensor
+    takes τ by ``torch.topk`` and the ``stc_reduce``/``stc_apply`` kernels,
+    which keep every ``|x| ≥ τ`` at the exact-k μ (they differ only where a
+    nonzero magnitude ties at τ: the tied entries past the k-th are sent
+    too)."""
+    if _route(x) == "cuda":
+        return stc_compress_cuda(x, sparsity)
+    return ref.stc_compress_ref(x, sparsity)
 
 
 def stc_topk(x: torch.Tensor, ref_row: torch.Tensor, mask: torch.Tensor,

@@ -14,7 +14,8 @@ import torch
 
 from repro_torch.core.dol import iid_distance_candidates_t
 
-__all__ = ["mix_aggregate_ref", "stc_compress_ref", "stc_rows_ref",
+__all__ = ["mix_aggregate_ref", "stc_compress_ref", "stc_threshold",
+           "stc_reduce_ref", "stc_apply_ref", "stc_rows_ref",
            "stc_rows_threshold", "stc_rows_reduce_ref", "stc_rows_apply_ref",
            "dol_bid_scores_ref", "dol_bid_scores_fused_ref",
            "bid_value_fuse_ref", "quant_pack_ref", "quant_unpack_ref",
@@ -37,6 +38,48 @@ def stc_compress_ref(x: torch.Tensor, sparsity: float) -> torch.Tensor:
     out = torch.zeros_like(flat)
     out[topi] = torch.sign(flat[topi]) * topv.mean()
     return out.reshape(x.shape).to(x.dtype)
+
+
+def stc_threshold(flat: torch.Tensor, sparsity: float) -> torch.Tensor:
+    """τ, the k-th largest ``|x|`` of a flat tensor, as a (1,) fp32 tensor on
+    its device (``k = max(1, int(n·sparsity))``) — computed outside the STC
+    kernels, as the reference leaves it to an XLA sort."""
+    a = flat.reshape(-1).to(torch.float32).abs()
+    k = max(1, int(a.numel() * sparsity))
+    return torch.topk(a, k).values[k - 1:k].contiguous()
+
+
+def stc_reduce_ref(flat: torch.Tensor, thr: torch.Tensor
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the STC reduce kernel: the survivor sum
+    ``Σ|x|·1[|x| ≥ τ]`` as (1,) fp32 and the survivor count as (1,) int32,
+    for a flat tensor and a one-element threshold."""
+    a = flat.reshape(-1).to(torch.float32).abs()
+    keep = a >= thr.reshape(())
+    return (torch.where(keep, a, 0.0).sum().reshape(1),
+            keep.sum().to(torch.int32).reshape(1))
+
+
+def stc_mu_ref(ssum: torch.Tensor, cnt: torch.Tensor, thr: torch.Tensor,
+               k: int) -> torch.Tensor:
+    """The μ the STC apply kernel forms from the reduce's outputs: the mean
+    of the top-k magnitudes, ``(sum − (count − k)·τ) / k`` as (1,) fp32 —
+    the ``count − k`` survivors past the k-th all equal τ.  With τ = 0 (a
+    tensor with fewer than k nonzeros) it is ``Σ|x| / k``, the exact-k μ
+    of :func:`stc_compress_ref`, where ``sum / count`` would be
+    ``Σ|x| / n``.  Each fp32 op rounds once, as in the kernel."""
+    extra = (cnt.to(torch.int64) - k).to(torch.float32)
+    return (ssum.to(torch.float32) - extra * thr.to(torch.float32)) / float(k)
+
+
+def stc_apply_ref(flat: torch.Tensor, thr: torch.Tensor,
+                  mu: torch.Tensor) -> torch.Tensor:
+    """Plain version of the STC apply kernel: ``μ·sign(x)·1[|x| ≥ τ]`` over
+    a flat tensor, fp32 out; ``thr`` and ``mu`` hold one element each (the
+    kernel forms μ as :func:`stc_mu_ref` does from the reduce's outputs)."""
+    x = flat.reshape(-1).to(torch.float32)
+    keep = x.abs() >= thr.reshape(())
+    return torch.where(keep, torch.sign(x) * mu.reshape(()), 0.0)
 
 
 def stc_rows_ref(x: torch.Tensor, ref_row: torch.Tensor, mask: torch.Tensor,

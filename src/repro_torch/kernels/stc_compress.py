@@ -1,0 +1,124 @@
+"""Whole-tensor sparse ternary compression on Hopper — the host plane's STC.
+
+Counterpart of ``repro.kernels.stc_compress``.  STC (Sattler et al., the
+paper's Table-II compression baseline) maps a tensor to
+``μ·sign(x)·1[|x| ≥ τ]``, τ the k-th largest magnitude and μ the mean
+magnitude of the survivors.  On the card that is three steps:
+
+* τ by ``torch.topk(|x|, k).values[k − 1]``, outside the kernels, as the
+  reference leaves it to an XLA sort; it stays on the device;
+* :func:`stc_reduce_cuda` — ``(Σ|x|·1[|x| ≥ τ], Σ1[|x| ≥ τ])``, an fp32 sum
+  and an int32 count.  Replaces ``repro/kernels/stc_compress.py::
+  _reduce_kernel`` (``stc_reduce_pallas``);
+* :func:`stc_apply_cuda` — ``μ·sign(x)·1[|x| ≥ τ]`` with the exact-k
+  ``μ = (sum − (count − k)·τ) / k`` formed on the device from the reduce's
+  outputs (:func:`~repro_torch.kernels.ref.stc_mu_ref`).  Replaces
+  ``_apply_kernel`` (``stc_apply_pallas``).
+
+:func:`stc_compress_cuda` composes the three without a host read.  Both
+kernels are hand-written CUDA C++ for ``sm_90a`` (``csrc/stc_compress.cu``),
+built by ``nvcc`` and bound with ``ctypes`` (:mod:`repro_torch.kernels.build`);
+the source says what bounds them and how the reduce stays deterministic.
+
+Like the Pallas kernels they keep every ``|x| ≥ τ``; the plain version of
+record, ``kernels/ref.py::stc_compress_ref``, keeps exactly k entries by
+``topk``.  Their μ is the same, the mean of the top-k magnitudes, so they
+agree wherever nothing ties at τ, and also at τ = 0 (a leaf with fewer
+than k nonzeros: its surviving zeros map to 0).  Where a nonzero magnitude
+ties at τ, the kernels also send the tied entries past the k-th, at that μ.
+
+Each wrapper takes CUDA tensors only, checks them, allocates its outputs
+with ``torch.empty``, launches on PyTorch's current stream, raises on a
+launch error and adds one to its entry of
+:data:`~repro_torch.kernels.launch.LAUNCHES`.  The reduce's scratch (the
+per-block partials and the last-block ticket, which the kernel leaves at
+0) is allocated once per device and reused, so calls on one device must
+share a stream, as the port's do.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.launch import LAUNCHES, check_tensor, raise_on
+from repro_torch.kernels.ref import stc_threshold
+
+__all__ = ["stc_reduce_cuda", "stc_apply_cuda", "stc_compress_cuda"]
+
+#: Reduce scratch per device: (partial sums, partial counts, ticket).
+_SCRATCH: dict[torch.device, tuple[torch.Tensor, ...]] = {}
+
+
+def _reduce_scratch(lib, dev: torch.device) -> tuple[torch.Tensor, ...]:
+    if dev not in _SCRATCH:
+        blocks = lib.repro_stc_reduce_max_blocks()
+        _SCRATCH[dev] = (
+            torch.empty((blocks,), device=dev, dtype=torch.float32),
+            torch.empty((blocks,), device=dev, dtype=torch.int32),
+            torch.zeros((1,), device=dev, dtype=torch.int32))
+    return _SCRATCH[dev]
+
+
+def _check_flat(flat: torch.Tensor, thr: torch.Tensor) -> int:
+    check_tensor(flat, "flat", 1)
+    check_tensor(thr, "thr", 1)
+    n = flat.shape[0]
+    if n == 0 or thr.shape[0] != 1 or thr.device != flat.device:
+        raise ValueError(f"flat {tuple(flat.shape)} must be non-empty and thr "
+                         f"{tuple(thr.shape)} one element on its device")
+    return n
+
+
+def stc_reduce_cuda(flat: torch.Tensor, thr: torch.Tensor
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Survivor sum ``Σ|x|·1[|x| ≥ τ]`` (1,) fp32 and count (1,) int32 of a
+    flat fp32 tensor at the threshold ``thr`` (1,)."""
+    n = _check_flat(flat, thr)
+    lib = build.load("stc_compress")
+    dev = flat.device
+    part_sum, part_cnt, ticket = _reduce_scratch(lib, dev)
+    ssum = torch.empty((1,), device=dev, dtype=torch.float32)
+    cnt = torch.empty((1,), device=dev, dtype=torch.int32)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.repro_stc_reduce_f32(
+            flat.data_ptr(), thr.data_ptr(), part_sum.data_ptr(),
+            part_cnt.data_ptr(), ticket.data_ptr(), ssum.data_ptr(),
+            cnt.data_ptr(), n, stream)
+    raise_on(err, "stc_reduce")
+    LAUNCHES["stc_reduce"] += 1
+    return ssum, cnt
+
+
+def stc_apply_cuda(flat: torch.Tensor, thr: torch.Tensor, ssum: torch.Tensor,
+                   cnt: torch.Tensor, k: int) -> torch.Tensor:
+    """``μ·sign(x)·1[|x| ≥ τ]`` with ``μ = (ssum − (cnt − k)·τ) / k`` formed
+    on the device: flat (n,) fp32, thr and ssum (1,) fp32, cnt (1,) int32,
+    k the entries STC keeps (1 ≤ k ≤ n) → (n,) fp32."""
+    n = _check_flat(flat, thr)
+    check_tensor(ssum, "ssum", 1)
+    check_tensor(cnt, "cnt", 1, torch.int32)
+    if not 1 <= k <= n:
+        raise ValueError(f"k={k} must lie in [1, {n}]")
+    out = torch.empty_like(flat)
+    lib = build.load("stc_compress")
+    with torch.cuda.device(flat.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.repro_stc_apply_f32(
+            flat.data_ptr(), thr.data_ptr(), ssum.data_ptr(), cnt.data_ptr(),
+            k, out.data_ptr(), n, stream)
+    raise_on(err, "stc_apply")
+    LAUNCHES["stc_apply"] += 1
+    return out
+
+
+def stc_compress_cuda(x: torch.Tensor, sparsity: float) -> torch.Tensor:
+    """STC of one tensor on the card: τ by ``torch.topk``, then the reduce
+    and apply kernels, with no host read between them.  Any shape and
+    float dtype in, the same out."""
+    flat = x.reshape(-1).to(torch.float32).contiguous()
+    thr = stc_threshold(flat, sparsity)
+    ssum, cnt = stc_reduce_cuda(flat, thr)
+    k = max(1, int(flat.numel() * sparsity))
+    out = stc_apply_cuda(flat, thr, ssum, cnt, k)
+    return out.reshape(x.shape).to(x.dtype)

@@ -35,7 +35,7 @@ def _specs(strategy, task="fcn", rounds=2, clients=5):
               num_models=clients, seed=0, topology_seed=3)
     data = dict(task=task, alpha=0.3, num_samples=1200)
     return (JSpec(fl=JConfig(engine="fleet", **fl), **data),
-            ExperimentSpec(fl=FLConfig(**fl), **data))
+            ExperimentSpec(fl=FLConfig(executor="fleet", **fl), **data))
 
 
 @pytest.mark.parametrize("strategy,task,rounds", [
@@ -75,12 +75,12 @@ def test_own_init_runs_and_learns():
 
 
 @pytest.mark.parametrize("change,item", [
-    (dict(strategy="gossip"), "A6"), (dict(strategy="fedswap"), "A6"),
-    (dict(executor="host"), "A6"),
+    (dict(executor="sharded"), "A12"), (dict(scenario="multicell"), "A11"),
+    (dict(energy_budget_j=1.0), "A11"),
     (dict(scenario="mobile"), "A11"), (dict(churn_rate=0.1), "A11"),
-    (dict(strategy="tthf"), "A6"), (dict(checkpoint_every=2), "A10"),
+    (dict(profile_phases=True), "A15"), (dict(checkpoint_every=2), "A10"),
     (dict(metric="kld"), "A15"),
-    (dict(underlay=True), "A15"), (dict(engine="async"), "A6")])
+    (dict(underlay=True), "A15"), (dict(engine="async"), "A11")])
 def test_unported_config_values_raise(change, item):
     _, spec = _specs("feddif", rounds=1)
     spec = dataclasses.replace(spec, fl=dataclasses.replace(spec.fl,
@@ -118,7 +118,8 @@ def test_device_planner_with_learning_values_matches_reference(monkeypatch):
     ref = j_run(JSpec(fl=JConfig(engine="fleet", **fl), **data))
     init = jax.tree.map(np.asarray,
                         j_build("fcn").init(jax.random.PRNGKey(0)))
-    port = run_experiment(ExperimentSpec(fl=FLConfig(**fl), **data),
+    port = run_experiment(ExperimentSpec(fl=FLConfig(executor="fleet", **fl),
+                                         **data),
                           device="cpu",
                           init_fn=lambda gen: params_from_numpy(init))
     assert port.ledger.as_dict() == ref.ledger.as_dict()

@@ -59,7 +59,7 @@ def _specs(task="lm", hop_quant="int8", adapter_hops=True, clients=4,
     data = dict(task=task, alpha=0.5, dim=16 if task == "lm" else 64,
                 num_samples=640, adapter_hops=adapter_hops)
     return (JSpec(fl=JConfig(engine="fleet", **fl), **data),
-            ExperimentSpec(fl=FLConfig(**fl), **data))
+            ExperimentSpec(fl=FLConfig(executor="fleet", **fl), **data))
 
 
 def _ref_init(task="lm"):
