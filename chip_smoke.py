@@ -9,14 +9,18 @@ nothing of JAX.  Phases, each of which fails loudly:
 
 1. the card's name and power limit; build every CUDA kernel of the main
    path from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, all
-   at once) and print the build seconds and ptxas' register report;
+   at once) and print the build seconds and ptxas' register and spill
+   report (the bf16 attention kernel must not spill);
 2. every kernel against its plain PyTorch version on the card, at the main
    path's shapes and one larger shape: max abs error against the stated
    tolerance, kernel / plain / library time (CUDA events) and the bound.
    The host plane's ``stc_reduce`` / ``stc_apply`` run at every fcn leaf
    size, 2^24 and 155,582,464 (qwen3_0_6b's tied embedding) on tie-free
    data: count == k, the exact-k plain STC's support, μ within 1e-5
-   relative of the plain version's and of a float64 sum, apply bit-exact;
+   relative of the plain version's and of a float64 sum, apply bit-exact.
+   Both STC paths (``stc_rows``, ``stc_reduce`` / ``stc_apply``) also run
+   rows where magnitudes tie at τ, including τ = 0: exactly the k entries
+   ``lax.top_k`` keeps, bit-equal to their plain versions, the exact-k μ;
 3. the main path — ``run_experiment`` on the fleet plane: the quickstart
    configuration (fcn, α=0.3, 6000 samples, N=M=8, 8 rounds) for fedavg,
    feddif with the host planner and feddif with the device planner
@@ -66,7 +70,8 @@ nothing of JAX.  Phases, each of which fails loudly:
 6. the LM zoo's prefill forward at the published widths: flash_attention,
    ssm_scan and ssd_scan against their plain versions on the card (at the
    zoo's shapes and a few more: bf16 and fp32, a window, Sq < Sk, D = 80,
-   a ragged chunk, a ragged channel block), with attention held per
+   smollm_360m's (2, 4096, 15, 64), a 1000-key window at S = 4096, a
+   ragged chunk, a ragged channel block), with attention held per
    element against its row's scale and normwise, and a planted fault (one
    kv tile dropped for the rows past S/2) that the attention bars must
    reject; then ``make_prefill_step`` of qwen3_0_6b (28 layers, B = 2,
@@ -203,6 +208,28 @@ def _card_line() -> str:
     if out.returncode != 0:
         _fail(f"nvidia-smi failed: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
+
+
+def _check_wgmma_spills(log: str | None) -> None:
+    """The bf16 attention kernel holds two 64×128 fp32 tiles and P per
+    thread on setmaxnreg's 240-register budget: ptxas must report no spill
+    for any of its instances (None: built before this run, no report)."""
+    if log is None:
+        print(json.dumps({"check": "flash_attention_wgmma_kernel spills",
+                          "ok": None, "note": "built before this run"}))
+        return
+    spills, entry = [], None
+    for line in log.splitlines():
+        if "Compiling entry" in line:
+            entry = line
+        elif "spill stores" in line and entry and "wgmma_kernel" in entry:
+            spills.append(int(line.split("bytes spill stores")[0]
+                              .split(",")[-1]))
+    ok = len(spills) == 3 and not any(spills)
+    print(json.dumps({"check": "flash_attention_wgmma_kernel spills",
+                      "spill_store_bytes": spills, "ok": ok}))
+    if not ok:
+        _fail(f"flash_attention_wgmma_kernel: ptxas spill bytes {spills}")
 
 
 def _time_ms(torch, fn, iters: int = 200, warmup: int = 10) -> float:
@@ -355,7 +382,7 @@ def check_stc_compress(torch, kref, port) -> list[dict]:
         x = _stc_tie_free(torch, gen, n)
         k = max(1, int(n * STC_SPARSITY))
         thr = kref.stc_threshold(x, STC_SPARSITY)
-        ssum, cnt = ks.stc_reduce_cuda(x, thr)
+        ssum, cnt, ties = ks.stc_reduce_cuda(x, thr)
         p_sum, p_cnt = kref.stc_reduce_ref(x, thr)
         a = x.abs()
         sum64 = float(a.double()[a >= thr].sum())
@@ -381,9 +408,9 @@ def check_stc_compress(torch, kref, port) -> list[dict]:
                   f"mu rel err {rel}")
         rows.append(row)
 
-        out = ks.stc_apply_cuda(x, thr, ssum, cnt, k)
+        out = ks.stc_apply_cuda(x, thr, ssum, cnt, ties, k)
         mu_t = kref.stc_mu_ref(ssum, cnt, thr, k)
-        plain = kref.stc_apply_ref(x, thr, mu_t)
+        plain = kref.stc_apply_ref(x, thr, mu_t, k)
         exact_k = kref.stc_compress_ref(x, STC_SPARSITY)
         torch.cuda.synchronize()
         same = bool(torch.equal(out, plain))
@@ -396,8 +423,9 @@ def check_stc_compress(torch, kref, port) -> list[dict]:
                "tol": 0.0, "max_abs_err_vs_exact_k": err_k,
                "same_support_as_exact_k": support, "ok": same and support,
                **_timings(torch,
-                          lambda: ks.stc_apply_cuda(x, thr, ssum, cnt, k),
-                          lambda: kref.stc_apply_ref(x, thr, mu_t),
+                          lambda: ks.stc_apply_cuda(x, thr, ssum, cnt, ties,
+                                                    k),
+                          lambda: kref.stc_apply_ref(x, thr, mu_t, k),
                           **reps),
                "bound_ms": bound, "bound_by": by}
         print(json.dumps(row))
@@ -412,12 +440,13 @@ def check_stc_compress(torch, kref, port) -> list[dict]:
 
 
 def _stc_ties(torch, kref, ks, gen) -> None:
-    """The kernels' μ against the exact-k STC of record where magnitudes
-    tie at τ: a [16384] leaf with 50 nonzeros (k = 163, so τ = 0 and every
-    zero survives — μ = sum/count would be n/k times too small) and one
-    with seven magnitudes tied at the k-th.  μ within 1e-5 relative of
-    the exact-k μ in both; at τ = 0 the outputs agree element by element,
-    at the tie the kernels send the exact-k support plus the tied rest."""
+    """The kernels where magnitudes tie at τ: a [16384] leaf with 50
+    nonzeros (k = 163, so τ = 0 and every zero ties — μ = sum/count would
+    be n/k times too small) and one with seven magnitudes tied at the k-th
+    (four of them survive).  The kernels must send exactly k entries, the
+    support of the exact-k STC of record (``lax.top_k``'s tie rule), equal
+    their plain version (``stc_apply_ref`` at ``stc_mu_ref``'s μ) bit for
+    bit, and hold μ within 1e-5 relative of the exact-k μ."""
     n = 16384
     k = max(1, int(n * STC_SPARSITY))
     zeros = torch.zeros(n, device="cuda")
@@ -429,31 +458,96 @@ def _stc_ties(torch, kref, ks, gen) -> None:
     tied[at] = tied[at].sign() * tied[order[k - 4]].abs()
     for case, x in (("tau_zero", zeros), ("tied_at_tau", tied)):
         thr = kref.stc_threshold(x, STC_SPARSITY)
-        ssum, cnt = ks.stc_reduce_cuda(x, thr)
-        out = ks.stc_apply_cuda(x, thr, ssum, cnt, k)
+        ssum, cnt, ties = ks.stc_reduce_cuda(x, thr)
+        out = ks.stc_apply_cuda(x, thr, ssum, cnt, ties, k)
+        plain = kref.stc_apply_ref(x, thr, kref.stc_mu_ref(ssum, cnt, thr, k),
+                                   k)
         exact_k = kref.stc_compress_ref(x, STC_SPARSITY)
         torch.cuda.synchronize()
         mu = float(out.abs().max())
         mu_k = float(exact_k.abs().max())
         rel = abs(mu - mu_k) / mu_k
         sent, sent_k = int((out != 0).sum()), int((exact_k != 0).sum())
-        superset = bool(((exact_k != 0) <= (out != 0)).all())
+        same = bool(torch.equal(out, plain))
+        support = bool(torch.equal(out != 0, exact_k != 0))
         extra = int(cnt[0]) - k
-        if case == "tau_zero":
-            ok = (float(thr[0]) == 0.0 and sent == sent_k and superset
-                  and float((out - exact_k).abs().max()) <= 1e-5 * mu_k)
-        else:
-            ok = sent == sent_k + extra == k + 3 and superset
+        ok = (same and support and sent == sent_k and rel <= 1e-5
+              and (float(thr[0]) == 0.0 if case == "tau_zero"
+                   else extra == 3 and sent == k))
         row = {"name": "stc_ties", "case": case, "shape": [n], "k": k,
                "tau": float(thr[0]), "count": int(cnt[0]), "sent": sent,
-               "sent_exact_k": sent_k, "mu": mu, "mu_exact_k": mu_k,
+               "sent_exact_k": sent_k, "equal_to_plain": same,
+               "same_support_as_exact_k": support, "mu": mu,
+               "mu_exact_k": mu_k,
                "mu_sum_over_count": float(ssum[0]) / int(cnt[0]),
-               "mu_rel_err": rel, "mu_rel_tol": 1e-5,
-               "ok": bool(ok and rel <= 1e-5)}
+               "mu_rel_err": rel, "mu_rel_tol": 1e-5, "ok": bool(ok)}
         print(json.dumps(row))
         if not row["ok"]:
-            _fail(f"stc ties ({case}): mu {mu} vs exact-k {mu_k}, sent "
-                  f"{sent} vs {sent_k}, count {int(cnt[0])} (k={k})")
+            _fail(f"stc ties ({case}): {json.dumps(row)}")
+
+
+def _stc_rows_ties(torch, kd, kref, gen) -> None:
+    """``stc_rows`` where |Δ| ties at τ_c, on the fcn fleet's largest leaf
+    (8, 16384), k = 163: row 0 has 50 nonzero deltas (τ = 0, every zero
+    ties: μ = sum/count would be n/k times too small), row 1 seven deltas
+    tied at the k-th (four survive), row 2 quarter steps (thousands tie at
+    τ = 1), the rest tie-free; rows 0-2 and 4 masked.  Each masked row must
+    send exactly the k entries of the exact-k STC of record (``lax.top_k``'s
+    tie rule; fewer where τ = 0, whose kept zeros map to ref), the apply
+    must equal its plain version bit for bit, and μ must be within 1e-5
+    relative of the exact-k μ."""
+    c, n = 8, 16384
+    k = max(1, int(n * STC_SPARSITY))
+    # Deltas on a 2^-14 grid in [-1, 1] and ref on the same grid, so that
+    # x = ref + Δ and x − ref are exact in fp32 and the ties are the ones
+    # planted.
+    ref_row = torch.randint(-2 ** 14, 2 ** 14, (n,), generator=gen,
+                            device="cuda") * 2.0 ** -14
+    signs = torch.randint(0, 2, (c, n), generator=gen,
+                          device="cuda").float() * 2.0 - 1.0
+    delta = signs * (torch.rand((c, n), generator=gen, device="cuda")
+                     .argsort(dim=1) + 1).float() * 2.0 ** -14
+    delta[0] = torch.where(
+        torch.rand(n, generator=gen, device="cuda").argsort() < 50,
+        delta[0], 0.0)
+    order = torch.argsort(delta[1].abs(), descending=True)
+    at = order[k - 4:k + 3]
+    delta[1, at] = delta[1, at].sign() * delta[1, order[k - 4]].abs()
+    delta[2] = torch.randint(-4, 5, (n,), generator=gen,
+                             device="cuda").float() / 4
+    x = ref_row[None, :] + delta
+    mask = torch.tensor([1, 1, 1, 0, 1, 0, 0, 0], device="cuda",
+                        dtype=torch.bool)
+    mask32 = mask.to(torch.int32)
+    thr = kref.stc_rows_threshold(x, ref_row, STC_SPARSITY)
+    ssum, cnt, ties = kd.stc_rows_reduce_cuda(x, ref_row, thr)
+    out = kd.stc_rows_apply_cuda(x, ref_row, thr, ssum, cnt, ties, mask32, k)
+    plain = kref.stc_rows_apply_ref(x, ref_row, thr, ssum, cnt, mask32, k)
+    exact_k = kref.stc_rows_ref(x, ref_row, mask, STC_SPARSITY)
+    torch.cuda.synchronize()
+    d_out = (out - ref_row[None, :]).abs()
+    d_k = (exact_k - ref_row[None, :]).abs()
+    sent = (out != ref_row[None, :]).sum(dim=1).tolist()
+    sent_k = (exact_k != ref_row[None, :]).sum(dim=1).tolist()
+    mu = d_out.max(dim=1).values
+    mu_k = d_k.max(dim=1).values
+    rel = float(((mu - mu_k).abs() / mu_k.clamp_min(1e-30))[mask].max())
+    same = bool(torch.equal(out, plain))
+    support = bool(torch.equal(out != ref_row[None, :],
+                               exact_k != ref_row[None, :]))
+    ok = (same and support and sent == sent_k and rel <= 1e-5
+          and float(thr[0]) == 0.0 and sent[1] == sent[2] == k
+          and bool(torch.equal(out[~mask], x[~mask])))
+    row = {"name": "stc_rows_ties", "shape": [c, n], "k": k,
+           "tau": thr.tolist()[:3], "count": cnt.tolist()[:3],
+           "sent": sent, "sent_exact_k": sent_k, "equal_to_plain": same,
+           "same_support_as_exact_k": support,
+           "mu_tau_zero": float(mu[0]), "mu_exact_k_tau_zero": float(mu_k[0]),
+           "mu_sum_over_count_tau_zero": float(ssum[0] / cnt[0]),
+           "mu_rel_err": rel, "mu_rel_tol": 1e-5, "ok": bool(ok)}
+    print(json.dumps(row))
+    if not row["ok"]:
+        _fail(f"stc_rows ties: {json.dumps(row)}")
 
 
 def check_kernels(torch, kd, kq, kref, port) -> list[dict]:
@@ -501,9 +595,9 @@ def check_kernels(torch, kd, kq, kref, port) -> list[dict]:
     # stc_rows: every leaf of the driven STC runs, a (1024, 8192) leaf
     # (34 MB, which stays in the 50 MB L2 across timed calls) and a
     # (1024, 16384) leaf (67 MB, beyond L2).  Tie-free by construction (the
-    # kernels keep every |Δ| ≥ τ, the plain version exactly k): each row's
-    # |Δ| is a permutation of n distinct multiples of 2^-e ≤ 1, and ref
-    # lies on the same grid, so x = ref ± |Δ| and x − ref are exact in fp32.
+    # ties are _stc_rows_ties' rows): each row's |Δ| is a permutation of n
+    # distinct multiples of 2^-e ≤ 1, and ref lies on the same grid, so
+    # x = ref ± |Δ| and x − ref are exact in fp32.
     sparsity = 0.01
     for c, n in stc_shapes + [(1024, 8192), (1024, 16384)]:
         step = 2.0 ** -max(1, (n - 1).bit_length())
@@ -518,7 +612,7 @@ def check_kernels(torch, kd, kq, kref, port) -> list[dict]:
         mask32 = mask.to(torch.int32)
         k = max(1, int(n * sparsity))
         thr = kref.stc_rows_threshold(x, ref_row, sparsity)
-        ssum, cnt = kd.stc_rows_reduce_cuda(x, ref_row, thr)
+        ssum, cnt, ties = kd.stc_rows_reduce_cuda(x, ref_row, thr)
         p_sum, p_cnt = kref.stc_rows_reduce_ref(x, ref_row, thr)
         torch.cuda.synchronize()
         if not torch.equal(cnt, p_cnt) or not bool((cnt == k).all()):
@@ -534,8 +628,9 @@ def check_kernels(torch, kd, kq, kref, port) -> list[dict]:
                            lambda: kref.stc_rows_reduce_ref(x, ref_row, thr)),
                 "bound_ms": bound, "bound_by": by})
 
-        out = kd.stc_rows_apply_cuda(x, ref_row, thr, ssum, cnt, mask32)
-        plain = kref.stc_rows_apply_ref(x, ref_row, thr, ssum, cnt, mask32)
+        out = kd.stc_rows_apply_cuda(x, ref_row, thr, ssum, cnt, ties,
+                                     mask32, k)
+        plain = kref.stc_rows_apply_ref(x, ref_row, thr, ssum, cnt, mask32, k)
         torch.cuda.synchronize()
         if not torch.equal(out[~mask], x[~mask]):
             _fail(f"stc_rows_apply ({c}, {n}): unmasked rows changed")
@@ -546,9 +641,9 @@ def check_kernels(torch, kd, kq, kref, port) -> list[dict]:
                 "max_abs_err": err, "tol": 0.0, "ok": err == 0.0,
                 **_timings(torch,
                            lambda: kd.stc_rows_apply_cuda(
-                               x, ref_row, thr, ssum, cnt, mask32),
+                               x, ref_row, thr, ssum, cnt, ties, mask32, k),
                            lambda: kref.stc_rows_apply_ref(
-                               x, ref_row, thr, ssum, cnt, mask32)),
+                               x, ref_row, thr, ssum, cnt, mask32, k)),
                 "bound_ms": bound, "bound_by": by})
 
         # The composite (τ + reduce + apply) against the exact-k plain STC.
@@ -561,6 +656,7 @@ def check_kernels(torch, kd, kq, kref, port) -> list[dict]:
                           "max_abs_err": err, "tol": tol, "ok": err <= tol}))
         if err > tol:
             _fail(f"stc_rows ({c}, {n}) disagrees with stc_rows_ref")
+    _stc_rows_ties(torch, kd, kref, gen)
 
     # dol_bid_scores: every planner shape of the driven runs and checks,
     # and the N=1024 population where fig7_scaling gives up the host
@@ -1308,7 +1404,10 @@ def check_lm_kernels(torch, kref) -> list[dict]:
     light = dict(inner=10, reps=5, iters=20)
     # flash_attention: (B, Sq, Sk, H, D, causal, window, dtype).  The bf16
     # qwen3 prefill shape comes first: it is the summary row.  The two
-    # prefill shapes also run the planted-fault control.
+    # prefill shapes also run the planted-fault control.  The last two rows
+    # are smollm_360m's full-length shape (H = 15, D = 64: the TMA strides)
+    # and a window that is not a multiple of the 128-key tile (its lower
+    # edge masked off the diagonal).
     for b, sq, sk, h, d, causal, window, dt in (
             (2, 4096, 4096, 16, 128, True, None, "bfloat16"),  # qwen3
             (1, 4096, 4096, 32, 80, True, None, "bfloat16"),   # zamba2
@@ -1320,7 +1419,9 @@ def check_lm_kernels(torch, kref) -> list[dict]:
             (1, 300, 1000, 4, 64, True, 128, "bfloat16"),      # both, ragged
             (2, 200, 200, 2, 32, False, None, "float32"),      # non-causal
             (1, 200, 700, 4, 80, True, None, "bfloat16"),      # Sq < Sk, D=80
-            (2, 100, 100, 2, 128, False, None, "bfloat16")):   # non-causal
+            (2, 100, 100, 2, 128, False, None, "bfloat16"),    # non-causal
+            (2, 4096, 4096, 15, 64, True, None, "bfloat16"),   # smollm, odd H
+            (1, 4096, 4096, 8, 128, True, 1000, "bfloat16")):  # window 1000
         dtype = getattr(torch, dt)
         q = torch.randn((b, sq, h, d), generator=gen, device="cuda").to(dtype)
         k = torch.randn((b, sk, h, d), generator=gen, device="cuda").to(dtype)
@@ -1330,7 +1431,8 @@ def check_lm_kernels(torch, kref) -> list[dict]:
         plain = kref.flash_attention_ref(q, k, v, **kw)
         torch.cuda.synchronize()
         check = _attn_err(torch, out, plain, dt)
-        if sq == 4096 and dt == "bfloat16":
+        if (b, sq, h, d, dt) in ((2, 4096, 16, 128, "bfloat16"),
+                                 (1, 4096, 32, 80, "bfloat16")):
             check["control_tile_dropped"] = _attn_err(
                 torch, _attention_tile_dropped(torch, q, k, v), plain, dt)
         pairs = b * h * _visible_pairs(sq, sk, causal, window)
@@ -1618,8 +1720,10 @@ def main() -> None:
                       "sources": sorted(build.SOURCES.values())}))
     for name, log in sorted(build.PTXAS_INFO.items()):
         for line in log.splitlines():
-            if "registers" in line or "Compiling entry" in line:
+            if ("registers" in line or "Compiling entry" in line
+                    or "spill" in line):
                 print(f"ptxas[{name}]: {line.strip()}")
+    _check_wgmma_spills(build.PTXAS_INFO.get("flash_attention"))
 
     rows = check_kernels(torch, kd, kq, kref, port)
     rows += check_stc_compress(torch, kref, port)

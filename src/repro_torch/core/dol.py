@@ -28,7 +28,7 @@ import torch
 
 __all__ = ["DiffusionState", "PlannerState", "update_dol", "iid_distance",
            "iid_distance_candidates", "update_dol_t", "iid_distance_t",
-           "iid_distance_candidates_t"]
+           "iid_distance_candidates_t", "xla_sum", "xla_sum_t"]
 
 _F32 = np.float32
 
@@ -98,16 +98,26 @@ def _seq_add(x: np.ndarray) -> np.ndarray:
     return acc
 
 
+def xla_sum(x: np.ndarray) -> np.ndarray:
+    """float32 ``Σ`` over the last axis in XLA-CPU's order for a plain sum:
+    in order up to 32 terms; a longer axis in windows of 32 (zero padding
+    split evenly, the odd element high), window sums in order, repeated
+    until at most 32 remain, which are added in order.  ``jnp.sum`` and
+    ``jnp.mean`` (this sum times fp32(1/N)) reduce so, and so does the norm
+    of :func:`_sum_squares` for C > 32 (ROADMAP C1, C2)."""
+    x = np.asarray(x, _F32)
+    while x.shape[-1] > _WINDOW:
+        lo, hi = _window_pad(x.shape[-1])
+        x = np.pad(x, [(0, 0)] * (x.ndim - 1) + [(lo, hi)])
+        x = _seq_add(x.reshape(x.shape[:-1] + (-1, _WINDOW)))
+    return _seq_add(x)
+
+
 def _sum_squares(d: np.ndarray) -> np.ndarray:
     """``Σ_j d_j²`` over the last axis in XLA-CPU's float32 order."""
     c = d.shape[-1]
     if c > _WINDOW:
-        sq = d * d
-        while sq.shape[-1] > _WINDOW:
-            lo, hi = _window_pad(sq.shape[-1])
-            sq = np.pad(sq, [(0, 0)] * (sq.ndim - 1) + [(lo, hi)])
-            sq = _seq_add(sq.reshape(sq.shape[:-1] + (-1, _WINDOW)))
-        return _seq_add(sq)
+        return xla_sum(d * d)
     kept = [k for k in d.shape[:-1] if k != 1]
     if _class_vector_body(kept, c):
         # Classes 0-3 rounded and added in order, class 4 as an fma.
@@ -183,15 +193,21 @@ def _seq_add_t(x: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+def xla_sum_t(x: torch.Tensor) -> torch.Tensor:
+    """Tensor twin of :func:`xla_sum`: float32 ``Σ`` over the last axis in
+    XLA-CPU's order, on the tensor's device."""
+    x = x.to(torch.float32)
+    while x.shape[-1] > _WINDOW:
+        x = torch.nn.functional.pad(x, _window_pad(x.shape[-1]))
+        x = _seq_add_t(x.reshape(x.shape[:-1] + (-1, _WINDOW)))
+    return _seq_add_t(x)
+
+
 def _sum_squares_t(d: torch.Tensor) -> torch.Tensor:
     """Tensor twin of :func:`_sum_squares` (XLA-CPU's order)."""
     c = d.shape[-1]
     if c > _WINDOW:
-        sq = d * d
-        while sq.shape[-1] > _WINDOW:
-            sq = torch.nn.functional.pad(sq, _window_pad(sq.shape[-1]))
-            sq = _seq_add_t(sq.reshape(sq.shape[:-1] + (-1, _WINDOW)))
-        return _seq_add_t(sq)
+        return xla_sum_t(d * d)
     kept = [k for k in d.shape[:-1] if k != 1]
     if _class_vector_body(kept, c):
         head = d[..., :4]

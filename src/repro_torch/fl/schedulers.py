@@ -20,7 +20,7 @@ from repro_torch.channels.resources import GAMMA_FLOOR, spectral_efficiency
 from repro_torch.channels.topology import CellTopology
 from repro_torch.core.diffusion import (DiffusionPlanner, PlanCache,
                                         feddif_cache_key)
-from repro_torch.core.dol import DiffusionState, iid_distance
+from repro_torch.core.dol import DiffusionState, iid_distance, xla_sum
 from repro_torch.core.schedule import (MixOp, PermuteOp, RoundSchedule,
                                        TrainOp, WireEvent,
                                        complete_round_permutation)
@@ -75,13 +75,11 @@ class RoundContext:
 
 
 def _xla_mean(x: np.ndarray) -> float:
-    """fp32 mean as ``jnp.mean`` computes it on XLA-CPU for N ≤ 32: an
-    in-order fp32 sum times fp32(1/N) (ROADMAP C2; longer vectors are
-    summed vectorized there, which this does not model)."""
-    total = np.float32(0.0)
-    for v in np.asarray(x, np.float32).ravel():
-        total = np.float32(total + v)
-    return float(total * np.float32(1.0 / np.size(x)))
+    """fp32 mean as ``jnp.mean`` computes it on XLA-CPU: the fp32 sum in
+    XLA's order (:func:`~repro_torch.core.dol.xla_sum`: in order up to 32
+    terms, windows of 32 beyond) times fp32(1/N) (ROADMAP C2)."""
+    flat = np.asarray(x, np.float32).ravel()
+    return float(xla_sum(flat) * np.float32(1.0 / flat.size))
 
 
 def _mean_partition_iid(ctx: RoundContext) -> float:

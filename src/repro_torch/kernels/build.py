@@ -39,17 +39,19 @@ _L = ctypes.c_longlong
 # C entry points of each library: name -> argument types (pointers and the
 # stream as void*, sizes as int or long long, scalars as float); every
 # launching entry point returns cudaError_t (repro_ssd_scan_smem_bytes
-# returns bytes, repro_stc_reduce_max_blocks a block count).
+# returns bytes, repro_stc_reduce_max_blocks a block count and
+# repro_stc_rows_max_chunks a chunk count).
 _SIGNATURES = {
     "mix_aggregate": {
         "repro_mix_aggregate_f32": [_P, _P, _P, _I, _I, _I, _P]},
     "stc_rows": {
-        "repro_stc_rows_reduce_f32": [_P, _P, _P, _P, _P, _I, _I, _P],
-        "repro_stc_rows_apply_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                     _P]},
+        "repro_stc_rows_reduce_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+        "repro_stc_rows_apply_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                     _I, _P],
+        "repro_stc_rows_max_chunks": []},
     "stc_compress": {
-        "repro_stc_reduce_f32": [_P, _P, _P, _P, _P, _P, _P, _L, _P],
-        "repro_stc_apply_f32": [_P, _P, _P, _P, _I, _P, _L, _P],
+        "repro_stc_reduce_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _P],
+        "repro_stc_apply_f32": [_P, _P, _P, _P, _P, _I, _P, _L, _P],
         "repro_stc_reduce_max_blocks": []},
     "dol_bid_scores": {
         "repro_dol_bid_scores_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _P]},

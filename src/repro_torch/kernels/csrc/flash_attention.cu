@@ -16,11 +16,11 @@
 // pair against a few bytes per element of q, k, v and o; at the zoo's
 // prefill shapes (S = 4096) that is hundreds of flops per byte.
 //
-// Two kernels, one per input type.  bf16 runs on the tensor cores with
-// mma.sync, for D in {64, 80, 128} (every call the zoo makes) and 16-byte
-// aligned k/v (flash_attention_mma_kernel, below); any other bf16 head dim
-// or alignment is refused.  wgmma and TMA come later.  fp32 (D % 4 == 0,
-// D <= 128) runs as fp32 FMAs on the CUDA cores (flash_attention_kernel):
+// Two kernels, one per input type.  bf16 (D in {64, 80, 128}, every call
+// the zoo makes; q, k, v and o 16-byte aligned; scale > 0) runs on Hopper's
+// warpgroup tensor cores, fed by TMA (flash_attention_wgmma_kernel, below).
+// fp32 (D % 4 == 0, D <= 128) runs as fp32 FMAs on the CUDA cores
+// (flash_attention_kernel):
 //
 // One block per (64-query tile, b*h); the heaviest (last) causal tiles are
 // scheduled first.  Four threads share a query row: each keeps a quarter of
@@ -33,6 +33,7 @@
 // (l, acc) by exp(m_old - m_new), then p = exp(s - m) accumulated against
 // V.  The -1e30 sentinel and the guards on fully masked rows follow the
 // reference's _attn_kernel, in both kernels.
+#include <cuda.h>           // CUtensorMap and its enums; libcuda is not linked
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -177,256 +178,686 @@ flash_attention_kernel(const float* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
-// Tensor-core path: bf16 inputs with D in {64, 80, 128} (the zoo's).
+// bf16 on Hopper: warp-specialised wgmma + TMA.
 //
-// One block per (64-query tile, b*h), four warps of 16 query rows each.  A
-// warp keeps its rows' Q as mma A-fragments and its fp32 score tile, output
-// accumulator and (m, l) in registers, and runs mma.sync m16n8k16 (bf16 in,
-// fp32 accumulate): S = Q K^T over 64-key tiles, then O += P V with P
-// rounded to bf16 (as the reference's XLA path rounds p to v's dtype).  The
-// accumulator layout of m16n8 is fixed by the PTX ISA: lane l holds rows
-// g = l/4 and g + 8, columns 2(l%4) and 2(l%4) + 1 of each 8-wide tile, so
-// the online-softmax rescale is per register, row maxima are two shuffles
-// over the lane quad, and the score accumulators repack directly into the
-// A-fragments of the P V product.  K and V tiles are staged in shared
-// memory with rows padded by 8 bf16 (no bank conflicts on either operand's
-// fragment loads).  A warp whose rows see none of a tile's keys skips it.
-constexpr int kMmaWarps = 4;
-constexpr int kMmaThreads = kMmaWarps * 32;
-constexpr int kMmaBQ = kMmaWarps * 16;     // 64 query rows per block
-constexpr int kMmaBK = 64;                 // keys per tile
+// One block per (128-query tile, b*h), the heaviest causal tiles first, with
+// three warpgroups.  Warpgroup 0 is the producer (setmaxnreg.dec to 24
+// registers): one thread loads the block's Q tile once, then streams K/V
+// tiles of 128 keys into a ring of shared-memory stages with TMA
+// (cp.async.bulk.tensor), each stage guarded by a "full" mbarrier (TMA
+// bytes landed) and an "empty" one (both consumers done with it).
+// Warpgroups 1 and 2 are consumers (setmaxnreg.inc to 240) of 64 query rows
+// each.  Per tile a consumer runs
+//   S = Q K^T    wgmma m64n128k16, Q and K from shared memory (K-major),
+//   online softmax on S in registers: row maxima over the lane quad (the
+//                wgmma accumulator layout gives lane l rows l/4 and l/4 + 8
+//                of its warp's 16), p = exp2(s * scale*log2e - m) as one
+//                FMA, l and O rescaled by exp2(m_old - m_new),
+//   O += P V     wgmma m64nDk16 with P rounded to bf16 in registers (as the
+//                reference's XLA path rounds p to v's dtype) as the A
+//                operand and V read from shared memory MN-major (trans-b).
+// The products overlap the softmax twice over: a consumer issues tile j's
+// Q K^T together with tile j-1's P V and runs tile j's softmax while they
+// run, and the two consumers take turns to issue (ping-pong on named
+// barriers), so one's softmax runs under the other's products.  O is
+// rescaled only in warps where a row maximum moved.  A stage is
+// released once tile j-1's P V is done, so the ring holds 3 stages (4 at
+// D = 64).  The element mask runs only on tiles that cross the causal
+// diagonal, the window's lower edge or the ragged end of Sk (TMA zero-fills
+// keys past Sk, and a zero key scores 0, not -inf, so that tail keeps its
+// mask); both consumers visit every tile of the block's range, so their
+// turns pair up.
+// The epilogue writes O / l as bf16 into the consumer's half of the Q tile
+// (its own rows, no longer read) and a TMA store copies it out, clipping
+// rows past Sq.
+//
+// Tensor maps view q, k, v and o in place as 4-d (D, H, S, B) arrays with
+// byte strides (2D, 2HD, 2SHD): no transpose pass.  A box is 64 columns of D
+// (128 bytes, the 128-byte swizzle atom) by 128 rows (64 for the output),
+// so a tile is one or two such chunks.  D = 80 is zero-padded to 128 in
+// shared memory by TMA's out-of-bounds fill: Q K^T skips the three all-zero
+// k-steps, P V runs at N = 80 (its B operand spans one whole swizzle atom
+// and 16 columns of the next) and the store drops columns past 80.  The
+// maps come from cuTensorMapEncodeTiled, fetched through the runtime's
+// driver entry point (no libcuda link), and reach the kernel as
+// __grid_constant__ parameters.
+constexpr int kWgThreads = 384;          // producer + two consumer warpgroups
+constexpr int kWgBQ = 128;               // query rows per block
+constexpr int kWgBK = 128;               // keys per K/V tile
+constexpr int kChunkRows = 128;          // rows of a Q/K/V chunk
+constexpr int kChunkBytes = kChunkRows * 128;   // 64 bf16 columns per row
+constexpr int kConsumerThreads = 256;
+
+template <int kD>
+struct WgmmaConfig {
+  static constexpr int kChunks = kD <= 64 ? 1 : 2;      // 64-column chunks
+  static constexpr int kDP = 64 * kChunks;              // padded head dim
+  static constexpr int kN = kD == 80 ? 80 : kDP;        // P V width
+  static constexpr int kKSteps = kD / 16;               // k-steps of Q K^T
+  static constexpr int kTileBytes = kChunks * kChunkBytes;
+  static constexpr int kStages = kChunks == 1 ? 4 : 3;  // K/V ring depth
+  static constexpr int kBarOffset = kTileBytes * (1 + 2 * kStages);
+  static constexpr int kSmemBytes = kBarOffset + 8 * (1 + 2 * kStages) + 1024;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(bar) : "memory");
+}
+
+// Spin until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int d0, int h, int s,
+                                         int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(d0),
+         "r"(h), "r"(s), "r"(b)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src,
+                                          int d0, int h, int s, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group "
+      "[%0, {%2, %3, %4, %5}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(d0), "r"(h),
+         "r"(s), "r"(b)
+      : "memory");
+}
+
+// Shared-memory matrix descriptor of a 128-byte-swizzled operand: start
+// address, leading and stride byte offsets (16-byte units), layout B128.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4)
+         | static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16
+         | static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32
+         | 1ull << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keeps the compiler from moving reads or writes of these registers across
+// this point (into or out of an in-flight wgmma).
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j]) :: "memory");
+  }
+}
+
+// 2^x by the SFU (ex2.approx, flushes subnormal results to 0).
+__device__ __forceinline__ float exp2_fast(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
-                                              __nv_bfloat16 hi) {
-  __nv_bfloat162 v;
-  v.x = lo;
-  v.y = hi;
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
+// d (64 x 128 fp32) = a (64 x 16) * b (16 x 128) [+ d]: both operands in
+// shared memory, K-major, 128-byte swizzle.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                             uint64_t db, int accumulate) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      :
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+      "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+      "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+      "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+      "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+      "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+      "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+      "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+      "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+      "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
 }
 
-// kD: head dim (a multiple of 16, at most 128).
+// d (64 x 128 fp32) += a (64 x 16, bf16 A-fragments in registers) * b (16 x
+// 128, shared memory, MN-major, 128-byte swizzle).
+__device__ __forceinline__ void wgmma_rs(float (&d)[64],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      :
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+      "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+      "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+      "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+      "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+      "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+      "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+      "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+      "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+      "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 80 fp32) += a (64 x 16, bf16 A-fragments in registers) * b (16 x
+// 80, shared memory, MN-major, 128-byte swizzle).
+__device__ __forceinline__ void wgmma_rs(float (&d)[40],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39"
+      "}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      :
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+      "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+      "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+      "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+      "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 64 fp32) += a (64 x 16, bf16 A-fragments in registers) * b (16 x
+// 64, shared memory, MN-major, 128-byte swizzle).
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      :
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+      "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+      "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 template <int kD>
-__global__ void __launch_bounds__(kMmaThreads)
-flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                           const __nv_bfloat16* __restrict__ k,
-                           const __nv_bfloat16* __restrict__ v,
-                           __nv_bfloat16* __restrict__ o, int H, int Sq,
-                           int Sk, float scale, int causal, int window) {
-  constexpr int kPitch = kD + 8;           // bf16 per staged row
-  constexpr int kKS = kD / 16;             // k-steps of Q K^T
-  constexpr int kNT = kD / 8;              // 8-wide output tiles
-  constexpr int kST = kMmaBK / 8;          // 8-wide score tiles
-  __shared__ __align__(16) __nv_bfloat16 k_s[kMmaBK * kPitch];
-  __shared__ __align__(16) __nv_bfloat16 v_s[kMmaBK * kPitch];
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_attention_wgmma_kernel(__grid_constant__ const CUtensorMap tm_q,
+                             __grid_constant__ const CUtensorMap tm_k,
+                             __grid_constant__ const CUtensorMap tm_v,
+                             __grid_constant__ const CUtensorMap tm_o, int H,
+                             int Sq, int Sk, float scale_log2, int causal,
+                             int window) {
+  using Cfg = WgmmaConfig<kD>;
+  extern __shared__ uint8_t smem_raw[];
+  // 1024-byte alignment: the 128-byte swizzle repeats every 8 rows.
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t q_s = base;                        // Q tile, then O
+  const uint32_t kv_s = base + Cfg::kTileBytes;     // stage s: K, then V
+  const uint32_t bars = base + Cfg::kBarOffset;
+  const uint32_t q_full = bars;
+  auto full = [&](int s) { return bars + 8u * (1 + s); };
+  auto empty = [&](int s) { return bars + 8u * (1 + Cfg::kStages + s); };
+  auto k_tile = [&](int s) { return kv_s + 2u * Cfg::kTileBytes * s; };
 
   const int bh = blockIdx.y;
   const int b = bh / H;
   const int h = bh - b * H;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kMmaBQ;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kWgBQ;
   const int shift = Sk - Sq;
-  const long long row_stride = (long long)H * kD;
-  const int r0 = q0 + warp * 16 + g;       // this lane's two query rows
-  const int r1 = r0 + 8;
-  const int pos0 = r0 + shift, pos1 = r1 + shift;
-
-  // Q A-fragments: rows r0 / r1, columns 16ks + 2t (+1) and + 8 (+1).
-  uint32_t qa[kKS][4];
-  {
-    const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
-    const __nv_bfloat16* q_r0 =
-        q + ((long long)b * Sq + r0) * row_stride + (long long)h * kD;
-    const __nv_bfloat16* q_r1 = q_r0 + 8 * row_stride;
-#pragma unroll
-    for (int ks = 0; ks < kKS; ++ks) {
-      const int c = 16 * ks + 2 * t;
-      const bool ok0 = r0 < Sq, ok1 = r1 < Sq;
-      qa[ks][0] = pack_bf16(ok0 ? q_r0[c] : zero, ok0 ? q_r0[c + 1] : zero);
-      qa[ks][1] = pack_bf16(ok1 ? q_r1[c] : zero, ok1 ? q_r1[c + 1] : zero);
-      qa[ks][2] = pack_bf16(ok0 ? q_r0[c + 8] : zero,
-                            ok0 ? q_r0[c + 9] : zero);
-      qa[ks][3] = pack_bf16(ok1 ? q_r1[c + 8] : zero,
-                            ok1 ? q_r1[c + 9] : zero);
-    }
-  }
-  float acc[kNT][4];
-#pragma unroll
-  for (int j = 0; j < kNT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;   // l: lane partials
-
-  const int last_q = min(q0 + kMmaBQ, Sq) - 1;
+  // The keys this block can see: only the tiles between them are visited.
+  const int last_q = min(q0 + kWgBQ, Sq) - 1;
   const int k_hi = causal ? min(Sk, last_q + shift + 1) : Sk;
-  int k_lo = window > 0 ? max(0, q0 + shift - window + 1) : 0;
-  k_lo = k_lo / kMmaBK * kMmaBK;
-  // The rows of this warp, for skipping tiles it cannot see.
-  const int w_first = q0 + warp * 16 + shift;
-  const int w_last = min(q0 + warp * 16 + 15, Sq - 1) + shift;
+  const int k_lo =
+      window > 0 ? max(0, q0 + shift - window + 1) / kWgBK * kWgBK : 0;
+  const int n_tiles = k_hi > k_lo ? (k_hi - k_lo + kWgBK - 1) / kWgBK : 0;
 
-  for (int kt = k_lo; kt < k_hi; kt += kMmaBK) {
-    __syncthreads();
-    // Stage K and V tiles (16-byte copies; rows past Sk are zero).
-    constexpr int kVec = kD / 8;
-    for (int e = threadIdx.x; e < kMmaBK * kVec; e += kMmaThreads) {
-      const int r = e / kVec, c = (e - r * kVec) * 8;
-      const int kp = kt + r;
-      uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
-      if (kp < Sk) {
-        const long long off = ((long long)b * Sk + kp) * row_stride
-                              + (long long)h * kD + c;
-        kv = *reinterpret_cast<const uint4*>(k + off);
-        vv = *reinterpret_cast<const uint4*>(v + off);
-      }
-      *reinterpret_cast<uint4*>(k_s + r * kPitch + c) = kv;
-      *reinterpret_cast<uint4*>(v_s + r * kPitch + c) = vv;
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < Cfg::kStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), kConsumerThreads);
     }
-    __syncthreads();
-    if (w_first >= Sq + shift) continue;   // warp entirely past Sq
-    if (causal && kt > w_last) continue;
-    if (window > 0 && kt + kMmaBK - 1 <= w_first - window) continue;
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-    // S = Q K^T for this warp's 16 rows x 64 keys.
-    float s[kST][4];
-#pragma unroll
-    for (int j = 0; j < kST; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-      const __nv_bfloat16* krow = k_s + (8 * j + g) * kPitch + 2 * t;
-#pragma unroll
-      for (int ks = 0; ks < kKS; ++ks) {
-        const uint32_t b0 =
-            *reinterpret_cast<const uint32_t*>(krow + 16 * ks);
-        const uint32_t b1 =
-            *reinterpret_cast<const uint32_t*>(krow + 16 * ks + 8);
-        mma_bf16(s[j], qa[ks], b0, b1);
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ---- producer: one thread issues every TMA load ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, Cfg::kTileBytes);
+      for (int c = 0; c < Cfg::kChunks; ++c) {
+        tma_load(q_s + c * kChunkBytes, &tm_q, q_full, 64 * c, h, q0, b);
+      }
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % Cfg::kStages;
+        mbar_wait(empty(s), ((j / Cfg::kStages) & 1) ^ 1);
+        mbar_expect_tx(full(s), 2 * Cfg::kTileBytes);
+        const int kt = k_lo + j * kWgBK;
+        for (int c = 0; c < Cfg::kChunks; ++c) {
+          tma_load(k_tile(s) + c * kChunkBytes, &tm_k, full(s), 64 * c, h,
+                   kt, b);
+          tma_load(k_tile(s) + Cfg::kTileBytes + c * kChunkBytes, &tm_v,
+                   full(s), 64 * c, h, kt, b);
+        }
       }
     }
-    // Scale, mask, running max over the lane quad.
-    float mc0 = kNegInf, mc1 = kNegInf;
+  } else {
+    // ---- consumers: 64 query rows each ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int cw = wg - 1;
+    const int tid = threadIdx.x - 128 * wg;
+    const int warp = tid / 32, lane = tid % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int row0 = q0 + 64 * cw + 16 * warp + g;   // this lane's two rows
+    const int pos0 = row0 + shift, pos1 = pos0 + 8;
+    const int wg_first = q0 + 64 * cw;
+    const bool live = wg_first < Sq;
+    const int p_first = wg_first + shift;
+    const int p_last = min(wg_first + 63, Sq - 1) + shift;
+    const uint32_t q_wg = q_s + 64 * 128 * cw;       // this warpgroup's rows
+
+    float acc[Cfg::kN / 2];
 #pragma unroll
-    for (int j = 0; j < kST; ++j) {
+    for (int i = 0; i < Cfg::kN / 2; ++i) acc[i] = 0.f;
+    float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;  // l: lane partials
+    float sc[64];          // one tile's scores, then its probabilities
+    uint32_t pa[8][4];     // the previous tile's P, bf16 A-fragments
+
+    // S = Q K^T over stage s's 128 keys (issued, not waited for).
+    auto issue_qk = [&](int s) {
+      fence_regs(sc);
+      wgmma_fence();
+      // Q's descriptors are rebuilt per tile from an opaque copy of its
+      // address: hoisted out of the loop they would hold 16 registers.
+      uint32_t q_at;
+      asm volatile("mov.b32 %0, %1;\n" : "=r"(q_at) : "r"(q_wg));
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int kp = kt + 8 * j + 2 * t + (e & 1);
-        const int pos = e < 2 ? pos0 : pos1;
-        const int row = e < 2 ? r0 : r1;
-        const bool vis = row < Sq && kp < Sk && (!causal || kp <= pos)
-                         && (window <= 0 || kp > pos - window);
-        s[j][e] = vis ? s[j][e] * scale : kNegInf;
+      for (int ks = 0; ks < Cfg::kKSteps; ++ks) {
+        const uint32_t off = (ks / 4) * kChunkBytes + (ks % 4) * 32;
+        wgmma_ss_n128(sc, sw128_desc(q_at + off, 16, 1024),
+                      sw128_desc(k_tile(s) + off, 16, 1024), ks > 0);
       }
-      mc0 = fmaxf(mc0, fmaxf(s[j][0], s[j][1]));
-      mc1 = fmaxf(mc1, fmaxf(s[j][2], s[j][3]));
-    }
-    mc0 = fmaxf(mc0, __shfl_xor_sync(0xffffffffu, mc0, 1));
-    mc0 = fmaxf(mc0, __shfl_xor_sync(0xffffffffu, mc0, 2));
-    mc1 = fmaxf(mc1, __shfl_xor_sync(0xffffffffu, mc1, 1));
-    mc1 = fmaxf(mc1, __shfl_xor_sync(0xffffffffu, mc1, 2));
-    const float mn0 = fmaxf(m0, mc0), mn1 = fmaxf(m1, mc1);
-    const float sm0 = mn0 <= 0.5f * kNegInf ? 0.f : mn0;
-    const float sm1 = mn1 <= 0.5f * kNegInf ? 0.f : mn1;
-    const float al0 = m0 <= 0.5f * kNegInf ? 0.f : expf(m0 - sm0);
-    const float al1 = m1 <= 0.5f * kNegInf ? 0.f : expf(m1 - sm1);
-    m0 = mn0;
-    m1 = mn1;
-    l0 *= al0;
-    l1 *= al1;
+      wgmma_commit();
+    };
+    // O += P V over stage s: V is MN-major (D contiguous), 64-column
+    // chunks kChunkBytes apart, 8-key groups 1024 bytes apart.
+    auto issue_pv = [&](int s) {
+      fence_regs(acc);
+      fence_regs(pa);
+      wgmma_fence();
+      const uint32_t v_tile = k_tile(s) + Cfg::kTileBytes;
 #pragma unroll
-    for (int j = 0; j < kNT; ++j) {
-      acc[j][0] *= al0; acc[j][1] *= al0;
-      acc[j][2] *= al1; acc[j][3] *= al1;
-    }
-    // P = exp(S - m), packed straight into the A-fragments of P V.
-    uint32_t pa[kST / 2][4];
-#pragma unroll
-    for (int j = 0; j < kST; ++j) {
-      float p[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float sm = e < 2 ? sm0 : sm1;
-        p[e] = s[j][e] <= 0.5f * kNegInf ? 0.f : expf(s[j][e] - sm);
+      for (int kk = 0; kk < kWgBK / 16; ++kk) {
+        wgmma_rs(acc, pa[kk],
+                 sw128_desc(v_tile + kk * 16 * 128, kChunkBytes, 1024));
       }
-      l0 += p[0] + p[1];
-      l1 += p[2] + p[3];
-      pa[j / 2][(j & 1) * 2] = pack_bf16(p[0], p[1]);
-      pa[j / 2][(j & 1) * 2 + 1] = pack_bf16(p[2], p[3]);
+      wgmma_commit();
+    };
+    // Online softmax of the tile at key kt: sc becomes p, (m, l) advance
+    // and the factors that rescale O are returned in al0 / al1.
+    // sc[4j + e]: key kt + 8j + 2t + (e & 1), row pos0 (e < 2) or pos1.
+    auto softmax = [&](int kt, float& al0, float& al1) {
+      const bool masked =
+          kt + kWgBK > Sk || (causal && kt + kWgBK - 1 > p_first)
+          || (window > 0 && kt <= p_last - window);
+      float mx0 = kNegInf, mx1 = kNegInf;
+      if (masked) {
+        // Each row's visible keys [lo, hi), relative to key kt + 2t.
+        const int base = kt + 2 * t;
+        const int hi0 = (causal ? min(Sk, pos0 + 1) : Sk) - base;
+        const int hi1 = (causal ? min(Sk, pos1 + 1) : Sk) - base;
+        const int lo0 = window > 0 ? pos0 - window + 1 - base : -kWgBK;
+        const int lo1 = window > 0 ? pos1 - window + 1 - base : -kWgBK;
+#pragma unroll
+        for (int i = 0; i < 64; ++i) {
+          const int off = 8 * (i / 4) + (i & 1);
+          const bool vis = (i & 2) ? (off < hi1 && off >= lo1)
+                                   : (off < hi0 && off >= lo0);
+          sc[i] = vis ? sc[i] * scale_log2 : kNegInf;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 64; i += 4) {
+        mx0 = fmaxf(mx0, fmaxf(sc[i], sc[i + 1]));
+        mx1 = fmaxf(mx1, fmaxf(sc[i + 2], sc[i + 3]));
+      }
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+      if (masked) {
+        // Scores scaled and masked with the sentinel: guard rows that
+        // have seen no key yet (the reference's _attn_kernel).
+        const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+        const float sm0 = mn0 <= 0.5f * kNegInf ? 0.f : mn0;
+        const float sm1 = mn1 <= 0.5f * kNegInf ? 0.f : mn1;
+        al0 = m0 <= 0.5f * kNegInf ? 0.f : exp2_fast(m0 - sm0);
+        al1 = m1 <= 0.5f * kNegInf ? 0.f : exp2_fast(m1 - sm1);
+        m0 = mn0;
+        m1 = mn1;
+#pragma unroll
+        for (int i = 0; i < 64; ++i) {
+          const float sm = (i & 2) ? sm1 : sm0;
+          sc[i] = sc[i] <= 0.5f * kNegInf ? 0.f : exp2_fast(sc[i] - sm);
+        }
+      } else {
+        // Every score visible: the maxima are of unscaled scores (scale
+        // > 0), and p = exp2(s * scale*log2e - m) is one FMA and one ex2.
+        const float mn0 = fmaxf(m0, mx0 * scale_log2);
+        const float mn1 = fmaxf(m1, mx1 * scale_log2);
+        al0 = exp2_fast(m0 - mn0);
+        al1 = exp2_fast(m1 - mn1);
+        m0 = mn0;
+        m1 = mn1;
+#pragma unroll
+        for (int i = 0; i < 64; ++i) {
+          sc[i] = exp2_fast(fmaf(sc[i], scale_log2, (i & 2) ? -mn1 : -mn0));
+        }
+      }
+      float ls0 = 0.f, ls1 = 0.f;
+#pragma unroll
+      for (int i = 0; i < 64; i += 4) {
+        ls0 += sc[i] + sc[i + 1];
+        ls1 += sc[i + 2] + sc[i + 3];
+      }
+      l0 = l0 * al0 + ls0;
+      l1 = l1 * al1 + ls1;
+    };
+    // P (fp32 in sc) to bf16 A-fragments: key step i / 8 holds keys 0-7
+    // in regs 0 (row g) and 1 (row g + 8), keys 8-15 in regs 2 and 3.
+    auto pack_p = [&]() {
+#pragma unroll
+      for (int i = 0; i < 64; i += 4) {
+        pa[i / 8][(i / 4) % 2 * 2] = pack_bf16(sc[i], sc[i + 1]);
+        pa[i / 8][(i / 4) % 2 * 2 + 1] = pack_bf16(sc[i + 2], sc[i + 3]);
+      }
+    };
+    // Ping-pong: a consumer issues its products only on its turn (named
+    // barrier 3 + cw), then hands the turn over, so one warpgroup's
+    // softmax runs under the other's products.  Each barrier sees as many
+    // arrivals as waits: consumer 1 opens consumer 0's first turn and
+    // skips its own last hand-over.
+    auto my_turn = [&]() {
+      asm volatile("bar.sync %0, 256;\n" :: "r"(3 + cw) : "memory");
+    };
+    auto hand_over = [&]() {
+      asm volatile("bar.arrive %0, 256;\n" :: "r"(4 - cw) : "memory");
+    };
+
+    mbar_wait(q_full, 0);
+    if (n_tiles > 0) {
+      if (cw == 1) hand_over();
+      // Tile 0: S, softmax, P.  Tile j > 0: S_j is issued together with
+      // the P V of tile j - 1, and the softmax of S_j runs while P V does.
+      mbar_wait(full(0), 0);
+      my_turn();
+      issue_qk(0);
+      if (cw == 0 || n_tiles > 1) hand_over();
+      wgmma_wait_all();
+      fence_regs(sc);
+      float al0, al1;
+      softmax(k_lo, al0, al1);
+      pack_p();
+      for (int j = 1; j < n_tiles; ++j) {
+        const int s = j % Cfg::kStages;
+        const int prev = (j - 1) % Cfg::kStages;
+        mbar_wait(full(s), (j / Cfg::kStages) & 1);
+        my_turn();
+        issue_qk(s);
+        issue_pv(prev);
+        if (cw == 0 || j + 1 < n_tiles) hand_over();
+        asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+        fence_regs(sc);
+        softmax(k_lo + j * kWgBK, al0, al1);
+        wgmma_wait_all();
+        fence_regs(acc);
+        mbar_arrive(empty(prev));
+        // Rescale O only where a row maximum moved (a factor of exactly 1
+        // changes nothing), decided per warp.
+        if (__any_sync(0xffffffffu, al0 != 1.f || al1 != 1.f)) {
+#pragma unroll
+          for (int i = 0; i < Cfg::kN / 2; i += 4) {
+            acc[i] *= al0;
+            acc[i + 1] *= al0;
+            acc[i + 2] *= al1;
+            acc[i + 3] *= al1;
+          }
+        }
+        pack_p();
+      }
+      const int last = (n_tiles - 1) % Cfg::kStages;
+      issue_pv(last);
+      wgmma_wait_all();
+      fence_regs(acc);
+      mbar_arrive(empty(last));
     }
-    // O += P V: B-fragments V[key][d] for keys 16kk + 2t (+1) and + 8 (+1).
+
+    if (live) {
+      // O / l (0 for a row that saw nothing) as bf16 into this warpgroup's
+      // rows of the Q tile, in the 128-byte-swizzled layout of a TMA box.
+      l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+      l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+      const float inv0 = 1.f / fmaxf(l0, 1e-20f);
+      const float inv1 = 1.f / fmaxf(l1, 1e-20f);
+      const int r = 16 * warp + g;
 #pragma unroll
-    for (int kk = 0; kk < kST / 2; ++kk) {
-      const __nv_bfloat16* vrow = v_s + (16 * kk + 2 * t) * kPitch + g;
-#pragma unroll
-      for (int j = 0; j < kNT; ++j) {
-        const __nv_bfloat16* vp = vrow + 8 * j;
-        const uint32_t b0 = pack_bf16(vp[0], vp[kPitch]);
-        const uint32_t b1 = pack_bf16(vp[8 * kPitch], vp[9 * kPitch]);
-        mma_bf16(acc[j], pa[kk], b0, b1);
+      for (int j = 0; j < Cfg::kN / 8; ++j) {
+        const uint32_t at = q_wg + (j / 8) * kChunkBytes
+                            + ((((j % 8) ^ g) << 4) | (4 * t));
+        asm volatile("st.shared.b32 [%0], %1;\n" ::
+                     "r"(at + r * 128),
+                     "r"(pack_bf16(acc[4 * j] * inv0, acc[4 * j + 1] * inv0))
+                     : "memory");
+        asm volatile("st.shared.b32 [%0], %1;\n" ::
+                     "r"(at + (r + 8) * 128),
+                     "r"(pack_bf16(acc[4 * j + 2] * inv1,
+                                   acc[4 * j + 3] * inv1))
+                     : "memory");
+      }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      asm volatile("bar.sync %0, 128;\n" :: "r"(1 + cw) : "memory");
+      if (tid == 0) {
+        for (int c = 0; c < Cfg::kChunks; ++c) {
+          tma_store(&tm_o, q_wg + c * kChunkBytes, 64 * c, h, wg_first, b);
+        }
+        asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+        asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
       }
     }
   }
+}
 
-  // Row sums over the lane quad, then O / l (0 for a row that saw nothing).
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-  const float inv0 = 1.f / fmaxf(l0, 1e-20f), inv1 = 1.f / fmaxf(l1, 1e-20f);
-  __nv_bfloat16* o_r0 =
-      o + ((long long)b * Sq + r0) * row_stride + (long long)h * kD + 2 * t;
-  __nv_bfloat16* o_r1 = o_r0 + 8 * row_stride;
-#pragma unroll
-  for (int j = 0; j < kNT; ++j) {
-    if (r0 < Sq) {
-      o_r0[8 * j] = __float2bfloat16_rn(acc[j][0] * inv0);
-      o_r0[8 * j + 1] = __float2bfloat16_rn(acc[j][1] * inv0);
-    }
-    if (r1 < Sq) {
-      o_r1[8 * j] = __float2bfloat16_rn(acc[j][2] * inv1);
-      o_r1[8 * j + 1] = __float2bfloat16_rn(acc[j][3] * inv1);
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, through the runtime (no libcuda
+// link); null if the driver does not have it.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiled>(p);
     }
   }
+  return fn;
+}
+
+// A (B, S, H, D) bf16 tensor as a 4-d TMA map (D, H, S, B) with boxes of
+// 64 columns by `rows` rows, 128-byte swizzle, zero fill out of bounds.
+bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int H, int D,
+              int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {2ull * D, 2ull * H * D, 2ull * S * H * D};
+  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(ptr), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int kD>
-void launch_mma(const void* q, const void* k, const void* v, void* o, int B,
-                int H, int Sq, int Sk, float scale, int causal, int window,
-                cudaStream_t stream) {
-  const dim3 grid((Sq + kMmaBQ - 1) / kMmaBQ, B * H);
-  flash_attention_mma_kernel<kD><<<grid, kMmaThreads, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      H, Sq, Sk, scale, causal, window);
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
+                 int H, int Sq, int Sk, float scale, int causal, int window,
+                 cudaStream_t stream) {
+  using Cfg = WgmmaConfig<kD>;
+  CUtensorMap tq, tk, tv, to;
+  if (!make_map(&tq, q, B, Sq, H, kD, kWgBQ)
+      || !make_map(&tk, k, B, Sk, H, kD, kWgBK)
+      || !make_map(&tv, v, B, Sk, H, kD, kWgBK)
+      || !make_map(&to, o, B, Sq, H, kD, kWgBQ / 2)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  static bool smem_set = false;
+  if (!smem_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_attention_wgmma_kernel<kD>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg::kSmemBytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    smem_set = true;
+  }
+  const dim3 grid((Sq + kWgBQ - 1) / kWgBQ, B * H);
+  flash_attention_wgmma_kernel<kD>
+      <<<grid, kWgThreads, Cfg::kSmemBytes, stream>>>(
+          tq, tk, tv, to, H, Sq, Sk, scale * 1.4426950408889634f, causal,
+          window);
+  return static_cast<int>(cudaGetLastError());
 }
 
-// bf16: the tensor-core kernel for D in {64, 80, 128} and 16-byte aligned
-// k/v (its 16-byte K/V tile loads); anything else is cudaErrorInvalidValue.
+// bf16: the wgmma kernel for D in {64, 80, 128}, 16-byte aligned q, k, v
+// and o (TMA) and scale > 0; anything else is cudaErrorInvalidValue.
 int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
                 int H, int Sq, int Sk, int D, float scale, int causal,
                 int window, cudaStream_t stream) {
-  const uintptr_t align = reinterpret_cast<uintptr_t>(k)
-                          | reinterpret_cast<uintptr_t>(v);
-  if (align % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
-  switch (D) {
-    case 64: launch_mma<64>(q, k, v, o, B, H, Sq, Sk, scale, causal, window, stream); break;
-    case 80: launch_mma<80>(q, k, v, o, B, H, Sq, Sk, scale, causal, window, stream); break;
-    case 128: launch_mma<128>(q, k, v, o, B, H, Sq, Sk, scale, causal, window, stream); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  const uintptr_t align =
+      reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k)
+      | reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o);
+  if (align % 16 != 0 || !(scale > 0.f)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+  switch (D) {
+    case 64:
+      return launch_wgmma<64>(q, k, v, o, B, H, Sq, Sk, scale, causal,
+                              window, stream);
+    case 80:
+      return launch_wgmma<80>(q, k, v, o, B, H, Sq, Sk, scale, causal,
+                              window, stream);
+    case 128:
+      return launch_wgmma<128>(q, k, v, o, B, H, Sq, Sk, scale, causal,
+                               window, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 template <int kG4>
@@ -461,8 +892,8 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
 }  // namespace
 
 // dtype: 0 = fp32 (D % 4 == 0, D <= 128), 1 = bf16 (D in {64, 80, 128},
-// k/v 16-byte aligned); window <= 0 means no window; causal is 0 or 1.
-// Returns cudaGetLastError() after the launch.
+// q/k/v/o 16-byte aligned, scale > 0); window <= 0 means no window; causal
+// is 0 or 1.  Returns cudaGetLastError() after the launch.
 extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, void* o, int dtype, int B,
                                      int H, int Sq, int Sk, int D,

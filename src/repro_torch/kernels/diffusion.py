@@ -15,9 +15,9 @@ CUDA C++ for ``sm_90a`` (``csrc/``), built by ``nvcc`` and bound with
   the kernels, as the reference leaves it to an XLA sort; then
   :func:`stc_rows_reduce_cuda` (replaces ``_stc_reduce_kernel``) and
   :func:`stc_rows_apply_cuda` (replaces ``_stc_apply_kernel``).  Both are
-  memory-bound passes over (C, n) fp32.  Like the Pallas kernels they keep
-  every ``|Δ| ≥ τ_c``; the plain version keeps exactly k — they differ
-  only where ``|Δ|`` ties at τ_c.
+  memory-bound passes over (C, n) fp32.  Like the plain version they keep
+  exactly k entries per row, the ones ``lax.top_k`` keeps (every
+  ``|Δ| > τ_c``, then the ties in index order), at the exact-k μ.
 * :func:`dol_bid_scores_cuda` — the device planner's (M, N) candidate IID
   distances (Eq. 2 + B.1, w1_norm) by the centered contraction, one thread
   per output.  Replaces ``_bid_kernel`` (``dol_bid_scores_pallas``).
@@ -111,48 +111,61 @@ def mix_aggregate_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def stc_rows_reduce_cuda(x: torch.Tensor, ref_row: torch.Tensor,
                          thr: torch.Tensor
-                         ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Per row: survivor sum ``Σ|Δ|·1[|Δ| ≥ τ_c]`` and count, (C,) fp32."""
+                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Per row: survivor sum ``Σ|Δ|·1[|Δ| ≥ τ_c]`` and count, (C,) fp32,
+    and the ties' prefix over the row's chunks for
+    :func:`stc_rows_apply_cuda` (C, chunks + 1) int32."""
     check_tensor(x, "x", 2)
     check_tensor(ref_row, "ref_row", 1)
     check_tensor(thr, "thr", 1)
     c, n = x.shape
     if ref_row.shape[0] != n or thr.shape[0] != c:
         raise ValueError("ref_row / thr do not match x")
+    lib = build.load("stc_rows")
     ssum = torch.empty((c,), device=x.device, dtype=torch.float32)
     cnt = torch.empty((c,), device=x.device, dtype=torch.float32)
-    lib = build.load("stc_rows")
+    ties = torch.empty((c, lib.repro_stc_rows_max_chunks() + 1),
+                       device=x.device, dtype=torch.int32)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.repro_stc_rows_reduce_f32(
             x.data_ptr(), ref_row.data_ptr(), thr.data_ptr(), ssum.data_ptr(),
-            cnt.data_ptr(), int32(c, "C"), int32(n, "n"), stream)
+            cnt.data_ptr(), ties.data_ptr(), int32(c, "C"), int32(n, "n"),
+            stream)
     raise_on(err, "stc_rows_reduce")
     LAUNCHES["stc_rows_reduce"] += 1
-    return ssum, cnt
+    return ssum, cnt, ties
 
 
 def stc_rows_apply_cuda(x: torch.Tensor, ref_row: torch.Tensor,
                         thr: torch.Tensor, ssum: torch.Tensor,
-                        cnt: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Ternarize masked rows at τ_c with ``μ_c = ssum_c / max(cnt_c, 1)``
-    and blend; unmasked rows come out bit for bit untouched."""
+                        cnt: torch.Tensor, ties: torch.Tensor,
+                        mask: torch.Tensor, k: int) -> torch.Tensor:
+    """Ternarize each masked row's k survivors at the exact-k
+    ``μ_c = (ssum_c − (cnt_c − k)·τ_c) / k`` and blend; unmasked rows come
+    out bit for bit untouched.  ``ties`` is the reduce's tie prefix."""
     check_tensor(x, "x", 2)
     check_tensor(ref_row, "ref_row", 1)
     for t, name in ((thr, "thr"), (ssum, "ssum"), (cnt, "cnt")):
         check_tensor(t, name, 1)
+    check_tensor(ties, "ties", 2, torch.int32)
     check_tensor(mask, "mask", 1, torch.int32)
     c, n = x.shape
     if c > 65535:
         raise ValueError(f"C={c} exceeds the apply kernel's grid")
-    out = torch.empty_like(x)
+    if not 1 <= k <= n:
+        raise ValueError(f"k={k} must lie in [1, {n}]")
     lib = build.load("stc_rows")
+    if ties.shape != (c, lib.repro_stc_rows_max_chunks() + 1):
+        raise ValueError(f"ties {tuple(ties.shape)} is not "
+                         f"stc_rows_reduce_cuda's")
+    out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.repro_stc_rows_apply_f32(
             x.data_ptr(), ref_row.data_ptr(), thr.data_ptr(), ssum.data_ptr(),
-            cnt.data_ptr(), mask.data_ptr(), out.data_ptr(), int32(c, "C"),
-            int32(n, "n"), stream)
+            cnt.data_ptr(), ties.data_ptr(), mask.data_ptr(), out.data_ptr(),
+            k, int32(c, "C"), int32(n, "n"), stream)
     raise_on(err, "stc_rows_apply")
     LAUNCHES["stc_rows_apply"] += 1
     return out
@@ -165,9 +178,10 @@ def stc_rows_cuda(x: torch.Tensor, ref_row: torch.Tensor, mask: torch.Tensor,
     x = x.contiguous()
     ref_row = ref_row.to(torch.float32).contiguous()
     thr = stc_rows_threshold(x, ref_row, sparsity)
-    ssum, cnt = stc_rows_reduce_cuda(x, ref_row, thr)
+    ssum, cnt, ties = stc_rows_reduce_cuda(x, ref_row, thr)
     mask32 = mask.to(device=x.device, dtype=torch.int32).contiguous()
-    return stc_rows_apply_cuda(x, ref_row, thr, ssum, cnt, mask32)
+    k = max(1, int(x.shape[1] * sparsity))
+    return stc_rows_apply_cuda(x, ref_row, thr, ssum, cnt, ties, mask32, k)
 
 
 def dol_bid_scores_cuda(dol: torch.Tensor, chain_size: torch.Tensor,

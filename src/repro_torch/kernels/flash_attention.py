@@ -8,14 +8,15 @@ right-aligned to the end of the keys, causal and sliding-window masks,
 fp32 softmax, and 0 for a row that sees no key; the output has q's dtype.
 Heads are pre-repeated for GQA by the caller.  The kernel is hand-written
 CUDA C++ for ``sm_90a`` (``csrc/flash_attention.cu``), built by ``nvcc`` and
-bound with ``ctypes``: bf16 runs on the tensor cores (``mma.sync``) and
-takes D in {64, 80, 128} (the zoo's calls) with 16-byte aligned k/v; fp32
+bound with ``ctypes``: bf16 runs on Hopper's warpgroup tensor cores
+(``wgmma``), fed by TMA loads through an ``mbarrier``-guarded ring, with a
+producer warpgroup and two consumer warpgroups; it takes D in {64, 80, 128}
+(the zoo's calls), q, k, v and o 16-byte aligned (TMA) and scale > 0.  fp32
 runs as FMAs on the CUDA cores and takes D % 4 == 0 up to 128.  The plain
-version is
-:func:`repro_torch.kernels.ref.flash_attention_ref`.  The wrapper takes CUDA
-tensors only, checks them, allocates the output, launches on PyTorch's
-current stream, raises on a launch error and adds one to
-``LAUNCHES["flash_attention"]``.
+version is :func:`repro_torch.kernels.ref.flash_attention_ref`.  The
+wrapper takes CUDA tensors only, checks them, allocates the output,
+launches on PyTorch's current stream, raises on a launch error and adds one
+to ``LAUNCHES["flash_attention"]``.
 """
 from __future__ import annotations
 
@@ -52,16 +53,18 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention kernel takes D % 4 == 0, "
                          f"D <= {HEAD_DIM_MAX}, B·H <= 65535 and non-empty "
                          f"sequences, got {tuple(q.shape)} / {tuple(k.shape)}")
-    if q.dtype == torch.bfloat16 and (
-            d not in BF16_HEAD_DIMS or k.data_ptr() % 16 or v.data_ptr() % 16):
-        raise ValueError(f"the bf16 flash_attention kernel takes D in "
-                         f"{BF16_HEAD_DIMS} and 16-byte aligned k/v, got D={d}"
-                         f", k/v at {k.data_ptr() % 16}/{v.data_ptr() % 16} "
-                         f"bytes past 16")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
     scale = 1.0 / d ** 0.5 if scale is None else float(scale)
     out = torch.empty_like(q)
+    if q.dtype == torch.bfloat16:
+        offsets = [t.data_ptr() % 16 for t in (q, k, v, out)]
+        if d not in BF16_HEAD_DIMS or any(offsets) or not scale > 0.0:
+            raise ValueError(
+                f"the bf16 flash_attention kernel takes D in "
+                f"{BF16_HEAD_DIMS}, 16-byte aligned q/k/v/o and scale > 0, "
+                f"got D={d}, q/k/v/o at {offsets} bytes past 16, "
+                f"scale={scale}")
     lib = build.load("flash_attention")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream

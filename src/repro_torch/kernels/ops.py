@@ -71,11 +71,9 @@ def mix_aggregate_tree(params, w: torch.Tensor, *, collapse: bool = False,
 def stc_compress(x: torch.Tensor, sparsity: float = 0.01) -> torch.Tensor:
     """Whole-tensor sparse ternary compression — the host plane's STC
     (``fl/compression.py``).  A CPU tensor takes ``ref.stc_compress_ref``,
-    the semantics of record, which keeps exactly k entries; a CUDA tensor
-    takes τ by ``torch.topk`` and the ``stc_reduce``/``stc_apply`` kernels,
-    which keep every ``|x| ≥ τ`` at the exact-k μ (they differ only where a
-    nonzero magnitude ties at τ: the tied entries past the k-th are sent
-    too)."""
+    the semantics of record; a CUDA tensor takes τ by ``torch.topk`` and
+    the ``stc_reduce``/``stc_apply`` kernels.  Both keep exactly the k
+    entries ``lax.top_k`` keeps, at the mean of their magnitudes."""
     if _route(x) == "cuda":
         return stc_compress_cuda(x, sparsity)
     return ref.stc_compress_ref(x, sparsity)

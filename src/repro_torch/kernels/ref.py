@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.dol import iid_distance_candidates_t
+from repro_torch.core.dol import iid_distance_candidates_t, xla_sum_t
 
 __all__ = ["mix_aggregate_ref", "stc_compress_ref", "stc_threshold",
            "stc_reduce_ref", "stc_apply_ref", "stc_rows_ref",
@@ -29,14 +29,32 @@ def mix_aggregate_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
                         x.to(torch.float32))
 
 
+def _top_k(a: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The k largest entries of ``a`` along its last axis and their indices
+    under ``lax.top_k``'s rule: of equal values the lower index first (a
+    stable descending sort; ``torch.topk`` breaks ties otherwise)."""
+    idx = torch.sort(a, dim=-1, descending=True, stable=True).indices
+    idx = idx[..., :k]
+    return torch.gather(a, -1, idx), idx
+
+
+def _xla_mean(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.mean`` over the last axis, bit for bit: XLA-CPU's float32 sum
+    times fp32(1/N)."""
+    return xla_sum_t(x) * torch.full((), 1.0 / x.shape[-1],
+                                     dtype=torch.float32, device=x.device)
+
+
 def stc_compress_ref(x: torch.Tensor, sparsity: float) -> torch.Tensor:
     """Sparse ternary compression (Sattler et al.): keep exactly the top-k
-    entries by magnitude and replace them with ``sign(x)·mean(|top-k|)``."""
+    entries by magnitude (``lax.top_k``'s tie rule) and replace them with
+    ``sign(x)·mean(|top-k|)`` — ``repro.kernels.ref.stc_compress_ref`` bit
+    for bit."""
     flat = x.reshape(-1).to(torch.float32)
     k = max(1, int(flat.numel() * sparsity))
-    topv, topi = torch.topk(flat.abs(), k)
+    topv, topi = _top_k(flat.abs(), k)
     out = torch.zeros_like(flat)
-    out[topi] = torch.sign(flat[topi]) * topv.mean()
+    out[topi] = torch.sign(flat[topi]) * _xla_mean(topv)
     return out.reshape(x.shape).to(x.dtype)
 
 
@@ -60,6 +78,14 @@ def stc_reduce_ref(flat: torch.Tensor, thr: torch.Tensor
             keep.sum().to(torch.int32).reshape(1))
 
 
+def _divisor(k: int, device: torch.device) -> torch.Tensor:
+    """k as a float32 tensor on ``device``: a true division by it rounds
+    once, as the kernels' ``__fdiv_rn`` (PyTorch's CUDA division by a
+    Python scalar multiplies by its reciprocal instead).  Filled on the
+    device, not copied there, so a CUDA graph can capture it."""
+    return torch.full((), float(k), dtype=torch.float32, device=device)
+
+
 def stc_mu_ref(ssum: torch.Tensor, cnt: torch.Tensor, thr: torch.Tensor,
                k: int) -> torch.Tensor:
     """The μ the STC apply kernel forms from the reduce's outputs: the mean
@@ -69,16 +95,29 @@ def stc_mu_ref(ssum: torch.Tensor, cnt: torch.Tensor, thr: torch.Tensor,
     of :func:`stc_compress_ref`, where ``sum / count`` would be
     ``Σ|x| / n``.  Each fp32 op rounds once, as in the kernel."""
     extra = (cnt.to(torch.int64) - k).to(torch.float32)
-    return (ssum.to(torch.float32) - extra * thr.to(torch.float32)) / float(k)
+    return ((ssum.to(torch.float32) - extra * thr.to(torch.float32))
+            / _divisor(k, ssum.device))
 
 
-def stc_apply_ref(flat: torch.Tensor, thr: torch.Tensor,
-                  mu: torch.Tensor) -> torch.Tensor:
-    """Plain version of the STC apply kernel: ``μ·sign(x)·1[|x| ≥ τ]`` over
-    a flat tensor, fp32 out; ``thr`` and ``mu`` hold one element each (the
-    kernel forms μ as :func:`stc_mu_ref` does from the reduce's outputs)."""
+def _keep_top_k(a: torch.Tensor, thr: torch.Tensor, k: int) -> torch.Tensor:
+    """The kernels' survivors along the last axis of ``a``: every entry
+    above τ plus the first ``k − count_{>τ}`` entries equal to τ in index
+    order — exactly k, the entries ``lax.top_k`` keeps."""
+    above = a > thr
+    tied = a == thr
+    need = k - above.sum(dim=-1, keepdim=True)
+    rank = torch.cumsum(tied.to(torch.int64), dim=-1) - 1
+    return above | (tied & (rank < need))
+
+
+def stc_apply_ref(flat: torch.Tensor, thr: torch.Tensor, mu: torch.Tensor,
+                  k: int) -> torch.Tensor:
+    """Plain version of the STC apply kernel: ``μ·sign(x)`` on the k
+    survivors of :func:`_keep_top_k`, 0 elsewhere, over a flat tensor, fp32
+    out; ``thr`` and ``mu`` hold one element each (the kernel forms μ as
+    :func:`stc_mu_ref` does from the reduce's outputs)."""
     x = flat.reshape(-1).to(torch.float32)
-    keep = x.abs() >= thr.reshape(())
+    keep = _keep_top_k(x.abs(), thr.reshape(()), k)
     return torch.where(keep, torch.sign(x) * mu.reshape(()), 0.0)
 
 
@@ -88,12 +127,12 @@ def stc_rows_ref(x: torch.Tensor, ref_row: torch.Tensor, mask: torch.Tensor,
     ``ref + STC(x_c − ref)`` where ``mask[c]``, else passes through.
 
     Exactly ``k = max(1, int(n·sparsity))`` survivors per row, chosen by
-    ``topk`` — the semantics of ``repro.kernels.ref.stc_rows_ref``."""
+    ``lax.top_k``'s rule — ``repro.kernels.ref.stc_rows_ref`` bit for bit."""
     ref32 = ref_row.to(torch.float32)
     delta = x.to(torch.float32) - ref32[None, :]
     k = max(1, int(x.shape[1] * sparsity))
-    topv, topi = torch.topk(delta.abs(), k, dim=1)
-    mu = topv.mean(dim=1, keepdim=True)
+    topv, topi = _top_k(delta.abs(), k)
+    mu = _xla_mean(topv)[:, None]
     tern = torch.zeros_like(delta).scatter(
         1, topi, torch.sign(torch.gather(delta, 1, topi)) * mu)
     comp = (ref32[None, :] + tern).to(x.dtype)
@@ -121,13 +160,18 @@ def stc_rows_reduce_ref(x: torch.Tensor, ref_row: torch.Tensor,
 
 def stc_rows_apply_ref(x: torch.Tensor, ref_row: torch.Tensor,
                        thr: torch.Tensor, ssum: torch.Tensor,
-                       cnt: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Plain version of the apply kernel: ternarize at τ_c with
-    ``μ_c = ssum_c / max(cnt_c, 1)`` and blend; unmasked rows pass through."""
+                       cnt: torch.Tensor, mask: torch.Tensor,
+                       k: int) -> torch.Tensor:
+    """Plain version of the apply kernel: ternarize each masked row's k
+    survivors (:func:`_keep_top_k`) at the exact-k ``μ_c = (ssum_c −
+    (cnt_c − k)·τ_c) / k`` (each fp32 op rounded once, as in the kernel)
+    and blend; unmasked rows pass through."""
     r = ref_row.to(torch.float32)[None, :]
     d = x.to(torch.float32) - r
-    mu = (ssum / torch.clamp(cnt, min=1.0)).reshape(-1, 1)
-    tern = torch.where(d.abs() >= thr.reshape(-1, 1), torch.sign(d) * mu, 0.0)
+    t = thr.reshape(-1, 1)
+    mu = ((ssum.reshape(-1, 1) - (cnt.reshape(-1, 1) - float(k)) * t)
+          / _divisor(k, ssum.device))
+    tern = torch.where(_keep_top_k(d.abs(), t, k), torch.sign(d) * mu, 0.0)
     return torch.where(mask.reshape(-1, 1) != 0, (r + tern).to(x.dtype), x)
 
 

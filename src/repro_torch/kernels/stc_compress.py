@@ -8,24 +8,24 @@ magnitude of the survivors.  On the card that is three steps:
 * τ by ``torch.topk(|x|, k).values[k − 1]``, outside the kernels, as the
   reference leaves it to an XLA sort; it stays on the device;
 * :func:`stc_reduce_cuda` — ``(Σ|x|·1[|x| ≥ τ], Σ1[|x| ≥ τ])``, an fp32 sum
-  and an int32 count.  Replaces ``repro/kernels/stc_compress.py::
-  _reduce_kernel`` (``stc_reduce_pallas``);
-* :func:`stc_apply_cuda` — ``μ·sign(x)·1[|x| ≥ τ]`` with the exact-k
-  ``μ = (sum − (count − k)·τ) / k`` formed on the device from the reduce's
-  outputs (:func:`~repro_torch.kernels.ref.stc_mu_ref`).  Replaces
-  ``_apply_kernel`` (``stc_apply_pallas``).
+  and an int32 count, and the prefix of each block's ties (``|x| = τ``).
+  Replaces ``repro/kernels/stc_compress.py::_reduce_kernel``
+  (``stc_reduce_pallas``);
+* :func:`stc_apply_cuda` — ``μ·sign(x)`` on exactly k survivors, 0
+  elsewhere, with the exact-k ``μ = (sum − (count − k)·τ) / k`` formed on
+  the device from the reduce's outputs
+  (:func:`~repro_torch.kernels.ref.stc_mu_ref`).  Replaces ``_apply_kernel``
+  (``stc_apply_pallas``).
 
 :func:`stc_compress_cuda` composes the three without a host read.  Both
 kernels are hand-written CUDA C++ for ``sm_90a`` (``csrc/stc_compress.cu``),
 built by ``nvcc`` and bound with ``ctypes`` (:mod:`repro_torch.kernels.build`);
 the source says what bounds them and how the reduce stays deterministic.
 
-Like the Pallas kernels they keep every ``|x| ≥ τ``; the plain version of
-record, ``kernels/ref.py::stc_compress_ref``, keeps exactly k entries by
-``topk``.  Their μ is the same, the mean of the top-k magnitudes, so they
-agree wherever nothing ties at τ, and also at τ = 0 (a leaf with fewer
-than k nonzeros: its surviving zeros map to 0).  Where a nonzero magnitude
-ties at τ, the kernels also send the tied entries past the k-th, at that μ.
+The survivors are the ones ``lax.top_k`` keeps, as in the plain version of
+record, ``kernels/ref.py::stc_compress_ref``: every ``|x| > τ`` plus the
+first ``k − count_{>τ}`` entries with ``|x| = τ`` in index order.  (The
+Pallas kernels keep every ``|x| ≥ τ``.)
 
 Each wrapper takes CUDA tensors only, checks them, allocates its outputs
 with ``torch.empty``, launches on PyTorch's current stream, raises on a
@@ -70,43 +70,52 @@ def _check_flat(flat: torch.Tensor, thr: torch.Tensor) -> int:
 
 
 def stc_reduce_cuda(flat: torch.Tensor, thr: torch.Tensor
-                    ) -> tuple[torch.Tensor, torch.Tensor]:
+                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Survivor sum ``Σ|x|·1[|x| ≥ τ]`` (1,) fp32 and count (1,) int32 of a
-    flat fp32 tensor at the threshold ``thr`` (1,)."""
+    flat fp32 tensor at the threshold ``thr`` (1,), and the ties'
+    per-block prefix for :func:`stc_apply_cuda` (int32, its total last)."""
     n = _check_flat(flat, thr)
     lib = build.load("stc_compress")
     dev = flat.device
     part_sum, part_cnt, ticket = _reduce_scratch(lib, dev)
     ssum = torch.empty((1,), device=dev, dtype=torch.float32)
     cnt = torch.empty((1,), device=dev, dtype=torch.int32)
+    ties = torch.empty((part_sum.shape[0] + 1,), device=dev,
+                       dtype=torch.int32)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.repro_stc_reduce_f32(
             flat.data_ptr(), thr.data_ptr(), part_sum.data_ptr(),
-            part_cnt.data_ptr(), ticket.data_ptr(), ssum.data_ptr(),
-            cnt.data_ptr(), n, stream)
+            part_cnt.data_ptr(), ties.data_ptr(), ticket.data_ptr(),
+            ssum.data_ptr(), cnt.data_ptr(), n, stream)
     raise_on(err, "stc_reduce")
     LAUNCHES["stc_reduce"] += 1
-    return ssum, cnt
+    return ssum, cnt, ties
 
 
 def stc_apply_cuda(flat: torch.Tensor, thr: torch.Tensor, ssum: torch.Tensor,
-                   cnt: torch.Tensor, k: int) -> torch.Tensor:
-    """``μ·sign(x)·1[|x| ≥ τ]`` with ``μ = (ssum − (cnt − k)·τ) / k`` formed
-    on the device: flat (n,) fp32, thr and ssum (1,) fp32, cnt (1,) int32,
-    k the entries STC keeps (1 ≤ k ≤ n) → (n,) fp32."""
+                   cnt: torch.Tensor, ties: torch.Tensor,
+                   k: int) -> torch.Tensor:
+    """``μ·sign(x)`` on the k survivors (every ``|x| > τ``, then the ties
+    in index order), 0 elsewhere, with ``μ = (ssum − (cnt − k)·τ) / k``
+    formed on the device: flat (n,) fp32, thr and ssum (1,) fp32, cnt (1,)
+    int32, ties the reduce's tie prefix, k the entries STC keeps
+    (1 ≤ k ≤ n) → (n,) fp32."""
     n = _check_flat(flat, thr)
     check_tensor(ssum, "ssum", 1)
     check_tensor(cnt, "cnt", 1, torch.int32)
+    check_tensor(ties, "ties", 1, torch.int32)
     if not 1 <= k <= n:
         raise ValueError(f"k={k} must lie in [1, {n}]")
     out = torch.empty_like(flat)
     lib = build.load("stc_compress")
+    if ties.shape[0] != lib.repro_stc_reduce_max_blocks() + 1:
+        raise ValueError(f"ties {tuple(ties.shape)} is not stc_reduce_cuda's")
     with torch.cuda.device(flat.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.repro_stc_apply_f32(
             flat.data_ptr(), thr.data_ptr(), ssum.data_ptr(), cnt.data_ptr(),
-            k, out.data_ptr(), n, stream)
+            ties.data_ptr(), k, out.data_ptr(), n, stream)
     raise_on(err, "stc_apply")
     LAUNCHES["stc_apply"] += 1
     return out
@@ -118,7 +127,7 @@ def stc_compress_cuda(x: torch.Tensor, sparsity: float) -> torch.Tensor:
     float dtype in, the same out."""
     flat = x.reshape(-1).to(torch.float32).contiguous()
     thr = stc_threshold(flat, sparsity)
-    ssum, cnt = stc_reduce_cuda(flat, thr)
+    ssum, cnt, ties = stc_reduce_cuda(flat, thr)
     k = max(1, int(flat.numel() * sparsity))
-    out = stc_apply_cuda(flat, thr, ssum, cnt, k)
+    out = stc_apply_cuda(flat, thr, ssum, cnt, ties, k)
     return out.reshape(x.shape).to(x.dtype)

@@ -126,7 +126,8 @@ def test_stc_rows_kernel_bodies_plain_versions(c, n):
     ssum, cnt = tref.stc_rows_reduce_ref(xt, rt, thr)
     assert (cnt.numpy() == max(1, int(n * 0.05))).all()
     got = tref.stc_rows_apply_ref(xt, rt, thr, ssum, cnt,
-                                  torch.from_numpy(mask.astype(np.int32)))
+                                  torch.from_numpy(mask.astype(np.int32)),
+                                  max(1, int(n * 0.05)))
     pallas = np.asarray(stc_rows_pallas(jnp.asarray(x), jnp.asarray(ref),
                                         jnp.asarray(mask), 0.05,
                                         interpret=True))

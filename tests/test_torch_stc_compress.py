@@ -8,8 +8,11 @@ sum within 1e-6 relative (fp32 sums in another order), the apply bit for
 bit.  n = 100000 crosses the Pallas kernel's 64k block, so its ``n_valid``
 tail mask is exercised.  ``ops.stc_compress`` and ``fl.compression`` are
 held to ``repro.fl.compression`` and to ``repro.kernels.ops.stc_compress``
-on the Pallas path, on tie-free data, within 1e-6.  The CUDA kernels are
-checked against these plain versions on the card by ``chip_smoke.py``.
+on the Pallas path, on tie-free data, within 1e-6; on tied data (quarter
+steps) and at τ = 0 the plain versions, whole-tensor and per row, equal the
+reference's bit for bit (``lax.top_k``'s tie rule, ``jnp.mean``'s μ).  The
+CUDA kernels are checked against these plain versions on the card by
+``chip_smoke.py``.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -17,6 +20,7 @@ import pytest
 import torch
 
 from repro.fl import compression as jcomp
+from repro.kernels import ref as jref
 from repro.kernels import ops as jops
 from repro.kernels.stc_compress import stc_apply_pallas, stc_reduce_pallas
 from repro_torch.fl import compression as tcomp
@@ -57,7 +61,7 @@ def test_reduce_and_apply_plain_match_pallas(n):
     np.testing.assert_allclose(float(s[0]), float(ps), rtol=1e-6)
     mu = np.float32(ps) / np.float32(max(float(pc), 1.0))
     out = tref.stc_apply_ref(torch.from_numpy(x), torch.tensor([thr]),
-                             torch.tensor([mu]))
+                             torch.tensor([mu]), max(1, n // 100))
     want = np.asarray(stc_apply_pallas(jnp.asarray(x), jnp.asarray(thr),
                                        jnp.asarray(mu), interpret=True))
     assert out.shape == (n,) and out.dtype == torch.float32
@@ -132,28 +136,125 @@ def test_kernel_mu_is_the_exact_k_mu(make):
     """The kernels' composition — reduce over every |x| ≥ τ, the apply's
     μ (``stc_mu_ref``), apply — against the exact-k STC of record.  Its μ
     is the mean of the top-k magnitudes at τ = 0 (where sum/count would be
-    n/k times too small) and at a tie; at τ = 0 the values are the same,
-    at a tie the kernels also send the tied entries past the k-th."""
+    n/k times too small) and at a tie, and it keeps the same k entries:
+    at a tie the first tied ones in index order."""
     x = torch.from_numpy(make(np.random.default_rng(7)))
     sparsity = 0.01
     k = max(1, int(x.numel() * sparsity))
     thr = tref.stc_threshold(x, sparsity)
     ssum, cnt = tref.stc_reduce_ref(x, thr)
     mu = tref.stc_mu_ref(ssum, cnt, thr, k)
-    got = tref.stc_apply_ref(x, thr, mu)
+    got = tref.stc_apply_ref(x, thr, mu, k)
     want = tref.stc_compress_ref(x, sparsity)
     mu_k = float(torch.topk(x.abs(), k).values.double().mean())
     np.testing.assert_allclose(float(mu[0]), mu_k, rtol=1e-6)
     np.testing.assert_allclose(want.abs().max().item(), mu_k, rtol=1e-6)
     extra = int(cnt[0]) - k
-    if float(thr[0]) == 0.0:
-        assert extra > 0
-        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6,
-                                   atol=0)
+    assert extra > 0 if float(thr[0]) == 0.0 else extra == 3
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6, atol=0)
+    if float(thr[0]) > 0.0:
+        assert int((got != 0).sum()) == k
+        assert torch.equal(got != 0, want != 0)
+
+
+def _quarter_steps(rng, n):
+    """Values in quarter steps of [−1, 1]: magnitudes tie everywhere."""
+    return (rng.integers(-4, 5, size=n) / 4).astype(np.float32)
+
+
+def _few_nonzeros(rng, n, sparsity):
+    """Fewer nonzeros than k, in quarter steps: τ = 0."""
+    x = np.zeros(n, np.float32)
+    m = max(1, int(n * sparsity)) // 2
+    x[rng.choice(n, m, replace=False)] = rng.choice([-1.0, -0.5, 0.25, 0.75],
+                                                    size=m)
+    return x
+
+
+TIE_CASES = [(n, kind) for n in (100, 1000, 16384)
+             for kind in ("quarter_steps", "tau_zero")]
+
+
+def _tie_case(n, kind, sparsity, rows=None):
+    rng = np.random.default_rng(n + len(kind))
+    make = ((lambda: _quarter_steps(rng, n)) if kind == "quarter_steps"
+            else (lambda: _few_nonzeros(rng, n, sparsity)))
+    return make() if rows is None else np.stack([make() for _ in range(rows)])
+
+
+def _bits(a):
+    return np.asarray(a, np.float32).view(np.int32)
+
+
+@pytest.mark.parametrize("sparsity", [0.01, 0.1])
+@pytest.mark.parametrize("n,kind", TIE_CASES)
+def test_stc_compress_ties_match_reference(n, kind, sparsity):
+    """Tied magnitudes (quarter steps) and τ = 0 (fewer than k nonzeros):
+    ``ref.stc_compress_ref``, ``ops.stc_compress`` and the port's
+    ``fl.compression`` keep the k entries ``lax.top_k`` keeps (of equal
+    magnitudes the lower index) at ``jnp.mean``'s μ — the reference's
+    ``stc_compress_ref`` and ``stc_compress_leaf`` bit for bit."""
+    x = _tie_case(n, kind, sparsity)
+    k = max(1, int(n * sparsity))
+    want = np.asarray(jref.stc_compress_ref(jnp.asarray(x), sparsity))
+    np.testing.assert_array_equal(
+        _bits(want), _bits(jcomp.stc_compress_leaf(jnp.asarray(x), sparsity)))
+    xt = torch.from_numpy(x)
+    for got in (tref.stc_compress_ref(xt, sparsity),
+                tops.stc_compress(xt, sparsity),
+                tcomp.stc_compress_leaf(xt, sparsity),
+                tcomp.stc_compress({"w": xt}, sparsity)["w"]):
+        np.testing.assert_array_equal(_bits(got.numpy()), _bits(want))
+    if kind == "quarter_steps":
+        assert int((want != 0).sum()) == k
     else:
-        assert extra == 3
-        assert int((got != 0).sum()) == k + extra
-        assert bool(((want != 0) <= (got != 0)).all())
+        assert float(tref.stc_threshold(xt, sparsity)[0]) == 0.0
+
+
+@pytest.mark.parametrize("sparsity", [0.01, 0.1])
+@pytest.mark.parametrize("n,kind", TIE_CASES)
+def test_stc_rows_ties_match_reference(n, kind, sparsity):
+    """The fleet plane's masked per-row STC on tied rows and τ = 0 rows:
+    ``ref.stc_rows_ref`` and ``ops.stc_topk`` against the reference's
+    ``stc_rows_ref`` bit for bit (the same k entries per row, the same μ)."""
+    x = _tie_case(n, kind, sparsity, rows=4)
+    ref_row = (_quarter_steps(np.random.default_rng(n), n)
+               if kind == "quarter_steps" else np.zeros(n, np.float32))
+    mask = np.array([True, False, True, True])
+    want = np.asarray(jref.stc_rows_ref(jnp.asarray(x), jnp.asarray(ref_row),
+                                        jnp.asarray(mask), sparsity))
+    args = (torch.from_numpy(x), torch.from_numpy(ref_row),
+            torch.from_numpy(mask), sparsity)
+    for got in (tref.stc_rows_ref(*args), tops.stc_topk(*args)):
+        np.testing.assert_array_equal(_bits(got.numpy()), _bits(want))
+
+
+@pytest.mark.parametrize("n,kind", TIE_CASES)
+def test_kernel_plain_versions_keep_top_k_ties(n, kind):
+    """The plain versions of the CUDA kernels — reduce, then apply with
+    the exact-k μ — keep exactly the entries of the exact-k STC of record
+    on tied data, whole-tensor (``stc_*_ref``) and per row
+    (``stc_rows_*_ref``), with μ within 1e-6."""
+    sparsity = 0.01
+    k = max(1, int(n * sparsity))
+    x = torch.from_numpy(_tie_case(n, kind, sparsity))
+    thr = tref.stc_threshold(x, sparsity)
+    ssum, cnt = tref.stc_reduce_ref(x, thr)
+    got = tref.stc_apply_ref(x, thr, tref.stc_mu_ref(ssum, cnt, thr, k), k)
+    want = tref.stc_compress_ref(x, sparsity)
+    assert torch.equal(got != 0, want != 0)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6, atol=0)
+
+    rows = torch.from_numpy(_tie_case(n, kind, sparsity, rows=3))
+    ref_row = torch.zeros(n)
+    mask = torch.tensor([1, 0, 1], dtype=torch.int32)
+    thr = tref.stc_rows_threshold(rows, ref_row, sparsity)
+    ssum, cnt = tref.stc_rows_reduce_ref(rows, ref_row, thr)
+    got = tref.stc_rows_apply_ref(rows, ref_row, thr, ssum, cnt, mask, k)
+    want = tref.stc_rows_ref(rows, ref_row, mask, sparsity)
+    assert torch.equal(got != 0, want != 0)
+    assert torch.equal(got[1], rows[1])
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6, atol=0)
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
@@ -164,7 +265,8 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         tstc.stc_reduce_cuda(x, thr)
     with pytest.raises(ValueError, match="CUDA"):
         tstc.stc_apply_cuda(x, thr, torch.ones(1),
-                            torch.ones(1, dtype=torch.int32), 1)
+                            torch.ones(1, dtype=torch.int32),
+                            torch.zeros(1025, dtype=torch.int32), 1)
     with pytest.raises(ValueError, match="CUDA"):
         tstc.stc_compress_cuda(x, 0.5)
     assert {"stc_reduce", "stc_apply"} <= set(LAUNCHES)
