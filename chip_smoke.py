@@ -10,7 +10,8 @@ nothing of JAX.  Phases, each of which fails loudly:
 1. the card's name and power limit; build every CUDA kernel of the main
    path from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, all
    at once) and print the build seconds and ptxas' register and spill
-   report (the bf16 attention kernel must not spill);
+   report (the bf16 attention kernel and every ssd_scan kernel must not
+   spill);
 2. every kernel against its plain PyTorch version on the card, at the main
    path's shapes and one larger shape: max abs error against the stated
    tolerance, kernel / plain / library time (CUDA events) and the bound.
@@ -71,10 +72,14 @@ nothing of JAX.  Phases, each of which fails loudly:
    ssm_scan and ssd_scan against their plain versions on the card (at the
    zoo's shapes and a few more: bf16 and fp32, a window, Sq < Sk, D = 80,
    smollm_360m's (2, 4096, 15, 64), a 1000-key window at S = 4096, a
-   ragged chunk, a ragged channel block), with attention held per
-   element against its row's scale and normwise, and a planted fault (one
-   kv tile dropped for the rows past S/2) that the attention bars must
-   reject; then ``make_prefill_step`` of qwen3_0_6b (28 layers, B = 2,
+   ragged chunk, a ragged channel block; ssd_scan also at near-unit decay
+   and two odd shapes, P 72 / N 128 and P 18 / N 9 / chunk 48), with
+   attention held per element against its row's scale and normwise, and
+   a planted fault (one kv tile dropped for the rows past S/2) that the
+   attention bars must reject; every ssd_scan row must give the same bits
+   on two calls, and at near-unit decay a planted fault (the carried state
+   applied one chunk late) must fail its bar; then ``make_prefill_step``
+   of qwen3_0_6b (28 layers, B = 2,
    S = 4096), zamba2_2_7b (54 mamba2 + 9 shared attention, B = 1,
    S = 4096) and falcon_mamba_7b (64 mamba1 layers, B = 1, S = 4096) from
    random params drawn on the card, one after another, under
@@ -85,8 +90,11 @@ nothing of JAX.  Phases, each of which fails loudly:
    hidden states within bars set from readings, and the same cut with the
    family's kernel output one step late (and in fp32 also with its
    sequence halves run apart, a kernel that loses its context at S/2),
-   which those bars must reject; one qwen3 prefill under
-   ``torch.profiler``.
+   which those bars must reject; one qwen3 and one zamba2 prefill under
+   ``torch.profiler``; zamba2_2_7b at full width and full depth (B = 1,
+   S = 4096) from one init through the ssd_scan kernels and through its
+   plain version, in fp32 compute (losses within ZOO_BARS' fp32 loss_abs)
+   and in bf16 (both losses printed).
 
 Then one ``{"kernels": [...]}`` line, the card line, and as the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -105,6 +113,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 FP32_FLOPS_PER_S = 67e12         # H100 SXM fp32, outside the tensor cores
+TF32_FLOPS_PER_S = 495e12        # H100 SXM dense TF32 tensor-core peak
 KERNEL_SOURCE = "src/repro_torch/kernels/csrc"
 
 # Every run_experiment call this script makes on the card, as (strategy,
@@ -146,7 +155,8 @@ HOP_RATIO_GATE = 50.0        # full-f32 hop / int8 adapter hop
 # is small so that the plain versions in the kernel checks, at the same
 # shapes, stay small (flash_attention_ref holds fp32 (B, H, S, S) scores).
 ZOO_RUNS = (("qwen3_0_6b", 2, 4096, {"flash_attention": 28}),
-            ("zamba2_2_7b", 1, 4096, {"ssd_scan_cb": 54, "ssd_scan": 54,
+            ("zamba2_2_7b", 1, 4096, {"ssd_scan_state": 54,
+                                      "ssd_scan_pass": 54, "ssd_scan": 54,
                                       "flash_attention": 9}),
             ("falcon_mamba_7b", 1, 4096, {"ssm_scan": 64}))
 # The card-vs-CPU cuts: 2 layers of each full-width config (zamba2's with
@@ -172,6 +182,26 @@ CONTROLS_REJECTED = {"bfloat16": ("one_step_late",),
 # The op each cut's control runs wrongly (its two sequence halves apart).
 ZOO_CONTROL_OP = {"qwen3_0_6b": "flash_attention", "zamba2_2_7b": "ssd_scan",
                   "falcon_mamba_7b": "ssm_scan"}
+# ssd_scan's rows in phase 6a, (B, S, H, P, N, chunk) and inputs: zamba2's
+# prefill and its cut, S not a multiple of the chunk, P not a multiple of
+# 16 at N 16 and chunk 64, zamba2's prefill at near-unit decay (a ≈ −1e-3,
+# the state grows over 32 chunks; the planted fault runs here), and two odd
+# shapes.  "model" inputs are shaped as the model's streams.  The bar is
+# SSD_BAR·(1 + max|plain|).
+SSD_ROWS = (((1, 4096, 80, 64, 64, 128), "model"),
+            ((1, 256, 80, 64, 64, 128), "model"),
+            ((1, 1000, 8, 64, 64, 128), "model"),
+            ((2, 300, 3, 20, 16, 64), "model"),
+            ((1, 4096, 80, 64, 64, 128), "near_unit"),
+            ((1, 300, 4, 72, 128, 128), "model"),
+            ((1, 200, 3, 18, 9, 48), "model"))
+SSD_BAR = 5e-5
+# The full-depth check of phase 6d: zamba2_2_7b, B=1, S=4096, and the bf16
+# prefill loss of record for this init (through the ssd_scan kernel that
+# ran its products as fp32 FMAs; PERF.md §5), beside which the run's bf16
+# losses are printed.
+FULL_DEPTH = ("zamba2_2_7b", 1, 4096)
+FULL_DEPTH_BF16_LOSS_OF_RECORD = 10.9261
 # flash_attention's bars by input type: (rel, rel_row, rel_l2).  An element
 # passes when |out − plain| ≤ rel·|plain| + rel_row·rms(its row of D
 # plain values), the whole output when ‖out − plain‖₂ ≤ rel_l2·‖plain‖₂.
@@ -210,6 +240,20 @@ def _card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def _ptxas_spills(log: str) -> list[tuple[str, int, int]]:
+    """(entry, spill store bytes, spill load bytes) of each kernel entry in
+    one library's ptxas report."""
+    out, entry = [], None
+    for line in log.splitlines():
+        if "Compiling entry" in line:
+            entry = line.split("'")[1] if "'" in line else line
+        elif "spill stores" in line and entry:
+            stores = int(line.split("bytes spill stores")[0].split(",")[-1])
+            loads = int(line.split("bytes spill loads")[0].split(",")[-1])
+            out.append((entry, stores, loads))
+    return out
+
+
 def _check_wgmma_spills(log: str | None) -> None:
     """The bf16 attention kernel holds two 64×128 fp32 tiles and P per
     thread on setmaxnreg's 240-register budget: ptxas must report no spill
@@ -218,18 +262,34 @@ def _check_wgmma_spills(log: str | None) -> None:
         print(json.dumps({"check": "flash_attention_wgmma_kernel spills",
                           "ok": None, "note": "built before this run"}))
         return
-    spills, entry = [], None
-    for line in log.splitlines():
-        if "Compiling entry" in line:
-            entry = line
-        elif "spill stores" in line and entry and "wgmma_kernel" in entry:
-            spills.append(int(line.split("bytes spill stores")[0]
-                              .split(",")[-1]))
+    spills = [st for e, st, _ in _ptxas_spills(log) if "wgmma_kernel" in e]
     ok = len(spills) == 3 and not any(spills)
     print(json.dumps({"check": "flash_attention_wgmma_kernel spills",
                       "spill_store_bytes": spills, "ok": ok}))
     if not ok:
         _fail(f"flash_attention_wgmma_kernel: ptxas spill bytes {spills}")
+
+
+def _check_ssd_spills(log: str | None) -> None:
+    """Every ssd_scan kernel (the state kernel at 2 and 4 n-tiles per unit,
+    the pass, the scan kernel at one and two units per warp) must build
+    without spills."""
+    if log is None:
+        print(json.dumps({"check": "ssd_scan spills", "ok": None,
+                          "note": "built before this run"}))
+        return
+    spills = {}
+    for entry, stores, loads in _ptxas_spills(log):
+        name = next((k for k in ("ssd_state_kernel", "ssd_pass_kernel",
+                                 "ssd_scan_kernel") if k in entry), entry)
+        if "ILi" in entry:
+            name += "<" + entry.split("ILi")[1].split("E")[0] + ">"
+        spills[name] = [stores, loads]
+    ok = len(spills) == 5 and not any(any(v) for v in spills.values())
+    print(json.dumps({"check": "ssd_scan spills", "spill_bytes": spills,
+                      "ok": ok}))
+    if not ok:
+        _fail(f"ssd_scan: ptxas spill bytes {spills}")
 
 
 def _time_ms(torch, fn, iters: int = 200, warmup: int = 10) -> float:
@@ -1286,8 +1346,9 @@ def profile_round(torch, port, planner: str = "host",
 
 def _trace_summary(torch, prof) -> dict:
     """Device busy time (the union of kernel intervals), the span from the
-    first to the last kernel, the idle share of that span, the kernel count
-    and the kernels with the most device time, from a torch.profiler run."""
+    first to the last kernel, the idle share of that span, the kernel count,
+    the kernels with the most device time and the device time of each of
+    this repository's kernels, from a torch.profiler run."""
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
@@ -1306,13 +1367,16 @@ def _trace_summary(torch, prof) -> dict:
         by_name[e.name] = by_name.get(e.name, 0.0) + (
             e.time_range.end - e.time_range.start)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    ours = {n.split("::")[1].split("(")[0]: t for n, t in by_name.items()
+            if "(anonymous namespace)::" in n}
     run_s = spans[-1][1] / 1e6 - spans[0][0] / 1e6 if spans else None
     return {"device_busy_s": busy_us / 1e6,
             "first_to_last_kernel_s": run_s,
             "device_idle_share_of_span": (None if not run_s
                                           else 1.0 - busy_us / 1e6 / run_s),
             "kernel_launches": len(kernels),
-            "top_kernels_us": [[n[:80], t] for n, t in top]}
+            "top_kernels_us": [[n[:80], t] for n, t in top],
+            "our_kernels_us": ours}
 
 
 def _visible_pairs(sq: int, sk: int, causal: bool, window) -> int:
@@ -1379,9 +1443,11 @@ def check_lm_kernels(torch, kref) -> list[dict]:
     (one kv tile dropped for the rows past S/2) must fail those bars.
     Tolerances of the scans: ssm_scan 1e-6·(1 + max|plain|) (it rounds as
     the plain version does, so it is expected bit-exact); ssd_scan
-    5e-5·(1 + max|plain|) (fp32, sums and the cumulative decay in another
-    order; the plain version is within 3.2e-6·(1 + max|y|) of float64 at
-    S = 4096 on the CPU)."""
+    SSD_BAR·(1 + max|plain|) (fp32, sums and the cumulative decay in
+    another order, every product in 3×TF32; the plain version is within
+    3.2e-6·(1 + max|y|) of float64 at S = 4096 on the CPU).  Each
+    ssd_scan row also prints ``bound_tc_ms``: the bytes against the
+    products as three TF32 passes at the tensor cores' peak."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.kernels.ssd_scan import ssd_scan_cuda
@@ -1483,38 +1549,84 @@ def check_lm_kernels(torch, kref) -> list[dict]:
                               else light)),
                 "bound_ms": bound, "bound_by": by})
 
-    # ssd_scan: zamba2's prefill (B, S, H, P, N, chunk) = (1, 4096, 80, 64,
-    # 64, 128), its cut, S not a multiple of the chunk, and P not a multiple
-    # of the 16-row tile.  Inputs shaped as the model's streams: Δ =
-    # softplus(·), a = −Δ·A with A in [1, 16] by head, x scaled by Δ.
-    for b, s, h, p, n, chunk in ((1, 4096, 80, 64, 64, 128),
-                                 (1, 256, 80, 64, 64, 128),
-                                 (1, 1000, 8, 64, 64, 128),
-                                 (2, 300, 3, 20, 16, 64)):
+    # ssd_scan: SSD_ROWS.  Inputs shaped as the model's streams: Δ =
+    # softplus(·), a = −Δ·A with A in [1, 16] by head, x scaled by Δ; at
+    # near-unit decay a = −1e-3·U(0.5, 1.5).
+    for (b, s, h, p, n, chunk), kind in SSD_ROWS:
         dt_ = F.softplus(0.5 * torch.randn((b, s, h), generator=gen,
                                            device="cuda") - 1.0)
         a = -dt_ * torch.exp(torch.linspace(0.0, 2.772588722, h,
                                             device="cuda"))
+        if kind == "near_unit":
+            a = -1e-3 * (0.5 + torch.rand((b, s, h), generator=gen,
+                                          device="cuda"))
         xh = torch.randn((b, s, h, p), generator=gen,
                          device="cuda") * dt_[..., None]
         bm = F.silu(torch.randn((b, s, n), generator=gen, device="cuda"))
         cm = F.silu(torch.randn((b, s, n), generator=gen, device="cuda"))
         out = ssd_scan_cuda(xh, a, bm, cm, chunk=chunk)
+        again = ssd_scan_cuda(xh, a, bm, cm, chunk=chunk)
         plain = kref.ssd_scan_ref(xh, a, bm, cm, chunk)
         torch.cuda.synchronize()
         err = float((out - plain).abs().max())
-        tol = 5e-5 * (1.0 + float(plain.abs().max()))
-        bound, by = _bound(4.0 * (2 * b * s * h * p + b * s * h
-                                  + 2 * b * s * n),
-                           _ssd_flops(b, s, h, p, n, chunk))
-        record({"name": "ssd_scan", "shape": [b, s, h, p, n, chunk],
-                "max_abs_err": err, "tol": tol, "ok": err <= tol,
-                **_timings(torch,
-                           lambda: ssd_scan_cuda(xh, a, bm, cm, chunk=chunk),
-                           lambda: kref.ssd_scan_ref(xh, a, bm, cm, chunk),
-                           **(heavy if s >= 1000 else light)),
-                "bound_ms": bound, "bound_by": by})
+        tol = SSD_BAR * (1.0 + float(plain.abs().max()))
+        same_bits = bool(torch.equal(out, again))
+        row = {"name": "ssd_scan", "shape": [b, s, h, p, n, chunk],
+               "inputs": kind, "max_abs_err": err, "tol": tol,
+               "same_bits": same_bits, "ok": err <= tol and same_bits}
+        if kind == "near_unit":
+            # The plain stages, and the planted fault: the state entering
+            # each chunk applied one chunk late.
+            acum, states = kref.ssd_chunk_states_ref(xh, a, bm, chunk)
+            entering = kref.ssd_state_pass_ref(states, acum)
+            late = torch.cat([torch.zeros_like(entering[:, :1]),
+                              entering[:, :-1]], dim=1)
+            stages = kref.ssd_chunk_output_ref(xh, acum, bm, cm, entering,
+                                               chunk)
+            fault = kref.ssd_chunk_output_ref(xh, acum, bm, cm, late, chunk)
+            stages_err = float((stages - plain).abs().max())
+            fault_err = float((fault - plain).abs().max())
+            row["stages_max_abs_err"] = stages_err
+            row["ok"] = row["ok"] and stages_err <= tol
+            row["control_state_late"] = {"max_abs_err": fault_err,
+                                         "ok": fault_err <= tol}
+            del acum, states, entering, late, stages, fault
+        nbytes = 4.0 * (2 * b * s * h * p + b * s * h + 2 * b * s * n)
+        flops = _ssd_flops(b, s, h, p, n, chunk)
+        bound, by = _bound(nbytes, flops)
+        bound_tc, by_tc = _bound(nbytes, 3.0 * flops, TF32_FLOPS_PER_S)
+        row.update(_timings(torch,
+                            lambda: ssd_scan_cuda(xh, a, bm, cm, chunk=chunk),
+                            lambda: kref.ssd_scan_ref(xh, a, bm, cm, chunk),
+                            **(heavy if s >= 1000 else light)))
+        row.update({"bound_ms": bound, "bound_by": by,
+                    "bound_tc_ms": bound_tc, "bound_tc_by": by_tc,
+                    "flops": flops})
+        record(row)
+        control = row.get("control_state_late")
+        if control is not None and control["ok"]:
+            _fail(f"ssd_scan {row['shape']}: the bar did not reject the "
+                  f"state applied one chunk late: {json.dumps(control)}")
     return rows
+
+
+def _profile_prefill(torch, step, params, batch, label: str) -> None:
+    """One more forward under ``torch.profiler``: its device busy time and
+    idle share (a measurement; a failure is printed, not raised)."""
+    from torch.profiler import ProfilerActivity, profile
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step(params, batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        print(json.dumps({"profile": f"prefill {label}",
+                          "prefill_s_profiled": wall,
+                          **_trace_summary(torch, prof)}))
+    except Exception as exc:            # noqa: BLE001 — reported
+        print(json.dumps({"profile": "not measured",
+                          "error": f"{type(exc).__name__}: {exc}"}))
 
 
 def zoo_prefill(torch, kd) -> dict:
@@ -1524,20 +1636,29 @@ def zoo_prefill(torch, kd) -> dict:
     counters are zeroed, one forward is timed on the host clock (ending in
     a synchronize), and the counters are read: each kernel must have
     launched once per layer that runs it.  The qwen3 run is then profiled.
-    Each model is freed before the next."""
+    Each model is freed before the next.  Last, zamba2 is built again from
+    the same init and one forward profiled: after falcon's run, so that
+    falcon's peak-memory reading sees the process it saw before this
+    profile was added (a reference cycle keeps zamba2's params allocated
+    until the collector runs, and a profile there would run it; PERF.md
+    §7)."""
     from repro_torch.configs import SHAPES, get_config
     from repro_torch.models.zoo import build_model
     from repro_torch.train.trainstep import make_prefill_step
     from repro_torch.tree import tree_leaves
-    from torch.profiler import ProfilerActivity, profile
     launches = {name: 0 for name in kd.LAUNCHES}
-    for arch, b, s, want in ZOO_RUNS:
+
+    def setup(arch):
         cfg = get_config(arch)
         model = build_model(cfg)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        return cfg, model, gen
+
+    for arch, b, s, want in ZOO_RUNS:
+        cfg, model, gen = setup(arch)
         step = make_prefill_step(model)
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        gen = torch.Generator(device="cuda").manual_seed(0)
         with torch.inference_mode():
             t0 = time.perf_counter()
             params = model.init(gen)
@@ -1569,23 +1690,22 @@ def zoo_prefill(torch, kd) -> dict:
             for k, v in counts.items():
                 launches[k] += v
             if arch == "qwen3_0_6b":
-                try:
-                    with profile(activities=[ProfilerActivity.CPU,
-                                             ProfilerActivity.CUDA]) as prof:
-                        t0 = time.perf_counter()
-                        step(params, batch)
-                        torch.cuda.synchronize()
-                        wall = time.perf_counter() - t0
-                    print(json.dumps({
-                        "profile": f"prefill {arch} B={b} S={s}",
-                        "prefill_s_profiled": wall,
-                        **_trace_summary(torch, prof)}))
-                except Exception as exc:    # noqa: BLE001 — reported
-                    print(json.dumps({"profile": "not measured",
-                                      "error": f"{type(exc).__name__}: "
-                                               f"{exc}"}))
+                _profile_prefill(torch, step, params, batch,
+                                 f"{arch} B={b} S={s}")
         del params, batch
         torch.cuda.empty_cache()
+    arch, b, s, _ = next(r for r in ZOO_RUNS if r[0] == "zamba2_2_7b")
+    cfg, model, gen = setup(arch)
+    step = make_prefill_step(model)
+    with torch.inference_mode():
+        params = model.init(gen)
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s),
+                                         generator=gen, device="cuda")}
+        step(params, batch)
+        torch.cuda.synchronize()
+        _profile_prefill(torch, step, params, batch, f"{arch} B={b} S={s}")
+    del params, batch
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -1693,6 +1813,74 @@ def zoo_card_vs_cpu(torch) -> None:
         torch.cuda.empty_cache()
 
 
+def zoo_full_depth(torch) -> None:
+    """Phase 6d: zamba2_2_7b at full width and full depth (FULL_DEPTH: 54
+    mamba2 layers and 9 shared attention blocks, B = 1, S = 4096) from one
+    init (zoo_prefill's: seed 0, params then tokens), twice: through the
+    ssd_scan kernels, and with ``ops.ssd_scan`` swapped for its plain
+    version by ``mock.patch``, as the controls are.  In fp32 compute the
+    two losses must agree within ZOO_BARS["float32"]["loss_abs"], and the
+    final hidden states' errors are printed.  In the config's bf16 both
+    losses are printed beside FULL_DEPTH_BF16_LOSS_OF_RECORD: their
+    difference is what a change of fp32 sum order inside ssd_scan alone
+    moves the bf16 loss."""
+    import dataclasses
+    from unittest import mock
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref as kref
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.zoo import build_model
+    from repro_torch.train.trainstep import make_prefill_step
+    arch, b, s = FULL_DEPTH
+
+    def plain(xh, a, bmat, cmat, *, chunk=128):
+        return kref.ssd_scan_ref(xh, a, bmat, cmat, chunk)
+
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(get_config(arch), compute_dtype=dtype)
+        model = build_model(cfg)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        out = {}
+        with torch.inference_mode():
+            params = model.init(gen)
+            batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s),
+                                             generator=gen, device="cuda")}
+            pos = torch.arange(s, device="cuda")[None]
+            for name, op in (("kernel", ops.ssd_scan), ("plain", plain)):
+                with mock.patch.object(ops, "ssd_scan", op):
+                    loss = float(make_prefill_step(model)(params, batch))
+                    x = tf._embed_inputs(params, cfg, batch)
+                    hidden, _ = tf.forward_hidden(params, cfg, x, pos)
+                out[name] = (hidden.float(), loss)
+                del x, hidden
+        (h_k, loss_k), (h_p, loss_p) = out["kernel"], out["plain"]
+        rel_l2 = float((h_k - h_p).norm() / h_p.norm())
+        line = {"check": f"full_depth {arch} {dtype}",
+                "layers": cfg.num_layers, "batch": b, "seq": s,
+                "loss_kernel": loss_k, "loss_plain": loss_p,
+                "loss_abs_err": abs(loss_k - loss_p),
+                "hidden_rel_l2_err": rel_l2,
+                "hidden_max_abs_err": float((h_k - h_p).abs().max()),
+                "hidden_max_abs": float(h_p.abs().max())}
+        if dtype == "float32":
+            line["loss_abs_bar"] = ZOO_BARS["float32"]["loss_abs"]
+            line["ok"] = (math.isfinite(loss_k)
+                          and line["loss_abs_err"] <= line["loss_abs_bar"])
+        else:
+            record = FULL_DEPTH_BF16_LOSS_OF_RECORD
+            line["loss_of_record"] = record
+            line["loss_kernel_minus_record"] = loss_k - record
+            line["loss_plain_minus_record"] = loss_p - record
+            line["ok"] = math.isfinite(loss_k)
+        print(json.dumps(line))
+        if not line["ok"]:
+            _fail(f"full_depth {arch} {dtype}: kernel and plain disagree: "
+                  f"{json.dumps(line)}")
+        del params, batch, out, h_k, h_p
+        torch.cuda.empty_cache()
+
+
 def main() -> None:
     sys.stdout.reconfigure(line_buffering=True)
     if not (ROOT / "src" / "repro_torch").is_dir():
@@ -1724,6 +1912,7 @@ def main() -> None:
                     or "spill" in line):
                 print(f"ptxas[{name}]: {line.strip()}")
     _check_wgmma_spills(build.PTXAS_INFO.get("flash_attention"))
+    _check_ssd_spills(build.PTXAS_INFO.get("ssd_scan"))
 
     rows = check_kernels(torch, kd, kq, kref, port)
     rows += check_stc_compress(torch, kref, port)
@@ -1745,6 +1934,7 @@ def main() -> None:
     for k, v in zoo_prefill(torch, kd).items():
         launches[k] += v
     zoo_card_vs_cpu(torch)
+    zoo_full_depth(torch)
 
     replaces = {
         "mix_aggregate": ("mix_aggregate.cu",
@@ -1786,11 +1976,12 @@ def main() -> None:
                   "ssm_scan": [1, 4096, 8192, 16]}
     # Kernels that another kernel's wrapper launches in the same call: their
     # launches stand in that kernel's row, whose times cover both.
-    helpers = {"ssd_scan": ("ssd_scan_cb",)}
+    helpers = {"ssd_scan": ("ssd_scan_state", "ssd_scan_pass")}
     summary = []
     for name, (src, rep) in replaces.items():
         row = next(r for r in rows
-                   if r["name"] == name and r["shape"] == main_shape[name])
+                   if r["name"] == name and r["shape"] == main_shape[name]
+                   and r.get("inputs", "model") == "model")
         for k in (name, *helpers.get(name, ())):
             if launches[k] == 0:
                 _fail(f"{k} was never launched on the main path")
@@ -1803,6 +1994,8 @@ def main() -> None:
             "library_ms": row["library_ms"], "shape": row["shape"],
             **({"helper_launches": {k: launches[k] for k in helpers[name]}}
                if name in helpers else {}),
+            **({"bound_tc_ms": row["bound_tc_ms"]}
+               if "bound_tc_ms" in row else {}),
             "ok": all(r["ok"] for r in rows if r["name"] == name)})
     print(json.dumps({"kernels": summary}))
     print(card)

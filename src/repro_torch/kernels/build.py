@@ -66,9 +66,9 @@ _SIGNATURES = {
     "ssm_scan": {
         "repro_ssm_scan_f32": [_P, _P, _P, _I, _I, _I, _P]},
     "ssd_scan": {
-        "repro_ssd_scan_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                               _I, _P],
-        "repro_ssd_scan_smem_bytes": [_I, _I]},
+        "repro_ssd_scan_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                               _I, _I, _I, _P],
+        "repro_ssd_scan_smem_bytes": [_I, _I, _I]},
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -1,9 +1,9 @@
-// ssd_scan: the Mamba-2 SSD chunk scan from a zero state.
+// ssd_scan: the Mamba-2 SSD chunk scan from a zero state, on the tensor cores.
 //
 //   xh (B, S, H, P), a (B, S, H), b/c (B, S, N), all fp32 -> y (B, S, H, P):
 //   h_t[p, n] = exp(a_t) h_{t-1}[p, n] + xh_t[p] b_t[n],
 //   y_t[p]    = sum_n c_t[n] h_t[p, n],
-//   computed chunk by chunk (length L = chunk) as the reference does:
+//   in the chunked form (length L = chunk) the reference uses:
 //   acum = cumsum(a) over the chunk,
 //   y[q] = sum_{k<=q} exp(acum_q - acum_k) (c_q . b_k) x_k
 //          + exp(acum_q) sum_n c_q[n] h[:, n]        (carried state)
@@ -11,279 +11,751 @@
 //   The triangle is masked before the exponential.  A ragged last chunk
 //   reads zeros past S, as the reference's padding does.
 //
-// Replaces the TPU kernel repro/kernels/ssd_scan.py::_ssd_kernel (the
+// Replaces the TPU kernel src/repro/kernels/ssd_scan.py::_ssd_kernel (the
 // pallas_call in ssd_scan_pallas): a (batch, head-block, seq-chunk) grid
 // whose chunk axis runs in order, carrying a (block_h, P, N) state in VMEM.
 //
-// What bounds it on the H100: operations.  It moves ~8 bytes per element of
-// xh/y, but the chunked form spends ~4*N flops per element of y on the
-// carried state (its contribution and its update) plus L flops on the
-// intra-chunk product.  This version runs them as fp32 FMAs on the CUDA
-// cores, no tensor cores (TF32 would miss the fp32 tolerance).
+// What bounds it on the H100: bytes, once the products run on the tensor
+// cores.  At zamba2's shape (B, S, H, P, N, chunk) = (1, 4096, 80, 64, 64,
+// 128) it must read xh and write y (84 MB each) plus a, b and c: 171 MB,
+// 0.051 ms at 3.35 TB/s.  Its 8.11 GFLOP would take 0.121 ms as fp32 FMAs
+// (67 TFLOP/s); as three TF32 products each (24.3 G TF32 flops at 495
+// TFLOP/s) they take 0.049 ms.
 //
-// Design.  Two kernels per call.  ssd_cb_kernel forms each chunk's C B^T
-// (L x L, lower triangle) once per batch row into a scratch tensor: it is
-// shared by every head and every row of P.  ssd_scan_kernel then gives one
-// block to (b, h, a tile of 16 rows of P) — zamba2's 80 heads x 4 tiles are
-// 320 blocks, not 80 — which walks the chunks in order, its (N, 16) state
-// slice in shared memory.  Per chunk it stages b, c, its x tile and a, takes
-// the cumulative sum with warp shuffles, forms the decayed weights
-// W[q][k] = exp(acum_q - acum_k) (C B^T)[q][k] (k <= q, else 0) and folds
-// exp(acum_L - acum_k) into b.  Register tiles keep the shared-memory loads
-// below the FMAs: a thread computes y for 2 rows (q, q + L/2, which also
-// balances the triangle) x 4 columns of P against float4 loads of x and of
-// the state, and the state update for one n x 4 columns.  Rows of c and of
-// W are padded by one float (no bank conflicts across the rows a warp
-// reads).  Dynamic shared memory: ~145 KB at L = 128, N = 64.
+// Design: SSD's state-passing form, chunks in parallel, three launches.
+//  1. ssd_state_kernel: per (chunk, head), acum = cumsum(a) over the chunk
+//     (a shuffle scan in each warp), written out for the other launches,
+//     and the chunk's own state from zero, s_c = X^T (exp(acum_L - acum_k)
+//     o B), a (P x L)(L x N) product.  A block takes one chunk and a run of
+//     heads, B staged once and the next head's X in flight while it works
+//     on this one; the blocks of a chunk then share out the rows of its
+//     C B^T (L x L, depth N, on and below the diagonal), formed once for
+//     every head.
+//  2. ssd_pass_kernel, per (batch row, head, 4 state elements): the carry
+//     over the chunks in order, h_c = exp(acum_L^c) h_{c-1} + s_c, which
+//     overwrites each s_c with the state entering its chunk.
+//  3. ssd_scan_kernel: per (chunk, head), y = exp(acum_q) (C h^T) +
+//     (C B^T o decay-tril) X.  The decayed weights W are formed elementwise
+//     per head into shared memory, the exponent masked to -1e30 off the
+//     triangle before exp: exp(acum_q - acum_k) is never split into
+//     exp(acum_q) exp(-acum_k), which overflows when acum falls hundreds
+//     below zero in a chunk.  A block of 16 warps takes one chunk and a run
+//     of heads (one block per SM): C and its share of C B^T (in registers)
+//     load once, the next head's X, h and acum are in flight while it works
+//     on this one.  A warp owns 16 columns of y in two m-tiles of 16 rows,
+//     i and L/16 - 1 - i, so that the triangle's short and long rows pair
+//     up and every warp does the same work.
+// Every product runs on mma.sync.m16n8k8 in 3xTF32: an fp32 operand x is
+// split into hi = tf32(x) and lo = tf32(x - hi), both cut from its bits,
+// and lo*hi + hi*lo + hi*hi accumulate in fp32 (one TF32 pass keeps 10
+// mantissa bits and misses the fp32 bar).  Tiles come in by cp.async;
+// shared-memory row strides are padded so that every fragment load is free
+// of bank conflicts.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kPT = 16;             // rows of P per block
-constexpr int kCBT = 16;            // C B^T tile edge
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxChunk = 128;      // the state kernel scans one row a thread
+constexpr int kScanThreads = 512;   // the scan kernel's block
+constexpr int kScanWarps = kScanThreads / 32;
+constexpr int kMaxSlots = 2;        // units a warp of the scan kernel holds
+// float4s of C B^T each thread of the scan kernel holds: rows warp + 16 i
+// of the chunk, for i < 128 / 16.
+constexpr int kCbRegs = kMaxChunk / (kScanThreads / 32);
 
-struct Layout {
-  int x_off, h_off, b_off, c_off, w_off, acum_off, eq_off, dk_off, total;
+__host__ __device__ inline int round_up(int x, int m) {
+  return (x + m - 1) / m * m;
+}
+
+// Row strides (floats) of tiles with a multiple of 16 columns that keep
+// fragment loads conflict-free.  Row-major A and [n][k] B read rows g =
+// 0..7 at columns t = 0..3: stride = 4 (mod 8).  Transposed A and [k][n] B
+// read rows t at columns g: stride = 8 (mod 16).
+__host__ __device__ inline int stride_g(int cols) { return cols + 4; }
+__host__ __device__ inline int stride_t(int cols) { return cols + 8; }
+
+// Chunk, P and N rounded up to tiles of 16 (zeros past the edges).
+struct Dims {
+  int lp, pp, np;
 };
-
-// Offsets in floats; x and the state come first so their float4 views stay
-// 16-byte aligned.
-__host__ __device__ inline Layout layout(int L, int N) {
-  Layout s;
-  s.x_off = 0;                          // x tile   [L][16]
-  s.h_off = s.x_off + L * kPT;          // state^T  [N][16]
-  s.b_off = s.h_off + N * kPT;          // b        [L][N]
-  s.c_off = s.b_off + L * N;            // c        [L][N + 1]
-  s.w_off = s.c_off + L * (N + 1);      // W        [L][L + 1]
-  s.acum_off = s.w_off + L * (L + 1);
-  s.eq_off = s.acum_off + L;
-  s.dk_off = s.eq_off + L;
-  s.total = s.dk_off + L;
-  return s;
+__host__ __device__ inline Dims dims(int L, int P, int N) {
+  return {round_up(L, 16), round_up(P, 16), round_up(N, 16)};
 }
 
-// cb[(b*nc + ci)*L + q][k] = sum_n c[b, ci*L + q, n] b[b, ci*L + k, n] for
-// k <= q (zeros past S); tiles wholly above the diagonal are skipped.
-__global__ void __launch_bounds__(kCBT * kCBT)
-ssd_cb_kernel(const float* __restrict__ bm, const float* __restrict__ cm,
-              float* __restrict__ cb, int S, int N, int L, int nc) {
-  extern __shared__ float tile[];     // c rows [16][N + 1], b rows [16][N + 1]
-  const int k0 = blockIdx.x * kCBT, q0 = blockIdx.y * kCBT;
-  if (k0 > q0 + kCBT - 1) return;
-  const int b = blockIdx.z / nc, ci = blockIdx.z - b * nc;
-  const int n1 = N + 1;
-  float* cs = tile;
-  float* bs = tile + kCBT * n1;
-  const int tid = threadIdx.y * kCBT + threadIdx.x;
-  for (int e = tid; e < kCBT * N; e += kCBT * kCBT) {
-    const int r = e / N, n = e - r * N;
-    const int tq = ci * L + q0 + r, tk = ci * L + k0 + r;
-    cs[r * n1 + n] = (q0 + r < L && tq < S) ? cm[((long long)b * S + tq) * N + n] : 0.f;
-    bs[r * n1 + n] = (k0 + r < L && tk < S) ? bm[((long long)b * S + tk) * N + n] : 0.f;
-  }
-  __syncthreads();
-  const int q = q0 + threadIdx.y, k = k0 + threadIdx.x;
-  if (q >= L || k >= L || k > q) return;
-  const float* cr = cs + threadIdx.y * n1;
-  const float* br = bs + threadIdx.x * n1;
-  float dot = 0.f;
-  for (int n = 0; n < N; ++n) dot += cr[n] * br[n];
-  cb[((long long)blockIdx.z * L + q) * L + k] = dot;
+// Units of one (chunk, head) in the scan kernel: 16 columns of y in the
+// rows of two m-tiles of 16, i and lp / 16 - 1 - i, so that the triangle's
+// short and long rows pair up.
+__host__ __device__ inline int scan_units(const Dims& d) {
+  return (d.lp / 16 + 1) / 2 * (d.pp / 16);
 }
 
-__global__ void __launch_bounds__(kThreads)
-ssd_scan_kernel(const float* __restrict__ xh, const float* __restrict__ a,
-                const float* __restrict__ bm, const float* __restrict__ cm,
-                const float* __restrict__ cb, float* __restrict__ y, int S,
-                int H, int P, int N, int L) {
-  extern __shared__ __align__(16) float smem[];
-  const Layout lay = layout(L, N);
-  float* x_s = smem + lay.x_off;
-  float* hT = smem + lay.h_off;
-  float* b_s = smem + lay.b_off;
-  float* c_s = smem + lay.c_off;
-  float* w_s = smem + lay.w_off;
-  float* acum = smem + lay.acum_off;
-  float* eq = smem + lay.eq_off;
-  float* dk = smem + lay.dk_off;
-  const float4* x4 = reinterpret_cast<const float4*>(x_s);
-  float4* h4 = reinterpret_cast<float4*>(hT);
+// Shared memory of each kernel, in floats: the state kernel's B, X (two
+// buffers, which also hold 16 rows of C for C B^T), a (two buffers), acum, the
+// decays and the warp totals; the scan kernel's C, W, and nbuf buffers each
+// of X, h and acum.
+__host__ __device__ inline int state_smem_floats(const Dims& d) {
+  const int x2 = 2 * d.lp * stride_t(d.pp), c16 = 16 * stride_g(d.np);
+  return d.lp * stride_t(d.np) + (x2 > c16 ? x2 : c16) + 4 * d.lp + kWarps;
+}
+__host__ __device__ inline int scan_smem_floats(const Dims& d, int nbuf) {
+  return d.lp * stride_g(d.np) + d.lp * stride_g(d.lp)
+         + nbuf * (d.lp * stride_t(d.pp) + d.pp * stride_g(d.np) + d.lp);
+}
 
-  const int p0 = blockIdx.x * kPT;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int n1 = N + 1, w1 = L + 1;
-  const int nc = (S + L - 1) / L;
-  const int half = (L + 1) / 2;
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-  for (int e = tid; e < N * kPT; e += kThreads) hT[e] = 0.f;
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(smem_u32(dst)), "l"(src));
+}
 
-  for (int ci = 0; ci < nc; ++ci) {
-    const int t0 = ci * L;
-    const int lv = min(L, S - t0);
-    __syncthreads();
-    // 1. Stage the chunk (zeros past S).
-    for (int e = tid; e < L * N; e += kThreads) {
-      const int t = e / N, n = e - t * N;
-      const long long g = ((long long)b * S + t0 + t) * N + n;
-      b_s[e] = t < lv ? bm[g] : 0.f;
-      c_s[t * n1 + n] = t < lv ? cm[g] : 0.f;
-    }
-    for (int e = tid; e < L * kPT; e += kThreads) {
-      const int t = e / kPT, pp = e - t * kPT;
-      const int p = p0 + pp;
-      x_s[e] = (t < lv && p < P)
-                   ? xh[(((long long)b * S + t0 + t) * H + h) * P + p]
-                   : 0.f;
-    }
-    for (int t = tid; t < L; t += kThreads) {
-      acum[t] = t < lv ? a[((long long)b * S + t0 + t) * H + h] : 0.f;
-    }
-    __syncthreads();
-    // 2. acum = cumsum(a) (warp 0: each lane sums a run, then a shuffle
-    //    scan of the run totals), then exp(acum) and the decays to the end.
-    if (tid < 32) {
-      const int per = (L + 31) / 32;
-      const int lo = min(L, lane * per), hi = min(L, lo + per);
-      float run = 0.f;
-      for (int t = lo; t < hi; ++t) { run += acum[t]; acum[t] = run; }
-      float incl = run;
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"(smem_u32(dst)), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most `pending` of this thread's cp.async groups are in flight.
+template <int pending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(pending) : "memory");
+}
+
+// Stage a (rows_pad x cols_pad) tile into dst (row stride ld) from src (row
+// r at src + r * src_ld, contiguous columns), zeros past rows_valid /
+// cols_valid.  vec: rows start 16-byte aligned and cols_valid % 4 == 0.
+__device__ __forceinline__ void stage_tile(float* dst, int ld,
+                                           const float* src, long long src_ld,
+                                           int rows_valid, int cols_valid,
+                                           int rows_pad, int cols_pad,
+                                           bool vec) {
+  const int groups = cols_pad / 4;
+  for (int e = threadIdx.x; e < rows_pad * groups; e += blockDim.x) {
+    const int r = e / groups, c4 = (e - r * groups) * 4;
+    float* d = dst + r * ld + c4;
+    const float* s = src + r * src_ld + c4;
+    if (r < rows_valid && vec && c4 + 4 <= cols_valid) {
+      cp_async16(d, s);
+    } else {
 #pragma unroll
-      for (int d = 1; d < 32; d <<= 1) {
-        const float up = __shfl_up_sync(0xffffffffu, incl, d);
-        if (lane >= d) incl += up;
+      for (int i = 0; i < 4; ++i) {
+        if (r < rows_valid && c4 + i < cols_valid) {
+          cp_async4(d + i, s + i);
+        } else {
+          d[i] = 0.f;
+        }
       }
-      const float before = incl - run;
-      for (int t = lo; t < hi; ++t) acum[t] += before;
-      __syncwarp();
-      const float last = acum[lv - 1];
-      for (int t = lane; t < L; t += 32) {
-        eq[t] = expf(acum[t]);
-        dk[t] = expf(last - acum[t]);
-      }
-    }
-    __syncthreads();
-    // 3. W = decay-tril * C B^T for the valid rows; b *= exp(acum_L - acum_k).
-    const float* cbc = cb + ((long long)b * nc + ci) * L * L;
-    for (int e = tid; e < L * L; e += kThreads) {
-      const int qq = e / L, kk = e - qq * L;
-      w_s[qq * w1 + kk] = (kk <= qq && qq < lv)
-                              ? cbc[e] * expf(acum[qq] - acum[kk])
-                              : 0.f;
-    }
-    for (int e = tid; e < L * N; e += kThreads) b_s[e] *= dk[e / N];
-    __syncthreads();
-    // 4. y for rows (qa, qb = qa + L/2) x 4 columns of P per thread.
-    for (int e = tid; e < half * (kPT / 4); e += kThreads) {
-      const int qa = e / (kPT / 4), pg = e - qa * (kPT / 4);
-      const int qb = qa + half;
-      const bool has_b = qb < L;
-      const int kend = has_b ? qb : qa;
-      const float* wa = w_s + qa * w1;
-      const float* wb = w_s + (has_b ? qb : qa) * w1;
-      float4 ya = make_float4(0.f, 0.f, 0.f, 0.f), yb = ya;
-      for (int kk = 0; kk <= kend; ++kk) {
-        const float4 xv = x4[kk * (kPT / 4) + pg];
-        const float fa = wa[kk], fb = wb[kk];
-        ya.x += fa * xv.x; ya.y += fa * xv.y; ya.z += fa * xv.z; ya.w += fa * xv.w;
-        yb.x += fb * xv.x; yb.y += fb * xv.y; yb.z += fb * xv.z; yb.w += fb * xv.w;
-      }
-      const float* ca = c_s + qa * n1;
-      const float* cbr = c_s + (has_b ? qb : qa) * n1;
-      float4 sa = make_float4(0.f, 0.f, 0.f, 0.f), sb = sa;
-      for (int n = 0; n < N; ++n) {
-        const float4 hv = h4[n * (kPT / 4) + pg];
-        const float fa = ca[n], fb = cbr[n];
-        sa.x += fa * hv.x; sa.y += fa * hv.y; sa.z += fa * hv.z; sa.w += fa * hv.w;
-        sb.x += fb * hv.x; sb.y += fb * hv.y; sb.z += fb * hv.z; sb.w += fb * hv.w;
-      }
-      const int p = p0 + 4 * pg;
-      const float outa[4] = {ya.x + eq[qa] * sa.x, ya.y + eq[qa] * sa.y,
-                             ya.z + eq[qa] * sa.z, ya.w + eq[qa] * sa.w};
-      if (qa < lv) {
-        float* yr = y + (((long long)b * S + t0 + qa) * H + h) * P;
-        for (int i = 0; i < 4; ++i) if (p + i < P) yr[p + i] = outa[i];
-      }
-      if (has_b && qb < lv) {
-        const float eb = eq[qb];
-        const float outb[4] = {yb.x + eb * sb.x, yb.y + eb * sb.y,
-                               yb.z + eb * sb.z, yb.w + eb * sb.w};
-        float* yr = y + (((long long)b * S + t0 + qb) * H + h) * P;
-        for (int i = 0; i < 4; ++i) if (p + i < P) yr[p + i] = outb[i];
-      }
-    }
-    __syncthreads();
-    // 5. Carry the state past the chunk: one n x 4 columns of P per thread.
-    const float tot = eq[lv - 1];
-    for (int e = tid; e < N * (kPT / 4); e += kThreads) {
-      const int pg = e / N, n = e - pg * N;
-      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-      for (int kk = 0; kk < lv; ++kk) {
-        const float bv = b_s[kk * N + n];
-        const float4 xv = x4[kk * (kPT / 4) + pg];
-        acc.x += bv * xv.x; acc.y += bv * xv.y;
-        acc.z += bv * xv.z; acc.w += bv * xv.w;
-      }
-      const float4 old = h4[n * (kPT / 4) + pg];
-      h4[n * (kPT / 4) + pg] = make_float4(
-          tot * old.x + acc.x, tot * old.y + acc.y,
-          tot * old.z + acc.z, tot * old.w + acc.w);
     }
   }
+}
+
+// x = hi + lo + O(2^-20 |x|) with hi and lo TF32 (10 mantissa bits), cut
+// from the bits toward zero: one AND each on the integer pipe (cvt.rna runs
+// at a quarter of the rate), and x - hi is exact in fp32.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = __float_as_uint(x) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi)) & 0xffffe000u;
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Fragments of one k-step of 8 (lane: g = lane / 4, t = lane % 4).  An A
+// fragment is rows g, g + 8 at columns t, t + 4 of a 16 x 8 tile; a B
+// fragment rows t, t + 4 at column g of an 8 x 8 tile.  No mma below runs
+// under a condition: ptxas fences every predicated mma.sync with a
+// WARPSYNC, so tiles past an edge are computed from zeros (or discarded)
+// rather than skipped.
+
+// acc[j] += A x B_j for j < NT in 3xTF32: lo*hi, then hi*lo, then hi*hi,
+// each over the n-tiles before the next, so that no mma waits on the one
+// just issued.
+template <int NT>
+__device__ __forceinline__ void step_mma(float (&acc)[NT][4],
+                                         const float (&a)[4],
+                                         const uint32_t (&bh)[NT][2],
+                                         const uint32_t (&bl)[NT][2]) {
+  uint32_t ah[4], al[4];
+#pragma unroll
+  for (int m = 0; m < 4; ++m) split_tf32(a[m], ah[m], al[m]);
+#pragma unroll
+  for (int j = 0; j < NT; ++j) mma_tf32(acc[j], al, bh[j]);
+#pragma unroll
+  for (int j = 0; j < NT; ++j) mma_tf32(acc[j], ah, bl[j]);
+#pragma unroll
+  for (int j = 0; j < NT; ++j) mma_tf32(acc[j], ah, bh[j]);
+}
+
+template <int NT, class LoadB>
+__device__ __forceinline__ void load_b_split(int k, LoadB load_b,
+                                             uint32_t (&bh)[NT][2],
+                                             uint32_t (&bl)[NT][2]) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    float b[2];
+    load_b(k, j, b);
+    split_tf32(b[0], bh[j][0], bl[j][0]);
+    split_tf32(b[1], bh[j][1], bl[j][1]);
+  }
+}
+
+// One m-tile: acc[j] += A x B_j over k in [kbeg, kend) (multiples of 8).
+// load_a(k, a) fills the A fragment at k-step k, load_b(k, j, b) the B
+// fragment of n-tile j.
+template <int NT, class LoadA, class LoadB>
+__device__ __forceinline__ void tile_mma(float (&acc)[NT][4], int kbeg,
+                                         int kend, LoadA load_a,
+                                         LoadB load_b) {
+#pragma unroll 2
+  for (int k = kbeg; k < kend; k += 8) {
+    uint32_t bh[NT][2], bl[NT][2];
+    load_b_split(k, load_b, bh, bl);
+    float a[4];
+    load_a(k, a);
+    step_mma(acc, a, bh, bl);
+  }
+}
+
+// Two m-tiles sharing the B fragments: both over k in [0, k_both), the
+// second alone over [k_both, k_end).  load_a(i, k, a) for m-tile i.
+template <int NT, class LoadA, class LoadB>
+__device__ __forceinline__ void pair_mma(float (&acc0)[NT][4],
+                                         float (&acc1)[NT][4], int k_both,
+                                         int k_end, LoadA load_a,
+                                         LoadB load_b) {
+#pragma unroll 2
+  for (int k = 0; k < k_both; k += 8) {
+    uint32_t bh[NT][2], bl[NT][2];
+    load_b_split(k, load_b, bh, bl);
+    float a0[4], a1[4];
+    load_a(0, k, a0);
+    load_a(1, k, a1);
+    step_mma(acc0, a0, bh, bl);
+    step_mma(acc1, a1, bh, bl);
+  }
+  tile_mma(acc1, k_both, k_end,
+           [&](int k, float (&f)[4]) { load_a(1, k, f); }, load_b);
+}
+
+// C B^T rows [16i, 16i + 16) of one chunk, for i = first, first + step, ...
+// (rows below S), in units of 16 columns on and below the diagonal.  B is
+// in shared memory (row stride ldb, zeros past S); the 16 rows of C are
+// staged into cs.
+__device__ __forceinline__ void cb_rows(float* cs, const float* bs, int ldb,
+                                        const float* cm, float* cbg,
+                                        const Dims& d, int N, int lv,
+                                        int first, int step) {
+  const int sc = stride_g(d.np);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  for (int i = first; i < d.lp / 16 && 16 * i < lv; i += step) {
+    const int q0 = 16 * i;
+    __syncthreads();                             // cs is free
+    stage_tile(cs, sc, cm + (long long)q0 * N, N, lv - q0, N, 16, d.np,
+               N % 4 == 0);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    for (int u = warp; u <= i; u += kWarps) {
+      const int k0 = 16 * u;
+      float acc[2][4] = {};
+      tile_mma(acc, 0, d.np,
+               [&](int k, float (&f)[4]) {
+                 const float* r0 = cs + g * sc + k + t;
+                 f[0] = r0[0]; f[1] = r0[8 * sc]; f[2] = r0[4];
+                 f[3] = r0[8 * sc + 4];
+               },
+               [&](int k, int j, float (&f)[2]) {
+                 const float* r = bs + (k0 + 8 * j + g) * ldb + k + t;
+                 f[0] = r[0]; f[1] = r[4];
+               });
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        float* o = cbg + (q0 + g) * d.lp + k0 + 8 * j + 2 * t;
+        *reinterpret_cast<float2*>(o) = make_float2(acc[j][0], acc[j][1]);
+        *reinterpret_cast<float2*>(o + 8 * d.lp) =
+            make_float2(acc[j][2], acc[j][3]);
+      }
+    }
+  }
+}
+
+// Grid (G, nc, B): block (g, c, b) takes heads [g * hpb, (g + 1) * hpb) of
+// chunk c in turn, the next head's X and a in flight (cp.async) while it
+// works on this one; B is staged once.  Per head: acum into acum_g[(b, c,
+// h)][lp] and the chunk's state from zero into st[(b, c, h)][pp][np], in
+// units of 16 rows by 8 NT columns.  Then rows [16g, 16g + 16), [16(g + G),
+// ...) of the chunk's C B^T into cbg.
+template <int NT>
+__global__ void __launch_bounds__(kThreads, 2)
+ssd_state_kernel(const float* __restrict__ xh, const float* __restrict__ a,
+                 const float* __restrict__ bm, const float* __restrict__ cm,
+                 float* __restrict__ st, float* __restrict__ cbg,
+                 float* __restrict__ acum_g, int S, int H, int P, int N,
+                 int L, int hpb) {
+  extern __shared__ __align__(16) float smem[];
+  const Dims d = dims(L, P, N);
+  const int grp = blockIdx.x, c = blockIdx.y, b = blockIdx.z;
+  const int nc = gridDim.y;
+  const int t0 = c * L, lv = min(L, S - t0);
+  const long long row0 = (long long)b * S + t0;
+  const int h0 = grp * hpb, h1 = min(H, h0 + hpb);
+  const int sx = stride_t(d.pp), sb = stride_t(d.np), xsz = d.lp * sx;
+  const int xreg = max(2 * xsz, 16 * stride_g(d.np));
+  float* bs = smem;                       // B               [lp][sb]
+  float* xs = bs + d.lp * sb;             // X, two buffers  [lp][sx]
+  float* av = xs + xreg;                  // a, two buffers  [lp]
+  float* acum = av + 2 * d.lp;
+  float* dk = acum + d.lp;
+  float* wsum = dk + d.lp;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const long long xld = (long long)H * P;
+
+  auto stage_head = [&](int hh, int buf) {
+    stage_tile(xs + buf * xsz, sx, xh + (row0 * H + hh) * P, xld, lv, P,
+               d.lp, d.pp, P % 4 == 0);
+    float* ab = av + buf * d.lp;
+    for (int r = tid; r < d.lp; r += kThreads) {
+      if (r < lv) {
+        cp_async4(ab + r, a + (row0 + r) * H + hh);
+      } else {
+        ab[r] = 0.f;
+      }
+    }
+  };
+  stage_tile(bs, sb, bm + row0 * N, N, lv, N, d.lp, d.np, N % 4 == 0);
+  stage_head(h0, 0);
+  cp_async_commit();
+
+  const int ng = d.np / (8 * NT), units = (d.pp / 16) * ng;
+  const int kend = round_up(lv, 8);
+  for (int hh = h0, buf = 0; hh < h1; ++hh, buf ^= 1) {
+    if (hh + 1 < h1) stage_head(hh + 1, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const long long blk = ((long long)b * nc + c) * H + hh;
+    // acum = cumsum(a): an inclusive shuffle scan in each warp, then the
+    // totals of the warps before.  Rows past S add zeros.
+    float v = tid < d.lp ? av[buf * d.lp + tid] : 0.f;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const float up = __shfl_up_sync(0xffffffffu, v, off);
+      if (lane >= off) v += up;
+    }
+    if (lane == 31) wsum[warp] = v;
+    __syncthreads();
+    if (tid < d.lp) {
+      for (int w = 0; w < warp; ++w) v += wsum[w];
+      acum[tid] = v;
+      acum_g[blk * d.lp + tid] = v;
+    }
+    __syncthreads();
+    if (tid < d.lp) {
+      dk[tid] = tid < lv ? expf(acum[lv - 1] - acum[tid]) : 0.f;
+    }
+    __syncthreads();
+    // s_c[p][n] = sum_k X[k][p] (dk[k] B[k][n]).
+    const float* x = xs + buf * xsz;
+    float* out = st + blk * d.pp * d.np;
+    for (int u = warp; u < units; u += kWarps) {
+      const int p0 = (u / ng) * 16, n0 = (u % ng) * 8 * NT;
+      float acc[NT][4] = {};
+      tile_mma(acc, 0, kend,
+               [&](int k, float (&f)[4]) {
+                 const float* r0 = x + (k + t) * sx + p0 + g;
+                 f[0] = r0[0]; f[1] = r0[8]; f[2] = r0[4 * sx];
+                 f[3] = r0[4 * sx + 8];
+               },
+               [&](int k, int j, float (&f)[2]) {
+                 const float* r = bs + (k + t) * sb + n0 + 8 * j + g;
+                 f[0] = r[0] * dk[k + t]; f[1] = r[4 * sb] * dk[k + t + 4];
+               });
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        float* o = out + (p0 + g) * d.np + n0 + 8 * j + 2 * t;
+        *reinterpret_cast<float2*>(o) = make_float2(acc[j][0], acc[j][1]);
+        *reinterpret_cast<float2*>(o + 8 * d.np) =
+            make_float2(acc[j][2], acc[j][3]);
+      }
+    }
+    __syncthreads();                             // X[buf], acum, dk free
+  }
+  cb_rows(xs, bs, sb, cm + row0 * N,
+          cbg + ((long long)b * nc + c) * d.lp * d.lp, d, N, lv, grp,
+          gridDim.x);
+}
+
+// Grid (ceil(pp * np / 4 / 256), H, B).  st[(b, c, h)] holds s_c on entry
+// and the state entering chunk c on exit; four chunks' loads in flight.
+__global__ void __launch_bounds__(kThreads)
+ssd_pass_kernel(float* __restrict__ st, const float* __restrict__ acum_g,
+                int S, int H, int L, int lp, int pn, int nc) {
+  const int e4 = blockIdx.x * kThreads + threadIdx.x;
+  const int h = blockIdx.y, b = blockIdx.z;
+  if (4 * e4 >= pn) return;
+  float4 carry = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int c0 = 0; c0 < nc; c0 += 4) {
+    float4 s[4];
+    float tot[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int c = c0 + i;
+      if (c < nc) {
+        const long long blk = ((long long)b * nc + c) * H + h;
+        s[i] = reinterpret_cast<const float4*>(st + blk * pn)[e4];
+        tot[i] = acum_g[blk * lp + min(L, S - c * L) - 1];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int c = c0 + i;
+      if (c < nc) {
+        const long long blk = ((long long)b * nc + c) * H + h;
+        reinterpret_cast<float4*>(st + blk * pn)[e4] = carry;
+        const float f = expf(tot[i]);
+        carry = make_float4(fmaf(f, carry.x, s[i].x), fmaf(f, carry.y, s[i].y),
+                            fmaf(f, carry.z, s[i].z), fmaf(f, carry.w, s[i].w));
+      }
+    }
+  }
+}
+
+// Grid (G, nc, B): block (g, c, b) takes heads [g * hpb, (g + 1) * hpb) of
+// chunk c in turn; with nbuf = 2 the next head's X, h and acum are in
+// flight while it works on this one.  C and C B^T are loaded once, C B^T
+// into registers (U == 1) as the float4s this thread turns into W.  U
+// units per warp (scan_units <= kScanWarps * U).
+template <int U>
+__global__ void __launch_bounds__(kScanThreads, 1)
+ssd_scan_kernel(const float* __restrict__ xh, const float* __restrict__ cm,
+                const float* __restrict__ st, const float* __restrict__ cbg,
+                const float* __restrict__ acum_g, float* __restrict__ y,
+                int S, int H, int P, int N, int L, int hpb, int nbuf) {
+  extern __shared__ __align__(16) float smem[];
+  const Dims d = dims(L, P, N);
+  const int sc = stride_g(d.np), sw = stride_g(d.lp), sx = stride_t(d.pp);
+  const int xsz = d.lp * sx, hsz = d.pp * sc;
+  float* cs = smem;                              // C              [lp][sc]
+  float* ws = cs + d.lp * sc;                    // W              [lp][sw]
+  float* xs = ws + d.lp * sw;                    // X, nbuf        [lp][sx]
+  float* hs = xs + nbuf * xsz;                   // h, nbuf        [pp][sc]
+  float* ac = hs + nbuf * hsz;                   // acum, nbuf     [lp]
+  const int grp = blockIdx.x, c = blockIdx.y, b = blockIdx.z;
+  const int nc = gridDim.y;
+  const int t0 = c * L, lv = min(L, S - t0);
+  const long long row0 = (long long)b * S + t0;
+  const int h0 = grp * hpb, h1 = min(H, h0 + hpb);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+
+  auto stage_head = [&](int hh, int buf) {
+    const long long blk = ((long long)b * nc + c) * H + hh;
+    stage_tile(xs + buf * xsz, sx, xh + (row0 * H + hh) * P,
+               (long long)H * P, lv, P, d.lp, d.pp, P % 4 == 0);
+    if (c > 0) {                                 // chunk 0 enters at zero
+      stage_tile(hs + buf * hsz, sc, st + blk * d.pp * d.np, d.np, d.pp,
+                 d.np, d.pp, d.np, true);
+    }
+    stage_tile(ac + buf * d.lp, d.lp, acum_g + blk * d.lp, d.lp, 1, d.lp, 1,
+               d.lp, true);
+  };
+  if (c > 0) {
+    stage_tile(cs, sc, cm + row0 * N, N, lv, N, d.lp, d.np, N % 4 == 0);
+  }
+  stage_head(h0, 0);
+  cp_async_commit();
+  // This thread's float4s of C B^T, row q = warp + 16 i at columns 4 lane
+  // .. 4 lane + 3, zeros above the diagonal and past S: the same for every
+  // head, held in registers with one unit per warp, read again (from L2) per
+  // head with two.
+  const float* cbc = cbg + ((long long)b * nc + c) * d.lp * d.lp;
+  const int k4 = 4 * lane;
+  auto cb_float4 = [&](int i) {
+    const int q = warp + 16 * i;
+    return q < lv && k4 <= q
+               ? *reinterpret_cast<const float4*>(cbc + q * d.lp + k4)
+               : make_float4(0.f, 0.f, 0.f, 0.f);
+  };
+  float4 cbr[U == 1 ? kCbRegs : 1];
+  if (U == 1) {
+#pragma unroll
+    for (int i = 0; i < kCbRegs; ++i) cbr[i] = cb_float4(i);
+  }
+
+  // Unit u: 16 columns of P from p0 = 16 (u % ng), in the rows of m-tiles
+  // pair = u / ng and mt - 1 - pair.  Slot 1 of a unit holds the longer
+  // m-tile (the only one, when the pair is the middle tile or when its
+  // second tile lies past S); slot 0 the shorter, if any.
+  const int ng = d.pp / 16, units = scan_units(d), mt = d.lp / 16;
+  const int kv = round_up(lv, 8);
+  const long long ys = (long long)H * P;
+  int q1[U], q0[U], p0[U];
+  bool two[U], live[U];
+#pragma unroll
+  for (int j = 0; j < U; ++j) {
+    const int u = j * kScanWarps + warp, pair = u / ng;
+    const int lo = 16 * pair, hi = 16 * (mt - 1 - pair);
+    live[j] = u < units && lo < lv;
+    two[j] = hi > lo && hi < lv;
+    q1[j] = two[j] ? hi : lo;
+    q0[j] = lo;
+    p0[j] = 16 * (u % ng);
+  }
+
+  for (int hh = h0, it = 0; hh < h1; ++hh, ++it) {
+    const int buf = nbuf == 2 ? (it & 1) : 0;
+    if (nbuf == 2) {
+      if (hh + 1 < h1) stage_head(hh + 1, buf ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      if (hh > h0) {
+        stage_head(hh, 0);
+        cp_async_commit();
+      }
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* acum = ac + buf * d.lp;
+    const float* x = xs + buf * xsz;
+    const float* hb = hs + buf * hsz;
+    float acc[U][2][2][4] = {};
+    // Phase 1: acc = exp(acum_q) (C h^T).
+    if (c > 0) {
+#pragma unroll
+      for (int j = 0; j < U; ++j) {
+        if (!live[j]) continue;
+        const int rows[2] = {q0[j], q1[j]};
+        pair_mma(acc[j][0], acc[j][1], two[j] ? d.np : 0, d.np,
+                 [&](int i, int k, float (&f)[4]) {
+                   const float* r0 = cs + (rows[i] + g) * sc + k + t;
+                   f[0] = r0[0]; f[1] = r0[8 * sc]; f[2] = r0[4];
+                   f[3] = r0[8 * sc + 4];
+                 },
+                 [&](int k, int jj, float (&f)[2]) {
+                   const float* r = hb + (p0[j] + 8 * jj + g) * sc + k + t;
+                   f[0] = r[0]; f[1] = r[4];
+                 });
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const float e0 = expf(acum[rows[i] + g]);
+          const float e1 = expf(acum[rows[i] + g + 8]);
+#pragma unroll
+          for (int jj = 0; jj < 2; ++jj) {
+            acc[j][i][jj][0] *= e0; acc[j][i][jj][1] *= e0;
+            acc[j][i][jj][2] *= e1; acc[j][i][jj][3] *= e1;
+          }
+        }
+      }
+    }
+    // W[q][k] = (C B^T)[q][k] exp(acum_q - acum_k): the exponent masked to
+    // -1e30 (exp 0) off k <= q < lv before the exponential, as the
+    // reference masks it.
+#pragma unroll
+    for (int i = 0; i < kCbRegs; ++i) {
+      const int q = warp + 16 * i;
+      if (q >= d.lp || k4 >= d.lp) continue;
+      const float4 cv = U == 1 ? cbr[U == 1 ? i : 0] : cb_float4(i);
+      const float4 ak = *reinterpret_cast<const float4*>(acum + k4);
+      const float aq = acum[q];
+      const float vv[4] = {cv.x, cv.y, cv.z, cv.w};
+      const float kk[4] = {ak.x, ak.y, ak.z, ak.w};
+      float w[4];
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        const float rel = k4 + m <= q && q < lv ? aq - kk[m] : -1e30f;
+        w[m] = vv[m] * __expf(rel);
+      }
+      *reinterpret_cast<float4*>(ws + q * sw + k4) =
+          make_float4(w[0], w[1], w[2], w[3]);
+    }
+    __syncthreads();
+    // Phase 2: acc += W X over k < q + 16 (W is zero above the diagonal),
+    // then store the rows below S.
+    float* yb = y + (row0 * H + hh) * P;
+#pragma unroll
+    for (int j = 0; j < U; ++j) {
+      if (!live[j]) continue;
+      const int rows[2] = {q0[j], q1[j]};
+      pair_mma(acc[j][0], acc[j][1], two[j] ? min(q0[j] + 16, kv) : 0,
+               min(q1[j] + 16, kv),
+               [&](int i, int k, float (&f)[4]) {
+                 const float* r0 = ws + (rows[i] + g) * sw + k + t;
+                 f[0] = r0[0]; f[1] = r0[8 * sw]; f[2] = r0[4];
+                 f[3] = r0[8 * sw + 4];
+               },
+               [&](int k, int jj, float (&f)[2]) {
+                 const float* r = x + (k + t) * sx + p0[j] + 8 * jj + g;
+                 f[0] = r[0]; f[1] = r[4 * sx];
+               });
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        if (i == 0 && !two[j]) continue;
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          const int p = p0[j] + 8 * jj + 2 * t;
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int q = rows[i] + g + 8 * r;
+            if (q >= lv) continue;
+            float* o = yb + q * ys + p;
+            const float v0 = acc[j][i][jj][2 * r];
+            const float v1 = acc[j][i][jj][2 * r + 1];
+            if (p + 1 < P && P % 2 == 0) {
+              *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
+            } else {
+              if (p < P) o[0] = v0;
+              if (p + 1 < P) o[1] = v1;
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();                             // buffers and W free
+  }
+}
+
+// Raise a kernel's dynamic shared-memory limit once per size (not on every
+// launch, so that launches inside a CUDA graph capture set nothing).
+template <class Kernel>
+cudaError_t grant_smem(Kernel kernel, int bytes, int& granted) {
+  if (bytes <= granted) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) granted = bytes;
+  return err;
+}
+
+template <int NT>
+cudaError_t launch_state(dim3 grid, int smem, cudaStream_t s, const float* xh,
+                         const float* a, const float* bm, const float* cm,
+                         float* st, float* cbg, float* acum_g, int S, int H,
+                         int P, int N, int L, int hpb) {
+  static int granted = 48 * 1024;
+  const cudaError_t err = grant_smem(ssd_state_kernel<NT>, smem, granted);
+  if (err != cudaSuccess) return err;
+  ssd_state_kernel<NT><<<grid, kThreads, smem, s>>>(xh, a, bm, cm, st, cbg,
+                                                    acum_g, S, H, P, N, L,
+                                                    hpb);
+  return cudaGetLastError();
+}
+
+template <int U>
+cudaError_t launch_scan(dim3 grid, int smem, cudaStream_t s, const float* xh,
+                        const float* cm, const float* st, const float* cbg,
+                        const float* acum_g, float* y, int S, int H, int P,
+                        int N, int L, int hpb, int nbuf) {
+  static int granted = 48 * 1024;
+  const cudaError_t err = grant_smem(ssd_scan_kernel<U>, smem, granted);
+  if (err != cudaSuccess) return err;
+  ssd_scan_kernel<U><<<grid, kScanThreads, smem, s>>>(
+      xh, cm, st, cbg, acum_g, y, S, H, P, N, L, hpb, nbuf);
+  return cudaGetLastError();
+}
+
+// Heads per block so that about `slots` blocks cover the (head, chunk,
+// batch row) grid.
+int heads_per_block(int H, int nc, int B, int slots) {
+  const long long items = (long long)H * nc * B;
+  const long long hpb = (items + slots - 1) / slots;
+  return static_cast<int>(hpb < 1 ? 1 : (hpb > H ? H : hpb));
+}
+
+int device_attr(cudaDeviceAttr attr, int fallback) {
+  int dev = 0, v = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess
+      || cudaDeviceGetAttribute(&v, attr, dev) != cudaSuccess || v <= 0) {
+    return fallback;
+  }
+  return v;
 }
 
 }  // namespace
 
-// Bytes of dynamic shared memory the scan kernel needs at chunk L, state N.
-extern "C" int repro_ssd_scan_smem_bytes(int L, int N) {
-  return layout(L, N).total * static_cast<int>(sizeof(float));
+// Bytes of dynamic shared memory the larger kernel needs at (chunk L, P, N),
+// or 0 if the tiling does not take the shape (L > 128, or more than
+// kScanWarps * kMaxSlots scan units per (chunk, head): P > 128 at L = 128).
+extern "C" int repro_ssd_scan_smem_bytes(int L, int P, int N) {
+  if (L < 1 || L > kMaxChunk || P < 1 || N < 1) return 0;
+  const Dims d = dims(L, P, N);
+  if (scan_units(d) > kScanWarps * kMaxSlots) return 0;
+  const int state = state_smem_floats(d), scan = scan_smem_floats(d, 1);
+  return (state > scan ? state : scan) * static_cast<int>(sizeof(float));
 }
 
-// cb: scratch of B * ceil(S / L) * L * L floats.  Returns cudaGetLastError()
-// after the launches (or the attribute call's error).
+// Scratch the wrapper allocates, with lp, pp, np = L, P, N rounded up to 16
+// and nc = ceil(S / L): st B*nc*H*pp*np, cb B*nc*lp*lp and acum
+// B*nc*H*lp floats.  Returns cudaGetLastError() after the launches (or the
+// attribute call's error).
 extern "C" int repro_ssd_scan_f32(const void* xh, const void* a,
-                                  const void* bm, const void* cm, void* cb,
-                                  void* y, int B, int S, int H, int P, int N,
-                                  int L, void* stream) {
-  if (B <= 0 || H <= 0 || H > 65535 || S <= 0 || P <= 0 || N <= 0
-      || L <= 0) {
+                                  const void* bm, const void* cm, void* st,
+                                  void* cb, void* acum, void* y, int B, int S,
+                                  int H, int P, int N, int L, void* stream) {
+  const int smem_max = repro_ssd_scan_smem_bytes(L, P, N);
+  const int nc = S > 0 && L > 0 ? (S + L - 1) / L : 0;
+  if (smem_max == 0 || B <= 0 || B > 65535 || H <= 0 || S <= 0
+      || nc > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int nc = (S + L - 1) / L;
-  if ((long long)B * nc > 65535 || B > 65535) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const Dims d = dims(L, P, N);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // Raise the kernels' dynamic shared-memory limits once per size (not on
-  // every launch, so that launches inside a CUDA graph capture set nothing).
-  static int granted_scan = 48 * 1024, granted_cb = 48 * 1024;
-  const int smem = repro_ssd_scan_smem_bytes(L, N);
-  const int smem_cb = 2 * kCBT * (N + 1) * static_cast<int>(sizeof(float));
-  if (smem > granted_scan) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        ssd_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    granted_scan = smem;
-  }
-  if (smem_cb > granted_cb) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        ssd_cb_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_cb);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    granted_cb = smem_cb;
-  }
-  const int tiles = (L + kCBT - 1) / kCBT;
-  ssd_cb_kernel<<<dim3(tiles, tiles, B * nc), dim3(kCBT, kCBT), smem_cb, s>>>(
-      static_cast<const float*>(bm), static_cast<const float*>(cm),
-      static_cast<float*>(cb), S, N, L, nc);
-  const cudaError_t err = cudaGetLastError();
+  const float* xf = static_cast<const float*>(xh);
+  const float* af = static_cast<const float*>(a);
+  const float* bf = static_cast<const float*>(bm);
+  const float* cf = static_cast<const float*>(cm);
+  float* stf = static_cast<float*>(st);
+  float* cbf = static_cast<float*>(cb);
+  float* acf = static_cast<float*>(acum);
+  float* yf = static_cast<float*>(y);
+  static const int sms = device_attr(cudaDevAttrMultiProcessorCount, 132);
+  static const int smem_limit =
+      device_attr(cudaDevAttrMaxSharedMemoryPerBlockOptin, 232448);
+  const int fsize = static_cast<int>(sizeof(float));
+
+  const int smem_state = state_smem_floats(d) * fsize;
+  const int hpb_state = heads_per_block(H, nc, B, 2 * sms);
+  const dim3 grid_state((H + hpb_state - 1) / hpb_state, nc, B);
+  cudaError_t err =
+      d.np % 32 == 0
+          ? launch_state<4>(grid_state, smem_state, s, xf, af, bf, cf, stf,
+                            cbf, acf, S, H, P, N, L, hpb_state)
+          : launch_state<2>(grid_state, smem_state, s, xf, af, bf, cf, stf,
+                            cbf, acf, S, H, P, N, L, hpb_state);
   if (err != cudaSuccess) return static_cast<int>(err);
-  ssd_scan_kernel<<<dim3((P + kPT - 1) / kPT, H, B), kThreads, smem, s>>>(
-      static_cast<const float*>(xh), static_cast<const float*>(a),
-      static_cast<const float*>(bm), static_cast<const float*>(cm),
-      static_cast<const float*>(cb), static_cast<float*>(y), S, H, P, N, L);
-  return static_cast<int>(cudaGetLastError());
+
+  const int pn = d.pp * d.np;
+  ssd_pass_kernel<<<dim3((pn / 4 + kThreads - 1) / kThreads, H, B), kThreads,
+                    0, s>>>(stf, acf, S, H, L, d.lp, pn, nc);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  const int nbuf = scan_smem_floats(d, 2) * fsize <= smem_limit ? 2 : 1;
+  const int smem_scan = scan_smem_floats(d, nbuf) * fsize;
+  const int hpb = heads_per_block(H, nc, B, sms);
+  const dim3 grid((H + hpb - 1) / hpb, nc, B);
+  if (scan_units(d) <= kScanWarps) {
+    err = launch_scan<1>(grid, smem_scan, s, xf, cf, stf, cbf, acf, yf, S, H,
+                         P, N, L, hpb, nbuf);
+  } else {
+    err = launch_scan<2>(grid, smem_scan, s, xf, cf, stf, cbf, acf, yf, S, H,
+                         P, N, L, hpb, nbuf);
+  }
+  return static_cast<int>(err);
 }

@@ -19,7 +19,9 @@ __all__ = ["mix_aggregate_ref", "stc_compress_ref", "stc_threshold",
            "stc_rows_threshold", "stc_rows_reduce_ref", "stc_rows_apply_ref",
            "dol_bid_scores_ref", "dol_bid_scores_fused_ref",
            "bid_value_fuse_ref", "quant_pack_ref", "quant_unpack_ref",
-           "flash_attention_ref", "ssm_scan_ref", "ssd_scan_ref"]
+           "flash_attention_ref", "ssm_scan_ref", "ssd_scan_ref",
+           "ssd_chunk_states_ref", "ssd_state_pass_ref",
+           "ssd_chunk_output_ref", "ssd_scan_stages_ref"]
 
 
 def mix_aggregate_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -344,3 +346,79 @@ def ssd_scan_ref(xh: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
             "bkn,bkhp,bkh->bhpn", b_i, x_i, decay_k)
         ys.append(y_intra + y_state)
     return torch.cat(ys, dim=1)[:, :s]
+
+
+# The SSD scan in its state-passing form, stage by stage, as the CUDA
+# kernels (csrc/ssd_scan.cu) compute it: chunk states from zero, the carry
+# over chunks in order, then each chunk's output from its entering state.
+# ``mm`` takes every matrix product (batched ``torch.matmul`` semantics),
+# so that a test can put an emulation of the kernels' arithmetic in it.
+
+def _ssd_chunks(t: torch.Tensor, chunk: int) -> torch.Tensor:
+    """(B, S, ...) fp32 → (B, nc, chunk, ...), zeros past S."""
+    t = t.to(torch.float32)
+    pad = (-t.shape[1]) % chunk
+    if pad:
+        t = torch.nn.functional.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
+    return t.reshape(t.shape[0], -1, chunk, *t.shape[2:])
+
+
+def ssd_chunk_states_ref(xh: torch.Tensor, a: torch.Tensor,
+                         bmat: torch.Tensor, chunk: int = 128, *,
+                         mm=torch.matmul) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per chunk and head: ``acum = cumsum(a)`` over the chunk and the
+    chunk's own state from zero, ``s = Xᵀ·(exp(acum_L − acum_k) ∘ B)``.
+
+    xh (B, S, H, P), a (B, S, H), bmat (B, S, N) → acum (B, nc, H, chunk),
+    states (B, nc, H, P, N); rows past S are zeros."""
+    x_c = _ssd_chunks(xh, chunk)                          # (B,nc,L,H,P)
+    b_c = _ssd_chunks(bmat, chunk)                        # (B,nc,L,N)
+    acum = torch.cumsum(_ssd_chunks(a, chunk), dim=2).transpose(2, 3)
+    decay_k = torch.exp(acum[..., -1:] - acum)            # (B,nc,H,L)
+    states = mm(x_c.permute(0, 1, 3, 4, 2),
+                decay_k[..., None] * b_c[:, :, None])
+    return acum, states
+
+
+def ssd_state_pass_ref(states: torch.Tensor,
+                       acum: torch.Tensor) -> torch.Tensor:
+    """``h_c = exp(acum_L^c)·h_{c−1} + s_c`` over the chunks in order, from
+    zero: states (B, nc, H, P, N), acum (B, nc, H, L) → the state entering
+    each chunk (B, nc, H, P, N), zeros for the first."""
+    tot = torch.exp(acum[..., -1])[..., None, None]       # (B,nc,H,1,1)
+    h = torch.zeros_like(states[:, 0])
+    entering = torch.empty_like(states)
+    for c in range(states.shape[1]):
+        entering[:, c] = h
+        h = tot[:, c] * h + states[:, c]
+    return entering
+
+
+def ssd_chunk_output_ref(xh: torch.Tensor, acum: torch.Tensor,
+                         bmat: torch.Tensor, cmat: torch.Tensor,
+                         entering: torch.Tensor, chunk: int = 128, *,
+                         mm=torch.matmul) -> torch.Tensor:
+    """Each chunk's output, ``y = exp(acum_q)·(C·hᵀ) + (C·Bᵀ ∘ dec)·X``
+    with ``dec[q, k] = exp(acum_q − acum_k)`` on ``k ≤ q`` (masked before
+    ``exp``) and h the state entering the chunk → y (B, S, H, P)."""
+    b, s, h, p = xh.shape
+    x_c = _ssd_chunks(xh, chunk).transpose(2, 3)          # (B,nc,H,L,P)
+    b_c = _ssd_chunks(bmat, chunk)                        # (B,nc,L,N)
+    c_c = _ssd_chunks(cmat, chunk)
+    cb = mm(c_c, b_c.transpose(-1, -2))[:, :, None]       # (B,nc,1,L,L)
+    ltri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                 device=xh.device))
+    rel = acum[..., :, None] - acum[..., None, :]         # (B,nc,H,L,L)
+    dec = torch.exp(torch.where(ltri, rel, -1e30))
+    y = mm(cb * dec, x_c) + torch.exp(acum)[..., None] * mm(
+        c_c[:, :, None], entering.transpose(-1, -2))
+    return y.transpose(2, 3).reshape(b, -1, h, p)[:, :s]
+
+
+def ssd_scan_stages_ref(xh: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
+                        cmat: torch.Tensor, chunk: int = 128, *,
+                        mm=torch.matmul) -> torch.Tensor:
+    """:func:`ssd_scan_ref`'s function through the three stages."""
+    acum, states = ssd_chunk_states_ref(xh, a, bmat, chunk, mm=mm)
+    entering = ssd_state_pass_ref(states, acum)
+    return ssd_chunk_output_ref(xh, acum, bmat, cmat, entering, chunk, mm=mm)

@@ -6,16 +6,29 @@ xh (B, S, H, P), per-step log decays a (B, S, H) and projections b, c
 (B, S, N), all fp32, the output y (B, S, H, P) of
 ``h_t = exp(a_t)·h_{t−1} + xh_t ⊗ b_t``, ``y_t = h_t · c_t``, in the
 chunked form (intra-chunk ``(C·Bᵀ ∘ decay-tril)·X`` plus the carried
-state) with chunk length ``chunk``; S need not be a multiple of it.  The
-kernel is hand-written CUDA C++ for ``sm_90a`` (``csrc/ssd_scan.cu``): one
-launch forms each chunk's C·Bᵀ once per batch row into a scratch tensor the
-wrapper allocates, a second gives one block to (b, h, 16 rows of P) and
-walks the chunks in order; the plain version is
-:func:`repro_torch.kernels.ref.ssd_scan_ref`.  The wrapper takes CUDA
-tensors only, checks them, allocates the output, launches on PyTorch's
+state) with chunk length ``chunk`` ≤ 128; S need not be a multiple of it.
+
+The kernels are hand-written CUDA C++ for ``sm_90a`` (``csrc/ssd_scan.cu``),
+SSD's state-passing form with the chunks in parallel and every product on
+the tensor cores in 3×TF32 (fp32 operands split into two TF32 halves).
+What bounds them on an H100 is bytes: at zamba2's shape (1, 4096, 80, 64,
+64, 128) xh in and y out are 171 MB with a, b and c, 0.051 ms at
+3.35 TB/s, against 0.049 ms for the products at the TF32 peak.  One
+wrapper call makes three launches: ``ssd_state_kernel`` (each chunk's
+cumulative decay and its state from zero, per head, plus C·Bᵀ once per
+chunk for all heads), ``ssd_pass_kernel`` (the carry over the chunks in
+order) and ``ssd_scan_kernel`` (each chunk's output from its entering
+state and its decayed C·Bᵀ).  The plain versions are
+:func:`repro_torch.kernels.ref.ssd_scan_ref` and, stage by stage,
+``ref.ssd_chunk_states_ref``, ``ref.ssd_state_pass_ref`` and
+``ref.ssd_chunk_output_ref``.
+
+The wrapper takes CUDA tensors only, checks them, allocates the output and
+the scratch (the chunk states, B·⌈S/chunk⌉·H·P·N floats at the tile
+padding; C·Bᵀ per chunk; the cumulative decays), launches on PyTorch's
 current stream, raises on a launch error and adds one to each launch's
-count: ``LAUNCHES["ssd_scan_cb"]`` (the C·Bᵀ kernel) and
-``LAUNCHES["ssd_scan"]`` (the scan kernel).
+count: ``LAUNCHES["ssd_scan_state"]``, ``LAUNCHES["ssd_scan_pass"]`` and
+``LAUNCHES["ssd_scan"]``.
 """
 from __future__ import annotations
 
@@ -28,6 +41,10 @@ __all__ = ["ssd_scan_cuda", "SMEM_LIMIT"]
 
 #: Shared memory one block may use on an H100 (bytes).
 SMEM_LIMIT = 232_448
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
 
 
 def ssd_scan_cuda(xh: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
@@ -45,27 +62,34 @@ def ssd_scan_cuda(xh: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
         raise ValueError(f"ssd_scan shapes do not match: xh {tuple(xh.shape)}"
                          f", a {tuple(a.shape)}, b {tuple(bmat.shape)}, "
                          f"c {tuple(cmat.shape)}")
-    if b > 65535 or h > 65535 or s == 0 or chunk < 1:
-        raise ValueError(f"ssd_scan kernel takes B, H <= 65535, S > 0 and "
-                         f"chunk >= 1, got {tuple(xh.shape)}, chunk {chunk}")
+    nc = -(-s // chunk) if chunk >= 1 else 0
+    if b > 65535 or s == 0 or p == 0 or n == 0 or not 1 <= chunk <= 128 \
+            or nc > 65535:
+        raise ValueError(f"ssd_scan kernel takes B <= 65535, S, P, N > 0, "
+                         f"1 <= chunk <= 128 and ⌈S/chunk⌉ <= 65535, got "
+                         f"{tuple(xh.shape)}, N {n}, chunk {chunk}")
     lib = build.load("ssd_scan")
-    smem = lib.repro_ssd_scan_smem_bytes(int32(chunk, "chunk"), int32(n, "N"))
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"ssd_scan at chunk {chunk}, N {n} needs {smem} "
-                         f"bytes of shared memory (> {SMEM_LIMIT})")
-    if b * -(-s // chunk) > 65535:
-        raise ValueError(f"ssd_scan kernel takes B·⌈S/chunk⌉ <= 65535, got "
-                         f"{tuple(xh.shape)}, chunk {chunk}")
+    smem = lib.repro_ssd_scan_smem_bytes(chunk, int32(p, "P"), int32(n, "N"))
+    if smem == 0 or smem > SMEM_LIMIT:
+        raise ValueError(f"ssd_scan kernel does not take chunk {chunk}, P {p}"
+                         f", N {n} (shared memory {smem} bytes, limit "
+                         f"{SMEM_LIMIT}; at most 32 tiles of 16 x 32 per "
+                         f"chunk and head)")
+    lp, pp, np_ = (_round_up(v, 16) for v in (chunk, p, n))
+    f32 = dict(device=xh.device, dtype=torch.float32)
     y = torch.empty_like(xh)
-    cb = torch.empty((b, -(-s // chunk), chunk, chunk), device=xh.device,
-                     dtype=torch.float32)
+    states = torch.empty((b, nc, h, pp, np_), **f32)
+    cb = torch.empty((b, nc, lp, lp), **f32)
+    acum = torch.empty((b, nc, h, lp), **f32)
     with torch.cuda.device(xh.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.repro_ssd_scan_f32(
             xh.data_ptr(), a.data_ptr(), bmat.data_ptr(), cmat.data_ptr(),
-            cb.data_ptr(), y.data_ptr(), int32(b, "B"), int32(s, "S"),
-            int32(h, "H"), int32(p, "P"), n, chunk, stream)
+            states.data_ptr(), cb.data_ptr(), acum.data_ptr(), y.data_ptr(),
+            int32(b, "B"), int32(s, "S"), int32(h, "H"), p, n,
+            chunk, stream)
     raise_on(err, "ssd_scan")
-    LAUNCHES["ssd_scan_cb"] += 1
+    LAUNCHES["ssd_scan_state"] += 1
+    LAUNCHES["ssd_scan_pass"] += 1
     LAUNCHES["ssd_scan"] += 1
     return y

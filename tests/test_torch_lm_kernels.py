@@ -181,5 +181,5 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         ssd_scan_cuda(x, torch.zeros((1, 8, 2)), torch.zeros((1, 8, 4)),
                       torch.zeros((1, 8, 4)))
-    assert set(LAUNCHES) >= {"flash_attention", "ssm_scan", "ssd_scan_cb",
-                             "ssd_scan"}
+    assert set(LAUNCHES) >= {"flash_attention", "ssm_scan", "ssd_scan_state",
+                             "ssd_scan_pass", "ssd_scan"}

@@ -1,0 +1,184 @@
+"""The SSD scan's state-passing form (the stages the CUDA kernels compute)
+against the JAX package, on the CPU.
+
+``repro_torch.kernels.ref``'s ``ssd_chunk_states_ref``,
+``ssd_state_pass_ref`` and ``ssd_chunk_output_ref`` compose to the SSD
+scan: held to ``repro.kernels.ssd_scan.ssd_scan_ref`` (the sequential
+oracle), ``repro.models.ssm._ssd_chunk_scan`` (the model layer's chunked
+form) and ``ssd_scan_pallas`` in interpret mode, within atol 5e-5 / rtol
+1e-4 (the reference's bars for its SSD kernel), on the existing four shapes,
+a near-unit decay (a ≈ −1e-3: the state grows over many chunks) and
+zamba2's width at S = 256.
+
+The CUDA kernels run every product in 3×TF32: each fp32 operand x is split
+into hi = tf32(x) and lo = tf32(x − hi), both cut from the bits toward zero
+(the 13 low mantissa bits cleared; x − hi is exact in fp32), and lo·hi +
+hi·lo + hi·hi accumulate in fp32.  An emulation (the same bit operations; a
+product of two TF32 values is exact in fp32) shows that this keeps the
+stages inside the card's bar, 5e-5·(1 + max|y|) against ``ssd_scan_ref``,
+at zamba2's width, where a single TF32 pass does not.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels.ssd_scan import ssd_scan_ref as j_ssd_seq
+from repro.models.ssm import _ssd_chunk_scan
+from repro_torch.kernels import ref as tref
+
+ZAMBA2 = (1, 256, 80, 64, 64, 128)      # (B, S, H, P, N, chunk), S cut
+BAR = 5e-5                              # chip_smoke.py's ssd_scan bar
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+def _inputs(shape, kind: str, seed: int):
+    """numpy fp32 (xh, a, b, c).  "plain": the reference tests' inputs;
+    "model": the zoo's streams (Δ = softplus, a = −Δ·A with A in [1, 16]
+    by head, x scaled by Δ, b and c through SiLU); "unit": a ≈ −1e-3."""
+    b, s, h, p, n, _ = shape
+    rng = np.random.default_rng(seed)
+    xh = rng.normal(size=(b, s, h, p))
+    bm = rng.normal(size=(b, s, n))
+    cm = rng.normal(size=(b, s, n))
+    if kind == "plain":
+        a = -rng.uniform(size=(b, s, h)) * 0.5
+    elif kind == "unit":
+        a = -1e-3 * rng.uniform(0.5, 1.5, size=(b, s, h))
+    else:
+        z = 0.5 * rng.normal(size=(b, s, h)) - 1.0
+        dt = np.logaddexp(0.0, z)
+        a = -dt * np.exp(np.linspace(0.0, np.log(16.0), h))
+        xh = xh * dt[..., None]
+        bm, cm = (v / (1.0 + np.exp(-v)) for v in (bm, cm))
+    return [x.astype(np.float32) for x in (xh, a, bm, cm)]
+
+
+CASES = [
+    ((1, 64, 4, 16, 8, 16), "plain"),
+    ((2, 100, 6, 8, 4, 32), "plain"),     # S not a multiple of the chunk
+    ((1, 33, 2, 20, 8, 8), "plain"),      # ragged chunk, P not a multiple of 16
+    ((1, 40, 3, 16, 16, 128), "plain"),   # one chunk longer than S
+    ((1, 300, 3, 16, 8, 16), "unit"),     # 19 chunks at near-unit decay
+    (ZAMBA2, "model"),
+]
+
+
+@pytest.mark.parametrize("shape,kind", CASES, ids=str)
+def test_ssd_stages_match_reference(shape, kind):
+    b, s, h, p, n, chunk = shape
+    inputs = _inputs(shape, kind, seed=sum(shape))
+    t_in = [torch.from_numpy(x) for x in inputs]
+    j_in = [jnp.asarray(x) for x in inputs]
+    got = tref.ssd_scan_stages_ref(*t_in, chunk=chunk)
+    assert got.shape == (b, s, h, p) and got.dtype == torch.float32
+    seq = j_ssd_seq(*j_in)
+    chunked, _ = _ssd_chunk_scan(*j_in, jnp.zeros((b, h, p, n), jnp.float32),
+                                 chunk)
+    pallas = jops.ssd_scan(*j_in, implementation="pallas_interpret")
+    for other in (seq, chunked, pallas):
+        np.testing.assert_allclose(got.numpy(), np.asarray(other), atol=5e-5,
+                                   rtol=1e-4)
+    # The stages and the one-piece plain version compute one function.
+    torch.testing.assert_close(got, tref.ssd_scan_ref(*t_in, chunk),
+                               atol=5e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("shape,kind", [((1, 96, 3, 16, 8, 16), "plain"),
+                                        ((2, 128, 2, 8, 16, 32), "unit")],
+                         ids=str)
+def test_ssd_state_pass_carries_the_final_state(shape, kind):
+    """The state entering each chunk, carried once more, is the model
+    layer's final state ``h_last``; the first chunk enters at zero."""
+    b, s, h, p, n, chunk = shape
+    inputs = _inputs(shape, kind, seed=7)
+    t_in = [torch.from_numpy(x) for x in inputs]
+    acum, states = tref.ssd_chunk_states_ref(t_in[0], t_in[1], t_in[2], chunk)
+    assert acum.shape == (b, s // chunk, h, chunk)
+    assert states.shape == (b, s // chunk, h, p, n)
+    entering = tref.ssd_state_pass_ref(states, acum)
+    assert float(entering[:, 0].abs().max()) == 0.0
+    last = (torch.exp(acum[:, -1, :, -1])[..., None, None] * entering[:, -1]
+            + states[:, -1])
+    _, h_last = _ssd_chunk_scan(*(jnp.asarray(x) for x in inputs),
+                                jnp.zeros((b, h, p, n), jnp.float32), chunk)
+    np.testing.assert_allclose(last.numpy(), np.asarray(h_last), atol=5e-5,
+                               rtol=1e-4)
+
+
+# ------------------------------------------------------------ TF32 emulation
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """fp32 → TF32 as the kernels cut it: the 13 low mantissa bits
+    cleared (toward zero)."""
+    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _mm_1xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.matmul(_tf32(a), _tf32(b))
+
+
+def _mm_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+    return (torch.matmul(a_lo, b_hi) + torch.matmul(a_hi, b_lo)
+            + torch.matmul(a_hi, b_hi))
+
+
+def test_tf32_split_cuts_toward_zero():
+    ulp = 2.0 ** -10                       # TF32's at 1
+    x = torch.tensor([1.0 + ulp * 0.75, -(1.0 + ulp * 0.75), 1.0 + ulp, 3.0,
+                      0.0], dtype=torch.float32)
+    assert _tf32(x).tolist() == [1.0, -1.0, 1.0 + ulp, 3.0, 0.0]
+    # hi keeps 11 significant bits, hi + lo ~21: the error of the split
+    # operand is at most 2^-20 relative.
+    rng = np.random.default_rng(0)
+    v = torch.from_numpy(rng.normal(size=4096).astype(np.float32))
+    hi = _tf32(v)
+    assert int((hi.view(torch.int32) & 0x1FFF).abs().max()) == 0
+    assert float(((v - hi).abs() / v.abs()).max()) < 2.0 ** -10
+    two = hi + _tf32(v - hi)
+    assert float(((v - two).abs() / v.abs()).max()) < 2.0 ** -20
+
+
+@pytest.mark.parametrize("kind", ["model", "unit"])
+def test_3xtf32_holds_the_bar_and_1xtf32_does_not(kind):
+    """The stages with every product emulated in 3×TF32 stay inside the
+    card's bar against the plain version at zamba2's width; one TF32 pass
+    does not."""
+    chunk = ZAMBA2[-1]
+    t_in = [torch.from_numpy(x) for x in _inputs(ZAMBA2, kind, seed=11)]
+    plain = tref.ssd_scan_ref(*t_in, chunk)
+    tol = BAR * (1.0 + float(plain.abs().max()))
+    err3 = float((tref.ssd_scan_stages_ref(*t_in, chunk, mm=_mm_3xtf32)
+                  - plain).abs().max())
+    err1 = float((tref.ssd_scan_stages_ref(*t_in, chunk, mm=_mm_1xtf32)
+                  - plain).abs().max())
+    assert err3 <= tol / 10, (err3, tol)
+    assert err1 > tol, (err1, tol)
+
+
+def test_state_one_chunk_late_fails_the_bar():
+    """The planted fault of chip_smoke.py's near-unit-decay row: the state
+    entering each chunk applied one chunk late must fail the bar."""
+    shape = (1, 512, 4, 16, 16, 128)
+    b, s, h, p, n, chunk = shape
+    xh, a, bm, cm = (torch.from_numpy(x) for x in _inputs(shape, "unit", 3))
+    plain = tref.ssd_scan_ref(xh, a, bm, cm, chunk)
+    acum, states = tref.ssd_chunk_states_ref(xh, a, bm, chunk)
+    entering = tref.ssd_state_pass_ref(states, acum)
+    late = torch.cat([torch.zeros_like(entering[:, :1]), entering[:, :-1]],
+                     dim=1)
+    tol = BAR * (1.0 + float(plain.abs().max()))
+    good = tref.ssd_chunk_output_ref(xh, acum, bm, cm, entering, chunk)
+    bad = tref.ssd_chunk_output_ref(xh, acum, bm, cm, late, chunk)
+    assert float((good - plain).abs().max()) <= tol
+    assert float((bad - plain).abs().max()) > 100 * tol
