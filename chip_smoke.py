@@ -19,9 +19,17 @@ nothing of JAX.  Phases, each of which fails loudly:
    size, 2^24 and 155,582,464 (qwen3_0_6b's tied embedding) on tie-free
    data: count == k, the exact-k plain STC's support, μ within 1e-5
    relative of the plain version's and of a float64 sum, apply bit-exact.
-   Both STC paths (``stc_rows``, ``stc_reduce`` / ``stc_apply``) also run
-   rows where magnitudes tie at τ, including τ = 0: exactly the k entries
-   ``lax.top_k`` keeps, bit-equal to their plain versions, the exact-k μ;
+   ``stc_fused`` (one cluster launch per leaf of n ≤ N_FUSED, τ selected
+   on the card) runs at every fcn leaf size, 16383, an unaligned view,
+   50152 and N_FUSED: τ bit-equal to ``stc_threshold``'s, the plain count,
+   ``out`` bit-equal to ``stc_apply_ref`` at ``stc_mu_ref``'s μ, the
+   exact-k support, μ within 1e-5 of a float64 mean, the same bits on two
+   calls; ``ms`` beside ``chain_ms``, the chain it replaces.  All three
+   STC paths (``stc_rows``, ``stc_reduce`` / ``stc_apply``,
+   ``stc_fused``) also run rows where magnitudes tie at τ, including
+   τ = 0: exactly the k entries ``lax.top_k`` keeps, bit-equal to their
+   plain versions, the exact-k μ; ``stc_fused`` run with k − 1 (a planted
+   fault) must fail the exact-k support check;
 3. the main path — ``run_experiment`` on the fleet plane: the quickstart
    configuration (fcn, α=0.3, 6000 samples, N=M=8, 8 rounds) for fedavg,
    feddif with the host planner and feddif with the device planner
@@ -47,15 +55,22 @@ nothing of JAX.  Phases, each of which fails loudly:
    quickstart's fedavg and feddif (FedDif's peak must beat FedAvg's), two
    rounds each of stc, feddif_stc, fedswap, d2d_random_walk, fedprox and
    feddif_prox, gossip (2 rounds) and tthf (4 rounds) on both planes, and
-   feddif with int8 hops.  On the host plane ``stc_reduce`` / ``stc_apply``
-   must launch once per compressed leaf (per hop or uplink the ledger
-   counts), ``mix_aggregate`` and ``stc_rows_*`` never; on the fleet plane
+   feddif with int8 hops.  On the host plane ``stc_fused`` must launch
+   once per compressed leaf (per hop or uplink the ledger counts; every
+   fcn leaf fits N_FUSED) and ``stc_reduce`` / ``stc_apply``,
+   ``mix_aggregate`` and ``stc_rows_*`` never; on the fleet plane
    ``mix_aggregate`` once per MixOp plus once per round; int8 hops launch
-   the quant kernels once per slot per PermuteOp;
+   the quant kernels once per slot per PermuteOp.  Then, apart from those
+   runs and with its launches counted apart, the host plane's STC entry
+   point on leaves on both sides of N_FUSED must route each leaf of
+   n ≤ N_FUSED to ``stc_fused`` and each larger one to the
+   ``stc_reduce`` / ``stc_apply`` chain;
 4. a small feddif_stc run on each plane and a small lm int8 run on the
    card against the
    same runs on the CPU (plain versions) from one init: equal ledgers,
-   params within the fleet plane's tolerance; the host plane against the
+   params within the fleet plane's tolerance (the host-plane card run
+   launching ``stc_fused`` once per compressed leaf); the host plane
+   against the
    fleet plane on the card (feddif/fcn, N=M=8, 2 rounds, one init: equal
    ledgers, params within atol 2e-4, rtol 2e-3); then the device planner on
    the card (with its
@@ -65,7 +80,8 @@ nothing of JAX.  Phases, each of which fails loudly:
    plans must be equivalent (same rounds, same hop count, total Eq.-17
    decrement within 1e-6 relative);
 5. a measurement, not a check: one FedDif round with each planner, one on
-   the host plane, and one of the lm int8 arm, under ``torch.profiler``
+   the host plane, one feddif_stc round on the host plane, and one of the
+   lm int8 arm, under ``torch.profiler``
    (device busy time,
    idle share, kernel count, top kernels);
 6. the LM zoo's prefill forward at the published widths: flash_attention,
@@ -495,7 +511,103 @@ def check_stc_compress(torch, kref, port) -> list[dict]:
         rows.append(row)
         del x, out, plain
         torch.cuda.empty_cache()
+    rows += check_stc_fused(torch, kref, ks, gen, sizes)
     _stc_ties(torch, kref, ks, gen)
+    return rows
+
+
+def _stc_chain(kref, ks, x, k):
+    """The per-leaf chain ``stc_fused`` replaces: τ by ``torch.topk``, then
+    the ``stc_reduce`` and ``stc_apply`` kernels."""
+    def chain():
+        thr = kref.stc_threshold(x, STC_SPARSITY)
+        ssum, cnt, ties = ks.stc_reduce_cuda(x, thr)
+        return ks.stc_apply_cuda(x, thr, ssum, cnt, ties, k)
+    return chain
+
+
+def _stc_fused_verdict(torch, kref, x, k, got, mu64=None) -> dict:
+    """The bars of one ``stc_fused`` call ``got = (out, thr, ssum, cnt)``:
+    τ bit-equal to ``stc_threshold``'s, the count equal to the plain
+    count, ``out`` bit-equal to ``stc_apply_ref`` at ``stc_mu_ref``'s μ
+    from the kernel's (sum, count, τ), the support of the exact-k STC of
+    record, and μ within 1e-5 relative of the exact-k μ in float64."""
+    out, thr, ssum, cnt = got
+    want_thr = torch.topk(x.abs(), k).values[k - 1:k]     # stc_threshold's
+    p_sum, p_cnt = kref.stc_reduce_ref(x, thr)
+    plain = kref.stc_apply_ref(x, thr, kref.stc_mu_ref(ssum, cnt, thr, k), k)
+    exact_k = kref.stc_compress_ref(x, STC_SPARSITY)
+    if mu64 is None:
+        mu64 = float(torch.topk(x.abs().double(), k).values.mean())
+    torch.cuda.synchronize()
+    mu = float(out.abs().max())
+    rel = abs(mu - mu64) / mu64 if mu64 else abs(mu)
+    v = {"tau_bit_equal": bool(torch.equal(thr.view(torch.int32),
+                                           want_thr.view(torch.int32))),
+         "count": int(cnt[0]), "count_plain": int(p_cnt[0]),
+         "out_bit_equal": bool(torch.equal(out.view(torch.int32),
+                                           plain.view(torch.int32))),
+         "same_support_as_exact_k": bool(torch.equal(out != 0,
+                                                     exact_k != 0)),
+         "sent": int((out != 0).sum()), "sent_exact_k":
+             int((exact_k != 0).sum()),
+         "mu_rel_err": rel, "mu_rel_tol": 1e-5,
+         "max_abs_err": float((out - plain).abs().max())}
+    v["ok"] = (v["tau_bit_equal"] and v["count"] == v["count_plain"]
+               and v["out_bit_equal"] and v["same_support_as_exact_k"]
+               and rel <= 1e-5)
+    return v
+
+
+def check_stc_fused(torch, kref, ks, gen, sizes) -> list[dict]:
+    """Phase 2, ``stc_fused`` — the host plane's STC of a leaf of
+    n ≤ N_FUSED in one launch — at every fcn leaf size, at 16383 (ragged),
+    on an unaligned view (``flat[1:]`` of 16385), at 50152 (a ragged
+    cluster of 4) and at N_FUSED (a cluster of 8), on tie-free data.  Each
+    row must pass ``_stc_fused_verdict``'s bars and give the same bits on
+    two calls.  Times: ``ms`` (the kernel, a CUDA graph of calls),
+    ``chain_ms`` (the chain it replaces — ``stc_threshold``,
+    ``stc_reduce_cuda``, ``stc_apply_cuda`` — in one graph at the same n),
+    ``plain_ms`` (``stc_fused_ref``), ``call_ms`` (host-inclusive per
+    wrapper call) and ``bound_ms`` (8n + 16 bytes)."""
+    from repro_torch.kernels import build
+    if build.load("stc_compress").repro_stc_fused_max_n() != ks.N_FUSED:
+        _fail("stc_fused: the library's N_FUSED differs from the wrapper's")
+    rows = []
+    cases = [(n, "aligned") for n in sizes]
+    cases += [(16383, "aligned"), (16384, "unaligned"), (50152, "aligned"),
+              (ks.N_FUSED, "aligned")]
+    for n, layout in cases:
+        k = max(1, int(n * STC_SPARSITY))
+        if layout == "unaligned":
+            x = _stc_tie_free(torch, gen, n + 1)[1:]
+            if x.data_ptr() % 16 == 0:
+                _fail("stc_fused: the unaligned view is aligned")
+        else:
+            x = _stc_tie_free(torch, gen, n)
+        got = ks.stc_fused_cuda(x, k)
+        again = ks.stc_fused_cuda(x, k)
+        torch.cuda.synchronize()
+        repeat = all(bool(torch.equal(a.view(torch.int32),
+                                      b.view(torch.int32)))
+                     for a, b in zip(got, again))
+        v = _stc_fused_verdict(torch, kref, x, k, got)
+        bound, by = _bound(8.0 * n + 16.0, 4.0 * n)
+        times = _timings(torch, lambda: ks.stc_fused_cuda(x, k),
+                         lambda: kref.stc_fused_ref(x, k))
+        chain_ms, chain_err = _device_ms(torch, _stc_chain(kref, ks, x, k))
+        row = {"name": "stc_fused", "shape": [n], "layout": layout, "k": k,
+               "ctas": -(-n // 16384), **v, "same_bits_twice": repeat,
+               "tol": 0.0, **times, "chain_ms": chain_ms,
+               **({"chain_device_error": chain_err} if chain_err else {}),
+               "bound_ms": bound, "bound_by": by}
+        row["ok"] = bool(v["ok"] and repeat)
+        if layout != "aligned":
+            row["inputs"] = layout
+        print(json.dumps(row))
+        if not row["ok"]:
+            _fail(f"stc_fused [{n}] {layout}: {json.dumps(row)}")
+        rows.append(row)
     return rows
 
 
@@ -544,6 +656,39 @@ def _stc_ties(torch, kref, ks, gen) -> None:
         print(json.dumps(row))
         if not row["ok"]:
             _fail(f"stc ties ({case}): {json.dumps(row)}")
+
+        mu64 = float(exact_k.abs().max().double())
+        got = ks.stc_fused_cuda(x, k)
+        v = _stc_fused_verdict(torch, kref, x, k, got, mu64)
+        v["ok"] = bool(v["ok"] and v["sent"] == v["sent_exact_k"]
+                       and (float(got[1][0]) == 0.0 if case == "tau_zero"
+                            else v["count"] - k == 3 and v["sent"] == k))
+        print(json.dumps({"name": "stc_fused_ties", "case": case,
+                          "shape": [n], "k": k, "tau": float(got[1][0]),
+                          **v}))
+        if not v["ok"]:
+            _fail(f"stc_fused ties ({case}): {json.dumps(v)}")
+        # A planted fault: the kernel run with k - 1 keeps one entry too
+        # few, which the exact-k support check must reject (at τ = 0 the
+        # kept entries still cover every nonzero, so the control runs on
+        # the tie at τ > 0 and on a tie-free leaf).
+        if case == "tied_at_tau":
+            for label, xc in (("tied_at_tau", x),
+                              ("tie_free", _stc_tie_free(torch, gen, n))):
+                c = _stc_fused_verdict(torch, kref, xc, k,
+                                       ks.stc_fused_cuda(xc, k - 1))
+                print(json.dumps({"name": "stc_fused_control",
+                                  "control": "k_minus_1", "case": label,
+                                  "shape": [n], "k": k,
+                                  "same_support_as_exact_k":
+                                      c["same_support_as_exact_k"],
+                                  "sent": c["sent"],
+                                  "sent_exact_k": c["sent_exact_k"],
+                                  "must_fail": True,
+                                  "failed": not c["ok"]}))
+                if c["ok"] or c["same_support_as_exact_k"]:
+                    _fail(f"stc_fused control k-1 ({label}) passed the "
+                          "exact-k support check")
 
 
 def _stc_rows_ties(torch, kd, kref, gen) -> None:
@@ -1047,11 +1192,11 @@ def host_plane_path(torch, kd, port) -> dict:
     default) through run_experiment on the card — the quickstart pair,
     two rounds of the STC arms and of the other four strategies, gossip and
     TT-HF on both planes, and int8 hops.  Checks: finite params; FedDif's
-    peak accuracy beats FedAvg's; on the host plane ``stc_reduce`` and
-    ``stc_apply`` launch once per compressed leaf (per hop for
-    feddif_stc, per uplink for stc, as the ledger counts them) and
-    ``stc_rows_*`` and ``mix_aggregate`` never (MixOps and Eq. 11 are plain
-    tensor ops there); on the fleet plane ``mix_aggregate`` launches once
+    peak accuracy beats FedAvg's; on the host plane ``stc_fused`` launches
+    once per compressed leaf (per hop for feddif_stc, per uplink for stc,
+    as the ledger counts them; every fcn leaf fits N_FUSED), and
+    ``stc_reduce``, ``stc_apply``, ``stc_rows_*`` and ``mix_aggregate``
+    never (MixOps and Eq. 11 are plain tensor ops there); on the fleet plane ``mix_aggregate`` launches once
     per MixOp plus once per round; int8 hops launch the quant kernels once
     per slot per PermuteOp."""
     from repro_torch.tree import tree_leaves
@@ -1091,11 +1236,14 @@ def host_plane_path(torch, kd, port) -> dict:
         elif st == "feddif_stc":
             compressions = (led["transmitted_models"]
                             - led["uplink_models"]) * leaves
-        if counts["stc_reduce"] != compressions or \
-                counts["stc_apply"] != compressions:
-            _fail(f"{name}: stc_reduce / stc_apply launched "
-                  f"{counts['stc_reduce']} / {counts['stc_apply']} times, "
-                  f"the schedules imply {compressions}")
+        # Every fcn leaf fits N_FUSED: one stc_fused launch per compressed
+        # leaf, and the reduce / apply chain never.
+        if counts["stc_fused"] != compressions or counts["stc_reduce"] or \
+                counts["stc_apply"]:
+            _fail(f"{name}: stc_fused / stc_reduce / stc_apply launched "
+                  f"{counts['stc_fused']} / {counts['stc_reduce']} / "
+                  f"{counts['stc_apply']} times, the schedules imply "
+                  f"{compressions} / 0 / 0")
         if "stc" in st and compressions == 0:
             _fail(f"{name}: no STC compression was driven")
         mixes = sum(1 + (st == "tthf" and (t + 1) % 4 == 0)
@@ -1125,6 +1273,41 @@ def host_plane_path(torch, kd, port) -> dict:
         _fail(f"host plane: FedDif peak accuracy {feddif} does not beat "
               f"FedAvg {fedavg}")
     return launches
+
+
+def stc_routing(torch, kd) -> dict:
+    """Phase 3c, the host plane's STC entry point
+    (``fl.compression.stc_compress``, what the host executor calls per
+    slot) on a delta tree with leaves on both sides of N_FUSED: every leaf
+    of n ≤ N_FUSED must take one ``stc_fused`` launch, every larger leaf
+    the ``stc_threshold`` + ``stc_reduce`` + ``stc_apply`` chain, and each
+    leaf must equal the plain STC's support.  No FL task here has a leaf
+    past N_FUSED, so this is where the chain's kernels run on a path; its
+    launches are returned apart from the main path's."""
+    from repro_torch.fl.compression import stc_compress
+    from repro_torch.kernels import ref as kref
+    from repro_torch.kernels.stc_compress import N_FUSED
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    sizes = (10, 16384, N_FUSED, N_FUSED + 1, 2 ** 24)
+    tree = {f"w{n}": _stc_tie_free(torch, gen, n) for n in sizes}
+    kd.reset_launch_counts()
+    out = stc_compress(tree, STC_SPARSITY)
+    torch.cuda.synchronize()
+    counts = dict(kd.LAUNCHES)
+    fused = sum(n <= N_FUSED for n in sizes)
+    support = all(bool(torch.equal(out[key] != 0, kref.stc_compress_ref(
+        x, STC_SPARSITY) != 0)) for key, x in tree.items())
+    row = {"check": "host-plane STC routing", "leaves": list(sizes),
+           "n_fused": N_FUSED, "launches": {k: counts[k] for k in (
+               "stc_fused", "stc_reduce", "stc_apply")},
+           "same_support_as_exact_k": support}
+    row["ok"] = bool(support and counts["stc_fused"] == fused
+                     and counts["stc_reduce"] == counts["stc_apply"]
+                     == len(sizes) - fused)
+    print(json.dumps(row))
+    if not row["ok"]:
+        _fail(f"host-plane STC routing: {json.dumps(row)}")
+    return counts
 
 
 def host_vs_fleet(torch, port) -> None:
@@ -1175,14 +1358,27 @@ def card_vs_cpu(torch, port, executor: str = "fleet") -> None:
         fl=port.FLConfig(executor=executor, strategy=strategy, rounds=rounds,
                          num_clients=clients, num_models=clients, seed=0,
                          topology_seed=3))
+    from repro_torch.kernels.launch import LAUNCHES, reset_launch_counts
     model = port.build_task_model(task)
     init = port.params_to_numpy(model.init(torch.Generator().manual_seed(0)))
+    reset_launch_counts()
     gpu = port.run_experiment(
         spec, init_fn=lambda g: port.params_from_numpy(init))
+    torch.cuda.synchronize()
+    counts = dict(LAUNCHES)
     cpu = port.run_experiment(
         spec, device="cpu", init_fn=lambda g: port.params_from_numpy(init))
     if gpu.ledger.as_dict() != cpu.ledger.as_dict():
         _fail("card and CPU runs charge different ledgers")
+    if executor == "host":
+        led = gpu.ledger.as_dict()
+        want = (led["transmitted_models"] - led["uplink_models"]) * len(
+            tree_leaves(init))
+        if (counts["stc_fused"] != want or counts["stc_reduce"]
+                or counts["stc_apply"] or want == 0):
+            _fail(f"card_vs_cpu host: stc_fused / stc_reduce / stc_apply "
+                  f"launched {counts['stc_fused']} / {counts['stc_reduce']} "
+                  f"/ {counts['stc_apply']} times, want {want} / 0 / 0")
     err = 0.0
     for a, b in zip(tree_leaves(gpu.final_params),
                     tree_leaves(cpu.final_params)):
@@ -1193,7 +1389,8 @@ def card_vs_cpu(torch, port, executor: str = "fleet") -> None:
     print(json.dumps({"check": f"card_vs_cpu {strategy}/{task}",
                       "executor": executor, "max_abs_err": err,
                       "atol": 2e-4, "rtol": 2e-3,
-                      "accuracy": [gpu.accuracy, cpu.accuracy]}))
+                      "accuracy": [gpu.accuracy, cpu.accuracy],
+                      "launches": {k: v for k, v in counts.items() if v}}))
 
 
 def lm_card_vs_cpu(torch, port) -> None:
@@ -1307,10 +1504,11 @@ def planners_card_vs_cpu(torch) -> None:
 
 def profile_round(torch, port, planner: str = "host",
                   weight: float = 0.0, lm_int8: bool = False,
-                  executor: str = "fleet") -> None:
+                  executor: str = "fleet", strategy: str = "feddif") -> None:
     """Phase 5 (a measurement, not a check): one FedDif round under
     torch.profiler — of the quickstart cell on the fleet plane with the
-    host or the device planner or on the host plane, or of the lm_hops
+    host or the device planner or on the host plane (FedDif, or
+    feddif_stc, whose hops go through ``stc_fused``), or of the lm_hops
     adapter_int8 arm — device busy time (the
     union of kernel intervals), idle share of the span from the first to
     the last kernel, kernel count and the kernels with the most device
@@ -1323,12 +1521,12 @@ def profile_round(torch, port, planner: str = "host",
     else:
         spec = port.ExperimentSpec(
             task="fcn", alpha=0.3, num_samples=6000,
-            fl=port.FLConfig(executor=executor, strategy="feddif", rounds=1,
+            fl=port.FLConfig(executor=executor, strategy=strategy, rounds=1,
                              num_clients=8, num_models=8, epsilon=0.04,
                              gamma_min=1.0, seed=0, planner=planner,
                              uncertainty_weight=weight))
-        label = (f"feddif/fcn 1 round (quickstart cell), {executor} plane, "
-                 f"planner={planner} w={weight}")
+        label = (f"{strategy}/fcn 1 round (quickstart cell), {executor} "
+                 f"plane, planner={planner} w={weight}")
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -1921,6 +2119,7 @@ def main() -> None:
         launches[k] += v
     for k, v in host_plane_path(torch, kd, port).items():
         launches[k] += v
+    routing = stc_routing(torch, kd)
     card_vs_cpu(torch, port)
     card_vs_cpu(torch, port, "host")
     host_vs_fleet(torch, port)
@@ -1929,6 +2128,7 @@ def main() -> None:
     profile_round(torch, port)
     profile_round(torch, port, "jax", VALUE_WEIGHT)
     profile_round(torch, port, executor="host")
+    profile_round(torch, port, executor="host", strategy="feddif_stc")
     profile_round(torch, port, lm_int8=True)
     rows += check_lm_kernels(torch, kref)
     for k, v in zoo_prefill(torch, kd).items():
@@ -1947,6 +2147,9 @@ def main() -> None:
                        "src/repro/kernels/stc_compress.py:30"),
         "stc_apply": ("stc_compress.cu",
                       "src/repro/kernels/stc_compress.py:47"),
+        "stc_fused": ("stc_compress.cu",
+                      "src/repro/kernels/stc_compress.py:30, "
+                      "src/repro/kernels/stc_compress.py:47"),
         "dol_bid_scores": ("dol_bid_scores.cu",
                            "src/repro/kernels/diffusion.py:316"),
         "bid_value_fuse": ("bid_value_fuse.cu",
@@ -1960,14 +2163,17 @@ def main() -> None:
     }
     # The summary row of each kernel is its main-path shape: the (8, 26122)
     # Eq.-11 row of the fcn fleet, the largest fcn leaf (8, 16384) stacked
-    # on the fleet plane and [16384] alone on the host plane, the
+    # on the fleet plane and [16384] alone on the host plane (stc_fused),
+    # 2^24 for stc_reduce / stc_apply (they now serve only leaves past
+    # N_FUSED, as the routing check's 2^24 leaf), the
     # device planner's (8, 8) bids over 10 classes in the quickstart cell,
     # the lm adapter's (8·7, 512) int8 block in the lm_hops cell, and the
     # zoo's prefill shapes: qwen3's bf16 attention (B, Sq, Sk, H, D),
     # zamba2's SSD (B, S, H, P, N, chunk) and falcon's scan (B, S, D, N).
     main_shape = {"mix_aggregate": [8, 26122, 1],
                   "stc_rows_reduce": [8, 16384], "stc_rows_apply": [8, 16384],
-                  "stc_reduce": [16384], "stc_apply": [16384],
+                  "stc_reduce": [2 ** 24], "stc_apply": [2 ** 24],
+                  "stc_fused": [16384],
                   "dol_bid_scores": [8, 8, NUM_CLASSES],
                   "bid_value_fuse": [8, 8], "quant_pack": [56, 512],
                   "quant_unpack": [56, 512],
@@ -1977,13 +2183,17 @@ def main() -> None:
     # Kernels that another kernel's wrapper launches in the same call: their
     # launches stand in that kernel's row, whose times cover both.
     helpers = {"ssd_scan": ("ssd_scan_state", "ssd_scan_pass")}
+    # Kernels that no main-path run launches: stc_fused took every FL leaf
+    # (n ≤ N_FUSED) from them; the routing check above drove them (and
+    # failed unless it launched each once per leaf past N_FUSED).
+    off_path = ("stc_reduce", "stc_apply")
     summary = []
     for name, (src, rep) in replaces.items():
         row = next(r for r in rows
                    if r["name"] == name and r["shape"] == main_shape[name]
                    and r.get("inputs", "model") == "model")
         for k in (name, *helpers.get(name, ())):
-            if launches[k] == 0:
+            if launches[k] == 0 and k not in off_path:
                 _fail(f"{k} was never launched on the main path")
         summary.append({
             "name": name, "route": "cuda",
@@ -1996,6 +2206,12 @@ def main() -> None:
                if name in helpers else {}),
             **({"bound_tc_ms": row["bound_tc_ms"]}
                if "bound_tc_ms" in row else {}),
+            **({"chain_ms": row["chain_ms"]} if "chain_ms" in row else {}),
+            **({"routing_launches": routing[name],
+                "note": "0 on the main path: stc_fused replaced them for "
+                        "n <= N_FUSED; routing_launches are the host-plane "
+                        "STC routing check's leaves past N_FUSED"}
+               if name in off_path else {}),
             "ok": all(r["ok"] for r in rows if r["name"] == name)})
     print(json.dumps({"kernels": summary}))
     print(card)

@@ -8,8 +8,10 @@ approximated by ``μ·(sign ∘ top-k mask)``.
 
 :func:`stc_compress_leaf` is the host plane's STC (the compressed hops of
 ``feddif_stc``, the uplink of ``stc``), one call per slot and per leaf,
-through ``kernels.ops.stc_compress``: the plain version on a CPU tensor, the
-``stc_reduce``/``stc_apply`` kernels on a CUDA tensor.  The fleet plane
+through ``kernels.ops.stc_compress``: the plain version on a CPU tensor, on
+a CUDA tensor one ``stc_fused`` launch (τ selected on the card) up to
+``kernels.stc_compress.N_FUSED`` elements and the ``stc_reduce``/
+``stc_apply`` kernels beyond.  The fleet plane
 compresses whole client stacks with ``distributed.fedshard.
 masked_stc_compress`` instead.
 

@@ -7,8 +7,9 @@ Counterpart of ``repro.fl.executors`` (``HostExecutor``, ``FleetExecutor``,
   client slot (a list of trees on the device), local sessions through
   :mod:`repro_torch.fl.client` / :mod:`repro_torch.fl.fedprox` one client
   at a time, STC-compressed hops and the STC uplink per slot and per leaf
-  through ``fl.compression.stc_compress`` (the ``stc_reduce``/``stc_apply``
-  kernels on the card), int8 hops through ``fl.adapters.
+  through ``fl.compression.stc_compress`` (on the card one ``stc_fused``
+  launch per leaf up to ``N_FUSED`` elements, the ``stc_reduce``/
+  ``stc_apply`` kernels beyond), int8 hops through ``fl.adapters.
   quant_roundtrip_slot`` (the ``quant`` kernels), and MixOps and the
   Eq.-(11) aggregation through ``core.aggregation.fedavg`` in plain tensor
   ops, as the reference computes them outside any Pallas kernel.

@@ -39,8 +39,9 @@ _L = ctypes.c_longlong
 # C entry points of each library: name -> argument types (pointers and the
 # stream as void*, sizes as int or long long, scalars as float); every
 # launching entry point returns cudaError_t (repro_ssd_scan_smem_bytes
-# returns bytes, repro_stc_reduce_max_blocks a block count and
-# repro_stc_rows_max_chunks a chunk count).
+# returns bytes, repro_stc_reduce_max_blocks a block count,
+# repro_stc_fused_max_n an element count and repro_stc_rows_max_chunks a
+# chunk count).
 _SIGNATURES = {
     "mix_aggregate": {
         "repro_mix_aggregate_f32": [_P, _P, _P, _I, _I, _I, _P]},
@@ -52,7 +53,8 @@ _SIGNATURES = {
     "stc_compress": {
         "repro_stc_reduce_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _P],
         "repro_stc_apply_f32": [_P, _P, _P, _P, _P, _I, _P, _L, _P],
-        "repro_stc_reduce_max_blocks": []},
+        "repro_stc_fused_f32": [_P, _P, _P, _P, _P, _I, _I, _P],
+        "repro_stc_reduce_max_blocks": [], "repro_stc_fused_max_n": []},
     "dol_bid_scores": {
         "repro_dol_bid_scores_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _P]},
     "bid_value_fuse": {

@@ -49,7 +49,53 @@
 //     only the block that straddles it ranks its ties, a block-wide scan
 //     per tile.
 // One launch each; a whole tensor spreads over every SM (stc_rows, which
-// puts one block on a row, would run a single tensor on one SM).
+// puts one block on a row, would run a single tensor on one SM).  They
+// serve tensors of more than N_FUSED elements; smaller ones take
+// stc_fused_kernel below.
+//
+// stc_fused_kernel: the whole STC of a tensor of n <= N_FUSED = 131072
+// elements in one launch, with tau selected on chip.  It replaces
+// _reduce_kernel and _apply_kernel and, for these sizes, the XLA sort that
+// the Pallas design leaves tau to ("a global sort would serialize a Pallas
+// grid"): on Hopper a tensor this size fits in the registers of one thread
+// block cluster, whose blocks read each other's shared memory (DSMEM).
+//
+// What bounds it: at the host plane's leaves (10 to 16384 elements) the
+// launch and the chain of barriers, not the 8n bytes it must move (x read
+// once, out written once: 0.04 us at n = 16384); at 16384 also the one
+// SM's shared-memory atomics (one per key per pass) and its share of the
+// L2 bandwidth.  So the design moves x once and keeps every intermediate
+// on chip:
+//   * one block per 16384 elements (1024 threads x 4 float4 chunks in
+//     registers, chunk j of thread t at j T + t so that a warp's accesses
+//     are contiguous; smaller tensors get one block of one thread per
+//     chunk), up to a cluster of 8 (portable), launched with the cluster
+//     dimension as a launch attribute so that one kernel serves every
+//     size (a cluster costs two DSMEM round trips and a cluster barrier
+//     per pass, more than it saves below 16384 elements);
+//   * tau by radix select on the bit patterns of |x| (for non-negative
+//     fp32 values uint32 order is value order, subnormals and +0
+//     included): 4 passes of 8-bit digits, each a shared-memory histogram
+//     of the digit among the keys that match the prefix so far
+//     (integer shared-memory atomics, skipped by a warp vote where no key
+//     of the warp matches), summed over the cluster through DSMEM in rank
+//     order; the pass picks the digit where the count from the top
+//     reaches k.  After the last pass tau is exactly the k-th largest |x|
+//     and that pass's histogram holds count_{>tau} and count_{=tau}, per
+//     block and in all.  A lone block stops early once the keys that
+//     match the prefix fit one warp (at most 32; a tensor of at most 32
+//     elements from the start): it gathers them and one warp ranks them
+//     by shuffles, which gives the same tau and counts;
+//   * each block sums its survivors (|x| >= tau) from registers in a fixed
+//     tree; every block reads all partials over DSMEM in rank order, so all
+//     form the same sum and mu (stc_mu_ref's formula, __fsub_rn, __fmul_rn,
+//     __fdiv_rn), and applies from registers; only the block that straddles
+//     the cut ranks its ties (one block-wide scan);
+//   * integer atomics only in shared memory and no fp32 atomics: the same
+//     input gives the same bits on every run.  No global scratch, no
+//     ticket, no fence; a final cluster barrier keeps each block's shared
+//     memory alive while peers may still read it.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -306,6 +352,321 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<unsigned long long>(p) & 15ull) == 0;
 }
 
+namespace cg = cooperative_groups;
+
+constexpr int kChunks = 4;                  // float4 chunks per thread
+constexpr int kVpt = 4 * kChunks;           // values per thread
+constexpr int kFusedThreads = 1024;
+constexpr int kFusedSeg = kVpt * kFusedThreads;   // elements per block
+constexpr int kMaxCluster = 8;              // portable cluster size
+constexpr int kFusedMaxN = kFusedSeg * kMaxCluster;
+constexpr int kBins = 256;                  // 8-bit digits
+constexpr int kPasses = 4;
+constexpr int kCands = 32;                  // keys one warp ranks directly
+
+__device__ __forceinline__ unsigned mag_key(float v) {
+  return __float_as_uint(fabsf(v));        // -0 and +0 key alike
+}
+
+// Exclusive prefix of v over the block's threads in thread order, for any
+// block of whole warps (64-bit, so that four 16-bit counts scan at once);
+// `total` gets the block's sum.
+__device__ __forceinline__ unsigned long long block_scan_u64(
+    unsigned long long v, unsigned long long& total) {
+  __shared__ unsigned long long w_sum[32];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  unsigned long long inc = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const unsigned long long u = __shfl_up_sync(0xffffffffu, inc, o);
+    if (lane >= o) inc += u;
+  }
+  if (lane == 31) w_sum[warp] = inc;
+  __syncthreads();
+  if (warp == 0) {
+    unsigned long long w = lane < warps ? w_sum[lane] : 0ull;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const unsigned long long u = __shfl_up_sync(0xffffffffu, w, o);
+      if (lane >= o) w += u;
+    }
+    if (lane < warps) w_sum[lane] = w;
+  }
+  __syncthreads();
+  total = w_sum[warps - 1];
+  return inc - v + (warp > 0 ? w_sum[warp - 1] : 0ull);
+}
+
+// Block-wide fp32 sum in a fixed order (shuffle tree per warp, then the
+// warps' partials in a shuffle tree); valid in thread 0.
+__device__ __forceinline__ float block_sum_any(float s) {
+  __shared__ float w_part[32];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  s = warp_sum(s);
+  if (lane == 0) w_part[warp] = s;
+  __syncthreads();
+  if (warp == 0) {
+    s = lane < static_cast<int>(blockDim.x >> 5) ? w_part[lane] : 0.f;
+    s = warp_sum(s);
+  }
+  return s;
+}
+
+// A cluster of ctas blocks of T threads (ctas = gridDim.x, the cluster
+// dimension).  Block r covers elements [16 T r, 16 T (r + 1)); thread t
+// holds its float4 chunks t, T + t, 2T + t and 3T + t of that segment, so
+// a warp's loads and stores are contiguous.  Index order within a block
+// is (chunk slot, thread, lane of the float4).
+__global__ void __launch_bounds__(kFusedThreads)
+stc_fused_kernel(const float* __restrict__ x, bool vec_in, bool vec_out,
+                 int n, int k, float* __restrict__ out,
+                 float* __restrict__ out_thr, float* __restrict__ out_sum,
+                 int* __restrict__ out_cnt) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int ctas = static_cast<int>(gridDim.x);
+  const int rank = ctas > 1 ? static_cast<int>(cluster.block_rank()) : 0;
+  const int T = static_cast<int>(blockDim.x);
+  const int tid = static_cast<int>(threadIdx.x);
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+
+  __shared__ int hist[kPasses][kBins];     // this block's counts
+  __shared__ int sum_hist[kBins];          // the cluster's, by digit
+  __shared__ int below_hist[kBins];        // lower ranks', last pass
+  __shared__ unsigned cand[kCands];        // keys left for a warp to rank
+  __shared__ int s_ncand;
+  __shared__ unsigned s_digit, s_key;
+  __shared__ int s_above, s_eq, s_before;
+  __shared__ float s_part, s_total;
+
+  for (int b = tid; b < kPasses * kBins; b += T) (&hist[0][0])[b] = 0;
+  if (tid == 0) s_ncand = 0;
+  const int base = rank * kVpt * T;
+  float v[kVpt];
+  int valid[kChunks];                      // values of each chunk in [0, n)
+#pragma unroll
+  for (int j = 0; j < kChunks; ++j) {
+    const int i = base + 4 * (j * T + tid);
+    const int left = n - i;
+    valid[j] = left >= 4 ? 4 : (left > 0 ? left : 0);
+    if (valid[j] == 4 && vec_in) {
+      const float4 f = __ldg(reinterpret_cast<const float4*>(x + i));
+      v[4 * j] = f.x; v[4 * j + 1] = f.y; v[4 * j + 2] = f.z;
+      v[4 * j + 3] = f.w;
+    } else {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        v[4 * j + u] = u < valid[j] ? __ldg(x + i + u) : 0.f;
+      }
+    }
+  }
+  __syncthreads();
+
+  // Radix select: prefix holds the digits chosen so far, rem the rank of
+  // tau among the keys that match it (from the top, 1-based), above the
+  // keys past the prefix (> tau once all four digits are chosen), left
+  // the keys that match it.
+  unsigned prefix = 0u;
+  int rem = k, above = 0, left = n;
+#pragma unroll 1
+  for (int p = 0; p < kPasses; ++p) {
+    const int shift = 24 - 8 * p;
+    if (ctas == 1 && left <= kCands) {
+      // The keys that match the prefix fit one warp: rank them there.
+#pragma unroll
+      for (int e = 0; e < kVpt; ++e) {
+        const unsigned key = mag_key(v[e]);
+        if ((e & 3) < valid[e >> 2] &&
+            (p == 0 || (key >> (shift + 8)) == prefix)) {
+          cand[atomicAdd(&s_ncand, 1)] = key;
+        }
+      }
+      __syncthreads();
+      if (warp == 0) {
+        const int nc = s_ncand;
+        const unsigned c = lane < nc ? cand[lane] : 0u;
+        int gt = 0, eq = 0;
+#pragma unroll
+        for (int o = 0; o < kCands; ++o) {
+          const unsigned d = __shfl_sync(0xffffffffu, c, o);
+          gt += o < nc && d > c;
+          eq += o < nc && d == c;
+        }
+        if (lane < nc && gt < rem && rem <= gt + eq) {
+          s_key = c;                       // lanes that write share c
+          s_above = gt;
+          s_eq = eq;
+        }
+      }
+      __syncthreads();
+      prefix = s_key;                      // the whole key of tau
+      rem -= s_above;
+      above += s_above;
+      break;
+    }
+#pragma unroll
+    for (int e = 0; e < kVpt; ++e) {
+      const unsigned key = mag_key(v[e]);
+      const bool live = (e & 3) < valid[e >> 2] &&
+                        (p == 0 || (key >> (shift + 8)) == prefix);
+      if (__any_sync(0xffffffffu, live) && live) {
+        atomicAdd(&hist[p][(key >> shift) & (kBins - 1)], 1);
+      }
+    }
+    const int* h = &hist[p][0];
+    if (ctas > 1) {
+      // Every block sums the cluster's counts itself, in rank order.
+      cluster.sync();
+      for (int b = tid; b < kBins; b += T) {
+        int tot = 0, below = 0;
+#pragma unroll
+        for (int r = 0; r < kMaxCluster; ++r) {
+          if (r < ctas) {
+            const int c = cluster.map_shared_rank(&hist[p][0], r)[b];
+            tot += c;
+            below += r < rank ? c : 0;
+          }
+        }
+        sum_hist[b] = tot;
+        below_hist[b] = below;
+      }
+      h = sum_hist;
+    }
+    __syncthreads();
+    if (warp == 0) {
+      // Lane l holds digits 255 - 8l ... 248 - 8l.
+      int c[8], tot = 0;
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        c[u] = h[kBins - 1 - 8 * lane - u];
+        tot += c[u];
+      }
+      int inc = tot;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int w = __shfl_up_sync(0xffffffffu, inc, o);
+        if (lane >= o) inc += w;
+      }
+      int run = inc - tot;
+      if (run < rem && rem <= inc) {
+        bool found = false;
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          if (!found && run + c[u] >= rem) {
+            found = true;
+            const unsigned d = kBins - 1 - 8 * lane - u;
+            s_digit = d;
+            s_above = run;
+            s_eq = c[u];
+            s_before = ctas > 1 ? below_hist[d] : 0;
+          }
+          run += c[u];
+        }
+      }
+    }
+    __syncthreads();
+    prefix = (prefix << 8) | s_digit;
+    rem -= s_above;
+    above += s_above;
+    left = s_eq;
+  }
+  const float t = __uint_as_float(prefix);
+  const int tied = s_eq;                   // |x| == tau in the cluster
+  const int need = rem;                    // ties that survive, >= 1
+  const int before = ctas > 1 ? s_before : 0;    // ties in lower ranks
+  const int own = ctas > 1 ? hist[kPasses - 1][prefix & (kBins - 1)] : tied;
+  const int count = above + tied;          // |x| >= tau
+
+  // The survivors' sum, per block in a fixed order, then over the cluster
+  // in rank order: every block forms the same bits.
+  float s = 0.f;
+#pragma unroll
+  for (int e = 0; e < kVpt; ++e) {
+    const float a = fabsf(v[e]);
+    if ((e & 3) < valid[e >> 2] && a >= t) s += a;
+  }
+  s = block_sum_any(s);
+  if (ctas > 1) {
+    if (tid == 0) s_part = s;
+    cluster.sync();
+    if (tid == 0) {
+      float part[kMaxCluster];
+#pragma unroll
+      for (int r = 0; r < kMaxCluster; ++r) {
+        part[r] = r < ctas ? *cluster.map_shared_rank(&s_part, r) : 0.f;
+      }
+      s = 0.f;
+#pragma unroll
+      for (int r = 0; r < kMaxCluster; ++r) {
+        if (r < ctas) s += part[r];
+      }
+    }
+  }
+  if (tid == 0) s_total = s;
+  __syncthreads();
+  const float total = s_total;
+  const float extra = static_cast<float>(count - k);
+  const float mu = __fdiv_rn(__fsub_rn(total, __fmul_rn(extra, t)),
+                             static_cast<float>(k));
+
+  // Keep every |x| > tau and the first `need` ties in index order.
+  const bool all_ties = t == 0.f || need >= tied || before + own <= need;
+  bool keep[kVpt];
+  unsigned long long mine = 0ull;          // ties per chunk, 16 bits each
+#pragma unroll
+  for (int e = 0; e < kVpt; ++e) {
+    const unsigned key = mag_key(v[e]);
+    keep[e] = key > prefix;
+    if ((e & 3) < valid[e >> 2] && key == prefix) {
+      keep[e] = all_ties;
+      mine += 1ull << (16 * (e >> 2));
+    }
+  }
+  if (!all_ties && before < need) {        // this block straddles the cut
+    unsigned long long slot_total;
+    const unsigned long long exc = block_scan_u64(mine, slot_total);
+    int slot_base = before;
+#pragma unroll
+    for (int j = 0; j < kChunks; ++j) {
+      int r = slot_base + static_cast<int>((exc >> (16 * j)) & 0xffffu);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int e = 4 * j + u;
+        if (u < valid[j] && mag_key(v[e]) == prefix) keep[e] = r++ < need;
+      }
+      slot_base += static_cast<int>((slot_total >> (16 * j)) & 0xffffu);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kChunks; ++j) {
+    const int i = base + 4 * (j * T + tid);
+    if (valid[j] == 4 && vec_out) {
+      *reinterpret_cast<float4*>(out + i) = make_float4(
+          ternary(v[4 * j], keep[4 * j], mu),
+          ternary(v[4 * j + 1], keep[4 * j + 1], mu),
+          ternary(v[4 * j + 2], keep[4 * j + 2], mu),
+          ternary(v[4 * j + 3], keep[4 * j + 3], mu));
+    } else {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        if (u < valid[j]) {
+          out[i + u] = ternary(v[4 * j + u], keep[4 * j + u], mu);
+        }
+      }
+    }
+  }
+  if (rank == 0 && tid == 0) {
+    out_thr[0] = t;
+    out_sum[0] = total;
+    out_cnt[0] = count;
+  }
+  // No block leaves while a peer may still read its shared memory.
+  if (ctas > 1) cluster.sync();
+}
+
 }  // namespace
 
 // Largest grid the reduce launches: the size of its partials buffers (the
@@ -346,5 +707,51 @@ extern "C" int repro_stc_apply_f32(const float* x, const float* thr,
   stc_apply_kernel<<<blocks, kThreads, 0, stream>>>(
       x, aligned16(x) && aligned16(out), n, seg, thr, ssum, cnt, ties, k,
       out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Largest tensor stc_fused takes (N_FUSED): a cluster of 8 blocks of 16384.
+extern "C" int repro_stc_fused_max_n() { return kFusedMaxN; }
+
+// x (n,) fp32 in, k the number of entries STC keeps (1 <= k <= n); out (n,)
+// fp32 = mu * sign(x) on the k survivors, thr (1,) fp32 = tau, ssum (1,)
+// fp32 = the sum of |x| >= tau, cnt (1,) int32 = their count.  Contiguous,
+// on the current device, n <= N_FUSED.  One launch: a cluster of
+// ceil(n / 16384) blocks.  Returns the launch's error or
+// cudaGetLastError().
+extern "C" int repro_stc_fused_f32(const float* x, float* out, float* thr,
+                                   float* ssum, int* cnt, int n, int k,
+                                   cudaStream_t stream) {
+  if (n <= 0 || n > kFusedMaxN || k < 1 || k > n) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // One block of 1024 threads per 16384 elements; a tensor that fits one
+  // block takes one thread per float4 chunk (whole warps, at most 1024).
+  const int ctas = (n + kFusedSeg - 1) / kFusedSeg;
+  int threads = kFusedThreads;
+  if (ctas == 1) {
+    const int chunks = (n + 3) / 4;
+    threads = chunks >= kFusedThreads ? kFusedThreads
+                                      : (chunks + 31) / 32 * 32;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(ctas, 1, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = ctas;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, stc_fused_kernel, x, aligned16(x), aligned16(out), n, k, out,
+      thr, ssum, cnt);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return static_cast<int>(err);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -71,9 +71,11 @@ def mix_aggregate_tree(params, w: torch.Tensor, *, collapse: bool = False,
 def stc_compress(x: torch.Tensor, sparsity: float = 0.01) -> torch.Tensor:
     """Whole-tensor sparse ternary compression — the host plane's STC
     (``fl/compression.py``).  A CPU tensor takes ``ref.stc_compress_ref``,
-    the semantics of record; a CUDA tensor takes τ by ``torch.topk`` and
-    the ``stc_reduce``/``stc_apply`` kernels.  Both keep exactly the k
-    entries ``lax.top_k`` keeps, at the mean of their magnitudes."""
+    the semantics of record; a CUDA tensor takes the ``stc_fused`` kernel
+    (one launch, τ selected on the card) up to ``N_FUSED`` elements, and
+    beyond that τ by ``torch.topk`` and the ``stc_reduce``/``stc_apply``
+    kernels.  All keep exactly the k entries ``lax.top_k`` keeps, at the
+    mean of their magnitudes."""
     if _route(x) == "cuda":
         return stc_compress_cuda(x, sparsity)
     return ref.stc_compress_ref(x, sparsity)

@@ -15,7 +15,8 @@ import torch
 from repro_torch.core.dol import iid_distance_candidates_t, xla_sum_t
 
 __all__ = ["mix_aggregate_ref", "stc_compress_ref", "stc_threshold",
-           "stc_reduce_ref", "stc_apply_ref", "stc_rows_ref",
+           "stc_reduce_ref", "stc_apply_ref", "stc_radix_threshold_ref",
+           "stc_fused_ref", "stc_rows_ref",
            "stc_rows_threshold", "stc_rows_reduce_ref", "stc_rows_apply_ref",
            "dol_bid_scores_ref", "dol_bid_scores_fused_ref",
            "bid_value_fuse_ref", "quant_pack_ref", "quant_unpack_ref",
@@ -121,6 +122,53 @@ def stc_apply_ref(flat: torch.Tensor, thr: torch.Tensor, mu: torch.Tensor,
     x = flat.reshape(-1).to(torch.float32)
     keep = _keep_top_k(x.abs(), thr.reshape(()), k)
     return torch.where(keep, torch.sign(x) * mu.reshape(()), 0.0)
+
+
+#: The fused STC kernel's radix digits: 4 passes of 8 bits over the 32-bit
+#: keys, from the top.
+STC_RADIX_SHIFTS = (24, 16, 8, 0)
+
+
+def stc_radix_threshold_ref(flat: torch.Tensor, k: int) -> torch.Tensor:
+    """τ, the k-th largest ``|x|``, as the fused STC kernel selects it: a
+    radix select on the int32 view of ``|x|`` (for non-negative fp32
+    values integer order is value order; −0 keys as +0), one 8-bit digit a
+    pass from the top.  Each pass counts the digit among the keys that
+    match the prefix so far and takes the digit where the count from the
+    top reaches the rank still sought.  (The kernel's lone block stops
+    early once the keys that match the prefix fit one warp and ranks them
+    there: the same τ.)  (1,) fp32 on ``flat``'s device, in tensor ops only
+    (no host read), so a CUDA graph can capture it."""
+    keys = flat.reshape(-1).to(torch.float32).abs().view(torch.int32).to(
+        torch.int64)
+    dev = keys.device
+    prefix = torch.zeros((), dtype=torch.int64, device=dev)
+    rem = torch.full((1,), k, dtype=torch.int64, device=dev)
+    for shift in STC_RADIX_SHIFTS:
+        digit = (keys >> shift) & 255
+        if shift != 24:               # keys off the prefix count in bin 256
+            digit = torch.where((keys >> (shift + 8)) == prefix, digit, 256)
+        hist = torch.zeros(257, dtype=torch.int64, device=dev).scatter_add_(
+            0, digit, torch.ones_like(digit))[:256].flip(0)
+        from_top = torch.cumsum(hist, 0)
+        i = torch.searchsorted(from_top, rem)       # (1,): the digit's slot
+        rem = rem - (from_top[i] - hist[i])
+        prefix = prefix * 256 + (255 - i[0])
+    return prefix.to(torch.int32).reshape(1).view(torch.float32)
+
+
+def stc_fused_ref(flat: torch.Tensor, k: int
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                             torch.Tensor]:
+    """Plain version of the fused STC kernel, step by step: τ by
+    :func:`stc_radix_threshold_ref`, the survivor sum and count by
+    :func:`stc_reduce_ref`, μ by :func:`stc_mu_ref` and the exact-k apply
+    by :func:`stc_apply_ref`.  Returns ``(out, thr, ssum, cnt)``."""
+    x = flat.reshape(-1).to(torch.float32)
+    thr = stc_radix_threshold_ref(x, k)
+    ssum, cnt = stc_reduce_ref(x, thr)
+    out = stc_apply_ref(x, thr, stc_mu_ref(ssum, cnt, thr, k), k)
+    return out, thr, ssum, cnt
 
 
 def stc_rows_ref(x: torch.Tensor, ref_row: torch.Tensor, mask: torch.Tensor,

@@ -3,24 +3,29 @@
 Counterpart of ``repro.kernels.stc_compress``.  STC (Sattler et al., the
 paper's Table-II compression baseline) maps a tensor to
 ``μ·sign(x)·1[|x| ≥ τ]``, τ the k-th largest magnitude and μ the mean
-magnitude of the survivors.  On the card that is three steps:
+magnitude of the survivors.  :func:`stc_compress_cuda` takes one of two
+routes on the card:
 
-* τ by ``torch.topk(|x|, k).values[k − 1]``, outside the kernels, as the
-  reference leaves it to an XLA sort; it stays on the device;
-* :func:`stc_reduce_cuda` — ``(Σ|x|·1[|x| ≥ τ], Σ1[|x| ≥ τ])``, an fp32 sum
-  and an int32 count, and the prefix of each block's ties (``|x| = τ``).
-  Replaces ``repro/kernels/stc_compress.py::_reduce_kernel``
-  (``stc_reduce_pallas``);
-* :func:`stc_apply_cuda` — ``μ·sign(x)`` on exactly k survivors, 0
-  elsewhere, with the exact-k ``μ = (sum − (count − k)·τ) / k`` formed on
-  the device from the reduce's outputs
-  (:func:`~repro_torch.kernels.ref.stc_mu_ref`).  Replaces ``_apply_kernel``
-  (``stc_apply_pallas``).
+* n ≤ :data:`N_FUSED` (every leaf of the FL tasks): :func:`stc_fused_cuda`,
+  one launch of a thread-block cluster that selects τ by radix select on
+  chip, reduces over distributed shared memory and applies — x read once,
+  no global scratch.  It replaces ``_reduce_kernel`` and ``_apply_kernel``
+  together with the XLA sort the reference leaves τ to;
+* larger n: τ by ``torch.topk(|x|, k).values[k − 1]``
+  (:func:`~repro_torch.kernels.ref.stc_threshold`), then
+  :func:`stc_reduce_cuda` — ``(Σ|x|·1[|x| ≥ τ], Σ1[|x| ≥ τ])``, an fp32 sum
+  and an int32 count, and the prefix of each block's ties (``|x| = τ``);
+  replaces ``repro/kernels/stc_compress.py::_reduce_kernel``
+  (``stc_reduce_pallas``) — and :func:`stc_apply_cuda` — ``μ·sign(x)`` on
+  exactly k survivors, 0 elsewhere, with the exact-k
+  ``μ = (sum − (count − k)·τ) / k`` formed on the device from the reduce's
+  outputs (:func:`~repro_torch.kernels.ref.stc_mu_ref`); replaces
+  ``_apply_kernel`` (``stc_apply_pallas``).  No host read sits between them.
 
-:func:`stc_compress_cuda` composes the three without a host read.  Both
-kernels are hand-written CUDA C++ for ``sm_90a`` (``csrc/stc_compress.cu``),
-built by ``nvcc`` and bound with ``ctypes`` (:mod:`repro_torch.kernels.build`);
-the source says what bounds them and how the reduce stays deterministic.
+All three kernels are hand-written CUDA C++ for ``sm_90a``
+(``csrc/stc_compress.cu``), built by ``nvcc`` and bound with ``ctypes``
+(:mod:`repro_torch.kernels.build`); the source says what bounds them and how
+their sums stay deterministic.
 
 The survivors are the ones ``lax.top_k`` keeps, as in the plain version of
 record, ``kernels/ref.py::stc_compress_ref``: every ``|x| > τ`` plus the
@@ -43,7 +48,12 @@ from repro_torch.kernels import build
 from repro_torch.kernels.launch import LAUNCHES, check_tensor, raise_on
 from repro_torch.kernels.ref import stc_threshold
 
-__all__ = ["stc_reduce_cuda", "stc_apply_cuda", "stc_compress_cuda"]
+__all__ = ["N_FUSED", "stc_fused_cuda", "stc_reduce_cuda", "stc_apply_cuda",
+           "stc_compress_cuda"]
+
+#: Largest tensor :func:`stc_fused_cuda` takes: a cluster of 8 blocks of
+#: 16384 elements (``repro_stc_fused_max_n`` in ``csrc/stc_compress.cu``).
+N_FUSED = 8 * 16384
 
 #: Reduce scratch per device: (partial sums, partial counts, ticket).
 _SCRATCH: dict[torch.device, tuple[torch.Tensor, ...]] = {}
@@ -121,13 +131,49 @@ def stc_apply_cuda(flat: torch.Tensor, thr: torch.Tensor, ssum: torch.Tensor,
     return out
 
 
+def stc_fused_cuda(flat: torch.Tensor, k: int
+                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                              torch.Tensor]:
+    """STC of a flat fp32 tensor of n ≤ :data:`N_FUSED` elements in one
+    launch: ``(out, thr, ssum, cnt)`` — out (n,) fp32, ``μ·sign(x)`` on the
+    k survivors (every ``|x| > τ``, then the ties in index order); thr (1,)
+    fp32, τ, the k-th largest ``|x|``, selected on the card; ssum (1,) fp32
+    and cnt (1,) int32, the sum and count of ``|x| ≥ τ``, from which the
+    kernel forms ``μ = (ssum − (cnt − k)·τ) / k`` (1 ≤ k ≤ n)."""
+    check_tensor(flat, "flat", 1)
+    n = flat.shape[0]
+    if not 1 <= n <= N_FUSED:
+        raise ValueError(f"flat {tuple(flat.shape)} must hold 1 to "
+                         f"{N_FUSED} elements")
+    if not 1 <= k <= n:
+        raise ValueError(f"k={k} must lie in [1, {n}]")
+    lib = build.load("stc_compress")
+    dev = flat.device
+    out = torch.empty_like(flat)
+    thr = torch.empty((1,), device=dev, dtype=torch.float32)
+    ssum = torch.empty((1,), device=dev, dtype=torch.float32)
+    cnt = torch.empty((1,), device=dev, dtype=torch.int32)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.repro_stc_fused_f32(
+            flat.data_ptr(), out.data_ptr(), thr.data_ptr(), ssum.data_ptr(),
+            cnt.data_ptr(), n, k, stream)
+    raise_on(err, "stc_fused")
+    LAUNCHES["stc_fused"] += 1
+    return out, thr, ssum, cnt
+
+
 def stc_compress_cuda(x: torch.Tensor, sparsity: float) -> torch.Tensor:
-    """STC of one tensor on the card: τ by ``torch.topk``, then the reduce
-    and apply kernels, with no host read between them.  Any shape and
-    float dtype in, the same out."""
+    """STC of one tensor on the card: one :func:`stc_fused_cuda` launch for
+    n ≤ :data:`N_FUSED`, else τ by ``torch.topk`` and the reduce and apply
+    kernels, with no host read between them.  Any shape and float dtype
+    in, the same out."""
     flat = x.reshape(-1).to(torch.float32).contiguous()
-    thr = stc_threshold(flat, sparsity)
-    ssum, cnt, ties = stc_reduce_cuda(flat, thr)
     k = max(1, int(flat.numel() * sparsity))
-    out = stc_apply_cuda(flat, thr, ssum, cnt, ties, k)
+    if flat.numel() <= N_FUSED:
+        out = stc_fused_cuda(flat, k)[0]
+    else:
+        thr = stc_threshold(flat, sparsity)
+        ssum, cnt, ties = stc_reduce_cuda(flat, thr)
+        out = stc_apply_cuda(flat, thr, ssum, cnt, ties, k)
     return out.reshape(x.shape).to(x.dtype)

@@ -268,8 +268,12 @@ def test_cuda_wrappers_refuse_cpu_tensors():
                             torch.ones(1, dtype=torch.int32),
                             torch.zeros(1025, dtype=torch.int32), 1)
     with pytest.raises(ValueError, match="CUDA"):
+        tstc.stc_fused_cuda(x, 4)
+    with pytest.raises(ValueError, match="CUDA"):
         tstc.stc_compress_cuda(x, 0.5)
-    assert {"stc_reduce", "stc_apply"} <= set(LAUNCHES)
+    with pytest.raises(ValueError, match="CUDA"):
+        tstc.stc_compress_cuda(torch.ones(tstc.N_FUSED + 1), 0.01)
+    assert {"stc_reduce", "stc_apply", "stc_fused"} <= set(LAUNCHES)
     before = dict(LAUNCHES)
     tops.stc_compress(torch.arange(8.0), 0.5)
     assert LAUNCHES == before
@@ -277,4 +281,5 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     assert (build.CSRC / "stc_compress.cu").is_file()
     assert set(build._SIGNATURES["stc_compress"]) == {
         "repro_stc_reduce_f32", "repro_stc_apply_f32",
-        "repro_stc_reduce_max_blocks"}
+        "repro_stc_reduce_max_blocks", "repro_stc_fused_f32",
+        "repro_stc_fused_max_n"}
