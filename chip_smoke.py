@@ -24,21 +24,33 @@ nothing of JAX.  Phases, each of which fails loudly:
    50152 and N_FUSED: τ bit-equal to ``stc_threshold``'s, the plain count,
    ``out`` bit-equal to ``stc_apply_ref`` at ``stc_mu_ref``'s μ, the
    exact-k support, μ within 1e-5 of a float64 mean, the same bits on two
-   calls; ``ms`` beside ``chain_ms``, the chain it replaces.  All three
-   STC paths (``stc_rows``, ``stc_reduce`` / ``stc_apply``,
-   ``stc_fused``) also run rows where magnitudes tie at τ, including
-   τ = 0: exactly the k entries ``lax.top_k`` keeps, bit-equal to their
-   plain versions, the exact-k μ; ``stc_fused`` run with k − 1 (a planted
-   fault) must fail the exact-k support check;
+   calls; ``ms`` beside ``chain_ms``, the chain it replaces.
+   ``stc_rows_fused`` (the fleet plane's masked per-row STC of a leaf of
+   rows of n ≤ N_FUSED in one launch, each row's τ selected on the card)
+   runs at every (C, n) of the driven STC runs, (8, 65536), (8, N_FUSED),
+   (8, 16383), an unaligned (8, 16384) view, (1024, 8192) and
+   (1024, 16384), every other row masked, held row by row: τ_c bit-equal
+   to ``stc_rows_threshold``'s, the plain count, ``out`` bit-equal to
+   ``stc_rows_apply_ref`` at the kernel's (τ, sum, count), the exact-k
+   support, μ_c within 1e-5 of a float64 mean, unmasked rows bit-equal to
+   x, the same bits on two calls; ``ms`` beside ``chain_ms``.
+   ``stc_rows_reduce`` / ``stc_rows_apply`` (the chain for rows past
+   N_FUSED) also run at (8, 262144).  All STC paths (``stc_rows``,
+   ``stc_rows_fused``, ``stc_reduce`` / ``stc_apply``, ``stc_fused``)
+   also run rows where magnitudes tie at τ, including τ = 0: exactly the
+   k entries ``lax.top_k`` keeps, bit-equal to their plain versions, the
+   exact-k μ; ``stc_fused`` and ``stc_rows_fused`` run with k − 1 (a
+   planted fault) must fail the exact-k support check;
 3. the main path — ``run_experiment`` on the fleet plane: the quickstart
    configuration (fcn, α=0.3, 6000 samples, N=M=8, 8 rounds) for fedavg,
    feddif with the host planner and feddif with the device planner
    (``planner="jax"``) and learning-value bids (``uncertainty_weight=0.5``),
    2 rounds each of feddif_stc and stc, 2 rounds of feddif on cnn.  Launch
    counters are zeroed right before each run and read right after; every
-   run must launch mix_aggregate, the STC runs the stc_rows kernels, the
-   device-planner run dol_bid_scores once per diffusion round or more and
-   bid_value_fuse as often; params must be finite and both FedDif runs'
+   run must launch mix_aggregate, the STC runs ``stc_rows_fused`` once per
+   compressed leaf (and ``stc_rows_reduce`` / ``stc_rows_apply`` never),
+   the device-planner run dol_bid_scores once per diffusion round or more
+   and bid_value_fuse as often; params must be finite and both FedDif runs'
    peak accuracy must beat FedAvg's.  The two FedDif runs print the
    planner's seconds per communication round and auction iterations.
    Then the adapter hop plane: FedDif on the LoRA ``lm`` task at the
@@ -64,15 +76,18 @@ nothing of JAX.  Phases, each of which fails loudly:
    runs and with its launches counted apart, the host plane's STC entry
    point on leaves on both sides of N_FUSED must route each leaf of
    n ≤ N_FUSED to ``stc_fused`` and each larger one to the
-   ``stc_reduce`` / ``stc_apply`` chain;
+   ``stc_reduce`` / ``stc_apply`` chain, and the fleet plane's
+   (``ops.stc_topk``) each (8, n) leaf of n ≤ N_FUSED to
+   ``stc_rows_fused`` and a larger one to the ``stc_rows_reduce`` /
+   ``stc_rows_apply`` chain;
 4. a small feddif_stc run on each plane and a small lm int8 run on the
    card against the
    same runs on the CPU (plain versions) from one init: equal ledgers,
-   params within the fleet plane's tolerance (the host-plane card run
-   launching ``stc_fused`` once per compressed leaf); the host plane
-   against the
-   fleet plane on the card (feddif/fcn, N=M=8, 2 rounds, one init: equal
-   ledgers, params within atol 2e-4, rtol 2e-3); then the device planner on
+   params within the fleet plane's tolerance (the card runs launching
+   ``stc_rows_fused`` or ``stc_fused`` once per compressed leaf); the host
+   plane against the fleet plane on the card (feddif/fcn, N=M=8, 2 rounds,
+   one init: equal ledgers, params within atol 2e-4, rtol 2e-3); then the
+   device planner on
    the card (with its
    kernels) against the host planner on the CPU, on the N=M=C=10
    default-config inputs (seeds 0-2) and the 16 plans of the N=M=20
@@ -80,8 +95,8 @@ nothing of JAX.  Phases, each of which fails loudly:
    plans must be equivalent (same rounds, same hop count, total Eq.-17
    decrement within 1e-6 relative);
 5. a measurement, not a check: one FedDif round with each planner, one on
-   the host plane, one feddif_stc round on the host plane, and one of the
-   lm int8 arm, under ``torch.profiler``
+   the host plane, one feddif_stc round on each plane, and one of the lm
+   int8 arm, under ``torch.profiler``
    (device busy time,
    idle share, kernel count, top kernels);
 6. the LM zoo's prefill forward at the published widths: flash_attention,
@@ -691,16 +706,160 @@ def _stc_ties(torch, kref, ks, gen) -> None:
                           "exact-k support check")
 
 
+def _stc_rows_tie_free(torch, gen, c: int, n: int, offset: int = 0):
+    """x (c, n) and ref (n,) on the card with no |Δ| ties in a row: each
+    row's |Δ| is a permutation of n distinct multiples of 2^-e ≤ 1, and
+    ref lies on the 2^-14 grid, so x = ref ± |Δ| and x − ref are exact in
+    fp32.  ``offset`` elements before x in its buffer (1: a view whose base
+    is not 16-byte aligned, still contiguous)."""
+    step = 2.0 ** -max(1, (n - 1).bit_length())
+    ref_row = torch.randint(-2 * 2 ** 14, 2 * 2 ** 14, (n,), generator=gen,
+                            device="cuda") * 2.0 ** -14
+    mags = (torch.rand((c, n), generator=gen, device="cuda")
+            .argsort(dim=1) + 1).float() * step
+    signs = torch.randint(0, 2, (c, n), generator=gen,
+                          device="cuda").float() * 2.0 - 1.0
+    x = ref_row[None, :] + signs * mags
+    if offset:
+        buf = torch.empty(c * n + offset, device="cuda")
+        buf[offset:] = x.reshape(-1)
+        x = buf[offset:].view(c, n)
+    return x, ref_row
+
+
+def _stc_rows_chain(kd, kref, x, ref_row, mask32, k):
+    """The per-leaf chain ``stc_rows_fused`` replaces: τ_c by
+    ``torch.topk`` (``stc_rows_threshold``), then the ``stc_rows_reduce``
+    and ``stc_rows_apply`` kernels."""
+    def chain():
+        thr = kref.stc_rows_threshold(x, ref_row, STC_SPARSITY)
+        ssum, cnt, ties = kd.stc_rows_reduce_cuda(x, ref_row, thr)
+        return kd.stc_rows_apply_cuda(x, ref_row, thr, ssum, cnt, ties,
+                                      mask32, k)
+    return chain
+
+
+def _stc_rows_fused_verdict(torch, kref, x, ref_row, mask32, k, got) -> dict:
+    """The bars of one ``stc_rows_fused`` call ``got = (out, thr, ssum,
+    cnt)``, held row by row: on masked rows τ_c bit-equal to
+    ``stc_rows_threshold``'s, the count equal to the plain count at τ_c,
+    μ_c (formed from the kernel's τ, sum and count as the kernel forms it)
+    within 1e-5 relative of the top-k mean of |Δ| in float64; τ, sum and
+    count 0 on unmasked rows; ``out`` bit-equal to ``stc_rows_apply_ref``
+    at the kernel's own (τ, sum, count), unmasked rows bit-equal to x, and
+    every row the support of the exact-k STC of record (``stc_rows_ref``,
+    k = max(1, int(n·STC_SPARSITY)))."""
+    out, thr, ssum, cnt = got
+    c = x.shape[0]
+    on = mask32 != 0
+    d = (x - ref_row[None, :]).abs()
+    want_thr = kref.stc_rows_threshold(x, ref_row, STC_SPARSITY)
+    _, p_cnt = kref.stc_rows_reduce_ref(x, ref_row, thr)
+    plain = kref.stc_rows_apply_ref(x, ref_row, thr, ssum, cnt, mask32, k)
+    exact_k = kref.stc_rows_ref(x, ref_row, mask32, STC_SPARSITY)
+    mu = kref.stc_mu_ref(ssum, cnt, thr, k)
+    mu64 = torch.topk(d.double(), k, dim=1).values.mean(dim=1)
+    rel = torch.where(mu64 > 0, (mu.double() - mu64).abs()
+                      / mu64.clamp_min(1e-300), mu.double().abs())
+    i32 = torch.int32
+    tau_ok = torch.where(on, thr.view(i32) == want_thr.view(i32), thr == 0)
+    cnt_ok = torch.where(on, cnt == p_cnt.to(i32), (cnt == 0) & (ssum == 0))
+    out_ok = (out.view(i32) == plain.view(i32)).all(dim=1)
+    sent = (out != ref_row[None, :]).sum(dim=1)
+    sent_k = (exact_k != ref_row[None, :]).sum(dim=1)
+    support_ok = ((out != ref_row[None, :])
+                  == (exact_k != ref_row[None, :])).all(dim=1)
+    pass_ok = (out.view(i32) == x.view(i32)).all(dim=1) | on
+    mu_ok = (rel <= 1e-5) | ~on
+    row_ok = tau_ok & cnt_ok & out_ok & support_ok & pass_ok & mu_ok
+    torch.cuda.synchronize()
+    few = c <= 8
+    v = {"rows": c, "masked_rows": int(on.sum()),
+         "tau_bit_equal": bool(tau_ok.all()),
+         "count_equal": bool(cnt_ok.all()),
+         "out_bit_equal": bool(out_ok.all()),
+         "same_support_as_exact_k": bool(support_ok.all()),
+         "unmasked_bit_equal": bool(pass_ok.all()),
+         "sent": (sent.tolist() if few
+                  else [int(sent[on].min()), int(sent[on].max())]),
+         "sent_exact_k": (sent_k.tolist() if few
+                          else [int(sent_k[on].min()), int(sent_k[on].max())]),
+         "mu_rel_err": float(rel[on].max()), "mu_rel_tol": 1e-5,
+         "max_abs_err": float((out - plain).abs().max()),
+         "rows_failed": torch.nonzero(~row_ok).flatten()[:8].tolist()}
+    v["ok"] = bool(row_ok.all())
+    return v
+
+
+def check_stc_rows_fused(torch, kd, kref, gen, shapes) -> list[dict]:
+    """Phase 2, ``stc_rows_fused`` — the fleet plane's masked per-row STC
+    of a leaf of rows of n ≤ N_FUSED in one launch — at every (C, n) of the
+    driven STC runs (the (8, ·), (5, ·) and (4, ·) leaves), at (8, 65536)
+    (a cluster of 4 per row), (8, N_FUSED) (a cluster of 8), (8, 16383)
+    (ragged), an unaligned (8, 16384) view and (1024, 8192), (1024, 16384),
+    on tie-free rows, every other row masked.  Each row must pass
+    ``_stc_rows_fused_verdict``'s bars and the call must give the same
+    bits twice.  Times: ``ms`` (the kernel, a CUDA graph of calls),
+    ``chain_ms`` (the chain it replaces — ``stc_rows_threshold``,
+    ``stc_rows_reduce_cuda``, ``stc_rows_apply_cuda`` — in one graph at the
+    same shape), ``plain_ms`` (``stc_rows_fused_ref``), ``call_ms``
+    (host-inclusive per wrapper call) and ``bound_ms`` (4·(2·C·n + n + 4·C)
+    bytes)."""
+    from repro_torch.kernels.stc_compress import N_FUSED
+    rows = []
+    cases = [(c, n, "aligned") for c, n in shapes]
+    cases += [(8, 65536, "aligned"), (8, N_FUSED, "aligned"),
+              (8, 16383, "aligned"), (8, 16384, "unaligned"),
+              (1024, 8192, "aligned"), (1024, 16384, "aligned")]
+    for c, n, layout in cases:
+        k = max(1, int(n * STC_SPARSITY))
+        x, ref_row = _stc_rows_tie_free(torch, gen, c, n,
+                                        offset=int(layout == "unaligned"))
+        if layout == "unaligned" and x.data_ptr() % 16 == 0:
+            _fail("stc_rows_fused: the unaligned view is aligned")
+        mask32 = (torch.arange(c, device="cuda") % 2 == 0).to(torch.int32)
+        got = kd.stc_rows_fused_cuda(x, ref_row, mask32, k)
+        again = kd.stc_rows_fused_cuda(x, ref_row, mask32, k)
+        torch.cuda.synchronize()
+        repeat = all(bool(torch.equal(a.view(torch.int32),
+                                      b.view(torch.int32)))
+                     for a, b in zip(got, again))
+        v = _stc_rows_fused_verdict(torch, kref, x, ref_row, mask32, k, got)
+        bound, by = _bound(4.0 * (2 * c * n + n + 4 * c), 4.0 * c * n)
+        times = _timings(torch,
+                         lambda: kd.stc_rows_fused_cuda(x, ref_row, mask32,
+                                                        k),
+                         lambda: kref.stc_rows_fused_ref(x, ref_row, mask32,
+                                                         k))
+        chain_ms, chain_err = _device_ms(
+            torch, _stc_rows_chain(kd, kref, x, ref_row, mask32, k))
+        row = {"name": "stc_rows_fused", "shape": [c, n], "layout": layout,
+               "k": k, "ctas": -(-n // 16384), **v,
+               "same_bits_twice": repeat, "tol": 0.0, **times,
+               "chain_ms": chain_ms,
+               **({"chain_device_error": chain_err} if chain_err else {}),
+               "bound_ms": bound, "bound_by": by}
+        row["ok"] = bool(v["ok"] and repeat)
+        if layout != "aligned":
+            row["inputs"] = layout
+        print(json.dumps(row))
+        if not row["ok"]:
+            _fail(f"stc_rows_fused ({c}, {n}) {layout}: {json.dumps(row)}")
+        rows.append(row)
+    return rows
+
+
 def _stc_rows_ties(torch, kd, kref, gen) -> None:
-    """``stc_rows`` where |Δ| ties at τ_c, on the fcn fleet's largest leaf
-    (8, 16384), k = 163: row 0 has 50 nonzero deltas (τ = 0, every zero
-    ties: μ = sum/count would be n/k times too small), row 1 seven deltas
-    tied at the k-th (four survive), row 2 quarter steps (thousands tie at
-    τ = 1), the rest tie-free; rows 0-2 and 4 masked.  Each masked row must
-    send exactly the k entries of the exact-k STC of record (``lax.top_k``'s
-    tie rule; fewer where τ = 0, whose kept zeros map to ref), the apply
-    must equal its plain version bit for bit, and μ must be within 1e-5
-    relative of the exact-k μ."""
+    """``stc_rows`` (the reduce + apply chain, then ``stc_rows_fused``,
+    with a k − 1 control that must fail) where |Δ| ties at τ_c, on the fcn
+    fleet's largest leaf (8, 16384), k = 163: row 0 has 50 nonzero deltas
+    (τ = 0, every zero ties: μ = sum/count would be n/k times too small),
+    row 1 seven deltas tied at the k-th (four survive), row 2 quarter steps
+    (thousands tie at τ = 1), the rest tie-free; rows 0-2 and 4 masked.
+    Each masked row must send exactly the k entries of the exact-k STC of
+    record (``lax.top_k``'s tie rule; fewer where τ = 0, whose kept zeros
+    map to ref), the output must equal its plain version bit for bit, and μ
+    must be within 1e-5 relative of the exact-k μ."""
     c, n = 8, 16384
     k = max(1, int(n * STC_SPARSITY))
     # Deltas on a 2^-14 grid in [-1, 1] and ref on the same grid, so that
@@ -754,6 +913,34 @@ def _stc_rows_ties(torch, kd, kref, gen) -> None:
     if not row["ok"]:
         _fail(f"stc_rows ties: {json.dumps(row)}")
 
+    # The same rows through stc_rows_fused: its bars, plus exactly the
+    # exact-k entries sent, τ = 0 on row 0 and k sent on rows 1 and 2.
+    got = kd.stc_rows_fused_cuda(x, ref_row, mask32, k)
+    v = _stc_rows_fused_verdict(torch, kref, x, ref_row, mask32, k, got)
+    v["ok"] = bool(v["ok"] and v["sent"] == v["sent_exact_k"]
+                   and float(got[1][0]) == 0.0
+                   and v["sent"][1] == v["sent"][2] == k)
+    print(json.dumps({"name": "stc_rows_fused_ties", "shape": [c, n],
+                      "k": k, "tau": got[1].tolist()[:3],
+                      "count": got[3].tolist()[:3], **v}))
+    if not v["ok"]:
+        _fail(f"stc_rows_fused ties: {json.dumps(v)}")
+    # A planted fault: the kernel run with k - 1 keeps one entry too few
+    # per masked row, which the verdict (exact-k support) must reject.
+    ctl = _stc_rows_fused_verdict(torch, kref, x, ref_row, mask32, k,
+                                  kd.stc_rows_fused_cuda(x, ref_row, mask32,
+                                                         k - 1))
+    print(json.dumps({"name": "stc_rows_fused_control",
+                      "control": "k_minus_1", "shape": [c, n], "k": k,
+                      "same_support_as_exact_k":
+                          ctl["same_support_as_exact_k"],
+                      "sent": ctl["sent"],
+                      "sent_exact_k": ctl["sent_exact_k"],
+                      "rows_failed": ctl["rows_failed"],
+                      "must_fail": True, "failed": not ctl["ok"]}))
+    if ctl["ok"] or ctl["same_support_as_exact_k"]:
+        _fail("stc_rows_fused control k-1 passed the exact-k support check")
+
 
 def check_kernels(torch, kd, kq, kref, port) -> list[dict]:
     """Phase 2: each kernel against its plain version on the card."""
@@ -797,22 +984,15 @@ def check_kernels(torch, kd, kq, kref, port) -> list[dict]:
                            lambda: w @ x),
                 "bound_ms": bound, "bound_by": by})
 
-    # stc_rows: every leaf of the driven STC runs, a (1024, 8192) leaf
-    # (34 MB, which stays in the 50 MB L2 across timed calls) and a
-    # (1024, 16384) leaf (67 MB, beyond L2).  Tie-free by construction (the
-    # ties are _stc_rows_ties' rows): each row's |Δ| is a permutation of n
-    # distinct multiples of 2^-e ≤ 1, and ref lies on the same grid, so
-    # x = ref ± |Δ| and x − ref are exact in fp32.
+    # stc_rows' reduce and apply (the chain that serves rows past N_FUSED):
+    # every leaf of the driven STC runs, a (1024, 8192) leaf (34 MB, which
+    # stays in the 50 MB L2 across timed calls), a (1024, 16384) leaf
+    # (67 MB, beyond L2) and an (8, 262144) leaf, one past N_FUSED's
+    # double, the shape such a leaf gives them.  Tie-free by construction
+    # (_stc_rows_tie_free; the ties are _stc_rows_ties' rows).
     sparsity = 0.01
-    for c, n in stc_shapes + [(1024, 8192), (1024, 16384)]:
-        step = 2.0 ** -max(1, (n - 1).bit_length())
-        ref_row = torch.randint(-2 * 2 ** 14, 2 * 2 ** 14, (n,),
-                                generator=gen, device="cuda") * 2.0 ** -14
-        mags = (torch.rand((c, n), generator=gen, device="cuda")
-                .argsort(dim=1) + 1).float() * step
-        signs = torch.randint(0, 2, (c, n), generator=gen,
-                              device="cuda").float() * 2.0 - 1.0
-        x = ref_row[None, :] + signs * mags
+    for c, n in stc_shapes + [(1024, 8192), (1024, 16384), (8, 262144)]:
+        x, ref_row = _stc_rows_tie_free(torch, gen, c, n)
         mask = (torch.arange(c, device="cuda") % 2 == 0)
         mask32 = mask.to(torch.int32)
         k = max(1, int(n * sparsity))
@@ -851,8 +1031,9 @@ def check_kernels(torch, kd, kq, kref, port) -> list[dict]:
                                x, ref_row, thr, ssum, cnt, mask32, k)),
                 "bound_ms": bound, "bound_by": by})
 
-        # The composite (τ + reduce + apply) against the exact-k plain STC.
-        whole = kd.stc_rows_cuda(x, ref_row, mask, sparsity)
+        # The composite (stc_rows_fused up to N_FUSED, else τ + reduce +
+        # apply) against the exact-k plain STC.
+        whole = kd.stc_rows_cuda(x, ref_row, mask32, sparsity)
         want = kref.stc_rows_ref(x, ref_row, mask, sparsity)
         torch.cuda.synchronize()
         err = float((whole - want).abs().max())
@@ -861,6 +1042,7 @@ def check_kernels(torch, kd, kq, kref, port) -> list[dict]:
                           "max_abs_err": err, "tol": tol, "ok": err <= tol}))
         if err > tol:
             _fail(f"stc_rows ({c}, {n}) disagrees with stc_rows_ref")
+    rows += check_stc_rows_fused(torch, kd, kref, gen, stc_shapes)
     _stc_rows_ties(torch, kd, kref, gen)
 
     # dol_bid_scores: every planner shape of the driven runs and checks,
@@ -984,6 +1166,17 @@ def _bid_inputs(torch, gen, m, n, c):
     return dol, chain, dsi, size
 
 
+def _fleet_stc_leaves(res, strategy: str, rounds: int) -> int:
+    """Leaves the fleet plane compresses in a run: every leaf of the
+    client-stacked tree once per compressed hop round (feddif_stc, one
+    PermuteOp per diffusion round) or per uplink aggregation (stc, one per
+    round)."""
+    from repro_torch.tree import tree_leaves
+    trees = (sum(res.diffusion_rounds) if strategy == "feddif_stc"
+             else rounds if strategy == "stc" else 0)
+    return trees * len(tree_leaves(res.final_params))
+
+
 def main_path(torch, kd, port) -> dict:
     """Phase 3: the port's main path through run_experiment on the card."""
     from repro_torch.tree import tree_leaves
@@ -1043,9 +1236,18 @@ def main_path(torch, kd, port) -> dict:
         if counts["mix_aggregate"] < rounds:
             _fail(f"{name}: mix_aggregate launched "
                   f"{counts['mix_aggregate']} times in {rounds} rounds")
-        if "stc" in strategy and (counts["stc_rows_reduce"] == 0
-                                  or counts["stc_rows_apply"] == 0):
-            _fail(f"{name}: the stc_rows kernels never launched")
+        if "stc" in strategy:
+            # One stc_rows_fused launch per leaf of each compressed tree (a
+            # hop round of feddif_stc, an uplink of stc): every fcn leaf
+            # fits N_FUSED, so the reduce / apply chain never runs.
+            want = _fleet_stc_leaves(res, strategy, rounds)
+            if (counts["stc_rows_fused"] != want or want == 0
+                    or counts["stc_rows_reduce"] or counts["stc_rows_apply"]):
+                _fail(f"{name}: stc_rows_fused / stc_rows_reduce / "
+                      f"stc_rows_apply launched {counts['stc_rows_fused']} / "
+                      f"{counts['stc_rows_reduce']} / "
+                      f"{counts['stc_rows_apply']} times, the schedules "
+                      f"imply {want} / 0 / 0")
         if counts["quant_pack"] or counts["quant_unpack"]:
             _fail(f"{name}: fp32 hops launched the quant kernels")
         if planner == "jax":
@@ -1253,7 +1455,8 @@ def host_plane_path(torch, kd, port) -> dict:
         if counts["mix_aggregate"] != want_mix:
             _fail(f"{name}: mix_aggregate launched {counts['mix_aggregate']} "
                   f"times, want {want_mix}")
-        if counts["stc_rows_reduce"] or counts["stc_rows_apply"]:
+        if (counts["stc_rows_reduce"] or counts["stc_rows_apply"]
+                or counts["stc_rows_fused"]):
             _fail(f"{name}: the fleet plane's stc_rows kernels launched")
         want_q = (8 * sum(res.diffusion_rounds)
                   if sp.fl.hop_quant == "int8" else 0)
@@ -1310,6 +1513,45 @@ def stc_routing(torch, kd) -> dict:
     return counts
 
 
+def stc_rows_routing(torch, kd) -> dict:
+    """Phase 3c, the fleet plane's STC entry point (``ops.stc_topk``, what
+    ``fedshard.masked_stc_compress`` calls per leaf) on (8, n) leaves on
+    both sides of N_FUSED, every other row masked: every leaf of rows of
+    n ≤ N_FUSED must take one ``stc_rows_fused`` launch, the larger one the
+    ``stc_rows_threshold`` + ``stc_rows_reduce`` + ``stc_rows_apply``
+    chain, and each leaf must equal the plain STC's support.  No FL task
+    here has a leaf past N_FUSED, so this is where the chain's kernels run
+    on a path; its launches are returned apart from the main path's."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref as kref
+    from repro_torch.kernels.stc_compress import N_FUSED
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    sizes = (10, 16384, N_FUSED, N_FUSED + 1)
+    leaves = {n: _stc_rows_tie_free(torch, gen, 8, n) for n in sizes}
+    mask32 = (torch.arange(8, device="cuda") % 2 == 0).to(torch.int32)
+    kd.reset_launch_counts()
+    outs = {n: ops.stc_topk(x, r, mask32, STC_SPARSITY)
+            for n, (x, r) in leaves.items()}
+    torch.cuda.synchronize()
+    counts = dict(kd.LAUNCHES)
+    fused = sum(n <= N_FUSED for n in sizes)
+    support = all(bool(torch.equal(
+        outs[n] != r, kref.stc_rows_ref(x, r, mask32, STC_SPARSITY) != r))
+        for n, (x, r) in leaves.items())
+    row = {"check": "fleet-plane STC routing", "leaves": [[8, n]
+                                                          for n in sizes],
+           "n_fused": N_FUSED, "launches": {k: counts[k] for k in (
+               "stc_rows_fused", "stc_rows_reduce", "stc_rows_apply")},
+           "same_support_as_exact_k": support}
+    row["ok"] = bool(support and counts["stc_rows_fused"] == fused
+                     and counts["stc_rows_reduce"]
+                     == counts["stc_rows_apply"] == len(sizes) - fused)
+    print(json.dumps(row))
+    if not row["ok"]:
+        _fail(f"fleet-plane STC routing: {json.dumps(row)}")
+    return counts
+
+
 def host_vs_fleet(torch, port) -> None:
     """Phase 4: the port's two planes on the card from one init — FedDif,
     fcn, N=M=8, 2 rounds: equal ledgers and diffusion rounds, params within
@@ -1349,8 +1591,8 @@ def host_vs_fleet(torch, port) -> None:
 def card_vs_cpu(torch, port, executor: str = "fleet") -> None:
     """Phase 4: the kernel path on the card against the plain path on the
     CPU, from one init, on a small feddif_stc run on one data plane (the
-    fleet plane's stc_rows kernels, or the host plane's stc_reduce /
-    stc_apply)."""
+    fleet plane's ``stc_rows_fused``, or the host plane's ``stc_fused``,
+    each launched once per compressed leaf)."""
     from repro_torch.tree import tree_leaves
     strategy, task, rounds, clients = CARD_VS_CPU_RUN
     spec = port.ExperimentSpec(
@@ -1370,6 +1612,14 @@ def card_vs_cpu(torch, port, executor: str = "fleet") -> None:
         spec, device="cpu", init_fn=lambda g: port.params_from_numpy(init))
     if gpu.ledger.as_dict() != cpu.ledger.as_dict():
         _fail("card and CPU runs charge different ledgers")
+    if executor == "fleet":
+        want = _fleet_stc_leaves(gpu, strategy, rounds)
+        if (counts["stc_rows_fused"] != want or counts["stc_rows_reduce"]
+                or counts["stc_rows_apply"] or want == 0):
+            _fail(f"card_vs_cpu fleet: stc_rows_fused / stc_rows_reduce / "
+                  f"stc_rows_apply launched {counts['stc_rows_fused']} / "
+                  f"{counts['stc_rows_reduce']} / {counts['stc_rows_apply']} "
+                  f"times, want {want} / 0 / 0")
     if executor == "host":
         led = gpu.ledger.as_dict()
         want = (led["transmitted_models"] - led["uplink_models"]) * len(
@@ -1507,8 +1757,9 @@ def profile_round(torch, port, planner: str = "host",
                   executor: str = "fleet", strategy: str = "feddif") -> None:
     """Phase 5 (a measurement, not a check): one FedDif round under
     torch.profiler — of the quickstart cell on the fleet plane with the
-    host or the device planner or on the host plane (FedDif, or
-    feddif_stc, whose hops go through ``stc_fused``), or of the lm_hops
+    host or the device planner or on the host plane (FedDif), or
+    feddif_stc on either plane (its hops through ``stc_rows_fused`` or
+    ``stc_fused``), or of the lm_hops
     adapter_int8 arm — device busy time (the
     union of kernel intervals), idle share of the span from the first to
     the last kernel, kernel count and the kernels with the most device
@@ -2120,6 +2371,8 @@ def main() -> None:
     for k, v in host_plane_path(torch, kd, port).items():
         launches[k] += v
     routing = stc_routing(torch, kd)
+    routing.update({k: v for k, v in stc_rows_routing(torch, kd).items()
+                    if k.startswith("stc_rows")})
     card_vs_cpu(torch, port)
     card_vs_cpu(torch, port, "host")
     host_vs_fleet(torch, port)
@@ -2129,6 +2382,7 @@ def main() -> None:
     profile_round(torch, port, "jax", VALUE_WEIGHT)
     profile_round(torch, port, executor="host")
     profile_round(torch, port, executor="host", strategy="feddif_stc")
+    profile_round(torch, port, strategy="feddif_stc")
     profile_round(torch, port, lm_int8=True)
     rows += check_lm_kernels(torch, kref)
     for k, v in zoo_prefill(torch, kd).items():
@@ -2142,6 +2396,9 @@ def main() -> None:
         "stc_rows_reduce": ("stc_rows.cu",
                             "src/repro/kernels/diffusion.py:177"),
         "stc_rows_apply": ("stc_rows.cu",
+                           "src/repro/kernels/diffusion.py:200"),
+        "stc_rows_fused": ("stc_compress.cu",
+                           "src/repro/kernels/diffusion.py:177, "
                            "src/repro/kernels/diffusion.py:200"),
         "stc_reduce": ("stc_compress.cu",
                        "src/repro/kernels/stc_compress.py:30"),
@@ -2163,15 +2420,17 @@ def main() -> None:
     }
     # The summary row of each kernel is its main-path shape: the (8, 26122)
     # Eq.-11 row of the fcn fleet, the largest fcn leaf (8, 16384) stacked
-    # on the fleet plane and [16384] alone on the host plane (stc_fused),
-    # 2^24 for stc_reduce / stc_apply (they now serve only leaves past
-    # N_FUSED, as the routing check's 2^24 leaf), the
+    # on the fleet plane (stc_rows_fused) and [16384] alone on the host
+    # plane (stc_fused), 2^24 for stc_reduce / stc_apply and (8, 262144)
+    # for stc_rows_reduce / stc_rows_apply (they now serve only leaves past
+    # N_FUSED, as the routing checks' larger leaves), the
     # device planner's (8, 8) bids over 10 classes in the quickstart cell,
     # the lm adapter's (8·7, 512) int8 block in the lm_hops cell, and the
     # zoo's prefill shapes: qwen3's bf16 attention (B, Sq, Sk, H, D),
     # zamba2's SSD (B, S, H, P, N, chunk) and falcon's scan (B, S, D, N).
     main_shape = {"mix_aggregate": [8, 26122, 1],
-                  "stc_rows_reduce": [8, 16384], "stc_rows_apply": [8, 16384],
+                  "stc_rows_reduce": [8, 262144],
+                  "stc_rows_apply": [8, 262144], "stc_rows_fused": [8, 16384],
                   "stc_reduce": [2 ** 24], "stc_apply": [2 ** 24],
                   "stc_fused": [16384],
                   "dol_bid_scores": [8, 8, NUM_CLASSES],
@@ -2183,10 +2442,13 @@ def main() -> None:
     # Kernels that another kernel's wrapper launches in the same call: their
     # launches stand in that kernel's row, whose times cover both.
     helpers = {"ssd_scan": ("ssd_scan_state", "ssd_scan_pass")}
-    # Kernels that no main-path run launches: stc_fused took every FL leaf
-    # (n ≤ N_FUSED) from them; the routing check above drove them (and
-    # failed unless it launched each once per leaf past N_FUSED).
-    off_path = ("stc_reduce", "stc_apply")
+    # Kernels that no main-path run launches: stc_fused (host plane) and
+    # stc_rows_fused (fleet plane) took every FL leaf (n ≤ N_FUSED) from
+    # them; the routing checks above drove them (and failed unless they
+    # launched each once per leaf past N_FUSED).
+    off_path = {"stc_reduce": "stc_fused", "stc_apply": "stc_fused",
+                "stc_rows_reduce": "stc_rows_fused",
+                "stc_rows_apply": "stc_rows_fused"}
     summary = []
     for name, (src, rep) in replaces.items():
         row = next(r for r in rows
@@ -2208,9 +2470,10 @@ def main() -> None:
                if "bound_tc_ms" in row else {}),
             **({"chain_ms": row["chain_ms"]} if "chain_ms" in row else {}),
             **({"routing_launches": routing[name],
-                "note": "0 on the main path: stc_fused replaced them for "
-                        "n <= N_FUSED; routing_launches are the host-plane "
-                        "STC routing check's leaves past N_FUSED"}
+                "note": f"0 on the main path: {off_path[name]} replaced "
+                        f"them for n <= N_FUSED; routing_launches are the "
+                        f"{'fleet' if 'rows' in name else 'host'}-plane "
+                        f"STC routing check's leaves past N_FUSED"}
                if name in off_path else {}),
             "ok": all(r["ok"] for r in rows if r["name"] == name)})
     print(json.dumps({"kernels": summary}))

@@ -3,8 +3,9 @@
 Counterpart of ``repro.distributed.fedshard`` (``diffuse_params``,
 ``masked_stc_compress``).  FL clients are stacked on a leading axis of every
 leaf; a diffusion hop is a row gather over that axis, and an STC-compressed
-hop runs every leaf through ``kernels.ops.stc_topk`` — the ``stc_rows``
-kernels on the card, the plain version on the CPU.
+hop runs every leaf through ``kernels.ops.stc_topk`` — one
+``stc_rows_fused`` launch per leaf on the card, the plain version on the
+CPU.
 """
 from __future__ import annotations
 
@@ -31,9 +32,11 @@ def masked_stc_compress(params: Params, ref: Params, mask,
                         sparsity: float = 0.01) -> Params:
     """Slot ``c`` with ``mask[c]`` becomes ``ref + STC(params[c] − ref)``
     (the compressed D2D payload the receiver reconstructs); other slots pass
-    through untouched.  ``ref`` is the unstacked round-start global."""
+    through untouched.  ``ref`` is the unstacked round-start global.  The
+    mask goes to the device once per tree, as the int32 the kernels read."""
     device = tree_leaves(params)[0].device
-    mask_t = torch.as_tensor(np.asarray(mask, bool), device=device)
+    mask_t = torch.as_tensor(np.asarray(mask, bool).astype(np.int32),
+                             device=device)
 
     def leaf(x, r):
         c = x.shape[0]

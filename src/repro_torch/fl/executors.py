@@ -28,8 +28,8 @@ Counterpart of ``repro.fl.executors`` (``HostExecutor``, ``FleetExecutor``,
     payload first makes one int8 pack→unpack roundtrip per client row
     (:func:`~repro_torch.fl.adapters.quant_roundtrip_tree`: the ``quant``
     kernels on the card); STC-compressed hops and the STC uplink go through
-    :func:`~repro_torch.distributed.fedshard.masked_stc_compress` (the
-    ``stc_rows`` kernels on the card);
+    :func:`~repro_torch.distributed.fedshard.masked_stc_compress` (one
+    ``stc_rows_fused`` launch per leaf on the card);
   - a MixOp and the Eq.-(11) aggregation are one
     ``kernels.ops.mix_aggregate_tree`` call each (one ``mix_aggregate``
     launch on the card), with the (C, C) MixOp matrix or a (1, C) row.

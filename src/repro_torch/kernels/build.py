@@ -54,6 +54,8 @@ _SIGNATURES = {
         "repro_stc_reduce_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _P],
         "repro_stc_apply_f32": [_P, _P, _P, _P, _P, _I, _P, _L, _P],
         "repro_stc_fused_f32": [_P, _P, _P, _P, _P, _I, _I, _P],
+        "repro_stc_rows_fused_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                     _P],
         "repro_stc_reduce_max_blocks": [], "repro_stc_fused_max_n": []},
     "dol_bid_scores": {
         "repro_dol_bid_scores_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _P]},

@@ -95,6 +95,24 @@
 //     input gives the same bits on every run.  No global scratch, no
 //     ticket, no fence; a final cluster barrier keeps each block's shared
 //     memory alive while peers may still read it.
+//
+// stc_fused_kernel<true> is the same kernel over the rows of a (C, n)
+// block against a shared reference row: the masked per-row STC of the
+// fleet plane's hops and uplinks (repro_torch.kernels.diffusion.
+// stc_rows_fused_cuda).  It replaces repro/kernels/diffusion.py's
+// _stc_reduce_kernel and _stc_apply_kernel (stc_rows_pallas) and, for rows
+// of n <= N_FUSED, the per-row XLA sort the reference leaves tau_c to.
+// The grid is (ctas, C) with clusters of (ctas, 1, 1): each cluster takes
+// one row (blockIdx.y), row offsets in 64 bits.  A block loads its segment
+// of x_c and of ref and selects on delta = x_c - ref in registers; the
+// output is ref + mu_c * sign(delta) on the row's k survivors and ref + 0
+// elsewhere, the plain version's r + tern (stc_rows_apply_ref), so a -0 in
+// ref comes out as it does there.  ref is read again for that sum, from
+// L1/L2 (every row reads the same row), rather than held in 16 more
+// registers through the select.  The blocks of a row whose mask is 0 copy
+// x_c and leave.  tau_c, the survivor sum and count go to (C,) outputs, 0
+// for unmasked rows.  At the fcn fleet's (8, n) leaves each row is one
+// block on its own SM; at C > 132 rows the blocks run in waves.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -360,6 +378,7 @@ constexpr int kFusedThreads = 1024;
 constexpr int kFusedSeg = kVpt * kFusedThreads;   // elements per block
 constexpr int kMaxCluster = 8;              // portable cluster size
 constexpr int kFusedMaxN = kFusedSeg * kMaxCluster;
+constexpr int kMaxRows = 65535;             // rows: gridDim.y
 constexpr int kBins = 256;                  // 8-bit digits
 constexpr int kPasses = 4;
 constexpr int kCands = 32;                  // keys one warp ranks directly
@@ -415,13 +434,44 @@ __device__ __forceinline__ float block_sum_any(float s) {
   return s;
 }
 
+// Four consecutive values of p from index i, m of them in range (0 to 4,
+// the rest 0); a float4 load when vec.
+__device__ __forceinline__ void load_chunk(const float* __restrict__ p,
+                                           bool vec, int i, int m,
+                                           float (&q)[4]) {
+  if (m == 4 && vec) {
+    const float4 f = __ldg(reinterpret_cast<const float4*>(p + i));
+    q[0] = f.x; q[1] = f.y; q[2] = f.z; q[3] = f.w;
+  } else {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) q[u] = u < m ? __ldg(p + i + u) : 0.f;
+  }
+}
+
+__device__ __forceinline__ void store_chunk(float* __restrict__ p, bool vec,
+                                            int i, int m,
+                                            const float (&q)[4]) {
+  if (m == 4 && vec) {
+    *reinterpret_cast<float4*>(p + i) = make_float4(q[0], q[1], q[2], q[3]);
+  } else {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      if (u < m) p[i + u] = q[u];
+    }
+  }
+}
+
 // A cluster of ctas blocks of T threads (ctas = gridDim.x, the cluster
-// dimension).  Block r covers elements [16 T r, 16 T (r + 1)); thread t
-// holds its float4 chunks t, T + t, 2T + t and 3T + t of that segment, so
-// a warp's loads and stores are contiguous.  Index order within a block
-// is (chunk slot, thread, lane of the float4).
+// dimension) per row; kRows: row blockIdx.y of a (C, n) block, its values
+// x_c - ref, else one flat tensor (C = 1).  Block r covers elements
+// [16 T r, 16 T (r + 1)) of the row; thread t holds its float4 chunks t,
+// T + t, 2T + t and 3T + t of that segment, so a warp's loads and stores
+// are contiguous.  Index order within a block is (chunk slot, thread, lane
+// of the float4).
+template <bool kRows>
 __global__ void __launch_bounds__(kFusedThreads)
-stc_fused_kernel(const float* __restrict__ x, bool vec_in, bool vec_out,
+stc_fused_kernel(const float* __restrict__ x, const float* __restrict__ ref,
+                 const int* __restrict__ mask, bool vec_in, bool vec_out,
                  int n, int k, float* __restrict__ out,
                  float* __restrict__ out_thr, float* __restrict__ out_sum,
                  int* __restrict__ out_cnt) {
@@ -432,6 +482,35 @@ stc_fused_kernel(const float* __restrict__ x, bool vec_in, bool vec_out,
   const int tid = static_cast<int>(threadIdx.x);
   const int lane = tid & 31;
   const int warp = tid >> 5;
+  const int row = kRows ? static_cast<int>(blockIdx.y) : 0;
+  const long long off = static_cast<long long>(row) * n;
+  x += off;
+  out += off;
+
+  const int base = rank * kVpt * T;
+  int valid[kChunks];                      // values of each chunk in [0, n)
+#pragma unroll
+  for (int j = 0; j < kChunks; ++j) {
+    const int left = n - (base + 4 * (j * T + tid));
+    valid[j] = left >= 4 ? 4 : (left > 0 ? left : 0);
+  }
+  if (kRows && mask[row] == 0) {
+    // An unmasked row passes through bit for bit; the whole cluster leaves
+    // here, before any cluster barrier.
+#pragma unroll
+    for (int j = 0; j < kChunks; ++j) {
+      const int i = base + 4 * (j * T + tid);
+      float q[4];
+      load_chunk(x, vec_in, i, valid[j], q);
+      store_chunk(out, vec_out, i, valid[j], q);
+    }
+    if (rank == 0 && tid == 0) {
+      out_thr[row] = 0.f;
+      out_sum[row] = 0.f;
+      out_cnt[row] = 0;
+    }
+    return;
+  }
 
   __shared__ int hist[kPasses][kBins];     // this block's counts
   __shared__ int sum_hist[kBins];          // the cluster's, by digit
@@ -444,24 +523,20 @@ stc_fused_kernel(const float* __restrict__ x, bool vec_in, bool vec_out,
 
   for (int b = tid; b < kPasses * kBins; b += T) (&hist[0][0])[b] = 0;
   if (tid == 0) s_ncand = 0;
-  const int base = rank * kVpt * T;
-  float v[kVpt];
-  int valid[kChunks];                      // values of each chunk in [0, n)
+  float v[kVpt];                           // x, or delta = x_c - ref
 #pragma unroll
   for (int j = 0; j < kChunks; ++j) {
     const int i = base + 4 * (j * T + tid);
-    const int left = n - i;
-    valid[j] = left >= 4 ? 4 : (left > 0 ? left : 0);
-    if (valid[j] == 4 && vec_in) {
-      const float4 f = __ldg(reinterpret_cast<const float4*>(x + i));
-      v[4 * j] = f.x; v[4 * j + 1] = f.y; v[4 * j + 2] = f.z;
-      v[4 * j + 3] = f.w;
-    } else {
+    float q[4];
+    load_chunk(x, vec_in, i, valid[j], q);
+    if (kRows) {
+      float r[4];
+      load_chunk(ref, vec_in, i, valid[j], r);
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        v[4 * j + u] = u < valid[j] ? __ldg(x + i + u) : 0.f;
-      }
+      for (int u = 0; u < 4; ++u) q[u] -= r[u];
     }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) v[4 * j + u] = q[u];
   }
   __syncthreads();
 
@@ -643,28 +718,75 @@ stc_fused_kernel(const float* __restrict__ x, bool vec_in, bool vec_out,
 #pragma unroll
   for (int j = 0; j < kChunks; ++j) {
     const int i = base + 4 * (j * T + tid);
-    if (valid[j] == 4 && vec_out) {
-      *reinterpret_cast<float4*>(out + i) = make_float4(
-          ternary(v[4 * j], keep[4 * j], mu),
-          ternary(v[4 * j + 1], keep[4 * j + 1], mu),
-          ternary(v[4 * j + 2], keep[4 * j + 2], mu),
-          ternary(v[4 * j + 3], keep[4 * j + 3], mu));
-    } else {
+    float o[4];
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        if (u < valid[j]) {
-          out[i + u] = ternary(v[4 * j + u], keep[4 * j + u], mu);
-        }
-      }
+    for (int u = 0; u < 4; ++u) {
+      o[u] = ternary(v[4 * j + u], keep[4 * j + u], mu);
     }
+    if (kRows) {
+      // ref + tern, as the plain version forms it (ref + 0 off the
+      // survivors).
+      float r[4];
+      load_chunk(ref, vec_in, i, valid[j], r);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) o[u] = r[u] + o[u];
+    }
+    store_chunk(out, vec_out, i, valid[j], o);
   }
   if (rank == 0 && tid == 0) {
-    out_thr[0] = t;
-    out_sum[0] = total;
-    out_cnt[0] = count;
+    out_thr[row] = t;
+    out_sum[row] = total;
+    out_cnt[row] = count;
   }
   // No block leaves while a peer may still read its shared memory.
   if (ctas > 1) cluster.sync();
+}
+
+// One launch of stc_fused_kernel<kRows> over `rows` rows of n: a cluster
+// of ceil(n / 16384) blocks per row.  Returns the launch's error or
+// cudaGetLastError().
+template <bool kRows>
+int launch_fused(const float* x, const float* ref, const int* mask,
+                 float* out, float* thr, float* ssum, int* cnt, int rows,
+                 int n, int k, cudaStream_t stream) {
+  if (rows < 1 || rows > kMaxRows || n <= 0 || n > kFusedMaxN || k < 1 ||
+      k > n) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // One block of 1024 threads per 16384 elements; a row that fits one
+  // block takes one thread per float4 chunk (whole warps, at most 1024).
+  const int ctas = (n + kFusedSeg - 1) / kFusedSeg;
+  int threads = kFusedThreads;
+  if (ctas == 1) {
+    const int chunks = (n + 3) / 4;
+    threads = chunks >= kFusedThreads ? kFusedThreads
+                                      : (chunks + 31) / 32 * 32;
+  }
+  // Rows after the first start 16-byte aligned only where n % 4 == 0.
+  const bool rows_aligned = rows == 1 || n % 4 == 0;
+  const bool vec_in =
+      rows_aligned && aligned16(x) && (ref == nullptr || aligned16(ref));
+  const bool vec_out = rows_aligned && aligned16(out);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(ctas, rows, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = ctas;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, stc_fused_kernel<kRows>, x, ref, mask, vec_in, vec_out, n, k,
+      out, thr, ssum, cnt);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return static_cast<int>(err);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -722,36 +844,23 @@ extern "C" int repro_stc_fused_max_n() { return kFusedMaxN; }
 extern "C" int repro_stc_fused_f32(const float* x, float* out, float* thr,
                                    float* ssum, int* cnt, int n, int k,
                                    cudaStream_t stream) {
-  if (n <= 0 || n > kFusedMaxN || k < 1 || k > n) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  // One block of 1024 threads per 16384 elements; a tensor that fits one
-  // block takes one thread per float4 chunk (whole warps, at most 1024).
-  const int ctas = (n + kFusedSeg - 1) / kFusedSeg;
-  int threads = kFusedThreads;
-  if (ctas == 1) {
-    const int chunks = (n + 3) / 4;
-    threads = chunks >= kFusedThreads ? kFusedThreads
-                                      : (chunks + 31) / 32 * 32;
-  }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(ctas, 1, 1);
-  cfg.blockDim = dim3(threads, 1, 1);
-  cfg.dynamicSmemBytes = 0;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = ctas;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, stc_fused_kernel, x, aligned16(x), aligned16(out), n, k, out,
-      thr, ssum, cnt);
-  if (err != cudaSuccess) {
-    cudaGetLastError();
-    return static_cast<int>(err);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_fused<false>(x, nullptr, nullptr, out, thr, ssum, cnt, 1, n,
+                             k, stream);
+}
+
+// The masked per-row STC of x (C, n) against ref (n,), fp32, mask (C,)
+// int32, k the entries kept per masked row (1 <= k <= n): out (C, n) fp32
+// = ref + mu_c * sign(x_c - ref) on row c's k survivors and ref elsewhere
+// where mask[c], x_c bit for bit where not; thr, ssum (C,) fp32 and cnt
+// (C,) int32 = tau_c, the sum and count of |x_c - ref| >= tau_c (0 where
+// mask[c] == 0).  Contiguous, on the current device, n <= N_FUSED,
+// C <= 65535.  One launch.  Returns the launch's error or
+// cudaGetLastError().
+extern "C" int repro_stc_rows_fused_f32(const float* x, const float* ref,
+                                        const int* mask, float* out,
+                                        float* thr, float* ssum, int* cnt,
+                                        int C, int n, int k,
+                                        cudaStream_t stream) {
+  return launch_fused<true>(x, ref, mask, out, thr, ssum, cnt, C, n, k,
+                            stream);
 }

@@ -9,6 +9,9 @@
 // Replaces the TPU kernels of repro/kernels/diffusion.py::stc_rows_pallas:
 //   _stc_reduce_kernel (first pallas_call)  -> stc_reduce_kernel
 //   _stc_apply_kernel  (second pallas_call) -> stc_apply_kernel
+// for rows of more than N_FUSED = 131072 elements.  Shorter rows (every FL
+// leaf) take one launch of stc_fused_kernel<true> in stc_compress.cu, which
+// selects each row's tau_c on chip.
 //
 // Semantics: exactly k survivors per row, the ones lax.top_k keeps (the
 // plain version of record, repro_torch.kernels.ref.stc_rows_ref, like

@@ -10,14 +10,19 @@ CUDA C++ for ``sm_90a`` (``csrc/``), built by ``nvcc`` and bound with
   ``repro/kernels/diffusion.py::_mix_kernel`` (``mix_aggregate_pallas``).
   Memory-bound: at G = 1 (Eq.-11 aggregation) it is a GEMV that reads
   C·F·4 bytes once; see the source for the design.
-* :func:`stc_rows_cuda` — masked per-row STC against a shared reference row.
-  τ_c (the k-th largest ``|x_c − ref|``) comes from ``torch.topk`` outside
-  the kernels, as the reference leaves it to an XLA sort; then
-  :func:`stc_rows_reduce_cuda` (replaces ``_stc_reduce_kernel``) and
-  :func:`stc_rows_apply_cuda` (replaces ``_stc_apply_kernel``).  Both are
-  memory-bound passes over (C, n) fp32.  Like the plain version they keep
-  exactly k entries per row, the ones ``lax.top_k`` keeps (every
-  ``|Δ| > τ_c``, then the ties in index order), at the exact-k μ.
+* :func:`stc_rows_cuda` — masked per-row STC against a shared reference row,
+  by one of two routes.  Rows of n ≤ :data:`N_FUSED` (every FL leaf):
+  :func:`stc_rows_fused_cuda`, one launch that selects each row's τ_c (the
+  k-th largest ``|x_c − ref|``) on chip by radix select, one thread-block
+  cluster per row (``stc_fused_kernel<true>`` in ``csrc/stc_compress.cu``,
+  the host plane's STC kernel run per row); it replaces
+  ``_stc_reduce_kernel`` and ``_stc_apply_kernel`` together with the XLA
+  sort the reference leaves τ_c to.  Longer rows: τ_c by ``torch.topk``,
+  then :func:`stc_rows_reduce_cuda` (replaces ``_stc_reduce_kernel``) and
+  :func:`stc_rows_apply_cuda` (replaces ``_stc_apply_kernel``),
+  memory-bound passes over (C, n) fp32.  Like the plain version both
+  routes keep exactly k entries per row, the ones ``lax.top_k`` keeps
+  (every ``|Δ| > τ_c``, then the ties in index order), at the exact-k μ.
 * :func:`dol_bid_scores_cuda` — the device planner's (M, N) candidate IID
   distances (Eq. 2 + B.1, w1_norm) by the centered contraction, one thread
   per output.  Replaces ``_bid_kernel`` (``dol_bid_scores_pallas``).
@@ -40,10 +45,12 @@ from repro_torch.kernels import build
 from repro_torch.kernels.launch import (LAUNCHES, check_tensor, int32,
                                         raise_on, reset_launch_counts)
 from repro_torch.kernels.ref import stc_rows_threshold
+from repro_torch.kernels.stc_compress import N_FUSED
 from repro_torch.tree import tree_flatten, tree_unflatten
 
 __all__ = ["stack_ravel", "stack_unravel", "mix_aggregate_cuda",
-           "stc_rows_cuda", "stc_rows_reduce_cuda", "stc_rows_apply_cuda",
+           "stc_rows_cuda", "stc_rows_fused_cuda", "stc_rows_reduce_cuda",
+           "stc_rows_apply_cuda", "MAX_ROWS",
            "dol_bid_scores_cuda", "bid_value_fuse_cuda", "LAUNCHES",
            "reset_launch_counts"]
 
@@ -82,6 +89,11 @@ def stack_unravel(flat: torch.Tensor, spec: tuple, *, collapse: bool = False,
         blk = blk.reshape(shape) if collapse else blk.reshape((g,) + shape)
         leaves.append(blk if keep_float32 else blk.to(dtype))
     return tree_unflatten(treedef, leaves)
+
+
+#: Most rows :func:`stc_rows_fused_cuda` takes: one cluster per row on the
+#: grid's y axis (65,535 at most).
+MAX_ROWS = 65535
 
 
 # ----------------------------------------------------------------- wrappers
@@ -171,17 +183,68 @@ def stc_rows_apply_cuda(x: torch.Tensor, ref_row: torch.Tensor,
     return out
 
 
+def stc_rows_fused_cuda(x: torch.Tensor, ref_row: torch.Tensor,
+                        mask: torch.Tensor, k: int
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                   torch.Tensor]:
+    """Masked per-row STC of rows of n ≤ :data:`N_FUSED` in one launch,
+    τ_c selected on the card: ``(out, thr, ssum, cnt)``.  x (C, n) fp32,
+    ref_row (n,) fp32, mask (C,) int32, k the entries kept per masked row
+    (1 ≤ k ≤ n).  out (C, n): ``ref + μ_c·sign(x_c − ref)`` on row c's k
+    survivors (every ``|Δ| > τ_c``, then the ties in index order) and
+    ``ref`` elsewhere where ``mask[c]``, x_c bit for bit where not; thr,
+    ssum (C,) fp32 and cnt (C,) int32: τ_c and the sum and count of
+    ``|Δ| ≥ τ_c`` (``μ_c = (ssum_c − (cnt_c − k)·τ_c) / k``), 0 on
+    unmasked rows.  Sizes are checked before devices."""
+    if x.dim() != 2:
+        raise ValueError(f"x must be 2-d, got {tuple(x.shape)}")
+    c, n = x.shape
+    if not 1 <= n <= N_FUSED:
+        raise ValueError(f"rows of n={n} do not fit the fused kernel "
+                         f"(1 to {N_FUSED})")
+    if not 1 <= c <= MAX_ROWS:
+        raise ValueError(f"C={c} exceeds the fused kernel's grid "
+                         f"({MAX_ROWS} rows)")
+    if not 1 <= k <= n:
+        raise ValueError(f"k={k} must lie in [1, {n}]")
+    check_tensor(x, "x", 2)
+    check_tensor(ref_row, "ref_row", 1)
+    check_tensor(mask, "mask", 1, torch.int32)
+    if (ref_row.shape[0] != n or mask.shape[0] != c
+            or ref_row.device != x.device or mask.device != x.device):
+        raise ValueError(f"ref_row {tuple(ref_row.shape)} / mask "
+                         f"{tuple(mask.shape)} do not match x {(c, n)}")
+    lib = build.load("stc_compress")
+    dev = x.device
+    out = torch.empty_like(x)
+    thr = torch.empty((c,), device=dev, dtype=torch.float32)
+    ssum = torch.empty((c,), device=dev, dtype=torch.float32)
+    cnt = torch.empty((c,), device=dev, dtype=torch.int32)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.repro_stc_rows_fused_f32(
+            x.data_ptr(), ref_row.data_ptr(), mask.data_ptr(), out.data_ptr(),
+            thr.data_ptr(), ssum.data_ptr(), cnt.data_ptr(), c, n, k, stream)
+    raise_on(err, "stc_rows_fused")
+    LAUNCHES["stc_rows_fused"] += 1
+    return out, thr, ssum, cnt
+
+
 def stc_rows_cuda(x: torch.Tensor, ref_row: torch.Tensor, mask: torch.Tensor,
                   sparsity: float) -> torch.Tensor:
-    """Masked per-row STC: τ by ``torch.topk``, then the reduce and apply
-    kernels.  x (C, n) fp32; ref_row (n,); mask (C,) bool or int."""
+    """Masked per-row STC on the card: one :func:`stc_rows_fused_cuda`
+    launch for rows of n ≤ :data:`N_FUSED`, else τ by ``torch.topk`` and
+    the reduce and apply kernels.  x (C, n) fp32; ref_row (n,); mask (C,)
+    int32 on x's device (``fedshard.masked_stc_compress`` converts it once
+    per tree)."""
     x = x.contiguous()
     ref_row = ref_row.to(torch.float32).contiguous()
+    k = max(1, int(x.shape[1] * sparsity))
+    if x.shape[1] <= N_FUSED:
+        return stc_rows_fused_cuda(x, ref_row, mask, k)[0]
     thr = stc_rows_threshold(x, ref_row, sparsity)
     ssum, cnt, ties = stc_rows_reduce_cuda(x, ref_row, thr)
-    mask32 = mask.to(device=x.device, dtype=torch.int32).contiguous()
-    k = max(1, int(x.shape[1] * sparsity))
-    return stc_rows_apply_cuda(x, ref_row, thr, ssum, cnt, ties, mask32, k)
+    return stc_rows_apply_cuda(x, ref_row, thr, ssum, cnt, ties, mask, k)
 
 
 def dol_bid_scores_cuda(dol: torch.Tensor, chain_size: torch.Tensor,

@@ -15,10 +15,11 @@ __all__ = ["LAUNCHES", "reset_launch_counts", "check_tensor", "int32",
 
 #: Launches of each kernel since the last :func:`reset_launch_counts`.
 LAUNCHES = {"mix_aggregate": 0, "stc_rows_reduce": 0, "stc_rows_apply": 0,
-            "stc_reduce": 0, "stc_apply": 0, "stc_fused": 0,
-            "dol_bid_scores": 0, "bid_value_fuse": 0, "quant_pack": 0,
-            "quant_unpack": 0, "flash_attention": 0, "ssm_scan": 0,
-            "ssd_scan_state": 0, "ssd_scan_pass": 0, "ssd_scan": 0}
+            "stc_rows_fused": 0, "stc_reduce": 0, "stc_apply": 0,
+            "stc_fused": 0, "dol_bid_scores": 0, "bid_value_fuse": 0,
+            "quant_pack": 0, "quant_unpack": 0, "flash_attention": 0,
+            "ssm_scan": 0, "ssd_scan_state": 0, "ssd_scan_pass": 0,
+            "ssd_scan": 0}
 
 
 def reset_launch_counts() -> None:

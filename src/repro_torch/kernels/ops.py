@@ -85,10 +85,18 @@ def stc_topk(x: torch.Tensor, ref_row: torch.Tensor, mask: torch.Tensor,
              sparsity: float = 0.01) -> torch.Tensor:
     """Masked per-row (per-client) STC against a shared reference row —
     the D2D hop compression of ``fedshard.masked_stc_compress`` on one
-    flattened leaf.  x (C, n); ref_row (n,); mask (C,) bool."""
+    flattened leaf.  x (C, n); ref_row (n,); mask (C,) bool or int.  A CPU
+    tensor takes ``ref.stc_rows_ref``, the semantics of record; a CUDA
+    tensor takes the ``stc_rows_fused`` kernel (one launch, each row's τ
+    selected on the card) for rows of up to ``N_FUSED`` elements, and
+    beyond that τ by ``torch.topk`` and the ``stc_rows_reduce``/
+    ``stc_rows_apply`` kernels.  The kernels read the mask as int32 on x's
+    device; a mask already so is passed as it is."""
     if _route(x) == "cuda":
-        return diffusion.stc_rows_cuda(x.to(torch.float32), ref_row, mask,
-                                       sparsity).to(x.dtype)
+        return diffusion.stc_rows_cuda(
+            x.to(torch.float32), ref_row,
+            mask.to(device=x.device, dtype=torch.int32), sparsity
+        ).to(x.dtype)
     return ref.stc_rows_ref(x, ref_row, mask, sparsity)
 
 

@@ -18,6 +18,7 @@ __all__ = ["mix_aggregate_ref", "stc_compress_ref", "stc_threshold",
            "stc_reduce_ref", "stc_apply_ref", "stc_radix_threshold_ref",
            "stc_fused_ref", "stc_rows_ref",
            "stc_rows_threshold", "stc_rows_reduce_ref", "stc_rows_apply_ref",
+           "stc_rows_fused_ref",
            "dol_bid_scores_ref", "dol_bid_scores_fused_ref",
            "bid_value_fuse_ref", "quant_pack_ref", "quant_unpack_ref",
            "flash_attention_ref", "ssm_scan_ref", "ssd_scan_ref",
@@ -129,32 +130,38 @@ def stc_apply_ref(flat: torch.Tensor, thr: torch.Tensor, mu: torch.Tensor,
 STC_RADIX_SHIFTS = (24, 16, 8, 0)
 
 
-def stc_radix_threshold_ref(flat: torch.Tensor, k: int) -> torch.Tensor:
-    """τ, the k-th largest ``|x|``, as the fused STC kernel selects it: a
-    radix select on the int32 view of ``|x|`` (for non-negative fp32
-    values integer order is value order; −0 keys as +0), one 8-bit digit a
-    pass from the top.  Each pass counts the digit among the keys that
-    match the prefix so far and takes the digit where the count from the
-    top reaches the rank still sought.  (The kernel's lone block stops
-    early once the keys that match the prefix fit one warp and ranks them
-    there: the same τ.)  (1,) fp32 on ``flat``'s device, in tensor ops only
+def stc_radix_threshold_ref(a: torch.Tensor, k: int) -> torch.Tensor:
+    """τ, the k-th largest ``|a|`` along the last axis, as the fused STC
+    kernels select it: a radix select on the int32 view of ``|a|`` (for
+    non-negative fp32 values integer order is value order; −0 keys as +0),
+    one 8-bit digit a pass from the top.  Each pass counts the digit among
+    the keys that match the prefix so far and takes the digit where the
+    count from the top reaches the rank still sought.  (The kernel's lone
+    block stops early once the keys that match the prefix fit one warp and
+    ranks them there: the same τ.)  A (…, n) tensor gives one τ per row,
+    (…,) fp32; a 1-D tensor is one row and gives (1,).  Tensor ops only
     (no host read), so a CUDA graph can capture it."""
-    keys = flat.reshape(-1).to(torch.float32).abs().view(torch.int32).to(
-        torch.int64)
+    a = a.to(torch.float32)
+    rows = a.reshape(-1, a.shape[-1]) if a.dim() > 1 else a.reshape(1, -1)
+    keys = rows.abs().view(torch.int32).to(torch.int64)
+    r = keys.shape[0]
     dev = keys.device
-    prefix = torch.zeros((), dtype=torch.int64, device=dev)
-    rem = torch.full((1,), k, dtype=torch.int64, device=dev)
+    prefix = torch.zeros((r,), dtype=torch.int64, device=dev)
+    rem = torch.full((r, 1), k, dtype=torch.int64, device=dev)
     for shift in STC_RADIX_SHIFTS:
         digit = (keys >> shift) & 255
         if shift != 24:               # keys off the prefix count in bin 256
-            digit = torch.where((keys >> (shift + 8)) == prefix, digit, 256)
-        hist = torch.zeros(257, dtype=torch.int64, device=dev).scatter_add_(
-            0, digit, torch.ones_like(digit))[:256].flip(0)
-        from_top = torch.cumsum(hist, 0)
-        i = torch.searchsorted(from_top, rem)       # (1,): the digit's slot
-        rem = rem - (from_top[i] - hist[i])
-        prefix = prefix * 256 + (255 - i[0])
-    return prefix.to(torch.int32).reshape(1).view(torch.float32)
+            digit = torch.where((keys >> (shift + 8)) == prefix[:, None],
+                                digit, 256)
+        hist = torch.zeros((r, 257), dtype=torch.int64,
+                           device=dev).scatter_add_(
+            1, digit, torch.ones_like(digit))[:, :256].flip(1)
+        from_top = torch.cumsum(hist, 1)
+        i = torch.searchsorted(from_top, rem)       # (r, 1): the digit's slot
+        rem = rem - (from_top.gather(1, i) - hist.gather(1, i))
+        prefix = prefix * 256 + (255 - i[:, 0])
+    tau = prefix.to(torch.int32).view(torch.float32)
+    return tau.reshape(a.shape[:-1]) if a.dim() > 1 else tau
 
 
 def stc_fused_ref(flat: torch.Tensor, k: int
@@ -191,8 +198,10 @@ def stc_rows_ref(x: torch.Tensor, ref_row: torch.Tensor, mask: torch.Tensor,
 
 def stc_rows_threshold(x: torch.Tensor, ref_row: torch.Tensor,
                        sparsity: float) -> torch.Tensor:
-    """τ_c, the k-th largest ``|x_c − ref|`` of every row (C,) — computed
-    outside the kernels, as the reference leaves it to an XLA sort."""
+    """τ_c, the k-th largest ``|x_c − ref|`` of every row (C,) by
+    ``torch.topk`` — computed outside the reduce and apply kernels, as the
+    reference leaves it to an XLA sort (rows of more than ``N_FUSED``
+    elements; the fused kernel selects τ_c itself)."""
     delta = x.to(torch.float32) - ref_row.to(torch.float32)[None, :]
     k = max(1, int(x.shape[1] * sparsity))
     return torch.topk(delta.abs(), k, dim=1).values[:, k - 1].contiguous()
@@ -223,6 +232,26 @@ def stc_rows_apply_ref(x: torch.Tensor, ref_row: torch.Tensor,
           / _divisor(k, ssum.device))
     tern = torch.where(_keep_top_k(d.abs(), t, k), torch.sign(d) * mu, 0.0)
     return torch.where(mask.reshape(-1, 1) != 0, (r + tern).to(x.dtype), x)
+
+
+def stc_rows_fused_ref(x: torch.Tensor, ref_row: torch.Tensor,
+                       mask: torch.Tensor, k: int
+                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                  torch.Tensor]:
+    """Plain version of the fused per-row STC kernel, step by step: τ_c by
+    :func:`stc_radix_threshold_ref` on each row of ``x − ref``, the survivor
+    sum and count by :func:`stc_rows_reduce_ref`, the exact-k μ_c and the
+    blend by :func:`stc_rows_apply_ref`.  Returns ``(out, thr, ssum,
+    cnt)``: out (C, n) fp32; thr, ssum (C,) fp32 and cnt (C,) int32, 0 on
+    the rows whose mask is 0."""
+    x32 = x.to(torch.float32)
+    r = ref_row.to(torch.float32)
+    thr = stc_radix_threshold_ref(x32 - r[None, :], k)
+    ssum, cnt = stc_rows_reduce_ref(x32, r, thr)
+    out = stc_rows_apply_ref(x32, r, thr, ssum, cnt, mask, k)
+    on = mask.reshape(-1) != 0
+    return (out, torch.where(on, thr, 0.0), torch.where(on, ssum, 0.0),
+            torch.where(on, cnt, 0.0).to(torch.int32))
 
 
 def dol_bid_scores_ref(dol: torch.Tensor, chain_size: torch.Tensor,

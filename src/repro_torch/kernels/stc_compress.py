@@ -25,7 +25,9 @@ routes on the card:
 All three kernels are hand-written CUDA C++ for ``sm_90a``
 (``csrc/stc_compress.cu``), built by ``nvcc`` and bound with ``ctypes``
 (:mod:`repro_torch.kernels.build`); the source says what bounds them and how
-their sums stay deterministic.
+their sums stay deterministic.  The fused kernel also runs per row for the
+fleet plane's masked STC (:func:`~repro_torch.kernels.diffusion.
+stc_rows_fused_cuda`, from the same library).
 
 The survivors are the ones ``lax.top_k`` keeps, as in the plain version of
 record, ``kernels/ref.py::stc_compress_ref``: every ``|x| > τ`` plus the

@@ -282,4 +282,4 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     assert set(build._SIGNATURES["stc_compress"]) == {
         "repro_stc_reduce_f32", "repro_stc_apply_f32",
         "repro_stc_reduce_max_blocks", "repro_stc_fused_f32",
-        "repro_stc_fused_max_n"}
+        "repro_stc_fused_max_n", "repro_stc_rows_fused_f32"}
