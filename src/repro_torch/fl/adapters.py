@@ -15,7 +15,14 @@ moving as int8 codes plus one fp32 absmax scale (``kernels.ops.quant_pack``
 is the Eq.-15 payload size S of that format, 8·block + 32 bits per
 row-block.  The executor applies exactly one pack→unpack roundtrip per
 PermuteOp to every slot — what the receiving device decodes; per-row
-packing commutes with the row gather that implements the move.
+packing commutes with the row gather that implements the move.  Both
+planes run that hop as one ``kernels.ops.quant_roundtrip`` call per
+PermuteOp, move included (:func:`quant_roundtrip_tree` with ``src_of_dst``
+on the fleet plane, :func:`quant_roundtrip_slots` on the host plane): one
+``quant_roundtrip`` launch on the card, reading the leaves in place.
+:func:`pack_rows` / :func:`unpack_rows` (the standalone ``quant_pack`` /
+``quant_unpack`` kernels) stay for a caller that moves the codes
+themselves, and :func:`quant_roundtrip_slot` for one slot.
 """
 from __future__ import annotations
 
@@ -28,7 +35,6 @@ import torch.nn.functional as F
 
 from repro_torch.core.aggregation import model_bits
 from repro_torch.kernels import ops as kernel_ops
-from repro_torch.kernels.diffusion import stack_ravel, stack_unravel
 from repro_torch.kernels.quant import QUANT_BLOCK
 from repro_torch.tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 
@@ -36,7 +42,7 @@ Params = Any
 
 __all__ = ["AdapterView", "make_adapter_view", "packed_bits", "pack_rows",
            "unpack_rows", "quant_roundtrip_rows", "quant_roundtrip_tree",
-           "quant_roundtrip_slot", "QUANT_BLOCK"]
+           "quant_roundtrip_slot", "quant_roundtrip_slots", "QUANT_BLOCK"]
 
 
 def pack_rows(flat: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -68,10 +74,28 @@ def quant_roundtrip_rows(flat: torch.Tensor) -> torch.Tensor:
     return unpack_rows(q, s, flat.shape[1])
 
 
-def quant_roundtrip_tree(params: Params) -> Params:
-    """Roundtrip a client-stacked tree per client row (FleetExecutor)."""
-    flat, spec = stack_ravel(params)
-    return stack_unravel(quant_roundtrip_rows(flat), spec)
+def quant_roundtrip_tree(params: Params, src_of_dst=None) -> Params:
+    """Roundtrip a client-stacked tree per client row (FleetExecutor), and
+    move the rows: row c of the result decodes row ``src_of_dst[c]`` (host
+    ints; identity when None).  One ``quant_roundtrip`` launch on the card;
+    equal to ``quant_roundtrip_rows`` of the raveled tree, unraveled, then
+    gathered."""
+    leaves, treedef = tree_flatten(params)
+    return tree_unflatten(treedef,
+                          kernel_ops.quant_roundtrip(leaves, src_of_dst))
+
+
+def quant_roundtrip_slots(slots: list, src_of_dst) -> list:
+    """The host plane's int8 hop of one PermuteOp: slot c of the result
+    decodes slot ``src_of_dst[c]`` (host ints) — ``quant_roundtrip_slot``
+    of every slot, then the reorder, in one ``quant_roundtrip`` launch on
+    the card.  The inputs are only read (slots may alias one another after
+    a MixOp); slot c's leaves are row c of fresh stacked leaves."""
+    rows = [tree_flatten(s)[0] for s in slots]
+    treedef = tree_flatten(slots[0])[1]
+    out = [x.unbind(0) for x in kernel_ops.quant_roundtrip(rows, src_of_dst)]
+    return [tree_unflatten(treedef, [x[c] for x in out])
+            for c in range(len(slots))]
 
 
 def quant_roundtrip_slot(params: Params) -> Params:

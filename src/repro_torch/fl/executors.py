@@ -10,7 +10,8 @@ Counterpart of ``repro.fl.executors`` (``HostExecutor``, ``FleetExecutor``,
   through ``fl.compression.stc_compress`` (on the card one ``stc_fused``
   launch per leaf up to ``N_FUSED`` elements, the ``stc_reduce``/
   ``stc_apply`` kernels beyond), int8 hops through ``fl.adapters.
-  quant_roundtrip_slot`` (the ``quant`` kernels), and MixOps and the
+  quant_roundtrip_slots`` (every slot and the move in one
+  ``quant_roundtrip`` launch per PermuteOp), and MixOps and the
   Eq.-(11) aggregation through ``core.aggregation.fedavg`` in plain tensor
   ops, as the reference computes them outside any Pallas kernel.
 * :class:`FleetExecutor` — client-stacked.  All slots live in one params
@@ -50,7 +51,7 @@ from repro_torch.core import aggregation as agg
 from repro_torch.core.schedule import MixOp, PermuteOp, RoundSchedule, TrainOp
 from repro_torch.distributed.fedshard import (diffuse_params,
                                               masked_stc_compress)
-from repro_torch.fl.adapters import quant_roundtrip_slot, quant_roundtrip_tree
+from repro_torch.fl.adapters import quant_roundtrip_slots, quant_roundtrip_tree
 from repro_torch.fl.compression import stc_compress
 from repro_torch.fl.fedprox import prox_objective
 from repro_torch.fl.schedulers import PROX_STRATEGIES
@@ -119,8 +120,10 @@ class HostExecutor:
                     # int8 wire: each destination decodes the pack→unpack
                     # of its payload (the hop is a bijection, so every slot
                     # moves and is roundtripped exactly once).
-                    slots = [quant_roundtrip_slot(s) for s in slots]
-                slots = [slots[int(op.src_of_dst[c])] for c in range(c_slots)]
+                    slots = quant_roundtrip_slots(slots, op.src_of_dst)
+                else:
+                    slots = [slots[int(op.src_of_dst[c])]
+                             for c in range(c_slots)]
                 self._train(slots, op.train_mask)
             elif isinstance(op, MixOp):
                 for members, weights in op.groups:
@@ -226,9 +229,10 @@ class FleetExecutor:
 
     def _permute(self, params: Params, op: PermuteOp) -> Params:
         if self.quant:
-            # int8 wire: roundtrip the stacked payload per client row, then
-            # move the decoded rows (packing commutes with the row gather).
-            params = quant_roundtrip_tree(params)
+            # int8 wire: roundtrip the stacked payload per client row and
+            # move the decoded rows in one call (packing commutes with the
+            # row gather).
+            return quant_roundtrip_tree(params, op.src_of_dst)
         return diffuse_params(params, torch.as_tensor(
             np.asarray(op.src_of_dst, np.int64), device=self.device))
 

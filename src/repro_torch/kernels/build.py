@@ -32,7 +32,8 @@ SOURCES = {"mix_aggregate": "mix_aggregate.cu", "stc_rows": "stc_rows.cu",
            "dol_bid_scores": "dol_bid_scores.cu",
            "bid_value_fuse": "bid_value_fuse.cu", "quant": "quant.cu",
            "flash_attention": "flash_attention.cu",
-           "ssm_scan": "ssm_scan.cu", "ssd_scan": "ssd_scan.cu"}
+           "ssm_scan": "ssm_scan.cu", "ssd_scan": "ssd_scan.cu",
+           "launch_floor": "launch_floor.cu"}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _L = ctypes.c_longlong
@@ -40,8 +41,9 @@ _L = ctypes.c_longlong
 # stream as void*, sizes as int or long long, scalars as float); every
 # launching entry point returns cudaError_t (repro_ssd_scan_smem_bytes
 # returns bytes, repro_stc_reduce_max_blocks a block count,
-# repro_stc_fused_max_n an element count and repro_stc_rows_max_chunks a
-# chunk count).
+# repro_stc_fused_max_n an element count, repro_stc_rows_max_chunks a
+# chunk count and repro_quant_roundtrip_max_entries / _max_leaves the
+# roundtrip's table capacity).
 _SIGNATURES = {
     "mix_aggregate": {
         "repro_mix_aggregate_f32": [_P, _P, _P, _I, _I, _I, _P]},
@@ -63,7 +65,10 @@ _SIGNATURES = {
         "repro_bid_value_fuse_f32": [_P, _P, _F, _P, _I, _I, _P]},
     "quant": {
         "repro_quant_pack_f32": [_P, _P, _P, _I, _I, _P],
-        "repro_quant_unpack_f32": [_P, _P, _P, _I, _I, _P]},
+        "repro_quant_unpack_f32": [_P, _P, _P, _I, _I, _P],
+        "repro_quant_roundtrip_f32": [_P, _P, _P, _I, _I, _P, _P, _P],
+        "repro_quant_roundtrip_max_entries": [],
+        "repro_quant_roundtrip_max_leaves": []},
     "flash_attention": {
         "repro_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                   _F, _I, _I, _P]},
@@ -73,6 +78,7 @@ _SIGNATURES = {
         "repro_ssd_scan_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                _I, _I, _I, _P],
         "repro_ssd_scan_smem_bytes": [_I, _I, _I]},
+    "launch_floor": {"repro_launch_floor": [_P]},
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -20,7 +20,7 @@ from repro_torch.kernels.diffusion import stack_ravel, stack_unravel
 
 __all__ = ["mix_aggregate", "mix_aggregate_tree", "stc_compress", "stc_topk",
            "dol_bid_scores", "bid_value_fuse", "quant_pack",
-           "quant_unpack", "flash_attention", "ssm_scan", "ssd_scan"]
+           "quant_unpack", "quant_roundtrip", "flash_attention", "ssm_scan", "ssd_scan"]
 
 
 def _route(t: torch.Tensor) -> str:
@@ -150,6 +150,23 @@ def quant_unpack(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
             q.contiguous(),
             scale.to(device=q.device, dtype=torch.float32).contiguous())
     return ref.quant_unpack_ref(q, scale)
+
+
+def quant_roundtrip(rows_of_leaves, src_of_dst=None) -> list:
+    """The int8 hop of one PermuteOp: row c of the result is the
+    pack → unpack of row ``src_of_dst[c]`` (identity when None), per
+    QUANT_BLOCK block of the row's leaves concatenated in order.
+    ``rows_of_leaves``: C rows of L tensors (the host plane's slot trees) or
+    L client-stacked leaves (C, *shape) (the fleet plane's tree); returns L
+    leaves (C, *shape).  A CPU tensor takes ``ref.quant_roundtrip_ref``
+    (fp32 inside, each leaf back to its dtype); a CUDA tensor takes the
+    ``quant_roundtrip`` kernel, one launch, on contiguous fp32 leaves."""
+    first = rows_of_leaves[0]
+    if not isinstance(first, torch.Tensor):
+        first = first[0]
+    if _route(first) == "cuda":
+        return quant.quant_roundtrip_cuda(rows_of_leaves, src_of_dst)
+    return ref.quant_roundtrip_ref(rows_of_leaves, src_of_dst)[0]
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -10,9 +10,13 @@ main path calls them with a CUDA tensor: there the wrappers in
 """
 from __future__ import annotations
 
+import math
+
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.dol import iid_distance_candidates_t, xla_sum_t
+from repro_torch.kernels.quant import QUANT_BLOCK, roundtrip_rows, rows_src
 
 __all__ = ["mix_aggregate_ref", "stc_compress_ref", "stc_threshold",
            "stc_reduce_ref", "stc_apply_ref", "stc_radix_threshold_ref",
@@ -21,7 +25,7 @@ __all__ = ["mix_aggregate_ref", "stc_compress_ref", "stc_threshold",
            "stc_rows_fused_ref",
            "dol_bid_scores_ref", "dol_bid_scores_fused_ref",
            "bid_value_fuse_ref", "quant_pack_ref", "quant_unpack_ref",
-           "flash_attention_ref", "ssm_scan_ref", "ssd_scan_ref",
+           "quant_roundtrip_ref", "flash_attention_ref", "ssm_scan_ref", "ssd_scan_ref",
            "ssd_chunk_states_ref", "ssd_state_pass_ref",
            "ssd_chunk_output_ref", "ssd_scan_stages_ref"]
 
@@ -335,6 +339,49 @@ def quant_pack_ref(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 def quant_unpack_ref(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """(q (R, B) int8, scale (R,)) → (R, B) fp32 dequantized payload."""
     return q.to(torch.float32) * scale.to(torch.float32)[:, None]
+
+
+def quant_roundtrip_ref(rows_of_leaves, src_of_dst=None
+                        ) -> tuple[list, torch.Tensor, torch.Tensor]:
+    """The int8 hop of one PermuteOp, plainly: the C rows (each its leaves
+    concatenated in order, in fp32, zero-padded to a QUANT_BLOCK multiple)
+    through :func:`quant_pack_ref` → :func:`quant_unpack_ref`, then the row
+    gather ``new[c] = old[src_of_dst[c]]`` (identity when None).
+
+    ``rows_of_leaves``: C rows of L tensors, or L client-stacked leaves
+    (C, *shape) (``kernels.quant.roundtrip_rows``).  Returns ``(leaves,
+    codes, scales)``: L leaves (C, *shape) in the input leaves' dtypes, the
+    codes (C, Fp) int8 and scales (C, Fp/QUANT_BLOCK) fp32 of each output
+    row — ``repro.fl.adapters.quant_roundtrip_rows`` followed by the move,
+    bit for bit."""
+    c, _, rows, stacked = roundtrip_rows(rows_of_leaves)
+    src = rows_src(src_of_dst, c)
+    if rows is None:
+        meta = [(tuple(x.shape[1:]), x.dtype) for x in stacked]
+        flat = torch.cat([x.reshape(c, -1).to(torch.float32)
+                          for x in stacked], dim=1)
+    else:
+        meta = [(tuple(x.shape), x.dtype) for x in rows[0]]
+        flat = torch.stack([torch.cat([x.reshape(-1).to(torch.float32)
+                                       for x in row]) for row in rows])
+    f = flat.shape[1]
+    fp = -(-f // QUANT_BLOCK) * QUANT_BLOCK
+    nb = fp // QUANT_BLOCK
+    q, scale = quant_pack_ref(F.pad(flat, (0, fp - f)).reshape(
+        c * nb, QUANT_BLOCK))
+    out, q, scale = (t.reshape(c, -1) for t in (
+        quant_unpack_ref(q, scale), q, scale))
+    if src != list(range(c)):
+        # The move as a stack of row views: no host index goes to the
+        # device, so the call also runs inside a CUDA graph.
+        out, q, scale = (torch.stack([t[s] for s in src])
+                         for t in (out, q, scale))
+    leaves, off = [], 0
+    for shape, dtype in meta:
+        n = math.prod(shape)
+        leaves.append(out[:, off:off + n].reshape((c,) + shape).to(dtype))
+        off += n
+    return leaves, q, scale
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
