@@ -44,7 +44,18 @@ nothing of JAX.  Phases, each of which fails loudly:
    codes and scales bit-equal to ``quant_roundtrip_ref``, the same bits
    twice, ``ms`` beside ``chain_ms`` (the chain it replaces); a block
    decoded with its neighbour's scale (a planted fault) must fail the bit
-   check.  All STC paths (``stc_rows``,
+   check.  ``bid_fused`` (one bid round of the device planner in one
+   launch: the candidate IID distances, their subtraction from the models'
+   own and the learning-value factor) runs at every bid shape of the
+   driven runs and checks, at (256, 256, 10) (the largest population a
+   FedDif run bids over: fig7_scaling and fleet_scaling run feddif only up
+   to N = 256), at (1024, 1024, 10) (a scaling row no run bids at) and at
+   (33, 70, 64) (the runtime-C instance), with and without a value: bit-equal to the chain
+   it replaces (``dol_bid_scores`` → the subtraction →
+   ``bid_value_fuse``) on two calls, within 2e-5 of ``bid_fused_ref``
+   (1e-7 near uniform), ``ms`` beside ``chain_ms``; fed the neighbouring
+   client's value or the next model's IID distance (two planted faults) it
+   must fail the bit check.  All STC paths (``stc_rows``,
    ``stc_rows_fused``, ``stc_reduce`` / ``stc_apply``, ``stc_fused``)
    also run rows where magnitudes tie at τ, including τ = 0: exactly the
    k entries ``lax.top_k`` keeps, bit-equal to their plain versions, the
@@ -58,8 +69,9 @@ nothing of JAX.  Phases, each of which fails loudly:
    counters are zeroed right before each run and read right after; every
    run must launch mix_aggregate, the STC runs ``stc_rows_fused`` once per
    compressed leaf (and ``stc_rows_reduce`` / ``stc_rows_apply`` never),
-   the device-planner run dol_bid_scores once per diffusion round or more
-   and bid_value_fuse as often; params must be finite and both FedDif runs'
+   the device-planner run ``bid_fused`` once per bid round (its
+   planner's ``loop_iterations``: each diffusion round and each plan's
+   halting round) and ``dol_bid_scores`` / ``bid_value_fuse`` never; params must be finite and both FedDif runs'
    peak accuracy must beat FedAvg's.  The two FedDif runs print the
    planner's seconds per communication round and auction iterations.
    Then the adapter hop plane: FedDif on the LoRA ``lm`` task at the
@@ -94,7 +106,9 @@ nothing of JAX.  Phases, each of which fails loudly:
    ``stc_rows_fused`` and a larger one to the ``stc_rows_reduce`` /
    ``stc_rows_apply`` chain, and the standalone int8 wire
    (``adapters.pack_rows`` / ``unpack_rows``) must launch ``quant_pack``
-   and ``quant_unpack`` once each;
+   and ``quant_unpack`` once each, and the standalone bid ops
+   (``ops.dol_bid_scores`` / ``ops.bid_value_fuse``) their kernels once
+   each;
 4. a small feddif_stc run on each plane and a small lm int8 run on the
    card against the
    same runs on the CPU (plain versions) from one init: equal ledgers,
@@ -104,8 +118,13 @@ nothing of JAX.  Phases, each of which fails loudly:
    one init: equal ledgers, params within atol 2e-4, rtol 2e-3); the lm
    adapter_int8 arm and host-plane feddif/fcn with int8 hops, as shipped
    and with the hop put back to the chain ``quant_roundtrip`` replaced:
-   equal ledgers, bit-equal final params; then the device planner on
-   the card (with its
+   equal ledgers, bit-equal final params; the device planner as shipped
+   (``bid_fused``) and with the bid round put back to the chain it
+   replaced, on the quickstart device-planner run and every plan of the
+   planner checks below: the same rounds, hops and ``scheduled``,
+   bit-equal ``decrement``, ``weight`` and ``efficiency`` (and, in the
+   run, equal ledgers and bit-equal final params); then the device planner
+   on the card (with its
    kernels) against the host planner on the CPU, on the N=M=C=10
    default-config inputs (seeds 0-2) and the 16 plans of the N=M=20
    ``planner_speedup`` cells: exact hop-list agreement is printed, and the
@@ -1223,6 +1242,7 @@ def check_kernels(torch, kd, kq, kref, port) -> list[dict]:
                                       "dol_bid_scores": bid_shapes,
                                       "bid_value_fuse": [list(s[:2]) for s
                                                          in bid_shapes],
+                                      "bid_fused": bid_shapes,
                                       "quant_pack": quant_shapes}}))
     rows = []
 
@@ -1317,8 +1337,8 @@ def check_kernels(torch, kd, kq, kref, port) -> list[dict]:
     _stc_rows_ties(torch, kd, kref, gen)
 
     # dol_bid_scores: every planner shape of the driven runs and checks,
-    # and the N=1024 population where fig7_scaling gives up the host
-    # planner.  A never-trained model (dol 0, chain 0) and empty clients
+    # and (1024, 1024, 10), a scaling row (no FedDif run bids over more
+    # than 256 clients).  A never-trained model (dol 0, chain 0) and empty clients
     # keep the δ terms live; atol 2e-5 is the reference's own bar.  Then a
     # near-uniform case (dist → 0), where the centered form must not cancel:
     # atol 1e-7.  Bound: inputs read and (M, N) written once, 2·M·N·C
@@ -1375,6 +1395,7 @@ def check_kernels(torch, kd, kq, kref, port) -> list[dict]:
                            lambda: torch.addcmul(bids, bids, value[None, :],
                                                  value=w)),
                 "bound_ms": bound, "bound_by": by})
+    rows += check_bid_fused(torch, kd, kref, gen, bid_shapes)
 
     # quant_pack / quant_unpack: every int8 block of the driven runs, a
     # (65536, 512) block (128 MB of fp32, beyond L2), and the reference
@@ -1436,6 +1457,126 @@ def _bid_inputs(torch, gen, m, n, c):
     size = torch.randint(0, 800, (n,), generator=gen, device="cuda").float()
     dol[0], chain[0], size[0] = 0.0, 0.0, 0.0
     return dol, chain, dsi, size
+
+
+def _old_bid_chain(iid, dol, chain_size, dsi, data_size, value=None,
+                   weight: float = 0.0, *, metric: str = "w1_norm"):
+    """One bid round as the planner ran it before ``bid_fused``, with
+    ``ops.bid_fused``'s signature: ``dol_bid_scores``, PyTorch's
+    subtraction, then ``bid_value_fuse`` where a value is given (three
+    launches on the card)."""
+    from repro_torch.kernels import ops
+    bids = iid[:, None] - ops.dol_bid_scores(dol, chain_size, dsi,
+                                             data_size, metric=metric)
+    return bids if value is None else ops.bid_value_fuse(bids, value, weight)
+
+
+def check_bid_fused(torch, kd, kref, gen, shapes) -> list[dict]:
+    """Phase 2, ``bid_fused`` — one bid round of the device planner in one
+    launch — at every bid shape of the driven runs and checks, at
+    (256, 256, 10) (the largest population any FedDif run bids over), at
+    (1024, 1024, 10) (a scaling row: no run bids there) and at (33, 70, 64)
+    (the kernel's runtime-C instance; C = 10 has its own), each with a learning value (w =
+    VALUE_WEIGHT) and without one, on ``_bid_inputs``' data and the port's
+    IID distances of its DoLs.  Each must equal the chain it replaces
+    (``_old_bid_chain``: ``dol_bid_scores`` → subtraction →
+    ``bid_value_fuse``) bit for bit on two calls (models 0 and 1 never
+    trained, clients 0 and 1 with 0 and 0.5 samples, so a + b < 1 at four
+    outputs), and ``bid_fused_ref``
+    within the reference's atol 2e-5; near uniform (dist → 0) within 1e-7.
+    Times: ``ms`` (a CUDA graph of calls), ``chain_ms`` (the old chain in
+    one graph), ``call_ms`` / ``chain_call_ms`` host-inclusive,
+    ``plain_ms``; bound: each input read once and (M, N) written once, and
+    2·M·N·C + 35·M·N fp32 operations.  No single PyTorch call computes the
+    function (``library_ms`` none).  Then two planted faults — the kernel
+    fed the neighbouring client's value, or the next model's IID distance —
+    must fail the bit check."""
+    from repro_torch.core.dol import iid_distance_t
+    rows = []
+    w = VALUE_WEIGHT
+
+    def same_bits(a, b) -> bool:
+        return bool(torch.equal(a.view(torch.int32), b.view(torch.int32)))
+
+    def verdict(label, m, n, c, iid, args, value, tol):
+        outs = [kd.bid_fused_cuda(iid, *args, value, w) for _ in range(2)]
+        chain = _old_bid_chain(iid, *args, value, w)
+        plain = kref.bid_fused_ref(iid, *args, value, w)
+        torch.cuda.synchronize()
+        equal = [same_bits(o, chain) for o in outs]
+        err = float((outs[0] - plain).abs().max())
+        return {"name": "bid_fused", "shape": [m, n, c],
+                "value": value is not None, "case": label,
+                "bit_equal_to_chain": equal, "max_abs_err": err, "tol": tol,
+                "ok": bool(all(equal) and err <= tol)}
+
+    for m, n, c in shapes + [(256, 256, NUM_CLASSES),
+                             (1024, 1024, NUM_CLASSES), (33, 70, 64)]:
+        args = _bid_inputs(torch, gen, m, n, c)
+        # Model 1 never trained too and client 1 with half a sample: a + b
+        # of 0.5 beside _bid_inputs' 0 drives the kernel's a + b < 1
+        # branch (the δ terms) at a fractional δ.
+        args[0][1], args[1][1], args[3][1] = 0.0, 0.0, 0.5
+        iid = iid_distance_t(args[0])
+        value_n = torch.rand((n,), generator=gen, device="cuda")
+        for value in (value_n, None):
+            row = verdict("model", m, n, c, iid, args, value, 2e-5)
+            bound, by = _bound(
+                4.0 * (2 * m + m * c + n * c + n
+                       + (n if value is not None else 0) + m * n),
+                2.0 * m * n * c + 35.0 * m * n)
+            times = _timings(torch,
+                             lambda: kd.bid_fused_cuda(iid, *args, value, w),
+                             lambda: kref.bid_fused_ref(iid, *args, value, w))
+            chain = lambda: _old_bid_chain(iid, *args, value, w)  # noqa: E731
+            chain_ms, chain_err = _device_ms(torch, chain)
+            row.update({**times, "chain_ms": chain_ms,
+                        "chain_call_ms": _time_ms(torch, chain),
+                        **({"chain_device_error": chain_err}
+                           if chain_err else {}),
+                        "bound_ms": bound, "bound_by": by})
+            if value is None:
+                row["inputs"] = "no value"
+            print(json.dumps(row))
+            if not row["ok"]:
+                _fail(f"bid_fused {row['shape']}: {json.dumps(row)}")
+            rows.append(row)
+
+    # Near uniform, as dol_bid_scores' case: the centered form keeps 1e-7.
+    m, n, c = 8, 12, NUM_CLASSES
+    dol = torch.full((m, c), 1.0 / c, device="cuda") + 1e-4 * torch.randn(
+        (m, c), generator=gen, device="cuda")
+    dol = dol / dol.sum(dim=1, keepdim=True)
+    args = (dol, torch.randint(100, 500, (m,), generator=gen,
+                               device="cuda").float(),
+            torch.full((n, c), 1.0 / c, device="cuda"),
+            torch.randint(50, 100, (n,), generator=gen, device="cuda").float())
+    iid = iid_distance_t(dol)
+    for value in (torch.rand((n,), generator=gen, device="cuda"), None):
+        row = verdict("near_uniform", m, n, c, iid, args, value, 1e-7)
+        print(json.dumps(row))
+        if not row["ok"]:
+            _fail(f"bid_fused near-uniform: {json.dumps(row)}")
+
+    # The planted faults, at the main path's (8, 8, 10) with a value.
+    m, n, c = DEVICE_PLANNER_RUN[3], DEVICE_PLANNER_RUN[3], NUM_CLASSES
+    args = _bid_inputs(torch, gen, m, n, c)
+    iid = iid_distance_t(args[0])
+    value = torch.rand((n,), generator=gen, device="cuda")
+    want = _old_bid_chain(iid, *args, value, w)
+    for fault, f_iid, f_value in (
+            ("value[n] read for client n + 1", iid, torch.roll(value, -1)),
+            ("the subtraction taken against iid of model m + 1",
+             torch.roll(iid, -1), value)):
+        got = kd.bid_fused_cuda(f_iid, *args, f_value, w)
+        torch.cuda.synchronize()
+        same = same_bits(got, want)
+        print(json.dumps({"name": "bid_fused_control", "fault": fault,
+                          "shape": [m, n, c], "bit_equal_to_chain": same,
+                          "must_fail": True, "failed": not same}))
+        if same:
+            _fail(f"bid_fused control: {fault} passed the bit check")
+    return rows
 
 
 def _fleet_stc_leaves(res, strategy: str, rounds: int) -> int:
@@ -1524,15 +1665,17 @@ def main_path(torch, kd, port) -> dict:
                 or counts["quant_roundtrip"]):
             _fail(f"{name}: fp32 hops launched the quant kernels")
         if planner == "jax":
-            if counts["dol_bid_scores"] < max(sum(res.diffusion_rounds),
-                                              rounds):
-                _fail(f"{name}: dol_bid_scores launched "
-                      f"{counts['dol_bid_scores']} times over "
-                      f"{sum(res.diffusion_rounds)} diffusion rounds")
-            if counts["bid_value_fuse"] != counts["dol_bid_scores"]:
-                _fail(f"{name}: bid_value_fuse launched "
-                      f"{counts['bid_value_fuse']} times, dol_bid_scores "
-                      f"{counts['dol_bid_scores']}")
+            # One bid_fused launch per bid round (the planner's
+            # loop_iterations: each diffusion round and each plan's halting
+            # round); the standalone pair never.
+            bid_rounds = st.get("loop_iterations", 0)
+            if counts["bid_fused"] != bid_rounds or bid_rounds == 0:
+                _fail(f"{name}: bid_fused launched {counts['bid_fused']} "
+                      f"times over {bid_rounds} bid rounds")
+            if counts["dol_bid_scores"] or counts["bid_value_fuse"]:
+                _fail(f"{name}: dol_bid_scores / bid_value_fuse launched "
+                      f"{counts['dol_bid_scores']} / "
+                      f"{counts['bid_value_fuse']} times on the main path")
         for k in launches:
             launches[k] += counts[k]
         peak[name] = max(res.accuracy)
@@ -1910,6 +2053,182 @@ def quant_routing(torch, kd) -> dict:
     return counts
 
 
+def bid_routing(torch, kd) -> dict:
+    """Phase 3c, the standalone bid ops (``ops.dol_bid_scores`` and
+    ``ops.bid_value_fuse``) on card tensors of the main path's (8, 8, 10):
+    one ``dol_bid_scores`` and one ``bid_value_fuse`` launch, no
+    ``bid_fused``; the distances within 2e-5 of ``dol_bid_scores_fused_ref``
+    and the fused bids bit-equal to ``bid_value_fuse_ref``.  No planner
+    path runs them since ``bid_fused`` took the bid round; their launches
+    are returned apart from the main path's."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref as kref
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    m = n = DEVICE_PLANNER_RUN[3]
+    args = _bid_inputs(torch, gen, m, n, NUM_CLASSES)
+    value = torch.rand((n,), generator=gen, device="cuda")
+    kd.reset_launch_counts()
+    cand = ops.dol_bid_scores(*args)
+    fused = ops.bid_value_fuse(-cand, value, VALUE_WEIGHT)
+    torch.cuda.synchronize()
+    counts = dict(kd.LAUNCHES)
+    err = float((cand - kref.dol_bid_scores_fused_ref(*args)).abs().max())
+    same = bool(torch.equal(
+        fused.view(torch.int32),
+        kref.bid_value_fuse_ref(-cand, value, VALUE_WEIGHT).view(
+            torch.int32)))
+    row = {"check": "bid routing", "shape": [m, n, NUM_CLASSES],
+           "launches": {k: counts[k] for k in ("dol_bid_scores",
+                                               "bid_value_fuse",
+                                               "bid_fused")},
+           "dol_bid_scores_max_abs_err": err, "tol": 2e-5,
+           "bid_value_fuse_bit_equal_to_plain": same}
+    row["ok"] = bool(err <= 2e-5 and same and counts["dol_bid_scores"]
+                     == counts["bid_value_fuse"] == 1
+                     and counts["bid_fused"] == 0)
+    print(json.dumps(row))
+    if not row["ok"]:
+        _fail(f"bid routing: {json.dumps(row)}")
+    return counts
+
+
+def _planner_case(planner, case: str, n: int, data_seed: int,
+                  chan_seed: int):
+    """One plan of the planner checks (PLANNER_CASES) by ``planner``, from
+    the same inputs whatever the planner: the default-config inputs of
+    tests/test_planner_jax.py, or a planner_speedup cell of
+    benchmarks/run.py."""
+    import numpy as np
+    from repro_torch.channels.topology import CellTopology
+    from repro_torch.core.dol import DiffusionState
+    c = NUM_CLASSES
+    rng = np.random.default_rng(data_seed)
+    dsi = rng.dirichlet(np.ones(c) * 0.5, n).astype(np.float32)
+    sizes = rng.integers(200, 800, n).astype(np.float64)
+    state = DiffusionState.init(n, n, c)
+    for mi in range(n):
+        state.record_training(mi, mi % n, dsi[mi % n], float(sizes[mi % n]))
+    if case == "default_config":
+        pos = CellTopology().sample_positions(
+            np.random.default_rng(chan_seed + 50), n)
+        plan_rng = np.random.default_rng(chan_seed + 7)
+    else:
+        plan_rng = np.random.default_rng([data_seed, chan_seed])
+        pos = planner.topology.sample_positions(plan_rng, n)
+    return planner.plan_communication_round(state, dsi, sizes, plan_rng,
+                                            positions=pos)
+
+
+def _plan_diff(torch, a: list, b: list) -> str | None:
+    """Two runs' device-planner outputs (``PlanOutputs``, one per plan)
+    against each other: None where they have the same rounds, hops and
+    ``scheduled`` and bit-equal ``decrement``, ``weight`` and
+    ``efficiency``, else the first difference."""
+    if len(a) != len(b) or not a:
+        return f"{len(a)} plans against {len(b)}"
+    for i, (x, y) in enumerate(zip(a, b)):
+        if (x.num_rounds, x.converged) != (y.num_rounds, y.converged):
+            return f"plan {i}: rounds / converged differ"
+        for k in ("dst", "src", "scheduled", "decrement", "weight",
+                  "efficiency"):
+            u, v = getattr(x, k), getattr(y, k)
+            if u.dtype == torch.float32:
+                u, v = u.view(torch.int32), v.view(torch.int32)
+            if not torch.equal(u, v):
+                return f"plan {i}: {k} differs"
+    return None
+
+
+def _planner_arms(torch, run) -> tuple[dict, dict, dict]:
+    """``run()`` twice on the card: as shipped (``ops.bid_fused``, one
+    launch per bid round) and with the bid round put back to
+    ``_old_bid_chain``, patched here, not a knob of the package.  Returns
+    each arm's result, its device-planner outputs and its bid launches."""
+    import repro_torch.core.planner as planner_mod
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.launch import LAUNCHES, reset_launch_counts
+    shipped, plan_rounds = ops.bid_fused, planner_mod._plan_rounds
+    res, plans, counts = {}, {}, {}
+    for arm in ("shipped", "old_chain"):
+        plans[arm] = []
+
+        def recording(*args, _out=plans[arm], **kw):
+            out = plan_rounds(*args, **kw)
+            _out.append(out)
+            return out
+        planner_mod._plan_rounds = recording
+        if arm == "old_chain":
+            ops.bid_fused = _old_bid_chain
+        try:
+            reset_launch_counts()
+            res[arm] = run()
+            torch.cuda.synchronize()
+            counts[arm] = {k: LAUNCHES[k] for k in (
+                "bid_fused", "dol_bid_scores", "bid_value_fuse")}
+        finally:
+            ops.bid_fused, planner_mod._plan_rounds = shipped, plan_rounds
+    return res, plans, counts
+
+
+def bid_chain_parity(torch, port) -> None:
+    """Phase 4: the device planner as shipped against the bid round put
+    back to the chain ``bid_fused`` replaced (``_planner_arms``), on the
+    quickstart device-planner run (learning-value bids; equal ledgers and
+    bit-equal final params too) and on every plan of PLANNER_CASES (no
+    value): identical plans (``_plan_diff``)."""
+    from repro_torch.core.diffusion import DiffusionPlanner
+    from repro_torch.tree import tree_leaves
+    strategy, task, rounds, clients = DEVICE_PLANNER_RUN
+    spec = port.ExperimentSpec(
+        task=task, alpha=0.3, num_samples=6000,
+        fl=port.FLConfig(executor="fleet", strategy=strategy, rounds=rounds,
+                         num_clients=clients, num_models=clients,
+                         epsilon=0.04, gamma_min=1.0, seed=0, planner="jax",
+                         uncertainty_weight=VALUE_WEIGHT))
+    res, plans, counts = _planner_arms(torch,
+                                       lambda: port.run_experiment(spec))
+    a, b = res["shipped"], res["old_chain"]
+    row = {"check": f"bid_fused vs the old chain, {strategy}/{task} "
+                    f"planner=jax w={VALUE_WEIGHT}",
+           "plans": len(plans["shipped"]),
+           "plan_diff": _plan_diff(torch, plans["shipped"],
+                                   plans["old_chain"]),
+           "ledgers_equal": a.ledger.as_dict() == b.ledger.as_dict(),
+           "final_params_bit_equal": all(
+               bool(torch.equal(x.view(torch.int32), y.view(torch.int32)))
+               for x, y in zip(tree_leaves(a.final_params),
+                               tree_leaves(b.final_params))),
+           "diffusion_rounds": a.diffusion_rounds, "launches": counts}
+    row["ok"] = bool(row["plan_diff"] is None and row["ledgers_equal"]
+                     and row["final_params_bit_equal"]
+                     and counts["shipped"]["bid_fused"] > 0
+                     and counts["shipped"]["dol_bid_scores"] == 0
+                     and counts["old_chain"]["bid_fused"] == 0
+                     and counts["old_chain"]["bid_value_fuse"]
+                     == counts["shipped"]["bid_fused"])
+    print(json.dumps(row))
+    if not row["ok"]:
+        _fail(f"bid_fused vs the old chain: {json.dumps(row)}")
+    for case, n, max_rounds, seeds in PLANNER_CASES:
+        planner = DiffusionPlanner(epsilon=0.04, max_rounds=max_rounds,
+                                   mode="jax", device="cuda")
+        _, plans, counts = _planner_arms(torch, lambda: [
+            _planner_case(planner, case, n, *seed) for seed in seeds])
+        row = {"check": f"bid_fused vs the old chain, planner {case}",
+               "clients": n, "plans": len(plans["shipped"]),
+               "plan_diff": _plan_diff(torch, plans["shipped"],
+                                       plans["old_chain"]),
+               "launches": counts}
+        row["ok"] = bool(row["plan_diff"] is None
+                         and len(plans["shipped"]) == len(seeds)
+                         and counts["shipped"]["bid_fused"]
+                         == counts["old_chain"]["dol_bid_scores"] > 0
+                         and counts["old_chain"]["bid_fused"] == 0)
+        print(json.dumps(row))
+        if not row["ok"]:
+            _fail(f"bid_fused vs the old chain, {case}: {json.dumps(row)}")
+
+
 def old_chain_parity(torch, port) -> None:
     """Phase 4: the lm_hops adapter_int8 arm (fleet plane) and feddif/fcn
     with int8 hops on the host plane, each run twice on the card: as
@@ -1964,6 +2283,7 @@ def old_chain_parity(torch, port) -> None:
         if not row["ok"]:
             _fail(f"quant_roundtrip vs the old chain, {name}: "
                   f"{json.dumps(row)}")
+    bid_chain_parity(torch, port)
 
 
 def host_vs_fleet(torch, port) -> None:
@@ -2109,11 +2429,7 @@ def planners_card_vs_cpu(torch) -> None:
     benchmarks/run.py.  The card's bids differ from the composite's by
     float32 rounding, so plans are held to the reference's equivalence
     rule; exact hop-list agreement is printed beside it."""
-    import numpy as np
-    from repro_torch.channels.topology import CellTopology
     from repro_torch.core.diffusion import DiffusionPlanner
-    from repro_torch.core.dol import DiffusionState
-    c = NUM_CLASSES
     for case, n, max_rounds, seeds in PLANNER_CASES:
         equal = equivalent = 0
         card_s = host_s = 0.0
@@ -2122,25 +2438,11 @@ def planners_card_vs_cpu(torch) -> None:
                                         mode="jax", device="cuda")
         host_planner = DiffusionPlanner(epsilon=0.04, max_rounds=max_rounds)
         for data_seed, chan_seed in seeds:
-            rng = np.random.default_rng(data_seed)
-            dsi = rng.dirichlet(np.ones(c) * 0.5, n).astype(np.float32)
-            sizes = rng.integers(200, 800, n).astype(np.float64)
             plans = []
             for planner in (card_planner, host_planner):
-                state = DiffusionState.init(n, n, c)
-                for mi in range(n):
-                    state.record_training(mi, mi % n, dsi[mi % n],
-                                          float(sizes[mi % n]))
-                if case == "default_config":
-                    pos = CellTopology().sample_positions(
-                        np.random.default_rng(chan_seed + 50), n)
-                    plan_rng = np.random.default_rng(chan_seed + 7)
-                else:
-                    plan_rng = np.random.default_rng([data_seed, chan_seed])
-                    pos = planner.topology.sample_positions(plan_rng, n)
                 t0 = time.perf_counter()
-                plans.append(planner.plan_communication_round(
-                    state, dsi, sizes, plan_rng, positions=pos))
+                plans.append(_planner_case(planner, case, n, data_seed,
+                                           chan_seed))
                 if planner is card_planner:
                     card_s += time.perf_counter() - t0
                 else:
@@ -2801,6 +3103,8 @@ def main() -> None:
                     if k.startswith("stc_rows")})
     routing.update({k: v for k, v in quant_routing(torch, kd).items()
                     if k in ("quant_pack", "quant_unpack")})
+    routing.update({k: v for k, v in bid_routing(torch, kd).items()
+                    if k in ("dol_bid_scores", "bid_value_fuse")})
     card_vs_cpu(torch, port)
     card_vs_cpu(torch, port, "host")
     host_vs_fleet(torch, port)
@@ -2842,6 +3146,9 @@ def main() -> None:
                            "src/repro/kernels/diffusion.py:316"),
         "bid_value_fuse": ("bid_value_fuse.cu",
                            "src/repro/kernels/diffusion.py:377"),
+        "bid_fused": ("dol_bid_scores.cu",
+                      "src/repro/kernels/diffusion.py:316, "
+                      "src/repro/kernels/diffusion.py:377"),
         "quant_pack": ("quant.cu", "src/repro/kernels/quant.py:32"),
         "quant_unpack": ("quant.cu", "src/repro/kernels/quant.py:43"),
         "quant_roundtrip": ("quant.cu", "src/repro/kernels/quant.py:32, "
@@ -2857,7 +3164,8 @@ def main() -> None:
     # plane (stc_fused), 2^24 for stc_reduce / stc_apply and (8, 262144)
     # for stc_rows_reduce / stc_rows_apply (they now serve only leaves past
     # N_FUSED, as the routing checks' larger leaves), the
-    # device planner's (8, 8) bids over 10 classes in the quickstart cell,
+    # device planner's (8, 8) bids over 10 classes in the quickstart cell
+    # (bid_fused with a learning value; the standalone pair alone),
     # the lm adapter's (8·7, 512) int8 block in the lm_hops cell (the
     # standalone pack / unpack) and its table of 8 rows × 24 leaves, 56
     # blocks (quant_roundtrip, which took the hop from them), and the
@@ -2869,7 +3177,8 @@ def main() -> None:
                   "stc_reduce": [2 ** 24], "stc_apply": [2 ** 24],
                   "stc_fused": [16384],
                   "dol_bid_scores": [8, 8, NUM_CLASSES],
-                  "bid_value_fuse": [8, 8], "quant_pack": [56, 512],
+                  "bid_value_fuse": [8, 8],
+                  "bid_fused": [8, 8, NUM_CLASSES], "quant_pack": [56, 512],
                   "quant_unpack": [56, 512], "quant_roundtrip": [8, 24, 56],
                   "flash_attention": [2, 4096, 4096, 16, 128],
                   "ssd_scan": [1, 4096, 80, 64, 64, 128],
@@ -2880,15 +3189,19 @@ def main() -> None:
     # Kernels that no main-path run launches, with the kernel that took
     # their work, and the routing check above that drove them (and failed
     # unless they launched as it expects): stc_fused (host plane) and
-    # stc_rows_fused (fleet plane) took every FL leaf (n ≤ N_FUSED), and
-    # quant_roundtrip took both planes' int8 hops.
+    # stc_rows_fused (fleet plane) took every FL leaf (n ≤ N_FUSED),
+    # quant_roundtrip took both planes' int8 hops, and bid_fused the device
+    # planner's bid rounds.
     host_stc = ("stc_fused", "for n <= N_FUSED", "the host-plane STC "
                 "routing check's leaves past N_FUSED")
     fleet_stc = ("stc_rows_fused", "for n <= N_FUSED", "the fleet-plane STC "
                  "routing check's leaves past N_FUSED")
     wire = ("quant_roundtrip", "on both planes' int8 hops", "the quant "
             "routing check's pack_rows / unpack_rows call")
-    off_path = {"stc_reduce": host_stc, "stc_apply": host_stc,
+    bids = ("bid_fused", "on the device planner's bid rounds", "the bid "
+            "routing check's ops.dol_bid_scores / ops.bid_value_fuse calls")
+    off_path = {"dol_bid_scores": bids, "bid_value_fuse": bids,
+                "stc_reduce": host_stc, "stc_apply": host_stc,
                 "stc_rows_reduce": fleet_stc, "stc_rows_apply": fleet_stc,
                 "quant_pack": wire, "quant_unpack": wire}
     summary = []

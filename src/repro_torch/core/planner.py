@@ -4,9 +4,10 @@ Counterpart of ``repro.core.planner`` (the reference's ``planner="jax"``),
 for the static world.  The whole communication round runs on one device,
 on fixed-shape padded hop buffers, with the Bertsekas auction
 (:func:`repro_torch.core.matching.auction_assign`) as the matching and the
-Eq.-32 bids from :func:`repro_torch.kernels.ops.dol_bid_scores` (and, with
-a learning value, :func:`~repro_torch.kernels.ops.bid_value_fuse`): the
-hand-written kernels on the card, the plain composite on the CPU.
+Eq.-32 bids of each bid round from :func:`repro_torch.kernels.ops.bid_fused`
+(candidate IID distances, their subtraction from the models' own and, with
+a learning value, its factor): one hand-written kernel launch on the card,
+the plain composite on the CPU.
 
 The reference's ``lax.while_loop`` becomes a Python loop with one host read
 per diffusion round: the auction's outcome (matched edges, their costs and
@@ -47,7 +48,7 @@ __all__ = ["PlanInputs", "PlanOutputs", "draw_gamma_sequence",
 class PlanInputs(NamedTuple):
     """One communication round's planner inputs, tensors on one device.
     The knobs ``epsilon`` … ``model_bits`` are 0-d float32 tensors;
-    ``value_weight`` is a host float (the fusion kernel takes it by
+    ``value_weight`` is a host float (the bid kernel takes it by
     value)."""
     dol0: torch.Tensor           # (M, C) post-initial-training DoLs
     chain_size0: torch.Tensor    # (M,)
@@ -134,12 +135,9 @@ def _plan_rounds(inp: PlanInputs, *, metric: str, allow_retraining: bool,
             # Models at chain length N visited everyone (full diffusion).
             active &= ~st.visited.all(dim=1)
 
-        cand = kernel_ops.dol_bid_scores(st.dol, st.chain_size, inp.dsi,
-                                         inp.data_sizes, metric=metric)
-        bids = iid[:, None] - cand                               # (M, N)
-        if inp.value is not None:
-            bids = kernel_ops.bid_value_fuse(bids, inp.value,
-                                             inp.value_weight)
+        bids = kernel_ops.bid_fused(iid, st.dol, st.chain_size, inp.dsi,
+                                    inp.data_sizes, inp.value,
+                                    inp.value_weight, metric=metric)  # (M, N)
         gamma_edge = gamma[st.holder]                            # (M, N)
         feas = bids > 0.0
         if not allow_retraining:

@@ -60,7 +60,9 @@ _SIGNATURES = {
                                      _P],
         "repro_stc_reduce_max_blocks": [], "repro_stc_fused_max_n": []},
     "dol_bid_scores": {
-        "repro_dol_bid_scores_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _P]},
+        "repro_dol_bid_scores_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+        "repro_bid_fused_f32": [_P, _P, _P, _P, _P, _P, _F, _P, _I, _I, _I,
+                                _P]},
     "bid_value_fuse": {
         "repro_bid_value_fuse_f32": [_P, _P, _F, _P, _I, _I, _P]},
     "quant": {

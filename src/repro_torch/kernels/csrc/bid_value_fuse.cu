@@ -4,8 +4,11 @@
 //
 // Replaces the TPU kernel repro/kernels/diffusion.py::_bid_value_kernel (the
 // pallas_call in bid_value_fuse_pallas), an elementwise VPU tile with the
-// value row broadcast down the model axis.  It stays a standalone op, as the
-// reference keeps it, rather than the epilogue of dol_bid_scores.
+// value row broadcast down the model axis.  The device planner no longer
+// launches it: its bids run as the epilogue of bid_fused_kernel
+// (dol_bid_scores.cu), which rounds the same three operations one at a time
+// and so equals this kernel after dol_bid_scores and the subtraction, bit
+// for bit.  It stays as the standalone op (kernels/ops.py::bid_value_fuse).
 //
 // What bounds it on the H100: memory.  8 bytes of bids moved per element
 // (read and write) for 3 flops; at the planner's sizes (M, N <= 20) the

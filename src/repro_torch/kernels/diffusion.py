@@ -23,11 +23,19 @@ CUDA C++ for ``sm_90a`` (``csrc/``), built by ``nvcc`` and bound with
   memory-bound passes over (C, n) fp32.  Like the plain version both
   routes keep exactly k entries per row, the ones ``lax.top_k`` keeps
   (every ``|Δ| > τ_c``, then the ties in index order), at the exact-k μ.
-* :func:`dol_bid_scores_cuda` — the device planner's (M, N) candidate IID
-  distances (Eq. 2 + B.1, w1_norm) by the centered contraction, one thread
-  per output.  Replaces ``_bid_kernel`` (``dol_bid_scores_pallas``).
-* :func:`bid_value_fuse_cuda` — ``bids·(1 + w·value[None, :])``, one thread
-  per element.  Replaces ``_bid_value_kernel`` (``bid_value_fuse_pallas``).
+* :func:`bid_fused_cuda` — the device planner's Eq.-32 bids of one bid
+  round in one launch, ``(iid[:, None] − cand)·(1 + w·value[None, :])``
+  with ``cand`` the (M, N) candidate IID distances (Eq. 2 + B.1, w1_norm)
+  by the centered contraction, the value factor only where a learning
+  value is given; a thread per client and model, every load at its start,
+  no shared memory.  Replaces ``_bid_kernel`` (``dol_bid_scores_pallas``)
+  and ``_bid_value_kernel`` (``bid_value_fuse_pallas``) with the
+  subtraction between them, and equals that chain on the card bit for bit.
+* :func:`dol_bid_scores_cuda` — the candidate distances alone, one thread
+  per output (replaces ``_bid_kernel``), and :func:`bid_value_fuse_cuda` —
+  ``bids·(1 + w·value[None, :])``, one thread per element (replaces
+  ``_bid_value_kernel``): the standalone ops, off the planner's path since
+  :func:`bid_fused_cuda` took it.
 
 Every wrapper takes CUDA tensors only, checks them, allocates its outputs
 with ``torch.empty``, launches on PyTorch's current stream, raises if
@@ -51,7 +59,8 @@ from repro_torch.tree import tree_flatten, tree_unflatten
 __all__ = ["stack_ravel", "stack_unravel", "mix_aggregate_cuda",
            "stc_rows_cuda", "stc_rows_fused_cuda", "stc_rows_reduce_cuda",
            "stc_rows_apply_cuda", "MAX_ROWS",
-           "dol_bid_scores_cuda", "bid_value_fuse_cuda", "LAUNCHES",
+           "bid_fused_cuda", "dol_bid_scores_cuda", "bid_value_fuse_cuda",
+           "LAUNCHES",
            "reset_launch_counts"]
 
 
@@ -298,4 +307,50 @@ def bid_value_fuse_cuda(bids: torch.Tensor, value: torch.Tensor,
             int32(m, "M"), int32(n, "N"), stream)
     raise_on(err, "bid_value_fuse")
     LAUNCHES["bid_value_fuse"] += 1
+    return out
+
+
+def bid_fused_cuda(iid: torch.Tensor, dol: torch.Tensor,
+                   chain_size: torch.Tensor, dsi: torch.Tensor,
+                   data_size: torch.Tensor, value: torch.Tensor | None = None,
+                   weight: float = 0.0) -> torch.Tensor:
+    """One bid round's (M, N) Eq.-32 bids by the hand-written kernel:
+    ``(iid[:, None] − cand)·(1 + weight·value[None, :])``, with ``cand``
+    as :func:`dol_bid_scores_cuda` computes it.  iid (M,), dol (M, C),
+    chain_size (M,), dsi (N, C), data_size (N,), value (N,) or None (no
+    factor; ``weight`` unused), a host float weight → (M, N) fp32.
+    Shapes are checked before devices."""
+    vecs = [iid, chain_size, data_size] + ([] if value is None else [value])
+    if dol.dim() != 2 or dsi.dim() != 2 or any(t.dim() != 1 for t in vecs):
+        raise ValueError("dol and dsi must be 2-d, iid, chain_size, "
+                         "data_size and value 1-d")
+    m, c = dol.shape
+    n = dsi.shape[0]
+    if (dsi.shape[1] != c or chain_size.shape[0] != m or iid.shape[0] != m
+            or data_size.shape[0] != n
+            or (value is not None and value.shape[0] != n)):
+        raise ValueError(
+            f"iid {tuple(iid.shape)}, dol {tuple(dol.shape)}, chain_size "
+            f"{tuple(chain_size.shape)}, dsi {tuple(dsi.shape)}, data_size "
+            f"{tuple(data_size.shape)} and value "
+            f"{None if value is None else tuple(value.shape)} do not match")
+    for t, name in ((iid, "iid"), (dol, "dol"), (chain_size, "chain_size"),
+                    (dsi, "dsi"), (data_size, "data_size"), (value, "value")):
+        if t is not None:
+            check_tensor(t, name, t.dim())
+            if t.device != dol.device:
+                raise ValueError(f"{name} lies on {t.device}, dol on "
+                                 f"{dol.device}")
+    out = torch.empty((m, n), device=dol.device, dtype=torch.float32)
+    lib = build.load("dol_bid_scores")
+    with torch.cuda.device(dol.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.repro_bid_fused_f32(
+            iid.data_ptr(), dol.data_ptr(), chain_size.data_ptr(),
+            dsi.data_ptr(), data_size.data_ptr(),
+            None if value is None else value.data_ptr(), float(weight),
+            out.data_ptr(), int32(m, "M"), int32(n, "N"), int32(c, "C"),
+            stream)
+    raise_on(err, "bid_fused")
+    LAUNCHES["bid_fused"] += 1
     return out

@@ -19,7 +19,7 @@ from repro_torch.kernels.stc_compress import stc_compress_cuda
 from repro_torch.kernels.diffusion import stack_ravel, stack_unravel
 
 __all__ = ["mix_aggregate", "mix_aggregate_tree", "stc_compress", "stc_topk",
-           "dol_bid_scores", "bid_value_fuse", "quant_pack",
+           "bid_fused", "dol_bid_scores", "bid_value_fuse", "quant_pack",
            "quant_unpack", "quant_roundtrip", "flash_attention", "ssm_scan", "ssd_scan"]
 
 
@@ -100,19 +100,54 @@ def stc_topk(x: torch.Tensor, ref_row: torch.Tensor, mask: torch.Tensor,
     return ref.stc_rows_ref(x, ref_row, mask, sparsity)
 
 
+def _refuse_metric(metric: str) -> None:
+    if metric != "w1_norm":
+        raise NotImplementedError(
+            f"IID metric {metric!r}: the Appendix-C metrics (kld, jsd, "
+            f"w1_true) are queued as ROADMAP item A15")
+
+
+def bid_fused(iid: torch.Tensor, dol: torch.Tensor, chain_size: torch.Tensor,
+              dsi: torch.Tensor, data_size: torch.Tensor,
+              value: torch.Tensor | None = None, weight: float = 0.0, *,
+              metric: str = "w1_norm") -> torch.Tensor:
+    """One bid round of the device planner: the (M, N) Eq.-32 bids
+    ``(iid[:, None] − cand)·(1 + weight·value[None, :])``, the factor only
+    where ``value`` is given, ``cand`` the candidate IID distances.
+
+    A CPU tensor takes exactly the chain the CPU planner has always run:
+    :func:`dol_bid_scores`' composite, the subtraction, then
+    ``ref.bid_value_fuse_ref``.  A CUDA tensor takes the ``bid_fused``
+    kernel, one launch, bit for bit the chain of the standalone kernels it
+    replaced."""
+    _refuse_metric(metric)
+    if _route(dol) == "cuda":
+        f32 = torch.float32
+        dev = dol.device
+        return diffusion.bid_fused_cuda(
+            iid.to(f32).contiguous(), dol.to(f32).contiguous(),
+            chain_size.to(f32).contiguous(), dsi.to(f32).contiguous(),
+            data_size.to(f32).contiguous(),
+            None if value is None else value.to(device=dev,
+                                                dtype=f32).contiguous(),
+            weight)
+    bids = iid[:, None] - ref.dol_bid_scores_ref(dol, chain_size, dsi,
+                                                 data_size, metric)
+    return bids if value is None else ref.bid_value_fuse_ref(bids, value,
+                                                             weight)
+
+
 def dol_bid_scores(dol: torch.Tensor, chain_size: torch.Tensor,
                    dsi: torch.Tensor, data_size: torch.Tensor, *,
                    metric: str = "w1_norm") -> torch.Tensor:
-    """The planner's (M, N) candidate IID-distance matrix (Eq. 32 bids).
+    """The planner's (M, N) candidate IID-distance matrix alone (the
+    planner itself calls :func:`bid_fused`).
 
     A CPU tensor takes the broadcast composite, bit for bit the host
     planner's (as the reference's CPU ``"auto"`` does); a CUDA tensor takes
     the centered-contraction kernel.  Only the paper's ``w1_norm`` metric
     (Eq. B.1) is ported (the others are ROADMAP item A15)."""
-    if metric != "w1_norm":
-        raise NotImplementedError(
-            f"IID metric {metric!r}: the Appendix-C metrics (kld, jsd, "
-            f"w1_true) are queued as ROADMAP item A15")
+    _refuse_metric(metric)
     if _route(dol) == "cuda":
         f32 = torch.float32
         return diffusion.dol_bid_scores_cuda(

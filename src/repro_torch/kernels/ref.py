@@ -24,7 +24,8 @@ __all__ = ["mix_aggregate_ref", "stc_compress_ref", "stc_threshold",
            "stc_rows_threshold", "stc_rows_reduce_ref", "stc_rows_apply_ref",
            "stc_rows_fused_ref",
            "dol_bid_scores_ref", "dol_bid_scores_fused_ref",
-           "bid_value_fuse_ref", "quant_pack_ref", "quant_unpack_ref",
+           "bid_value_fuse_ref", "bid_fused_ref", "quant_pack_ref",
+           "quant_unpack_ref",
            "quant_roundtrip_ref", "flash_attention_ref", "ssm_scan_ref", "ssd_scan_ref",
            "ssd_chunk_states_ref", "ssd_state_pass_ref",
            "ssd_chunk_output_ref", "ssd_scan_stages_ref"]
@@ -316,6 +317,20 @@ def bid_value_fuse_ref(bids: torch.Tensor, value: torch.Tensor,
     same, so it equals this bit for bit)."""
     return bids.to(torch.float32) * (
         1.0 + float(weight) * value.to(torch.float32)[None, :])
+
+
+def bid_fused_ref(iid: torch.Tensor, dol: torch.Tensor,
+                  chain_size: torch.Tensor, dsi: torch.Tensor,
+                  data_size: torch.Tensor, value: torch.Tensor | None = None,
+                  weight: float = 0.0) -> torch.Tensor:
+    """The ``bid_fused`` kernel's own algebra in plain PyTorch: the centered
+    contraction (:func:`dol_bid_scores_fused_ref`), the subtraction from
+    ``iid`` and, where a value is given, :func:`bid_value_fuse_ref`.
+    ``chip_smoke.py`` holds the kernel to it; the CPU path runs the
+    composite instead (``ops.bid_fused``)."""
+    bids = iid.to(torch.float32)[:, None] - dol_bid_scores_fused_ref(
+        dol, chain_size, dsi, data_size)
+    return bids if value is None else bid_value_fuse_ref(bids, value, weight)
 
 
 #: float32(1/127) (bits 0x3c010204) as a Python float: the scale is a
