@@ -10,9 +10,9 @@ nothing of JAX.  Phases, each of which fails loudly:
 1. the card's name and power limit; build every CUDA kernel of the main
    path from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, all
    at once) and print the build seconds and ptxas' register and spill
-   report (the bf16 attention kernel and every ssd_scan kernel must not
-   spill); the launch floor, an empty kernel timed as every kernel is, on
-   a ``launch_floor`` line of its own;
+   report (the bf16 attention kernel, every ssd_scan kernel and every
+   mix_tree kernel must not spill); the launch floor, an empty kernel
+   timed as every kernel is, on a ``launch_floor`` line of its own;
 2. every kernel against its plain PyTorch version on the card, at the main
    path's shapes and one larger shape: max abs error against the stated
    tolerance, kernel / plain / library time (CUDA events) and the bound.
@@ -60,14 +60,26 @@ nothing of JAX.  Phases, each of which fails loudly:
    also run rows where magnitudes tie at τ, including τ = 0: exactly the
    k entries ``lax.top_k`` keeps, bit-equal to their plain versions, the
    exact-k μ; ``stc_fused`` and ``stc_rows_fused`` run with k − 1 (a
-   planted fault) must fail the exact-k support check;
+   planted fault) must fail the exact-k support check.  ``mix_tree``
+   (Eq. 10/11 over a client-stacked tree in one launch, the leaves read in
+   place) runs at the Eq.-11 row of every fleet tree the runs aggregate
+   (fcn and cnn at their clients, the lm adapter, the lm model), a fcn
+   MixOp (G = C = 8), both with ``w`` on the card too, the fcn fleet at
+   C = 1024, a ragged tree (C = 37, G = 11), 150 leaves and a tree with a
+   non-contiguous and a bf16 leaf: output leaves bit-equal to the old
+   ravel → ``mix_aggregate`` → unravel chain on two calls, within
+   1e-5·(1 + max|plain|) of the plain version, ``ms`` beside
+   ``chain_ms`` and ``w @ x``; one leaf written from its neighbour's
+   weights row (a planted fault) must fail the bit check;
 3. the main path — ``run_experiment`` on the fleet plane: the quickstart
    configuration (fcn, α=0.3, 6000 samples, N=M=8, 8 rounds) for fedavg,
    feddif with the host planner and feddif with the device planner
    (``planner="jax"``) and learning-value bids (``uncertainty_weight=0.5``),
    2 rounds each of feddif_stc and stc, 2 rounds of feddif on cnn.  Launch
    counters are zeroed right before each run and read right after; every
-   run must launch mix_aggregate, the STC runs ``stc_rows_fused`` once per
+   run must launch ``mix_tree`` once per round (Eq. 11; these strategies
+   run no MixOp) and ``mix_aggregate`` never, the STC runs
+   ``stc_rows_fused`` once per
    compressed leaf (and ``stc_rows_reduce`` / ``stc_rows_apply`` never),
    the device-planner run ``bid_fused`` once per bid round (its
    planner's ``loop_iterations``: each diffusion round and each plan's
@@ -94,8 +106,9 @@ nothing of JAX.  Phases, each of which fails loudly:
    feddif with int8 hops.  On the host plane ``stc_fused`` must launch
    once per compressed leaf (per hop or uplink the ledger counts; every
    fcn leaf fits N_FUSED) and ``stc_reduce`` / ``stc_apply``,
-   ``mix_aggregate`` and ``stc_rows_*`` never; on the fleet plane
-   ``mix_aggregate`` once per MixOp plus once per round; int8 hops launch
+   ``mix_tree``, ``mix_aggregate`` and ``stc_rows_*`` never; on the fleet
+   plane ``mix_tree`` once per MixOp plus once per round and
+   ``mix_aggregate`` never; int8 hops launch
    ``quant_roundtrip`` once per PermuteOp (all 8 slots and the move).
    Then, apart from those runs and with its launches counted apart, the
    host plane's STC entry
@@ -108,7 +121,7 @@ nothing of JAX.  Phases, each of which fails loudly:
    (``adapters.pack_rows`` / ``unpack_rows``) must launch ``quant_pack``
    and ``quant_unpack`` once each, and the standalone bid ops
    (``ops.dol_bid_scores`` / ``ops.bid_value_fuse``) their kernels once
-   each;
+   each, and the flat ``ops.mix_aggregate`` its kernel once;
 4. a small feddif_stc run on each plane and a small lm int8 run on the
    card against the
    same runs on the CPU (plain versions) from one init: equal ledgers,
@@ -123,7 +136,10 @@ nothing of JAX.  Phases, each of which fails loudly:
    replaced, on the quickstart device-planner run and every plan of the
    planner checks below: the same rounds, hops and ``scheduled``,
    bit-equal ``decrement``, ``weight`` and ``efficiency`` (and, in the
-   run, equal ledgers and bit-equal final params); then the device planner
+   run, equal ledgers and bit-equal final params); fleet-plane FedDif,
+   gossip, tthf and the lm full fp32 arm as shipped and with Eq. 10/11
+   put back to the chain ``mix_tree`` replaced: equal ledgers, bit-equal
+   final params; then the device planner
    on the card (with its
    kernels) against the host planner on the CPU, on the N=M=C=10
    default-config inputs (seeds 0-2) and the 16 plans of the N=M=20
@@ -131,7 +147,8 @@ nothing of JAX.  Phases, each of which fails loudly:
    plans must be equivalent (same rounds, same hop count, total Eq.-17
    decrement within 1e-6 relative);
 5. a measurement, not a check: one FedDif round with each planner, one on
-   the host plane, one feddif_stc round on each plane, one FedDif round
+   the host plane, one gossip round on the fleet plane, one feddif_stc
+   round on each plane, one FedDif round
    with int8 hops on each plane, and one of the lm int8 arm, under
    ``torch.profiler``
    (device busy time,
@@ -366,6 +383,23 @@ def _check_ssd_spills(log: str | None) -> None:
                       "ok": ok}))
     if not ok:
         _fail(f"ssd_scan: ptxas spill bytes {spills}")
+
+
+def _check_mix_tree_spills(log: str | None) -> None:
+    """All eight ``mix_tree_kernel`` instances (G tile 1 or 8, C ≤ 8 or
+    not, ``w`` in the parameters or on the card) must build without
+    spills."""
+    if log is None:
+        print(json.dumps({"check": "mix_tree_kernel spills", "ok": None,
+                          "note": "built before this run"}))
+        return
+    spills = [[st, ld] for e, st, ld in _ptxas_spills(log)
+              if "mix_tree_kernel" in e]
+    ok = len(spills) == 8 and not any(any(v) for v in spills)
+    print(json.dumps({"check": "mix_tree_kernel spills",
+                      "spill_bytes": spills, "ok": ok}))
+    if not ok:
+        _fail(f"mix_tree_kernel: ptxas spill bytes {spills}")
 
 
 def _time_ms(torch, fn, iters: int = 200, warmup: int = 10) -> float:
@@ -1444,6 +1478,218 @@ def check_kernels(torch, kd, kq, kref, port) -> list[dict]:
     return rows
 
 
+def _old_mix_chain(params, w, *, collapse: bool = False,
+                   keep_float32: bool = False):
+    """The fleet plane's Eq. 10/11 before ``mix_tree``: ``stack_ravel``
+    (a cat of every leaf), ``ops.mix_aggregate`` on the (C, F) block (the
+    flat ``mix_aggregate`` kernel on the card, ``w`` moved there) and
+    ``stack_unravel`` (strided views of one (G, F) block)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.diffusion import stack_ravel, stack_unravel
+    flat, spec = stack_ravel(params)
+    return stack_unravel(ops.mix_aggregate(flat, w), spec, collapse=collapse,
+                         keep_float32=keep_float32)
+
+
+def _mix_tree_cases(torch, port) -> list:
+    """``check_mix_tree``'s trees: (label, C, G, leaf shapes, w on the card,
+    inputs).  The Eq.-11 row (G = 1, collapsed) of every fleet tree the
+    driven runs aggregate — each (task, clients) of the phase-3 and
+    phase-4 fcn / cnn runs, the lm adapter at the lm_hops cell's 8 and the
+    small cell's 4 clients, the lm full model — then a gossip / tthf MixOp
+    (fcn, G = C = 8); the same two with ``w`` already on the card; the fcn
+    fleet at C = 1024 (107 MB, twice the 50 MB L2; ``w`` on the card, over
+    W_MAX); a ragged tree (C = 37, G = 11: leaves of 1, 10 and odd n);
+    150 leaves at C = 16, G = 16 (three launches of ≤ L_MAX leaves; ``w``
+    on the card); and a tree with a non-contiguous leaf and a bf16 leaf
+    (C = 12)."""
+    runs = {(task, clients) for _, task, _, clients in (
+        WARMUP_RUNS + MAIN_RUNS + (CARD_VS_CPU_RUN, DEVICE_PLANNER_RUN))}
+    cases = []
+    for task, clients in sorted(runs):
+        cases.append((f"{task}, Eq. 11", clients, 1,
+                      _payload_shapes(torch, port, task, False), False,
+                      "model"))
+    lm_adapter = _payload_shapes(torch, port, "lm", True)
+    for clients in sorted({LM_FL["num_clients"],
+                           LM_SMALL_FL["num_clients"]}):
+        cases.append(("lm adapter, Eq. 11", clients, 1, lm_adapter, False,
+                      "model"))
+    cases.append(("lm full model, Eq. 11", LM_FL["num_clients"], 1,
+                  _payload_shapes(torch, port, "lm", False), False, "model"))
+    fcn = _payload_shapes(torch, port, "fcn", False)
+    cases.append(("fcn, MixOp", 8, 8, fcn, False, "model"))
+    cases.append(("fcn, Eq. 11", 8, 1, fcn, True, "w on the card"))
+    cases.append(("fcn, MixOp", 8, 8, fcn, True, "w on the card"))
+    cases.append(("fcn, Eq. 11", 1024, 1, fcn, True, "model"))
+    cases.append(("ragged", 37, 11, [(1,), (10,), (7, 3), (1001,), (5, 13),
+                                     (4096,), (3,)], False, "ragged"))
+    many = [(1 + (37 * i) % 257,) if i % 3 else (4 * (1 + i % 50),)
+            for i in range(150)]
+    cases.append(("150 leaves", 16, 16, many, True, "150 leaves"))
+    cases.append(("non-contiguous and bf16 leaves", 12, 1,
+                  [(64, 33), (128,), (9,), (256, 4)], False,
+                  "non-contiguous and bf16 leaves"))
+    return cases
+
+
+def _mix_tree_inputs(torch, gen, c, g, shapes, w_card, inputs):
+    """A tree of ``shapes`` stacked over C clients (a list of leaves, as
+    ``tree_flatten`` orders a list), and a row-stochastic (G, C) ``w`` —
+    fp32 on the host, as the executor builds it, or on the card.  For the
+    ``non-contiguous`` inputs leaf 0 is a transposed view and leaf 3 is
+    bf16."""
+    leaves = [torch.randn((c,) + tuple(sh), generator=gen, device="cuda")
+              for sh in shapes]
+    if inputs.startswith("non-contiguous"):
+        leaves[0] = torch.randn((c,) + tuple(shapes[0])[::-1],
+                                generator=gen, device="cuda").transpose(1, 2)
+        leaves[3] = leaves[3].to(torch.bfloat16)
+    w = torch.rand((g, c), generator=gen, device="cuda")
+    w = w / w.sum(dim=1, keepdim=True)
+    return leaves, (w if w_card else w.cpu())
+
+
+def _bits_equal(torch, a, b) -> bool:
+    """Two trees' leaves equal bit for bit (shapes and dtypes too)."""
+    from repro_torch.tree import tree_leaves
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        x.shape == y.shape and x.dtype == y.dtype
+        and bool(torch.equal(x.reshape(-1).contiguous().view(torch.int8),
+                             y.reshape(-1).contiguous().view(torch.int8)))
+        for x, y in zip(la, lb))
+
+
+def check_mix_tree(torch, kd, kref, port, gen, floor_ms: float) -> list[dict]:
+    """Phase 2, ``mix_tree`` — Eq. 10/11 over a client-stacked tree in one
+    launch, the leaves read in place — on ``_mix_tree_cases``' trees.  Each
+    row: the output leaves bit-equal to the old chain (``_old_mix_chain``:
+    ravel → the flat ``mix_aggregate`` kernel → unravel) on two calls,
+    within 1e-5·(1 + max|plain|) of the plain version
+    (``mix_aggregate_tree_ref`` on the card); ``ms`` (the kernel as the
+    fleet executor calls it, a CUDA graph of calls), ``chain_ms`` (the old
+    chain in one graph, ``w`` on the card), ``library_ms`` (``w @ x`` on
+    the raveled block), ``plain_ms``, ``call_ms`` beside the chain's
+    ``chain_call_ms``, ``bound_ms`` (4·(C·F + G·F + G·C) bytes at
+    3.35 TB/s) and µs over the launch floor.  First the kernel's table
+    limits (L_MAX, W_MAX, tile width) must equal the wrapper's; last a
+    planted fault: the MixOp's largest leaf written from its neighbour's
+    weights row."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.diffusion import stack_ravel
+    lib = build.load("mix_aggregate")
+    limits = {"l_max": [lib.repro_mix_tree_max_leaves(), kd.MIX_TREE_L_MAX],
+              "w_max": [lib.repro_mix_tree_max_w(), kd.MIX_TREE_W_MAX],
+              "tile_cols_c8": [lib.repro_mix_tree_tile_cols(8),
+                               kd.mix_tree_tile_cols(8)],
+              "tile_cols_c9": [lib.repro_mix_tree_tile_cols(9),
+                               kd.mix_tree_tile_cols(9)]}
+    print(json.dumps({"check": "mix_tree table limits, kernel vs wrapper",
+                      **limits}))
+    if any(a != b for a, b in limits.values()):
+        _fail(f"mix_tree: the kernel's table limits differ from the "
+              f"wrapper's: {limits}")
+    rows = []
+    for label, c, g, shapes, w_card, inputs in _mix_tree_cases(torch, port):
+        leaves, w = _mix_tree_inputs(torch, gen, c, g, shapes, w_card,
+                                     inputs)
+        collapse = g == 1
+        w_dev = w.to("cuda")
+        got = [kd.mix_aggregate_tree_cuda(leaves, w, collapse=collapse)
+               for _ in range(2)]
+        old = _old_mix_chain(leaves, w_dev, collapse=collapse)
+        plain = kref.mix_aggregate_tree_ref(leaves, w_dev, collapse=collapse)
+        torch.cuda.synchronize()
+        bit_equal = [_bits_equal(torch, x, old) for x in got]
+        contiguous = all(x.is_contiguous() for x in got[0])
+        err = max(float((a.float() - b.float()).abs().max())
+                  for a, b in zip(got[0], plain))
+        tol = 1e-5 * (1.0 + max(float(b.float().abs().max()) for b in plain))
+        f = sum(math.prod(sh) for sh in shapes)
+        flat = stack_ravel(leaves)[0]
+        bound, by = _bound(4.0 * (c * f + g * f + g * c), 2.0 * g * c * f)
+        big = c * f > 2 ** 24
+        times = _timings(
+            torch,
+            lambda: kd.mix_aggregate_tree_cuda(leaves, w, collapse=collapse),
+            lambda: kref.mix_aggregate_tree_ref(leaves, w_dev,
+                                                collapse=collapse),
+            lambda: w_dev @ flat, inner=5 if big else 20,
+            reps=5 if big else 10, iters=20 if big else 200)
+
+        def chain():
+            return _old_mix_chain(leaves, w_dev, collapse=collapse)
+        chain_ms, chain_err = _device_ms(torch, chain, 5 if big else 20,
+                                         5 if big else 10)
+        row = {"name": "mix_tree", "tree": label, "shape": [c, f, g],
+               "leaves": len(shapes), "w": "card" if w_card else "host",
+               "bit_equal_to_old_chain": bit_equal,
+               "outputs_contiguous": contiguous, "max_abs_err": err,
+               "tol": tol, **times, "chain_ms": chain_ms,
+               "chain_call_ms": _time_ms(torch, chain, 20 if big else 200,
+                                         10),
+               **({"chain_device_error": chain_err} if chain_err else {}),
+               "bound_ms": bound, "bound_by": by,
+               "over_floor_us": (None if times["ms"] is None
+                                 else (times["ms"] - floor_ms) * 1e3)}
+        if inputs != "model":
+            row["inputs"] = inputs
+        row["ok"] = bool(all(bit_equal) and contiguous and err <= tol)
+        print(json.dumps(row))
+        if not row["ok"]:
+            _fail(f"mix_tree {label} {row['shape']}: {json.dumps(row)}")
+        rows.append(row)
+    # The planted fault: the fcn MixOp with its largest leaf written from
+    # the neighbouring weights row (w's rows rolled by one for that leaf).
+    fcn = _payload_shapes(torch, port, "fcn", False)
+    leaves, w = _mix_tree_inputs(torch, gen, 8, 8, fcn, False, "model")
+    big = max(range(len(fcn)), key=lambda i: math.prod(fcn[i]))
+    faulty = kd.mix_aggregate_tree_cuda(leaves, w)
+    faulty[big] = kd.mix_aggregate_tree_cuda([leaves[big]],
+                                             torch.roll(w, 1, dims=0))[0]
+    old = _old_mix_chain(leaves, w.to("cuda"))
+    torch.cuda.synchronize()
+    ctl = _bits_equal(torch, faulty, old)
+    print(json.dumps({"name": "mix_tree_control",
+                      "fault": "the largest leaf written from its "
+                               "neighbour's weights row",
+                      "tree": "fcn, MixOp", "bit_equal_to_old_chain": ctl,
+                      "must_fail": True, "failed": not ctl}))
+    if ctl:
+        _fail("mix_tree control: a leaf written from its neighbour's "
+              "weights row passed the bit check")
+    return rows
+
+
+def mix_routing(torch, kd) -> dict:
+    """Phase 3c, the flat op (``ops.mix_aggregate``) on a card block of the
+    fcn fleet's shape, (8, 26122), with a host (1, 8) row: one
+    ``mix_aggregate`` launch, no ``mix_tree``, bit-equal to the kernel
+    called directly.  No FL path runs it since ``mix_tree`` took Eq. 10/11;
+    its launch is returned apart from the main path's."""
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn((8, 26122), generator=gen, device="cuda")
+    w = torch.rand((1, 8), generator=gen, device="cuda")
+    w = (w / w.sum()).cpu()
+    kd.reset_launch_counts()
+    out = ops.mix_aggregate(x, w)
+    torch.cuda.synchronize()
+    counts = dict(kd.LAUNCHES)
+    same = bool(torch.equal(out.view(torch.int32), kd.mix_aggregate_cuda(
+        x, w.to("cuda")).view(torch.int32)))
+    row = {"check": "mix routing", "shape": [8, 26122, 1],
+           "launches": {k: counts[k] for k in ("mix_aggregate", "mix_tree")},
+           "bit_equal_to_kernel": same}
+    row["ok"] = bool(same and counts["mix_aggregate"] == 1
+                     and counts["mix_tree"] == 0)
+    print(json.dumps(row))
+    if not row["ok"]:
+        _fail(f"mix routing: {json.dumps(row)}")
+    return counts
+
+
 def _bid_inputs(torch, gen, m, n, c):
     """Planner-shaped bid inputs on the card: DoLs and DSIs on the simplex,
     chains and data sizes as the planner sees them, with model 0 never
@@ -1646,9 +1892,12 @@ def main_path(torch, kd, port) -> dict:
             "run_wall_s": wall, "launches": counts, "finite": finite}))
         if not finite:
             _fail(f"{name}: non-finite parameters")
-        if counts["mix_aggregate"] < rounds:
-            _fail(f"{name}: mix_aggregate launched "
-                  f"{counts['mix_aggregate']} times in {rounds} rounds")
+        # One mix_tree launch per round (its Eq.-11 aggregation; these
+        # strategies run no MixOp), the flat mix_aggregate never.
+        if counts["mix_tree"] != rounds or counts["mix_aggregate"]:
+            _fail(f"{name}: mix_tree / mix_aggregate launched "
+                  f"{counts['mix_tree']} / {counts['mix_aggregate']} times "
+                  f"in {rounds} rounds (want {rounds} / 0)")
         if "stc" in strategy:
             # One stc_rows_fused launch per leaf of each compressed tree (a
             # hop round of feddif_stc, an uplink of stc): every fcn leaf
@@ -1769,10 +2018,11 @@ def hop_plane_path(torch, kd, port) -> dict:
             "run_wall_s": wall, "launches": counts, "finite": finite}))
         if not finite:
             _fail(f"{name}: non-finite parameters")
-        if counts["mix_aggregate"] < spec.fl.rounds:
-            _fail(f"{name}: mix_aggregate launched "
-                  f"{counts['mix_aggregate']} times in {spec.fl.rounds} "
-                  f"rounds")
+        if (counts["mix_tree"] != spec.fl.rounds
+                or counts["mix_aggregate"]):
+            _fail(f"{name}: mix_tree / mix_aggregate launched "
+                  f"{counts['mix_tree']} / {counts['mix_aggregate']} times "
+                  f"in {spec.fl.rounds} rounds (want {spec.fl.rounds} / 0)")
         want = diffusion if spec.fl.hop_quant == "int8" else 0
         if (counts["quant_roundtrip"] != want or counts["quant_pack"]
                 or counts["quant_unpack"]):
@@ -1858,9 +2108,10 @@ def host_plane_path(torch, kd, port) -> dict:
     peak accuracy beats FedAvg's; on the host plane ``stc_fused`` launches
     once per compressed leaf (per hop for feddif_stc, per uplink for stc,
     as the ledger counts them; every fcn leaf fits N_FUSED), and
-    ``stc_reduce``, ``stc_apply``, ``stc_rows_*`` and ``mix_aggregate``
-    never (MixOps and Eq. 11 are plain tensor ops there); on the fleet
-    plane ``mix_aggregate`` launches once per MixOp plus once per round;
+    ``stc_reduce``, ``stc_apply``, ``stc_rows_*``, ``mix_tree`` and
+    ``mix_aggregate`` never (MixOps and Eq. 11 are plain tensor ops
+    there); on the fleet plane ``mix_tree`` launches once per MixOp plus
+    once per round and ``mix_aggregate`` never;
     int8 hops launch ``quant_roundtrip`` once per PermuteOp (every slot and
     the move in one launch) and ``quant_pack`` / ``quant_unpack`` never."""
     from repro_torch.tree import tree_leaves
@@ -1914,9 +2165,10 @@ def host_plane_path(torch, kd, port) -> dict:
                     for t in range(sp.fl.rounds)) if st in dict(MIX_RUNS) \
             else 0
         want_mix = 0 if host else mixes + sp.fl.rounds
-        if counts["mix_aggregate"] != want_mix:
-            _fail(f"{name}: mix_aggregate launched {counts['mix_aggregate']} "
-                  f"times, want {want_mix}")
+        if counts["mix_tree"] != want_mix or counts["mix_aggregate"]:
+            _fail(f"{name}: mix_tree / mix_aggregate launched "
+                  f"{counts['mix_tree']} / {counts['mix_aggregate']} times, "
+                  f"want {want_mix} / 0")
         if (counts["stc_rows_reduce"] or counts["stc_rows_apply"]
                 or counts["stc_rows_fused"]):
             _fail(f"{name}: the fleet plane's stc_rows kernels launched")
@@ -2229,6 +2481,60 @@ def bid_chain_parity(torch, port) -> None:
             _fail(f"bid_fused vs the old chain, {case}: {json.dumps(row)}")
 
 
+def mix_chain_parity(torch, port) -> None:
+    """Phase 4: the fleet plane's FedDif quickstart run, gossip (2 rounds),
+    tthf (4 rounds) and the lm_hops full fp32 arm, each run twice on the
+    card: as shipped (one ``mix_tree`` launch per MixOp and per round) and
+    with ``ops.mix_aggregate_tree`` put back to the chain it replaced
+    (``_old_mix_chain``: ravel, the flat ``mix_aggregate`` kernel,
+    unravel), patched here, not a knob of the package.  Ledgers must be
+    equal and final params bit-equal."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.launch import LAUNCHES, reset_launch_counts
+    FLConfig, ExperimentSpec = port.FLConfig, port.ExperimentSpec
+
+    def fcn(strategy, rounds):
+        return ExperimentSpec(task="fcn", alpha=0.3, num_samples=6000,
+                              fl=FLConfig(executor="fleet", strategy=strategy,
+                                          rounds=rounds, num_clients=8,
+                                          num_models=8, epsilon=0.04,
+                                          gamma_min=1.0, seed=0))
+    cells = [("feddif/fcn", fcn("feddif", 8))]
+    cells += [(f"{st}/fcn", fcn(st, r)) for st, r in MIX_RUNS]
+    cells.append(("feddif/lm full_f32", ExperimentSpec(
+        **LM_DATA, adapter_hops=False, fl=FLConfig(**LM_FL))))
+    shipped = ops.mix_aggregate_tree
+    for name, spec in cells:
+        res, counts = {}, {}
+        for arm in ("shipped", "old_chain"):
+            if arm == "old_chain":
+                ops.mix_aggregate_tree = _old_mix_chain
+            try:
+                reset_launch_counts()
+                res[arm] = port.run_experiment(spec)
+                torch.cuda.synchronize()
+                counts[arm] = {k: LAUNCHES[k]
+                               for k in ("mix_tree", "mix_aggregate")}
+            finally:
+                ops.mix_aggregate_tree = shipped
+        a, b = res["shipped"], res["old_chain"]
+        row = {"check": f"mix_tree vs the old chain, {name}",
+               "ledgers_equal": a.ledger.as_dict() == b.ledger.as_dict(),
+               "final_params_bit_equal": _bits_equal(torch, a.final_params,
+                                                     b.final_params),
+               "launches": counts, "accuracy": [a.accuracy, b.accuracy]}
+        calls = counts["shipped"]["mix_tree"]
+        row["ok"] = bool(row["ledgers_equal"]
+                         and row["final_params_bit_equal"]
+                         and calls >= spec.fl.rounds
+                         and counts["shipped"]["mix_aggregate"] == 0
+                         and counts["old_chain"]["mix_tree"] == 0
+                         and counts["old_chain"]["mix_aggregate"] == calls)
+        print(json.dumps(row))
+        if not row["ok"]:
+            _fail(f"mix_tree vs the old chain, {name}: {json.dumps(row)}")
+
+
 def old_chain_parity(torch, port) -> None:
     """Phase 4: the lm_hops adapter_int8 arm (fleet plane) and feddif/fcn
     with int8 hops on the host plane, each run twice on the card: as
@@ -2236,7 +2542,9 @@ def old_chain_parity(torch, port) -> None:
     executors' hop put back to the chain it replaced (``_old_tree_hop`` /
     ``_old_slots_hop``: ``quant_pack`` and ``quant_unpack`` around PyTorch's
     cat, pad, slices and gather), patched here, not a knob of the package.
-    Ledgers must be equal and final params bit-equal."""
+    Ledgers must be equal and final params bit-equal.  Then the same for
+    the bid round (``bid_chain_parity``) and Eq. 10/11
+    (``mix_chain_parity``)."""
     import repro_torch.fl.executors as executors
     from repro_torch.kernels.launch import LAUNCHES, reset_launch_counts
     from repro_torch.tree import tree_leaves
@@ -2284,6 +2592,7 @@ def old_chain_parity(torch, port) -> None:
             _fail(f"quant_roundtrip vs the old chain, {name}: "
                   f"{json.dumps(row)}")
     bid_chain_parity(torch, port)
+    mix_chain_parity(torch, port)
 
 
 def host_vs_fleet(torch, port) -> None:
@@ -2485,7 +2794,9 @@ def profile_round(torch, port, planner: str = "host",
     host or the device planner or on the host plane (FedDif, with fp32 or
     int8 hops: ``quant_roundtrip`` once per PermuteOp), or feddif_stc on
     either plane (its hops through ``stc_rows_fused`` or ``stc_fused``), or
-    of the lm_hops adapter_int8 arm — device busy time (the union of kernel
+    gossip on the fleet plane (a MixOp and the aggregation a round, one
+    ``mix_tree`` launch each), or of the lm_hops adapter_int8 arm — device
+    busy time (the union of kernel
     intervals), idle share of the span from the first to the last kernel,
     kernel count and the kernels with the most device time."""
     from torch.profiler import ProfilerActivity, profile
@@ -3089,9 +3400,13 @@ def main() -> None:
                 print(f"ptxas[{name}]: {line.strip()}")
     _check_wgmma_spills(build.PTXAS_INFO.get("flash_attention"))
     _check_ssd_spills(build.PTXAS_INFO.get("ssd_scan"))
+    _check_mix_tree_spills(build.PTXAS_INFO.get("mix_aggregate"))
 
-    launch_floor(torch)
+    floor = launch_floor(torch)
     rows = check_kernels(torch, kd, kq, kref, port)
+    rows += check_mix_tree(torch, kd, kref, port,
+                           torch.Generator(device="cuda").manual_seed(8),
+                           floor["ms"])
     rows += check_stc_compress(torch, kref, port)
     launches = main_path(torch, kd, port)
     for k, v in hop_plane_path(torch, kd, port).items():
@@ -3105,6 +3420,7 @@ def main() -> None:
                     if k in ("quant_pack", "quant_unpack")})
     routing.update({k: v for k, v in bid_routing(torch, kd).items()
                     if k in ("dol_bid_scores", "bid_value_fuse")})
+    routing["mix_aggregate"] = mix_routing(torch, kd)["mix_aggregate"]
     card_vs_cpu(torch, port)
     card_vs_cpu(torch, port, "host")
     host_vs_fleet(torch, port)
@@ -3112,6 +3428,7 @@ def main() -> None:
     old_chain_parity(torch, port)
     planners_card_vs_cpu(torch)
     profile_round(torch, port)
+    profile_round(torch, port, strategy="gossip")
     profile_round(torch, port, "jax", VALUE_WEIGHT)
     profile_round(torch, port, executor="host")
     profile_round(torch, port, executor="host", strategy="feddif_stc")
@@ -3128,6 +3445,10 @@ def main() -> None:
     replaces = {
         "mix_aggregate": ("mix_aggregate.cu",
                           "src/repro/kernels/diffusion.py:119"),
+        "mix_tree": ("mix_aggregate.cu",
+                     "src/repro/kernels/diffusion.py:119, "
+                     "src/repro/kernels/diffusion.py:63, "
+                     "src/repro/kernels/diffusion.py:82"),
         "stc_rows_reduce": ("stc_rows.cu",
                             "src/repro/kernels/diffusion.py:177"),
         "stc_rows_apply": ("stc_rows.cu",
@@ -3159,7 +3480,9 @@ def main() -> None:
         "ssm_scan": ("ssm_scan.cu", "src/repro/kernels/ssm_scan.py:29"),
     }
     # The summary row of each kernel is its main-path shape: the (8, 26122)
-    # Eq.-11 row of the fcn fleet, the largest fcn leaf (8, 16384) stacked
+    # Eq.-11 row of the fcn fleet (mix_tree: the fcn tree of 6 leaves, 8
+    # clients, one row; the flat mix_aggregate: its raveled block), the
+    # largest fcn leaf (8, 16384) stacked
     # on the fleet plane (stc_rows_fused) and [16384] alone on the host
     # plane (stc_fused), 2^24 for stc_reduce / stc_apply and (8, 262144)
     # for stc_rows_reduce / stc_rows_apply (they now serve only leaves past
@@ -3171,7 +3494,7 @@ def main() -> None:
     # blocks (quant_roundtrip, which took the hop from them), and the
     # zoo's prefill shapes: qwen3's bf16 attention (B, Sq, Sk, H, D),
     # zamba2's SSD (B, S, H, P, N, chunk) and falcon's scan (B, S, D, N).
-    main_shape = {"mix_aggregate": [8, 26122, 1],
+    main_shape = {"mix_aggregate": [8, 26122, 1], "mix_tree": [8, 26122, 1],
                   "stc_rows_reduce": [8, 262144],
                   "stc_rows_apply": [8, 262144], "stc_rows_fused": [8, 16384],
                   "stc_reduce": [2 ** 24], "stc_apply": [2 ** 24],
@@ -3190,8 +3513,8 @@ def main() -> None:
     # their work, and the routing check above that drove them (and failed
     # unless they launched as it expects): stc_fused (host plane) and
     # stc_rows_fused (fleet plane) took every FL leaf (n ≤ N_FUSED),
-    # quant_roundtrip took both planes' int8 hops, and bid_fused the device
-    # planner's bid rounds.
+    # quant_roundtrip took both planes' int8 hops, bid_fused the device
+    # planner's bid rounds, and mix_tree the fleet plane's Eq. 10/11.
     host_stc = ("stc_fused", "for n <= N_FUSED", "the host-plane STC "
                 "routing check's leaves past N_FUSED")
     fleet_stc = ("stc_rows_fused", "for n <= N_FUSED", "the fleet-plane STC "
@@ -3200,7 +3523,10 @@ def main() -> None:
             "routing check's pack_rows / unpack_rows call")
     bids = ("bid_fused", "on the device planner's bid rounds", "the bid "
             "routing check's ops.dol_bid_scores / ops.bid_value_fuse calls")
-    off_path = {"dol_bid_scores": bids, "bid_value_fuse": bids,
+    mix = ("mix_tree", "on the fleet plane's MixOps and aggregations",
+           "the mix routing check's ops.mix_aggregate call")
+    off_path = {"mix_aggregate": mix,
+                "dol_bid_scores": bids, "bid_value_fuse": bids,
                 "stc_reduce": host_stc, "stc_apply": host_stc,
                 "stc_rows_reduce": fleet_stc, "stc_rows_apply": fleet_stc,
                 "quant_pack": wire, "quant_unpack": wire}

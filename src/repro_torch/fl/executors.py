@@ -32,8 +32,9 @@ Counterpart of ``repro.fl.executors`` (``HostExecutor``, ``FleetExecutor``,
     :func:`~repro_torch.distributed.fedshard.masked_stc_compress` (one
     ``stc_rows_fused`` launch per leaf on the card);
   - a MixOp and the Eq.-(11) aggregation are one
-    ``kernels.ops.mix_aggregate_tree`` call each (one ``mix_aggregate``
-    launch on the card), with the (C, C) MixOp matrix or a (1, C) row.
+    ``kernels.ops.mix_aggregate_tree`` call each (one ``mix_tree`` launch
+    on the card, every leaf read in place), with the (C, C) MixOp matrix
+    or a (1, C) row built on the host.
 
 Persistent schedules (gossip, TT-HF) carry the slots across rounds on
 either plane.  Ledger charging lives elsewhere
@@ -237,8 +238,9 @@ class FleetExecutor:
             np.asarray(op.src_of_dst, np.int64), device=self.device))
 
     def _mix(self, params: Params, op: MixOp, num_slots: int) -> Params:
-        # Eq. (10): the (C, C) MixOp matrix through the same kernel.
-        w = torch.as_tensor(op.matrix(num_slots), device=self.device)
+        # Eq. (10): the (C, C) MixOp matrix through the same kernel, handed
+        # over on the host (the kernel takes it in its parameters).
+        w = torch.from_numpy(op.matrix(num_slots))
         return kernel_ops.mix_aggregate_tree(params, w)
 
     def _aggregate(self, payload: Params, w: torch.Tensor) -> Params:
@@ -276,8 +278,7 @@ class FleetExecutor:
     def aggregate(self, sched: RoundSchedule, params: Params,
                   ref: Params) -> Params:
         wvec = sched.slot_weights()
-        w = torch.as_tensor((wvec / wvec.sum()).astype(np.float32),
-                            device=self.device)
+        w = torch.from_numpy((wvec / wvec.sum()).astype(np.float32))
         if sched.agg_mode == "stc_delta":
             params = masked_stc_compress(params, ref, wvec > 0,
                                          sched.stc_sparsity)

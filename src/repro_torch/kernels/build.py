@@ -42,11 +42,15 @@ _L = ctypes.c_longlong
 # launching entry point returns cudaError_t (repro_ssd_scan_smem_bytes
 # returns bytes, repro_stc_reduce_max_blocks a block count,
 # repro_stc_fused_max_n an element count, repro_stc_rows_max_chunks a
-# chunk count and repro_quant_roundtrip_max_entries / _max_leaves the
-# roundtrip's table capacity).
+# chunk count, repro_quant_roundtrip_max_entries / _max_leaves the
+# roundtrip's table capacity and repro_mix_tree_max_leaves / _max_w /
+# _tile_cols the mix_tree table's).
 _SIGNATURES = {
     "mix_aggregate": {
-        "repro_mix_aggregate_f32": [_P, _P, _P, _I, _I, _I, _P]},
+        "repro_mix_aggregate_f32": [_P, _P, _P, _I, _I, _I, _P],
+        "repro_mix_tree_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
+        "repro_mix_tree_max_leaves": [], "repro_mix_tree_max_w": [],
+        "repro_mix_tree_tile_cols": [_I]},
     "stc_rows": {
         "repro_stc_rows_reduce_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
         "repro_stc_rows_apply_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,

@@ -5,11 +5,18 @@ Counterpart of ``repro.kernels.diffusion``.  Every kernel is hand-written
 CUDA C++ for ``sm_90a`` (``csrc/``), built by ``nvcc`` and bound with
 ``ctypes`` (:mod:`repro_torch.kernels.build`):
 
-* :func:`mix_aggregate_cuda` — ``out[g, f] = Σ_c w[g, c]·x[c, f]`` over the
-  :func:`stack_ravel`-flattened client-stacked fleet.  Replaces
-  ``repro/kernels/diffusion.py::_mix_kernel`` (``mix_aggregate_pallas``).
-  Memory-bound: at G = 1 (Eq.-11 aggregation) it is a GEMV that reads
-  C·F·4 bytes once; see the source for the design.
+* :func:`mix_aggregate_tree_cuda` — Eq. 10/11 over a client-stacked tree
+  in one launch, ``out_l[g, …] = Σ_c w[g, c]·x_l[c, …]`` for every leaf l,
+  each leaf read and written where it lies through a table passed as a
+  kernel parameter (``mix_tree_kernel``), bit for bit the chain
+  :func:`stack_ravel` → :func:`mix_aggregate_cuda` → :func:`stack_unravel`
+  that it replaces on the fleet plane.  Replaces ``_mix_kernel`` with the
+  reference's ``stack_ravel`` and ``stack_unravel`` around it.
+* :func:`mix_aggregate_cuda` — ``out[g, f] = Σ_c w[g, c]·x[c, f]`` over a
+  flat (C, F) block.  Replaces ``repro/kernels/diffusion.py::_mix_kernel``
+  (``mix_aggregate_pallas``); the flat op, and the yardstick the tree
+  kernel is held to.  Memory-bound: at G = 1 (Eq.-11 aggregation) it is a
+  GEMV that reads C·F·4 bytes once; see the source for the design.
 * :func:`stc_rows_cuda` — masked per-row STC against a shared reference row,
   by one of two routes.  Rows of n ≤ :data:`N_FUSED` (every FL leaf):
   :func:`stc_rows_fused_cuda`, one launch that selects each row's τ_c (the
@@ -45,59 +52,28 @@ Dispatch by device lives in :mod:`repro_torch.kernels.ops`.
 """
 from __future__ import annotations
 
-import math
+from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.launch import (LAUNCHES, check_tensor, int32,
                                         raise_on, reset_launch_counts)
-from repro_torch.kernels.ref import stc_rows_threshold
+from repro_torch.kernels.ref import (stack_ravel, stack_unravel,
+                                     stc_rows_threshold)
 from repro_torch.kernels.stc_compress import N_FUSED
 from repro_torch.tree import tree_flatten, tree_unflatten
 
 __all__ = ["stack_ravel", "stack_unravel", "mix_aggregate_cuda",
+           "mix_aggregate_tree_cuda", "mix_tree_table", "mix_tree_weights",
+           "mix_tree_tile_cols", "MixTreeLaunch", "MIX_TREE_L_MAX",
+           "MIX_TREE_W_MAX",
            "stc_rows_cuda", "stc_rows_fused_cuda", "stc_rows_reduce_cuda",
            "stc_rows_apply_cuda", "MAX_ROWS",
            "bid_fused_cuda", "dol_bid_scores_cuda", "bid_value_fuse_cuda",
            "LAUNCHES",
            "reset_launch_counts"]
-
-
-def stack_ravel(params) -> tuple[torch.Tensor, tuple]:
-    """Flatten a client-stacked tree to one (C, F) fp32 block.
-
-    Every leaf (C, *shape) is raveled to (C, n) and concatenated on the
-    feature axis in the reference's leaf order.  Returns ``(flat, spec)``;
-    :func:`stack_unravel` inverts it."""
-    leaves, treedef = tree_flatten(params)
-    c = leaves[0].shape[0]
-    flat = torch.cat([x.reshape(c, -1).to(torch.float32) for x in leaves],
-                     dim=1)
-    meta = tuple((tuple(x.shape[1:]), x.dtype) for x in leaves)
-    return flat, (treedef, meta)
-
-
-def stack_unravel(flat: torch.Tensor, spec: tuple, *, collapse: bool = False,
-                  keep_float32: bool = False):
-    """Inverse of :func:`stack_ravel`.
-
-    ``flat`` may carry any leading slot count G.  ``collapse=True`` drops
-    the leading axis (requires G = 1) — explicit, because a one-slot MixOp
-    also has G = 1 and must stay stacked.  ``keep_float32`` skips the
-    restore to each leaf's stored dtype."""
-    treedef, meta = spec
-    g = flat.shape[0]
-    if collapse and g != 1:
-        raise ValueError(f"collapse=True needs one output row, got {g}")
-    leaves, off = [], 0
-    for shape, dtype in meta:
-        n = math.prod(shape)
-        blk = flat[:, off:off + n]
-        off += n
-        blk = blk.reshape(shape) if collapse else blk.reshape((g,) + shape)
-        leaves.append(blk if keep_float32 else blk.to(dtype))
-    return tree_unflatten(treedef, leaves)
 
 
 #: Most rows :func:`stc_rows_fused_cuda` takes: one cluster per row on the
@@ -128,6 +104,136 @@ def mix_aggregate_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     raise_on(err, "mix_aggregate")
     LAUNCHES["mix_aggregate"] += 1
     return out
+
+
+#: Most leaves one ``mix_tree`` launch takes (the kernel's table); a
+#: larger tree goes out in several launches.  The lm model, the largest FL
+#: tree, has 37.
+MIX_TREE_L_MAX = 64
+#: Most floats of a host ``w`` (G·C) the kernel reads from its parameters;
+#: a larger or device ``w`` goes to the card as a tensor.
+MIX_TREE_W_MAX = 512
+#: Client chains: a thread owns all eight where each holds one term.
+MIX_TREE_CHAINS = 8
+
+
+def mix_tree_tile_cols(c: int) -> int:
+    """Columns of a leaf one block covers: 64 threads × 4 where C ≤ 8 (a
+    thread owns every chain), 32 lanes × 4 where not (a warp per chain)."""
+    return 256 if c <= MIX_TREE_CHAINS else 128
+
+
+class MixTreeLaunch(NamedTuple):
+    """One ``mix_tree`` launch's table: the tree's leaf indices it covers,
+    their input and output pointers, element counts per row, first tiles
+    (with the launch's total last) and alignment classes (1: 16-byte
+    loads)."""
+    leaves: tuple
+    x: np.ndarray
+    out: np.ndarray
+    n: np.ndarray
+    tile0: np.ndarray
+    vec: np.ndarray
+
+
+def mix_tree_table(numels, x_ptrs, out_ptrs, c: int) -> list[MixTreeLaunch]:
+    """The launches of a tree of leaves of ``numels`` elements per client
+    row, at input / output addresses ``x_ptrs`` / ``out_ptrs``, over C
+    clients: leaves with elements, in order, in groups of at most
+    :data:`MIX_TREE_L_MAX`; each leaf ``⌈n / tile_cols⌉`` tiles; 16-byte
+    loads where n % 4 == 0 and both bases are 16-byte aligned."""
+    cols = mix_tree_tile_cols(c)
+    live = [i for i, n in enumerate(numels) if n > 0]
+    out = []
+    for s in range(0, len(live), MIX_TREE_L_MAX):
+        idx = live[s:s + MIX_TREE_L_MAX]
+        n = np.array([int32(numels[i], "n") for i in idx], np.int64)
+        xp = np.array([x_ptrs[i] for i in idx], np.int64)
+        op = np.array([out_ptrs[i] for i in idx], np.int64)
+        tile0 = np.zeros(len(idx) + 1, np.int64)
+        np.cumsum(-(-n // cols), out=tile0[1:])
+        int32(int(tile0[-1]), "tiles")
+        vec = (n % 4 == 0) & (xp % 16 == 0) & (op % 16 == 0)
+        out.append(MixTreeLaunch(tuple(idx), xp, op, n.astype(np.int32),
+                                 tile0.astype(np.int32),
+                                 vec.astype(np.int32)))
+    return out
+
+
+def mix_tree_weights(w: torch.Tensor, device: torch.device
+                     ) -> tuple[np.ndarray | None, torch.Tensor | None]:
+    """``w`` (G, C) as the kernel reads it: ``(host, None)`` — G·C fp32
+    values row-major for the kernel's parameters — for a host ``w`` of at
+    most :data:`MIX_TREE_W_MAX` values, else ``(None, device)`` — fp32 on
+    ``device``, contiguous (a host ``w`` copied there)."""
+    if w.device.type == "cpu" and w.numel() <= MIX_TREE_W_MAX:
+        host = w.detach().to(torch.float32).numpy()
+        return np.ascontiguousarray(host).reshape(-1), None
+    return None, w.to(device=device, dtype=torch.float32).contiguous()
+
+
+def mix_aggregate_tree_cuda(params, w: torch.Tensor, *, collapse: bool = False,
+                            keep_float32: bool = False):
+    """Eq. 10/11 over a client-stacked tree of CUDA leaves (C, *shape) by
+    the ``mix_tree`` kernel: leaf l of the result is
+    ``Σ_c w[g, c]·x_l[c, …]``, (G, *shape), or (*shape) with ``collapse``
+    (G = 1), each its own contiguous tensor, restored to the leaf's dtype
+    unless ``keep_float32``.  ``w`` (G, C) on the host (the kernel's
+    parameters take up to :data:`MIX_TREE_W_MAX` values) or on the leaves'
+    device.  A non-fp32 or non-contiguous leaf is copied to a contiguous
+    fp32 one first.  One launch per :data:`MIX_TREE_L_MAX` leaves; bit for
+    bit :func:`stack_ravel` → :func:`mix_aggregate_cuda` →
+    :func:`stack_unravel`.  Shapes are checked before devices."""
+    leaves, treedef = tree_flatten(params)
+    if not leaves:
+        raise ValueError("mix_tree needs at least one leaf")
+    c = leaves[0].shape[0] if leaves[0].dim() else 0
+    for x in leaves:
+        if x.dim() == 0 or x.shape[0] != c:
+            raise ValueError(f"mix_tree leaves must share their leading "
+                             f"client axis, got {tuple(x.shape)} beside "
+                             f"{c} clients")
+    if c == 0:
+        raise ValueError("mix_tree needs at least one client")
+    if w.dim() != 2 or w.shape[1] != c or w.shape[0] == 0:
+        raise ValueError(f"w {tuple(w.shape)} does not match {c} clients")
+    g = w.shape[0]
+    if collapse and g != 1:
+        raise ValueError(f"collapse=True needs a (1, C) row, got "
+                         f"{tuple(w.shape)}")
+    if (g + 7) // 8 > 65535:
+        raise ValueError(f"G={g} exceeds the kernel's grid")
+    dev = leaves[0].device
+    for x in leaves:
+        if x.device.type != "cuda" or x.device != dev:
+            raise ValueError(f"mix_tree leaves must be CUDA tensors on one "
+                             f"device, got {x.device} beside {dev}")
+    if w.device.type != "cpu" and w.device != dev:
+        raise ValueError(f"w lies on {w.device}, the leaves on {dev}")
+    f32 = torch.float32
+    xs = [x if x.dtype == f32 and x.is_contiguous()
+          else x.to(f32).contiguous() for x in leaves]
+    outs = [torch.empty(tuple(x.shape[1:]) if collapse
+                        else (g,) + tuple(x.shape[1:]), device=dev, dtype=f32)
+            for x in leaves]
+    w_host, w_dev = mix_tree_weights(w, dev)
+    table = mix_tree_table([x.numel() // c for x in xs],
+                           [x.data_ptr() for x in xs],
+                           [o.data_ptr() for o in outs], c)
+    lib = build.load("mix_aggregate")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        for t in table:
+            err = lib.repro_mix_tree_f32(
+                t.x.ctypes.data, t.out.ctypes.data, t.n.ctypes.data,
+                t.tile0.ctypes.data, t.vec.ctypes.data, len(t.leaves), c, g,
+                None if w_host is None else w_host.ctypes.data,
+                None if w_dev is None else w_dev.data_ptr(), stream)
+            raise_on(err, "mix_tree")
+            LAUNCHES["mix_tree"] += 1
+    if not keep_float32:
+        outs = [o.to(x.dtype) for o, x in zip(outs, leaves)]
+    return tree_unflatten(treedef, outs)
 
 
 def stc_rows_reduce_cuda(x: torch.Tensor, ref_row: torch.Tensor,

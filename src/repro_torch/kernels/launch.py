@@ -14,7 +14,7 @@ __all__ = ["LAUNCHES", "reset_launch_counts", "check_tensor", "int32",
            "raise_on"]
 
 #: Launches of each kernel since the last :func:`reset_launch_counts`.
-LAUNCHES = {"mix_aggregate": 0, "stc_rows_reduce": 0, "stc_rows_apply": 0,
+LAUNCHES = {"mix_aggregate": 0, "mix_tree": 0, "stc_rows_reduce": 0, "stc_rows_apply": 0,
             "stc_rows_fused": 0, "stc_reduce": 0, "stc_apply": 0,
             "stc_fused": 0, "dol_bid_scores": 0, "bid_value_fuse": 0,
             "bid_fused": 0,

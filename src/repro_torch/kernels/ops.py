@@ -16,7 +16,7 @@ from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.ssd_scan import ssd_scan_cuda
 from repro_torch.kernels.ssm_scan import ssm_scan_cuda
 from repro_torch.kernels.stc_compress import stc_compress_cuda
-from repro_torch.kernels.diffusion import stack_ravel, stack_unravel
+from repro_torch.tree import tree_leaves
 
 __all__ = ["mix_aggregate", "mix_aggregate_tree", "stc_compress", "stc_topk",
            "bid_fused", "dol_bid_scores", "bid_value_fuse", "quant_pack",
@@ -53,19 +53,23 @@ def mix_aggregate_tree(params, w: torch.Tensor, *, collapse: bool = False,
                        keep_float32: bool = False):
     """Tree-level Eq. (10)/(11): mix/aggregate a client-stacked tree.
 
-    ``w`` is (G, C): a MixOp matrix or a (1, C) Eq.-11 aggregation row.
-    The fleet is flattened once with :func:`stack_ravel` and reduced in one
-    :func:`mix_aggregate` call (one kernel launch on the card), as the
-    reference's Pallas placement does.  ``collapse=True`` (aggregation)
+    ``w`` is (G, C): a MixOp matrix or a (1, C) Eq.-11 aggregation row, on
+    the host or on the leaves' device.  ``collapse=True`` (aggregation)
     drops the leading slot axis; ``keep_float32=True`` returns fp32 leaves,
-    otherwise leaf dtypes are preserved."""
+    otherwise leaf dtypes are preserved.  CPU leaves take
+    ``ref.mix_aggregate_tree_ref`` (ravel, ``mix_aggregate_ref``, unravel:
+    the reference's Pallas placement); CUDA leaves take the ``mix_tree``
+    kernel, one launch that reads every leaf in place and writes each
+    output leaf as its own tensor, bit for bit the ravel →
+    ``mix_aggregate`` → unravel chain it replaced."""
     if collapse and w.shape[0] != 1:
         raise ValueError(f"collapse=True needs a (1, C) row, got "
                          f"{tuple(w.shape)}")
-    flat, spec = stack_ravel(params)
-    out = mix_aggregate(flat, w)
-    return stack_unravel(out, spec, collapse=collapse,
-                         keep_float32=keep_float32)
+    if _route(tree_leaves(params)[0]) == "cuda":
+        return diffusion.mix_aggregate_tree_cuda(
+            params, w, collapse=collapse, keep_float32=keep_float32)
+    return ref.mix_aggregate_tree_ref(params, w, collapse=collapse,
+                                      keep_float32=keep_float32)
 
 
 def stc_compress(x: torch.Tensor, sparsity: float = 0.01) -> torch.Tensor:

@@ -17,8 +17,10 @@ import torch.nn.functional as F
 
 from repro_torch.core.dol import iid_distance_candidates_t, xla_sum_t
 from repro_torch.kernels.quant import QUANT_BLOCK, roundtrip_rows, rows_src
+from repro_torch.tree import tree_flatten, tree_unflatten
 
-__all__ = ["mix_aggregate_ref", "stc_compress_ref", "stc_threshold",
+__all__ = ["mix_aggregate_ref", "stack_ravel", "stack_unravel",
+           "mix_aggregate_tree_ref", "stc_compress_ref", "stc_threshold",
            "stc_reduce_ref", "stc_apply_ref", "stc_radix_threshold_ref",
            "stc_fused_ref", "stc_rows_ref",
            "stc_rows_threshold", "stc_rows_reduce_ref", "stc_rows_apply_ref",
@@ -36,6 +38,55 @@ def mix_aggregate_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     ``out[g, f] = Σ_c w[g, c]·x[c, f]``.  x (C, F); w (G, C) → (G, F) fp32."""
     return torch.einsum("gc,cf->gf", w.to(torch.float32),
                         x.to(torch.float32))
+
+
+def stack_ravel(params) -> tuple[torch.Tensor, tuple]:
+    """Flatten a client-stacked tree to one (C, F) fp32 block.
+
+    Every leaf (C, *shape) is raveled to (C, n) and concatenated on the
+    feature axis in the reference's leaf order.  Returns ``(flat, spec)``;
+    :func:`stack_unravel` inverts it."""
+    leaves, treedef = tree_flatten(params)
+    c = leaves[0].shape[0]
+    flat = torch.cat([x.reshape(c, -1).to(torch.float32) for x in leaves],
+                     dim=1)
+    meta = tuple((tuple(x.shape[1:]), x.dtype) for x in leaves)
+    return flat, (treedef, meta)
+
+
+def stack_unravel(flat: torch.Tensor, spec: tuple, *, collapse: bool = False,
+                  keep_float32: bool = False):
+    """Inverse of :func:`stack_ravel`.
+
+    ``flat`` may carry any leading slot count G.  ``collapse=True`` drops
+    the leading axis (requires G = 1) — explicit, because a one-slot MixOp
+    also has G = 1 and must stay stacked.  ``keep_float32`` skips the
+    restore to each leaf's stored dtype."""
+    treedef, meta = spec
+    g = flat.shape[0]
+    if collapse and g != 1:
+        raise ValueError(f"collapse=True needs one output row, got {g}")
+    leaves, off = [], 0
+    for shape, dtype in meta:
+        n = math.prod(shape)
+        blk = flat[:, off:off + n]
+        off += n
+        blk = blk.reshape(shape) if collapse else blk.reshape((g,) + shape)
+        leaves.append(blk if keep_float32 else blk.to(dtype))
+    return tree_unflatten(treedef, leaves)
+
+
+def mix_aggregate_tree_ref(params, w: torch.Tensor, *, collapse: bool = False,
+                           keep_float32: bool = False):
+    """Tree-level Eq. (10)/(11), the plain version of record: the
+    client-stacked tree raveled to one (C, F) block (:func:`stack_ravel`),
+    reduced by :func:`mix_aggregate_ref` and cut back into leaves
+    (:func:`stack_unravel`), as the reference's Pallas placement does.
+    ``w`` (G, C); ``collapse`` and ``keep_float32`` as in
+    :func:`stack_unravel`."""
+    flat, spec = stack_ravel(params)
+    return stack_unravel(mix_aggregate_ref(flat, w), spec, collapse=collapse,
+                         keep_float32=keep_float32)
 
 
 def _top_k(a: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
