@@ -110,6 +110,28 @@ nothing of JAX.  Phases, each of which fails loudly:
    plane ``mix_tree`` once per MixOp plus once per round and
    ``mix_aggregate`` never; int8 hops launch
    ``quant_roundtrip`` once per PermuteOp (all 8 slots and the move).
+   Then the sweep layer (``sweep_path``, artifacts under ``build/sweeps``),
+   all on the fleet plane: ``fig3_alpha``'s full grid (α ∈ {0.1, 0.2, 0.5,
+   1, 100} × fedavg / feddif, N = M = 10, 8000 samples, 20 rounds, seed 0,
+   ``planner="jax"``), its 100 FedDif rounds first planned by
+   ``prepopulate_plan_cache`` (``bid_fused`` once per bid round, the
+   planner's summed ``loop_iterations``, and no other kernel), then
+   ``run_sweep`` on that cache: every cell replays (plan-cache misses 0,
+   ``bid_fused`` 0) and launches ``mix_tree`` once per round, every
+   param finite, FedDif's peak above FedAvg's at α = 0.1; the smoke grids
+   of ``fig4_epsilon``, ``fig5_gamma_min``, ``fig6_tasks``,
+   ``table2_strategies`` and ``fig_lm`` (artifacts with no failed cell,
+   ``mix_tree`` once per round, ``fig_lm`` ``quant_roundtrip`` once per
+   PermuteOp and ``quant_pack`` / ``quant_unpack`` never); ``fig5_gamma_min``
+   with the device planner pre-planned by ``run_sweep`` and cell by cell
+   through ``run_cell`` with fresh caches: artifacts equal after
+   ``strip_volatile``; ``fig4_epsilon`` on the card and on the CPU: equal
+   ``comm`` and diffusion rounds, accuracy within 0.05, final losses
+   within atol 2e-4, rtol 2e-3; and ``fig7_scaling``, ``fig_async`` and
+   ``fig_scenarios`` refused naming A11 with no cell run.  One line per
+   cell (label, peak accuracy, sub-frames, Eq.-15 bandwidth, seconds,
+   plan-cache hits and misses, launches); the sweeps' launches count as
+   main-path launches.
    Then, apart from those runs and with its launches counted apart, the
    host plane's STC entry
    point on leaves on both sides of N_FUSED must route each leaf of
@@ -317,6 +339,14 @@ HOST_TWO_ROUND = ("stc", "feddif_stc", "fedswap", "d2d_random_walk",
                   "fedprox", "feddif_prox")
 MIX_RUNS = (("gossip", 2), ("tthf", 4))
 HOST_VS_FLEET_RUN = ("feddif", "fcn", 2, 8)
+# The sweep phase (3c): fig3_alpha's full grid (5 α × fedavg / feddif,
+# N = M = 10, 8000 samples, 20 rounds) pre-planned with the device planner,
+# the smoke grids of the other paper sweeps, all on the fleet plane; the
+# sweeps the port refuses (ROADMAP A11).  Artifacts go under build/.
+SWEEP_DIR = ROOT / "build" / "sweeps"
+SWEEP_SMOKE = ("fig4_epsilon", "fig5_gamma_min", "fig6_tasks",
+               "table2_strategies", "fig_lm")
+SWEEP_REFUSED = ("fig7_scaling", "fig_async", "fig_scenarios")
 
 
 def _fail(msg: str) -> None:
@@ -3368,6 +3398,250 @@ def zoo_full_depth(torch) -> None:
         torch.cuda.empty_cache()
 
 
+class _ObservedRuns:
+    """Wraps the orchestrator's ``run_experiment`` to count the runs and
+    record whether each run's final params are finite (the artifact holds
+    no params); the runs themselves are unchanged."""
+
+    def __init__(self, torch, port):
+        from repro_torch.experiments import replicate
+        from repro_torch.tree import tree_leaves
+        self.replicate, self.real = replicate, port.run_experiment
+        self.finite: list[bool] = []
+
+        def observed(spec, **kw):
+            res = self.real(spec, **kw)
+            self.finite.append(all(bool(torch.isfinite(x).all())
+                                   for x in tree_leaves(res.final_params)))
+            return res
+
+        self.observed = observed
+
+    def __enter__(self):
+        self.replicate.run_experiment = self.observed
+        return self
+
+    def __exit__(self, *exc):
+        self.replicate.run_experiment = self.real
+
+
+def _sweep(torch, kd, runs, name, **kw) -> tuple[dict, list, float]:
+    """``run_sweep`` on the card with its artifact under build/sweeps:
+    returns the artifact, each cell's launch counts (read at the progress
+    line that ends the cell; with ``planner="jax"`` the first line is the
+    sweep's own pre-plan) and the sweep's wall seconds.  Prints one line
+    per cell and fails on a failed cell, a non-finite param or an artifact
+    on disk that differs from the one returned."""
+    from repro_torch.experiments import run_sweep
+    snaps = []
+
+    def log(line):
+        torch.cuda.synchronize()
+        snaps.append(dict(kd.LAUNCHES))
+
+    kd.reset_launch_counts()
+    first = len(runs.finite)
+    t0 = time.perf_counter()
+    art = run_sweep(name, out_dir=str(kw.pop("out_dir", SWEEP_DIR)),
+                    log=log, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    pre = snaps.pop(0) if kw.get("planner") == "jax" else {
+        k: 0 for k in kd.LAUNCHES}
+    per_cell, prev = [], pre
+    for snap in snaps:
+        per_cell.append({k: snap[k] - prev[k] for k in snap})
+        prev = snap
+    finite = runs.finite[first:]
+    with open(art["path"]) as f:
+        on_disk = json.load(f)
+    if on_disk["failed_cells"] or art["failed_cells"]:
+        _fail(f"sweep {name}: failed cells {on_disk['failed_cells']}")
+    if on_disk["cells"] != json.loads(json.dumps(art["cells"])):
+        _fail(f"sweep {name}: the artifact on disk differs")
+    if len(finite) != len(art["cells"]) or not all(finite):
+        _fail(f"sweep {name}: non-finite params in {finite}")
+    for cell, counts in zip(art["cells"], per_cell):
+        print(json.dumps({
+            "sweep": name, "cell": cell["label"],
+            "executor": cell["executor"],
+            "peak_accuracy": cell["summary"]["peak_mean"],
+            "subframes": cell["comm"]["subframes"],
+            "bandwidth_hz_s": cell["comm"]["pusch_bandwidth_hz_s"],
+            "diffusion_rounds": cell["diffusion_rounds"],
+            "seconds": cell["wall_clock_s"],
+            "plan_cache": {k: cell["plan_cache"][k]
+                           for k in ("hits", "misses")},
+            "launches": {k: v for k, v in counts.items() if v}}))
+        rounds = len(cell["diffusion_rounds"]) * len(cell["seeds"])
+        # No sweep strategy here runs a MixOp: one mix_tree launch a round.
+        if (counts["mix_tree"] != rounds or counts["mix_aggregate"]
+                or counts["dol_bid_scores"] or counts["bid_value_fuse"]
+                or counts["quant_pack"] or counts["quant_unpack"]):
+            _fail(f"sweep {name} {cell['label']}: launches {counts}, want "
+                  f"mix_tree {rounds} and no standalone kernel")
+    print(json.dumps({"sweep_summary": name, "cells": len(art["cells"]),
+                      "wall_s": wall, "artifact": art["path"],
+                      "plan_cache": art["plan_cache"],
+                      "launches": {k: v for k, v in kd.LAUNCHES.items()
+                                   if v}}))
+    return art, per_cell, wall
+
+
+def sweep_path(torch, port) -> dict:
+    """Phase 3c: the sweep layer on the card.  Returns its launches."""
+    from repro_torch.core.diffusion import PlanCache
+    from repro_torch.experiments import (artifacts, expand_sweep,
+                                         prepopulate_plan_cache, run_cell,
+                                         run_sweep)
+    from repro_torch.kernels import diffusion as kd
+    total = {k: 0 for k in kd.LAUNCHES}
+
+    def add(counts):
+        for k in total:
+            total[k] += counts[k]
+
+    with _ObservedRuns(torch, port) as runs:
+        # fig3_alpha's full grid: the device pre-planner plans all 100
+        # FedDif rounds first; the cells then replay them.
+        cells = expand_sweep("fig3_alpha", smoke=False, executor="fleet",
+                             planner="jax")
+        cache = PlanCache()
+        kd.reset_launch_counts()
+        t0 = time.perf_counter()
+        pre = prepopulate_plan_cache(cells, cache)
+        torch.cuda.synchronize()
+        pre_s = time.perf_counter() - t0
+        counts = dict(kd.LAUNCHES)
+        add(counts)
+        st = pre["planner_stats"]
+        feddif_rounds = sum(c.spec.fl.rounds for c in cells
+                            if c.strategy == "feddif")
+        print(json.dumps({
+            "sweep_preplan": "fig3_alpha", "planned": pre["planned"],
+            "skipped": pre["skipped"], "batches": pre["batches"],
+            "seconds": pre_s, "s_per_planned_round": pre_s / max(
+                pre["planned"], 1),
+            "loop_iterations": st.get("loop_iterations", 0),
+            "auction_iterations": st.get("auction_iterations", 0),
+            "launches": {k: v for k, v in counts.items() if v}}))
+        if pre["planned"] != feddif_rounds or feddif_rounds != 100:
+            _fail(f"fig3 pre-plan planned {pre['planned']} rounds, want "
+                  f"{feddif_rounds} (= 100)")
+        if (counts["bid_fused"] != st.get("loop_iterations", -1)
+                or counts["bid_fused"] == 0
+                or sum(counts.values()) != counts["bid_fused"]):
+            _fail(f"fig3 pre-plan launched {counts} over "
+                  f"{st.get('loop_iterations')} bid rounds")
+        art, per_cell, wall = _sweep(
+            torch, kd, runs, "fig3_alpha", smoke=False, executor="fleet",
+            planner="jax", plan_cache=cache)
+        add(dict(kd.LAUNCHES))
+        for cell, c in zip(art["cells"], per_cell):
+            if cell["plan_cache"]["misses"] or c["bid_fused"]:
+                _fail(f"fig3 {cell['label']} planned again: misses "
+                      f"{cell['plan_cache']['misses']}, bid_fused "
+                      f"{c['bid_fused']}")
+        peak = {c["label"]: c["summary"]["peak_mean"] for c in art["cells"]}
+        print(json.dumps({"fig3_alpha_full": {
+            "preplan_s": pre_s, "cells_wall_s": wall,
+            "wall_s": pre_s + wall, "peak_accuracy": peak}}))
+        if not peak["alpha=0.1/feddif"] > peak["alpha=0.1/fedavg"]:
+            _fail(f"fig3 α=0.1: FedDif {peak['alpha=0.1/feddif']} does not "
+                  f"beat FedAvg {peak['alpha=0.1/fedavg']}")
+
+        # The smoke grids of the other paper sweeps, fleet plane, host
+        # planner.
+        smoke = {}
+        for name in SWEEP_SMOKE:
+            art, per_cell, _ = _sweep(torch, kd, runs, name,
+                                      executor="fleet")
+            add(dict(kd.LAUNCHES))
+            smoke[name] = art
+            for cell, c in zip(art["cells"], per_cell):
+                hops = (sum(cell["diffusion_rounds"])
+                        if name == "fig_lm" else 0)
+                if c["quant_roundtrip"] != hops or c["bid_fused"]:
+                    _fail(f"{name} {cell['label']}: quant_roundtrip / "
+                          f"bid_fused launched {c['quant_roundtrip']} / "
+                          f"{c['bid_fused']} times, want {hops} / 0")
+            if name == "fig_lm" and not any(
+                    sum(c["diffusion_rounds"]) for c in art["cells"]):
+                _fail("fig_lm ran no int8 hop")
+
+        # Pre-planned sweep against cell-by-cell planning with fresh caches.
+        pre_art, _, _ = _sweep(torch, kd, runs, "fig5_gamma_min",
+                               executor="fleet", planner="jax",
+                               out_dir=SWEEP_DIR / "preplanned")
+        add(dict(kd.LAUNCHES))
+        kd.reset_launch_counts()
+        records = [run_cell(c, (0,), PlanCache())
+                   for c in expand_sweep("fig5_gamma_min", executor="fleet",
+                                         planner="jax")]
+        torch.cuda.synchronize()
+        add(dict(kd.LAUNCHES))
+        per_art = artifacts.build_artifact(
+            sweep_name="fig5_gamma_min", figure=pre_art["figure"],
+            axis=pre_art["axis"], smoke=True, seeds=[0], cells=records,
+            executor="fleet", planner="jax")
+        artifacts.write_artifact(per_art, str(SWEEP_DIR / "per_cell"))
+        same = (artifacts.strip_volatile(pre_art)
+                == artifacts.strip_volatile(per_art))
+        print(json.dumps({
+            "check": "fig5_gamma_min pre-planned vs per-cell planning",
+            "equal_after_strip_volatile": same,
+            "preplanned_misses": [c["plan_cache"]["misses"]
+                                  for c in pre_art["cells"]],
+            "per_cell_misses": [r["plan_cache"]["misses"] for r in records],
+            "per_cell_bid_fused": kd.LAUNCHES["bid_fused"]}))
+        if not same or any(c["plan_cache"]["misses"]
+                           for c in pre_art["cells"]):
+            _fail("fig5 pre-planned artifact differs from cell-by-cell "
+                  "planning")
+
+        # The card against the CPU: fig4_epsilon's smoke grid, fleet plane.
+        gpu = smoke["fig4_epsilon"]
+        cpu = run_sweep("fig4_epsilon", executor="fleet", device="cpu",
+                        out_dir=str(SWEEP_DIR / "cpu"))
+        worst = {"accuracy": 0.0, "final_loss": 0.0}
+        for g, c in zip(gpu["cells"], cpu["cells"]):
+            if (g["comm"] != c["comm"]
+                    or g["diffusion_rounds"] != c["diffusion_rounds"]):
+                _fail(f"fig4 {g['label']}: card and CPU ledgers differ")
+            acc = max(abs(a - b) for a, b in zip(g["accuracy"][0],
+                                                 c["accuracy"][0]))
+            la, lb = g["loss"][0][-1], c["loss"][0][-1]
+            worst["accuracy"] = max(worst["accuracy"], acc)
+            worst["final_loss"] = max(worst["final_loss"], abs(la - lb))
+            if not (acc <= 0.05 and abs(la - lb) <= 2e-4 + 2e-3 * abs(lb)):
+                _fail(f"fig4 {g['label']}: card vs CPU accuracy gap {acc}, "
+                      f"final losses {la} / {lb}")
+        print(json.dumps({"check": "fig4_epsilon card vs CPU",
+                          "comm_equal": True, "max_accuracy_gap": worst[
+                              "accuracy"], "max_final_loss_gap": worst[
+                              "final_loss"], "bars": {
+                              "accuracy": 0.05, "loss_atol": 2e-4,
+                              "loss_rtol": 2e-3}}))
+
+        # The sweeps the port refuses: A11, before a cell runs.
+        for name in SWEEP_REFUSED:
+            first = len(runs.finite)
+            try:
+                run_sweep(name, executor="fleet", out_dir=None)
+            except NotImplementedError as e:
+                refused = "A11" in str(e)
+                message = str(e)
+            else:
+                refused, message = False, "ran"
+            ran = len(runs.finite) - first
+            print(json.dumps({"check": f"{name} refused", "error": message,
+                              "cells_run": ran}))
+            if not refused or ran:
+                _fail(f"{name} was not refused naming A11 before running "
+                      f"({message}, {ran} runs)")
+    return total
+
+
 def main() -> None:
     sys.stdout.reconfigure(line_buffering=True)
     if not (ROOT / "src" / "repro_torch").is_dir():
@@ -3412,6 +3686,8 @@ def main() -> None:
     for k, v in hop_plane_path(torch, kd, port).items():
         launches[k] += v
     for k, v in host_plane_path(torch, kd, port).items():
+        launches[k] += v
+    for k, v in sweep_path(torch, port).items():
         launches[k] += v
     routing = stc_routing(torch, kd)
     routing.update({k: v for k, v in stc_rows_routing(torch, kd).items()

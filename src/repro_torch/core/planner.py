@@ -41,7 +41,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kernel_ops
 
 __all__ = ["PlanInputs", "PlanOutputs", "draw_gamma_sequence",
-           "plan_round_inputs", "decode_plan",
+           "plan_round_inputs", "decode_plan", "plan_rounds_batched",
            "plan_communication_round_jax"]
 
 
@@ -189,6 +189,27 @@ def _plan_rounds(inp: PlanInputs, *, metric: str, allow_retraining: bool,
                        state=st,
                        final_iid=iid_distance_t(st.dol, metric),
                        converged=bool(converged))
+
+
+def plan_rounds_batched(inputs: list[PlanInputs], metric: str,
+                        allow_retraining: bool,
+                        stats: dict | None = None) -> list[PlanOutputs]:
+    """Plan a batch of cells and rounds: one :class:`PlanOutputs` per item,
+    each what :func:`_plan_rounds` gives it alone.
+
+    The reference vmaps its device loop over the batch.  Here each diffusion
+    round reads the host once, so the items are planned one after another;
+    ``stats`` adds up their counters.  As in the reference, the items must
+    share (N, M, C, max_rounds) and the static knobs (``metric``,
+    ``allow_retraining``); ε, γ_min, outage, budget and S may differ."""
+    shapes = {(tuple(inp.gamma_seq.shape), tuple(inp.dol0.shape),
+               inp.value is None) for inp in inputs}
+    if len(shapes) > 1:
+        raise ValueError(f"plan_rounds_batched: items of different shapes "
+                         f"((R, N, N), (M, C), no value) {sorted(shapes)}")
+    return [_plan_rounds(inp, metric=metric,
+                         allow_retraining=allow_retraining, stats=stats)
+            for inp in inputs]
 
 
 # ---------------------------------------------------------------- host glue

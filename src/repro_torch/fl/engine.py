@@ -7,7 +7,9 @@ name — wins; otherwise the ``executor=``/``planner=`` fields map through
 :meth:`EngineSpec.from_config`, without the reference's deprecation
 warning).  The port runs ``mode="host"`` and ``"fleet"``; ``run_federated``
 raises for ``"async"`` (ROADMAP A11) and ``"sharded"`` (A12), whose knobs
-come with those planes.
+come with those planes.  The reference's presets of those planes
+(:data:`UNPORTED_PRESETS`) resolve to their bare mode, so they are refused
+the same way.
 
 :class:`RunResult` is what ``run_federated`` returns: params, ledger, a
 :class:`RunHistory` of per-round curves, the engine used, and the
@@ -22,8 +24,8 @@ from typing import Any
 
 import torch
 
-__all__ = ["EngineSpec", "ENGINE_PRESETS", "ENGINE_MODES", "resolve_engine",
-           "RunHistory", "RunResult", "SHARDED_CROSSOVER_N"]
+__all__ = ["EngineSpec", "ENGINE_PRESETS", "ENGINE_MODES", "UNPORTED_PRESETS",
+           "resolve_engine", "RunHistory", "RunResult", "SHARDED_CROSSOVER_N"]
 
 #: Fleet size below which a sharded request downgrades to the fleet plane
 #: (the reference's measured crossover, kept so specs resolve alike).
@@ -67,13 +69,13 @@ class EngineSpec:
 
     @classmethod
     def preset(cls, name: str) -> "EngineSpec":
-        """A named preset, or the bare plane of an engine mode the port
-        does not run ("async", "sharded"), which ``run_federated`` refuses
-        naming its ROADMAP item."""
+        """A named preset, or the bare plane of one the port does not run
+        (:data:`UNPORTED_PRESETS`), which ``run_federated`` refuses naming
+        its ROADMAP item."""
         if name in ENGINE_PRESETS:
             return ENGINE_PRESETS[name]
-        if name in ENGINE_MODES:
-            return cls(mode=name)
+        if name in UNPORTED_PRESETS:
+            return cls(mode=UNPORTED_PRESETS[name])
         raise ValueError(f"unknown engine preset {name!r}; expected one of "
                          f"{sorted(ENGINE_PRESETS)}")
 
@@ -84,6 +86,11 @@ ENGINE_PRESETS: dict[str, EngineSpec] = {
     "fleet": EngineSpec(mode="fleet"),
     "auto": EngineSpec(mode="auto"),
 }
+
+#: The reference's other presets, each with the plane it selects: the port
+#: resolves them to that bare mode, which ``run_federated`` refuses.
+UNPORTED_PRESETS: dict[str, str] = {"sharded": "sharded", "async": "async",
+                                    "async_barrier": "async"}
 
 
 def resolve_engine(cfg) -> EngineSpec:
@@ -164,3 +171,25 @@ class RunResult:
             if a >= target:
                 return i + 1
         return None
+
+    @classmethod
+    def from_histories(cls, *, accuracy, loss, ledger, diffusion_rounds,
+                       iid_distance, config=None, final_params=None,
+                       round_wall_s=(), phase_s=(), engine=None,
+                       **async_hist) -> "RunResult":
+        """Build a result from the flat legacy field spelling (replication
+        engines, tests).  The phase profile is ROADMAP item A15 and the
+        async plane's curves A11: passing either raises."""
+        if len(phase_s):
+            raise NotImplementedError(
+                "RunHistory.phase_s is ROADMAP item A15 (phase profiling)")
+        if async_hist:
+            raise NotImplementedError(
+                f"the async plane's curves {sorted(async_hist)} are ROADMAP "
+                f"item A11 (the buffered-async plane)")
+        hist = RunHistory(accuracy=list(accuracy), loss=list(loss),
+                          diffusion_rounds=list(diffusion_rounds),
+                          iid_distance=list(iid_distance),
+                          round_wall_s=list(round_wall_s))
+        return cls(params=final_params, ledger=ledger, history=hist,
+                   engine=engine, config=config)

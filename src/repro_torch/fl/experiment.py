@@ -59,9 +59,11 @@ class ExperimentSpec:
                              f"(got dim={self.dim})")
 
 
-def load_experiment_data(spec: ExperimentSpec):
+def load_experiment_data(spec: ExperimentSpec, with_loaders: bool = True):
     """Dataset → split → Dirichlet partition → loaders for one cell.
-    Returns ``(train, test, part, loaders)``."""
+    Returns ``(train, test, part, loaders)``.  ``with_loaders=False``
+    skips the loaders (``None``; they draw from their own seed, so the
+    partition is the same): the sweep pre-planner needs only ``part``."""
     rng = np.random.default_rng(spec.data_seed)
     if spec.task == "lm":
         # Token rows: spec.dim is the sequence length, one sample is one
@@ -77,8 +79,9 @@ def load_experiment_data(spec: ExperimentSpec):
                                     spec.dim, seed=spec.data_seed)
     test, train = ds.split(spec.test_frac, rng)
     part = dirichlet_partition(train.y, spec.fl.num_clients, spec.alpha, rng)
-    loaders = make_client_loaders(train, part, spec.fl.batch_size,
-                                  seed=spec.data_seed)
+    loaders = (make_client_loaders(train, part, spec.fl.batch_size,
+                                   seed=spec.data_seed)
+               if with_loaders else None)
     return train, test, part, loaders
 
 

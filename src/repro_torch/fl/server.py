@@ -109,7 +109,7 @@ _UNPORTED = (
     ("scenario", "static", "A11 (world scenarios)"),
     ("energy_budget_j", None, "A11 (world scenarios)"),
     ("churn_rate", 0.0, "A11 (churn)"),
-    ("checkpoint_every", 0, "A10 (experiments + durability)"),
+    ("checkpoint_every", 0, "A10b (durability)"),
     ("metric", "w1_norm", "A15 (Appendix-C metrics)"),
     ("underlay", False, "A15 (underlay planner)"),
     ("profile_phases", False, "A15 (phase profiling)"),

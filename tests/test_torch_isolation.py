@@ -36,6 +36,7 @@ importlib.import_module("chip_smoke")
 bad = [m for m in sys.modules if m == "jax" and sys.modules[m] is not None
        or m.startswith("jax.") or m == "repro" or m.startswith("repro.")]
 assert not bad, bad
+print(" ".join(names))
 print(len(names))
 """
 
@@ -46,7 +47,10 @@ def test_every_port_module_imports_without_jax_or_repro():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=300, cwd=ROOT)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip().splitlines()[-1]) >= 20
+    *_, names, count = out.stdout.strip().splitlines()
+    assert int(count) >= 70
+    for sub in ("experiments", "launch"):
+        assert f"repro_torch.{sub}" in names.split()
 
 
 def _imported_modules(path: Path):
