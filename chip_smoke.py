@@ -132,6 +132,28 @@ nothing of JAX.  Phases, each of which fails loudly:
    cell (label, peak accuracy, sub-frames, Eq.-15 bandwidth, seconds,
    plan-cache hits and misses, launches); the sweeps' launches count as
    main-path launches.
+   The durable phase (``durable_path``, state under ``build/durable``):
+   (a) fleet FedDif and gossip at the quickstart's width (8 rounds,
+   killed after round 3) and host FedDif (4 rounds, killed after round 2),
+   each with ``checkpoint_every=1``, preempted by ``fail_after_save`` and
+   resumed: params bit-equal to the uninterrupted run, equal ledger,
+   curves and launch counts (``mix_tree`` once per round and MixOp over
+   the two halves), seconds and bytes per save; (b) ``fig5_gamma_min``'s
+   smoke grid, fleet plane, device planner, durable, killed inside its
+   second cell once the first is done, then resumed: the resumed
+   pre-planner launches ``bid_fused`` 0 times, no cell misses the plan
+   cache, the artifact equals a non-durable run's after
+   ``strip_volatile``; (c) the sweep CLI on ``fig4_epsilon`` sent SIGTERM
+   once a round checkpoint is committed (exit −15), then ``--resume``
+   (exit 0, the same artifact); (d) ``fig3_alpha``'s α = 0.1 FedAvg and
+   FedDif cells on the host plane at full width (N = M = 10, 8000
+   samples), seeds 0–2 and seed 0 alone, 5 rounds, under ``seed_vmap``
+   and ``loop``: equal ``comm``, diffusion rounds and IID, each seed's
+   accuracy within 2e-3 at every eval, no kernel launched by
+   ``seed_vmap``, both walls and their ratio printed; (e) ``seed_vmap``
+   on the card against the CPU on ``fig3_alpha``'s smoke FedDif cell:
+   equal ``comm``, accuracy within 0.05.  The launches of (a) and (b)
+   count as main-path launches.
    Then, apart from those runs and with its launches counted apart, the
    host plane's STC entry
    point on leaves on both sides of N_FUSED must route each leaf of
@@ -214,6 +236,8 @@ import gc
 import itertools
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -347,6 +371,17 @@ SWEEP_DIR = ROOT / "build" / "sweeps"
 SWEEP_SMOKE = ("fig4_epsilon", "fig5_gamma_min", "fig6_tasks",
                "table2_strategies", "fig_lm")
 SWEEP_REFUSED = ("fig7_scaling", "fig_async", "fig_scenarios")
+# The durable phase: runs killed after a round checkpoint and resumed, as
+# (executor, strategy, rounds, killed after round), at the quickstart's
+# width; and the seed-stacked engine against the loop engine.
+DURABLE_DIR = ROOT / "build" / "durable"
+DURABLE_RUNS = (("fleet", "feddif", 8, 3), ("fleet", "gossip", 8, 3),
+                ("host", "feddif", 4, 2))
+# (d)'s seed sets: three replicates, and one, the CLI's and run_sweep's
+# default, where the seed axis has nothing to batch.
+SEED_VMAP_SEED_SETS = ((0, 1, 2), (0,))
+SEED_VMAP_ROUNDS = 5
+SEED_VMAP_ACC = 2e-3         # the reference's seed_vmap-vs-loop bar
 
 
 def _fail(msg: str) -> None:
@@ -3642,6 +3677,339 @@ def sweep_path(torch, port) -> dict:
     return total
 
 
+class _TimedSaves:
+    """Times every ``RoundCheckpointer.save`` while active and sizes the
+    files each one writes (npz and metadata JSON)."""
+
+    def __init__(self):
+        from repro_torch.fl.resume import RoundCheckpointer
+        self.cls, self.real = RoundCheckpointer, RoundCheckpointer.save
+        self.seconds: list[float] = []
+        self.bytes: list[int] = []
+        timed = self
+
+        def save(ckpt, step, *args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return timed.real(ckpt, step, *args, **kw)
+            finally:
+                timed.seconds.append(time.perf_counter() - t0)
+                stem = os.path.join(ckpt.directory, f"ckpt_{step:08d}")
+                timed.bytes.append(sum(os.path.getsize(stem + s)
+                                       for s in (".npz", ".json")
+                                       if os.path.exists(stem + s)))
+
+        self.save = save
+
+    def __enter__(self):
+        self.cls.save = self.save
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.save = self.real
+
+
+def _same_artifact(a: dict, b: dict) -> bool:
+    """Two sweep artifacts equal after ``strip_volatile``, the durable
+    run's manifest path aside."""
+    from repro_torch.experiments import strip_volatile
+    a, b = strip_volatile(a), strip_volatile(b)
+    a.pop("manifest", None), b.pop("manifest", None)
+    return (json.dumps(a, sort_keys=True, default=str)
+            == json.dumps(b, sort_keys=True, default=str))
+
+
+def _durable_run(torch, kd, port, executor: str, strategy: str,
+                 rounds: int, kill: int) -> dict:
+    """(a): one run killed after round ``kill``'s checkpoint and resumed,
+    against the same run uninterrupted.  Returns the killed and resumed
+    halves' launches."""
+    from repro_torch.fl.resume import Preempted, RoundCheckpointer
+    from repro_torch.train.checkpoint import valid_steps
+    spec = port.ExperimentSpec(
+        task="fcn", alpha=0.3, num_samples=6000,
+        fl=port.FLConfig(executor=executor, strategy=strategy,
+                         rounds=rounds, num_clients=8, num_models=8, seed=0,
+                         checkpoint_every=1))
+    root = DURABLE_DIR / f"{executor}_{strategy}"
+    shutil.rmtree(root, ignore_errors=True)
+    with _TimedSaves() as saves:
+        kd.reset_launch_counts()
+        t0 = time.perf_counter()
+        clean = port.run_experiment(spec, checkpoint_dir=str(root / "clean"))
+        torch.cuda.synchronize()
+        clean_s = time.perf_counter() - t0
+        clean_counts = dict(kd.LAUNCHES)
+    kd.reset_launch_counts()
+    RoundCheckpointer.fail_after_save = kill
+    try:
+        port.run_experiment(spec, checkpoint_dir=str(root / "killed"))
+    except Preempted:
+        preempted = True
+    else:
+        preempted = False
+    finally:
+        RoundCheckpointer.fail_after_save = None
+    kept = valid_steps(str(root / "killed"))
+    t0 = time.perf_counter()
+    resumed = port.run_experiment(spec, checkpoint_dir=str(root / "killed"))
+    torch.cuda.synchronize()
+    resumed_s = time.perf_counter() - t0
+    counts = dict(kd.LAUNCHES)
+    same = {
+        "params_bits": _bits_equal(torch, clean.params, resumed.params),
+        "ledger": clean.ledger.as_dict() == resumed.ledger.as_dict(),
+        "accuracy": clean.accuracy == resumed.accuracy,
+        "loss": clean.loss == resumed.loss,
+        "diffusion_rounds": clean.diffusion_rounds
+        == resumed.diffusion_rounds,
+        "iid_distance": clean.iid_distance == resumed.iid_distance,
+        "launches": counts == clean_counts}
+    print(json.dumps({
+        "durable_run": f"{executor}/{strategy}/fcn", "rounds": rounds,
+        "killed_after_round": kill, "preempted": preempted,
+        "checkpoints_at_kill": kept, "same": same,
+        "peak_accuracy": max(resumed.accuracy),
+        "clean_s": clean_s, "resumed_s": resumed_s, "saves": len(saves.seconds),
+        "s_per_save": sum(saves.seconds) / max(len(saves.seconds), 1),
+        "max_s_per_save": max(saves.seconds, default=0.0),
+        "bytes_per_save": saves.bytes[0] if saves.bytes else 0,
+        "launches": {k: v for k, v in counts.items() if v}}))
+    want_mix = rounds if strategy == "feddif" and executor == "fleet" else (
+        0 if executor == "host" else clean_counts["mix_tree"])
+    if not preempted or kept[-1:] != [kill] or not all(same.values()):
+        _fail(f"durable {executor}/{strategy}: preempted {preempted}, "
+              f"checkpoints {kept}, same {same}")
+    if (counts["mix_tree"] != want_mix or counts["mix_aggregate"]
+            or (executor == "fleet" and counts["mix_tree"] < rounds)):
+        _fail(f"durable {executor}/{strategy}: mix_tree launched "
+              f"{counts['mix_tree']} times over the killed and resumed "
+              f"halves, want {want_mix}")
+    return counts
+
+
+def _durable_sweep(torch, kd) -> dict:
+    """(b): fig5_gamma_min's smoke grid, fleet plane, device planner,
+    durable: killed inside its second cell, then resumed.  Returns the
+    killed and resumed runs' launches."""
+    from repro_torch.experiments import SweepManifest, cell_slug, run_sweep
+    from repro_torch.fl.resume import Preempted, RoundCheckpointer
+    root = DURABLE_DIR / "fig5_gamma_min"
+    shutil.rmtree(root, ignore_errors=True)
+    kw = dict(executor="fleet", planner="jax", seeds=(0,),
+              state_dir=str(root / "state"), out_dir=str(root / "out"))
+    clean = run_sweep("fig5_gamma_min", executor="fleet", planner="jax",
+                      seeds=(0,), out_dir=None)
+    first, second = (c["label"] for c in clean["cells"])
+    real = RoundCheckpointer.save
+
+    def kill_in_second_cell(ckpt, step, *args, **k):
+        path = real(ckpt, step, *args, **k)
+        if cell_slug(second) in ckpt.directory:
+            raise Preempted(f"killed after {ckpt.directory} step {step}")
+        return path
+
+    total = {k: 0 for k in kd.LAUNCHES}
+    kd.reset_launch_counts()
+    RoundCheckpointer.save = kill_in_second_cell
+    try:
+        run_sweep("fig5_gamma_min", checkpoint_every=1, **kw)
+    except Preempted:
+        killed = True
+    else:
+        killed = False
+    finally:
+        RoundCheckpointer.save = real
+    torch.cuda.synchronize()
+    for k in total:
+        total[k] += kd.LAUNCHES[k]
+    status = SweepManifest.load(kw["state_dir"]).data["cells"]
+    snaps = []
+
+    def log(line):
+        torch.cuda.synchronize()
+        snaps.append((line, dict(kd.LAUNCHES)))
+
+    kd.reset_launch_counts()
+    resumed = run_sweep("fig5_gamma_min", resume=True, log=log, **kw)
+    torch.cuda.synchronize()
+    for k in total:
+        total[k] += kd.LAUNCHES[k]
+    preplan = next(c for line, c in snaps if ",preplan," in line)
+    misses = [c["plan_cache"]["misses"] for c in resumed["cells"]]
+    same = _same_artifact(clean, resumed)
+    rounds = sum(len(c["diffusion_rounds"]) for c in clean["cells"])
+    print(json.dumps({
+        "check": "fig5_gamma_min durable sweep killed in its second cell, "
+                 "resumed", "killed": killed,
+        "status_at_kill": {k: v["status"] for k, v in status.items()},
+        "resumed_preplan_bid_fused": preplan["bid_fused"],
+        "resumed_bid_fused": kd.LAUNCHES["bid_fused"],
+        "resumed_misses": misses, "equal_after_strip_volatile": same,
+        "mix_tree_killed_plus_resumed": total["mix_tree"],
+        "failed_cells": resumed["failed_cells"]}))
+    if (not killed or status[first]["status"] != "done"
+            or status[second]["status"] != "running" or not same
+            or preplan["bid_fused"] or kd.LAUNCHES["bid_fused"] or any(misses)
+            or resumed["failed_cells"] or total["mix_tree"] != rounds):
+        _fail("fig5 durable sweep: kill / resume check failed")
+    return total
+
+
+def _sigterm_cli(torch) -> None:
+    """(c): SIGTERM the sweep CLI once a round checkpoint is committed,
+    rerun it with --resume, and compare with a clean in-process run."""
+    import signal
+    from repro_torch.experiments import run_sweep
+    root = DURABLE_DIR / "cli"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    state, out = root / "state", root / "out"
+    args = [sys.executable, "-m", "repro_torch.launch.sweep",
+            "--sweep", "fig4_epsilon", "--executor", "fleet",
+            "--checkpoint-every", "1", "--state-dir", str(state),
+            "--out-dir", str(out)]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src")] + [p for p in [os.environ.get("PYTHONPATH")]
+                               if p]))
+
+    def committed():
+        return any(f.startswith("ckpt_") and f.endswith(".json")
+                   for _, _, files in os.walk(state / "cells")
+                   for f in files)
+
+    t0 = time.perf_counter()
+    with open(root / "killed.log", "w") as logf:
+        proc = subprocess.Popen(args, env=env, cwd=ROOT, stdout=logf,
+                                stderr=subprocess.STDOUT)
+        try:
+            deadline = time.time() + 120
+            while (time.time() < deadline and proc.poll() is None
+                   and not committed()):
+                time.sleep(0.005)
+            was_committed = committed()
+            if proc.poll() is None:
+                proc.send_signal(signal.SIGTERM)
+            proc.wait(timeout=60)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    killed_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    r = subprocess.run(args + ["--resume"], env=env, cwd=ROOT,
+                       capture_output=True, text=True, timeout=300)
+    resume_s = time.perf_counter() - t0
+    (root / "resumed.log").write_text(r.stdout + r.stderr)
+    clean = run_sweep("fig4_epsilon", executor="fleet", out_dir=None)
+    resumed = None
+    if r.returncode == 0:
+        with open(out / "BENCH_feddif_fig4_epsilon.json") as f:
+            resumed = json.load(f)
+    same = resumed is not None and _same_artifact(clean, resumed)
+    print(json.dumps({
+        "check": "fig4_epsilon CLI: SIGTERM after a committed round "
+                 "checkpoint, then --resume",
+        "checkpoint_committed": was_committed,
+        "killed_returncode": proc.returncode,
+        "resume_returncode": r.returncode, "killed_s": killed_s,
+        "resume_s": resume_s, "equal_after_strip_volatile": same,
+        "failed_cells": None if resumed is None else resumed["failed_cells"],
+        "logs": str(root)}))
+    if (not was_committed or proc.returncode != -signal.SIGTERM
+            or r.returncode != 0 or not same or resumed["failed_cells"]):
+        _fail(f"fig4 CLI SIGTERM / --resume check failed (see {root})")
+
+
+def _seed_vmap_vs_loop(torch, kd) -> None:
+    """(d): fig3_alpha's α = 0.1 pair on the host executor at full width,
+    SEED_VMAP_ROUNDS rounds, under both engines at each of
+    SEED_VMAP_SEED_SETS."""
+    from repro_torch.core.diffusion import PlanCache
+    from repro_torch.experiments import expand_sweep, run_cell
+    cells = [c.with_fl(rounds=SEED_VMAP_ROUNDS)
+             for c in expand_sweep("fig3_alpha", smoke=False,
+                                   executor="host") if c.value == 0.1]
+    for seeds in SEED_VMAP_SEED_SETS:
+        for cell in cells:
+            recs, counts = {}, {}
+            for engine in ("loop", "seed_vmap"):
+                kd.reset_launch_counts()
+                recs[engine] = run_cell(cell, seeds, PlanCache(),
+                                        engine=engine)
+                torch.cuda.synchronize()
+                counts[engine] = {k: v for k, v in kd.LAUNCHES.items() if v}
+            lp, vm = recs["loop"], recs["seed_vmap"]
+            gap = max(abs(a - b) for ca, cb in zip(lp["accuracy"],
+                                                   vm["accuracy"])
+                      for a, b in zip(ca, cb))
+            ok = {"engines": (lp["engine"], vm["engine"]) == ("loop",
+                                                              "seed_vmap"),
+                  "comm": lp["comm"] == vm["comm"],
+                  "diffusion_rounds": lp["diffusion_rounds"]
+                  == vm["diffusion_rounds"],
+                  "iid_distance": lp["iid_distance"] == vm["iid_distance"],
+                  "accuracy": gap <= SEED_VMAP_ACC,
+                  "no_kernel": not counts["seed_vmap"]}
+            print(json.dumps({
+                "check": f"seed_vmap vs loop {cell.label}",
+                "executor": "host", "clients": cell.spec.fl.num_clients,
+                "rounds": SEED_VMAP_ROUNDS, "seeds": list(seeds),
+                "loop_wall_s": lp["wall_clock_s"],
+                "seed_vmap_wall_s": vm["wall_clock_s"],
+                "loop_over_seed_vmap": lp["wall_clock_s"]
+                / vm["wall_clock_s"],
+                "max_accuracy_gap": gap, "bar": SEED_VMAP_ACC,
+                "peak_accuracy": {"loop": lp["summary"]["peak_mean"],
+                                  "seed_vmap": vm["summary"]["peak_mean"]},
+                "launches": counts, "ok": ok}))
+            if not all(ok.values()):
+                _fail(f"seed_vmap vs loop {cell.label} seeds {seeds}: {ok}")
+
+
+def _seed_vmap_card_vs_cpu(torch, kd) -> None:
+    """(e): fig3_alpha's smoke FedDif cell under seed_vmap, card vs CPU."""
+    from repro_torch.core.diffusion import PlanCache
+    from repro_torch.experiments import expand_sweep, run_cell
+    cell = next(c for c in expand_sweep("fig3_alpha")
+                if c.strategy == "feddif")
+    kd.reset_launch_counts()
+    gpu = run_cell(cell, (0,), PlanCache(), engine="seed_vmap")
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in kd.LAUNCHES.items() if v}
+    cpu = run_cell(cell, (0,), PlanCache(), engine="seed_vmap", device="cpu")
+    gap = max(abs(a - b) for a, b in zip(gpu["accuracy"][0],
+                                         cpu["accuracy"][0]))
+    ok = gpu["comm"] == cpu["comm"] and gap <= 0.05 and not launched
+    print(json.dumps({"check": f"seed_vmap card vs CPU {cell.label}",
+                      "comm_equal": gpu["comm"] == cpu["comm"],
+                      "max_accuracy_gap": gap, "bar": 0.05,
+                      "launches": launched, "ok": ok}))
+    if not ok:
+        _fail(f"seed_vmap card vs CPU {cell.label}: comm or accuracy apart")
+
+
+def durable_path(torch, port) -> dict:
+    """Phase 3d: durable runs and sweeps, and the seed-stacked replicate
+    engine, on the card.  Returns the launches of (a) and (b)."""
+    from repro_torch.kernels import diffusion as kd
+    total = {k: 0 for k in kd.LAUNCHES}
+    t0 = time.perf_counter()
+    for executor, strategy, rounds, kill in DURABLE_RUNS:
+        for k, v in _durable_run(torch, kd, port, executor, strategy,
+                                 rounds, kill).items():
+            total[k] += v
+    for k, v in _durable_sweep(torch, kd).items():
+        total[k] += v
+    _sigterm_cli(torch)
+    _seed_vmap_vs_loop(torch, kd)
+    _seed_vmap_card_vs_cpu(torch, kd)
+    print(json.dumps({"phase": "durable_path",
+                      "seconds": time.perf_counter() - t0,
+                      "launches": {k: v for k, v in total.items() if v}}))
+    return total
+
+
 def main() -> None:
     sys.stdout.reconfigure(line_buffering=True)
     if not (ROOT / "src" / "repro_torch").is_dir():
@@ -3688,6 +4056,8 @@ def main() -> None:
     for k, v in host_plane_path(torch, kd, port).items():
         launches[k] += v
     for k, v in sweep_path(torch, port).items():
+        launches[k] += v
+    for k, v in durable_path(torch, port).items():
         launches[k] += v
     routing = stc_routing(torch, kd)
     routing.update({k: v for k, v in stc_rows_routing(torch, kd).items()

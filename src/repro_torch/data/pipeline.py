@@ -27,8 +27,15 @@ class ClientLoader:
 
     @property
     def epochs_drawn(self) -> int:
-        """Epoch ``k`` shuffles with ``default_rng(seed + k)``; this is k."""
+        """Epoch ``k`` shuffles with ``default_rng(seed + k)``; this is k.
+        The stream is a counter, so a resumed run that :meth:`seek`-s back
+        to a checkpointed position replays the same batch order."""
         return self._epoch
+
+    def seek(self, epochs_drawn: int) -> None:
+        """Reposition the shuffle stream (a resumed run restores the
+        cursors :attr:`epochs_drawn` read at the checkpointed round)."""
+        self._epoch = int(epochs_drawn)
 
     def num_batches(self) -> int:
         if not len(self.y):
@@ -49,6 +56,12 @@ class ClientLoader:
                 pad = np.resize(perm, self.batch_size - len(idx))
                 idx = np.concatenate([idx, pad])
             yield {"x": self.x[idx], "y": self.y[idx]}
+
+    def one_batch(self) -> dict:
+        """The first batch of the next epoch (draws that epoch)."""
+        if not len(self.y):
+            raise ValueError("client shard is empty — no batch to draw")
+        return next(self.epoch())
 
 
 def make_client_loaders(ds: ImageDataset, part: ClientPartition,

@@ -14,13 +14,13 @@ so a run of the port never overwrites a run of the reference.
 """
 from __future__ import annotations
 
-import json
 import os
-import tempfile
 import time
 from typing import Any
 
 import numpy as np
+
+from repro_torch.train.checkpoint import atomic_write_json
 
 __all__ = ["SCHEMA_VERSION", "DEFAULT_OUT_DIR", "default_out_dir",
            "bench_file", "bench_path", "build_artifact", "write_artifact",
@@ -38,25 +38,6 @@ def default_out_dir() -> str:
     the variable is set, else ``benchmarks/results/torch/``."""
     base = os.environ.get("REPRO_BENCH_DIR")
     return DEFAULT_OUT_DIR if base is None else os.path.join(base, "torch")
-
-
-def atomic_write_json(path: str, obj: Any, **dump_kwargs) -> str:
-    """Serialize ``obj`` to JSON at ``path`` via a temp file and a rename:
-    a reader, or a writer killed mid-write, sees the previous document or
-    the complete new one, never a torn one."""
-    directory = os.path.dirname(path) or "."
-    os.makedirs(directory, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(dir=directory, suffix=".json.tmp")
-    try:
-        with os.fdopen(fd, "w") as f:
-            json.dump(obj, f, **dump_kwargs)
-            f.flush()
-            os.fsync(f.fileno())
-        os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return path
 
 
 def bench_file(name: str, out_dir: str | None = None) -> str:

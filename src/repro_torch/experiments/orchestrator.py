@@ -8,18 +8,22 @@ one-command reproduction of a paper figure::
 
 For every cell of the sweep's grid it stamps a shared ``topology_seed``
 (so the wireless control plane does not depend on the replicate seed), runs
-the cell at every seed, shares one :class:`~repro_torch.core.diffusion
-.PlanCache` across the whole sweep (so FedDif's auction loop runs once per
-distinct topology seed, round, partition, ε and γ_min, and is replayed for
-every other replicate), and folds the per-seed curves, the Eq.-15 ledger
+the cell at every seed (seed-stacked on the data plane where the cell
+allows it, one run per seed otherwise), shares one
+:class:`~repro_torch.core.diffusion.PlanCache` across the whole sweep (so
+FedDif's auction loop runs once per distinct topology seed, round,
+partition, ε and γ_min, and is replayed for every other replicate), and
+folds the per-seed curves, the Eq.-15 ledger
 and the wall-clock into one JSON record per cell.
 
 Before it runs a cell, ``run_sweep`` checks every cell of the grid with
 :func:`~repro_torch.fl.server.check_supported`: a sweep that needs churn,
 the async plane or a world scenario (``fig7_scaling``, ``fig_async``,
 ``fig_scenarios``: ROADMAP A11) raises ``NotImplementedError`` and runs
-nothing.  Seeds run one after another (the seed-vmapped engine is A10c);
-durable sweeps (round checkpoints, resume) are A10b.
+nothing.  A durable sweep (``checkpoint_every``, ``resume``,
+``state_dir``) keeps a manifest, round checkpoints, cell records and the
+plan cache under a state directory (:mod:`~repro_torch.experiments.
+durability`), and a killed sweep resumes bit for bit.
 
 Everything runs on ``device``, the CUDA device unless the caller passes
 ``"cpu"``: the cells and, with ``planner="jax"``, the pre-planner.  The
@@ -28,6 +32,7 @@ must not be replayed by runs on another.
 """
 from __future__ import annotations
 
+import os
 import time
 import warnings
 from typing import Callable, Sequence
@@ -44,10 +49,13 @@ from repro_torch.core.dol import DiffusionState
 from repro_torch.core.planner import (decode_plan, plan_round_inputs,
                                       plan_rounds_batched)
 from repro_torch.device import resolve_device
-from repro_torch.experiments import artifacts
+from repro_torch.experiments import artifacts, durability
 from repro_torch.experiments.registry import (SweepCell, expand_sweep,
                                               get_sweep)
-from repro_torch.experiments.replicate import run_replicates_loop
+from repro_torch.experiments.replicate import (SEED_VMAP_STRATEGIES,
+                                               hops_full_model,
+                                               run_replicates_loop,
+                                               run_replicates_vmapped)
 from repro_torch.fl.engine import SHARDED_CROSSOVER_N, resolve_engine
 from repro_torch.fl.experiment import load_experiment_data, spec_model_bits
 from repro_torch.fl.server import check_supported, static_round_draws
@@ -57,8 +65,8 @@ __all__ = ["run_cell", "run_sweep", "prepopulate_plan_cache",
 
 _FEDDIF_STRATEGIES = ("feddif", "feddif_stc", "feddif_prox")
 
-#: How replicate seeds run: ``"auto"`` resolves to ``"loop"`` (one run per
-#: seed) until the seed-vmapped engine, ``"seed_vmap"``, lands (A10c).
+#: How replicate seeds run: seed-stacked (``"seed_vmap"``), one run per
+#: seed (``"loop"``), or ``"auto"``, which picks per cell (_pick_engine).
 REPLICATION_ENGINES = ("auto", "seed_vmap", "loop")
 
 
@@ -163,16 +171,36 @@ def _pick_executor(cell: SweepCell, engine: str) -> SweepCell:
     return cell
 
 
-def _pick_engine(cell: SweepCell, engine: str) -> str:
-    """The replication engine of a cell: ``"loop"`` until A10c."""
-    if engine == "seed_vmap":
-        raise NotImplementedError(
-            "the seed_vmap replication engine is ROADMAP item A10c; use "
-            "engine='loop' or 'auto'")
+def _pick_engine(cell: SweepCell, engine: str, num_seeds: int) -> str:
+    """The replication engine of a cell at ``num_seeds`` replicate seeds,
+    routed as the reference routes it, with two departures, both under
+    ``"auto"`` (ROADMAP C):
+
+    * a cell whose hop payload is not the full fp32 model (int8 hops, an
+      adapter view: ``fig_lm``) runs on ``"loop"``, since the seed-stacked
+      engine would charge and train it as the fp32 model;
+    * a cell of one seed runs on ``"loop"``: with no seed axis to batch,
+      the stacked engine's per-op vmap cost makes it the slower one
+      (0.66–0.78× the loop's speed at fig3's full width on one H100 in
+      two runs, PERF.md)."""
     if engine not in REPLICATION_ENGINES:
         raise ValueError(f"unknown replication engine {engine!r}; expected "
                          f"one of {REPLICATION_ENGINES}")
-    return "loop"
+    cfg = cell.spec.fl
+    if resolve_engine(cfg).mode in ("fleet", "sharded", "async"):
+        # These planes batch the client axis or order ticks themselves; the
+        # seed-stacked engine is its own host-side data plane.
+        return "loop"
+    if (cfg.churn_rate > 0.0 or cfg.scenario != "static"
+            or cfg.uncertainty_weight > 0.0):
+        # Churn masks and evolving worlds live in run_federated, and
+        # learning values make plans seed-dependent.
+        return "loop"
+    if engine == "auto":
+        return ("seed_vmap" if cell.strategy in SEED_VMAP_STRATEGIES
+                and hops_full_model(cell.spec) and num_seeds > 1
+                else "loop")
+    return engine
 
 
 def run_cell(cell: SweepCell, seeds: Sequence[int],
@@ -182,21 +210,30 @@ def run_cell(cell: SweepCell, seeds: Sequence[int],
              device: str | torch.device | None = None,
              init_for: Callable | None = None) -> dict:
     """Run one sweep cell at every replicate seed on ``device``; returns
-    the JSON record.  ``init_for`` maps each seed's ``ExperimentSpec`` to
-    the ``init_fn`` of its run (a test seam; ``None`` keeps the task
-    model's own init).  ``checkpoint_root`` is ROADMAP item A10b."""
+    the JSON record.
+
+    ``engine``: ``"auto"`` (the seed-stacked engine where
+    :func:`_pick_engine` allows it, else the loop), ``"seed_vmap"`` or
+    ``"loop"``.  ``checkpoint_root`` (durable sweeps) forces the loop
+    engine, whose runs go through ``run_federated`` and its round
+    checkpoints, and gives each seed a checkpoint directory under it.
+    ``init_for`` maps each seed's ``ExperimentSpec`` to the ``init_fn`` of
+    its run (a test seam; ``None`` keeps the task model's own init)."""
     if not len(seeds):
         raise ValueError("run_cell needs at least one replicate seed")
-    if checkpoint_root is not None:
-        raise NotImplementedError(
-            "durable cells (checkpoint_root) are ROADMAP item A10b "
-            "(durability)")
     cell = _pick_executor(cell, engine)
-    chosen = _pick_engine(cell, engine)
+    chosen = _pick_engine(cell, engine, len(seeds))
+    if checkpoint_root is not None:
+        chosen = "loop"
     cache_before = plan_cache.stats() if plan_cache is not None else None
     t0 = time.time()
-    results = run_replicates_loop(cell.spec, seeds, plan_cache,
-                                  device=device, init_for=init_for)
+    if chosen == "seed_vmap":
+        results = run_replicates_vmapped(cell.spec, seeds, plan_cache,
+                                         device=device, init_for=init_for)
+    else:
+        results = run_replicates_loop(cell.spec, seeds, plan_cache,
+                                      checkpoint_root=checkpoint_root,
+                                      device=device, init_for=init_for)
     wall = time.time() - t0
 
     # Per-cell plan-cache delta: how much of this cell's control plane was
@@ -251,14 +288,13 @@ def run_sweep(name: str, smoke: bool = True, seeds: Sequence[int] = (0,),
     Args:
       name: registry key (``fig3_alpha`` … ``table2_strategies``).
       smoke: smoke-sized grid vs full grid.
-      seeds: replicate seeds, run one after another; curves are reported
-        per seed.
+      seeds: replicate seeds; curves are reported per seed.
       out_dir: where ``BENCH_feddif_<name>.json`` is written; ``"auto"``
         resolves through :func:`~repro_torch.experiments.artifacts
         .default_out_dir` (``benchmarks/results/torch/``); ``None`` skips
         writing.
       engine: replication engine, one of :data:`REPLICATION_ENGINES`
-        (``"seed_vmap"`` is A10c and raises).
+        (see :func:`run_cell`).
       executor: ``FLConfig.executor`` stamped on every cell — ``"host"``
         or ``"fleet"`` (``"sharded"`` downgrades to ``"fleet"`` below
         :data:`SHARDED_CROSSOVER_N` clients and is A12 above).
@@ -273,8 +309,19 @@ def run_sweep(name: str, smoke: bool = True, seeds: Sequence[int] = (0,),
         256 entries hold the full fig3/fig4 grids (5 FedDif cells × 20
         rounds per seed); a larger grid evicts its oldest plans, which its
         cells then plan again.
-      checkpoint_every, resume, state_dir: durable sweeps, ROADMAP item
-        A10b: any of them raises.
+      checkpoint_every: round-checkpoint cadence R.  Any of
+        ``checkpoint_every > 0``, ``resume`` or ``state_dir`` makes the
+        sweep durable: a manifest, per-cell round checkpoints, finished
+        cells' records and the plan cache live under ``state_dir``
+        (default ``benchmarks/results/torch/sweeps/<name>``); a crashing
+        cell is marked failed while the rest of the grid runs, and a
+        killed sweep restarts with ``resume=True`` to the same artifact
+        (after :func:`~repro_torch.experiments.artifacts.strip_volatile`).
+      resume: continue a durable run from its manifest: done cells load
+        their records, failed cells are retried, interrupted cells restart
+        from their latest round checkpoint, and the stored plan cache is
+        replayed instead of pre-planned again.
+      state_dir: the durable-state directory.
       log: a callable taking one progress line per pre-plan and per cell.
       device: where the cells and the pre-planner run (the CUDA device by
         default).
@@ -284,10 +331,6 @@ def run_sweep(name: str, smoke: bool = True, seeds: Sequence[int] = (0,),
 
     Returns the artifact dict (also written to disk unless out_dir=None).
     """
-    if checkpoint_every > 0 or resume or state_dir is not None:
-        raise NotImplementedError(
-            "durable sweeps (checkpoint_every, resume, state_dir) are "
-            "ROADMAP item A10b (durability)")
     defn = get_sweep(name)
     cells = expand_sweep(name, smoke=smoke, executor=executor,
                          planner=planner, **spec_overrides)
@@ -296,10 +339,35 @@ def run_sweep(name: str, smoke: bool = True, seeds: Sequence[int] = (0,),
     cells = [_pick_executor(c, engine) for c in cells]
     for cell in cells:
         # Refuse before running: a grid the port cannot finish runs nothing.
-        _pick_engine(cell, engine)
+        _pick_engine(cell, engine, len(seeds))
         check_supported(cell.spec.fl)
     device = resolve_device(device)
     cache = plan_cache if plan_cache is not None else PlanCache()
+    durable = checkpoint_every > 0 or resume or state_dir is not None
+
+    manifest = None
+    if durable:
+        state_dir = state_dir or durability.default_state_dir(name)
+        os.makedirs(state_dir, exist_ok=True)
+        config = {"sweep": name, "smoke": smoke,
+                  "seeds": [int(s) for s in seeds], "executor": executor,
+                  "planner": planner, "engine": engine,
+                  "engine_preset": engine_preset,
+                  # Plans and round checkpoints are replayed only on the
+                  # device type that made them.
+                  "device": device.type,
+                  "checkpoint_every": int(checkpoint_every),
+                  "spec_overrides": spec_overrides}
+        manifest = durability.SweepManifest.open(
+            state_dir, name, config, [c.label for c in cells], resume)
+        if checkpoint_every <= 0:
+            # A resume without a cadence adopts the stored one.
+            checkpoint_every = int(
+                manifest.data["config"].get("checkpoint_every") or 0) or 1
+        if resume and durability.load_plan_cache_file(state_dir, cache):
+            if log is not None:
+                log(f"{name},plan_cache,restored="
+                    f"{cache.stats()['entries']}")
 
     t0 = time.time()
     if planner == "jax":
@@ -307,11 +375,40 @@ def run_sweep(name: str, smoke: bool = True, seeds: Sequence[int] = (0,),
         if log is not None:
             log(f"{name},preplan,planned={pre['planned']},"
                 f"batches={pre['batches']},sec={time.time() - t0:.1f}")
+        if manifest is not None:
+            durability.save_plan_cache_file(state_dir, cache)
 
     records = []
     for cell in cells:
-        rec = run_cell(cell, seeds, plan_cache=cache, engine=engine,
-                       device=device, init_for=init_for)
+        if manifest is None:
+            rec = run_cell(cell, seeds, plan_cache=cache, engine=engine,
+                           device=device, init_for=init_for)
+        elif manifest.status(cell.label) == "done":
+            records.append(manifest.load_record(cell.label))
+            if log is not None:
+                log(f"{name},{cell.label},resumed=done")
+            continue
+        else:
+            manifest.mark(cell.label, "running")
+            cell = cell.with_fl(checkpoint_every=int(checkpoint_every))
+            try:
+                rec = run_cell(
+                    cell, seeds, plan_cache=cache, engine=engine,
+                    checkpoint_root=manifest.cell_checkpoint_root(
+                        cell.label),
+                    device=device, init_for=init_for)
+            except Exception as e:          # noqa: BLE001 — cell isolation
+                # One broken cell must not sink the grid.  Preempted and
+                # KeyboardInterrupt (BaseException) still end the sweep.
+                manifest.mark(cell.label, "failed",
+                              error=f"{type(e).__name__}: {e}")
+                if log is not None:
+                    log(f"{name},{cell.label},FAILED={type(e).__name__}")
+                continue
+            manifest.store_record(cell.label, rec)
+            manifest.mark(cell.label, "done")
+            durability.save_plan_cache_file(state_dir, cache)
+            rec = manifest.load_record(cell.label)  # canonical JSON types
         if log is not None:
             s = rec["summary"]
             log(f"{name},{rec['label']},engine={rec['engine']},"
@@ -325,7 +422,11 @@ def run_sweep(name: str, smoke: bool = True, seeds: Sequence[int] = (0,),
         sweep_name=name, figure=defn.figure, axis=defn.axis, smoke=smoke,
         seeds=list(seeds), cells=records, executor=executor,
         planner=planner, plan_cache_stats=cache.stats(),
-        wall_clock_s=time.time() - t0)
+        wall_clock_s=time.time() - t0,
+        failed_cells=manifest.failed_cells() if manifest is not None
+        else None)
+    if manifest is not None:
+        artifact["manifest"] = manifest.path
     if out_dir is not None:
         if out_dir == "auto":
             out_dir = artifacts.default_out_dir()

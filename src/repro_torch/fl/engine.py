@@ -25,7 +25,8 @@ from typing import Any
 import torch
 
 __all__ = ["EngineSpec", "ENGINE_PRESETS", "ENGINE_MODES", "UNPORTED_PRESETS",
-           "resolve_engine", "RunHistory", "RunResult", "SHARDED_CROSSOVER_N"]
+           "resolve_engine", "engine_fingerprint", "RunHistory", "RunResult",
+           "SHARDED_CROSSOVER_N"]
 
 #: Fleet size below which a sharded request downgrades to the fleet plane
 #: (the reference's measured crossover, kept so specs resolve alike).
@@ -60,6 +61,13 @@ class EngineSpec:
             mode = "fleet"
         return self if mode == self.mode \
             else dataclasses.replace(self, mode=mode)
+
+    def describe(self) -> str:
+        """Stable one-line fingerprint (the checkpoint config guard): the
+        reference's string, with its defaults for the sharded plane's knobs
+        (ROADMAP A12), so checkpoints of either package are guarded alike."""
+        return (f"{self.mode}/planner={self.planner}/overlap=auto"
+                f"/transport=auto/mb=32/km=1")
 
     @classmethod
     def from_config(cls, cfg) -> "EngineSpec":
@@ -111,6 +119,11 @@ def resolve_engine(cfg) -> EngineSpec:
         spec = spec.auto(int(getattr(cfg, "num_clients", 0)))
     spec.validate()
     return spec
+
+
+def engine_fingerprint(cfg) -> str:
+    """Resolved-engine fingerprint for the checkpoint config guard."""
+    return resolve_engine(cfg).describe()
 
 
 @dataclasses.dataclass

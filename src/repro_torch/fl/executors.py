@@ -37,7 +37,9 @@ Counterpart of ``repro.fl.executors`` (``HostExecutor``, ``FleetExecutor``,
     or a (1, C) row built on the host.
 
 Persistent schedules (gossip, TT-HF) carry the slots across rounds on
-either plane.  Ledger charging lives elsewhere
+either plane; ``capture_slots`` / ``slots_like`` / ``num_slots_of`` /
+``adopt_slots`` round-trip them through a round checkpoint
+(:mod:`repro_torch.fl.resume`).  Ledger charging lives elsewhere
 (``core.schedule.charge_schedule``).
 """
 from __future__ import annotations
@@ -58,7 +60,7 @@ from repro_torch.fl.fedprox import prox_objective
 from repro_torch.fl.schedulers import PROX_STRATEGIES
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.train import optimizer as opt_lib
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map
 
 Params = Any
 
@@ -71,6 +73,19 @@ EXECUTORS = ("host", "fleet")
 
 #: Per-slot global-norm gradient clip of every local step.
 CLIP_NORM = 10.0
+
+
+def _to_host(tree):
+    return tree_map(lambda x: x.detach().cpu(), tree)
+
+
+def _host_like(tree):
+    return tree_map(lambda x: torch.empty(tuple(x.shape), dtype=x.dtype),
+                    tree)
+
+
+def _to_device(tree, device: torch.device):
+    return tree_map(lambda x: x.to(device).contiguous(), tree)
 
 
 def _tree_sub(a, b):
@@ -97,6 +112,29 @@ class HostExecutor:
         for c in np.flatnonzero(mask):
             slots[c], _ = self.local_update(
                 slots[c], self.client_batches[c](), self.cfg.lr)
+
+    # ------------------------------------------------- round-state capture
+    # Persistent strategies (gossip, tthf) carry slots across rounds; the
+    # resume seam (fl/resume.py) round-trips them through these hooks, so a
+    # checkpoint restores onto the executor that wrote it.
+
+    def capture_slots(self, slots: list | None):
+        """Host copy of the persistent slot state (or ``None``): a list of
+        slot trees, saved as ``slots/<i>/…``."""
+        return None if slots is None else [_to_host(s) for s in slots]
+
+    def slots_like(self, global_params: Params, num_slots: int):
+        """Template of a :meth:`capture_slots` capture."""
+        return [_host_like(global_params) for _ in range(num_slots)]
+
+    def num_slots_of(self, saved) -> int:
+        """Slot count of a capture (host: the outer list).  The executor is
+        authoritative: a params tree that is itself a list looks alike."""
+        return len(saved)
+
+    def adopt_slots(self, saved):
+        """A capture on this executor's device, contiguous."""
+        return [_to_device(s, self.device) for s in saved]
 
     # ------------------------------------------------------------------ round
 
@@ -221,6 +259,23 @@ class FleetExecutor:
         for batch, active in zip(steps, actives):
             params, mom, _ = self._step(params, mom, batch, active, *extra)
         return params
+
+    # ------------------------------------------------- round-state capture
+
+    def capture_slots(self, slots: Params | None):
+        """Host copy of the client-stacked slot tree (or ``None``)."""
+        return None if slots is None else _to_host(slots)
+
+    def slots_like(self, global_params: Params, num_slots: int):
+        return tree_map(lambda x: torch.empty((num_slots,) + tuple(x.shape),
+                                              dtype=x.dtype), global_params)
+
+    def num_slots_of(self, saved) -> int:
+        """Slot count of a capture (fleet: the stacked leading axis)."""
+        return int(tree_leaves(saved)[0].shape[0])
+
+    def adopt_slots(self, saved):
+        return _to_device(saved, self.device)
 
     # ------------------------------------------------------------- primitives
 

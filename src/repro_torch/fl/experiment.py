@@ -25,6 +25,7 @@ from repro_torch.data.synthetic import (ImageDataset, class_labels_for_lm,
 from repro_torch.device import resolve_device
 from repro_torch.fl.adapters import make_adapter_view, packed_bits
 from repro_torch.fl.models import LM_VOCAB, TASK_MODELS, build_task_model
+from repro_torch.fl.resume import RoundCheckpointer
 from repro_torch.fl.server import FLConfig, RunResult, run_federated
 
 __all__ = ["ExperimentSpec", "run_experiment", "load_experiment_data",
@@ -113,7 +114,8 @@ def spec_adapter_bits(spec: ExperimentSpec) -> float:
 
 def run_experiment(spec: ExperimentSpec, plan_cache: PlanCache | None = None,
                    device: str | torch.device | None = None,
-                   init_fn: Callable | None = None) -> RunResult:
+                   init_fn: Callable | None = None,
+                   checkpoint_dir: str | None = None) -> RunResult:
     """Run one cell on ``device`` (the CUDA device by default).
 
     ``plan_cache`` is forwarded to :func:`run_federated`: with
@@ -123,9 +125,28 @@ def run_experiment(spec: ExperimentSpec, plan_cache: PlanCache | None = None,
     reference); schedules and ledgers are the same either way.
     ``init_fn`` replaces the task model's own init of the full params (it
     receives the ``torch.Generator`` seeded with ``spec.fl.seed``): the
-    tests pass the reference's initial params through it."""
+    tests pass the reference's initial params through it.
+
+    ``checkpoint_dir`` with ``spec.fl.checkpoint_every > 0`` makes the cell
+    durable: a :class:`~repro_torch.fl.resume.RoundCheckpointer` writes the
+    round state every R rounds, the clients' loader cursors included, so a
+    resumed run draws the same batches, and resumes from the latest
+    readable checkpoint in that directory."""
     dev = resolve_device(device)
     train, test, part, loaders = load_experiment_data(spec)
+    checkpointer = None
+    if checkpoint_dir is not None and spec.fl.checkpoint_every > 0:
+        def capture():
+            return {"loader_epochs": [ld.epochs_drawn for ld in loaders]}
+
+        def restore(extra):
+            for ld, e in zip(loaders, extra["loader_epochs"]):
+                ld.seek(int(e))
+
+        checkpointer = RoundCheckpointer(checkpoint_dir,
+                                         every=spec.fl.checkpoint_every,
+                                         capture_extra=capture,
+                                         restore_extra=restore)
     model = build_task_model(spec.task, spec.dim, spec.num_classes)
     view = make_adapter_view(model, spec.fl, spec.adapter_hops,
                              init_fn=init_fn, device=dev)
@@ -164,4 +185,5 @@ def run_experiment(spec: ExperimentSpec, plan_cache: PlanCache | None = None,
                          [client_epoch(i) for i in range(spec.fl.num_clients)],
                          part.dsi, part.data_sizes, eval_fn, spec.fl,
                          device=dev, value_fn=value_fn,
-                         base_bits=view.base_bits, plan_cache=plan_cache)
+                         base_bits=view.base_bits, plan_cache=plan_cache,
+                         checkpointer=checkpointer)

@@ -16,8 +16,9 @@ stages, as in the reference:
 
 All ten strategies run, with the host or the device planner
 (``planner="jax"``), learning-value bids (``uncertainty_weight > 0``),
-int8-packed hops (``hop_quant="int8"``) and a :class:`~repro_torch.core.
-diffusion.PlanCache`, in the static world.  Every other :class:`FLConfig`
+int8-packed hops (``hop_quant="int8"``), a :class:`~repro_torch.core.
+diffusion.PlanCache` and round checkpoints (:mod:`repro_torch.fl.resume`),
+in the static world.  Every other :class:`FLConfig`
 value raises ``NotImplementedError`` naming the ROADMAP item that ports it;
 nothing falls back to something else.
 """
@@ -45,6 +46,7 @@ from repro_torch.fl.engine import (EngineSpec, RunHistory, RunResult,
                                    resolve_engine)
 from repro_torch.fl.executors import make_executor
 from repro_torch.fl.fedprox import make_prox_local_update
+from repro_torch.fl.resume import RoundCheckpointer
 from repro_torch.fl.schedulers import (PROX_STRATEGIES, SCHEDULERS,
                                        RoundContext, apply_round_churn)
 from repro_torch.tree import tree_map
@@ -109,7 +111,6 @@ _UNPORTED = (
     ("scenario", "static", "A11 (world scenarios)"),
     ("energy_budget_j", None, "A11 (world scenarios)"),
     ("churn_rate", 0.0, "A11 (churn)"),
-    ("checkpoint_every", 0, "A10b (durability)"),
     ("metric", "w1_norm", "A15 (Appendix-C metrics)"),
     ("underlay", False, "A15 (underlay planner)"),
     ("profile_phases", False, "A15 (phase profiling)"),
@@ -170,7 +171,9 @@ def run_federated(init_fn: Callable[[torch.Generator], Params],
                   cfg: FLConfig, device: str | torch.device | None = None,
                   value_fn: Callable[[Params], np.ndarray] | None = None,
                   base_bits: float = 0.0,
-                  plan_cache: PlanCache | None = None) -> RunResult:
+                  plan_cache: PlanCache | None = None,
+                  checkpointer: RoundCheckpointer | None = None
+                  ) -> RunResult:
     """Run one FL experiment on ``device`` (the CUDA device by default).
 
     ``init_fn`` takes a ``torch.Generator`` seeded with ``cfg.seed`` and
@@ -186,7 +189,15 @@ def run_federated(init_fn: Callable[[torch.Generator], Params],
     0``; FedDif fuses its values into the bids.  ``base_bits`` is the size
     of the frozen base under an adapter view (``fl/adapters.py``), charged
     once as a round-0 downlink.  ``plan_cache`` memoizes FedDif plans
-    across runs when ``cfg.topology_seed`` is set."""
+    across runs when ``cfg.topology_seed`` is set.
+
+    ``checkpointer`` (:class:`~repro_torch.fl.resume.RoundCheckpointer`)
+    writes the round state every ``checkpointer.every`` rounds and, if its
+    directory holds a readable checkpoint, resumes from it: params, slots,
+    ledger, histories (``round_wall_s`` included) and the position of
+    ``rng``; the loop starts at the checkpoint's round.  The static world
+    needs no replay: each round's draws are a pure function of its stream.
+    After a resume, ``planner_stats`` count only the rounds run since."""
     espec = check_supported(cfg)
     dev = resolve_device(device)
     n = cfg.num_clients
@@ -220,7 +231,19 @@ def run_federated(init_fn: Callable[[torch.Generator], Params],
 
     hist = RunHistory()
     slots = None            # persistent per-slot state (gossip / tthf)
-    for t in range(cfg.rounds):
+    start_t = 0
+    if checkpointer is not None:
+        state = checkpointer.restore(executor, global_params, cfg)
+        if state is not None:
+            start_t = state.step
+            global_params, slots, ledger = (state.params, state.slots,
+                                            state.ledger)
+            hist = RunHistory(accuracy=state.acc_hist, loss=state.loss_hist,
+                              diffusion_rounds=state.dif_hist,
+                              iid_distance=state.iid_hist,
+                              round_wall_s=state.round_wall)
+            checkpointer.apply_rng_state(rng, state.rng_state)
+    for t in range(start_t, cfg.rounds):
         ctrl_rng = (np.random.default_rng([cfg.topology_seed, t])
                     if cfg.topology_seed is not None else rng)
         pos, up_gamma = static_round_draws(topology, channel, ctrl_rng, n)
@@ -253,6 +276,13 @@ def run_federated(init_fn: Callable[[torch.Generator], Params],
             a, l = eval_fn(global_params)
             hist.accuracy.append(float(a))
             hist.loss.append(float(l))
+        if checkpointer is not None and checkpointer.due(t + 1, cfg.rounds):
+            checkpointer.save(t + 1, executor, global_params, slots, ledger,
+                              cfg, acc_hist=hist.accuracy,
+                              loss_hist=hist.loss,
+                              dif_hist=hist.diffusion_rounds,
+                              iid_hist=hist.iid_distance,
+                              round_wall=hist.round_wall_s, rng=rng)
 
     return RunResult(params=global_params, ledger=ledger, history=hist,
                      engine=espec, config=cfg,

@@ -5,6 +5,12 @@
     PYTHONPATH=src python -m repro_torch.launch.sweep --sweep fig3_alpha --device cpu
     PYTHONPATH=src python -m repro_torch.launch.sweep --list
 
+Durable mode (kill-safe, bit-identical resume)::
+
+    python -m repro_torch.launch.sweep --sweep fig3_alpha --checkpoint-every 1
+    # ... SIGTERM / crash / power loss ...
+    python -m repro_torch.launch.sweep --sweep fig3_alpha --resume
+
 Counterpart of ``repro.launch.sweep``, with its flags and exit codes (0 on
 success, 2 for an unknown sweep or ``--seeds`` < 1), plus ``--device``:
 the CUDA device by default, ``cpu`` on request, never a fallback.  It
@@ -13,10 +19,15 @@ runs every cell at every replicate seed with the diffusion plans cached
 across seeds, and writes ``BENCH_feddif_<sweep>.json`` to the port's
 artifact directory (``benchmarks/results/torch/``, or
 ``$REPRO_BENCH_DIR/torch/``) unless ``--out-dir`` says otherwise.
-``--executor sharded`` at N ≥ 64 (A12), the async engine presets (A11),
-the churned and world sweeps (A11), ``--engine seed_vmap`` (A10c) and the
-durable flags ``--checkpoint-every``, ``--resume`` and ``--state-dir``
-(A10b) raise ``NotImplementedError`` naming their ROADMAP item.
+The durable state (manifest, round checkpoints, cell records, plan cache)
+lives under ``--state-dir``, by default the artifact directory's
+``sweeps/<sweep>``; with ``--sweep all`` each sweep takes a subdirectory
+of ``--state-dir`` named after it.  ``--engine seed_vmap`` trains a
+FedAvg or FedDif cell's replicate seeds as one seed-stacked pass; the
+default ``auto`` does so for such cells at two seeds or more.
+``--executor sharded`` at N ≥ 64 (A12), the async engine presets (A11) and
+the churned and world sweeps (A11) raise ``NotImplementedError`` naming
+their ROADMAP item before any cell runs.
 """
 from __future__ import annotations
 
@@ -52,9 +63,9 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--seeds", type=int, default=1,
                     help="number of replicate seeds (0..N-1)")
     ap.add_argument("--engine", choices=_ENGINE_CHOICES, default="auto",
-                    help="replication engine (auto/loop; seed_vmap is "
-                         "ROADMAP A10c) or an engine preset stamped on "
-                         "every cell (the async presets are A11)")
+                    help="replication engine (auto/seed_vmap/loop) or an "
+                         "engine preset stamped on every cell (the async "
+                         "presets are A11)")
     ap.add_argument("--executor", choices=["host", "fleet", "sharded"],
                     default="host",
                     help="data plane per cell: host reference loop or "
@@ -72,11 +83,18 @@ def main(argv: list[str] | None = None) -> int:
                          "benchmarks/results/torch/, or "
                          "$REPRO_BENCH_DIR/torch/)")
     ap.add_argument("--checkpoint-every", type=int, default=0, metavar="R",
-                    help="durable mode (ROADMAP A10b: raises)")
+                    help="durable mode: checkpoint the full round state "
+                         "every R communication rounds; a killed sweep "
+                         "restarts bit-identically with --resume")
     ap.add_argument("--resume", action="store_true",
-                    help="continue a durable run (ROADMAP A10b: raises)")
+                    help="continue a durable run from its manifest (done "
+                         "cells load their records, interrupted cells "
+                         "restart from their latest round checkpoint, "
+                         "failed cells are retried)")
     ap.add_argument("--state-dir", default=None,
-                    help="durable-state directory (ROADMAP A10b: raises)")
+                    help="durable-state directory (default: <artifact "
+                         "dir>/sweeps/<sweep>; with --sweep all, a "
+                         "per-sweep subdirectory of this path)")
     ap.add_argument("--num-samples", type=int, default=None,
                     help="override ExperimentSpec.num_samples per cell "
                          "(small values make smoke runs fast)")
@@ -135,6 +153,8 @@ def main(argv: list[str] | None = None) -> int:
               f"plan_cache hits={pc.get('hits', 0)} "
               f"misses={pc.get('misses', 0)}, "
               f"{artifact['wall_clock_s']:.1f}s)", flush=True)
+        if "manifest" in artifact:
+            print(f"# manifest {artifact['manifest']}", flush=True)
         for fc in failed:
             print(f"# FAILED cell {fc['label']}: {fc['error']}",
                   file=sys.stderr, flush=True)

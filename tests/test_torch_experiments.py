@@ -3,10 +3,11 @@
 Registry and expansion field for field; ``plan_rounds_batched`` per item
 against ``_plan_rounds`` and its hop lists against the reference's batched
 planner; the sweep pre-planner's counts, cache keys and plans; smoke
-sweeps of the paper's figures from the reference's init (ledgers, diffusion
-rounds and plan-cache hits equal, IID distance within 1e-6, accuracy
-within 0.05); the refusals (A10b, A10c, A11, A12); the artifacts and the
-CLI.
+sweeps of the paper's figures on the loop engine from the reference's init
+(ledgers, diffusion rounds and plan-cache hits equal, IID distance within
+1e-6, accuracy within 0.05); the refusals (A11, A12); the artifacts and the
+CLI.  The durable sweeps and the seed-stacked engine have their own files,
+``test_torch_durability.py`` and ``test_torch_replicate.py``.
 """
 import dataclasses
 import json
@@ -35,8 +36,7 @@ from repro_torch.core.dol import DiffusionState
 from repro_torch.core import planner as tplanner
 from repro_torch.experiments import artifacts as tart
 from repro_torch.experiments import orchestrator, replicate
-from repro_torch.fl import (ExperimentSpec, FLConfig, RunResult,
-                            params_from_numpy, run_experiment)
+from repro_torch.fl import FLConfig, RunResult, params_from_numpy
 from repro_torch.launch import sweep as sweep_cli
 
 SAMPLES = 300
@@ -232,7 +232,8 @@ def test_smoke_sweep_matches_reference(name, executor, planner, seeds):
     kw = dict(smoke=True, seeds=seeds, out_dir=None, executor=executor,
               planner=planner, num_samples=SAMPLES)
     want = jexp.run_sweep(name, engine="loop", **kw)
-    got = texp.run_sweep(name, device="cpu", init_for=_ref_init_for, **kw)
+    got = texp.run_sweep(name, engine="loop", device="cpu",
+                         init_for=_ref_init_for, **kw)
     g, w = tart.strip_volatile(got), jart.strip_volatile(want)
     for k in ("schema_version", "sweep", "figure", "axis", "mode",
               "executor", "planner", "seeds", "failed_cells"):
@@ -295,8 +296,6 @@ def test_unported_sweeps_refuse_before_running(name, no_runs):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(checkpoint_every=1), "A10b"), (dict(resume=True), "A10b"),
-    (dict(state_dir="somewhere"), "A10b"), (dict(engine="seed_vmap"), "A10c"),
     (dict(engine_preset="async"), "A11"),
     (dict(engine_preset="async_barrier"), "A11"),
     (dict(executor="sharded", engine="loop"), "A12")])
@@ -317,23 +316,6 @@ def test_sharded_downgrades_below_the_crossover_and_raises_above():
     assert orchestrator._pick_executor(big, "auto") is big
     with pytest.raises(NotImplementedError, match="A12"):
         texp.run_cell(big, (0,), device="cpu")
-
-
-@pytest.mark.parametrize("call,item", [
-    (lambda c: texp.run_cell(c, (0,), checkpoint_root="r", device="cpu"),
-     "A10b"),
-    (lambda c: texp.run_cell(c, (0,), engine="seed_vmap", device="cpu"),
-     "A10c"),
-    (lambda c: replicate.run_replicates_loop(c.spec, (0,),
-                                             checkpoint_root="r"), "A10b"),
-    (lambda c: replicate.run_replicates_vmapped(c.spec, (0,)), "A10c"),
-    (lambda c: run_experiment(c.with_fl(checkpoint_every=2).spec,
-                              device="cpu"), "A10b")])
-def test_cell_level_refusals(call, item, no_runs):
-    cell = texp.expand_sweep("fig3_alpha", num_samples=SAMPLES)[0]
-    with pytest.raises(NotImplementedError, match=item):
-        call(cell)
-    assert no_runs == []
 
 
 def test_run_result_from_histories():
@@ -383,7 +365,7 @@ def test_bench_write_is_atomic_under_partial_write(tmp_path, monkeypatch):
         raise OSError("disk full mid-write")
 
     with monkeypatch.context() as m:
-        m.setattr(tart.json, "dump", dying_dump)
+        m.setattr(json, "dump", dying_dump)
         with pytest.raises(OSError):
             tart.write_bench_json("torn", {"generation": 2}, str(tmp_path))
     with open(tart.bench_file("torn", str(tmp_path))) as f:
@@ -449,9 +431,7 @@ def test_cli_bad_arguments_exit_2(argv, capsys):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--sweep", "fig_async"], "A11"), (["--engine", "async"], "A11"),
-    (["--checkpoint-every", "1"], "A10b"), (["--resume"], "A10b"),
-    (["--engine", "seed_vmap"], "A10c")])
+    (["--sweep", "fig_async"], "A11"), (["--engine", "async"], "A11")])
 def test_cli_refusals(argv, item, no_runs):
     if "--sweep" not in argv:
         argv = ["--sweep", "fig5_gamma_min"] + argv

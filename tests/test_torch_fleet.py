@@ -78,8 +78,7 @@ def test_own_init_runs_and_learns():
     (dict(executor="sharded"), "A12"), (dict(scenario="multicell"), "A11"),
     (dict(energy_budget_j=1.0), "A11"),
     (dict(scenario="mobile"), "A11"), (dict(churn_rate=0.1), "A11"),
-    (dict(profile_phases=True), "A15"), (dict(checkpoint_every=2), "A10"),
-    (dict(metric="kld"), "A15"),
+    (dict(profile_phases=True), "A15"), (dict(metric="kld"), "A15"),
     (dict(underlay=True), "A15"), (dict(engine="async"), "A11")])
 def test_unported_config_values_raise(change, item):
     _, spec = _specs("feddif", rounds=1)

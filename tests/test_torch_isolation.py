@@ -48,8 +48,9 @@ def test_every_port_module_imports_without_jax_or_repro():
                          text=True, timeout=300, cwd=ROOT)
     assert out.returncode == 0, out.stderr
     *_, names, count = out.stdout.strip().splitlines()
-    assert int(count) >= 70
-    for sub in ("experiments", "launch"):
+    assert int(count) >= 73
+    for sub in ("experiments", "launch", "experiments.durability",
+                "fl.resume", "train.checkpoint"):
         assert f"repro_torch.{sub}" in names.split()
 
 
