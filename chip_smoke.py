@@ -127,8 +127,8 @@ nothing of JAX.  Phases, each of which fails loudly:
    through ``run_cell`` with fresh caches: artifacts equal after
    ``strip_volatile``; ``fig4_epsilon`` on the card and on the CPU: equal
    ``comm`` and diffusion rounds, accuracy within 0.05, final losses
-   within atol 2e-4, rtol 2e-3; and ``fig7_scaling``, ``fig_async`` and
-   ``fig_scenarios`` refused naming A11 with no cell run.  One line per
+   within atol 2e-4, rtol 2e-3; and ``fig_async`` refused naming A11b
+   with no cell run.  One line per
    cell (label, peak accuracy, sub-frames, Eq.-15 bandwidth, seconds,
    plan-cache hits and misses, launches); the sweeps' launches count as
    main-path launches.
@@ -154,6 +154,34 @@ nothing of JAX.  Phases, each of which fails loudly:
    on the card against the CPU on ``fig3_alpha``'s smoke FedDif cell:
    equal ``comm``, accuracy within 0.05.  The launches of (a) and (b)
    count as main-path launches.
+   The appendix and world phase (``appendix_path``, state under
+   ``build/appendix``), on the fleet plane: (a) the ``appendix_scenarios``
+   bench's full cells (fcn, α = 0.5, 4000 samples, N = M = 8, 12 rounds,
+   the host planner): FedDif (baseline), gossip, the ``kld``, ``jsd`` and
+   ``w1_true`` metrics, retrainable FedDif (12 diffusion rounds at most)
+   and the underlay, with peak accuracy, sub-frames and mean diffusion
+   rounds; the underlay must charge more sub-frames per hop than the
+   overlay, and FedDif with ``planner="jax"`` (2 rounds, keyed control
+   streams) must launch ``bid_fused`` never under ``kld`` and once per
+   bid round under ``w1_norm``, ``bid_value_fuse`` once per bid round
+   under ``kld`` with learning values and never without, and under
+   ``kld`` plan as the host planner does (equal ledger and diffusion
+   rounds); (b)
+   ``fig_scenarios``' full grid (fedavg / d2d_random_walk / feddif ×
+   static / mobile / multicell / energy_capped, N = 20, 8000 samples,
+   12 rounds) with the host planner, its joules per cell, and its mobile
+   and multicell FedDif cells with the device planner, which must agree
+   with the host planner's on sub-frames and diffusion rounds and on
+   accuracy within 0.05; FedDif at that width for 3 rounds per scenario
+   on each plane (and the device planner's mobile and multicell) for the
+   round wall and the planner's seconds per round; (c) a mobile and an
+   energy-capped FedDif run (N = M = 8, 6 rounds, a 1 J budget that
+   depletes clients before the kill) each killed after round 3 and
+   resumed bit-equal,
+   and ``fig7_scaling``'s smoke grid (N ∈ {20, 64}, 5 % churn); (d) one
+   FedDif round with ``profile_phases=True``: its train, hop_collective,
+   mix and plan seconds.  The launches of (a)–(c) count as main-path
+   launches.
    Then, apart from those runs and with its launches counted apart, the
    host plane's STC entry
    point on leaves on both sides of N_FUSED must route each leaf of
@@ -366,11 +394,11 @@ HOST_VS_FLEET_RUN = ("feddif", "fcn", 2, 8)
 # The sweep phase (3c): fig3_alpha's full grid (5 α × fedavg / feddif,
 # N = M = 10, 8000 samples, 20 rounds) pre-planned with the device planner,
 # the smoke grids of the other paper sweeps, all on the fleet plane; the
-# sweeps the port refuses (ROADMAP A11).  Artifacts go under build/.
+# sweep the port refuses (ROADMAP A11b).  Artifacts go under build/.
 SWEEP_DIR = ROOT / "build" / "sweeps"
 SWEEP_SMOKE = ("fig4_epsilon", "fig5_gamma_min", "fig6_tasks",
                "table2_strategies", "fig_lm")
-SWEEP_REFUSED = ("fig7_scaling", "fig_async", "fig_scenarios")
+SWEEP_REFUSED = ("fig_async",)
 # The durable phase: runs killed after a round checkpoint and resumed, as
 # (executor, strategy, rounds, killed after round), at the quickstart's
 # width; and the seed-stacked engine against the loop engine.
@@ -382,6 +410,28 @@ DURABLE_RUNS = (("fleet", "feddif", 8, 3), ("fleet", "gossip", 8, 3),
 SEED_VMAP_SEED_SETS = ((0, 1, 2), (0,))
 SEED_VMAP_ROUNDS = 5
 SEED_VMAP_ACC = 2e-3         # the reference's seed_vmap-vs-loop bar
+# The appendix and world phase: the appendix_scenarios bench's full cells
+# (benchmarks/run.py: fcn, α = 0.5, 4000 samples, N = M = 8, 12 rounds,
+# seed 0) on the fleet plane with the host planner, as (label, FLConfig
+# changes); fig_scenarios' full grid; resume and churn; the phase profile.
+APPENDIX_DIR = ROOT / "build" / "appendix"
+APPENDIX_DATA = dict(task="fcn", alpha=0.5, num_samples=4000)
+APPENDIX_FL = dict(executor="fleet", strategy="feddif", rounds=12,
+                   num_clients=8, num_models=8, seed=0)
+APPENDIX_CELLS = (("baseline", {}), ("fully_decentralized",
+                                     {"strategy": "gossip"}),
+                  ("metric_kld", {"metric": "kld"}),
+                  ("metric_jsd", {"metric": "jsd"}),
+                  ("metric_w1_true", {"metric": "w1_true"}),
+                  ("retrainable", {"allow_retraining": True,
+                                   "max_diffusion_rounds": 12}),
+                  ("underlay", {"underlay": True}))
+SCENARIO_PROFILE_ROUNDS = 3
+# (scenario, FLConfig changes, rounds, killed after): the energy budget
+# binds before the kill (clients deplete in round 3), so the resumed run
+# needs the spent energy the checkpoint saved.
+WORLD_RESUME = (("mobile", {}, 6, 3),
+                ("energy_capped", {"energy_budget_j": 1.0}, 6, 3))
 
 
 def _fail(msg: str) -> None:
@@ -2375,9 +2425,11 @@ def bid_routing(torch, kd) -> dict:
     ``ops.bid_value_fuse``) on card tensors of the main path's (8, 8, 10):
     one ``dol_bid_scores`` and one ``bid_value_fuse`` launch, no
     ``bid_fused``; the distances within 2e-5 of ``dol_bid_scores_fused_ref``
-    and the fused bids bit-equal to ``bid_value_fuse_ref``.  No planner
-    path runs them since ``bid_fused`` took the bid round; their launches
-    are returned apart from the main path's."""
+    and the fused bids bit-equal to ``bid_value_fuse_ref``.  The
+    ``w1_norm`` planner runs neither since ``bid_fused`` took its bid
+    round (the Appendix-C bid rounds with learning values still launch
+    ``bid_value_fuse``, in ``appendix_path``); these launches are returned
+    apart from the main path's."""
     from repro_torch.kernels import ops
     from repro_torch.kernels import ref as kref
     gen = torch.Generator(device="cuda").manual_seed(6)
@@ -3664,7 +3716,7 @@ def sweep_path(torch, port) -> dict:
             try:
                 run_sweep(name, executor="fleet", out_dir=None)
             except NotImplementedError as e:
-                refused = "A11" in str(e)
+                refused = "A11b" in str(e)
                 message = str(e)
             else:
                 refused, message = False, "ran"
@@ -3672,7 +3724,7 @@ def sweep_path(torch, port) -> dict:
             print(json.dumps({"check": f"{name} refused", "error": message,
                               "cells_run": ran}))
             if not refused or ran:
-                _fail(f"{name} was not refused naming A11 before running "
+                _fail(f"{name} was not refused naming A11b before running "
                       f"({message}, {ran} runs)")
     return total
 
@@ -4010,6 +4062,316 @@ def durable_path(torch, port) -> dict:
     return total
 
 
+def _sync(torch, device) -> None:
+    if device is None or torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _finite(torch, params) -> bool:
+    from repro_torch.tree import tree_leaves
+    return all(bool(torch.isfinite(x).all()) for x in tree_leaves(params))
+
+
+def _timed_run(torch, kd, port, spec, device=None, **kw):
+    """One ``run_experiment`` with the launch counts zeroed before it:
+    returns the result, its counts and its wall seconds."""
+    kd.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = port.run_experiment(spec, device=device, **kw)
+    _sync(torch, device)
+    return res, dict(kd.LAUNCHES), time.perf_counter() - t0
+
+
+def _others(counts: dict, *allowed: str) -> dict:
+    return {k: v for k, v in counts.items() if v and k not in allowed}
+
+
+def _appendix_cells(torch, kd, port, device=None) -> dict:
+    """(a): the appendix_scenarios bench's full cells, then FedDif with the
+    device planner under ``kld`` and ``w1_norm``.  Returns the launches."""
+    import numpy as np
+    total = {k: 0 for k in kd.LAUNCHES}
+    ledgers = {}
+    for label, change in APPENDIX_CELLS:
+        fl = dict(APPENDIX_FL, **change)
+        spec = port.ExperimentSpec(**APPENDIX_DATA, fl=port.FLConfig(**fl))
+        res, counts, wall = _timed_run(torch, kd, port, spec, device)
+        led = res.ledger
+        rounds = fl["rounds"]
+        mixes = rounds * (2 if fl["strategy"] == "gossip" else 1)
+        print(json.dumps({
+            "appendix_cell": label, "peak_accuracy": max(res.accuracy),
+            "subframes": led.subframes,
+            "transmitted_models": led.transmitted_models,
+            "subframes_per_transmission":
+                led.subframes / max(led.transmitted_models, 1),
+            "mean_diffusion_rounds": float(np.mean(res.diffusion_rounds)),
+            "diffusion_rounds": res.diffusion_rounds,
+            "mean_round_wall_s": sum(res.round_wall_s) / rounds,
+            "planner_s_per_round": res.planner_stats.get("seconds", 0.0)
+            / max(res.planner_stats.get("plans", 0), 1),
+            "energy_j": led.energy_j, "run_wall_s": wall,
+            "launches": {k: v for k, v in counts.items() if v}}))
+        if not _finite(torch, res.final_params):
+            _fail(f"appendix {label}: non-finite parameters")
+        if counts["mix_tree"] != mixes or _others(counts, "mix_tree"):
+            _fail(f"appendix {label}: launches {counts}, want mix_tree "
+                  f"{mixes} and nothing else")
+        ledgers[label] = led
+        for k in total:
+            total[k] += counts[k]
+    over, under = ledgers["baseline"], ledgers["underlay"]
+    per = [x.subframes / max(x.transmitted_models, 1) for x in (over, under)]
+    print(json.dumps({"check": "underlay vs overlay",
+                      "subframes": [over.subframes, under.subframes],
+                      "subframes_per_transmission": per}))
+    if not per[1] > per[0]:
+        _fail(f"underlay charges {per[1]} sub-frames per transmission, not "
+              f"more than the overlay's {per[0]}")
+    # The device planner: the Appendix-C metrics never reach bid_fused; a
+    # value factor takes bid_value_fuse once per bid round.  Keyed control
+    # streams (topology_seed) let the Appendix-C plans be held to the host
+    # planner's.
+    for metric, weight in (("kld", 0.0), ("kld", VALUE_WEIGHT),
+                           ("w1_norm", 0.0)):
+        fl = dict(APPENDIX_FL, rounds=2, metric=metric, topology_seed=7,
+                  uncertainty_weight=weight)
+        spec = port.ExperimentSpec(**APPENDIX_DATA,
+                                   fl=port.FLConfig(**fl, planner="jax"))
+        res, counts, _ = _timed_run(torch, kd, port, spec, device)
+        bid_rounds = res.planner_stats.get("loop_iterations", 0)
+        want = {"bid_fused": 0 if metric == "kld" else bid_rounds,
+                "bid_value_fuse": bid_rounds if weight else 0}
+        row = {"check": f"device planner, metric {metric}, value weight "
+                        f"{weight}", "bid_rounds": bid_rounds,
+               "bid_fused": counts["bid_fused"],
+               "bid_value_fuse": counts["bid_value_fuse"],
+               "diffusion_rounds": res.diffusion_rounds,
+               "subframes": res.ledger.subframes}
+        ok = (bid_rounds > 0 and not _others(counts, "mix_tree", *want)
+              and all(counts[k] == v for k, v in want.items()))
+        for k in total:
+            total[k] += counts[k]
+        if metric != "w1_norm":
+            spec = port.ExperimentSpec(**APPENDIX_DATA,
+                                       fl=port.FLConfig(**fl,
+                                                        planner="host"))
+            host = port.run_experiment(spec, device=device)
+            row["host_planner"] = {"diffusion_rounds": host.diffusion_rounds,
+                                   "subframes": host.ledger.subframes}
+            row["same_plan_as_host"] = (
+                host.diffusion_rounds == res.diffusion_rounds
+                and host.ledger.as_dict() == res.ledger.as_dict())
+            ok = ok and row["same_plan_as_host"]
+        print(json.dumps(row))
+        if not ok:
+            _fail(f"device planner {metric} w={weight}: launches {counts} "
+                  f"over {bid_rounds} bid rounds, want {want}: "
+                  f"{json.dumps(row)}")
+    return total
+
+
+def _world_sweeps(torch, kd, port, device=None) -> dict:
+    """(b): fig_scenarios' full grid with the host planner, its mobile and
+    multicell FedDif cells with the device planner, and FedDif per scenario
+    and plane for the round wall and planner seconds.  Returns the
+    launches."""
+    from repro_torch.core.diffusion import PlanCache
+    from repro_torch.experiments import expand_sweep, run_cell
+    total = {k: 0 for k in kd.LAUNCHES}
+
+    def add(counts):
+        for k in total:
+            total[k] += counts[k]
+
+    with _ObservedRuns(torch, port) as runs:
+        art, per_cell, wall = _sweep(
+            torch, kd, runs, "fig_scenarios", smoke=False, executor="fleet",
+            out_dir=APPENDIX_DIR / "sweeps", device=device)
+        add(dict(kd.LAUNCHES))
+        for cell, c in zip(art["cells"], per_cell):
+            if c["bid_fused"]:
+                _fail(f"fig_scenarios {cell['label']}: bid_fused launched "
+                      f"with the host planner")
+        print(json.dumps({"fig_scenarios_energy_j": {
+            c["label"]: c["comm"]["energy_j"] for c in art["cells"]},
+            "wall_s": wall}))
+        host = {c["label"]: c for c in art["cells"]}
+        for cell in expand_sweep("fig_scenarios", smoke=False,
+                                 executor="fleet", planner="jax"):
+            if cell.strategy != "feddif" or cell.value not in ("mobile",
+                                                               "multicell"):
+                continue
+            kd.reset_launch_counts()
+            rec = run_cell(cell, (0,), PlanCache(), device=device)
+            _sync(torch, device)
+            counts = dict(kd.LAUNCHES)
+            add(counts)
+            want = host[cell.label]
+            acc = max(abs(a - b) for a, b in zip(rec["accuracy"][0],
+                                                 want["accuracy"][0]))
+            same = {"subframes": rec["comm"]["subframes"]
+                    == want["comm"]["subframes"],
+                    "diffusion_rounds": rec["diffusion_rounds"]
+                    == want["diffusion_rounds"],
+                    "accuracy_within_0.05": acc <= 0.05,
+                    "comm_equal": rec["comm"] == want["comm"]}
+            print(json.dumps({
+                "check": f"{cell.label} device vs host planner",
+                "peak_accuracy": [rec["summary"]["peak_mean"],
+                                  want["summary"]["peak_mean"]],
+                "subframes": [rec["comm"]["subframes"],
+                              want["comm"]["subframes"]],
+                "energy_j": [rec["comm"]["energy_j"],
+                             want["comm"]["energy_j"]],
+                "max_accuracy_gap": acc, "same": same,
+                "seconds": rec["wall_clock_s"],
+                "launches": {k: v for k, v in counts.items() if v}}))
+            if not (same["subframes"] and same["diffusion_rounds"]
+                    and same["accuracy_within_0.05"]):
+                _fail(f"{cell.label}: the device planner disagrees with the "
+                      f"host planner: {same}")
+            if not counts["bid_fused"]:
+                _fail(f"{cell.label}: the device planner launched no "
+                      f"bid_fused")
+    # Round wall and planner seconds per scenario and plane, FedDif at the
+    # grid's width, a few rounds each.
+    for executor, planner in (("fleet", "host"), ("host", "host"),
+                              ("fleet", "jax")):
+        for cell in expand_sweep("fig_scenarios", smoke=False,
+                                 executor=executor, planner=planner):
+            if cell.strategy != "feddif" or (
+                    planner == "jax" and cell.value not in ("mobile",
+                                                            "multicell")):
+                continue
+            spec = cell.with_fl(rounds=SCENARIO_PROFILE_ROUNDS).spec
+            res, counts, wall = _timed_run(torch, kd, port, spec, device)
+            add(counts)
+            st = res.planner_stats
+            print(json.dumps({
+                "scenario_profile": cell.value, "executor": executor,
+                "planner": planner, "rounds": SCENARIO_PROFILE_ROUNDS,
+                "mean_round_wall_s": sum(res.round_wall_s)
+                / SCENARIO_PROFILE_ROUNDS,
+                "round_wall_s": res.round_wall_s,
+                "planner_s_per_round": st.get("seconds", 0.0)
+                / max(st.get("plans", 0), 1),
+                "diffusion_rounds": res.diffusion_rounds,
+                "subframes": res.ledger.subframes,
+                "energy_j": res.ledger.energy_j, "run_wall_s": wall,
+                "launches": {k: v for k, v in counts.items() if v}}))
+            if not _finite(torch, res.final_params):
+                _fail(f"scenario profile {cell.label}: non-finite params")
+    return total
+
+
+def _world_resume(torch, kd, port, device=None) -> dict:
+    """(c): a mobile and an energy-capped FedDif run, each killed after a
+    round checkpoint and resumed bit-equal; fig7_scaling's smoke grid under
+    churn.  Returns the launches."""
+    from repro_torch.fl.resume import Preempted, RoundCheckpointer
+    from repro_torch.train.checkpoint import load_metadata
+    total = {k: 0 for k in kd.LAUNCHES}
+    for scenario, change, rounds, kill in WORLD_RESUME:
+        spec = port.ExperimentSpec(
+            task="fcn", alpha=0.3, num_samples=6000,
+            fl=port.FLConfig(executor="fleet", strategy="feddif",
+                             rounds=rounds, num_clients=8, num_models=8,
+                             seed=0, topology_seed=7, scenario=scenario,
+                             checkpoint_every=1, **change))
+        root = APPENDIX_DIR / "resume" / scenario
+        shutil.rmtree(root, ignore_errors=True)
+        clean, clean_counts, clean_s = _timed_run(
+            torch, kd, port, spec, device, checkpoint_dir=str(root / "clean"))
+        kd.reset_launch_counts()
+        RoundCheckpointer.fail_after_save = kill
+        try:
+            port.run_experiment(spec, device=device,
+                                checkpoint_dir=str(root / "killed"))
+        except Preempted:
+            preempted = True
+        else:
+            preempted = False
+        finally:
+            RoundCheckpointer.fail_after_save = None
+        world = load_metadata(str(root / "killed"), kill)["world"]
+        resumed = port.run_experiment(spec, device=device,
+                                      checkpoint_dir=str(root / "killed"))
+        _sync(torch, device)
+        counts = dict(kd.LAUNCHES)
+        same = {
+            "params_bits": _bits_equal(torch, clean.params, resumed.params),
+            "ledger": clean.ledger.as_dict() == resumed.ledger.as_dict(),
+            "accuracy": clean.accuracy == resumed.accuracy,
+            "loss": clean.loss == resumed.loss,
+            "diffusion_rounds": clean.diffusion_rounds
+            == resumed.diffusion_rounds,
+            "launches": counts == clean_counts}
+        budget = change.get("energy_budget_j")
+        depleted = (None if budget is None
+                    else sum(e >= budget for e in world["energy_j"]))
+        print(json.dumps({
+            "world_resume": f"fleet/feddif/fcn/{scenario}", "rounds": rounds,
+            "killed_after_round": kill, "preempted": preempted,
+            "world_rounds_in_checkpoint": world["rounds_advanced"],
+            "energy_budget_j": budget,
+            "depleted_in_checkpoint": depleted,
+            "same": same, "peak_accuracy": max(resumed.accuracy),
+            "energy_j": resumed.ledger.energy_j, "clean_s": clean_s,
+            "launches": {k: v for k, v in counts.items() if v}}))
+        if (not preempted or world["rounds_advanced"] != kill
+                or not all(same.values()) or depleted == 0):
+            _fail(f"world resume {scenario}: preempted {preempted}, "
+                  f"depleted {depleted}, world rounds "
+                  f"{world['rounds_advanced']}, same {same}")
+        for k in total:
+            total[k] += clean_counts[k] + counts[k]
+    with _ObservedRuns(torch, port) as runs:
+        art, per_cell, wall = _sweep(
+            torch, kd, runs, "fig7_scaling", executor="fleet",
+            out_dir=APPENDIX_DIR / "sweeps", device=device)
+        for k in total:
+            total[k] += kd.LAUNCHES[k]
+    print(json.dumps({"fig7_scaling_smoke": {
+        c["label"]: {"subframes": c["comm"]["subframes"],
+                     "peak_accuracy": c["summary"]["peak_mean"]}
+        for c in art["cells"]}, "wall_s": wall}))
+    return total
+
+
+def _phase_profile(torch, kd, port, device=None) -> None:
+    """(d): one fleet FedDif round with ``profile_phases=True``."""
+    spec = port.ExperimentSpec(
+        task="fcn", alpha=0.3, num_samples=6000,
+        fl=port.FLConfig(executor="fleet", strategy="feddif", rounds=1,
+                         num_clients=8, num_models=8, seed=0,
+                         profile_phases=True))
+    res, counts, wall = _timed_run(torch, kd, port, spec, device)
+    phases = res.phase_s
+    print(json.dumps({"phase_profile": "fleet/feddif/fcn",
+                      "phase_s": phases, "round_wall_s": res.round_wall_s,
+                      "run_wall_s": wall}))
+    if len(phases) != 1 or set(phases[0]) != {"train", "hop_collective",
+                                              "mix", "plan"}:
+        _fail(f"phase profile: {phases}")
+
+
+def appendix_path(torch, port, device=None) -> dict:
+    """Phase 3e: the Appendix-C knobs, the evolving world and churn on the
+    card.  Returns the launches of (a)–(c)."""
+    from repro_torch.kernels import diffusion as kd
+    total = {k: 0 for k in kd.LAUNCHES}
+    t0 = time.perf_counter()
+    for part in (_appendix_cells, _world_sweeps, _world_resume):
+        for k, v in part(torch, kd, port, device).items():
+            total[k] += v
+    _phase_profile(torch, kd, port, device)
+    print(json.dumps({"phase": "appendix_path",
+                      "seconds": time.perf_counter() - t0,
+                      "launches": {k: v for k, v in total.items() if v}}))
+    return total
+
+
 def main() -> None:
     sys.stdout.reconfigure(line_buffering=True)
     if not (ROOT / "src" / "repro_torch").is_dir():
@@ -4059,13 +4421,15 @@ def main() -> None:
         launches[k] += v
     for k, v in durable_path(torch, port).items():
         launches[k] += v
+    for k, v in appendix_path(torch, port).items():
+        launches[k] += v
     routing = stc_routing(torch, kd)
     routing.update({k: v for k, v in stc_rows_routing(torch, kd).items()
                     if k.startswith("stc_rows")})
     routing.update({k: v for k, v in quant_routing(torch, kd).items()
                     if k in ("quant_pack", "quant_unpack")})
     routing.update({k: v for k, v in bid_routing(torch, kd).items()
-                    if k in ("dol_bid_scores", "bid_value_fuse")})
+                    if k == "dol_bid_scores"})
     routing["mix_aggregate"] = mix_routing(torch, kd)["mix_aggregate"]
     card_vs_cpu(torch, port)
     card_vs_cpu(torch, port, "host")
@@ -4160,19 +4524,21 @@ def main() -> None:
     # unless they launched as it expects): stc_fused (host plane) and
     # stc_rows_fused (fleet plane) took every FL leaf (n ≤ N_FUSED),
     # quant_roundtrip took both planes' int8 hops, bid_fused the device
-    # planner's bid rounds, and mix_tree the fleet plane's Eq. 10/11.
+    # planner's w1_norm bid rounds, and mix_tree the fleet plane's Eq.
+    # 10/11.  bid_value_fuse is on the main path again: the device
+    # planner's Appendix-C bid rounds with learning values launch it.
     host_stc = ("stc_fused", "for n <= N_FUSED", "the host-plane STC "
                 "routing check's leaves past N_FUSED")
     fleet_stc = ("stc_rows_fused", "for n <= N_FUSED", "the fleet-plane STC "
                  "routing check's leaves past N_FUSED")
     wire = ("quant_roundtrip", "on both planes' int8 hops", "the quant "
             "routing check's pack_rows / unpack_rows call")
-    bids = ("bid_fused", "on the device planner's bid rounds", "the bid "
-            "routing check's ops.dol_bid_scores / ops.bid_value_fuse calls")
+    bids = ("bid_fused", "on the device planner's w1_norm bid rounds",
+            "the bid routing check's ops.dol_bid_scores call")
     mix = ("mix_tree", "on the fleet plane's MixOps and aggregations",
            "the mix routing check's ops.mix_aggregate call")
     off_path = {"mix_aggregate": mix,
-                "dol_bid_scores": bids, "bid_value_fuse": bids,
+                "dol_bid_scores": bids,
                 "stc_reduce": host_stc, "stc_apply": host_stc,
                 "stc_rows_reduce": fleet_stc, "stc_rows_apply": fleet_stc,
                 "quant_pack": wire, "quant_unpack": wire}

@@ -56,3 +56,16 @@ class ChannelModel:
         """|g|² p / (sigma² + I) — Eq. (14) generalized to SINR."""
         p = self.params
         return gains_sq * p.tx_power_w / (p.noise_w + interference)
+
+    def sample_cue_interference(self, rng: np.random.Generator,
+                                n_cues: int, cell_radius_m: float = 250.0
+                                ) -> float:
+        """Aggregate co-channel CUE power at a typical D2D receiver (the
+        underlay mode, Appendix C-F): CUEs uniform on the disc, large-scale
+        pathloss and a Rayleigh power per interferer."""
+        if n_cues <= 0:
+            return 0.0
+        r = cell_radius_m * np.sqrt(rng.uniform(size=n_cues))
+        beta = 10 ** (self.large_scale_db(np.maximum(r, 1.0)) / 10.0)
+        h2 = rng.exponential(1.0, size=n_cues)
+        return float(np.sum(beta * h2) * self.params.tx_power_w)

@@ -246,15 +246,20 @@ class DiffusionPlanner:
                  epsilon: float = 0.04,
                  max_rounds: int | None = None,
                  mode: str = "host",
-                 device: torch.device | str | None = None):
+                 device: torch.device | str | None = None,
+                 underlay: bool = False):
         if mode not in PLANNER_MODES:
             raise ValueError(f"planner mode {mode!r}: expected one of "
                              f"{PLANNER_MODES}")
+        if mode == "jax" and underlay:
+            raise ValueError("planner mode 'jax' does not model underlay "
+                             "CUE interference (Appendix C-F); use 'host'")
         self.topology = topology or CellTopology()
         self.channel = channel or ChannelModel()
         self.auction = auction or AuctionConfig()
         self.epsilon = epsilon          # minimum tolerable IID distance
         self.max_rounds = max_rounds
+        self.underlay = underlay        # Appendix C-F: D2D reuses CUE PRBs
         self.mode = mode                # "host" oracle | "jax" device plane
         self.device = device            # the device mode's; None = CUDA
         self.stats: dict = {"plans": 0, "seconds": 0.0}
@@ -265,11 +270,19 @@ class DiffusionPlanner:
             positions: np.ndarray | None = None,
             cache: PlanCache | None = None,
             cache_key: tuple | None = None,
+            interference: np.ndarray | float = 0.0,
             values: np.ndarray | None = None,
-            value_weight: float = 0.0) -> DiffusionPlan:
+            value_weight: float = 0.0,
+            world=None, step_m: float = 0.0) -> DiffusionPlan:
         """Run auctions until halting; mutates ``state`` (DoLs, visited
         sets, holders).  ``values``/``value_weight`` fuse the per-client
-        learning value into the bids.  The host mode consumes ``rng`` as
+        learning value into the bids.  ``interference`` is the world's
+        per-receiver co-channel power (multicell, frozen within the round);
+        ``world`` and ``step_m`` (mobile) step the random-waypoint world one
+        deterministic substep per diffusion round, moving every link's
+        pathloss under the auction.  With ``underlay`` each diffusion round
+        draws a Poisson CUE count and their interference after the gains.
+        All default off: the static plan.  The host mode consumes ``rng`` as
         the reference's host mode does (one gain draw per diffusion round);
         the device mode pre-draws ``max_rounds`` rounds of it, as the
         reference's ``mode="jax"`` does.
@@ -290,24 +303,33 @@ class DiffusionPlanner:
             from repro_torch.core.planner import plan_communication_round_jax
             plan = plan_communication_round_jax(
                 self, state, dsi, data_sizes, rng, positions=positions,
-                values=values, value_weight=value_weight)
+                interference=interference, values=values,
+                value_weight=value_weight, world=world, step_m=step_m)
         else:
             plan = self._plan_host(state, dsi, data_sizes, rng, positions,
-                                   values, value_weight)
+                                   interference, values, value_weight,
+                                   world, step_m)
         self.stats["plans"] += 1
         self.stats["seconds"] += time.perf_counter() - t0
         if use_cache:
             cache.store(cache_key, plan, state)
         return plan
 
-    def _plan_host(self, state, dsi, data_sizes, rng, positions, values,
-                   value_weight) -> DiffusionPlan:
+    def _plan_host(self, state, dsi, data_sizes, rng, positions,
+                   interference, values, value_weight, world, step_m
+                   ) -> DiffusionPlan:
         n = dsi.shape[0]
-        if positions is None:
+        pos = way = None
+        if world is not None:
+            pos = np.asarray(world.positions, np.float64)
+            way = np.asarray(world.waypoints, np.float64)
+            positions = pos
+        elif positions is None:
             positions = self.topology.sample_positions(rng, n)
         dist = self.topology.pairwise_distances(positions)
         beta = 10 ** (self.channel.large_scale_db(dist) / 10.0)
-        mean_snr = self.channel.snr(beta)   # Rayleigh power marginalized
+        # Rayleigh power marginalized
+        mean_snr = self.channel.snr(beta, interference)
 
         hops: list[DiffusionHop] = []
         eff_hist: list[float] = []
@@ -322,8 +344,22 @@ class DiffusionPlanner:
                 active &= ~state.visited.all(axis=1)
             if not active.any():
                 break
+            if world is not None:
+                # One random-waypoint substep of the world (mobile).
+                delta = way - pos
+                d = np.linalg.norm(delta, axis=-1, keepdims=True)
+                frac = np.minimum(step_m, d) / np.maximum(d, 1e-9)
+                pos = pos + delta * frac
+                dist = self.topology.pairwise_distances(pos)
+                beta = 10 ** (self.channel.large_scale_db(dist) / 10.0)
+                mean_snr = self.channel.snr(beta, interference)
             gains = self.channel.sample_gains(dist, rng)
-            snr = self.channel.snr(gains)
+            cue_interference = 0.0
+            if self.underlay:
+                n_cues = rng.poisson(self.topology.cue_rate)
+                cue_interference = self.channel.sample_cue_interference(
+                    rng, n_cues, self.topology.radius_m)
+            snr = self.channel.snr(gains, interference + cue_interference)
             result = run_auction(state, dsi, data_sizes, gains, mean_snr,
                                  snr, self.auction, values=values,
                                  value_weight=value_weight)

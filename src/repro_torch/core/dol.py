@@ -16,7 +16,15 @@ it is reproduced here bit for bit in numpy float32:
 * the norm matches XLA's CPU reduction of ``jnp.linalg.norm``, whose sum
   order depends on the class count C (:func:`_sum_squares`).  A fused
   multiply-add is emulated in float64, where the product of two float32
-  values is exact, and rounded once to float32.
+  values is exact, and rounded once to float32;
+* the Appendix-C metrics (``kld``, ``jsd``, ``w1_true``, Scenario 2) and
+  the entropy of Eq. (27) take XLA-CPU's own float32 log
+  (:func:`xla_log`), which is not correctly rounded, and its cumulative
+  sum (:func:`xla_cumsum`).
+
+Lemma 1's optimal DSI (Eq. 29), Corollary 1's feasibility bound (Eq. A.16)
+and Lemma 2's closed-form IID distance (Eq. 30) are here too, in the
+reference's eager float32 arithmetic.
 """
 from __future__ import annotations
 
@@ -26,9 +34,13 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-__all__ = ["DiffusionState", "PlannerState", "update_dol", "iid_distance",
-           "iid_distance_candidates", "update_dol_t", "iid_distance_t",
-           "iid_distance_candidates_t", "xla_sum", "xla_sum_t"]
+__all__ = ["DiffusionState", "PlannerState", "uniform_dol", "dsi_from_counts",
+           "update_dol", "iid_distance", "iid_distance_candidates",
+           "optimal_dsi", "min_feasible_data_size",
+           "closed_form_iid_distance", "entropy", "update_dol_t",
+           "iid_distance_t", "iid_distance_candidates_t", "xla_sum",
+           "xla_sum_t", "xla_log", "xla_log_t", "xla_cumsum", "xla_cumsum_t",
+           "METRICS"]
 
 _F32 = np.float32
 
@@ -142,14 +154,144 @@ def _w1_norm(p: np.ndarray, num_classes: int) -> np.ndarray:
     return np.sqrt(_sum_squares(p - _F32(1.0 / num_classes)))
 
 
+# XLA-CPU's float32 log (the Cephes polynomial XLA emits for ``log``, with
+# LLVM's multiply-add contraction).  It is not correctly rounded: it differs
+# from the correctly rounded log in ~14 % of float32 inputs, from
+# ``torch.log`` in ~14 % and from ``np.log`` in ~23 %, and one ulp flips a
+# near-tie bid.  The emulation runs the same float32 steps:
+#
+# * range reduction: x = m·2^e with m in [0.5, 1) from the bits; where
+#   m < √½, e −= 1 and x = (m − 1) + m, else x = m − 1;
+# * the degree-8 polynomial in three parts, each step ``fma(y, x, p_k)``,
+#   joined by ``fma(y, x³, y1)`` and ``fma(y, x³, y2)``, with x² = x·x and
+#   x³ = x²·x rounded;
+# * assembly: ``fma(y, x³, q1·e)``, then ``fma(−½, x², x)`` plus it, then
+#   ``fma(q2, e, ·)``;
+# * subnormal inputs are flushed to zero (−inf), 0 → −inf, x < 0 or NaN →
+#   the NaN with every bit set.
+#
+# Held to ``jnp.log`` bit for bit on every float32 of the binades the
+# tests sweep (``tests/test_torch_appendix.py``).  The fused multiply-adds
+# are emulated in float64, where the product of two float32 values is
+# exact, and rounded once.
+_LOG_P = tuple(np.float32(v) for v in (
+    7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1, -1.2420140846e-1,
+    1.4249322787e-1, -1.6668057665e-1, 2.0000714765e-1, -2.4999993993e-1,
+    3.3333331174e-1))
+_LOG_Q1 = np.float32(-2.12194440e-4)
+_LOG_Q2 = np.float32(0.693359375)
+_SQRTHF = np.float32(0.707106781186547524)
+_MIN_NORMAL = np.float32(1.17549435e-38)
+_MANT_MASK = np.int32(-2139095041)          # ~0x7f800000
+_HALF_BITS = np.int32(0x3F000000)
+_NAN = np.int32(-1).view(_F32)             # all bits set, XLA's NaN here
+
+
+def _fma(a, b, c) -> np.ndarray:
+    """``fma(a, b, c)`` in float32 (one rounding of the exact product)."""
+    return (np.asarray(a, np.float64) * np.asarray(b, np.float64)
+            + np.asarray(c, np.float64)).astype(_F32)
+
+
+def xla_log(x) -> np.ndarray:
+    """float32 natural log as XLA-CPU computes it (see the comment above)."""
+    x = np.asarray(x, _F32)
+    bits = np.maximum(x, _MIN_NORMAL).view(np.int32)
+    e = _F32(1.0) + ((bits >> 23) - 127).astype(_F32)
+    m = ((bits & _MANT_MASK) | _HALF_BITS).view(_F32)
+    low = m < _SQRTHF
+    e = e - np.where(low, _F32(1.0), _F32(0.0))
+    r = (m - _F32(1.0)) + np.where(low, m, _F32(0.0))
+    r2 = r * r
+    r3 = r2 * r
+    y = _fma(_fma(r, _LOG_P[0], _LOG_P[1]), r, _LOG_P[2])
+    y1 = _fma(_fma(r, _LOG_P[3], _LOG_P[4]), r, _LOG_P[5])
+    y2 = _fma(_fma(r, _LOG_P[6], _LOG_P[7]), r, _LOG_P[8])
+    y = _fma(_fma(y, r3, y1), r3, y2)
+    y = _fma(y, r3, _LOG_Q1 * e)
+    out = _fma(_LOG_Q2, e, _fma(_F32(-0.5), r2, r) + y)
+    out = np.where(x < _MIN_NORMAL, _F32(-np.inf), out)
+    out = np.where(x == np.inf, _F32(np.inf), out)
+    return np.where((x < 0) | np.isnan(x), _NAN, out).astype(_F32)
+
+
+# XLA-CPU rewrites a cumulative sum over more than 16 entries: zero-padded
+# to chunks of 16, a sequential prefix sum inside each chunk, the chunk
+# totals' exclusive prefix sum added after.  Up to 16 entries it is the
+# sequential prefix sum (``np.cumsum``'s order).
+_CUMSUM_BASE = 16
+
+
+def _seq_cumsum(x: np.ndarray) -> np.ndarray:
+    out = np.empty_like(x)
+    acc = np.zeros(x.shape[:-1], _F32)
+    for j in range(x.shape[-1]):
+        acc = acc + x[..., j]
+        out[..., j] = acc
+    return out
+
+
+def xla_cumsum(x) -> np.ndarray:
+    """float32 ``jnp.cumsum(x, axis=-1)`` in XLA-CPU's order."""
+    x = np.asarray(x, _F32)
+    n = x.shape[-1]
+    if n <= _CUMSUM_BASE:
+        return _seq_cumsum(x)
+    k = -(-n // _CUMSUM_BASE)
+    pad = [(0, 0)] * (x.ndim - 1) + [(0, k * _CUMSUM_BASE - n)]
+    inner = _seq_cumsum(np.pad(x, pad).reshape(x.shape[:-1]
+                                               + (k, _CUMSUM_BASE)))
+    tot = xla_cumsum(inner[..., -1])
+    excl = np.concatenate([np.zeros(tot.shape[:-1] + (1,), _F32),
+                           tot[..., :-1]], axis=-1)
+    return (inner + excl[..., None]).reshape(x.shape[:-1] + (-1,))[..., :n]
+
+
+_EPS = _F32(1e-12)
+
+
+def _w1_true(p: np.ndarray, num_classes: int) -> np.ndarray:
+    """True Wasserstein-1 on the ordered class line (CDF L1 distance)."""
+    return xla_sum(np.abs(xla_cumsum(p - _F32(1.0 / num_classes))))
+
+
+def _kld(p: np.ndarray, num_classes: int) -> np.ndarray:
+    """KL(ψ ‖ U) — Appendix C, Scenario 2."""
+    pc = np.clip(p, _EPS, _F32(1.0))
+    lu = xla_log(_F32(1.0 / num_classes))
+    return xla_sum(pc * (xla_log(pc) - lu))
+
+
+def _jsd(p: np.ndarray, num_classes: int) -> np.ndarray:
+    """Jensen–Shannon divergence to uniform — Appendix C, Scenario 2."""
+    u = _F32(1.0 / num_classes)
+    mc = np.clip(_F32(0.5) * (p + u), _EPS, _F32(1.0))
+    pc = np.clip(p, _EPS, _F32(1.0))
+    lmc = xla_log(mc)
+    t1 = xla_sum(pc * (xla_log(pc) - lmc))
+    t2 = xla_sum(u * (xla_log(u) - lmc))
+    return _F32(0.5) * (t1 + t2)
+
+
+_DISTANCES = {"w1_norm": _w1_norm, "w1_true": _w1_true, "kld": _kld,
+              "jsd": _jsd}
+
+#: The IID metrics: the paper's Eq. (B.1) and Appendix C's Scenario 2.
+METRICS = tuple(_DISTANCES)
+
+
+def _check_metric(metric: str) -> None:
+    if metric not in _DISTANCES:
+        raise ValueError(f"unknown IID metric {metric!r}; expected one of "
+                         f"{METRICS}")
+
+
 def iid_distance(dol: np.ndarray, metric: str = "w1_norm") -> np.ndarray:
-    """IID distance ``δ(ψ) = dist(ψ, U)`` with a trailing class axis."""
-    if metric != "w1_norm":
-        raise NotImplementedError(
-            f"IID metric {metric!r}: the Appendix-C metrics (kld, jsd, "
-            f"w1_true) are queued as ROADMAP item A15")
+    """IID distance ``δ(ψ) = dist(ψ, U)`` with a trailing class axis, in
+    the reference's eager float32 bits."""
+    _check_metric(metric)
     dol = np.asarray(dol, _F32)
-    return _w1_norm(dol, dol.shape[-1])
+    return _DISTANCES[metric](dol, dol.shape[-1])
 
 
 def iid_distance_candidates(dol: np.ndarray, chain_size: np.ndarray,
@@ -161,6 +303,64 @@ def iid_distance_candidates(dol: np.ndarray, chain_size: np.ndarray,
                          np.asarray(dsi, _F32)[None, :, :],
                          np.asarray(data_size, _F32)[None, :])
     return iid_distance(cand, metric)
+
+
+# ------------------------------------------------- Lemmas 1–2, Eq. (27)
+
+
+def uniform_dol(num_classes: int, dtype=np.float32) -> np.ndarray:
+    """``U = (1/C)·1`` — the DoL of a model trained on perfectly IID data."""
+    return np.full((num_classes,), 1.0 / num_classes, dtype=dtype)
+
+
+def dsi_from_counts(counts) -> np.ndarray:
+    """DSI from per-class sample counts: ``d[c] = n_c / Σ n`` over a
+    trailing class axis; all-zero counts map to the uniform point."""
+    counts = np.asarray(counts, _F32)
+    total = xla_sum(counts)[..., None]
+    c = counts.shape[-1]
+    return np.where(total > 0, counts / np.maximum(total, _F32(1.0)),
+                    _F32(1.0 / c)).astype(_F32)
+
+
+def optimal_dsi(dol, chain_size, data_size) -> np.ndarray:
+    """Lemma 1 / Eq. (29): the DSI a model wants from its next trainer,
+    ``d*[c] = (D_{P_k}/C − D_{P_{k-1}}·ψ_{k-1}[c]) / D_i`` with
+    ``D_{P_k} = D_{P_{k-1}} + D_i``.  May leave the simplex when ``D_i``
+    is below the Corollary-1 bound."""
+    dol = np.asarray(dol, _F32)
+    chain = np.asarray(chain_size, _F32)[..., None]
+    di = np.asarray(data_size, _F32)[..., None]
+    c = _F32(dol.shape[-1])
+    return (((chain + di) / c - chain * dol)
+            / np.maximum(di, _F32(1e-9))).astype(_F32)
+
+
+def min_feasible_data_size(dol, chain_size) -> np.ndarray:
+    """Corollary 1 / Eq. (A.16): the smallest ``D_i`` that keeps the
+    optimal DSI on the simplex, ``max_c {C·D_{k-1}·ψ[c] − D_{k-1}}``."""
+    dol = np.asarray(dol, _F32)
+    chain = np.asarray(chain_size, _F32)[..., None]
+    c = _F32(dol.shape[-1])
+    return np.maximum(np.max(c * chain * dol - chain, axis=-1),
+                      _F32(0.0)).astype(_F32)
+
+
+def closed_form_iid_distance(variation, chain_size) -> np.ndarray:
+    """Lemma 2 / Eq. (30): ``W1(ψ_k, U) = ‖φ_k − φ̄_k‖ / D_{P_k}``, with
+    ``jnp.mean``'s order for φ̄ (the XLA sum times fp32(1/C), ROADMAP C2)
+    and ``jnp.linalg.norm``'s (:func:`_sum_squares`)."""
+    phi = np.asarray(variation, _F32)
+    mean = xla_sum(phi) * _F32(1.0 / phi.shape[-1])
+    norm = np.sqrt(_sum_squares(phi - mean[..., None]))
+    return (norm / np.maximum(np.asarray(chain_size, _F32),
+                              _F32(1e-9))).astype(_F32)
+
+
+def entropy(dol) -> np.ndarray:
+    """Shannon entropy of a DoL (Eq. 27), the quantity Lemma 1 maximizes."""
+    p = np.clip(np.asarray(dol, _F32), _EPS, _F32(1.0))
+    return -xla_sum(p * xla_log(p))
 
 
 # ------------------------------------------------------------ tensor twins
@@ -234,23 +434,140 @@ def _w1_norm_t(p: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(acc.double()).float()
 
 
+def xla_log_t(x: torch.Tensor) -> torch.Tensor:
+    """Tensor twin of :func:`xla_log` on the tensor's device: XLA-CPU's
+    float32 log, step for step (the fused multiply-adds through
+    :func:`_fma_t`)."""
+    x = x.to(torch.float32)
+    bits = torch.clamp(x, min=float(_MIN_NORMAL)).view(torch.int32)
+    e = 1.0 + ((bits >> 23) - 127).to(torch.float32)
+    m = ((bits & int(_MANT_MASK)) | int(_HALF_BITS)).view(torch.float32)
+    low = m < float(_SQRTHF)
+    zero = torch.zeros_like(m)
+    e = e - torch.where(low, 1.0, zero)
+    r = (m - 1.0) + torch.where(low, m, zero)
+    r2 = r * r
+    r3 = r2 * r
+
+    def c(v):
+        return torch.full_like(r, float(v))
+    y = _fma_t(_fma_t(r, c(_LOG_P[0]), c(_LOG_P[1])), r, c(_LOG_P[2]))
+    y1 = _fma_t(_fma_t(r, c(_LOG_P[3]), c(_LOG_P[4])), r, c(_LOG_P[5]))
+    y2 = _fma_t(_fma_t(r, c(_LOG_P[6]), c(_LOG_P[7])), r, c(_LOG_P[8]))
+    y = _fma_t(_fma_t(y, r3, y1), r3, y2)
+    y = _fma_t(y, r3, c(_LOG_Q1) * e)
+    out = _fma_t(c(_LOG_Q2), e, _fma_t(c(-0.5), r2, r) + y)
+    out = torch.where(x < float(_MIN_NORMAL), -torch.inf, out)
+    out = torch.where(x == torch.inf, torch.inf, out)
+    nan = torch.tensor(-1, dtype=torch.int32,
+                       device=x.device).view(torch.float32)
+    return torch.where((x < 0) | torch.isnan(x), nan, out)
+
+
+def _seq_cumsum_t(x: torch.Tensor) -> torch.Tensor:
+    acc = torch.zeros(x.shape[:-1], dtype=torch.float32, device=x.device)
+    cols = []
+    for j in range(x.shape[-1]):
+        acc = acc + x[..., j]
+        cols.append(acc)
+    return torch.stack(cols, dim=-1)
+
+
+def xla_cumsum_t(x: torch.Tensor) -> torch.Tensor:
+    """Tensor twin of :func:`xla_cumsum` (XLA-CPU's chunked order)."""
+    x = x.to(torch.float32)
+    n = x.shape[-1]
+    if n <= _CUMSUM_BASE:
+        return _seq_cumsum_t(x)
+    k = -(-n // _CUMSUM_BASE)
+    xp = torch.nn.functional.pad(x, (0, k * _CUMSUM_BASE - n))
+    inner = _seq_cumsum_t(xp.reshape(x.shape[:-1] + (k, _CUMSUM_BASE)))
+    tot = xla_cumsum_t(inner[..., -1])
+    excl = torch.nn.functional.pad(tot[..., :-1], (1, 0))
+    return (inner + excl[..., None]).reshape(x.shape[:-1] + (-1,))[..., :n]
+
+
+# Inside the reference's jitted planner, XLA contracts each product of the
+# divergences' class sums into the sum, ``acc = fma(a_j, b_j, acc)`` in
+# class order, for C up to :data:`_JIT_FMA_SUM_MAX`; above it (C > 32
+# measured) the products are rounded and summed in XLA's windowed order,
+# as eagerly.  Measured on x86-64 against ``jax.jit(iid_distance)`` and
+# the planner's bid expression (``tests/test_torch_appendix.py``).
+_JIT_FMA_SUM_MAX = 16
+
+
+def _jit_dot_t(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``Σ_j a_j·b_j`` over the last axis as XLA compiles it in the
+    reference's jitted planner (see above)."""
+    a, b = torch.broadcast_tensors(a, b)
+    if a.shape[-1] > _JIT_FMA_SUM_MAX:
+        return xla_sum_t(a * b)
+    acc = torch.zeros(a.shape[:-1], dtype=torch.float32, device=a.device)
+    for j in range(a.shape[-1]):
+        acc = _fma_t(a[..., j], b[..., j], acc)
+    return acc
+
+
+def _w1_true_t(p: torch.Tensor) -> torch.Tensor:
+    u = torch.tensor(1.0 / p.shape[-1], dtype=torch.float32, device=p.device)
+    return xla_sum_t(torch.abs(xla_cumsum_t(p - u)))
+
+
+def _kld_t(p: torch.Tensor) -> torch.Tensor:
+    pc = torch.clamp(p, float(_EPS), 1.0)
+    lu = xla_log_t(torch.tensor(1.0 / p.shape[-1], dtype=torch.float32,
+                                device=p.device))
+    return _jit_dot_t(pc, xla_log_t(pc) - lu)
+
+
+def _jsd_t(p: torch.Tensor) -> torch.Tensor:
+    u = torch.tensor(1.0 / p.shape[-1], dtype=torch.float32, device=p.device)
+    mc = torch.clamp(0.5 * (p + u), float(_EPS), 1.0)
+    pc = torch.clamp(p, float(_EPS), 1.0)
+    lmc = xla_log_t(mc)
+    t1 = _jit_dot_t(pc, xla_log_t(pc) - lmc)
+    t2 = _jit_dot_t(u.expand_as(lmc), xla_log_t(u) - lmc)
+    return 0.5 * (t1 + t2)
+
+
 def iid_distance_t(dol: torch.Tensor, metric: str = "w1_norm"
                    ) -> torch.Tensor:
-    """Tensor twin of :func:`iid_distance`."""
-    if metric != "w1_norm":
-        raise NotImplementedError(
-            f"IID metric {metric!r}: the Appendix-C metrics (kld, jsd, "
-            f"w1_true) are queued as ROADMAP item A15")
-    return _w1_norm_t(dol.to(torch.float32))
+    """Tensor twin of :func:`iid_distance` in the bits of the reference's
+    jitted planner: the same as the eager ones for ``w1_norm`` and
+    ``w1_true``; for ``kld`` and ``jsd`` with the class sums contracted
+    (:func:`_jit_dot_t`)."""
+    _check_metric(metric)
+    dol = dol.to(torch.float32)
+    if metric == "w1_norm":
+        return _w1_norm_t(dol)
+    return {"w1_true": _w1_true_t, "kld": _kld_t, "jsd": _jsd_t}[metric](dol)
 
 
 def iid_distance_candidates_t(dol: torch.Tensor, chain_size: torch.Tensor,
                               dsi: torch.Tensor, data_size: torch.Tensor,
                               metric: str = "w1_norm") -> torch.Tensor:
     """Tensor twin of :func:`iid_distance_candidates`: the (M, N, C)
-    broadcast composite, (M, N) out."""
-    cand, _ = update_dol_t(dol[:, None, :], chain_size[:, None],
-                           dsi[None, :, :], data_size[None, :])
+    broadcast composite, (M, N) out, in the bits of the reference's jitted
+    bid expression.  For ``w1_norm`` Eq. (2) keeps the eager form.  For the
+    Appendix-C metrics XLA contracts one product of Eq. (2)'s numerator
+    into the sum: ``fma(D_i, d_i, D_{k-1}·ψ)``, except for ``w1_true`` at
+    C > 16, where it is ``fma(D_{k-1}, ψ, D_i·d_i)``."""
+    if metric == "w1_norm":
+        cand, _ = update_dol_t(dol[:, None, :], chain_size[:, None],
+                               dsi[None, :, :], data_size[None, :])
+        return iid_distance_t(cand, metric)
+    m, n, c = dol.shape[0], dsi.shape[0], dol.shape[1]
+    shape = (m, n, c)
+    chain = chain_size[:, None, None].expand(shape)
+    size = data_size[None, :, None].expand(shape)
+    psi = dol[:, None, :].expand(shape)
+    d = dsi[None, :, :].expand(shape)
+    if metric == "w1_true" and c > _JIT_FMA_SUM_MAX:
+        num = _fma_t(chain, psi, size * d)
+    else:
+        num = _fma_t(size, d, chain * psi)
+    new_size = chain_size[:, None] + data_size[None, :]
+    cand = num / torch.clamp(new_size[..., None], min=1.0)
     return iid_distance_t(cand, metric)
 
 

@@ -14,7 +14,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["max_weight_matching", "hungarian_min_cost", "auction_assign"]
+__all__ = ["max_weight_matching", "hungarian_min_cost", "auction_assign",
+           "auction_matching"]
 
 _INF = float("inf")
 _BIG = 1e30          # finite stand-in for ∞ in the auction's float32 math
@@ -234,3 +235,21 @@ def auction_assign(weight: torch.Tensor, phases: int = 10,
     has_weight = w[iota_r, torch.clamp(col_of_row, 0, c - 1)] > 0.0
     return (torch.where(matched_real & has_weight, col_of_row, -1),
             torch.tensor(converged, device=dev))
+
+
+def auction_matching(weight: np.ndarray, forbid: np.ndarray | None = None
+                     ) -> list[tuple[int, int]]:
+    """:func:`max_weight_matching`'s (model, pue) pair-list contract, solved
+    by :func:`auction_assign`.  Warns if an auction phase hit its iteration
+    cap (the matching may then be partial)."""
+    import warnings
+    w = np.array(weight, dtype=np.float32, copy=True)
+    if forbid is not None:
+        w[forbid] = -np.inf
+    dst, converged = auction_assign(torch.from_numpy(w))
+    if not bool(converged):
+        warnings.warn("auction_assign hit its iteration cap before "
+                      "converging; the matching may be partial",
+                      RuntimeWarning, stacklevel=2)
+    return [(int(m), int(j)) for m, j in enumerate(dst.cpu().numpy())
+            if j >= 0]

@@ -19,7 +19,7 @@ import dataclasses
 import numpy as np
 
 __all__ = ["WireEvent", "TrainOp", "PermuteOp", "MixOp", "RoundSchedule",
-           "complete_round_permutation", "charge_schedule"]
+           "complete_round_permutation", "charge_schedule", "apply_churn"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -155,3 +155,30 @@ def charge_schedule(ledger, schedule: RoundSchedule) -> None:
             ledger.charge_downlink(ev.bits, ev.gamma, ev.n_users)
         else:
             raise ValueError(f"unknown wire event kind {ev.kind!r}")
+
+
+def apply_churn(schedule: RoundSchedule, drop: np.ndarray) -> RoundSchedule:
+    """Straggler/churn dropout: dropped clients neither train nor aggregate.
+
+    ``drop`` is a (C,) bool mask of the clients that fail to complete the
+    round.  The returned schedule clears them from every Train/Permute
+    ``train_mask``, removes their ``agg`` entries (zero aggregation weight)
+    and leaves ``wire`` as it is: their scheduled airtime was spent before
+    the deadline, so the ledger charges the full schedule on every
+    executor.  If dropout would empty the aggregation, the round is left
+    unchanged."""
+    drop = np.asarray(drop, dtype=bool)
+    assert drop.shape == (schedule.num_slots,), drop.shape
+    agg2 = [(s, w) for s, w in schedule.agg if not drop[s]]
+    if not agg2 or not drop.any():
+        return schedule
+    ops2: list = []
+    for op in schedule.ops:
+        if isinstance(op, TrainOp):
+            ops2.append(TrainOp(op.train_mask & ~drop))
+        elif isinstance(op, PermuteOp):
+            ops2.append(dataclasses.replace(op,
+                                            train_mask=op.train_mask & ~drop))
+        else:
+            ops2.append(op)
+    return dataclasses.replace(schedule, ops=ops2, agg=agg2)

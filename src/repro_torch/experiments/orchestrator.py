@@ -17,10 +17,11 @@ folds the per-seed curves, the Eq.-15 ledger
 and the wall-clock into one JSON record per cell.
 
 Before it runs a cell, ``run_sweep`` checks every cell of the grid with
-:func:`~repro_torch.fl.server.check_supported`: a sweep that needs churn,
-the async plane or a world scenario (``fig7_scaling``, ``fig_async``,
-``fig_scenarios``: ROADMAP A11) raises ``NotImplementedError`` and runs
-nothing.  A durable sweep (``checkpoint_every``, ``resume``,
+:func:`~repro_torch.fl.server.check_supported`: a sweep that needs the
+async plane (``fig_async``: ROADMAP A11b) raises ``NotImplementedError`` and
+runs nothing.  Cells of the other worlds, with churn or with the underlay
+plan cell by cell inside their runs (:func:`prepopulate_plan_cache` skips
+them).  A durable sweep (``checkpoint_every``, ``resume``,
 ``state_dir``) keeps a manifest, round checkpoints, cell records and the
 plan cache under a state directory (:mod:`~repro_torch.experiments.
 durability`), and a killed sweep resumes bit for bit.
@@ -303,7 +304,7 @@ def run_sweep(name: str, smoke: bool = True, seeds: Sequence[int] = (0,),
         sweep's diffusion plans are made up front
         (:func:`prepopulate_plan_cache`) and the cells replay them.
       engine_preset: an engine preset name stamped as ``FLConfig.engine``
-        on every cell (the async presets are A11 and raise).
+        on every cell (the async presets are A11b and raise).
       plan_cache: share one across sweeps if desired; default is a fresh
         cache per sweep, shared across all cells and seeds.  Its default
         256 entries hold the full fig3/fig4 grids (5 FedDif cells × 20

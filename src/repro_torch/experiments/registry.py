@@ -22,15 +22,17 @@ name                paper artifact           axis
 ``fig_scenarios``   world (beyond paper)     wireless scenario (static…energy)
 ==================  =======================  ==================================
 
-The last three need churn, the async plane or the world scenarios (ROADMAP
-A11): they are registered as in the reference, and ``run_sweep`` refuses
-them before running a cell.
+``fig7_scaling`` runs under churn and ``fig_scenarios`` in the evolving
+wireless world.  ``fig_async`` needs the buffered-async plane (ROADMAP
+A11b): it is registered as in the reference, and ``run_sweep`` refuses it
+before running a cell.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any
 
+from repro_torch.channels.world import SCENARIOS
 from repro_torch.fl.engine import ENGINE_PRESETS, UNPORTED_PRESETS
 from repro_torch.fl.experiment import ExperimentSpec
 from repro_torch.fl.models import TASK_MODELS
@@ -50,11 +52,6 @@ AXIS_TARGETS = {
     "engine": ("fl", "engine"),             # EngineSpec preset name
     "scenario": ("fl", "scenario"),         # wireless world scenario name
 }
-
-#: The reference's wireless world scenarios (``channels/world.SCENARIOS``).
-#: The port runs ``"static"``; the others are ROADMAP item A11.
-SCENARIOS = ("static", "mobile", "multicell", "energy_capped")
-
 
 @dataclasses.dataclass(frozen=True)
 class SweepCell:

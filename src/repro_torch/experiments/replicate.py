@@ -210,7 +210,8 @@ def run_replicates_vmapped(spec: ExperimentSpec, seeds: Sequence[int],
     planner = DiffusionPlanner(topology, channel, auction,
                                epsilon=cfg.epsilon,
                                max_rounds=cfg.max_diffusion_rounds,
-                               mode=cfg.planner, device=dev)
+                               mode=cfg.planner, device=dev,
+                               underlay=cfg.underlay)
     ledger = ResourceLedger()
     model_bits = agg.model_bits(inits[0], cfg.bits_per_param)
     auction.model_bits = model_bits

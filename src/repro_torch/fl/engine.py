@@ -6,7 +6,7 @@ authority on which execution plane runs: :func:`resolve_engine` maps an
 name — wins; otherwise the ``executor=``/``planner=`` fields map through
 :meth:`EngineSpec.from_config`, without the reference's deprecation
 warning).  The port runs ``mode="host"`` and ``"fleet"``; ``run_federated``
-raises for ``"async"`` (ROADMAP A11) and ``"sharded"`` (A12), whose knobs
+raises for ``"async"`` (ROADMAP A11b) and ``"sharded"`` (A12), whose knobs
 come with those planes.  The reference's presets of those planes
 (:data:`UNPORTED_PRESETS`) resolve to their bare mode, so they are refused
 the same way.
@@ -129,13 +129,16 @@ def engine_fingerprint(cfg) -> str:
 @dataclasses.dataclass
 class RunHistory:
     """Per-round curves of one run: the reference's fields that the
-    synchronous planes fill (the async plane's come with ROADMAP A11, the
-    phase profile with A15)."""
+    synchronous planes fill (the async plane's come with ROADMAP A11b).
+    ``phase_s`` holds, under ``FLConfig.profile_phases``, one dict of
+    seconds per round: ``plan`` and, on the fleet plane, ``train``,
+    ``hop_collective`` and ``mix``."""
     accuracy: list = dataclasses.field(default_factory=list)
     loss: list = dataclasses.field(default_factory=list)
     diffusion_rounds: list = dataclasses.field(default_factory=list)
     iid_distance: list = dataclasses.field(default_factory=list)
     round_wall_s: list = dataclasses.field(default_factory=list)
+    phase_s: list = dataclasses.field(default_factory=list)
 
 
 @dataclasses.dataclass
@@ -179,6 +182,10 @@ class RunResult:
     def round_wall_s(self) -> list:
         return self.history.round_wall_s
 
+    @property
+    def phase_s(self) -> list:
+        return self.history.phase_s
+
     def rounds_to_accuracy(self, target: float) -> int | None:
         for i, a in enumerate(self.history.accuracy):
             if a >= target:
@@ -191,18 +198,16 @@ class RunResult:
                        round_wall_s=(), phase_s=(), engine=None,
                        **async_hist) -> "RunResult":
         """Build a result from the flat legacy field spelling (replication
-        engines, tests).  The phase profile is ROADMAP item A15 and the
-        async plane's curves A11: passing either raises."""
-        if len(phase_s):
-            raise NotImplementedError(
-                "RunHistory.phase_s is ROADMAP item A15 (phase profiling)")
+        engines, tests).  The async plane's curves are ROADMAP item A11b:
+        passing them raises."""
         if async_hist:
             raise NotImplementedError(
                 f"the async plane's curves {sorted(async_hist)} are ROADMAP "
-                f"item A11 (the buffered-async plane)")
+                f"item A11b (the buffered-async plane)")
         hist = RunHistory(accuracy=list(accuracy), loss=list(loss),
                           diffusion_rounds=list(diffusion_rounds),
                           iid_distance=list(iid_distance),
-                          round_wall_s=list(round_wall_s))
+                          round_wall_s=list(round_wall_s),
+                          phase_s=list(phase_s))
         return cls(params=final_params, ledger=ledger, history=hist,
                    engine=engine, config=config)

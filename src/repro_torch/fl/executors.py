@@ -36,6 +36,11 @@ Counterpart of ``repro.fl.executors`` (``HostExecutor``, ``FleetExecutor``,
     on the card, every leaf read in place), with the (C, C) MixOp matrix
     or a (1, C) row built on the host.
 
+Under ``FLConfig.profile_phases`` the fleet executor synchronizes the
+device after each primitive and charges its wall-clock to ``train``,
+``hop_collective`` or ``mix`` (:meth:`FleetExecutor.pop_phase_times`), as
+the reference's does; the host plane reports only the server's ``plan``.
+
 Persistent schedules (gossip, TT-HF) carry the slots across rounds on
 either plane; ``capture_slots`` / ``slots_like`` / ``num_slots_of`` /
 ``adopt_slots`` round-trip them through a round checkpoint
@@ -44,6 +49,7 @@ either plane; ``capture_slots`` / ``slots_like`` / ``num_slots_of`` /
 """
 from __future__ import annotations
 
+import time
 from typing import Any, Callable, Sequence
 
 import numpy as np
@@ -222,6 +228,29 @@ class FleetExecutor:
         # ``_step(params, mom, batch, active[, anchor])``: the proximal
         # strategies pass the anchor, the others leave it out.
         self._step = vmap(one)
+        self.profile = bool(cfg.profile_phases)
+        self._phase: dict = {}
+
+    # ------------------------------------------------------- phase profiling
+
+    def _timed(self, phase: str, fn, *args):
+        """Run a round primitive; under ``cfg.profile_phases`` synchronize
+        the executor's device after it and charge the wall-clock to
+        ``phase`` (train / hop_collective / mix; the server adds plan)."""
+        if not self.profile:
+            return fn(*args)
+        t0 = time.perf_counter()
+        out = fn(*args)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._phase[phase] = (self._phase.get(phase, 0.0)
+                              + time.perf_counter() - t0)
+        return out
+
+    def pop_phase_times(self) -> dict:
+        """Return and reset the round's phase seconds."""
+        out, self._phase = self._phase, {}
+        return out
 
     # ---------------------------------------------------------------- batches
 
@@ -312,20 +341,25 @@ class FleetExecutor:
         if sched.persistent and slots is not None:
             params = slots
         else:
-            params = self._broadcast(global_params, c_slots)
+            params = self._timed("hop_collective", self._broadcast,
+                                 global_params, c_slots)
         ref = global_params
         for op in sched.ops:
             if isinstance(op, TrainOp):
-                params = self._session(params, op.train_mask)
+                params = self._timed("train", self._session, params,
+                                     op.train_mask)
             elif isinstance(op, PermuteOp):
                 if op.compress:
-                    params = masked_stc_compress(params, ref,
-                                                 op.compress_src_mask(),
-                                                 sched.stc_sparsity)
-                params = self._permute(params, op)
-                params = self._session(params, op.train_mask)
+                    params = self._timed("hop_collective",
+                                         masked_stc_compress, params, ref,
+                                         op.compress_src_mask(),
+                                         sched.stc_sparsity)
+                params = self._timed("hop_collective", self._permute,
+                                     params, op)
+                params = self._timed("train", self._session, params,
+                                     op.train_mask)
             elif isinstance(op, MixOp):
-                params = self._mix(params, op, c_slots)
+                params = self._timed("mix", self._mix, params, op, c_slots)
             else:
                 raise TypeError(f"unknown op {type(op).__name__}")
         return params
@@ -335,9 +369,9 @@ class FleetExecutor:
         wvec = sched.slot_weights()
         w = torch.from_numpy((wvec / wvec.sum()).astype(np.float32))
         if sched.agg_mode == "stc_delta":
-            params = masked_stc_compress(params, ref, wvec > 0,
-                                         sched.stc_sparsity)
-        return self._aggregate(params, w)
+            params = self._timed("hop_collective", masked_stc_compress,
+                                 params, ref, wvec > 0, sched.stc_sparsity)
+        return self._timed("mix", self._aggregate, params, w)
 
     def run_round(self, sched: RoundSchedule, global_params: Params,
                   slots: Params | None) -> tuple[Params, Params | None]:

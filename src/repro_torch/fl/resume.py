@@ -10,8 +10,13 @@ state at the round boundary,
   (each executor restores onto its own device);
 * the cumulative Eq.-15 :class:`~repro_torch.channels.resources.
   ResourceLedger`;
-* the accuracy, loss, diffusion-round, IID-distance and round-wall
-  histories;
+* the accuracy, loss, diffusion-round, IID-distance, round-wall and
+  phase-profile histories;
+* the wireless world (:class:`~repro_torch.channels.world.HostWorld`:
+  positions, waypoints, serving cells, spent energy), so a mobile or
+  energy-capped run resumes where it stopped, with or without a
+  ``topology_seed``, from this saved state (the reference writes none and
+  replays ``advance_round`` instead, which cannot rebuild spent energy);
 * every RNG position: the model-seed generator's bit-generator state (as
   JSON) and the caller's data cursors (``capture_extra``: the clients'
   loader epochs).  The control plane's streams are keyed
@@ -26,8 +31,8 @@ to one that never stopped: params, ledger and curves.
 tests: a ``BaseException``, so the sweep's per-cell failure isolation,
 which catches ``Exception`` only, never swallows a preemption.
 
-The async plane's buffer (``async_hist``, ``abuf``) is ROADMAP item A11: a
-checkpoint that holds it is refused.
+The async plane's buffer (``async_hist``, ``abuf``) is ROADMAP item A11b:
+a checkpoint that holds it is refused.
 """
 from __future__ import annotations
 
@@ -79,7 +84,9 @@ class RoundState:
         self.dif_hist = [int(x) for x in meta["dif_hist"]]
         self.iid_hist = [float(x) for x in meta["iid_hist"]]
         self.round_wall = [float(x) for x in meta["round_wall"]]
+        self.phase_s = [dict(x) for x in meta.get("phase_s", [])]
         self.rng_state = meta["rng_state"]
+        self.world = meta.get("world")
         self.extra = meta.get("extra")
 
 
@@ -117,8 +124,11 @@ class RoundCheckpointer:
 
     def save(self, step: int, executor, params: Any, slots: Any,
              ledger: ResourceLedger, cfg, *, acc_hist, loss_hist, dif_hist,
-             iid_hist, round_wall, rng: np.random.Generator) -> str:
-        """Write one round boundary; returns the ``.npz`` path."""
+             iid_hist, round_wall, rng: np.random.Generator,
+             phase_s=(), world=None) -> str:
+        """Write one round boundary; returns the ``.npz`` path.  ``world``
+        (a :class:`~repro_torch.channels.world.HostWorld`) is saved with
+        it."""
         tree = {"params": params}
         saved_slots = executor.capture_slots(slots)
         if saved_slots is not None:
@@ -132,6 +142,9 @@ class RoundCheckpointer:
             "dif_hist": [int(x) for x in dif_hist],
             "iid_hist": [float(x) for x in iid_hist],
             "round_wall": [float(x) for x in round_wall],
+            "phase_s": [{k: float(v) for k, v in ph.items()}
+                        for ph in phase_s],
+            "world": None if world is None else world.state_dict(),
             # numpy keeps PCG64's 128-bit state as Python ints, which JSON
             # carries exactly.
             "rng_state": rng.bit_generator.state,
@@ -162,7 +175,7 @@ class RoundCheckpointer:
         Walks the checkpoints newest first, skipping unreadable ones with a
         ``RuntimeWarning``.  Raises ``ValueError`` if a readable checkpoint
         was written by another config, and ``NotImplementedError`` if it
-        holds the async plane's buffer (ROADMAP A11)."""
+        holds the async plane's buffer (ROADMAP A11b)."""
         for step in reversed(valid_steps(self.directory)):
             try:
                 meta = load_metadata(self.directory, step)
@@ -177,7 +190,8 @@ class RoundCheckpointer:
                     (meta.get("buffer") or {}).get("count", 0)):
                 raise NotImplementedError(
                     "round checkpoints of the async plane (async_hist, "
-                    "abuf) are ROADMAP item A11 (the buffered-async plane)")
+                    "abuf) are ROADMAP item A11b (the buffered-async "
+                    "plane)")
             like = {"params": params_template}
             if meta["has_slots"]:
                 like["slots"] = executor.slots_like(params_template,
@@ -210,6 +224,15 @@ class RoundCheckpointer:
             raise ValueError(
                 "refusing to resume: checkpoint was written by a different "
                 f"config — mismatched fields (saved, current): {diffs}")
+
+    @staticmethod
+    def restore_world(world, state: RoundState) -> None:
+        """Bring ``world`` (a fresh :class:`~repro_torch.channels.world.
+        HostWorld`) to the checkpoint's round from its saved state.  Only a
+        static world's checkpoint can lack one, and a static world has no
+        state that a round reads."""
+        if state.world is not None:
+            world.load_state_dict(state.world)
 
     @staticmethod
     def apply_rng_state(rng: np.random.Generator, state: dict) -> None:

@@ -22,12 +22,12 @@ from repro_torch.core.diffusion import (DiffusionPlanner, PlanCache,
                                         feddif_cache_key)
 from repro_torch.core.dol import DiffusionState, iid_distance, xla_sum
 from repro_torch.core.schedule import (MixOp, PermuteOp, RoundSchedule,
-                                       TrainOp, WireEvent,
+                                       TrainOp, WireEvent, apply_churn,
                                        complete_round_permutation)
 from repro_torch.fl.compression import compressed_bits
 
 __all__ = ["RoundContext", "SCHEDULERS", "PROX_STRATEGIES",
-           "apply_round_churn"]
+           "apply_round_churn", "apply_energy_cap"]
 
 #: Strategies whose local solver is the FedProx proximal step.
 PROX_STRATEGIES = ("fedprox", "feddif_prox")
@@ -56,6 +56,11 @@ class RoundContext:
     # params (int8-packed adapter hops, FLConfig.hop_quant); None charges
     # model_bits.  Up/downlinks always charge model_bits.
     hop_bits: float | None = None
+    # The round's wireless world (channels/world.HostWorld) and its
+    # per-receiver co-channel power: the scalar 0.0 outside multicell, so
+    # the static SNR arithmetic is unchanged.
+    world: object | None = None
+    interference: np.ndarray | float = 0.0
     # Per-client learning value in [0, 1] (fl/experiment.py's probe), fused
     # into the FedDif bids with FLConfig.uncertainty_weight.
     learning_value: np.ndarray | None = None
@@ -101,18 +106,46 @@ def _uplink(ctx: RoundContext, client: int,
 
 def _pair_gamma(ctx: RoundContext) -> np.ndarray:
     """One D2D channel draw over the round's positions (Sec. III-D), as
-    spectral efficiency; the static world has no interference."""
+    spectral efficiency.  ``ctx.interference`` (multicell) enters the SINR;
+    its (n,) form broadcasts over the receiver (column) axis."""
     gains = ctx.channel.sample_gains(ctx.pair_distances(), ctx.rng)
-    return spectral_efficiency(ctx.channel.snr(gains))
+    return spectral_efficiency(ctx.channel.snr(gains, ctx.interference))
+
+
+#: Stream tag separating the churn draw from every other [seed, t] consumer.
+_CHURN_STREAM = 0xC4
 
 
 def apply_round_churn(ctx: RoundContext,
                       schedule: RoundSchedule) -> RoundSchedule:
-    """The churn hook: at ``churn_rate = 0`` it draws nothing and returns the
-    schedule unchanged, as the reference does."""
-    if float(ctx.cfg.churn_rate) > 0.0:
-        raise NotImplementedError("churn_rate > 0 is ROADMAP item A11")
-    return schedule
+    """Draw this round's churn mask and apply it to the schedule.
+
+    The mask comes from a dedicated stream
+    ``default_rng([topology_seed (or seed), t, _CHURN_STREAM])``, not from
+    ``ctx.rng``, whose position after the scheduler depends on plan-cache
+    hits and the planner mode: a config drops the same clients in round
+    ``t`` whatever runs it.  Each client drops with probability
+    ``cfg.churn_rate``; at 0 nothing is drawn and the schedule is returned
+    as it is.  :func:`~repro_torch.core.schedule.apply_churn` gives the
+    dropped clients' semantics."""
+    rate = float(ctx.cfg.churn_rate)
+    if rate <= 0.0:
+        return schedule
+    seed = (ctx.cfg.topology_seed if ctx.cfg.topology_seed is not None
+            else ctx.cfg.seed)
+    rng = np.random.default_rng([seed, ctx.t, _CHURN_STREAM])
+    return apply_churn(schedule, rng.random(ctx.cfg.num_clients) < rate)
+
+
+def apply_energy_cap(ctx: RoundContext, schedule: RoundSchedule,
+                     depleted: np.ndarray) -> RoundSchedule:
+    """Drop the clients whose transmit-energy budget was spent in earlier
+    rounds (the ``energy_capped`` scenario), with the churn semantics.  The
+    mask is a function of past schedules: no stream is drawn."""
+    depleted = np.asarray(depleted, dtype=bool)
+    if not depleted.any():
+        return schedule
+    return apply_churn(schedule, depleted)
 
 
 def schedule_fedavg(ctx: RoundContext) -> RoundSchedule:
@@ -167,11 +200,17 @@ def schedule_feddif(ctx: RoundContext) -> RoundSchedule:
         cache_key = feddif_cache_key(cfg, ctx.t, ctx.dsi, ctx.data_sizes,
                                      ctx.d2d_bits(), ctx.planner.auction,
                                      values=ctx.learning_value)
+    # The world's plan inputs: the per-receiver interference (multicell),
+    # and the within-round world with its substep (mobile).
+    planner_world = (ctx.world.planner_world()
+                     if ctx.world is not None else None)
+    step_m = ctx.world.cfg.step_m if planner_world is not None else 0.0
     plan = ctx.planner.plan_communication_round(
         state, ctx.dsi, ctx.data_sizes, ctx.rng, positions=ctx.pos,
         cache=ctx.plan_cache, cache_key=cache_key,
-        values=ctx.learning_value,
-        value_weight=float(cfg.uncertainty_weight))
+        interference=ctx.interference, values=ctx.learning_value,
+        value_weight=float(cfg.uncertainty_weight),
+        world=planner_world, step_m=step_m)
 
     slot_of_model = np.arange(m) % max(n, 1)
     for k in range(plan.num_rounds):

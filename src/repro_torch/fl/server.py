@@ -17,10 +17,14 @@ stages, as in the reference:
 All ten strategies run, with the host or the device planner
 (``planner="jax"``), learning-value bids (``uncertainty_weight > 0``),
 int8-packed hops (``hop_quant="int8"``), a :class:`~repro_torch.core.
-diffusion.PlanCache` and round checkpoints (:mod:`repro_torch.fl.resume`),
-in the static world.  Every other :class:`FLConfig`
-value raises ``NotImplementedError`` naming the ROADMAP item that ports it;
-nothing falls back to something else.
+diffusion.PlanCache`, round checkpoints (:mod:`repro_torch.fl.resume`), the
+Appendix-C knobs (the IID ``metric``, ``underlay`` on the host planner,
+``allow_retraining``), the phase profile (``profile_phases``), the evolving
+wireless world (``scenario``: static, mobile, multicell, energy_capped,
+with ``energy_budget_j``; :class:`~repro_torch.channels.world.HostWorld`)
+and per-round churn (``churn_rate``).  The engine modes the port does not
+run (``async``, ``sharded``) raise ``NotImplementedError`` naming their
+ROADMAP item; nothing falls back to something else.
 """
 from __future__ import annotations
 
@@ -32,12 +36,15 @@ import numpy as np
 import torch
 
 from repro_torch.channels.fading import ChannelModel
-from repro_torch.channels.resources import (GAMMA_FLOOR, ResourceLedger,
-                                            spectral_efficiency)
+from repro_torch.channels.resources import (GAMMA_FLOOR, PRB_HZ,
+                                            ResourceLedger)
 from repro_torch.channels.topology import CellTopology
+from repro_torch.channels.world import (SCENARIOS, HostWorld,
+                                        per_client_energy_j)
 from repro_torch.core.aggregation import model_bits as model_bits_of
 from repro_torch.core.auction import AuctionConfig
 from repro_torch.core.diffusion import DiffusionPlanner, PlanCache
+from repro_torch.core.dol import METRICS
 from repro_torch.core.schedule import WireEvent, charge_schedule
 from repro_torch.device import resolve_device
 from repro_torch.fl.adapters import packed_bits
@@ -48,7 +55,8 @@ from repro_torch.fl.executors import make_executor
 from repro_torch.fl.fedprox import make_prox_local_update
 from repro_torch.fl.resume import RoundCheckpointer
 from repro_torch.fl.schedulers import (PROX_STRATEGIES, SCHEDULERS,
-                                       RoundContext, apply_round_churn)
+                                       RoundContext, apply_energy_cap,
+                                       apply_round_churn)
 from repro_torch.tree import tree_map
 
 Params = Any
@@ -106,19 +114,8 @@ class FLConfig:
     engine: Any = None
 
 
-# (field, value the port runs, ROADMAP item that ports the others)
-_UNPORTED = (
-    ("scenario", "static", "A11 (world scenarios)"),
-    ("energy_budget_j", None, "A11 (world scenarios)"),
-    ("churn_rate", 0.0, "A11 (churn)"),
-    ("metric", "w1_norm", "A15 (Appendix-C metrics)"),
-    ("underlay", False, "A15 (underlay planner)"),
-    ("profile_phases", False, "A15 (phase profiling)"),
-)
-
-
 # Engine modes the port does not run, with their ROADMAP items.
-_UNPORTED_MODES = {"async": "A11 (the buffered-async plane)",
+_UNPORTED_MODES = {"async": "A11b (the buffered-async plane)",
                    "sharded": "A12 (the sharded plane)"}
 
 
@@ -134,11 +131,12 @@ def check_supported(cfg: FLConfig) -> EngineSpec:
             f"engine mode {espec.mode!r} is ROADMAP item "
             f"{_UNPORTED_MODES[espec.mode]}; the port runs 'host' and "
             f"'fleet'")
-    for field, value, item in _UNPORTED:
-        if getattr(cfg, field) != value:
-            raise NotImplementedError(
-                f"FLConfig.{field}={getattr(cfg, field)!r} is ROADMAP item "
-                f"{item}; the port runs {field}={value!r}")
+    if cfg.scenario not in SCENARIOS:
+        raise ValueError(f"scenario={cfg.scenario!r}; expected one of "
+                         f"{SCENARIOS}")
+    if cfg.metric not in METRICS:
+        raise ValueError(f"metric={cfg.metric!r}; expected one of "
+                         f"{METRICS}")
     if cfg.hop_quant not in HOP_QUANTS:
         raise ValueError(f"hop_quant={cfg.hop_quant!r}; expected one of "
                          f"{HOP_QUANTS}")
@@ -149,18 +147,20 @@ def check_supported(cfg: FLConfig) -> EngineSpec:
     return espec
 
 
+def _round_draws(world: HostWorld, rng: np.random.Generator
+                 ) -> tuple[np.ndarray, np.ndarray]:
+    """Advance the world one round, then draw each client's uplink to its
+    BS: ``(positions, uplink γ)``, γ floored at ``GAMMA_FLOOR``."""
+    pos = world.advance_round(rng)
+    return pos, np.maximum(world.uplink_gamma(rng), GAMMA_FLOOR)
+
+
 def static_round_draws(topology: CellTopology, channel: ChannelModel,
                        rng: np.random.Generator, n: int
                        ) -> tuple[np.ndarray, np.ndarray]:
-    """One round of the static world: fresh uniform positions, then one
-    Rayleigh draw of each user's uplink to the BS at the origin.  Returns
-    ``(positions, uplink γ)`` with γ floored at ``GAMMA_FLOOR`` — the draws
-    of the reference's ``HostWorld`` in the ``static`` scenario."""
-    pos = topology.sample_positions(rng, n)
-    d = np.maximum(np.linalg.norm(pos, axis=-1), 1.0)
-    gains = channel.sample_gains(d, rng)
-    up_gamma = spectral_efficiency(channel.snr(gains))
-    return pos, np.maximum(up_gamma, GAMMA_FLOOR)
+    """One round of the static world (fresh uniform positions, one Rayleigh
+    uplink draw each): :class:`HostWorld` ``("static")``'s draws."""
+    return _round_draws(HostWorld.create("static", topology, channel, n), rng)
 
 
 def run_federated(init_fn: Callable[[torch.Generator], Params],
@@ -191,13 +191,23 @@ def run_federated(init_fn: Callable[[torch.Generator], Params],
     once as a round-0 downlink.  ``plan_cache`` memoizes FedDif plans
     across runs when ``cfg.topology_seed`` is set.
 
+    The world (:class:`~repro_torch.channels.world.HostWorld`,
+    ``cfg.scenario``) advances once per round on the control stream, gives
+    the uplink γ, the multicell interference and the mobile planner world;
+    the churn mask (its own stream) and, under an energy budget, the drop
+    of depleted clients apply to the schedule before it is charged, and the
+    round's transmit energy is then charged to the world.  With
+    ``cfg.profile_phases`` each round records its ``plan`` seconds and,
+    on the fleet plane, the executor's ``train``/``hop_collective``/``mix``
+    seconds in ``history.phase_s``.
+
     ``checkpointer`` (:class:`~repro_torch.fl.resume.RoundCheckpointer`)
     writes the round state every ``checkpointer.every`` rounds and, if its
     directory holds a readable checkpoint, resumes from it: params, slots,
-    ledger, histories (``round_wall_s`` included) and the position of
-    ``rng``; the loop starts at the checkpoint's round.  The static world
-    needs no replay: each round's draws are a pure function of its stream.
-    After a resume, ``planner_stats`` count only the rounds run since."""
+    ledger, histories (``round_wall_s`` and ``phase_s`` included), the
+    position of ``rng`` and the world (restored as saved); the loop starts
+    at the checkpoint's round.  After a resume, ``planner_stats`` count only the rounds run
+    since."""
     espec = check_supported(cfg)
     dev = resolve_device(device)
     n = cfg.num_clients
@@ -209,7 +219,8 @@ def run_federated(init_fn: Callable[[torch.Generator], Params],
     planner = DiffusionPlanner(topology, channel, auction,
                                epsilon=cfg.epsilon,
                                max_rounds=cfg.max_diffusion_rounds,
-                               mode=espec.planner, device=dev)
+                               mode=espec.planner, device=dev,
+                               underlay=cfg.underlay)
     if cfg.strategy in PROX_STRATEGIES:
         local_update = make_prox_local_update(loss_fn, cfg.prox_mu,
                                               cfg.momentum)
@@ -218,6 +229,10 @@ def run_federated(init_fn: Callable[[torch.Generator], Params],
     executor = make_executor(espec.mode, loss_fn, local_update,
                              client_batches, cfg, dev)
     ledger = ResourceLedger()
+    # The evolving wireless world; "static" draws exactly what the static
+    # world always drew.
+    world = HostWorld.create(cfg.scenario, topology, channel, n,
+                             energy_budget_j=cfg.energy_budget_j)
 
     gen = torch.Generator().manual_seed(cfg.seed)
     global_params = tree_map(lambda x: x.to(dev), init_fn(gen))
@@ -241,21 +256,25 @@ def run_federated(init_fn: Callable[[torch.Generator], Params],
             hist = RunHistory(accuracy=state.acc_hist, loss=state.loss_hist,
                               diffusion_rounds=state.dif_hist,
                               iid_distance=state.iid_hist,
-                              round_wall_s=state.round_wall)
+                              round_wall_s=state.round_wall,
+                              phase_s=state.phase_s)
             checkpointer.apply_rng_state(rng, state.rng_state)
+            checkpointer.restore_world(world, state)
     for t in range(start_t, cfg.rounds):
         ctrl_rng = (np.random.default_rng([cfg.topology_seed, t])
                     if cfg.topology_seed is not None else rng)
-        pos, up_gamma = static_round_draws(topology, channel, ctrl_rng, n)
+        pos, up_gamma = _round_draws(world, ctrl_rng)
         learning_value = None
         if value_fn is not None and cfg.uncertainty_weight > 0.0:
             learning_value = np.asarray(value_fn(global_params), np.float64)
+        t_plan = time.perf_counter()
         ctx = RoundContext(cfg=cfg, t=t, dsi=dsi, data_sizes=data_sizes,
                            pos=pos, rng=ctrl_rng, up_gamma=up_gamma,
                            topology=topology, channel=channel,
                            planner=planner, model_bits=bits,
                            param_template=global_params,
                            plan_cache=plan_cache, hop_bits=hop_bits,
+                           world=world, interference=world.interference(),
                            learning_value=learning_value)
         schedule = SCHEDULERS[cfg.strategy](ctx)
         if t == 0 and base_bits > 0.0:
@@ -263,13 +282,23 @@ def run_federated(init_fn: Callable[[torch.Generator], Params],
             schedule.wire.append(WireEvent("downlink", float(base_bits),
                                            float(np.median(up_gamma)), n))
         schedule = apply_round_churn(ctx, schedule)
+        if world.has_energy_cap:
+            schedule = apply_energy_cap(ctx, schedule, world.depleted())
         charge_schedule(ledger, schedule)
+        if world.has_energy_cap:
+            world.charge_energy(per_client_energy_j(schedule, n, PRB_HZ))
+        plan_s = time.perf_counter() - t_plan
         t_exec = time.perf_counter()
         global_params, slots = executor.run_round(schedule, global_params,
                                                   slots)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         hist.round_wall_s.append(time.perf_counter() - t_exec)
+        if cfg.profile_phases:
+            phases = dict(getattr(executor, "pop_phase_times",
+                                  lambda: {})())
+            phases["plan"] = plan_s
+            hist.phase_s.append(phases)
         hist.diffusion_rounds.append(schedule.diffusion_rounds)
         hist.iid_distance.append(schedule.mean_iid)
         if (t + 1) % cfg.eval_every == 0 or t == cfg.rounds - 1:
@@ -282,7 +311,8 @@ def run_federated(init_fn: Callable[[torch.Generator], Params],
                               loss_hist=hist.loss,
                               dif_hist=hist.diffusion_rounds,
                               iid_hist=hist.iid_distance,
-                              round_wall=hist.round_wall_s, rng=rng)
+                              round_wall=hist.round_wall_s, rng=rng,
+                              phase_s=hist.phase_s, world=world)
 
     return RunResult(params=global_params, ledger=ledger, history=hist,
                      engine=espec, config=cfg,

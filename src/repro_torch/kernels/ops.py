@@ -104,13 +104,6 @@ def stc_topk(x: torch.Tensor, ref_row: torch.Tensor, mask: torch.Tensor,
     return ref.stc_rows_ref(x, ref_row, mask, sparsity)
 
 
-def _refuse_metric(metric: str) -> None:
-    if metric != "w1_norm":
-        raise NotImplementedError(
-            f"IID metric {metric!r}: the Appendix-C metrics (kld, jsd, "
-            f"w1_true) are queued as ROADMAP item A15")
-
-
 def bid_fused(iid: torch.Tensor, dol: torch.Tensor, chain_size: torch.Tensor,
               dsi: torch.Tensor, data_size: torch.Tensor,
               value: torch.Tensor | None = None, weight: float = 0.0, *,
@@ -123,9 +116,15 @@ def bid_fused(iid: torch.Tensor, dol: torch.Tensor, chain_size: torch.Tensor,
     :func:`dol_bid_scores`' composite, the subtraction, then
     ``ref.bid_value_fuse_ref``.  A CUDA tensor takes the ``bid_fused``
     kernel, one launch, bit for bit the chain of the standalone kernels it
-    replaced."""
-    _refuse_metric(metric)
-    if _route(dol) == "cuda":
+    replaced.  The kernel computes the paper's ``w1_norm`` (Eq. B.1); the
+    Appendix-C metrics (``kld``, ``jsd``, ``w1_true``) have no closed
+    contraction form, so on either device their candidate distances take
+    the composite, as the reference routes them (its ``dol_bid_scores``
+    sends every metric but ``w1_norm`` to the composite, never to a Pallas
+    body), and the value factor then takes :func:`bid_value_fuse`, its
+    kernel on a CUDA tensor, as the reference's planner sends it to its
+    ``bid_value_fuse`` body."""
+    if metric == "w1_norm" and _route(dol) == "cuda":
         f32 = torch.float32
         dev = dol.device
         return diffusion.bid_fused_cuda(
@@ -137,8 +136,7 @@ def bid_fused(iid: torch.Tensor, dol: torch.Tensor, chain_size: torch.Tensor,
             weight)
     bids = iid[:, None] - ref.dol_bid_scores_ref(dol, chain_size, dsi,
                                                  data_size, metric)
-    return bids if value is None else ref.bid_value_fuse_ref(bids, value,
-                                                             weight)
+    return bids if value is None else bid_value_fuse(bids, value, weight)
 
 
 def dol_bid_scores(dol: torch.Tensor, chain_size: torch.Tensor,
@@ -149,10 +147,10 @@ def dol_bid_scores(dol: torch.Tensor, chain_size: torch.Tensor,
 
     A CPU tensor takes the broadcast composite, bit for bit the host
     planner's (as the reference's CPU ``"auto"`` does); a CUDA tensor takes
-    the centered-contraction kernel.  Only the paper's ``w1_norm`` metric
-    (Eq. B.1) is ported (the others are ROADMAP item A15)."""
-    _refuse_metric(metric)
-    if _route(dol) == "cuda":
+    the centered-contraction kernel for the paper's ``w1_norm`` metric
+    (Eq. B.1); the Appendix-C metrics take the composite on either device,
+    as in the reference."""
+    if metric == "w1_norm" and _route(dol) == "cuda":
         f32 = torch.float32
         return diffusion.dol_bid_scores_cuda(
             dol.to(f32).contiguous(), chain_size.to(f32).contiguous(),

@@ -25,9 +25,9 @@ lives under ``--state-dir``, by default the artifact directory's
 of ``--state-dir`` named after it.  ``--engine seed_vmap`` trains a
 FedAvg or FedDif cell's replicate seeds as one seed-stacked pass; the
 default ``auto`` does so for such cells at two seeds or more.
-``--executor sharded`` at N ≥ 64 (A12), the async engine presets (A11) and
-the churned and world sweeps (A11) raise ``NotImplementedError`` naming
-their ROADMAP item before any cell runs.
+``--executor sharded`` at N ≥ 64 (A12), the async engine presets and the
+``fig_async`` sweep (A11b) raise ``NotImplementedError`` naming their
+ROADMAP item before any cell runs.
 """
 from __future__ import annotations
 
@@ -65,7 +65,7 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--engine", choices=_ENGINE_CHOICES, default="auto",
                     help="replication engine (auto/seed_vmap/loop) or an "
                          "engine preset stamped on every cell (the async "
-                         "presets are A11)")
+                         "presets are A11b)")
     ap.add_argument("--executor", choices=["host", "fleet", "sharded"],
                     default="host",
                     help="data plane per cell: host reference loop or "

@@ -136,13 +136,34 @@ def test_ops_bid_fused_on_cpu_is_the_old_chain(m, n, c, weight):
     np.testing.assert_array_equal(got.numpy(), ref_bits)
 
 
-def test_ops_bid_fused_refuses_other_metrics():
+def test_ops_bid_fused_refuses_other_metrics(monkeypatch):
+    """The Appendix-C metrics never reach the kernel: ``ops.bid_fused``
+    routes them to the composite on either device, as the reference does
+    (``tests/test_torch_appendix.py`` holds their bits), and a value
+    factor then to ``ops.bid_value_fuse``, the wrapper of its own kernel,
+    as the reference's planner sends it to its ``bid_value_fuse`` body."""
     dol, chain, dsi, sizes = (torch.from_numpy(a)
                               for a in _planner_inputs(4, 8, 6, seed=0))
+    value = torch.from_numpy(_value(8, 5))
+    calls = []
+    shipped = tops.bid_value_fuse
+
+    def counted(*args):
+        calls.append(args)
+        return shipped(*args)
+
+    monkeypatch.setattr(tops, "bid_value_fuse", counted)
     for metric in ("kld", "jsd", "w1_true"):
-        with pytest.raises(NotImplementedError, match="A15"):
-            tops.bid_fused(iid_distance_t(dol), dol, chain, dsi, sizes,
-                           metric=metric)
+        iid = iid_distance_t(dol, metric)
+        got = tops.bid_fused(iid, dol, chain, dsi, sizes, metric=metric)
+        want = iid[:, None] - tref.dol_bid_scores_ref(dol, chain, dsi, sizes,
+                                                      metric)
+        assert torch.equal(got, want) and not calls
+        got = tops.bid_fused(iid, dol, chain, dsi, sizes, value, 0.5,
+                             metric=metric)
+        assert torch.equal(got, tref.bid_value_fuse_ref(want, value, 0.5))
+        assert len(calls) == 1 and calls.pop()[2] == 0.5
+    assert tdiff.LAUNCHES["bid_fused"] == 0
 
 
 def test_bid_fused_cuda_refuses_cpu_tensors_and_mismatched_shapes():

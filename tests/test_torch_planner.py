@@ -326,7 +326,8 @@ def test_device_planner_stats_and_device_default():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             _plan(DiffusionPlanner(mode="jax"), DiffusionState, 0)
-    with pytest.raises(NotImplementedError, match="A11"):
+    planner.underlay = True
+    with pytest.raises(ValueError, match="underlay"):
         tplanner.plan_communication_round_jax(
             planner, None, np.zeros((2, 2)), np.ones(2),
-            np.random.default_rng(0), world=object())
+            np.random.default_rng(0))

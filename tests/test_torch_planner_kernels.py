@@ -111,10 +111,16 @@ def test_dol_bid_scores_near_uniform_no_cancellation():
 
 
 def test_dol_bid_scores_other_metrics_are_refused():
-    _, t_in = _both(_planner_inputs(4, 8, 6, seed=0))
+    """The Appendix-C metrics take the composite, not the kernel, as in the
+    reference: the port's composite against the reference's, within a few
+    ulps (``tests/test_torch_appendix.py`` holds the bits of the planner's
+    bid expression)."""
+    j_in, t_in = _both(_planner_inputs(4, 8, 6, seed=0))
     for metric in ("kld", "jsd", "w1_true"):
-        with pytest.raises(NotImplementedError, match="A15"):
-            tops.dol_bid_scores(*t_in, metric=metric)
+        np.testing.assert_allclose(
+            tops.dol_bid_scores(*t_in, metric=metric).numpy(),
+            np.asarray(jref.dol_bid_scores_ref(*j_in, metric=metric)),
+            atol=3e-7, rtol=0)
 
 
 @pytest.mark.parametrize("m,n", [(3, 5), (16, 20), (130, 257)])
