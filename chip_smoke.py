@@ -127,8 +127,7 @@ nothing of JAX.  Phases, each of which fails loudly:
    through ``run_cell`` with fresh caches: artifacts equal after
    ``strip_volatile``; ``fig4_epsilon`` on the card and on the CPU: equal
    ``comm`` and diffusion rounds, accuracy within 0.05, final losses
-   within atol 2e-4, rtol 2e-3; and ``fig_async`` refused naming A11b
-   with no cell run.  One line per
+   within atol 2e-4, rtol 2e-3.  One line per
    cell (label, peak accuracy, sub-frames, Eq.-15 bandwidth, seconds,
    plan-cache hits and misses, launches); the sweeps' launches count as
    main-path launches.
@@ -182,6 +181,34 @@ nothing of JAX.  Phases, each of which fails loudly:
    FedDif round with ``profile_phases=True``: its train, hop_collective,
    mix and plan seconds.  The launches of (a)–(c) count as main-path
    launches.
+   The async phase (``async_path``, state under ``build/async``): the
+   buffered-async plane at the quickstart's width (fcn, α = 0.3, 6000
+   samples, N = M = 8) on each inner plane (host and fleet): (a) FedAvg
+   and FedDif at N = 20, 2 rounds, on the degenerate engine (K = all, no
+   delay, no discount) against the sync executor of the same plane: on
+   the host plane params bit-equal, equal ledger and curves, on the fleet
+   plane params within atol 2e-4, rtol 2e-3 and equal ledger, the virtual
+   clock [0, 0] on both; (b) the ``async`` and ``async_barrier`` presets,
+   FedDif, 8 rounds: equal ledgers, the buffered arm's first tick before
+   the barrier's, its staleness above 0 and the barrier's 0, one line per
+   arm with the clock, arrivals and staleness of every tick, the virtual
+   seconds to 0.98 of the lower peak and the round wall; (c) feddif_stc
+   under ``async`` on each plane (``stc_fused`` / ``stc_rows_fused``),
+   FedDif with int8 hops on each plane (``quant_roundtrip`` once per
+   PermuteOp) and FedDif with the device planner and learning-value bids
+   on the degenerate engine and under ``async`` (``bid_fused`` once per
+   bid round), each launching its kernel as often as the sync run of the
+   same schedules (equal ledgers; the value-driven ``async`` plans are its
+   own); (d) ``buffer_k=2``, ``checkpoint_every=1``, killed after round 3
+   of 6 with contributions pending, on each plane, resumed bit-equal
+   (params, ledger, clock, arrivals, staleness, curves, launches), with
+   seconds and bytes per save; (e) cohorts of 16 drawn from a population
+   of 100,000, 4 rounds, with seconds per cohort draw; (f) ``fig_async``'s
+   full grid (N = 16, 10 rounds, 5 % churn, fedavg and d2d_random_walk ×
+   ``async_barrier`` and ``async``): no failed cell, finite params, one
+   line per cell with its virtual clock; its smoke grid on the card and on
+   the CPU: equal ``comm``, virtual clock and arrivals, accuracy within
+   0.05.  The launches of (b)–(f) count as main-path launches.
    Then, apart from those runs and with its launches counted apart, the
    host plane's STC entry
    point on leaves on both sides of N_FUSED must route each leaf of
@@ -260,6 +287,7 @@ repository around it, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import itertools
 import json
@@ -393,12 +421,11 @@ MIX_RUNS = (("gossip", 2), ("tthf", 4))
 HOST_VS_FLEET_RUN = ("feddif", "fcn", 2, 8)
 # The sweep phase (3c): fig3_alpha's full grid (5 α × fedavg / feddif,
 # N = M = 10, 8000 samples, 20 rounds) pre-planned with the device planner,
-# the smoke grids of the other paper sweeps, all on the fleet plane; the
-# sweep the port refuses (ROADMAP A11b).  Artifacts go under build/.
+# the smoke grids of the other paper sweeps, all on the fleet plane.
+# Artifacts go under build/.
 SWEEP_DIR = ROOT / "build" / "sweeps"
 SWEEP_SMOKE = ("fig4_epsilon", "fig5_gamma_min", "fig6_tasks",
                "table2_strategies", "fig_lm")
-SWEEP_REFUSED = ("fig_async",)
 # The durable phase: runs killed after a round checkpoint and resumed, as
 # (executor, strategy, rounds, killed after round), at the quickstart's
 # width; and the seed-stacked engine against the loop engine.
@@ -432,6 +459,21 @@ SCENARIO_PROFILE_ROUNDS = 3
 # needs the spent energy the checkpoint saved.
 WORLD_RESUME = (("mobile", {}, 6, 3),
                 ("energy_capped", {"energy_budget_j": 1.0}, 6, 3))
+# The async phase: the buffered-async plane at the quickstart's width
+# (fcn, α = 0.3, 6000 samples, N = M = 8, 8 rounds of FedDif) on each
+# inner plane; degeneracy at N = 20, 2 rounds; kill/resume (rounds, killed
+# after) with K = 2 of the async preset's knobs; the population front end
+# (population, cohort, rounds); fig_async's full and smoke grids.
+ASYNC_DIR = ROOT / "build" / "async"
+ASYNC_DATA = dict(task="fcn", alpha=0.3, num_samples=6000)
+ASYNC_FL = dict(strategy="feddif", rounds=8, num_clients=8, num_models=8,
+                seed=0)
+ASYNC_PLANES = ("host", "fleet")
+ASYNC_DEGENERATE_N = 20
+ASYNC_RESUME = (6, 3)
+ASYNC_POPULATION = (100_000, 16, 4)
+ASYNC_KERNEL_ROUNDS = 2
+ASYNC_ACC = 0.05             # accuracy bar of the fleet plane and card-CPU
 
 
 def _fail(msg: str) -> None:
@@ -3709,23 +3751,6 @@ def sweep_path(torch, port) -> dict:
                               "final_loss"], "bars": {
                               "accuracy": 0.05, "loss_atol": 2e-4,
                               "loss_rtol": 2e-3}}))
-
-        # The sweeps the port refuses: A11, before a cell runs.
-        for name in SWEEP_REFUSED:
-            first = len(runs.finite)
-            try:
-                run_sweep(name, executor="fleet", out_dir=None)
-            except NotImplementedError as e:
-                refused = "A11b" in str(e)
-                message = str(e)
-            else:
-                refused, message = False, "ran"
-            ran = len(runs.finite) - first
-            print(json.dumps({"check": f"{name} refused", "error": message,
-                              "cells_run": ran}))
-            if not refused or ran:
-                _fail(f"{name} was not refused naming A11b before running "
-                      f"({message}, {ran} runs)")
     return total
 
 
@@ -4372,6 +4397,355 @@ def appendix_path(torch, port, device=None) -> dict:
     return total
 
 
+# ------------------------------------------------------------ async phase
+
+def _async_engine(preset: str | None, plane: str, planner: str = "host",
+                  **knobs):
+    """An async ``EngineSpec`` on inner plane ``plane``: a preset's knobs
+    (or the degenerate defaults) with ``knobs`` changed."""
+    from repro_torch.fl.engine import ENGINE_PRESETS, AsyncSpec, EngineSpec
+    base = ENGINE_PRESETS[preset].buffered if preset else AsyncSpec()
+    return EngineSpec(mode="async", planner=planner, data_plane=plane,
+                      buffered=dataclasses.replace(base, **knobs))
+
+
+def _async_spec(port, engine=None, **change):
+    fl = dict(ASYNC_FL, **change)
+    return port.ExperimentSpec(**ASYNC_DATA,
+                               fl=port.FLConfig(engine=engine, **fl))
+
+
+def _params_close(torch, a, b, atol=2e-4, rtol=2e-3) -> bool:
+    from repro_torch.tree import tree_leaves
+    return all(bool(torch.allclose(x.float().cpu(), y.float().cpu(),
+                                   atol=atol, rtol=rtol))
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def _async_curves(res) -> dict:
+    h = res.history
+    return {"virtual_s": h.virtual_s, "arrivals": h.arrivals,
+            "staleness": h.staleness, "parked_hops": h.parked_hops}
+
+
+def _async_degeneracy(torch, kd, port, device=None) -> dict:
+    """(a): K = everything, zero delays, no discount against the sync
+    executor of the same plane, FedAvg and FedDif at N = 20, 2 rounds:
+    the host plane bit for bit, the fleet plane within its bar."""
+    total = {k: 0 for k in kd.LAUNCHES}
+    n = ASYNC_DEGENERATE_N
+    for plane in ASYNC_PLANES:
+        for strategy in ("fedavg", "feddif"):
+            change = dict(strategy=strategy, rounds=2, num_clients=n,
+                          num_models=n)
+            sync, sc, ss = _timed_run(torch, kd, port, _async_spec(
+                port, executor=plane, **change), device)
+            asy, ac, as_ = _timed_run(torch, kd, port, _async_spec(
+                port, _async_engine(None, plane), **change), device)
+            same = {"ledger": sync.ledger.as_dict() == asy.ledger.as_dict(),
+                    "diffusion_rounds": sync.diffusion_rounds
+                    == asy.diffusion_rounds,
+                    "virtual_s": asy.history.virtual_s == [0.0, 0.0],
+                    "staleness": asy.history.staleness == [0.0, 0.0]}
+            if plane == "host":
+                same["params_bits"] = _bits_equal(torch, sync.params,
+                                                  asy.params)
+                same["accuracy"] = sync.accuracy == asy.accuracy
+            else:
+                same["params_within_bar"] = _params_close(torch, sync.params,
+                                                          asy.params)
+                same["accuracy_within_0.05"] = max(
+                    abs(a - b) for a, b in zip(sync.accuracy, asy.accuracy)
+                ) <= ASYNC_ACC
+            print(json.dumps({
+                "async_degeneracy": f"{plane}/{strategy}/fcn/N={n}",
+                "same": same, "accuracy": [sync.accuracy, asy.accuracy],
+                "virtual_s": asy.history.virtual_s,
+                "arrivals": asy.history.arrivals,
+                "run_wall_s": [ss, as_],
+                "launches": {k: v for k, v in ac.items() if v}}))
+            if not all(same.values()):
+                _fail(f"async degeneracy {plane}/{strategy}: {same}")
+            if any(ac.values()):
+                _fail(f"async degeneracy {plane}/{strategy}: launched {ac}")
+    return total
+
+
+def _async_presets(torch, kd, port, device=None) -> dict:
+    """(b): the ``async`` and ``async_barrier`` presets, FedDif, 8 rounds,
+    on each inner plane: equal ledgers, the buffered arm's first tick
+    before the barrier's, its staleness above 0 and the barrier's 0."""
+    total = {k: 0 for k in kd.LAUNCHES}
+    for plane in ASYNC_PLANES:
+        arms = {}
+        for preset in ("async_barrier", "async"):
+            res, counts, wall = _timed_run(torch, kd, port, _async_spec(
+                port, _async_engine(preset, plane)), device)
+            if not _finite(torch, res.params):
+                _fail(f"async {preset}/{plane}: non-finite params")
+            for k in total:
+                total[k] += counts[k]
+            arms[preset] = (res, counts, wall)
+        (bar, _, bar_s), (buf, _, buf_s) = arms["async_barrier"], arms["async"]
+        target = 0.98 * min(max(bar.accuracy), max(buf.accuracy))
+        for preset, (res, counts, wall) in arms.items():
+            print(json.dumps({
+                "async_ticks": f"{preset}/{plane}/feddif/fcn",
+                **_async_curves(res), "accuracy": res.accuracy,
+                "peak_accuracy": max(res.accuracy),
+                "time_to_accuracy": {"target": target,
+                                     "virtual_s":
+                                         res.time_to_accuracy(target)},
+                "round_wall_s": res.round_wall_s,
+                "mean_round_wall_s": sum(res.round_wall_s)
+                / len(res.round_wall_s),
+                "ticks": len(res.history.virtual_s), "run_wall_s": wall,
+                "launches": {k: v for k, v in counts.items() if v}}))
+        checks = {"ledger": bar.ledger.as_dict() == buf.ledger.as_dict(),
+                  "first_tick_earlier": buf.history.virtual_s[0]
+                  < bar.history.virtual_s[0],
+                  "barrier_fresh": max(bar.history.staleness) == 0.0,
+                  "buffered_stale": max(buf.history.staleness) > 0.0}
+        print(json.dumps({"check": f"async vs async_barrier, {plane}",
+                          **checks, "speedup_to_target": (
+                              None if not (bar.time_to_accuracy(target)
+                                           and buf.time_to_accuracy(target))
+                              else bar.time_to_accuracy(target)
+                              / buf.time_to_accuracy(target))}))
+        if not all(checks.values()):
+            _fail(f"async presets on {plane}: {checks}")
+    return total
+
+
+def _async_kernels(torch, kd, port, device=None) -> dict:
+    """(c): the kernels of the inner planes through the async plane, each
+    launched as often as by the sync run of the same schedules (equal
+    ledgers): feddif_stc on each plane, FedDif with int8 hops on each
+    plane, FedDif with the device planner and learning-value bids (whose
+    plans follow the global params: the degenerate engine keeps the sync
+    run's, the ``async`` preset its own, where ``bid_fused`` must launch
+    once per bid round)."""
+    total = {k: 0 for k in kd.LAUNCHES}
+    kernel_of = {"host": "stc_fused", "fleet": "stc_rows_fused"}
+    cases = [(f"feddif_stc/{p}", "async", p, dict(strategy="feddif_stc"),
+              (kernel_of[p],)) for p in ASYNC_PLANES]
+    cases += [(f"feddif_int8/{p}", "async", p, dict(hop_quant="int8"),
+               ("quant_roundtrip",)) for p in ASYNC_PLANES]
+    values = dict(planner="jax", uncertainty_weight=VALUE_WEIGHT)
+    cases += [(f"feddif_device_planner_values/host/{preset or 'degenerate'}",
+               preset, "host", values, ("bid_fused", "bid_value_fuse"))
+              for preset in (None, "async")]
+    for label, preset, plane, change, kernels in cases:
+        change = dict(change, rounds=ASYNC_KERNEL_ROUNDS)
+        sync, sc, _ = _timed_run(torch, kd, port, _async_spec(
+            port, executor=plane, **change), device)
+        asy, ac, wall = _timed_run(torch, kd, port, _async_spec(
+            port, _async_engine(preset, plane,
+                                change.get("planner", "host")), **change),
+            device)
+        for k in total:
+            total[k] += ac[k]
+        want = {"quant_roundtrip": sum(asy.diffusion_rounds),
+                "bid_fused": asy.planner_stats.get("loop_iterations", 0)}
+        row = {"async_kernels": label, "preset": preset,
+               "async": {k: ac[k] for k in kernels},
+               "sync": {k: sc[k] for k in kernels},
+               "ledger_equal": sync.ledger.as_dict() == asy.ledger.as_dict(),
+               "diffusion_rounds": asy.diffusion_rounds, "run_wall_s": wall,
+               "launches": {k: v for k, v in ac.items() if v}}
+        row["want"] = {k: want[k] for k in kernels if k in want}
+        if "bid_fused" in kernels:
+            row["want"]["bid_value_fuse"] = 0
+        # The value-driven plans of the async preset are its own.
+        same_plans = not (preset and "bid_fused" in kernels)
+        ok = (ac[kernels[0]] > 0
+              and all(ac[k] == v for k, v in row["want"].items())
+              and (not same_plans or row["ledger_equal"]
+                   and all(ac[k] == sc[k] for k in kernels)))
+        print(json.dumps(row))
+        if not ok:
+            _fail(f"async kernels {label}: {json.dumps(row)}")
+    return total
+
+
+def _async_resume(torch, kd, port, device=None) -> dict:
+    """(d): K = 2, ``checkpoint_every=1``, killed after round 3 of 6 with
+    contributions pending, on each inner plane; resumed bit-equal."""
+    from repro_torch.fl.resume import Preempted, RoundCheckpointer
+    from repro_torch.train.checkpoint import load_metadata
+    total = {k: 0 for k in kd.LAUNCHES}
+    rounds, kill = ASYNC_RESUME
+    for plane in ASYNC_PLANES:
+        spec = _async_spec(port, _async_engine(
+            "async", plane, buffer_k=2, buffer_frac=None), rounds=rounds,
+            checkpoint_every=1)
+        root = ASYNC_DIR / "resume" / plane
+        shutil.rmtree(root, ignore_errors=True)
+        with _TimedSaves() as saves:
+            clean, clean_counts, clean_s = _timed_run(
+                torch, kd, port, spec, device,
+                checkpoint_dir=str(root / "clean"))
+        kd.reset_launch_counts()
+        RoundCheckpointer.fail_after_save = kill
+        try:
+            port.run_experiment(spec, device=device,
+                                checkpoint_dir=str(root / "killed"))
+        except Preempted:
+            preempted = True
+        else:
+            preempted = False
+        finally:
+            RoundCheckpointer.fail_after_save = None
+        pending = load_metadata(str(root / "killed"), kill)["buffer"]["count"]
+        resumed = port.run_experiment(spec, device=device,
+                                      checkpoint_dir=str(root / "killed"))
+        _sync(torch, device)
+        counts = dict(kd.LAUNCHES)
+        same = {"params_bits": _bits_equal(torch, clean.params,
+                                           resumed.params),
+                "ledger": clean.ledger.as_dict() == resumed.ledger.as_dict(),
+                "accuracy": clean.accuracy == resumed.accuracy,
+                "loss": clean.loss == resumed.loss,
+                "diffusion_rounds": clean.diffusion_rounds
+                == resumed.diffusion_rounds,
+                "launches": counts == clean_counts,
+                **{k: v == _async_curves(resumed)[k]
+                   for k, v in _async_curves(clean).items()}}
+        print(json.dumps({
+            "async_resume": f"{plane}/feddif/fcn", "rounds": rounds,
+            "killed_after_round": kill, "preempted": preempted,
+            "pending_at_kill": pending, "same": same,
+            "ticks": len(resumed.history.virtual_s),
+            "clean_s": clean_s, "saves": len(saves.seconds),
+            "s_per_save": sum(saves.seconds) / max(len(saves.seconds), 1),
+            "max_s_per_save": max(saves.seconds, default=0.0),
+            "bytes_per_save": saves.bytes,
+            "launches": {k: v for k, v in counts.items() if v}}))
+        if not preempted or pending <= 0 or not all(same.values()):
+            _fail(f"async resume {plane}: preempted {preempted}, pending "
+                  f"{pending}, same {same}")
+        for k in total:
+            total[k] += clean_counts[k] + counts[k]
+    return total
+
+
+def _async_population(torch, kd, port, device=None) -> dict:
+    """(e): cohorts of 16 drawn from a population of 100,000, 4 rounds;
+    the seconds of each cohort draw."""
+    from repro_torch.fl.population import Population
+    size, cohort, rounds = ASYNC_POPULATION
+    real = Population.sample_cohort
+    draws: list[float] = []
+
+    def timed(self, t, k):
+        t0 = time.perf_counter()
+        try:
+            return real(self, t, k)
+        finally:
+            draws.append(time.perf_counter() - t0)
+
+    Population.sample_cohort = timed
+    try:
+        res, counts, wall = _timed_run(torch, kd, port, _async_spec(
+            port, _async_engine("async", "auto", population=size),
+            rounds=rounds, num_clients=cohort, num_models=cohort), device)
+    finally:
+        Population.sample_cohort = real
+    print(json.dumps({
+        "async_population": f"feddif/fcn, population {size}, cohort "
+                            f"{cohort}", "rounds": rounds,
+        "cohort_draws": len(draws),
+        "s_per_cohort_draw": sum(draws) / max(len(draws), 1),
+        "max_s_per_cohort_draw": max(draws, default=0.0),
+        **_async_curves(res), "peak_accuracy": max(res.accuracy),
+        "mean_round_wall_s": sum(res.round_wall_s) / rounds,
+        "run_wall_s": wall,
+        "launches": {k: v for k, v in counts.items() if v}}))
+    if len(draws) != rounds or not _finite(torch, res.params):
+        _fail(f"async population: {len(draws)} draws over {rounds} rounds")
+    return dict(counts)
+
+
+def _async_sweeps(torch, kd, port, device=None) -> dict:
+    """(f): fig_async's full grid (N = 16, 10 rounds, 5 % churn, fedavg /
+    d2d_random_walk × async_barrier / async) with one line per cell, and
+    its smoke grid on the card against the CPU."""
+    from repro_torch.experiments import run_sweep
+    total = {k: 0 for k in kd.LAUNCHES}
+    with _ObservedRuns(torch, port) as runs:
+        snaps = []
+
+        def log(line):
+            _sync(torch, device)
+            snaps.append(dict(kd.LAUNCHES))
+
+        kd.reset_launch_counts()
+        t0 = time.perf_counter()
+        art = run_sweep("fig_async", smoke=False, device=device, log=log,
+                        out_dir=str(ASYNC_DIR / "sweeps"))
+        wall = time.perf_counter() - t0
+        for k in total:
+            total[k] += kd.LAUNCHES[k]
+        prev = {k: 0 for k in kd.LAUNCHES}
+        for cell, snap in zip(art["cells"], snaps):
+            counts = {k: snap[k] - prev[k] for k in snap}
+            prev = snap
+            curves = {k: v[0] for k, v in cell["async"].items()}
+            print(json.dumps({
+                "sweep": "fig_async", "cell": cell["label"],
+                "executor": cell["executor"],
+                "peak_accuracy": cell["summary"]["peak_mean"],
+                "subframes": cell["comm"]["subframes"],
+                "final_virtual_s": curves["virtual_s"][-1],
+                **curves, "seconds": cell["wall_clock_s"],
+                "launches": {k: v for k, v in counts.items() if v}}))
+        finite = runs.finite
+        print(json.dumps({"sweep_summary": "fig_async",
+                          "cells": len(art["cells"]), "wall_s": wall,
+                          "artifact": art["path"]}))
+        if (art["failed_cells"] or len(art["cells"]) != 4
+                or not all(finite) or len(finite) != 4):
+            _fail(f"fig_async full grid: failed {art['failed_cells']}, "
+                  f"finite {finite}")
+        on = run_sweep("fig_async", device=device,
+                       out_dir=str(ASYNC_DIR / "smoke_card"))
+    cpu = run_sweep("fig_async", device="cpu",
+                    out_dir=str(ASYNC_DIR / "smoke_cpu"))
+    worst = 0.0
+    for g, c in zip(on["cells"], cpu["cells"]):
+        acc = max(abs(a - b) for a, b in zip(g["accuracy"][0],
+                                             c["accuracy"][0]))
+        worst = max(worst, acc)
+        if (g["comm"] != c["comm"]
+                or g["async"]["virtual_s"] != c["async"]["virtual_s"]
+                or g["async"]["arrivals"] != c["async"]["arrivals"]
+                or acc > ASYNC_ACC):
+            _fail(f"fig_async smoke {g['label']}: card and CPU differ "
+                  f"(accuracy gap {acc})")
+    print(json.dumps({"check": "fig_async smoke card vs CPU",
+                      "cells": len(on["cells"]), "comm_equal": True,
+                      "virtual_s_equal": True, "arrivals_equal": True,
+                      "max_accuracy_gap": worst, "bar": ASYNC_ACC}))
+    return total
+
+
+def async_path(torch, port, device=None) -> dict:
+    """Phase 3f: the buffered-async plane on the card.  Returns the
+    launches of (b)–(f)."""
+    from repro_torch.kernels import diffusion as kd
+    total = {k: 0 for k in kd.LAUNCHES}
+    t0 = time.perf_counter()
+    _async_degeneracy(torch, kd, port, device)
+    for part in (_async_presets, _async_kernels, _async_resume,
+                 _async_population, _async_sweeps):
+        for k, v in part(torch, kd, port, device).items():
+            total[k] += v
+    print(json.dumps({"phase": "async_path",
+                      "seconds": time.perf_counter() - t0,
+                      "launches": {k: v for k, v in total.items() if v}}))
+    return total
+
+
 def main() -> None:
     sys.stdout.reconfigure(line_buffering=True)
     if not (ROOT / "src" / "repro_torch").is_dir():
@@ -4422,6 +4796,8 @@ def main() -> None:
     for k, v in durable_path(torch, port).items():
         launches[k] += v
     for k, v in appendix_path(torch, port).items():
+        launches[k] += v
+    for k, v in async_path(torch, port).items():
         launches[k] += v
     routing = stc_routing(torch, kd)
     routing.update({k: v for k, v in stc_rows_routing(torch, kd).items()

@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 __all__ = ["spectral_efficiency", "required_bandwidth", "outage_probability",
-           "spectral_efficiency_t", "required_bandwidth_t",
+           "spectral_efficiency_f32", "spectral_efficiency_t", "required_bandwidth_t",
            "outage_probability_t", "ResourceLedger", "GAMMA_FLOOR",
            "TX_POWER_W", "PRB_HZ"]
 
@@ -27,6 +27,15 @@ TX_POWER_W = 10 ** ((23.0 - 30.0) / 10.0)  # 23 dBm UE Tx power (3GPP)
 def spectral_efficiency(snr: np.ndarray) -> np.ndarray:
     """Eq. (14): γ = log2(1 + SNR)  [bit/s/Hz]."""
     return np.log2(1.0 + snr)
+
+
+def spectral_efficiency_f32(snr: np.ndarray) -> np.ndarray:
+    """Eq. (14) on float32 SNRs as the reference's eager
+    ``spectral_efficiency_jax`` computes it: ``1 + SNR`` rounded, then
+    XLA-CPU's ``log2``, ``log(x)·fp32(1/ln 2)``."""
+    from repro_torch.core.dol import xla_log
+    x = np.float32(1.0) + np.asarray(snr, np.float32)
+    return xla_log(x) * np.float32(1.0 / np.log(2.0))
 
 
 def required_bandwidth(model_bits: float, gamma: np.ndarray) -> np.ndarray:

@@ -43,6 +43,18 @@ class CellTopology:
         np.fill_diagonal(d, 1.0)  # self-links never used; avoid log(0)
         return d
 
+    @staticmethod
+    def pairwise_distances_f32(pos: np.ndarray) -> np.ndarray:
+        """(n, n) float32 distances with a unit diagonal, in the bits of the
+        reference's eager ``pairwise_distances_jax``: XLA-CPU's
+        ``jnp.linalg.norm`` over the coordinate pair (``sqrt(fma(y, y,
+        x²))``, the root correctly rounded)."""
+        from repro_torch.core.dol import _sum_squares
+        pos = np.asarray(pos, np.float32)
+        d = np.sqrt(_sum_squares(pos[:, None, :] - pos[None, :, :]))
+        np.fill_diagonal(d, np.float32(1.0))
+        return d
+
     def sample_cue_load(self, rng: np.random.Generator) -> float:
         """Bandwidth (Hz) consumed by background CUEs this round (Σ B̃ in
         18f): one Poisson draw of the CUE count."""

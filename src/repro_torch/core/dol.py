@@ -487,25 +487,82 @@ def xla_cumsum_t(x: torch.Tensor) -> torch.Tensor:
     return (inner + excl[..., None]).reshape(x.shape[:-1] + (-1,))[..., :n]
 
 
-# Inside the reference's jitted planner, XLA contracts each product of the
-# divergences' class sums into the sum, ``acc = fma(a_j, b_j, acc)`` in
-# class order, for C up to :data:`_JIT_FMA_SUM_MAX`; above it (C > 32
-# measured) the products are rounded and summed in XLA's windowed order,
-# as eagerly.  Measured on x86-64 against ``jax.jit(iid_distance)`` and
-# the planner's bid expression (``tests/test_torch_appendix.py``).
-_JIT_FMA_SUM_MAX = 16
+# Inside the reference's jitted programs XLA-CPU's LLVM back end compiles
+# each class sum of the divergences in one of three forms, by C, by metric
+# and by program (the standalone jitted ``iid_distance``, "iid", or the
+# planner's bid expression ``iid − dol_bid_scores``, "bid"):
+#
+# * "chain": ``acc = fma(a_j, b_j, acc)`` in class order;
+# * "vec8": eight lanes, lane l accumulating classes l, l + 8, … as fused
+#   multiply-adds, the lanes then added in a halving tree (lanes 0–3 plus
+#   4–7, then 0–1 plus 2–3, then 0 plus 1), the classes past the last full
+#   vector added after it as fused multiply-adds;
+# * "windowed": the products rounded and summed in XLA's windowed order, as
+#   eagerly (every C > 32).
+#
+# Up to 32 classes the sum is a chain except where :data:`_VEC8_SUMS` names
+# C for (program, metric, term) — term 0 is kld's sum and jsd's
+# ``Σ p·(log p − log m)``, term 1 jsd's ``Σ u·(log u − log m)``.  Measured
+# on x86-64 against ``jax.jit(iid_distance)`` and the jitted bid expression
+# at C = 3 … 33 and 100 (``tests/test_torch_appendix.py``); the bid
+# expression's jsd at 18 ≤ C ≤ 32 is not matched (ROADMAP C7).
+_VEC8_SUMS = {("iid", "kld", 0): (32,), ("iid", "jsd", 0): (24, 25, 32),
+              ("iid", "jsd", 1): (25, 32), ("bid", "kld", 0): (24, 32),
+              ("bid", "jsd", 0): (17,)}
+_VEC8 = 8
+# Above this class count w1_true's bid numerator contracts the other
+# product.
+_W1_TRUE_SWAP_ABOVE = 16
+
+# In the bid expression some classes' Eq.-(2) numerators are not contracted
+# (``D_{k-1}·ψ + D_i·d_i``, both products rounded): every class at C ≤ 8
+# where XLA vectorizes the loop over the clients (N = 4 or 8), and jsd's
+# classes in :data:`_JSD_UNCONTRACTED`, C → (those classes, the N at which
+# they contract after all).
+_VECTOR_CLIENTS = (4, 8)
+_SMALL_C = 8
+_JSD_UNCONTRACTED = {10: ((8, 9), _VECTOR_CLIENTS),
+                     12: ((7, 8, 9, 10, 11), _VECTOR_CLIENTS), 17: ((16,), ())}
 
 
-def _jit_dot_t(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``Σ_j a_j·b_j`` over the last axis as XLA compiles it in the
-    reference's jitted planner (see above)."""
+def _uncontracted_classes(metric: str, c: int, n: int) -> tuple:
+    if n in _VECTOR_CLIENTS and c <= _SMALL_C:
+        return tuple(range(c))
+    if metric != "jsd" or c not in _JSD_UNCONTRACTED:
+        return ()
+    classes, contracted_n = _JSD_UNCONTRACTED[c]
+    return () if n in contracted_n else classes
+
+
+def _jit_dot_t(a: torch.Tensor, b: torch.Tensor, form: str = "chain"
+               ) -> torch.Tensor:
+    """``Σ_j a_j·b_j`` over the last axis in one of XLA's compiled forms
+    (see above)."""
     a, b = torch.broadcast_tensors(a, b)
-    if a.shape[-1] > _JIT_FMA_SUM_MAX:
+    c = a.shape[-1]
+    if form == "windowed":
         return xla_sum_t(a * b)
     acc = torch.zeros(a.shape[:-1], dtype=torch.float32, device=a.device)
-    for j in range(a.shape[-1]):
+    body = c // _VEC8 * _VEC8 if form == "vec8" else 0
+    if body:
+        lanes = torch.zeros(a.shape[:-1] + (_VEC8,), dtype=torch.float32,
+                            device=a.device)
+        for j in range(0, body, _VEC8):
+            lanes = _fma_t(a[..., j:j + _VEC8], b[..., j:j + _VEC8], lanes)
+        while lanes.shape[-1] > 1:
+            half = lanes.shape[-1] // 2
+            lanes = lanes[..., :half] + lanes[..., half:]
+        acc = lanes[..., 0]
+    for j in range(body, c):
         acc = _fma_t(a[..., j], b[..., j], acc)
     return acc
+
+
+def _sum_form(site: str, metric: str, term: int, c: int) -> str:
+    if c > _WINDOW:
+        return "windowed"
+    return "vec8" if c in _VEC8_SUMS.get((site, metric, term), ()) \
+        else "chain"
 
 
 def _w1_true_t(p: torch.Tensor) -> torch.Tensor:
@@ -513,34 +570,40 @@ def _w1_true_t(p: torch.Tensor) -> torch.Tensor:
     return xla_sum_t(torch.abs(xla_cumsum_t(p - u)))
 
 
-def _kld_t(p: torch.Tensor) -> torch.Tensor:
+def _kld_t(p: torch.Tensor, site: str = "iid") -> torch.Tensor:
+    c = p.shape[-1]
     pc = torch.clamp(p, float(_EPS), 1.0)
-    lu = xla_log_t(torch.tensor(1.0 / p.shape[-1], dtype=torch.float32,
+    lu = xla_log_t(torch.tensor(1.0 / c, dtype=torch.float32,
                                 device=p.device))
-    return _jit_dot_t(pc, xla_log_t(pc) - lu)
+    return _jit_dot_t(pc, xla_log_t(pc) - lu, _sum_form(site, "kld", 0, c))
 
 
-def _jsd_t(p: torch.Tensor) -> torch.Tensor:
-    u = torch.tensor(1.0 / p.shape[-1], dtype=torch.float32, device=p.device)
+def _jsd_t(p: torch.Tensor, site: str = "iid") -> torch.Tensor:
+    c = p.shape[-1]
+    u = torch.tensor(1.0 / c, dtype=torch.float32, device=p.device)
     mc = torch.clamp(0.5 * (p + u), float(_EPS), 1.0)
     pc = torch.clamp(p, float(_EPS), 1.0)
     lmc = xla_log_t(mc)
-    t1 = _jit_dot_t(pc, xla_log_t(pc) - lmc)
-    t2 = _jit_dot_t(u.expand_as(lmc), xla_log_t(u) - lmc)
+    t1 = _jit_dot_t(pc, xla_log_t(pc) - lmc, _sum_form(site, "jsd", 0, c))
+    t2 = _jit_dot_t(u.expand_as(lmc), xla_log_t(u) - lmc,
+                    _sum_form(site, "jsd", 1, c))
     return 0.5 * (t1 + t2)
 
 
-def iid_distance_t(dol: torch.Tensor, metric: str = "w1_norm"
-                   ) -> torch.Tensor:
+def iid_distance_t(dol: torch.Tensor, metric: str = "w1_norm",
+                   site: str = "iid") -> torch.Tensor:
     """Tensor twin of :func:`iid_distance` in the bits of the reference's
-    jitted planner: the same as the eager ones for ``w1_norm`` and
-    ``w1_true``; for ``kld`` and ``jsd`` with the class sums contracted
-    (:func:`_jit_dot_t`)."""
+    jitted programs: the same as the eager ones for ``w1_norm`` and
+    ``w1_true``; for ``kld`` and ``jsd`` with the class sums as XLA
+    compiles them in the standalone ``iid_distance`` (``site="iid"``) or
+    the planner's bid expression (``"bid"``; :func:`_jit_dot_t`)."""
     _check_metric(metric)
     dol = dol.to(torch.float32)
     if metric == "w1_norm":
         return _w1_norm_t(dol)
-    return {"w1_true": _w1_true_t, "kld": _kld_t, "jsd": _jsd_t}[metric](dol)
+    if metric == "w1_true":
+        return _w1_true_t(dol)
+    return {"kld": _kld_t, "jsd": _jsd_t}[metric](dol, site)
 
 
 def iid_distance_candidates_t(dol: torch.Tensor, chain_size: torch.Tensor,
@@ -551,7 +614,8 @@ def iid_distance_candidates_t(dol: torch.Tensor, chain_size: torch.Tensor,
     bid expression.  For ``w1_norm`` Eq. (2) keeps the eager form.  For the
     Appendix-C metrics XLA contracts one product of Eq. (2)'s numerator
     into the sum: ``fma(D_i, d_i, D_{k-1}·ψ)``, except for ``w1_true`` at
-    C > 16, where it is ``fma(D_{k-1}, ψ, D_i·d_i)``."""
+    C > 16, where it is ``fma(D_{k-1}, ψ, D_i·d_i)``, and for the classes
+    of :func:`_uncontracted_classes`, summed uncontracted."""
     if metric == "w1_norm":
         cand, _ = update_dol_t(dol[:, None, :], chain_size[:, None],
                                dsi[None, :, :], data_size[None, :])
@@ -562,13 +626,19 @@ def iid_distance_candidates_t(dol: torch.Tensor, chain_size: torch.Tensor,
     size = data_size[None, :, None].expand(shape)
     psi = dol[:, None, :].expand(shape)
     d = dsi[None, :, :].expand(shape)
-    if metric == "w1_true" and c > _JIT_FMA_SUM_MAX:
+    if metric == "w1_true" and c > _W1_TRUE_SWAP_ABOVE:
         num = _fma_t(chain, psi, size * d)
     else:
         num = _fma_t(size, d, chain * psi)
+    classes = _uncontracted_classes(metric, c, n)
+    if classes:
+        plain = chain * psi + size * d
+        keep = torch.zeros(c, dtype=torch.bool, device=num.device)
+        keep[list(classes)] = True
+        num = torch.where(keep, plain, num)
     new_size = chain_size[:, None] + data_size[None, :]
     cand = num / torch.clamp(new_size[..., None], min=1.0)
-    return iid_distance_t(cand, metric)
+    return iid_distance_t(cand, metric, site="bid")
 
 
 class PlannerState(NamedTuple):

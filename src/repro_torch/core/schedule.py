@@ -11,6 +11,11 @@ Slot ``c`` always draws client ``c``'s batches.  Partial hop sets are
 completed to slot bijections by :func:`complete_round_permutation`
 (displaced idle models are parked on free slots, which the ledger never
 charges).
+
+The buffered-async plane annotates a schedule with arrival times
+(:class:`ArrivalModel`, :func:`annotate_arrivals`): when each slot's payload
+is ready, which late hops it parks, and when each contribution reaches the
+server.
 """
 from __future__ import annotations
 
@@ -19,7 +24,8 @@ import dataclasses
 import numpy as np
 
 __all__ = ["WireEvent", "TrainOp", "PermuteOp", "MixOp", "RoundSchedule",
-           "complete_round_permutation", "charge_schedule", "apply_churn"]
+           "complete_round_permutation", "charge_schedule", "apply_churn",
+           "ArrivalModel", "annotate_arrivals"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -182,3 +188,79 @@ def apply_churn(schedule: RoundSchedule, drop: np.ndarray) -> RoundSchedule:
         else:
             ops2.append(op)
     return dataclasses.replace(schedule, ops=ops2, agg=agg2)
+
+
+@dataclasses.dataclass(frozen=True)
+class ArrivalModel:
+    """Per-slot timing world of one round, in seconds: ``train_s[c]`` one
+    local session at slot ``c``, ``hop_s[s, d]`` the D2D time of one hop
+    payload from ``s`` to ``d``, ``uplink_s[c]`` slot ``c``'s uplink of its
+    contribution.  :meth:`zeros` makes every arrival instantaneous (the
+    sync-degenerate configuration)."""
+    train_s: np.ndarray     # (C,)
+    hop_s: np.ndarray       # (C, C)
+    uplink_s: np.ndarray    # (C,)
+
+    @classmethod
+    def zeros(cls, num_slots: int) -> "ArrivalModel":
+        return cls(train_s=np.zeros(num_slots),
+                   hop_s=np.zeros((num_slots, num_slots)),
+                   uplink_s=np.zeros(num_slots))
+
+
+def annotate_arrivals(schedule: RoundSchedule, model: ArrivalModel,
+                      hop_deadline_s: float | None = None
+                      ) -> tuple[RoundSchedule, np.ndarray, int]:
+    """Propagate per-slot ready times through the schedule's ops.
+
+    A ``TrainOp`` adds ``train_s`` at every masked slot; a ``PermuteOp``
+    moves readiness along the hop (``ready[src] + hop_s[src, dst]`` for a
+    genuine move, nothing for a parked identity move, which the ledger
+    never charges either), then adds the destination's session; a ``MixOp``
+    is a group barrier at the group's latest slot plus its slowest pairwise
+    exchange.  With ``hop_deadline_s``, a hop whose payload would reach its
+    carrier later than the deadline is parked: the carrier keeps the late
+    model but skips its session (its ``train_mask`` bit clears, as under
+    churn), and the wire events stay charged.
+
+    Returns ``(schedule', arrival_s, parked)``: ``arrival_s[c]`` is slot
+    ``c``'s contribution arrival at the server (ready + uplink) after the
+    round's dispatch, ``parked`` the count of cleared hop-session bits.
+    With no parked hop the schedule passes through unchanged."""
+    c = schedule.num_slots
+    ready = np.zeros(c, np.float64)
+    idx = np.arange(c)
+    parked = 0
+    ops2: list = []
+    for op in schedule.ops:
+        if isinstance(op, TrainOp):
+            ready = ready + np.where(op.train_mask, model.train_s, 0.0)
+            ops2.append(op)
+        elif isinstance(op, PermuteOp):
+            src = np.asarray(op.src_of_dst, np.int64)
+            moved = src != idx
+            incoming = ready[src] + np.where(moved, model.hop_s[src, idx],
+                                             0.0)
+            mask = np.asarray(op.train_mask, bool)
+            if hop_deadline_s is not None:
+                late = incoming > float(hop_deadline_s)
+                parked += int(np.count_nonzero(late & mask))
+                mask = mask & ~late
+                ops2.append(dataclasses.replace(op, train_mask=mask))
+            else:
+                ops2.append(op)
+            ready = incoming + np.where(mask, model.train_s, 0.0)
+        elif isinstance(op, MixOp):
+            for members, _ in op.groups:
+                mem = list(members)
+                exchange = max((float(model.hop_s[i, j])
+                                for i in mem for j in mem if i != j),
+                               default=0.0)
+                ready[mem] = float(ready[mem].max()) + exchange
+            ops2.append(op)
+        else:
+            raise TypeError(f"unknown op {type(op).__name__}")
+    arrival = ready + model.uplink_s
+    if parked == 0:
+        return schedule, arrival, 0
+    return dataclasses.replace(schedule, ops=ops2), arrival, parked

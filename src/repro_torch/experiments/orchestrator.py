@@ -17,9 +17,12 @@ folds the per-seed curves, the Eq.-15 ledger
 and the wall-clock into one JSON record per cell.
 
 Before it runs a cell, ``run_sweep`` checks every cell of the grid with
-:func:`~repro_torch.fl.server.check_supported`: a sweep that needs the
-async plane (``fig_async``: ROADMAP A11b) raises ``NotImplementedError`` and
-runs nothing.  Cells of the other worlds, with churn or with the underlay
+:func:`~repro_torch.fl.server.check_supported`, so a grid the port cannot
+finish runs nothing.  The buffered-async cells (``fig_async``, the
+``async`` / ``async_barrier`` presets) run on the loop engine, as in the
+reference, and their records carry the async plane's per-seed curves
+(``async``: virtual clock, arrivals and staleness per tick, parked hops
+per round).  Cells of the other worlds, with churn or with the underlay
 plan cell by cell inside their runs (:func:`prepopulate_plan_cache` skips
 them).  A durable sweep (``checkpoint_every``, ``resume``,
 ``state_dir``) keeps a manifest, round checkpoints, cell records and the
@@ -248,7 +251,7 @@ def run_cell(cell: SweepCell, seeds: Sequence[int],
 
     ledger = results[0].ledger            # seed-independent by construction
     curves = [r.accuracy for r in results]
-    return {
+    record = {
         "label": cell.label,
         "axis": cell.axis,
         "value": cell.value,
@@ -273,6 +276,12 @@ def run_cell(cell: SweepCell, seeds: Sequence[int],
         },
         "wall_clock_s": wall,
     }
+    if resolve_engine(cell.spec.fl).mode == "async":
+        # The event queue's own curves, per seed: what the sweep measures.
+        record["async"] = {k: [list(getattr(r.history, k)) for r in results]
+                           for k in ("virtual_s", "arrivals", "staleness",
+                                     "parked_hops")}
+    return record
 
 
 def run_sweep(name: str, smoke: bool = True, seeds: Sequence[int] = (0,),
@@ -304,7 +313,8 @@ def run_sweep(name: str, smoke: bool = True, seeds: Sequence[int] = (0,),
         sweep's diffusion plans are made up front
         (:func:`prepopulate_plan_cache`) and the cells replay them.
       engine_preset: an engine preset name stamped as ``FLConfig.engine``
-        on every cell (the async presets are A11b and raise).
+        on every cell (``async`` and ``async_barrier`` run the
+        buffered-async plane).
       plan_cache: share one across sweeps if desired; default is a fresh
         cache per sweep, shared across all cells and seeds.  Its default
         256 entries hold the full fig3/fig4 grids (5 FedDif cells × 20

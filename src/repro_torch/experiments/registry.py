@@ -23,9 +23,9 @@ name                paper artifact           axis
 ==================  =======================  ==================================
 
 ``fig7_scaling`` runs under churn and ``fig_scenarios`` in the evolving
-wireless world.  ``fig_async`` needs the buffered-async plane (ROADMAP
-A11b): it is registered as in the reference, and ``run_sweep`` refuses it
-before running a cell.
+wireless world.  ``fig_async`` runs the buffered-async plane
+(:mod:`repro_torch.fl.async_plane`) against the same event queue with a
+barrier.
 """
 from __future__ import annotations
 

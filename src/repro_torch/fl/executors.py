@@ -44,7 +44,12 @@ the reference's does; the host plane reports only the server's ``plan``.
 Persistent schedules (gossip, TT-HF) carry the slots across rounds on
 either plane; ``capture_slots`` / ``slots_like`` / ``num_slots_of`` /
 ``adopt_slots`` round-trip them through a round checkpoint
-(:mod:`repro_torch.fl.resume`).  Ledger charging lives elsewhere
+(:mod:`repro_torch.fl.resume`).  The buffered-async plane
+(:mod:`repro_torch.fl.async_plane`) replays a round through ``run_ops``
+and takes each contribution with ``slot_state``: a copy of the slot's
+tree, so a contribution waiting in the event queue across rounds shares no
+storage with the stacked rows, kernel tables or slot trees that a later
+round writes.  Ledger charging lives elsewhere
 (``core.schedule.charge_schedule``).
 """
 from __future__ import annotations
@@ -179,6 +184,11 @@ class HostExecutor:
             else:
                 raise TypeError(f"unknown op {type(op).__name__}")
         return slots
+
+    def slot_state(self, slots: list, slot: int) -> Params:
+        """A copy of one slot's post-op tree (the async plane's
+        contribution), owning its storage."""
+        return tree_map(torch.clone, slots[slot])
 
     def aggregate(self, sched: RoundSchedule, slots: list,
                   ref: Params) -> Params:
@@ -363,6 +373,11 @@ class FleetExecutor:
             else:
                 raise TypeError(f"unknown op {type(op).__name__}")
         return params
+
+    def slot_state(self, params: Params, slot: int) -> Params:
+        """A copy of one slot's row of the stacked tree (the async plane's
+        contribution), owning its storage."""
+        return tree_map(lambda x: x[slot].clone(), params)
 
     def aggregate(self, sched: RoundSchedule, params: Params,
                   ref: Params) -> Params:

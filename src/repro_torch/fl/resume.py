@@ -17,6 +17,13 @@ state at the round boundary,
   energy-capped run resumes where it stopped, with or without a
   ``topology_seed``, from this saved state (the reference writes none and
   replays ``advance_round`` instead, which cannot rebuild spent energy);
+* the buffered-async plane's state (:mod:`repro_torch.fl.async_plane`):
+  its virtual-clock curves in the metadata (``async_hist``), the pending
+  contributions stacked on a leading entry axis in the npz (``abuf/…``)
+  and their entry metadata (``buffer``: count, virtual clock, next
+  sequence number, and per entry arrival, sequence, round, slot and
+  weight), as the reference writes them, so a run killed with
+  contributions still queued resumes with the same queue;
 * every RNG position: the model-seed generator's bit-generator state (as
   JSON) and the caller's data cursors (``capture_extra``: the clients'
   loader epochs).  The control plane's streams are keyed
@@ -30,9 +37,6 @@ to one that never stopped: params, ledger and curves.
 :class:`Preempted` is the in-process kill switch of the fault-injection
 tests: a ``BaseException``, so the sweep's per-cell failure isolation,
 which catches ``Exception`` only, never swallows a preemption.
-
-The async plane's buffer (``async_hist``, ``abuf``) is ROADMAP item A11b:
-a checkpoint that holds it is refused.
 """
 from __future__ import annotations
 
@@ -41,11 +45,13 @@ import warnings
 from typing import Any, Callable
 
 import numpy as np
+import torch
 
 from repro_torch.channels.resources import ResourceLedger
 from repro_torch.fl.engine import engine_fingerprint
 from repro_torch.train.checkpoint import (load_metadata, restore_checkpoint,
                                           save_checkpoint, valid_steps)
+from repro_torch.tree import tree_map
 
 __all__ = ["RoundCheckpointer", "Preempted", "RoundState"]
 
@@ -74,7 +80,8 @@ class RoundState:
     """What a resumed ``run_federated`` gets back."""
 
     def __init__(self, step: int, params: Any, slots: Any,
-                 ledger: ResourceLedger, meta: dict):
+                 ledger: ResourceLedger, meta: dict,
+                 buffer_tree: Any = None):
         self.step = step
         self.params = params
         self.slots = slots
@@ -88,6 +95,12 @@ class RoundState:
         self.rng_state = meta["rng_state"]
         self.world = meta.get("world")
         self.extra = meta.get("extra")
+        # The async plane's curves and its pending contributions.
+        self.async_hist = meta.get("async_hist")
+        self.buffer_meta = meta.get("buffer") or {"count": 0,
+                                                  "virtual_s": 0.0,
+                                                  "next_seq": 0}
+        self.buffer_tree = buffer_tree
 
 
 class RoundCheckpointer:
@@ -125,14 +138,20 @@ class RoundCheckpointer:
     def save(self, step: int, executor, params: Any, slots: Any,
              ledger: ResourceLedger, cfg, *, acc_hist, loss_hist, dif_hist,
              iid_hist, round_wall, rng: np.random.Generator,
-             phase_s=(), world=None) -> str:
+             phase_s=(), world=None, async_hist: dict | None = None,
+             buffer_tree: Any = None, buffer_meta: dict | None = None
+             ) -> str:
         """Write one round boundary; returns the ``.npz`` path.  ``world``
         (a :class:`~repro_torch.channels.world.HostWorld`) is saved with
-        it."""
+        it; the async plane passes its curves (``async_hist``), its pending
+        contributions stacked on a leading axis (``buffer_tree``, host
+        tensors) and their entry metadata (``buffer_meta``)."""
         tree = {"params": params}
         saved_slots = executor.capture_slots(slots)
         if saved_slots is not None:
             tree["slots"] = saved_slots
+        if buffer_tree is not None:
+            tree["abuf"] = buffer_tree
         meta = {
             "config": {k: getattr(cfg, k) for k in _CONFIG_GUARD},
             "engine": engine_fingerprint(cfg),
@@ -154,6 +173,10 @@ class RoundCheckpointer:
             "extra": (self.capture_extra()
                       if self.capture_extra is not None else None),
         }
+        if async_hist is not None:
+            meta["async_hist"] = {k: list(v) for k, v in async_hist.items()}
+        if buffer_meta is not None:
+            meta["buffer"] = buffer_meta
         path = save_checkpoint(self.directory, step, tree, metadata=meta)
         self._prune()
         if self.fail_after_save is not None and step == self.fail_after_save:
@@ -174,8 +197,8 @@ class RoundCheckpointer:
 
         Walks the checkpoints newest first, skipping unreadable ones with a
         ``RuntimeWarning``.  Raises ``ValueError`` if a readable checkpoint
-        was written by another config, and ``NotImplementedError`` if it
-        holds the async plane's buffer (ROADMAP A11b)."""
+        was written by another config.  The async plane's pending
+        contributions come back stacked on the host (``buffer_tree``)."""
         for step in reversed(valid_steps(self.directory)):
             try:
                 meta = load_metadata(self.directory, step)
@@ -186,16 +209,15 @@ class RoundCheckpointer:
                     RuntimeWarning, stacklevel=2)
                 continue
             self._guard_config(meta, cfg)
-            if "async_hist" in meta or int(
-                    (meta.get("buffer") or {}).get("count", 0)):
-                raise NotImplementedError(
-                    "round checkpoints of the async plane (async_hist, "
-                    "abuf) are ROADMAP item A11b (the buffered-async "
-                    "plane)")
             like = {"params": params_template}
             if meta["has_slots"]:
                 like["slots"] = executor.slots_like(params_template,
                                                     int(meta["num_slots"]))
+            nbuf = int((meta.get("buffer") or {}).get("count", 0))
+            if nbuf > 0:
+                like["abuf"] = tree_map(
+                    lambda x: torch.empty((nbuf,) + tuple(x.shape),
+                                          dtype=x.dtype), params_template)
             try:
                 tree = restore_checkpoint(self.directory, step, like)
             except Exception as e:                  # noqa: BLE001
@@ -207,7 +229,8 @@ class RoundCheckpointer:
             slots = (executor.adopt_slots(tree["slots"])
                      if meta["has_slots"] else None)
             state = RoundState(step, tree["params"], slots,
-                               ResourceLedger(**meta["ledger"]), meta)
+                               ResourceLedger(**meta["ledger"]), meta,
+                               buffer_tree=tree.get("abuf"))
             if self.restore_extra is not None and state.extra is not None:
                 self.restore_extra(state.extra)
             return state

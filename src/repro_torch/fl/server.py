@@ -12,7 +12,10 @@ stages, as in the reference:
    (:func:`~repro_torch.fl.engine.resolve_engine`,
    :func:`~repro_torch.fl.executors.make_executor`) runs the ops on the
    device: ``"host"`` one param tree per slot (the reference's default),
-   ``"fleet"`` the client-stacked tree.
+   ``"fleet"`` the client-stacked tree.  ``"async"`` hands the whole loop
+   to the buffered-async plane (:func:`~repro_torch.fl.async_plane.
+   run_buffered_async`), which replays the same schedules on an inner host
+   or fleet plane through an event queue.
 
 All ten strategies run, with the host or the device planner
 (``planner="jax"``), learning-value bids (``uncertainty_weight > 0``),
@@ -22,9 +25,9 @@ Appendix-C knobs (the IID ``metric``, ``underlay`` on the host planner,
 ``allow_retraining``), the phase profile (``profile_phases``), the evolving
 wireless world (``scenario``: static, mobile, multicell, energy_capped,
 with ``energy_budget_j``; :class:`~repro_torch.channels.world.HostWorld`)
-and per-round churn (``churn_rate``).  The engine modes the port does not
-run (``async``, ``sharded``) raise ``NotImplementedError`` naming their
-ROADMAP item; nothing falls back to something else.
+and per-round churn (``churn_rate``).  The engine mode the port does not
+run (``sharded``) raises ``NotImplementedError`` naming its ROADMAP item;
+nothing falls back to something else.
 """
 from __future__ import annotations
 
@@ -63,7 +66,7 @@ Params = Any
 
 __all__ = ["FLConfig", "RunResult", "EngineSpec",
            "run_federated", "STRATEGIES", "HOP_QUANTS", "check_supported",
-           "static_round_draws"]
+           "static_round_draws", "schedule_round"]
 
 STRATEGIES = ("feddif", "fedavg", "fedswap", "stc", "tthf", "gossip",
               "feddif_stc", "fedprox", "feddif_prox", "d2d_random_walk")
@@ -115,8 +118,7 @@ class FLConfig:
 
 
 # Engine modes the port does not run, with their ROADMAP items.
-_UNPORTED_MODES = {"async": "A11b (the buffered-async plane)",
-                   "sharded": "A12 (the sharded plane)"}
+_UNPORTED_MODES = {"sharded": "A12 (the sharded plane)"}
 
 
 def check_supported(cfg: FLConfig) -> EngineSpec:
@@ -129,8 +131,8 @@ def check_supported(cfg: FLConfig) -> EngineSpec:
     if espec.mode in _UNPORTED_MODES:
         raise NotImplementedError(
             f"engine mode {espec.mode!r} is ROADMAP item "
-            f"{_UNPORTED_MODES[espec.mode]}; the port runs 'host' and "
-            f"'fleet'")
+            f"{_UNPORTED_MODES[espec.mode]}; the port runs 'host', "
+            f"'fleet' and 'async'")
     if cfg.scenario not in SCENARIOS:
         raise ValueError(f"scenario={cfg.scenario!r}; expected one of "
                          f"{SCENARIOS}")
@@ -153,6 +155,23 @@ def _round_draws(world: HostWorld, rng: np.random.Generator
     BS: ``(positions, uplink γ)``, γ floored at ``GAMMA_FLOOR``."""
     pos = world.advance_round(rng)
     return pos, np.maximum(world.uplink_gamma(rng), GAMMA_FLOOR)
+
+
+def schedule_round(ctx: RoundContext, base_bits: float = 0.0):
+    """The round's schedule as every engine runs it: the strategy's
+    scheduler, the frozen base's round-0 downlink under an adapter view
+    (``base_bits > 0``), then the churn mask and, in an energy-capped
+    world, the drop of depleted clients."""
+    schedule = SCHEDULERS[ctx.cfg.strategy](ctx)
+    if ctx.t == 0 and base_bits > 0.0:
+        # The frozen base ships once, on the round-0 downlink.
+        schedule.wire.append(WireEvent("downlink", float(base_bits),
+                                       float(np.median(ctx.up_gamma)),
+                                       ctx.cfg.num_clients))
+    schedule = apply_round_churn(ctx, schedule)
+    if ctx.world.has_energy_cap:
+        schedule = apply_energy_cap(ctx, schedule, ctx.world.depleted())
+    return schedule
 
 
 def static_round_draws(topology: CellTopology, channel: ChannelModel,
@@ -210,6 +229,13 @@ def run_federated(init_fn: Callable[[torch.Generator], Params],
     since."""
     espec = check_supported(cfg)
     dev = resolve_device(device)
+    if espec.mode == "async":
+        from repro_torch.fl.async_plane import run_buffered_async
+        return run_buffered_async(init_fn, loss_fn, client_batches, dsi,
+                                  data_sizes, eval_fn, cfg, espec, dev,
+                                  plan_cache=plan_cache,
+                                  checkpointer=checkpointer,
+                                  base_bits=base_bits, value_fn=value_fn)
     n = cfg.num_clients
     rng = np.random.default_rng(cfg.seed)
     topology = CellTopology(num_pues=n)
@@ -276,14 +302,7 @@ def run_federated(init_fn: Callable[[torch.Generator], Params],
                            plan_cache=plan_cache, hop_bits=hop_bits,
                            world=world, interference=world.interference(),
                            learning_value=learning_value)
-        schedule = SCHEDULERS[cfg.strategy](ctx)
-        if t == 0 and base_bits > 0.0:
-            # The frozen base ships once, on the round-0 downlink.
-            schedule.wire.append(WireEvent("downlink", float(base_bits),
-                                           float(np.median(up_gamma)), n))
-        schedule = apply_round_churn(ctx, schedule)
-        if world.has_energy_cap:
-            schedule = apply_energy_cap(ctx, schedule, world.depleted())
+        schedule = schedule_round(ctx, base_bits)
         charge_schedule(ledger, schedule)
         if world.has_energy_cap:
             world.charge_energy(per_client_energy_j(schedule, n, PRB_HZ))

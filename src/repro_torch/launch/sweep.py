@@ -25,9 +25,10 @@ lives under ``--state-dir``, by default the artifact directory's
 of ``--state-dir`` named after it.  ``--engine seed_vmap`` trains a
 FedAvg or FedDif cell's replicate seeds as one seed-stacked pass; the
 default ``auto`` does so for such cells at two seeds or more.
-``--executor sharded`` at N ≥ 64 (A12), the async engine presets and the
-``fig_async`` sweep (A11b) raise ``NotImplementedError`` naming their
-ROADMAP item before any cell runs.
+``--engine async`` / ``async_barrier`` stamp a buffered-async preset on
+every cell, and ``--sweep fig_async`` runs both.  ``--executor sharded``
+at N ≥ 64 (A12) raises ``NotImplementedError`` naming its ROADMAP item
+before any cell runs.
 """
 from __future__ import annotations
 
@@ -64,8 +65,8 @@ def main(argv: list[str] | None = None) -> int:
                     help="number of replicate seeds (0..N-1)")
     ap.add_argument("--engine", choices=_ENGINE_CHOICES, default="auto",
                     help="replication engine (auto/seed_vmap/loop) or an "
-                         "engine preset stamped on every cell (the async "
-                         "presets are A11b)")
+                         "engine preset stamped on every cell (async, "
+                         "async_barrier: the buffered-async plane)")
     ap.add_argument("--executor", choices=["host", "fleet", "sharded"],
                     default="host",
                     help="data plane per cell: host reference loop or "

@@ -148,11 +148,12 @@ def test_host_candidates_equal_reference_eager(metric, c):
                  jdol.iid_distance_candidates(dol, chain, dsi, sizes, metric))
 
 
-@pytest.mark.parametrize("c", [10, 100])
+@pytest.mark.parametrize("c", [10, 17, 24, 32, 100])
 @pytest.mark.parametrize("metric", METRICS)
 def test_tensor_metrics_equal_reference_jit(metric, c):
     """``iid_distance_t`` gives the bits of the reference's jitted
-    ``iid_distance`` (the class sums contracted for C ≤ 16)."""
+    ``iid_distance`` (the class sums in XLA's compiled forms: a chain of
+    fused multiply-adds, eight lanes and a tree, or windows past 32)."""
     rng = np.random.default_rng(c + 2)
     for shape in ((8,), (10,), (20,)):
         p = _simplex(rng, shape, c)
@@ -178,22 +179,28 @@ def _jit_bids(dol, chain, dsi, sizes, metric):
         dol, chain, dsi, sizes, metric)
 
 
-@pytest.mark.parametrize("c", [10, 100])
+# jsd's bid expression at these C is not matched yet (ROADMAP C7): the
+# largest gap measured, about 2 ulps of the distances.
+_C7_OPEN_GAP = {("jsd", 24): 1.2e-7, ("jsd", 32): 1.2e-7}
+
+
+@pytest.mark.parametrize("c", [5, 10, 17, 24, 32, 100])
 @pytest.mark.parametrize("metric", METRICS)
 def test_tensor_bids_match_reference_planner_expression(metric, c):
     """The device planner's bids (``ops.bid_fused`` on the CPU) against the
-    reference's jitted bid expression: bit for bit for ``kld`` and
-    ``w1_true`` and, at (8, 8) and C = 100, ``jsd``; ``jsd`` at C = 10 with
-    N ≥ 10 within 1e-7 (a few ulps of the distances; ROADMAP C)."""
+    reference's jitted bid expression, bit for bit (the vectorized client
+    loop at N = 4 and 8, the scalar one at every other N), but for jsd at
+    C = 24 and 32 (ROADMAP C7), held to their measured gap."""
     rng = np.random.default_rng(c + 3)
-    for m, n in ((8, 8), (10, 10), (20, 20)):
+    for m, n in ((8, 8), (10, 10), (20, 20), (6, 4), (5, 2)):
         args = _bid_inputs(rng, m, n, c)
         want = np.asarray(jax.jit(partial(_jit_bids, metric=metric))(*args))
         t = [torch.from_numpy(a) for a in args]
         got = tops.bid_fused(tdol.iid_distance_t(t[0], metric), *t,
                              metric=metric).numpy()
-        if metric == "jsd" and c == 10 and n >= 10:
-            np.testing.assert_allclose(got, want, atol=1e-7, rtol=0)
+        if (metric, c) in _C7_OPEN_GAP:
+            np.testing.assert_allclose(got, want, rtol=0,
+                                       atol=_C7_OPEN_GAP[metric, c])
         else:
             _assert_bits(got, want)
 

@@ -7,7 +7,9 @@ holds the reference's; a run killed at a round boundary (in-process
 persistent-slot (gossip) strategy; the port resumes a checkpoint directory
 that the reference wrote (ledger equal, params within the host-vs-fleet
 tolerance, atol 2e-4 and rtol 2e-3, of the reference's uninterrupted run);
-``describe()`` is the reference's string; the sweep manifest refuses a
+``describe()`` is the reference's string; a checkpoint of the async plane
+(its curves and pending buffer in the reference's keys) is refused by a
+sync run's engine guard; the sweep manifest refuses a
 fresh start over old state and a changed config, isolates a crashing cell
 and heals it on resume; a durable sweep killed mid-grid, in process or by
 SIGTERM to the CLI, resumes to the same artifact after ``strip_volatile``.
@@ -41,7 +43,7 @@ from repro_torch.experiments import orchestrator
 from repro_torch.experiments.orchestrator import run_sweep
 from repro_torch.fl import (EngineSpec, ExperimentSpec, FLConfig,
                             params_to_numpy, run_experiment)
-from repro_torch.fl.engine import engine_fingerprint
+from repro_torch.fl.engine import AsyncSpec, engine_fingerprint
 from repro_torch.fl.executors import FleetExecutor, HostExecutor
 from repro_torch.fl.resume import _CONFIG_GUARD, Preempted, RoundCheckpointer
 from repro_torch.train import (atomic_write_json, latest_step, load_metadata,
@@ -348,13 +350,23 @@ def test_resume_refuses_mismatched_config(tmp_path, monkeypatch):
 
 
 def test_async_checkpoints_are_refused(tmp_path, monkeypatch):
+    """A checkpoint of the async plane (its curves and pending buffer in the
+    reference's keys) resumes only on the async engine that wrote it: a
+    sync run refuses it by the engine fingerprint."""
     spec = _spec("host")
+    eng = EngineSpec(mode="async", data_plane="host", buffered=AsyncSpec(
+        buffer_k=2, delay_scale=0.01, delay_sigma=1.0))
+    aspec = dataclasses.replace(spec, fl=dataclasses.replace(spec.fl,
+                                                             engine=eng))
     d = str(tmp_path / "ckpt")
-    _killed(spec, d, 2, monkeypatch)
+    _killed(aspec, d, 2, monkeypatch)
     meta = load_metadata(d, 2)
-    meta["async_hist"] = {"virtual_s": [0.0]}
-    atomic_write_json(os.path.join(d, "ckpt_00000002.json"), meta)
-    with pytest.raises(NotImplementedError, match="A11"):
+    assert set(meta["async_hist"]) == {"virtual_s", "arrivals",
+                                       "staleness", "parked_hops"}
+    assert meta["buffer"]["count"] == len(meta["buffer"]["seq"]) > 0
+    with np.load(os.path.join(d, "ckpt_00000002.npz")) as z:
+        assert any(k.startswith("abuf/") for k in z.files)
+    with pytest.raises(ValueError, match="engine"):
         _run(spec, d)
 
 

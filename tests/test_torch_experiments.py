@@ -5,8 +5,8 @@ against ``_plan_rounds`` and its hop lists against the reference's batched
 planner; the sweep pre-planner's counts, cache keys and plans; smoke
 sweeps of the paper's figures on the loop engine from the reference's init
 (ledgers, diffusion rounds and plan-cache hits equal, IID distance within
-1e-6, accuracy within 0.05); the refusals (A11, A12); the artifacts and the
-CLI.  The durable sweeps and the seed-stacked engine have their own files,
+1e-6, accuracy within 0.05); ``fig_async`` and the async presets on the
+buffered-async plane; the refusal (A12); the artifacts and the CLI.  The durable sweeps and the seed-stacked engine have their own files,
 ``test_torch_durability.py`` and ``test_torch_replicate.py``.
 """
 import dataclasses
@@ -223,7 +223,8 @@ SWEEPS = [("fig3_alpha", "host", "host", (0, 1)),
           ("fig6_tasks", "host", "host", (0,)),
           ("table2_strategies", "host", "host", (0,)),
           ("fig_lm", "host", "host", (0,)),
-          ("fig5_gamma_min", "fleet", "jax", (0,))]
+          ("fig5_gamma_min", "fleet", "jax", (0,)),
+          ("fig_async", "host", "host", (0,))]
 
 
 @pytest.mark.parametrize("name,executor,planner,seeds", SWEEPS,
@@ -242,7 +243,9 @@ def test_smoke_sweep_matches_reference(name, executor, planner, seeds):
     assert len(g["cells"]) == len(w["cells"]) > 0
     for gc, wc, gfull, wfull in zip(g["cells"], w["cells"], got["cells"],
                                     want["cells"]):
-        assert set(gc) == set(wc)
+        # The port's records of async cells add the event queue's curves.
+        assert set(gc) - {"async"} == set(wc)
+        assert ("async" in gc) == (gc["executor"] == "async")
         for k in ("label", "axis", "value", "strategy", "executor", "seeds",
                   "engine", "comm", "diffusion_rounds"):
             assert gc[k] == wc[k], (gc["label"], k)
@@ -273,10 +276,41 @@ def test_run_cell_with_a_fresh_cache_equals_the_preplanned_sweep():
         assert a == b
 
 
-# --------------------------------------------------------------- refusals
+# ------------------------------------------------- async plane, refusals
 
-@pytest.fixture
-def no_runs(monkeypatch):
+
+@pytest.mark.parametrize("name", ["fig_async"])
+def test_unported_sweeps_refuse_before_running(name):
+    """``fig_async`` is no longer refused: every cell runs on the async
+    plane, the barrier arm with zero staleness, and each record carries the
+    event queue's per-seed curves."""
+    art = texp.run_sweep(name, out_dir=None, device="cpu",
+                         num_samples=SAMPLES)
+    assert art["failed_cells"] == [] and len(art["cells"]) == 4
+    for cell in art["cells"]:
+        assert cell["executor"] == "async" and cell["engine"] == "loop"
+        curves = cell["async"]
+        assert len(curves["virtual_s"]) == 1 and curves["virtual_s"][0]
+        assert curves["virtual_s"][0] == sorted(curves["virtual_s"][0])
+        if cell["value"] == "async_barrier":
+            assert max(curves["staleness"][0]) == 0.0
+
+
+@pytest.mark.parametrize("kw,item", [
+    (dict(engine_preset="async"), None),
+    (dict(engine_preset="async_barrier"), None),
+    (dict(executor="sharded", engine="loop"), "A12")])
+def test_run_sweep_refusals(kw, item, monkeypatch):
+    """The async presets run every cell of a sweep on the buffered-async
+    plane; a sharded sweep above the crossover is refused (A12) before a
+    cell runs."""
+    if item is None:
+        art = texp.run_sweep("fig5_gamma_min", out_dir=None, device="cpu",
+                             num_samples=SAMPLES, **kw)
+        assert art["failed_cells"] == []
+        assert [c["executor"] for c in art["cells"]] == ["async", "async"]
+        assert all(c["async"]["virtual_s"][0] for c in art["cells"])
+        return
     calls = []
 
     def fake(*a, **k):
@@ -284,24 +318,9 @@ def no_runs(monkeypatch):
         raise AssertionError("run_experiment was called")
 
     monkeypatch.setattr(replicate, "run_experiment", fake)
-    return calls
-
-
-@pytest.mark.parametrize("name", ["fig_async"])
-def test_unported_sweeps_refuse_before_running(name, no_runs):
-    with pytest.raises(NotImplementedError, match="A11"):
-        texp.run_sweep(name, out_dir=None, device="cpu")
-    assert no_runs == []
-
-
-@pytest.mark.parametrize("kw,item", [
-    (dict(engine_preset="async"), "A11"),
-    (dict(engine_preset="async_barrier"), "A11"),
-    (dict(executor="sharded", engine="loop"), "A12")])
-def test_run_sweep_refusals(kw, item, no_runs):
     with pytest.raises(NotImplementedError, match=item):
         texp.run_sweep("fig5_gamma_min", out_dir=None, device="cpu", **kw)
-    assert no_runs == []
+    assert calls == []
 
 
 def test_sharded_downgrades_below_the_crossover_and_raises_above():
@@ -328,8 +347,10 @@ def test_run_result_from_histories():
     assert res.rounds_to_accuracy(0.3) == 2 and res.engine is None
     base = dict(accuracy=[], loss=[], ledger=None, diffusion_rounds=[],
                 iid_distance=[])
-    with pytest.raises(NotImplementedError, match="A11b"):
-        RunResult.from_histories(virtual_s=[1.0], **base)
+    res = RunResult.from_histories(virtual_s=[1.0], arrivals=[3],
+                                   staleness=[0.5], parked_hops=[0], **base)
+    assert res.history.virtual_s == [1.0] and res.history.arrivals == [3]
+    assert res.history.staleness == [0.5] and res.history.parked_hops == [0]
     assert RunResult.from_histories(
         phase_s=[{"train": 1.0}], **base).phase_s == [{"train": 1.0}]
 
@@ -429,14 +450,22 @@ def test_cli_bad_arguments_exit_2(argv, capsys):
     assert "error" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["--sweep", "fig_async"], "A11"), (["--engine", "async"], "A11")])
-def test_cli_refusals(argv, item, no_runs):
+@pytest.mark.parametrize("argv,cells", [
+    (["--sweep", "fig_async"], 4), (["--engine", "async"], 2)])
+def test_cli_refusals(argv, cells, tmp_path, capsys):
+    """``--sweep fig_async`` and ``--engine async`` run on the CPU (exit 0,
+    every cell on the async plane)."""
     if "--sweep" not in argv:
         argv = ["--sweep", "fig5_gamma_min"] + argv
-    with pytest.raises(NotImplementedError, match=item):
-        sweep_cli.main(argv + ["--device", "cpu"])
-    assert no_runs == []
+    assert sweep_cli.main(argv + ["--device", "cpu", "--num-samples",
+                                  str(SAMPLES), "--out-dir",
+                                  str(tmp_path)]) == 0
+    assert "failed=0" in capsys.readouterr().out
+    (path,) = tmp_path.glob("BENCH_feddif_*.json")
+    with open(path) as f:
+        art = json.load(f)
+    assert len(art["cells"]) == cells
+    assert all(c["executor"] == "async" for c in art["cells"])
 
 
 def test_cli_default_device_is_the_card():

@@ -253,6 +253,7 @@ def test_presets_and_resolution_match_reference():
     for name, spec in ENGINE_PRESETS.items():
         spec.validate()
         assert _plane(spec) == _plane(J_PRESETS[name])
+        assert spec.describe() == J_PRESETS[name].describe()
     for knobs in (dict(), dict(executor="fleet", planner="jax"),
                   dict(executor="host", engine="fleet"),
                   dict(executor="sharded", num_clients=8),
@@ -279,12 +280,20 @@ def test_auto_resolves_by_size_and_device_count():
 
 
 @pytest.mark.parametrize("knobs,item", [
-    (dict(engine="async"), "A11"), (dict(executor="async"), "A11"),
+    (dict(engine="async"), None), (dict(executor="async"), None),
     (dict(engine="sharded"), "A12"),
-    (dict(engine=EngineSpec(mode="async")), "A11")])
+    (dict(engine=EngineSpec(mode="async")), None)])
 def test_unported_engines_raise(knobs, item):
+    """``sharded`` raises naming A12; every spelling of the async engine
+    (the preset, the legacy field, a bare spec) runs the buffered-async
+    plane."""
     spec = ExperimentSpec(task="fcn", num_samples=400, fl=FLConfig(
         strategy="fedavg", rounds=1, num_clients=2, num_models=2, **knobs))
+    if item is None:
+        res = run_experiment(spec, device="cpu")
+        assert res.engine.mode == "async"
+        assert res.history.arrivals and res.history.parked_hops == [0]
+        return
     with pytest.raises(NotImplementedError, match=item):
         run_experiment(spec, device="cpu")
 

@@ -48,9 +48,10 @@ def test_every_port_module_imports_without_jax_or_repro():
                          text=True, timeout=300, cwd=ROOT)
     assert out.returncode == 0, out.stderr
     *_, names, count = out.stdout.strip().splitlines()
-    assert int(count) >= 73
+    assert int(count) >= 76
     for sub in ("experiments", "launch", "experiments.durability",
-                "fl.resume", "train.checkpoint"):
+                "fl.resume", "train.checkpoint", "fl.async_plane",
+                "fl.population", "core.threefry"):
         assert f"repro_torch.{sub}" in names.split()
 
 
