@@ -146,7 +146,7 @@ nothing of JAX.  Phases, each of which fails loudly:
    once a round checkpoint is committed (exit −15), then ``--resume``
    (exit 0, the same artifact); (d) ``fig3_alpha``'s α = 0.1 FedAvg and
    FedDif cells on the host plane at full width (N = M = 10, 8000
-   samples), seeds 0–2 and seed 0 alone, 5 rounds, under ``seed_vmap``
+   samples), seeds 0–2 and seed 0 alone, 3 rounds, under ``seed_vmap``
    and ``loop``: equal ``comm``, diffusion rounds and IID, each seed's
    accuracy within 2e-3 at every eval, no kernel launched by
    ``seed_vmap``, both walls and their ratio printed; (e) ``seed_vmap``
@@ -279,7 +279,27 @@ nothing of JAX.  Phases, each of which fails loudly:
    ``torch.profiler``; zamba2_2_7b at full width and full depth (B = 1,
    S = 4096) from one init through the ssd_scan kernels and through its
    plain version, in fp32 compute (losses within ZOO_BARS' fp32 loss_abs)
-   and in bf16 (both losses printed).
+   and in bf16 (both losses printed);
+7. decode and serving (``serve_path``), which reaches no kernel of ours:
+   (a) ``ServingEngine`` at full width with 8 slots of 32,768 positions
+   (``SHAPES["decode_32k"]``' cache length; its batch of 128 cut to 8)
+   for qwen3_0_6b (greedy, and sampled at temperature 0.8, top-k 40),
+   zamba2_2_7b and falcon_mamba_7b, 16 requests of 64–256 prompt tokens
+   and 32 new tokens each: engine steps, seconds, ms per step, generated
+   tokens/s, peak and cache GB, and every kernel launched 0 times; (b)
+   ``python -m repro_torch.launch.serve`` at full width as a subprocess,
+   exit 0 and its rates; (c) the 2-layer cuts at B = 2, 24 teacher-forced
+   steps then 8 greedy ones, card against CPU in fp32 and bf16 compute,
+   logits and caches within SERVE_BARS, and two planted controls (the new
+   K/V written one position late; the recurrent state not carried between
+   steps) that the bars must reject; (d) on the fp32 cuts at S = 64,
+   teacher-forced decode logits against the prefill forward's (through
+   flash_attention, ssd_scan and ssm_scan) within atol = rtol = 2e-4; (e)
+   on the fp32 cuts, 5 requests on 2 slots equal to each request's
+   unbatched greedy decode, and the sampler on card logits equal to the
+   CPU's (greedy, temperature, top-k, top-p) with equal Gumbel bits; (f)
+   glibc ``powf``'s tensor form (``xla_powf_t``) bit-equal on the card
+   and the CPU over 2^24 inputs.
 
 Then one ``{"kernels": [...]}`` line, the card line, and as the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -287,6 +307,7 @@ repository around it, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import itertools
@@ -435,7 +456,7 @@ DURABLE_RUNS = (("fleet", "feddif", 8, 3), ("fleet", "gossip", 8, 3),
 # (d)'s seed sets: three replicates, and one, the CLI's and run_sweep's
 # default, where the seed axis has nothing to batch.
 SEED_VMAP_SEED_SETS = ((0, 1, 2), (0,))
-SEED_VMAP_ROUNDS = 5
+SEED_VMAP_ROUNDS = 3
 SEED_VMAP_ACC = 2e-3         # the reference's seed_vmap-vs-loop bar
 # The appendix and world phase: the appendix_scenarios bench's full cells
 # (benchmarks/run.py: fcn, α = 0.5, 4000 samples, N = M = 8, 12 rounds,
@@ -3255,6 +3276,54 @@ def check_lm_kernels(torch, kref) -> list[dict]:
     return rows
 
 
+# Phase 7, decode and serving.  (a) The full-width engines at decode_32k's
+# cache length (SHAPES["decode_32k"]: 32,768 tokens at batch 128), cut to 8
+# slots: at 128 slots qwen3's KV cache alone would be 481 GB.  Each engine
+# serves SERVE_REQUESTS requests of SERVE_PROMPT tokens (drawn from
+# default_rng(0)) and SERVE_NEW new tokens; qwen3 also serves them sampled
+# at examples/continuous_batching.py's temperature 0.8 and top-k 40.
+SERVE_ARCHS = ("qwen3_0_6b", "zamba2_2_7b", "falcon_mamba_7b")
+SERVE_SLOTS = 8
+SERVE_MAX_SEQ = 32768
+SERVE_REQUESTS = 16
+SERVE_PROMPT = (64, 256)
+SERVE_NEW = 32
+SERVE_SAMPLED = {"temperature": 0.8, "top_k": 40}
+# (b) the serve CLI at full width.
+SERVE_CLI = ("--arch", "qwen3_0_6b", "--batch", "4", "--context", "64",
+             "--new-tokens", "32")
+# (c) card against CPU on ZOO_CUTS: B = 2, SERVE_FORCED teacher-forced
+# prompt tokens then SERVE_GREEDY greedy tokens (the CPU's, fed to both).
+# Bars on the logits (max |card − cpu| over max |cpu| across all steps)
+# and on every cache leaf at the end (the same ratio per leaf).  Set from
+# readings on an H100 (PERF.md §6): fp32 logits within 3.4e-6 and caches
+# within 3.3e-6; bf16 logits within 9.4e-3 and caches within 0.021
+# (zamba2's); the controls' smallest errors 0.026 (logits) and 0.63
+# (caches) in fp32, 0.030 and 0.76 in bf16.
+SERVE_FORCED = 24
+SERVE_GREEDY = 8
+SERVE_BARS = {"float32": {"logits_rel": 2e-5, "cache_rel": 2e-5},
+              "bfloat16": {"logits_rel": 0.05, "cache_rel": 0.08}}
+# The planted controls each cut's bars must reject: the new K/V written
+# one position late, and the recurrent state not carried between steps.
+SERVE_CONTROLS = {"qwen3_0_6b": ("kv_one_late",),
+                  "zamba2_2_7b": ("kv_one_late", "state_not_carried"),
+                  "falcon_mamba_7b": ("state_not_carried",)}
+# (d) decode against the prefill forward (its kernels) on the fp32 cuts at
+# S = 64, at the reference's own bar (tests/test_models_consistency.py).
+SERVE_PREFILL_SEQ = 64
+SERVE_PREFILL_TOL = 2e-4
+# (e) the engine on the fp32 cuts: prompts of these lengths, 4 new tokens,
+# 2 slots; and the sampler's configurations, card logits against the CPU.
+SERVE_ENGINE_PROMPTS = (5, 7, 3, 6, 4)
+SERVE_SAMPLERS = ({"temperature": 0.0}, {"temperature": 0.8},
+                  {"temperature": 1.0, "top_k": 40},
+                  {"temperature": 0.7, "top_p": 0.9},
+                  {"temperature": 0.8, "top_k": 40, "top_p": 0.9})
+# (f) glibc powf's tensor form, card against CPU.
+SERVE_POWF_N = 1 << 24
+
+
 def _profile_prefill(torch, step, params, batch, label: str) -> None:
     """One more forward under ``torch.profiler``: its device busy time and
     idle share (a measurement; a failure is printed, not raised)."""
@@ -4746,6 +4815,411 @@ def async_path(torch, port, device=None) -> dict:
     return total
 
 
+# ------------------------------------------------------------ serve phase
+
+def _cache_bytes(cache) -> int:
+    from repro_torch.tree import tree_leaves
+    return sum(a.numel() * a.element_size() for a in tree_leaves(cache))
+
+
+def _serve_prompts(vocab: int) -> list:
+    import numpy as np
+    rng = np.random.default_rng(0)
+    lo, hi = SERVE_PROMPT
+    return [rng.integers(0, vocab, size=int(rng.integers(lo, hi + 1))
+                         ).astype(np.int32) for _ in range(SERVE_REQUESTS)]
+
+
+def _no_launches(kd, what: str) -> None:
+    fired = {k: v for k, v in kd.LAUNCHES.items() if v}
+    if fired:
+        _fail(f"{what}: decode launched kernels {fired}")
+
+
+def _serve_engines(torch, kd, card: str) -> None:
+    """(a): the full-width engines, 8 slots of 32,768 positions."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.models.zoo import build_model
+    from repro_torch.serving import Request, SamplerConfig, ServingEngine
+    shape = SHAPES["decode_32k"]
+    runs = [(arch, {"temperature": 0.0}) for arch in SERVE_ARCHS]
+    runs.insert(1, ("qwen3_0_6b", SERVE_SAMPLED))
+    params = model = None
+    for arch, samp in runs:
+        cfg = get_config(arch)
+        if model is None or model.cfg.name != cfg.name:
+            params = model = None
+            gc.collect()
+            torch.cuda.empty_cache()
+            model = build_model(cfg)
+            t0 = time.perf_counter()
+            params = model.init(torch.Generator(device="cuda").manual_seed(0))
+            torch.cuda.synchronize()
+            init_s = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        kd.reset_launch_counts()
+        eng = ServingEngine(model, params, num_slots=SERVE_SLOTS,
+                            max_seq=SERVE_MAX_SEQ,
+                            sampler=SamplerConfig(**samp), seed=0)
+        prompts = _serve_prompts(cfg.vocab_size)
+        for uid, pr in enumerate(prompts):
+            eng.submit(Request(uid=uid, prompt=pr, max_new_tokens=SERVE_NEW))
+        step_s, done = [], []
+        t0 = time.perf_counter()
+        while eng.queue or any(eng.slots):
+            ts = time.perf_counter()
+            done.extend(eng.step())
+            step_s.append(time.perf_counter() - ts)
+        wall = time.perf_counter() - t0
+        _no_launches(kd, f"serve {arch}")
+        gen = sum(len(r.output) for r in done)
+        ingested = sum(len(p) for p in prompts)
+        first = step_s[0]
+        step_s.sort()
+        line = {"serve": arch, "sampler": samp, "card": card,
+                "slots": SERVE_SLOTS, "max_seq": SERVE_MAX_SEQ,
+                "decode_32k": [shape.seq_len, shape.global_batch],
+                "requests": len(done), "prompt_tokens": ingested,
+                "generated_tokens": gen, "engine_steps": eng.steps,
+                "seconds": wall, "ms_per_step": 1e3 * wall / eng.steps,
+                "median_step_ms": 1e3 * step_s[len(step_s) // 2],
+                "first_step_ms": 1e3 * first, "generated_tok_per_s": gen / wall,
+                "tokens_per_s": (ingested + gen) / wall,
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "cache_bytes": _cache_bytes(eng.cache),
+                "cache_gb": _cache_bytes(eng.cache) / 1e9,
+                "init_s": init_s, "launches": 0}
+        print(json.dumps(line))
+        if len(done) != SERVE_REQUESTS or any(
+                len(r.output) != SERVE_NEW for r in done):
+            _fail(f"serve {arch}: {len(done)} requests done")
+        del eng
+    del params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _serve_cli(card: str) -> None:
+    """(b): ``python -m repro_torch.launch.serve`` at full width."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src") + os.pathsep + env.get(
+        "PYTHONPATH", "")
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
+                          *SERVE_CLI], capture_output=True, text=True,
+                         timeout=600, cwd=ROOT, env=env)
+    wall = time.perf_counter() - t0
+    if out.returncode != 0:
+        _fail(f"serve CLI exited {out.returncode}: {out.stderr[-2000:]}")
+    lines = out.stdout.strip().splitlines()
+    print(json.dumps({"serve_cli": " ".join(SERVE_CLI), "card": card,
+                      "seconds": wall, "output": lines}))
+    if not any(x.startswith("decode:") and "tok/s aggregate" in x
+               for x in lines):
+        _fail(f"serve CLI printed no decode rate: {lines}")
+
+
+def _kv_one_late(torch):
+    """attn_decode (linear mode) with the new K/V written one position
+    late: the mask still ends at ``pos``, so a step never sees its own K/V
+    and the previous step's sits one slot past it."""
+    from repro_torch.models import attention as A
+    from repro_torch.models import layers as L
+
+    def wrong(p, spec, x, cache, pos, ring=False):
+        b, cd, dev = x.shape[0], spec.compute_dtype, x.device
+        pv = torch.as_tensor(pos, dtype=torch.int64, device=dev
+                             ).reshape(-1).expand(b)
+        q, k, v = A._project_qkv(p, spec, x, pv[:, None])
+        s_max = cache["k"].shape[1]
+        rows = torch.arange(b, device=dev)
+        late = torch.clamp(pv + 1, max=s_max - 1)
+        cache["k"][rows, late] = k[:, 0].to(cache["k"].dtype)
+        cache["v"][rows, late] = v[:, 0].to(cache["v"].dtype)
+        mask = torch.arange(s_max, device=dev)[None] <= pv[:, None]
+        sc = torch.einsum("bhgd,bkhd->bhgk", q[:, 0], cache["k"].to(cd)
+                          ).float() * (1.0 / spec.head_dim ** 0.5)
+        sc = torch.where(mask[:, None, None], sc, A.NEG_INF)
+        o = torch.einsum("bhgk,bkhd->bhgd", torch.softmax(sc, -1).to(cd),
+                         cache["v"].to(cd))
+        return L.dense(p["wo"], o.reshape(b, 1, -1), cd), cache
+    return wrong
+
+
+def _state_not_carried(real):
+    """A Mamba decode step whose state starts from zero at every step."""
+    def wrong(p, spec, x, cache):
+        cache["h"].zero_()
+        return real(p, spec, x, cache)
+    return wrong
+
+
+def _cut_config(arch: str, extra: dict, dtype: str):
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(arch), num_layers=2,
+                               compute_dtype=dtype, **extra)
+
+
+def _teacher_forced(torch, model, params, tokens, patches=()):
+    """Logits (S, B, V) fp32 on the CPU and the final cache of a decode
+    fed ``tokens`` (B, S), under ``mock.patch`` pairs ``patches``."""
+    from unittest import mock
+    cache = model.init_cache(params, tokens.shape[0], tokens.shape[1])
+    out = []
+    with contextlib.ExitStack() as stack:
+        for target, fn in patches:
+            stack.enter_context(mock.patch(target, fn))
+        with torch.no_grad():
+            for t in range(tokens.shape[1]):
+                lg, cache = model.decode_step(params, tokens[:, t:t + 1],
+                                              cache, t)
+                out.append(lg[:, 0].float().cpu())
+    return torch.stack(out), cache
+
+
+def _rel_err(torch, got, want) -> float:
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max().clamp(min=1e-30))
+
+
+def _serve_card_vs_cpu(torch, kd, card: str) -> None:
+    """(c): the 2-layer cuts on the card against the CPU, from one init;
+    then the planted controls, which the same bars must reject."""
+    from repro_torch.models import ssm as ssm_lib
+    from repro_torch.models.zoo import build_model
+    from repro_torch.tree import tree_leaves, tree_map
+    controls = {
+        "kv_one_late": lambda: [("repro_torch.models.transformer."
+                                 "attn_decode", _kv_one_late(torch))],
+        "state_not_carried": lambda: [
+            ("repro_torch.models.ssm.mamba1_decode",
+             _state_not_carried(ssm_lib.mamba1_decode)),
+            ("repro_torch.models.ssm.mamba2_decode",
+             _state_not_carried(ssm_lib.mamba2_decode))]}
+    b, steps = 2, SERVE_FORCED + SERVE_GREEDY
+    for (arch, extra), dtype in itertools.product(ZOO_CUTS, SERVE_BARS):
+        cfg = _cut_config(arch, extra, dtype)
+        model = build_model(cfg)
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        params = model.init(gen)
+        prompt = torch.randint(0, cfg.vocab_size, (b, SERVE_FORCED),
+                               generator=gen, device="cuda")
+        p_cpu = tree_map(lambda x: x.cpu(), params)
+        # The CPU decides the greedy tokens; every card run is fed them.
+        tokens = prompt.cpu()
+        want_cache = model.init_cache(p_cpu, b, steps)
+        want = []
+        with torch.no_grad():
+            for t in range(steps):
+                lg, want_cache = model.decode_step(
+                    p_cpu, tokens[:, t:t + 1], want_cache, t)
+                want.append(lg[:, 0])
+                if SERVE_FORCED - 1 <= t < steps - 1:
+                    tokens = torch.cat([tokens, lg[:, -1].argmax(-1)[:, None]],
+                                       dim=1)
+        want = torch.stack(want)
+        kd.reset_launch_counts()
+        got, got_cache = _teacher_forced(torch, model, params,
+                                         tokens.cuda())
+        _no_launches(kd, f"decode {arch} cut")
+        bars = SERVE_BARS[dtype]
+        cache_err = max(_rel_err(torch, g.cpu(), w) for g, w in zip(
+            tree_leaves(got_cache), tree_leaves(want_cache)))
+        logit_err = _rel_err(torch, got, want)
+        agree = int((got[SERVE_FORCED - 1:-1].argmax(-1)
+                     == tokens[:, SERVE_FORCED:].T).sum())
+        ok = logit_err <= bars["logits_rel"] and cache_err <= bars["cache_rel"]
+        if dtype == "float32":
+            ok = ok and agree == b * SERVE_GREEDY
+        line = {"check": f"serve card_vs_cpu {arch} 2-layer cut {dtype}",
+                "card": card, "batch": b, "forced": SERVE_FORCED,
+                "greedy": SERVE_GREEDY, "bars": bars,
+                "logits_rel_err": logit_err, "cache_rel_err": cache_err,
+                "greedy_tokens_agree": agree, "ok": ok, "controls": {}}
+        for name in SERVE_CONTROLS[arch]:
+            bad, bad_cache = _teacher_forced(torch, model, params,
+                                             tokens.cuda(), controls[name]())
+            c_logit = _rel_err(torch, bad, want)
+            c_cache = max(_rel_err(torch, g.cpu(), w) for g, w in zip(
+                tree_leaves(bad_cache), tree_leaves(want_cache)))
+            rejected = (c_logit > bars["logits_rel"]
+                        or c_cache > bars["cache_rel"])
+            line["controls"][name] = {"logits_rel_err": c_logit,
+                                      "cache_rel_err": c_cache,
+                                      "rejected": rejected}
+            if not rejected:
+                _fail(f"serve card_vs_cpu {arch} {dtype}: the bars did not "
+                      f"reject the control {name}")
+        print(json.dumps(line))
+        if not ok:
+            _fail(f"serve card_vs_cpu {arch} {dtype}: {json.dumps(line)}")
+        del params, p_cpu, got_cache, want_cache
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _serve_decode_vs_prefill(torch, kd, card: str) -> None:
+    """(d): teacher-forced decode logits on the card against the prefill
+    forward's (flash_attention, ssd_scan, ssm_scan), fp32 cuts."""
+    import numpy as np
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.zoo import build_model
+    b, s = 2, SERVE_PREFILL_SEQ
+    for arch, extra in ZOO_CUTS:
+        cfg = _cut_config(arch, extra, "float32")
+        model = build_model(cfg)
+        gen = torch.Generator(device="cuda").manual_seed(2)
+        params = model.init(gen)
+        toks = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                             device="cuda")
+        kd.reset_launch_counts()
+        with torch.inference_mode():
+            x = tf._embed_inputs(params, cfg, {"tokens": toks})
+            pos = torch.arange(s, device="cuda")[None].expand(b, s)
+            hid, _ = tf.forward_hidden(params, cfg, x, pos)
+            want = (L.unembed_logits(params["embed"], hid, torch.float32)
+                    if cfg.tie_embeddings else
+                    L.dense(params["lm_head"], hid, torch.float32))
+            want = want.transpose(0, 1).float().cpu()
+        kernels = {k: v for k, v in kd.LAUNCHES.items() if v}
+        kd.reset_launch_counts()
+        got, _ = _teacher_forced(torch, model, params, toks)
+        _no_launches(kd, f"decode {arch} vs prefill")
+        err = (got - want).abs()
+        excess = float((err - SERVE_PREFILL_TOL * (1 + want.abs())).max())
+        line = {"check": f"serve decode_vs_prefill {arch} 2-layer cut "
+                         f"float32", "card": card, "batch": b, "seq": s,
+                "prefill_launches": kernels,
+                "max_abs_err": float(err.max()),
+                "max_abs_logit": float(want.abs().max()),
+                "atol": SERVE_PREFILL_TOL, "rtol": SERVE_PREFILL_TOL,
+                "ok": bool(np.isfinite(excess) and excess <= 0)}
+        print(json.dumps(line))
+        if not line["ok"] or not kernels:
+            _fail(f"serve decode_vs_prefill {arch}: {json.dumps(line)}")
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _serve_engine_and_sampler(torch, kd, card: str) -> None:
+    """(e): the engine's slot reuse and the sampler, on the card."""
+    import numpy as np
+    from repro_torch.core.threefry import PRNGKey, gumbel_t, split_t
+    from repro_torch.models.zoo import build_model
+    from repro_torch.serving import (Request, SamplerConfig, ServingEngine,
+                                     sample)
+    last_logits = None
+    for arch, extra in ZOO_CUTS:
+        cfg = _cut_config(arch, extra, "float32")
+        model = build_model(cfg)
+        params = model.init(torch.Generator(device="cuda").manual_seed(3))
+        rng = np.random.default_rng(3)
+        prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+                   for n in SERVE_ENGINE_PROMPTS]
+        max_seq = max(SERVE_ENGINE_PROMPTS) + 4
+        kd.reset_launch_counts()
+        eng = ServingEngine(model, params, num_slots=2, max_seq=max_seq)
+        for uid, pr in enumerate(prompts):
+            eng.submit(Request(uid=uid, prompt=pr, max_new_tokens=4))
+        got = {r.uid: r.output for r in eng.run()}
+        alone = {}
+        with torch.no_grad():
+            for uid, pr in enumerate(prompts):
+                cache = model.init_cache(params, 1, max_seq)
+                out = []
+                for t in range(len(pr) + 3):
+                    tok = pr[t] if t < len(pr) else out[-1]
+                    lg, cache = model.decode_step(
+                        params, torch.tensor([[int(tok)]], device="cuda"),
+                        cache, t)
+                    if t >= len(pr) - 1:
+                        out.append(int(lg[0, -1].argmax()))
+                alone[uid] = out
+                last_logits = lg[:, -1]
+        _no_launches(kd, f"engine {arch}")
+        ok = got == alone
+        print(json.dumps({"check": f"serve engine slot reuse {arch} "
+                                   "2-layer cut float32", "card": card,
+                          "slots": 2, "requests": len(prompts),
+                          "engine_steps": eng.steps, "engine": got,
+                          "unbatched": alone, "ok": ok}))
+        if not ok:
+            _fail(f"serve engine {arch}: engine {got} != unbatched {alone}")
+        last_logits = torch.cat([last_logits, last_logits.flip(-1)])
+        del eng, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    key = split_t(torch.from_numpy(PRNGKey(7).astype(np.int64)).cuda())[1]
+    same_gumbel = torch.equal(
+        gumbel_t(key, tuple(last_logits.shape)).cpu().view(torch.int32),
+        gumbel_t(key.cpu(), tuple(last_logits.shape)).view(torch.int32))
+    tokens, same_tokens = {}, True
+    for kw in SERVE_SAMPLERS:
+        a = sample(key, last_logits, SamplerConfig(**kw)).cpu()
+        c = sample(key.cpu(), last_logits.cpu(), SamplerConfig(**kw))
+        tokens[json.dumps(kw)] = [a.tolist(), c.tolist()]
+        same_tokens = same_tokens and torch.equal(a, c)
+    ok = same_gumbel and same_tokens
+    print(json.dumps({"check": "serve sampler card vs CPU", "card": card,
+                      "vocab": int(last_logits.shape[-1]),
+                      "gumbel_bits_equal": same_gumbel,
+                      "tokens_card_cpu": tokens, "ok": ok}))
+    if not ok:
+        _fail(f"serve sampler: card and CPU differ: {tokens}")
+
+
+def _serve_powf(torch, card: str) -> None:
+    """(f): ``xla_powf_t`` on the card bit-equal to the CPU (C8)."""
+    from repro_torch.core.threefry import xla_powf_t
+    gen = torch.Generator().manual_seed(4)
+    n = SERVE_POWF_N
+    y = torch.cat([torch.rand(n // 2, generator=gen) * 9.2 - 12.1,
+                   torch.rand(n - n // 2, generator=gen) * 83.3 - 44.8])
+    base = torch.where(torch.arange(n) % 4 == 0,
+                       torch.rand(n, generator=gen) * 1e3, 10.0)
+    t0 = time.perf_counter()
+    got = xla_powf_t(base.cuda(), y.cuda())
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    want = xla_powf_t(base, y)
+    diff = int((got.cpu().view(torch.int32) != want.view(torch.int32)).sum())
+    print(json.dumps({"check": "serve xla_powf_t card vs CPU (C8)",
+                      "card": card, "inputs": n, "bits_differ": diff,
+                      "card_s": card_s, "ok": diff == 0}))
+    if diff:
+        _fail(f"xla_powf_t: {diff} of {n} differ between card and CPU")
+
+
+def serve_path(torch, kd) -> dict:
+    """Phase 7: decode and serving on the card ((a)–(f)).  Decode reaches
+    no kernel, so the main-path launches it adds are all 0."""
+    card = _card_line()
+    t0 = time.perf_counter()
+    parts = {}
+    for name, fn in (("engines", lambda: _serve_engines(torch, kd, card)),
+                     ("cli", lambda: _serve_cli(card)),
+                     ("card_vs_cpu", lambda: _serve_card_vs_cpu(torch, kd,
+                                                                card)),
+                     ("decode_vs_prefill",
+                      lambda: _serve_decode_vs_prefill(torch, kd, card)),
+                     ("engine_and_sampler",
+                      lambda: _serve_engine_and_sampler(torch, kd, card)),
+                     ("powf", lambda: _serve_powf(torch, card))):
+        ts = time.perf_counter()
+        fn()
+        parts[name] = time.perf_counter() - ts
+    kd.reset_launch_counts()
+    print(json.dumps({"phase": "serve_path", "card": card,
+                      "seconds": time.perf_counter() - t0,
+                      "part_seconds": parts, "launches": {}}))
+    return {k: 0 for k in kd.LAUNCHES}
+
+
 def main() -> None:
     sys.stdout.reconfigure(line_buffering=True)
     if not (ROOT / "src" / "repro_torch").is_dir():
@@ -4827,6 +5301,7 @@ def main() -> None:
         launches[k] += v
     zoo_card_vs_cpu(torch)
     zoo_full_depth(torch)
+    serve_path(torch, kd)
 
     replaces = {
         "mix_aggregate": ("mix_aggregate.cu",

@@ -48,6 +48,7 @@ from repro_torch.channels.world import step as world_step
 from repro_torch.core.dol import (PlannerState, _fma_t, iid_distance_t,
                                   xla_log_t)
 from repro_torch.core.matching import auction_assign
+from repro_torch.core.threefry import xla_powf_t
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kernel_ops
 
@@ -138,15 +139,12 @@ def _mean_snr_t(dist: torch.Tensor, chan: tuple) -> torch.Tensor:
     XLA-CPU gives the reference's jitted loop:
     ``fp32(10^(ls·fp32(0.1)))·p/σ²`` with ``ls = fma(−log(x), κ·c, β₀)``
     and ``x = max(d, d₀)/d₀`` (the log is :func:`xla_log_t`; the power is
-    correctly rounded)."""
+    glibc's ``powf``, which XLA-CPU calls: :func:`xla_powf_t`)."""
     p_over_noise, beta0_db, kappa, d0 = chan
     x = torch.clamp(dist, min=d0) / d0
     k = float(_F32(_F32(kappa) * _DB10))
     ls = _fma_t(-xla_log_t(x), x.new_tensor(k), x.new_tensor(beta0_db))
-    power = torch.pow(torch.tensor(10.0, dtype=torch.float64,
-                                   device=ls.device),
-                      (ls * _TENTH).double()).float()
-    return power * float(p_over_noise)
+    return xla_powf_t(10.0, ls * _TENTH) * float(p_over_noise)
 
 
 def _mobile_channel(positions: torch.Tensor, chan: tuple

@@ -30,7 +30,8 @@ reduction and each Horner step contracted.  Its ``pow`` (:func:`xla_powf`)
 is a call to the C library's ``powf``, which is not correctly rounded
 either (glibc's differs from the correctly rounded power in about 6 of
 10,000 path losses of the cell's range), so the port calls the same
-function.  None of these
+function on the host and :func:`xla_powf_t`, glibc's algorithm as tensor
+operations, on a device.  None of these
 is correctly rounded:
 ``jax.random.normal`` differs from ``√2·erfinv(u)`` rounded once in about
 two thirds of draws, and ``exponential`` from ``−log1p(−u)`` rounded once
@@ -38,21 +39,27 @@ in about one in fourteen.  The fused multiply-adds are emulated in float64,
 where the product of two float32 values is exact, and rounded once.
 
 These are control-plane draws: they stay on the host in numpy, as every
-other control-plane stream of the port.
+other control-plane stream of the port.  The serving sampler's draws run
+on the logits' device instead: :func:`split_t`, :func:`random_bits_t`,
+:func:`uniform_t`, :func:`gumbel_t` and :func:`categorical_t` are the same
+hash and forms as tensor operations, the 32-bit words held in ``int64``.
 """
 from __future__ import annotations
 
 import ctypes
 import ctypes.util
 import functools
+import math
 
 import numpy as np
+import torch
 
-from repro_torch.core.dol import _fma, xla_log
+from repro_torch.core.dol import _fma, _fma_t, xla_log, xla_log_t
 
 __all__ = ["PRNGKey", "fold_in", "random_bits", "uniform", "normal",
            "exponential", "xla_erf_inv", "xla_log1p", "xla_exp",
-           "xla_powf"]
+           "xla_exp_t", "xla_powf", "xla_powf_t", "threefry2x32_t", "split_t",
+           "random_bits_t", "uniform_t", "gumbel_t", "categorical_t"]
 
 _F32 = np.float32
 _U32 = np.uint32
@@ -187,6 +194,7 @@ def exponential(key: np.ndarray, shape: tuple) -> np.ndarray:
 
 # XLA-CPU's float32 exp: Cephes' expf.
 _EXP_HI = _F32(88.3762626647950)
+_TINY = float(np.finfo(np.float32).tiny)
 _EXP_LO = _F32(-88.3762626647949)
 _LOG2E = _F32(1.44269504088896341)
 _EXP_C1 = _F32(0.693359375)
@@ -214,6 +222,25 @@ def xla_exp(x) -> np.ndarray:
     return (y * scale).astype(_F32)
 
 
+def xla_exp_t(x: torch.Tensor) -> torch.Tensor:
+    """Tensor twin of :func:`xla_exp` on the tensor's device, with XLA's
+    flush of subnormal results to 0 (so ``exp(−inf)`` is 0, as a masked
+    softmax needs); overflow is not handled (x ≤ 88.3)."""
+    xf = torch.clamp(x.to(torch.float32), _EXP_LO, _EXP_HI)
+
+    def c(v):
+        return xf.new_tensor(float(v))
+    fx = torch.clamp(torch.floor(_fma_t(xf, c(_LOG2E), c(0.5))), -127.0,
+                     127.0)
+    r = _fma_t(c(-_EXP_C2), fx, _fma_t(c(-_EXP_C1), fx, xf))
+    p = torch.full_like(r, float(_EXP_P[0]))
+    for v in _EXP_P[1:]:
+        p = _fma_t(r, p, c(v))
+    y = _fma_t(p, r * r, r) + 1.0
+    out = y * ((fx.to(torch.int32) + 127) << 23).view(torch.float32)
+    return torch.where(out < _TINY, 0.0, out)
+
+
 @functools.cache
 def _libm_powf():
     """The C library's ``powf``, loaded on first use."""
@@ -232,3 +259,190 @@ def xla_powf(base, y) -> np.ndarray:
                        for a, b in zip(base.ravel(), y.ravel())),
                       dtype=_F32, count=base.size)
     return out.reshape(base.shape)
+
+
+# glibc's powf (2.28 on; ARM's optimized-routines algorithm), read from the
+# C library's own tables: log2(x) from 16 (1/c, log2 c) pairs and a
+# degree-5 polynomial, y·log2(x) rounded, exp2 from 32 table entries
+# ``asuint64(2^(i/32)) − (i << 47)`` and a degree-3 polynomial, all in
+# float64, then one rounding to float32.
+_POWF_OFF = 0x3F330000
+_POWF_INVC = tuple(float.fromhex(v) for v in (
+    "0x1.661ec79f8f3bep+0", "0x1.571ed4aaf883dp+0", "0x1.49539f0f010bp+0",
+    "0x1.3c995b0b80385p+0", "0x1.30d190c8864a5p+0", "0x1.25e227b0b8eap+0",
+    "0x1.1bb4a4a1a343fp+0", "0x1.12358f08ae5bap+0", "0x1.0953f419900a7p+0",
+    "0x1p+0", "0x1.e608cfd9a47acp-1", "0x1.ca4b31f026aap-1",
+    "0x1.b2036576afce6p-1", "0x1.9c2d163a1aa2dp-1", "0x1.886e6037841edp-1",
+    "0x1.767dcf5534862p-1"))
+_POWF_LOGC = tuple(float.fromhex(v) for v in (
+    "-0x1.efec65b963019p-2", "-0x1.b0b6832d4fca4p-2", "-0x1.7418b0a1fb77bp-2",
+    "-0x1.39de91a6dcf7bp-2", "-0x1.01d9bf3f2b631p-2", "-0x1.97c1d1b3b7afp-3",
+    "-0x1.2f9e393af3c9fp-3", "-0x1.960cbbf788d5cp-4", "-0x1.a6f9db6475fcep-5",
+    "0x0p+0", "0x1.338ca9f24f53dp-4", "0x1.476a9543891bap-3",
+    "0x1.e840b4ac4e4d2p-3", "0x1.40645f0c6651cp-2", "0x1.88e9c2c1b9ff8p-2",
+    "0x1.ce0a44eb17bccp-2"))
+_POWF_LOG2_POLY = tuple(float.fromhex(v) for v in (
+    "0x1.27616c9496e0bp-2", "-0x1.71969a075c67ap-2", "0x1.ec70a6ca7baddp-2",
+    "-0x1.7154748bef6c8p-1", "0x1.71547652ab82bp+0"))
+_EXP2F_POLY = tuple(float.fromhex(v) for v in (
+    "0x1.c6af84b912394p-5", "0x1.ebfce50fac4f3p-3", "0x1.62e42ff0c52d6p-1"))
+_EXP2F_TAB = tuple(int(v, 16) for v in (
+    "3ff0000000000000", "3fefd9b0d3158574", "3fefb5586cf9890f",
+    "3fef9301d0125b51", "3fef72b83c7d517b", "3fef54873168b9aa",
+    "3fef387a6e756238", "3fef1e9df51fdee1", "3fef06fe0a31b715",
+    "3feef1a7373aa9cb", "3feedea64c123422", "3feece086061892d",
+    "3feebfdad5362a27", "3feeb42b569d4f82", "3feeab07dd485429",
+    "3feea47eb03a5585", "3feea09e667f3bcd", "3fee9f75e8ec5f74",
+    "3feea11473eb0187", "3feea589994cce13", "3feeace5422aa0db",
+    "3feeb737b0cdc5e5", "3feec49182a3f090", "3feed503b23e255d",
+    "3feee89f995ad3ad", "3feeff76f2fb5e47", "3fef199bdd85529c",
+    "3fef3720dcef9069", "3fef5818dcfba487", "3fef7c97337b9b5f",
+    "3fefa4afa2a490da", "3fefd0765b6e4540"))
+_EXP2F_SHIFT = float.fromhex("0x1.8p+47")         # 0x1.8p52 / 32
+_POWF_OFLOW = float.fromhex("0x1.fffffffd1d571p+6")
+_VELTKAMP = 134217729.0                             # 2^27 + 1
+
+
+def _f64_bits(v: float) -> int:
+    return int(np.array(v, np.float64).view(np.int64))
+
+
+def _split64(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    c = x * _VELTKAMP
+    hi = c - (c - x)
+    return hi, x - hi
+
+
+def _two_sum64(a: torch.Tensor, b: torch.Tensor
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    s = a + b
+    bb = s - a
+    return s, (a - (s - bb)) + (b - bb)
+
+
+def _fma64(a, b, c) -> torch.Tensor:
+    """float64 ``fma(a, b, c)`` from separately rounded operations: the
+    exact product (Dekker), the exact sum with ``c`` (Knuth), its tail
+    rounded to odd, then one rounding to nearest (Boldo and Melquiond's
+    emulation, exact without underflow).  Each eager op rounds on its own
+    on both the CPU and the card, so the bits are the same on both."""
+    a, b, c = torch.broadcast_tensors(a, b, c)
+    p = a * b
+    ah, al = _split64(a)
+    bh, bl = _split64(b)
+    e = ((ah * bh - p) + ah * bl + al * bh) + al * bl
+    s, t = _two_sum64(c, p)
+    v, w = _two_sum64(t, e)
+    bits = v.view(torch.int64)
+    away = torch.where((w > 0) == (v > 0), 1, -1)
+    v = torch.where((w != 0) & ((bits & 1) == 0), (bits + away).view(
+        torch.float64), v)
+    return s + v
+
+
+def xla_powf_t(base, y) -> torch.Tensor:
+    """Tensor twin of :func:`xla_powf` on the inputs' device: glibc's
+    ``powf`` for a positive finite ``base`` and a finite ``y``, in the bits
+    of its x86-64 FMA build, whose compiler contracts each ``a·b + c`` of
+    the two polynomials and of ``z·(1/c) − 1`` into a fused multiply-add
+    (:func:`_fma64`) and rounds ``y·log2(x)``, which feeds a bit test too.
+    A result past float32's range is ``inf``, one under 2^-150 is 0, as
+    glibc's."""
+    y = torch.as_tensor(y, dtype=torch.float32)
+    base = torch.as_tensor(base, dtype=torch.float32, device=y.device)
+    base, y = torch.broadcast_tensors(base, y)
+    f64 = torch.float64
+    dev = y.device
+    ix = base.view(torch.int32).to(torch.int64)
+    sub = ix < 0x00800000                               # subnormal base
+    ix = torch.where(sub, (base * 2.0 ** 23).view(torch.int32).to(
+        torch.int64) - (23 << 23), ix)
+    tmp = ix - _POWF_OFF
+    i = (tmp >> 19) & 15
+    top = tmp & 0xFF800000
+    z = ((ix - top) & 0xFFFFFFFF).to(torch.int32).view(torch.float32).to(f64)
+    k = ((top ^ 0x80000000) - 0x80000000) >> 23
+    invc = torch.tensor(_POWF_INVC, dtype=f64, device=dev)[i]
+    logc = torch.tensor(_POWF_LOGC, dtype=f64, device=dev)[i]
+    r = _fma64(z, invc, torch.tensor(-1.0, dtype=f64, device=dev))
+    a = [torch.tensor(v, dtype=f64, device=dev) for v in _POWF_LOG2_POLY]
+    r2 = r * r
+    q = _fma64(_fma64(a[2], r, a[3]), r2, _fma64(a[4], r, logc + k.to(f64)))
+    logx = _fma64(_fma64(a[0], r, a[1]), r2 * r2, q)
+    ylogx = y.to(f64) * logx
+    kd = ylogx + _EXP2F_SHIFT
+    ki = kd.view(torch.int64) - _f64_bits(_EXP2F_SHIFT)   # round(32·ylogx)
+    r = ylogx - (kd - _EXP2F_SHIFT)
+    tab = torch.tensor(_EXP2F_TAB, dtype=torch.int64, device=dev)
+    s = (tab[ki & 31] + ki * (1 << 47)).view(f64)
+    c = [torch.tensor(v, dtype=f64, device=dev) for v in _EXP2F_POLY]
+    p = _fma64(_fma64(c[0], r, c[1]), r * r,
+               _fma64(c[2], r, torch.tensor(1.0, dtype=f64, device=dev)))
+    out = (p * s).to(torch.float32)
+    out = torch.where(ylogx > _POWF_OFLOW, torch.inf, out)
+    return torch.where(ylogx <= -150.0, 0.0, out)
+
+
+# --------------------------------------------------- tensor forms (sampler)
+
+_M32 = 0xFFFFFFFF
+
+
+def _rotl_t(x: torch.Tensor, d: int) -> torch.Tensor:
+    return ((x << d) | (x >> (32 - d))) & _M32
+
+
+def threefry2x32_t(k1, k2, x1: torch.Tensor, x2: torch.Tensor
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`threefry2x32` on ``int64`` tensors holding 32-bit words; the
+    key words may be 0-d tensors or ints.  Runs on the tensors' device."""
+    ks = (k1, k2, k1 ^ k2 ^ int(_KS_PARITY))
+    x = [(x1 + ks[0]) & _M32, (x2 + ks[1]) & _M32]
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x[0] = (x[0] + x[1]) & _M32
+            x[1] = _rotl_t(x[1], r) ^ x[0]
+        x[0] = (x[0] + ks[(i + 1) % 3]) & _M32
+        x[1] = (x[1] + ks[(i + 2) % 3] + (i + 1)) & _M32
+    return x[0], x[1]
+
+
+def split_t(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """``jax.random.split(key, num)`` (the partitionable form) of a (2,)
+    ``int64`` key tensor: row i is the hash of the count pair ``(0, i)``."""
+    lo = torch.arange(num, dtype=torch.int64, device=key.device)
+    b1, b2 = threefry2x32_t(key[0], key[1], torch.zeros_like(lo), lo)
+    return torch.stack([b1, b2], dim=1)
+
+
+def random_bits_t(key: torch.Tensor, shape: tuple) -> torch.Tensor:
+    """:func:`random_bits` on the key's device, as ``int64`` words."""
+    n = math.prod(shape)
+    idx = torch.arange(n, dtype=torch.int64, device=key.device)
+    b1, b2 = threefry2x32_t(key[0], key[1], idx >> 32, idx & _M32)
+    return (b1 ^ b2).reshape(shape)
+
+
+def uniform_t(key: torch.Tensor, shape: tuple, minval=0.0, maxval=1.0
+              ) -> torch.Tensor:
+    """:func:`uniform` on the key's device."""
+    lo, hi = _F32(minval), _F32(maxval)
+    bits = (random_bits_t(key, shape) >> 9) | 0x3F800000
+    f = bits.to(torch.int32).view(torch.float32) - 1.0
+    out = _fma_t(f, f.new_tensor(float(hi - lo)), f.new_tensor(float(lo)))
+    return torch.clamp(out, min=float(lo))
+
+
+
+def gumbel_t(key: torch.Tensor, shape: tuple) -> torch.Tensor:
+    """``jax.random.gumbel(key, shape)`` in float32, mode ``"low"``:
+    ``−log(−log(u))`` with ``u`` uniform in ``[tiny, 1)`` and XLA-CPU's
+    float32 log (:func:`repro_torch.core.dol.xla_log_t`)."""
+    return -xla_log_t(-xla_log_t(uniform_t(key, shape, _TINY, 1.0)))
+
+
+def categorical_t(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """``jax.random.categorical(key, logits, axis=-1)`` (``replace=True``):
+    the Gumbel-max draw ``argmax(gumbel + logits)`` over the last axis."""
+    logits = logits.to(torch.float32)
+    return torch.argmax(gumbel_t(key, tuple(logits.shape)) + logits, dim=-1)

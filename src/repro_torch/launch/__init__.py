@@ -1,1 +1,2 @@
-"""Command-line entry points of the port (``python -m repro_torch.launch.sweep``)."""
+"""Command-line entry points of the port (``python -m repro_torch.launch.sweep``,
+``python -m repro_torch.launch.serve``)."""

@@ -10,8 +10,13 @@ Hopper kernel on the card and its plain version on the CPU.  q is projected
 as (B, S, KH, G, Dh) with head ``h = kh·G + g``; the kernel takes k/v
 already repeated to H heads, so they are repeated over G in that order.
 
-Not ported yet: cross-attention (the audio family) and single-token decode
-with a KV cache (``attn_decode``; ROADMAP A13b).
+Single-token decode (:func:`attn_decode`) attends one query against the
+whole masked cache, as the reference's einsum does, with no kernel: the
+products are cuBLAS batched GEMMs over each row's cache, read in place.
+Unlike the reference's functional update, the new K/V are written into the
+cache in place.
+
+Not ported yet: cross-attention (the audio family; ROADMAP A13d).
 """
 from __future__ import annotations
 
@@ -25,7 +30,10 @@ from repro_torch.models import layers as L
 
 Params = Any
 
-__all__ = ["AttnSpec", "init_attention", "attn_forward"]
+__all__ = ["AttnSpec", "init_attention", "attn_forward", "init_kv_cache",
+           "attn_decode", "NEG_INF"]
+
+NEG_INF = -1e30
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,3 +110,72 @@ def attn_forward(p: Params, spec: AttnSpec, x: torch.Tensor,
     out = out.to(spec.compute_dtype).reshape(b, s,
                                              spec.num_heads * spec.head_dim)
     return L.dense(p["wo"], out, spec.compute_dtype)
+
+
+# ---------------------------------------------------------------- decode
+
+def init_kv_cache(spec: AttnSpec, batch: int, max_seq: int, dtype=None,
+                  device: torch.device | str = "cpu") -> Params:
+    """``{"k", "v"}``: zeros (B, max_seq, KH, Dh) in ``compute_dtype``."""
+    dtype = spec.compute_dtype if dtype is None else dtype
+    shape = (batch, max_seq, spec.num_kv_heads, spec.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def attn_decode(p: Params, spec: AttnSpec, x: torch.Tensor, cache: Params,
+                pos, ring: bool = False) -> tuple[torch.Tensor, Params]:
+    """One-token decode. x: (B, 1, D); pos: an int or 0-d tensor (the
+    current length) or a per-row (B,) vector, as the serving engine's
+    slots decode at their own positions.
+
+    Linear mode writes the new K/V at ``pos`` and attends to
+    ``cache[:pos+1]`` through the mask.  Ring mode treats the cache as a
+    ring of length L: slot ``pos % L`` is overwritten and slot ``ri`` holds
+    absolute position ``pos − ((pos − ri) mod L)``.  ``spec.window`` masks
+    keys at or before ``pos − window`` in both modes.
+
+    The write is in place: ``cache["k"]`` / ``cache["v"]`` are updated and
+    returned (the reference returns new arrays), so a caller that needs the
+    old cache clones it first.  The scores and the weighted sum read each
+    row's cache in place, (KH, S, Dh) batched over the KV heads.
+    """
+    b = x.shape[0]
+    cd = spec.compute_dtype
+    dev = x.device
+    pos_vec = torch.as_tensor(pos, dtype=torch.int64, device=dev
+                              ).reshape(-1).expand(b)
+    q, k_new, v_new = _project_qkv(p, spec, x, pos_vec[:, None])
+    s_max = cache["k"].shape[1]
+    # A linear write past the cache lands on its last slot, as the
+    # reference's dynamic_update_slice clamps its start.
+    write_pos = (torch.remainder(pos_vec, s_max) if ring
+                 else torch.clamp(pos_vec, 0, s_max - 1))
+    rows = torch.arange(b, device=dev)
+    cache["k"][rows, write_pos] = k_new[:, 0].to(cache["k"].dtype)
+    cache["v"][rows, write_pos] = v_new[:, 0].to(cache["v"].dtype)
+    kpos = torch.arange(s_max, device=dev)
+    pv = pos_vec[:, None]
+    if ring:
+        abs_pos = pv - torch.remainder(pv - kpos[None, :], s_max)  # (B, S)
+        mask = abs_pos >= 0
+        if spec.window is not None:
+            mask &= abs_pos > pv - spec.window
+    else:
+        mask = kpos[None, :] <= pv
+        if spec.window is not None:
+            mask &= kpos[None, :] > pv - spec.window
+    scale = 1.0 / (spec.head_dim ** 0.5)
+    q = q[:, 0]                                               # (B,KH,G,Dh)
+    # Per row: (KH, G, Dh) @ (KH, Dh, S) and (KH, G, S) @ (KH, S, Dh), the
+    # cache's (S, KH, Dh) rows read as strided batches with no copy.
+    scores = torch.stack([
+        torch.matmul(q[i], cache["k"][i].to(cd).permute(1, 2, 0))
+        for i in range(b)]).to(torch.float32) * scale         # (B,KH,G,S)
+    scores = torch.where(mask[:, None, None, :], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(cd)
+    out = torch.stack([torch.matmul(probs[i], cache["v"][i].to(cd)
+                                    .transpose(0, 1))
+                       for i in range(b)])                    # (B,KH,G,Dh)
+    out = out.reshape(b, 1, spec.num_heads * spec.head_dim)
+    return L.dense(p["wo"], out, cd), cache

@@ -92,8 +92,9 @@ def rope_freqs(head_dim: int, theta: float, positions: torch.Tensor):
     half = head_dim // 2
     exps = -torch.arange(0, half, dtype=torch.float32,
                          device=positions.device) / half
-    freqs = torch.pow(torch.tensor(float(theta), dtype=torch.float32,
-                                   device=positions.device), exps)
+    # A Python base needs no host-to-device copy, so a CUDA graph can
+    # capture this (every theta of the configs is exact in float32).
+    freqs = torch.pow(float(theta), exps)
     ang = positions.to(torch.float32)[..., None] * freqs    # (..., S, half)
     return torch.cos(ang), torch.sin(ang)
 

@@ -16,7 +16,10 @@ on the card, their plain versions on the CPU.
 * Mamba-2: ``ssd_scan(xh, a, b, c, chunk=spec.chunk)`` takes the place of
   ``_ssd_chunk_scan`` from a zero state.
 
-Not ported yet: the single-step decode and its caches (ROADMAP A13b).
+Decode (:func:`mamba1_decode`, :func:`mamba2_decode`) is one recurrence
+step on the carried state, as in the reference, with no kernel.  A layer's
+cache is its conv history and its state, fp32 as the reference's; the
+decode steps write the new ones into the cache in place.
 """
 from __future__ import annotations
 
@@ -31,8 +34,9 @@ from repro_torch.models import layers as L
 
 Params = Any
 
-__all__ = ["Mamba1Spec", "init_mamba1", "mamba1_forward", "Mamba2Spec",
-           "init_mamba2", "mamba2_forward"]
+__all__ = ["Mamba1Spec", "init_mamba1", "mamba1_forward", "init_mamba1_cache",
+           "mamba1_decode", "Mamba2Spec", "init_mamba2", "mamba2_forward",
+           "init_mamba2_cache", "mamba2_decode"]
 
 
 # ===================================================================
@@ -83,16 +87,21 @@ def init_mamba1(gen: torch.Generator, spec: Mamba1Spec,
     }
 
 
-def _causal_conv(x: torch.Tensor, w: torch.Tensor,
-                 b: torch.Tensor) -> torch.Tensor:
-    """Depthwise causal conv1d from a zero history.  x: (B,S,C), w: (K,C):
-    ``y[t] = Σ_j w[j]·x[t+j−K+1] + b``."""
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 state: torch.Tensor | None = None):
+    """Depthwise causal conv1d.  x: (B,S,C), w: (K,C):
+    ``y[t] = Σ_j w[j]·xp[t+j] + b`` over ``xp``, the history (the carried
+    ``state`` of the K−1 previous inputs, or zeros) followed by x.  Returns
+    ``(y, new_state)``, the new state the trailing K−1 inputs."""
     k, s = w.shape[0], x.shape[1]
-    xp = torch.nn.functional.pad(x, (0, 0, k - 1, 0))
+    if state is None:
+        xp = torch.nn.functional.pad(x, (0, 0, k - 1, 0))
+    else:
+        xp = torch.cat([state.to(x.dtype), x], dim=1)
     y = xp[:, 0:s, :] * w[0]
     for j in range(1, k):
         y = y + xp[:, j:j + s, :] * w[j]
-    return y + b
+    return y + b, (xp[:, -(k - 1):, :] if k > 1 else None)
 
 
 def _ssm_params(p: Params, spec: Mamba1Spec, x_conv: torch.Tensor):
@@ -118,7 +127,7 @@ def mamba1_forward(p: Params, spec: Mamba1Spec,
     xz = L.dense(p["in_proj"], x, cd)
     xin, z = torch.chunk(xz, 2, dim=-1)
     x_conv = L.silu(_causal_conv(xin, p["conv_w"].to(cd),
-                                 p["conv_b"].to(cd)))
+                                 p["conv_b"].to(cd))[0])
     da, dbx, cmat = _ssm_params(p, spec, x_conv)
     hs = ops.ssm_scan(da, dbx)                               # (B,S,di,N)
     del da, dbx
@@ -127,6 +136,34 @@ def mamba1_forward(p: Params, spec: Mamba1Spec,
     y = y + p["d_skip"] * x_conv.to(torch.float32)
     y = y.to(cd) * L.silu(z)
     return L.dense(p["out_proj"], y, cd)
+
+
+def init_mamba1_cache(spec: Mamba1Spec, batch: int,
+                      device: torch.device | str = "cpu") -> Params:
+    return {"conv": torch.zeros((batch, spec.d_conv - 1, spec.d_inner),
+                                device=device),
+            "h": torch.zeros((batch, spec.d_inner, spec.d_state),
+                             device=device)}
+
+
+def mamba1_decode(p: Params, spec: Mamba1Spec, x: torch.Tensor,
+                  cache: Params) -> tuple[torch.Tensor, Params]:
+    """One-token step. x: (B,1,D).  Writes the new conv history and state
+    into ``cache`` in place and returns it."""
+    cd = spec.compute_dtype
+    xin, z = torch.chunk(L.dense(p["in_proj"], x, cd), 2, dim=-1)
+    x_conv, conv_state = _causal_conv(xin, p["conv_w"].to(cd),
+                                      p["conv_b"].to(cd), cache["conv"])
+    x_conv = L.silu(x_conv)
+    da, dbx, cmat = _ssm_params(p, spec, x_conv)
+    h = da[:, 0] * cache["h"] + dbx[:, 0]                    # (B,di,N)
+    y = torch.einsum("bdn,bn->bd", h, cmat[:, 0])
+    y = y + p["d_skip"] * x_conv[:, 0].to(torch.float32)
+    y = (y.to(cd) * L.silu(z[:, 0]))[:, None, :]
+    out = L.dense(p["out_proj"], y, cd)
+    cache["conv"].copy_(conv_state)
+    cache["h"].copy_(h)
+    return out, cache
 
 
 # ===================================================================
@@ -175,33 +212,71 @@ def init_mamba2(gen: torch.Generator, spec: Mamba2Spec,
     }
 
 
-def _mamba2_streams(p: Params, spec: Mamba2Spec, x: torch.Tensor):
+def _mamba2_streams(p: Params, spec: Mamba2Spec, x: torch.Tensor,
+                    conv_state: Params | None = None):
     """z, the dt-scaled value stream xh (B,S,H,P), the per-step log decay
-    (B,S,H) and the b / c projections (B,S,N), from a zero conv history."""
+    (B,S,H), the b / c projections (B,S,N) and the new conv histories
+    ``{"x", "bc"}``, from the carried ``conv_state`` (or zeros)."""
     cd = spec.compute_dtype
     nh = spec.num_heads
     z, xin = torch.chunk(L.dense(p["w_zx"], x, cd), 2, dim=-1)
     bc = L.dense(p["w_bc"], x, cd)
     dt = L.dense(p["w_dt"], x, cd)
-    xin = L.silu(_causal_conv(xin, p["conv_x"]["w"].to(cd),
-                              p["conv_x"]["b"].to(cd)))
-    bc = L.silu(_causal_conv(bc, p["conv_bc"]["w"].to(cd),
-                             p["conv_bc"]["b"].to(cd)))
-    bmat, cmat = torch.chunk(bc, 2, dim=-1)
+    cs = conv_state or {"x": None, "bc": None}
+    xin, new_x = _causal_conv(xin, p["conv_x"]["w"].to(cd),
+                              p["conv_x"]["b"].to(cd), cs["x"])
+    bc, new_bc = _causal_conv(bc, p["conv_bc"]["w"].to(cd),
+                              p["conv_bc"]["b"].to(cd), cs["bc"])
+    xin = L.silu(xin)
+    bmat, cmat = torch.chunk(L.silu(bc), 2, dim=-1)
     dt = torch.nn.functional.softplus(dt.to(torch.float32) + p["dt_bias"])
     a_step = dt * -torch.exp(p["a_log"])                     # (B,S,H)
     xh = xin.to(torch.float32).reshape(*xin.shape[:-1], nh, spec.head_dim)
     xh = xh * dt[..., None]
-    return z, xh, a_step, bmat.to(torch.float32), cmat.to(torch.float32)
+    return (z, xh, a_step, bmat.to(torch.float32), cmat.to(torch.float32),
+            {"x": new_x, "bc": new_bc})
 
 
 def mamba2_forward(p: Params, spec: Mamba2Spec,
                    x: torch.Tensor) -> torch.Tensor:
     cd = spec.compute_dtype
     b, s, _ = x.shape
-    z, xh, a_step, bmat, cmat = _mamba2_streams(p, spec, x)
+    z, xh, a_step, bmat, cmat, _ = _mamba2_streams(p, spec, x)
     y = ops.ssd_scan(xh, a_step, bmat, cmat, chunk=spec.chunk)
     y = y + p["d_skip"][None, None, :, None] * xh
     y = y.reshape(b, s, spec.d_inner).to(cd)
     y = L.rmsnorm(p["out_norm"], y * L.silu(z))
     return L.dense(p["out_proj"], y, cd)
+
+
+def init_mamba2_cache(spec: Mamba2Spec, batch: int,
+                      device: torch.device | str = "cpu") -> Params:
+    k = spec.d_conv - 1
+    return {"conv": {"x": torch.zeros((batch, k, spec.d_inner),
+                                      device=device),
+                     "bc": torch.zeros((batch, k, 2 * spec.d_state),
+                                       device=device)},
+            "h": torch.zeros((batch, spec.num_heads, spec.head_dim,
+                              spec.d_state), device=device)}
+
+
+def mamba2_decode(p: Params, spec: Mamba2Spec, x: torch.Tensor,
+                  cache: Params) -> tuple[torch.Tensor, Params]:
+    """One-token step. x: (B,1,D).  Writes the new conv histories and
+    state into ``cache`` in place and returns it."""
+    cd = spec.compute_dtype
+    b = x.shape[0]
+    z, xh, a_step, bmat, cmat, conv_state = _mamba2_streams(
+        p, spec, x, cache["conv"])
+    da = torch.exp(a_step[:, 0])                             # (B,H)
+    h = da[:, :, None, None] * cache["h"] + torch.einsum(
+        "bn,bhp->bhpn", bmat[:, 0], xh[:, 0])
+    y = torch.einsum("bn,bhpn->bhp", cmat[:, 0], h)
+    y = y + p["d_skip"][None, :, None] * xh[:, 0]
+    y = y.reshape(b, 1, spec.d_inner).to(cd)
+    y = L.rmsnorm(p["out_norm"], y * L.silu(z[:, :1]))
+    out = L.dense(p["out_proj"], y, cd)
+    cache["conv"]["x"].copy_(conv_state["x"])
+    cache["conv"]["bc"].copy_(conv_state["bc"])
+    cache["h"].copy_(h)
+    return out, cache

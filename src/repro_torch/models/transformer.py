@@ -5,14 +5,14 @@ Counterpart of ``repro.models.transformer``.  A segment is
 ``(kinds, count)``: a tuple of layer kinds forming one body, repeated
 ``count`` times with stacked parameters (leading axis ``count``), in the
 reference's params layout.  The reference scans a body with ``lax.scan``;
-here a Python loop walks the stacked layers.
+here a Python loop walks the stacked layers, in the forward and in
+single-token decode (:func:`init_cache`, :func:`decode_step`) alike.
 
 Layer kinds ported: ``attn`` (full-causal GQA attention + SwiGLU),
 ``mamba1``, ``mamba2`` and ``shared`` (the hybrid's one attention + MLP
 block, ``params["shared_block"]``, reused at every occurrence).  The MoE
 MLP, ``swa`` (sliding window) and the local/global pattern raise
-:class:`NotImplementedError` naming ROADMAP item A13d; decode (caches and
-``decode_step``) is A13b.
+:class:`NotImplementedError` naming ROADMAP item A13d.
 """
 from __future__ import annotations
 
@@ -23,12 +23,15 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as ssm_lib
-from repro_torch.models.attention import AttnSpec, attn_forward, init_attention
+from repro_torch.models.attention import (AttnSpec, attn_decode,
+                                          attn_forward, init_attention,
+                                          init_kv_cache)
+from repro_torch.tree import tree_map
 
 Params = Any
 
 __all__ = ["Segment", "build_plan", "specs_for", "init_lm", "forward_hidden",
-           "lm_loss", "check_supported"]
+           "lm_loss", "check_supported", "init_cache", "decode_step"]
 
 Segment = tuple[tuple[str, ...], int]
 
@@ -209,3 +212,78 @@ def lm_loss(params: Params, cfg: ModelConfig, batch: dict, *,
                                  tie=cfg.tie_embeddings,
                                  mask=batch.get("mask"))
     return ce + aux
+
+
+# ------------------------------------------------------------------ decode
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
+               device: torch.device | str = "cpu") -> Params:
+    """The decode cache in the reference's layout: ``{"segments": [...]}``,
+    one dict per segment of ``{"{i}_{kind}": cache}`` with every leaf
+    stacked on the segment's leading count axis.  An ``attn`` or
+    ``shared`` layer holds a KV cache of ``max_seq`` positions in
+    ``compute_dtype`` (a ``shared`` block one per occurrence); a Mamba
+    layer its fp32 conv history and state."""
+    check_supported(cfg)
+    attn, m1, m2 = specs_for(cfg)
+    segs = []
+    for kinds, count in build_plan(cfg):
+        seg: Params = {}
+        for pi, kind in enumerate(kinds):
+            if kind in ("attn", "shared"):
+                one = init_kv_cache(attn, count * batch, max_seq,
+                                    device=device)
+            elif kind == "mamba1":
+                one = ssm_lib.init_mamba1_cache(m1, count * batch, device)
+            elif kind == "mamba2":
+                one = ssm_lib.init_mamba2_cache(m2, count * batch, device)
+            else:
+                raise ValueError(kind)
+            # Allocated once as count·batch rows, viewed per layer.
+            seg[f"{pi}_{kind}"] = tree_map(
+                lambda a: a.reshape(count, batch, *a.shape[1:]), one)
+        segs.append(seg)
+    return {"segments": segs}
+
+
+def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                cache: Params, pos) -> tuple[torch.Tensor, Params]:
+    """One decode step.  tokens: (B, 1) int; pos: the current length, an
+    int, a 0-d tensor or a per-row (B,) vector.
+
+    Returns (logits (B, 1, V) fp32, cache).  The cache is updated in
+    place (the reference returns a new one): each layer writes its new K/V
+    or state into its slice of the stacked leaves."""
+    check_supported(cfg)
+    attn, m1, m2 = specs_for(cfg)
+    cd = L.torch_dtype(cfg.compute_dtype)
+    x = L.embed(params["embed"], tokens, cd)
+    eps = cfg.norm_eps
+    for seg_p, seg_c, (kinds, count) in zip(params["segments"],
+                                            cache["segments"],
+                                            build_plan(cfg)):
+        for i in range(count):
+            for pi, kind in enumerate(kinds):
+                name = f"{pi}_{kind}"
+                c = _layer(seg_c[name], i)
+                if kind in ("attn", "shared"):
+                    p = (params["shared_block"] if kind == "shared"
+                         else _layer(seg_p[name], i))
+                    y, _ = attn_decode(p["attn"], attn,
+                                       L.rmsnorm(p["ln1"], x, eps), c, pos)
+                    x = x + y
+                    x = x + L.swiglu(p["mlp"], L.rmsnorm(p["ln2"], x, eps),
+                                     cd)
+                else:
+                    p = _layer(seg_p[name], i)
+                    step = (ssm_lib.mamba1_decode if kind == "mamba1"
+                            else ssm_lib.mamba2_decode)
+                    y, _ = step(p["mamba"], m1 if kind == "mamba1" else m2,
+                                L.rmsnorm(p["ln"], x, eps), c)
+                    x = x + y
+    x = L.rmsnorm(params["final_norm"], x, eps)
+    if cfg.tie_embeddings:
+        logits = L.unembed_logits(params["embed"], x, cd)
+    else:
+        logits = L.dense(params["lm_head"], x, cd)
+    return logits.to(torch.float32), cache

@@ -3,14 +3,17 @@
 Counterpart of ``repro.models.zoo``.  ``build_model(cfg)`` returns a
 :class:`Model` whose members are plain functions: ``init(generator)`` draws
 params on the generator's device, ``loss(params, batch)`` is the
-full-context (train / prefill) forward.  This slice ports the dense
-(``attn`` layers), ssm (``mamba1``) and hybrid (``mamba2`` + ``shared``)
-families; ``init_cache`` / ``decode_step`` (serving) raise naming ROADMAP
-item A13b, and the MoE, sliding-window, local/global, vision and audio
-families raise at :func:`build_model` naming A13d.
+full-context (train / prefill) forward, ``init_cache(params, batch,
+max_seq)`` allocates the decode cache on the params' device and
+``decode_step(params, tokens, cache, pos)`` decodes one token, updating the
+cache in place.  This slice ports the dense (``attn`` layers), ssm
+(``mamba1``) and hybrid (``mamba2`` + ``shared``) families; the MoE,
+sliding-window, local/global, vision and audio families raise at
+:func:`build_model` naming ROADMAP item A13d.
 
-Params keep the reference's tree layout, so :func:`params_from_numpy` carries
-the reference's params (as numpy arrays) across leaf for leaf.
+Params and caches keep the reference's tree layouts, so
+:func:`params_from_numpy` and :func:`cache_from_numpy` carry the
+reference's trees (as numpy arrays) across leaf for leaf.
 """
 from __future__ import annotations
 
@@ -21,17 +24,11 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as tf
-from repro_torch.tree import params_from_numpy
+from repro_torch.tree import cache_from_numpy, params_from_numpy, tree_leaves
 
 Params = Any
 
-__all__ = ["Model", "build_model", "params_from_numpy"]
-
-
-def _decode_not_ported(*args, **kwargs):
-    raise NotImplementedError(
-        "decode through the zoo (KV and SSM caches, decode_step, serving) "
-        "is queued as ROADMAP item A13b")
+__all__ = ["Model", "build_model", "params_from_numpy", "cache_from_numpy"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,8 +36,12 @@ class Model:
     cfg: ModelConfig
     init: Callable[[torch.Generator], Params]
     loss: Callable[..., torch.Tensor]           # (params, batch) -> scalar
-    init_cache: Callable[..., Params] = _decode_not_ported
-    decode_step: Callable[..., Any] = _decode_not_ported
+    init_cache: Callable[..., Params]           # (params, batch, max_seq)
+    decode_step: Callable[..., Any]             # -> (logits, cache)
+
+
+def _device_of(params: Params) -> torch.device:
+    return tree_leaves(params)[0].device
 
 
 def build_model(cfg: ModelConfig) -> Model:
@@ -48,4 +49,8 @@ def build_model(cfg: ModelConfig) -> Model:
     return Model(
         cfg=cfg,
         init=lambda gen: tf.init_lm(gen, cfg),
-        loss=lambda params, batch, **kw: tf.lm_loss(params, cfg, batch, **kw))
+        loss=lambda params, batch, **kw: tf.lm_loss(params, cfg, batch, **kw),
+        init_cache=lambda params, batch, max_seq: tf.init_cache(
+            cfg, batch, max_seq, device=_device_of(params)),
+        decode_step=lambda params, tokens, cache, pos: tf.decode_step(
+            params, cfg, tokens, cache, pos))

@@ -1,8 +1,11 @@
-"""Step builders of the LM zoo: the full-context forward.
+"""Step functions of the LM zoo: the full-context forward and one-token
+decode.
 
 Counterpart of ``repro.train.trainstep``.  :func:`make_prefill_step` (the
 prefill target: full-context forward, no gradient) and
-:func:`make_eval_step` return plain functions ``(params, batch) -> loss``.
+:func:`make_eval_step` return plain functions ``(params, batch) -> loss``;
+:func:`make_serve_step` returns ``(params, tokens, cache, pos) -> (logits,
+cache)``, the cache updated in place.
 On the card run them under ``torch.inference_mode()``: the zoo's kernels
 are forward-only.  Training through the zoo — :func:`make_train_step`,
 which needs backward kernels for attention and the two scans — is queued as
@@ -18,7 +21,8 @@ from repro_torch.models.zoo import Model
 
 Params = Any
 
-__all__ = ["make_prefill_step", "make_eval_step", "make_train_step"]
+__all__ = ["make_prefill_step", "make_eval_step", "make_serve_step",
+           "make_train_step"]
 
 
 def make_eval_step(model: Model):
@@ -35,6 +39,14 @@ def make_prefill_step(model: Model):
             b["labels"] = torch.zeros_like(b["tokens"])
         return model.loss(params, b, remat=False)
     return prefill_step
+
+
+def make_serve_step(model: Model):
+    """One-token decode: (params, tokens (B,1), cache, pos) -> (logits,
+    cache)."""
+    def serve_step(params: Params, tokens, cache, pos):
+        return model.decode_step(params, tokens, cache, pos)
+    return serve_step
 
 
 def make_train_step(model: Model, *args, **kwargs):

@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 __all__ = ["tree_leaves", "tree_map", "tree_flatten", "tree_unflatten",
-           "params_from_numpy", "params_to_numpy"]
+           "params_from_numpy", "params_to_numpy", "cache_from_numpy"]
 
 
 def tree_flatten(tree: Any) -> tuple[list, Any]:
@@ -64,6 +64,18 @@ def params_from_numpy(tree: Any, device: str | torch.device = "cpu") -> Any:
     """Reference params (nested dicts/lists of numpy arrays) → tensors on
     ``device``, leaf for leaf."""
     return tree_map(lambda a: torch.from_numpy(np.array(a)).to(device), tree)
+
+
+def cache_from_numpy(tree: Any, device: str | torch.device = "cpu") -> Any:
+    """A reference decode cache (numpy arrays; bf16 ones as ``ml_dtypes``'
+    bfloat16) → tensors on ``device``, leaf for leaf and dtype for dtype."""
+    def leaf(a):
+        a = np.asarray(a)
+        if a.dtype.name == "bfloat16":
+            return torch.from_numpy(a.view(np.uint16).astype(np.int16)).view(
+                torch.bfloat16).to(device)
+        return torch.from_numpy(np.array(a)).to(device)
+    return tree_map(leaf, tree)
 
 
 def params_to_numpy(tree: Any) -> Any:

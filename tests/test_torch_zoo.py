@@ -159,10 +159,16 @@ def test_unported_families_raise(arch):
 
 
 def test_decode_and_training_raise():
+    """Decode through the zoo is ported (ROADMAP A13b): ``init_cache`` and
+    ``decode_step`` return; training through it (A13c) still raises."""
     model = build_model(get_smoke_config("qwen3_0_6b"))
-    with pytest.raises(NotImplementedError, match="A13b"):
-        model.init_cache(None, 1, 16)
-    with pytest.raises(NotImplementedError, match="A13b"):
-        model.decode_step(None, None, None, 0)
+    params = model.init(torch.Generator().manual_seed(0))
+    cache = model.init_cache(params, 1, 16)
+    logits, cache2 = model.decode_step(params, torch.zeros((1, 1),
+                                                           dtype=torch.long),
+                                       cache, 0)
+    assert logits.shape == (1, 1, model.cfg.vocab_size)
+    assert logits.dtype == torch.float32 and cache2 is cache
+    assert callable(tts.make_serve_step(model))
     with pytest.raises(NotImplementedError, match="A13c"):
         tts.make_train_step(model, None)
