@@ -132,7 +132,7 @@ nothing of JAX.  Phases, each of which fails loudly:
    plan-cache hits and misses, launches); the sweeps' launches count as
    main-path launches.
    The durable phase (``durable_path``, state under ``build/durable``):
-   (a) fleet FedDif and gossip at the quickstart's width (8 rounds,
+   (a) fleet FedDif and gossip at the quickstart's width (6 rounds,
    killed after round 3) and host FedDif (4 rounds, killed after round 2),
    each with ``checkpoint_every=1``, preempted by ``fail_after_save`` and
    resumed: params bit-equal to the uninterrupted run, equal ledger,
@@ -146,7 +146,7 @@ nothing of JAX.  Phases, each of which fails loudly:
    once a round checkpoint is committed (exit −15), then ``--resume``
    (exit 0, the same artifact); (d) ``fig3_alpha``'s α = 0.1 FedAvg and
    FedDif cells on the host plane at full width (N = M = 10, 8000
-   samples), seeds 0–2 and seed 0 alone, 3 rounds, under ``seed_vmap``
+   samples), seeds 0–2 and seed 0 alone, 1 round, under ``seed_vmap``
    and ``loop``: equal ``comm``, diffusion rounds and IID, each seed's
    accuracy within 2e-3 at every eval, no kernel launched by
    ``seed_vmap``, both walls and their ratio printed; (e) ``seed_vmap``
@@ -171,7 +171,7 @@ nothing of JAX.  Phases, each of which fails loudly:
    12 rounds) with the host planner, its joules per cell, and its mobile
    and multicell FedDif cells with the device planner, which must agree
    with the host planner's on sub-frames and diffusion rounds and on
-   accuracy within 0.05; FedDif at that width for 3 rounds per scenario
+   accuracy within 0.05; FedDif at that width for 2 rounds per scenario
    on each plane (and the device planner's mobile and multicell) for the
    round wall and the planner's seconds per round; (c) a mobile and an
    energy-capped FedDif run (N = M = 8, 6 rounds, a 1 J budget that
@@ -189,7 +189,7 @@ nothing of JAX.  Phases, each of which fails loudly:
    the host plane params bit-equal, equal ledger and curves, on the fleet
    plane params within atol 2e-4, rtol 2e-3 and equal ledger, the virtual
    clock [0, 0] on both; (b) the ``async`` and ``async_barrier`` presets,
-   FedDif, 8 rounds: equal ledgers, the buffered arm's first tick before
+   FedDif, 6 rounds: equal ledgers, the buffered arm's first tick before
    the barrier's, its staleness above 0 and the barrier's 0, one line per
    arm with the clock, arrivals and staleness of every tick, the virtual
    seconds to 0.98 of the lower peak and the round wall; (c) feddif_stc
@@ -246,10 +246,11 @@ nothing of JAX.  Phases, each of which fails loudly:
    plans must be equivalent (same rounds, same hop count, total Eq.-17
    decrement within 1e-6 relative);
 5. a measurement, not a check: one FedDif round with each planner, one on
-   the host plane, one gossip round on the fleet plane, one feddif_stc
-   round on each plane, one FedDif round
-   with int8 hops on each plane, and one of the lm int8 arm, under
-   ``torch.profiler``
+   the host plane, one gossip round on the fleet plane and one of the lm
+   int8 arm, under ``torch.profiler`` (the feddif_stc and int8-hop rounds
+   of each plane left the phase to make room for phase 8: their kernels
+   run, and are checked, in phases 3–4; ``profile_round`` still takes
+   them)
    (device busy time,
    idle share, kernel count, top kernels);
 6. the LM zoo's prefill forward at the published widths: flash_attention,
@@ -284,7 +285,7 @@ nothing of JAX.  Phases, each of which fails loudly:
    (a) ``ServingEngine`` at full width with 8 slots of 32,768 positions
    (``SHAPES["decode_32k"]``' cache length; its batch of 128 cut to 8)
    for qwen3_0_6b (greedy, and sampled at temperature 0.8, top-k 40),
-   zamba2_2_7b and falcon_mamba_7b, 16 requests of 64–256 prompt tokens
+   zamba2_2_7b and falcon_mamba_7b, 8 requests of 64–128 prompt tokens
    and 32 new tokens each: engine steps, seconds, ms per step, generated
    tokens/s, peak and cache GB, and every kernel launched 0 times; (b)
    ``python -m repro_torch.launch.serve`` at full width as a subprocess,
@@ -299,7 +300,28 @@ nothing of JAX.  Phases, each of which fails loudly:
    unbatched greedy decode, and the sampler on card logits equal to the
    CPU's (greedy, temperature, top-k, top-p) with equal Gumbel bits; (f)
    glibc ``powf``'s tensor form (``xla_powf_t``) bit-equal on the card
-   and the CPU over 2^24 inputs.
+   and the CPU over 2^22 inputs.
+
+8. training (``check_train_kernels``, ``train_path``): (a) the backward
+   kernels against their plain twins on the card — flash_attention's at
+   qwen3's (2, 4096, 16, 128), smollm's (2, 4096, 15, 64), D = 80
+   (1, 4096, 32, 80), a 1000-key window, fp32 (2, 1024, 16, 128) and
+   ragged rows, within ATTN_BWD_BARS; ssm_scan's at falcon's
+   (1, 4096, 8192, 16) and three more, bit-equal; the same bits on two
+   calls; a planted fault each (a key tile dropped; ``h_t`` for
+   ``h_{t−1}``) that must fail its bar by ≥ 10×; kernel, plain and library
+   ms and the bound; (b) ``make_train_step`` at full width: qwen3_0_6b
+   (B = 2 × 4096, AdamW, ``warmup_cosine_lr``, clip 1.0, 6 steps: the loss
+   falls, peak GB with remat below the peak without) and falcon_mamba_7b
+   at 8 of its 64 layers (B = 1 × 4096, SGD, 3 steps), seconds a step,
+   tokens/s and launches (the forward kernel twice a layer a step under
+   remat, the backward once); one step at qwen3-smoke in fp32 on the card
+   against the CPU, params within 1e-5; (c) ``launch/train`` at full width
+   (smollm_360m, 2 rounds, 4 clients, 4 steps a round) in process and the
+   CLI at ``--smoke`` as a subprocess; (d) ``run_spmd_feddif`` on the card
+   against the CPU: equal ledgers, loss histories within SPMD_LOSS_BAR, one
+   forward and one backward launch per layer per vmapped step.  The
+   launches of (b)–(d) count as main-path launches.
 
 Then one ``{"kernels": [...]}`` line, the card line, and as the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -451,12 +473,13 @@ SWEEP_SMOKE = ("fig4_epsilon", "fig5_gamma_min", "fig6_tasks",
 # (executor, strategy, rounds, killed after round), at the quickstart's
 # width; and the seed-stacked engine against the loop engine.
 DURABLE_DIR = ROOT / "build" / "durable"
-DURABLE_RUNS = (("fleet", "feddif", 8, 3), ("fleet", "gossip", 8, 3),
+DURABLE_RUNS = (("fleet", "feddif", 6, 3), ("fleet", "gossip", 6, 3),
                 ("host", "feddif", 4, 2))
 # (d)'s seed sets: three replicates, and one, the CLI's and run_sweep's
-# default, where the seed axis has nothing to batch.
+# default, where the seed axis has nothing to batch; 1 round (fig3's 20
+# cut to 5, then 3, then 1 to make room for the training phase).
 SEED_VMAP_SEED_SETS = ((0, 1, 2), (0,))
-SEED_VMAP_ROUNDS = 3
+SEED_VMAP_ROUNDS = 1
 SEED_VMAP_ACC = 2e-3         # the reference's seed_vmap-vs-loop bar
 # The appendix and world phase: the appendix_scenarios bench's full cells
 # (benchmarks/run.py: fcn, α = 0.5, 4000 samples, N = M = 8, 12 rounds,
@@ -474,21 +497,22 @@ APPENDIX_CELLS = (("baseline", {}), ("fully_decentralized",
                   ("retrainable", {"allow_retraining": True,
                                    "max_diffusion_rounds": 12}),
                   ("underlay", {"underlay": True}))
-SCENARIO_PROFILE_ROUNDS = 3
+# (3 rounds until the training phase came.)
+SCENARIO_PROFILE_ROUNDS = 2
 # (scenario, FLConfig changes, rounds, killed after): the energy budget
 # binds before the kill (clients deplete in round 3), so the resumed run
 # needs the spent energy the checkpoint saved.
 WORLD_RESUME = (("mobile", {}, 6, 3),
                 ("energy_capped", {"energy_budget_j": 1.0}, 6, 3))
 # The async phase: the buffered-async plane at the quickstart's width
-# (fcn, α = 0.3, 6000 samples, N = M = 8, 8 rounds of FedDif) on each
+# (fcn, α = 0.3, 6000 samples, N = M = 8, 6 rounds of FedDif) on each
 # inner plane; degeneracy at N = 20, 2 rounds; kill/resume (rounds, killed
 # after) with K = 2 of the async preset's knobs; the population front end
 # (population, cohort, rounds); fig_async's full and smoke grids.
 ASYNC_DIR = ROOT / "build" / "async"
 ASYNC_DATA = dict(task="fcn", alpha=0.3, num_samples=6000)
-ASYNC_FL = dict(strategy="feddif", rounds=8, num_clients=8, num_models=8,
-                seed=0)
+ASYNC_FL = dict(strategy="feddif", rounds=6, num_clients=8, num_models=8,
+                seed=0)           # 8 rounds before the training phase
 ASYNC_PLANES = ("host", "fleet")
 ASYNC_DEGENERATE_N = 20
 ASYNC_RESUME = (6, 3)
@@ -3279,14 +3303,15 @@ def check_lm_kernels(torch, kref) -> list[dict]:
 # Phase 7, decode and serving.  (a) The full-width engines at decode_32k's
 # cache length (SHAPES["decode_32k"]: 32,768 tokens at batch 128), cut to 8
 # slots: at 128 slots qwen3's KV cache alone would be 481 GB.  Each engine
-# serves SERVE_REQUESTS requests of SERVE_PROMPT tokens (drawn from
+# serves SERVE_REQUESTS requests (16 until the training phase came; 8 now,
+# one a slot) of SERVE_PROMPT tokens (drawn from
 # default_rng(0)) and SERVE_NEW new tokens; qwen3 also serves them sampled
 # at examples/continuous_batching.py's temperature 0.8 and top-k 40.
 SERVE_ARCHS = ("qwen3_0_6b", "zamba2_2_7b", "falcon_mamba_7b")
 SERVE_SLOTS = 8
 SERVE_MAX_SEQ = 32768
-SERVE_REQUESTS = 16
-SERVE_PROMPT = (64, 256)
+SERVE_REQUESTS = 8
+SERVE_PROMPT = (64, 128)              # (64, 256) before the training phase
 SERVE_NEW = 32
 SERVE_SAMPLED = {"temperature": 0.8, "top_k": 40}
 # (b) the serve CLI at full width.
@@ -3320,8 +3345,9 @@ SERVE_SAMPLERS = ({"temperature": 0.0}, {"temperature": 0.8},
                   {"temperature": 1.0, "top_k": 40},
                   {"temperature": 0.7, "top_p": 0.9},
                   {"temperature": 0.8, "top_k": 40, "top_p": 0.9})
-# (f) glibc powf's tensor form, card against CPU.
-SERVE_POWF_N = 1 << 24
+# (f) glibc powf's tensor form, card against CPU (2^24 inputs until the
+# training phase came).
+SERVE_POWF_N = 1 << 22
 
 
 def _profile_prefill(torch, step, params, batch, label: str) -> None:
@@ -4541,7 +4567,7 @@ def _async_degeneracy(torch, kd, port, device=None) -> dict:
 
 
 def _async_presets(torch, kd, port, device=None) -> dict:
-    """(b): the ``async`` and ``async_barrier`` presets, FedDif, 8 rounds,
+    """(b): the ``async`` and ``async_barrier`` presets, FedDif, 6 rounds,
     on each inner plane: equal ledgers, the buffered arm's first tick
     before the barrier's, its staleness above 0 and the barrier's 0."""
     total = {k: 0 for k in kd.LAUNCHES}
@@ -5220,6 +5246,503 @@ def serve_path(torch, kd) -> dict:
     return {k: 0 for k in kd.LAUNCHES}
 
 
+# Phase 8, training.  (a) The two backward kernels against their plain
+# twins on the card: flash_attention's at qwen3's (2, 4096, 16, 128),
+# smollm's (2, 4096, 15, 64), zamba2's D = 80 (1, 4096, 32, 80), a
+# 1000-key window at (1, 4096, 8, 128), fp32 at (2, 1024, 16, 128), and
+# rows whose S is no multiple of the 64-row tile (one with Sq < Sk and a
+# window, one fp32 at D = 12, non-causal), as
+# (B, Sq, Sk, H, D, causal, window, dtype); the first row is the summary
+# row.  Each gradient is held per element to rel·|plain| + rel_row·(its
+# row's rms over D) + rel_max·max|plain|, and normwise to rel_l2
+# (ATTN_BWD_BARS, as (rel, rel_row, rel_max, rel_l2)): bf16 rounds each
+# result once (one ulp is ≤ 2^-7 of it) from fp32 sums in another order;
+# the small rel_max term covers the rows whose exact gradient cancels to
+# 0 (a query that sees one key has dS = 0), where only fp32 noise is left.
+# The first bars, (2^-7, 0, 2^-7, 1e-2), let the planted fault through at
+# 7.2x; the row term takes their place.  ssm_scan's backward at falcon's
+# (1, 4096, 8192, 16) and three more shapes must be bit-equal.
+ATTN_BWD_BARS = {"bfloat16": (2.0 ** -7, 2.0 ** -5, 2.0 ** -10, 1e-2),
+                 "float32": (2e-5, 4e-5, 1e-5, 1e-5)}
+ATTN_BWD_ROWS = (
+    (2, 4096, 4096, 16, 128, True, None, "bfloat16"),   # qwen3
+    (2, 4096, 4096, 15, 64, True, None, "bfloat16"),    # smollm
+    (1, 4096, 4096, 32, 80, True, None, "bfloat16"),    # zamba2's D = 80
+    (1, 4096, 4096, 8, 128, True, 1000, "bfloat16"),    # window 1000
+    (2, 1024, 1024, 16, 128, True, None, "float32"),
+    (1, 1000, 1000, 4, 80, True, None, "bfloat16"),     # S % 64 != 0
+    (1, 300, 1000, 4, 64, True, 128, "bfloat16"),       # Sq < Sk, window
+    (2, 200, 200, 2, 12, False, None, "float32"))       # non-causal, D 12
+SSM_BWD_ROWS = ((1, 4096, 8192, 16), (1, 256, 8192, 16), (2, 100, 1000, 16),
+                (1, 37, 3, 5))
+# (b) make_train_step at full width: qwen3_0_6b, B = 2 × 4096 (one
+# lm_batches batch), AdamW under warmup_cosine_lr, clip 1.0, 6 steps with
+# remat, then one without; falcon_mamba_7b at 8 of its 64 layers (at 64 the
+# fp32 params, gradients and momentum alone are ≈ 87 GB), B = 1 × 4096,
+# SGD, 3 steps.  (c) launch/train at full width: smollm_360m in process,
+# 2 rounds, 4 clients, 4 steps a round; the CLI once at --smoke.  (d)
+# run_spmd_feddif (smollm-smoke, 4 clients, 2 rounds) on the card and on
+# the CPU: equal ledgers, loss histories within SPMD_LOSS_BAR (bf16 compute
+# on both; the CPU tests hold the port to the reference within 2e-3).
+TRAIN_QWEN = {"arch": "qwen3_0_6b", "batch": 2, "seq": 4096, "steps": 6,
+              "peak_lr": 3e-4, "warmup": 2}
+TRAIN_FALCON = {"arch": "falcon_mamba_7b", "layers": 8, "batch": 1,
+                "seq": 4096, "steps": 3, "lr": 1e-3}
+TRAIN_LAUNCH = {"arch": "smollm_360m", "rounds": 2, "clients": 4,
+                "steps_per_round": 4}
+TRAIN_CLI = ["--smoke", "--rounds", "1", "--clients", "2",
+             "--steps-per-round", "2"]
+SPMD_LOSS_BAR = 1e-2
+
+
+def _events_ms(torch, fn, reps: int) -> float:
+    """Device ms per call from CUDA events around ``reps`` calls after one
+    warm call: the calls here take milliseconds, so the host's share is
+    negligible and no CUDA graph is needed (autograd's backward, the
+    library's, is not captured)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _attn_bwd_err(torch, got, want, dt: str) -> dict:
+    """Each of (dq, dk, dv) against its plain version under
+    ATTN_BWD_BARS[dt]: the largest ratio of an element's error to its bar
+    and the normwise relative error; ``bar_ratio`` is the worst of the
+    three ratios, each normwise error taken against its bar too."""
+    rel, rel_row, rel_max, rel_l2 = ATTN_BWD_BARS[dt]
+    per, worst = {}, 0.0
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        g, w = g.float(), w.float()
+        err = (g - w).abs()
+        bar = (rel * w.abs() + rel_row * w.pow(2).mean(-1, keepdim=True)
+               .sqrt() + rel_max * w.abs().max())
+        ratio = float(torch.where(err > 0, err / bar.clamp_min(1e-30),
+                                  0.0).max())
+        l2 = float(torch.linalg.vector_norm(g - w)
+                   / torch.linalg.vector_norm(w).clamp_min(1e-30))
+        per[name] = {"max_abs_err": float(err.max()), "bar_ratio": ratio,
+                     "rel_l2_err": l2}
+        worst = max(worst, ratio, l2 / rel_l2)
+    return {"grads": per, "bar_ratio": worst,
+            "bars": [rel, rel_row, rel_max, rel_l2],
+            "max_abs_err": max(v["max_abs_err"] for v in per.values()),
+            "ok": worst <= 1.0}
+
+
+def _attn_bwd_tile_dropped(torch, q, k, v, do, tile: int = 64):
+    """The gradients of causal attention, by autograd of the plain form,
+    with keys [Sk/2, Sk/2 + tile) hidden from every query: what a backward
+    that dropped one key tile's contribution would return (their dK and dV
+    0, every dQ that saw them off)."""
+    leaves = [t.detach().float().requires_grad_(True) for t in (q, k, v)]
+    qf, kf, vf = leaves
+    sq, sk, d = q.shape[1], k.shape[1], q.shape[-1]
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) / d ** 0.5
+    q_pos = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
+    k_pos = torch.arange(sk, device=q.device)[None, :]
+    hidden = (k_pos >= sk // 2) & (k_pos < sk // 2 + tile)
+    p = torch.softmax(s.masked_fill((k_pos > q_pos) | hidden,
+                                    float("-inf")), dim=-1)
+    del s
+    out = torch.einsum("bhqk,bkhd->bqhd", p, vf)
+    grads = torch.autograd.grad(out, leaves, do.float())
+    return tuple(g.to(q.dtype) for g in grads)
+
+
+def check_train_kernels(torch, kref) -> list[dict]:
+    """Phase 8a: the backward kernels against their plain twins on the
+    card (ATTN_BWD_ROWS, SSM_BWD_ROWS), the same bits on two calls, and a
+    planted fault per kernel that must fail its bar by ≥ 10×: at the
+    summary row, flash_attention's gradients with the key tile [S/2,
+    S/2 + 64) dropped, and ssm_scan's ``dda`` from ``h_t`` in place of
+    ``h_{t−1}``.  Kernel and plain ms, and for attention the library's
+    (``scaled_dot_product_attention``'s backward alone, from a retained
+    graph), by CUDA events.  The bound: the backward's five products
+    (10·D flops a visible pair) at the dtype's peak against q, k, v, o, dO
+    read and dq, dk, dv written once; ssm_scan's five (B, S, D, N) fp32
+    tensors against three flops an element."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
+                                                     flash_attention_cuda)
+    from repro_torch.kernels.ssm_scan import ssm_scan_bwd_cuda, ssm_scan_cuda
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    rows = []
+
+    def record(row, control=None):
+        print(json.dumps(row))
+        if not row["ok"]:
+            _fail(f"{row['name']} {row['shape']} disagrees with its plain "
+                  f"twin beyond its bar: {json.dumps(row)}")
+        if control is not None and not control["rejected"]:
+            _fail(f"{row['name']} {row['shape']}: the planted fault "
+                  f"passed within 10x of the bar: {json.dumps(control)}")
+        rows.append(row)
+
+    for i, (b, sq, sk, h, d, causal, window, dt) in enumerate(ATTN_BWD_ROWS):
+        dtype = getattr(torch, dt)
+        q, do = (torch.randn((b, sq, h, d), generator=gen, device="cuda")
+                 .to(dtype) for _ in range(2))
+        k, v = (torch.randn((b, sk, h, d), generator=gen, device="cuda")
+                .to(dtype) for _ in range(2))
+        kw = dict(causal=causal, window=window)
+        o = flash_attention_cuda(q, k, v, **kw)
+        got = flash_attention_bwd_cuda(q, k, v, o, do, **kw)
+        again = flash_attention_bwd_cuda(q, k, v, o, do, **kw)
+        want = kref.flash_attention_bwd_ref(q, k, v, o, do, **kw)
+        torch.cuda.synchronize()
+        row = {"name": "flash_attention_bwd", "shape": [b, sq, sk, h, d],
+               "dtype": dt, "causal": causal, "window": window,
+               **_attn_bwd_err(torch, got, want, dt),
+               "same_bits": all(torch.equal(x, y)
+                                for x, y in zip(got, again))}
+        row["ok"] = row["ok"] and row["same_bits"]
+        control = None
+        if i == 0:
+            fault = _attn_bwd_tile_dropped(torch, q, k, v, do)
+            c = _attn_bwd_err(torch, fault, want, dt)
+            control = {"fault": "key tile [S/2, S/2 + 64) dropped",
+                       "bar_ratio": c["bar_ratio"],
+                       "rejected": c["bar_ratio"] >= 10.0}
+            row["control_tile_dropped"] = control
+            del fault
+        pairs = b * h * _visible_pairs(sq, sk, causal, window)
+        flops = 10.0 * d * pairs
+        bound, by = _bound(q.element_size() * 4.0 * h * d * b * (sq + sk),
+                           flops, BF16_FLOPS_PER_S if dt == "bfloat16"
+                           else FP32_FLOPS_PER_S)
+        del got, again, want
+        big = sq * sk >= 2 ** 20
+        row["ms"] = _events_ms(torch, lambda: flash_attention_bwd_cuda(
+            q, k, v, o, do, **kw), 5 if big else 20)
+        row["plain_ms"] = _events_ms(torch, lambda: kref.flash_attention_bwd_ref(
+            q, k, v, o, do, **kw), 1 if big else 5)
+        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
+                      for x in (q, k, v))
+        dot = do.transpose(1, 2).contiguous()
+        if window is None and (sq == sk or not causal):
+            mask = None
+        else:
+            q_pos = torch.arange(sq, device="cuda")[:, None] + (sk - sq)
+            k_pos = torch.arange(sk, device="cuda")[None, :]
+            mask = k_pos <= q_pos
+            if window is not None:
+                mask &= k_pos > q_pos - window
+        lib_out = F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None)
+        row["library_ms"] = _events_ms(torch, lambda: torch.autograd.grad(
+            lib_out, (qt, kt, vt), dot, retain_graph=True),
+            5 if big else 20)
+        row.update({"bound_ms": bound, "bound_by": by, "flops": flops})
+        del lib_out, qt, kt, vt, dot, q, k, v, o, do
+        record(row, control)
+
+    for i, (b, s, d, n) in enumerate(SSM_BWD_ROWS):
+        da = torch.exp(-torch.rand((b, s, d, n), generator=gen,
+                                   device="cuda"))
+        dbx = 0.1 * torch.randn((b, s, d, n), generator=gen, device="cuda")
+        dhs = torch.randn((b, s, d, n), generator=gen, device="cuda")
+        hs = ssm_scan_cuda(da, dbx)
+        del dbx
+        dda, ddbx = ssm_scan_bwd_cuda(da, hs, dhs)
+        again = ssm_scan_bwd_cuda(da, hs, dhs)
+        want = kref.ssm_scan_bwd_ref(da, hs, dhs)
+        torch.cuda.synchronize()
+        err = max(float((x - y).abs().max()) for x, y in zip((dda, ddbx),
+                                                             want))
+        tol = 1e-6 * (1.0 + max(float(y.abs().max()) for y in want))
+        exact = all(torch.equal(x, y) for x, y in zip((dda, ddbx), want))
+        same = all(torch.equal(x, y) for x, y in zip((dda, ddbx), again))
+        row = {"name": "ssm_scan_bwd", "shape": [b, s, d, n],
+               "max_abs_err": err, "tol": tol, "bit_exact": exact,
+               "same_bits": same, "ok": exact and same and err <= tol}
+        del again
+        control = None
+        if i == 0:
+            fault_err = float((want[1] * hs - want[0]).abs().max())
+            control = {"fault": "dda from h_t in place of h_{t-1}",
+                       "max_abs_err": fault_err, "tol": tol,
+                       "rejected": fault_err >= 10.0 * tol}
+            row["control_h_t"] = control
+        del dda, ddbx, want
+        bound, by = _bound(20.0 * b * s * d * n, 3.0 * b * s * d * n)
+        row["ms"] = _events_ms(torch, lambda: ssm_scan_bwd_cuda(da, hs, dhs),
+                               5 if s > 1000 else 20)
+        row["plain_ms"] = _events_ms(torch, lambda: kref.ssm_scan_bwd_ref(
+            da, hs, dhs), 1 if s > 1000 else 3)
+        row.update({"library_ms": None, "bound_ms": bound, "bound_by": by})
+        del da, hs, dhs
+        record(row, control)
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _train_run(torch, kd, label, model, params, opt, lr_fn, batch, steps,
+               remat=True, clip=1.0) -> dict:
+    """``steps`` train steps from ``params`` on one batch (an untimed step
+    on a copy first), the counters zeroed before the timed steps: seconds
+    a step (host clock, ending in a synchronize), tokens/s, the losses and
+    gradient norms, and the peak memory (the collector run first)."""
+    from repro_torch.train.trainstep import TrainState, make_train_step
+    step = make_train_step(model, opt, lr_fn, clip_norm=clip, remat=remat)
+    zero = torch.zeros((), dtype=torch.int32, device="cuda")
+    warm, _ = step(TrainState(params, opt.init(params), zero), batch)
+    del warm
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = TrainState(params, opt.init(params), zero)
+    kd.reset_launch_counts()
+    losses, norms, secs = [], [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    tokens = batch["tokens"].numel()
+    out = {"run": label, "remat": remat, "steps": steps,
+           "step_s": secs, "mean_step_s": sum(secs) / steps,
+           "tokens_per_s": tokens * steps / sum(secs),
+           "losses": losses, "grad_norms": norms,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "launches": {k: v for k, v in kd.LAUNCHES.items() if v}}
+    print(json.dumps(out))
+    if not all(math.isfinite(x) for x in losses + norms):
+        _fail(f"{label}: a loss or gradient norm is not finite: {out}")
+    return out
+
+
+def train_step_path(torch, kd) -> dict:
+    """Phase 8b: ``make_train_step`` at full width (TRAIN_QWEN,
+    TRAIN_FALCON) and one step at qwen3-smoke in fp32 on the card against
+    the CPU (plain twins) from one init: params within 1e-5.  The qwen3
+    loss must fall over its steps and remat must lower the peak; each
+    kernel launches as the layers say: the forward twice a layer a step
+    with remat (the recompute), once without, the backward once."""
+    import dataclasses as dc
+
+    import numpy as np
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.data.pipeline import lm_batches
+    from repro_torch.data.synthetic import lm_corpus
+    from repro_torch.models.zoo import build_model
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train.trainstep import TrainState, make_train_step
+    from repro_torch.tree import tree_leaves, tree_map
+    launches = {name: 0 for name in kd.LAUNCHES}
+    card = _card_line()
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] += v
+
+    def want(layers, steps, fwd, bwd, remat):
+        return {fwd: layers * steps * (2 if remat else 1),
+                bwd: layers * steps}
+
+    q = TRAIN_QWEN
+    cfg = get_config(q["arch"])
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    tokens = lm_corpus(200_000, vocab=cfg.vocab_size, seed=0)
+    batch = {k: torch.from_numpy(v).to("cuda") for k, v in next(lm_batches(
+        tokens, q["batch"], q["seq"], seed=0)).items()}
+    opt = opt_lib.adamw()
+    lr_fn = opt_lib.warmup_cosine_lr(q["peak_lr"], q["warmup"], q["steps"])
+    on = _train_run(torch, kd, f"train {q['arch']}", model, params, opt,
+                    lr_fn, batch, q["steps"])
+    off = _train_run(torch, kd, f"train {q['arch']}", model, params, opt,
+                     lr_fn, batch, 1, remat=False)
+    for run, remat in ((on, True), (off, False)):
+        w = want(cfg.num_layers, run["steps"], "flash_attention",
+                 "flash_attention_bwd", remat)
+        if run["launches"] != w:
+            _fail(f"train {q['arch']} remat={remat}: launches "
+                  f"{run['launches']}, want {w}")
+        add(run["launches"])
+    if not on["losses"][-1] < on["losses"][0]:
+        _fail(f"train {q['arch']}: the loss did not fall: {on['losses']}")
+    if not on["peak_memory_gb"] < off["peak_memory_gb"]:
+        _fail(f"train {q['arch']}: remat did not lower the peak: "
+              f"{on['peak_memory_gb']} vs {off['peak_memory_gb']} GB")
+    print(json.dumps({"train_summary": q["arch"], "card": card,
+                      "peak_gb_remat": on["peak_memory_gb"],
+                      "peak_gb_no_remat": off["peak_memory_gb"],
+                      "loss_first_last": [on["losses"][0],
+                                          on["losses"][-1]]}))
+    del params, batch, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    f = TRAIN_FALCON
+    cfg = dc.replace(get_config(f["arch"]), num_layers=f["layers"])
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    tokens = lm_corpus(100_000, vocab=cfg.vocab_size, seed=1)
+    batch = {k: torch.from_numpy(v).to("cuda") for k, v in next(lm_batches(
+        tokens, f["batch"], f["seq"], seed=1)).items()}
+    run = _train_run(torch, kd, f"train {f['arch']} at {f['layers']} of 64 "
+                     f"layers", model, params, opt_lib.sgd(),
+                     opt_lib.constant_lr(f["lr"]), batch, f["steps"])
+    w = want(f["layers"], f["steps"], "ssm_scan", "ssm_scan_bwd", True)
+    if run["launches"] != w:
+        _fail(f"train {f['arch']}: launches {run['launches']}, want {w}")
+    add(run["launches"])
+    del params, batch, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Card against CPU, one step at qwen3-smoke in fp32 from one init.
+    cfg = dc.replace(get_smoke_config("qwen3_0_6b"), compute_dtype="float32")
+    model = build_model(cfg)
+    host = model.init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab_size, (2, 64)).astype(np.int64)
+    cpu_batch = {"tokens": torch.from_numpy(toks),
+                 "labels": torch.from_numpy(np.roll(toks, -1, axis=1))}
+    opt = opt_lib.sgd()
+    step = make_train_step(model, opt, opt_lib.constant_lr(0.05))
+    kd.reset_launch_counts()
+    got, _ = step(TrainState(tree_map(lambda x: x.cuda(), host),
+                             opt.init(tree_map(lambda x: x.cuda(), host)),
+                             torch.zeros((), dtype=torch.int32,
+                                         device="cuda")),
+                  {k: v.cuda() for k, v in cpu_batch.items()})
+    counts = {k: v for k, v in kd.LAUNCHES.items() if v}
+    ref, _ = step(TrainState(host, opt.init(host),
+                             torch.zeros((), dtype=torch.int32)), cpu_batch)
+    err = max(float((a.cpu() - b).abs().max()) for a, b in zip(
+        tree_leaves(got.params), tree_leaves(ref.params)))
+    print(json.dumps({"train_card_vs_cpu": "qwen3-smoke fp32", "card": card,
+                      "params_max_abs_err": err, "bar": 1e-5,
+                      "launches": counts}))
+    if err > 1e-5:
+        _fail(f"train step card vs CPU: params differ by {err} > 1e-5")
+    add(counts)
+    return launches
+
+
+def launch_train_path(torch, kd) -> dict:
+    """Phase 8c: ``launch/train`` at full width in process (TRAIN_LAUNCH,
+    the host plane's FedDif through the FL client's ``grad_and_value``):
+    finite eval losses, the flash_attention backward launched; then the
+    CLI once at --smoke as a subprocess, exit 0."""
+    from repro_torch.launch.train import run_train
+    card = _card_line()
+    t = TRAIN_LAUNCH
+    lines = []
+    kd.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = run_train(t["arch"], smoke=False, rounds=t["rounds"],
+                    clients=t["clients"],
+                    steps_per_round=t["steps_per_round"], device="cuda",
+                    log=lines.append)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: v for k, v in kd.LAUNCHES.items() if v}
+    print(json.dumps({"launch_train": t, "card": card, "seconds": wall,
+                      "round_wall_s": res.round_wall_s, "output": lines,
+                      "launches": counts}))
+    if not all(math.isfinite(x) for x in res.loss) or not counts.get(
+            "flash_attention_bwd"):
+        _fail(f"launch/train {t['arch']}: losses {res.loss}, launches "
+              f"{counts}")
+    launches = dict(counts)
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src") + os.pathsep + env.get(
+        "PYTHONPATH", "")
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
+                          *TRAIN_CLI], capture_output=True, text=True,
+                         timeout=600, cwd=ROOT, env=env)
+    print(json.dumps({"train_cli": " ".join(TRAIN_CLI), "card": card,
+                      "exit": out.returncode,
+                      "seconds": time.perf_counter() - t0,
+                      "output": out.stdout.strip().splitlines()}))
+    if out.returncode != 0:
+        _fail(f"train CLI exited {out.returncode}: {out.stderr[-2000:]}")
+    return launches
+
+
+def spmd_path(torch, kd) -> dict:
+    """Phase 8d: ``run_spmd_feddif`` (smollm-smoke, 4 clients, 2 rounds)
+    on the card and on the CPU from one init (drawn on the CPU): equal
+    ledgers and diffusion rounds, loss histories within SPMD_LOSS_BAR, and
+    on the card one flash_attention forward and one backward launch per
+    layer per vmapped fleet step (not one per client)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.fl_spmd import run_spmd_feddif
+    from repro_torch.models.zoo import build_model
+    model = build_model(get_smoke_config("smollm_360m"))
+    init = model.init(torch.Generator().manual_seed(0))
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        lines = []
+        kd.reset_launch_counts()
+        t0 = time.perf_counter()
+        _, hist, ledger = run_spmd_feddif(
+            clients=4, rounds=2, device=dev, log=lines.append,
+            init_fn=lambda gen: init)
+        runs[dev] = {"history": hist, "seconds": time.perf_counter() - t0,
+                     "ledger": [ledger.subframes, ledger.transmitted_models,
+                                ledger.transmitted_bits],
+                     "dif_rounds": [int(ln.split("diffusion_rounds=")[1]
+                                        .split()[0]) for ln in lines],
+                     "launches": {k: v for k, v in kd.LAUNCHES.items()
+                                  if v}}
+    card, cpu = runs["cuda"], runs["cpu"]
+    steps = sum(1 + r for r in card["dif_rounds"])
+    layers = model.cfg.num_layers
+    want = {"flash_attention": layers * steps,
+            "flash_attention_bwd": layers * steps}
+    gap = max(abs(a - b) for a, b in zip(card["history"], cpu["history"]))
+    print(json.dumps({"spmd_feddif": "smollm-smoke, 4 clients, 2 rounds",
+                      "card": _card_line(), "runs": runs, "loss_gap": gap,
+                      "bar": SPMD_LOSS_BAR, "fleet_steps": steps,
+                      "want_launches": want}))
+    if card["ledger"] != cpu["ledger"] or card["dif_rounds"] != cpu[
+            "dif_rounds"]:
+        _fail(f"run_spmd_feddif: the card's ledger {card['ledger']} / "
+              f"rounds differ from the CPU's {cpu['ledger']}")
+    if gap > SPMD_LOSS_BAR:
+        _fail(f"run_spmd_feddif: loss histories {gap} apart")
+    if card["launches"] != want:
+        _fail(f"run_spmd_feddif: launches {card['launches']}, want {want}")
+    return card["launches"]
+
+
+def train_path(torch, kd) -> dict:
+    """Phase 8 (b)–(d); returns their launches (the main path's)."""
+    t0 = time.perf_counter()
+    launches = {name: 0 for name in kd.LAUNCHES}
+    parts = {}
+    for name, fn in (("train_step", train_step_path),
+                     ("launch_train", launch_train_path),
+                     ("spmd", spmd_path)):
+        ts = time.perf_counter()
+        for k, v in fn(torch, kd).items():
+            launches[k] += v
+        parts[name] = time.perf_counter() - ts
+    print(json.dumps({"phase": "train_path", "card": _card_line(),
+                      "seconds": time.perf_counter() - t0,
+                      "part_seconds": parts,
+                      "launches": {k: v for k, v in launches.items() if v}}))
+    return launches
+
+
 def main() -> None:
     sys.stdout.reconfigure(line_buffering=True)
     if not (ROOT / "src" / "repro_torch").is_dir():
@@ -5254,19 +5777,31 @@ def main() -> None:
     _check_ssd_spills(build.PTXAS_INFO.get("ssd_scan"))
     _check_mix_tree_spills(build.PTXAS_INFO.get("mix_aggregate"))
 
+    # Each step's seconds on the host clock, so the script's budget can be
+    # split by step.
+    t_prev = [time.perf_counter()]
+
+    def mark(step: str) -> None:
+        now = time.perf_counter()
+        print(json.dumps({"step": step, "seconds": now - t_prev[0]}))
+        t_prev[0] = now
+
     floor = launch_floor(torch)
     rows = check_kernels(torch, kd, kq, kref, port)
     rows += check_mix_tree(torch, kd, kref, port,
                            torch.Generator(device="cuda").manual_seed(8),
                            floor["ms"])
     rows += check_stc_compress(torch, kref, port)
+    mark("phase 2: kernel checks")
     launches = main_path(torch, kd, port)
     for k, v in hop_plane_path(torch, kd, port).items():
         launches[k] += v
     for k, v in host_plane_path(torch, kd, port).items():
         launches[k] += v
+    mark("phase 3: main, hop and host planes")
     for k, v in sweep_path(torch, port).items():
         launches[k] += v
+    mark("phase 3: sweeps")
     for k, v in durable_path(torch, port).items():
         launches[k] += v
     for k, v in appendix_path(torch, port).items():
@@ -5281,27 +5816,32 @@ def main() -> None:
     routing.update({k: v for k, v in bid_routing(torch, kd).items()
                     if k == "dol_bid_scores"})
     routing["mix_aggregate"] = mix_routing(torch, kd)["mix_aggregate"]
+    mark("phase 3: durable, appendix, async and routing")
     card_vs_cpu(torch, port)
     card_vs_cpu(torch, port, "host")
     host_vs_fleet(torch, port)
     lm_card_vs_cpu(torch, port)
     old_chain_parity(torch, port)
     planners_card_vs_cpu(torch)
+    mark("phase 4: parity")
     profile_round(torch, port)
     profile_round(torch, port, strategy="gossip")
     profile_round(torch, port, "jax", VALUE_WEIGHT)
     profile_round(torch, port, executor="host")
-    profile_round(torch, port, executor="host", strategy="feddif_stc")
-    profile_round(torch, port, strategy="feddif_stc")
-    profile_round(torch, port, hop_quant="int8")
-    profile_round(torch, port, executor="host", hop_quant="int8")
     profile_round(torch, port, lm_int8=True)
+    mark("phase 5: profiles")
     rows += check_lm_kernels(torch, kref)
     for k, v in zoo_prefill(torch, kd).items():
         launches[k] += v
     zoo_card_vs_cpu(torch)
     zoo_full_depth(torch)
+    mark("phase 6: the zoo's prefill")
     serve_path(torch, kd)
+    mark("phase 7: serve")
+    rows += check_train_kernels(torch, kref)
+    for k, v in train_path(torch, kd).items():
+        launches[k] += v
+    mark("phase 8: training")
 
     replaces = {
         "mix_aggregate": ("mix_aggregate.cu",
@@ -5339,6 +5879,14 @@ def main() -> None:
                             "src/repro/kernels/flash_attention.py:33"),
         "ssd_scan": ("ssd_scan.cu", "src/repro/kernels/ssd_scan.py:53"),
         "ssm_scan": ("ssm_scan.cu", "src/repro/kernels/ssm_scan.py:29"),
+        "flash_attention_bwd": (
+            "flash_attention_bwd.cu",
+            "no pallas_call: the reference differentiates its inline XLA "
+            "attention (src/repro/models/attention.py:121) with jax.grad"),
+        "ssm_scan_bwd": (
+            "ssm_scan.cu",
+            "no pallas_call: the reference differentiates its inline XLA "
+            "scan (src/repro/models/ssm.py:137) with jax.grad"),
     }
     # The summary row of each kernel is its main-path shape: the (8, 26122)
     # Eq.-11 row of the fcn fleet (mix_tree: the fcn tree of 6 leaves, 8
@@ -5354,7 +5902,9 @@ def main() -> None:
     # standalone pack / unpack) and its table of 8 rows × 24 leaves, 56
     # blocks (quant_roundtrip, which took the hop from them), and the
     # zoo's prefill shapes: qwen3's bf16 attention (B, Sq, Sk, H, D),
-    # zamba2's SSD (B, S, H, P, N, chunk) and falcon's scan (B, S, D, N).
+    # zamba2's SSD (B, S, H, P, N, chunk) and falcon's scan (B, S, D, N);
+    # the backward kernels at the training runs' shapes: qwen3's attention
+    # and falcon's scan.
     main_shape = {"mix_aggregate": [8, 26122, 1], "mix_tree": [8, 26122, 1],
                   "stc_rows_reduce": [8, 262144],
                   "stc_rows_apply": [8, 262144], "stc_rows_fused": [8, 16384],
@@ -5366,7 +5916,9 @@ def main() -> None:
                   "quant_unpack": [56, 512], "quant_roundtrip": [8, 24, 56],
                   "flash_attention": [2, 4096, 4096, 16, 128],
                   "ssd_scan": [1, 4096, 80, 64, 64, 128],
-                  "ssm_scan": [1, 4096, 8192, 16]}
+                  "ssm_scan": [1, 4096, 8192, 16],
+                  "flash_attention_bwd": [2, 4096, 4096, 16, 128],
+                  "ssm_scan_bwd": [1, 4096, 8192, 16]}
     # Kernels that another kernel's wrapper launches in the same call: their
     # launches stand in that kernel's row, whose times cover both.
     helpers = {"ssd_scan": ("ssd_scan_state", "ssd_scan_pass")}

@@ -1,8 +1,9 @@
-"""Per-client data pipeline: shuffled epoch iterators with a cyclic pad.
+"""Per-client data pipeline: shuffled epoch iterators with a cyclic pad,
+and the LM trainer's infinite (tokens, labels) stream.
 
-Counterpart of ``repro.data.pipeline`` (host numpy, the same batch order for
-the same seed).  Batches are numpy dicts; the fleet executor stacks them
-and moves them to the device.
+Counterpart of ``repro.data.pipeline`` (host numpy, the same batches for
+the same seed).  Batches are numpy dicts; the executors and trainers move
+them to the device.
 """
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ import numpy as np
 from repro_torch.data.partitioner import ClientPartition
 from repro_torch.data.synthetic import ImageDataset
 
-__all__ = ["ClientLoader", "make_client_loaders"]
+__all__ = ["ClientLoader", "make_client_loaders", "lm_batches"]
 
 
 @dataclasses.dataclass
@@ -68,3 +69,17 @@ def make_client_loaders(ds: ImageDataset, part: ClientPartition,
                         batch_size: int, seed: int = 0) -> list[ClientLoader]:
     return [ClientLoader(ds.x[ix], ds.y[ix], batch_size, seed + 1000 * i)
             for i, ix in enumerate(part.indices)]
+
+
+def lm_batches(tokens: np.ndarray, batch: int, seq_len: int, seed: int = 0
+               ) -> Iterator[dict]:
+    """Infinite iterator of (tokens, labels) LM batches: ``batch`` windows
+    of ``seq_len`` tokens at uniform starts, labels the next-token shift,
+    both int32."""
+    rng = np.random.default_rng(seed)
+    n = len(tokens) - seq_len - 1
+    while True:
+        starts = rng.integers(0, n, size=batch)
+        xs = np.stack([tokens[s:s + seq_len] for s in starts])
+        ys = np.stack([tokens[s + 1:s + seq_len + 1] for s in starts])
+        yield {"tokens": xs.astype(np.int32), "labels": ys.astype(np.int32)}

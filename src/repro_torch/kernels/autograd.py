@@ -1,0 +1,161 @@
+"""Gradients of the LM zoo's kernels: ``torch.autograd.Function``s around
+``flash_attention`` and ``ssm_scan``.
+
+The reference has no backward Pallas body: ``jax.grad`` differentiates its
+inline XLA attention and scan.  The port's zoo runs its forward through
+the hand-written kernels, so training needs their backward kernels
+(``flash_attention_bwd_cuda``, ``ssm_scan_bwd_cuda``) wired in here.
+
+:func:`attention_function` and :func:`scan_function` build a ``Function``
+from a forward and a backward callable: the seam through which the CPU
+tests run the very same ``Function`` with the plain twins
+(``ref.flash_attention_ref`` / ``ref.flash_attention_bwd_ref``,
+``ref.ssm_scan_ref`` / ``ref.ssm_scan_bwd_ref``).  :data:`FlashAttention`
+and :data:`SsmScan` are built on the CUDA kernels; ``kernels.ops`` routes a
+CUDA tensor through them.
+
+Each ``Function`` is written in the ``forward`` / ``setup_context`` /
+``backward`` form, so ``torch.func.grad`` and ``grad_and_value`` take it,
+and has a ``vmap`` staticmethod that folds the vmapped dimension into the
+kernel's batch axis B (an unbatched operand is expanded first), runs the
+kernel once and unfolds the result: the fleet plane's vmapped train step
+launches each kernel once per layer, not once per client.  The backward
+itself is a second ``Function`` with the same ``vmap`` rule (it has no
+backward of its own: no double differentiation).  ``flash_attention``
+saves q, k, v and its output; ``ssm_scan`` saves ``da`` and its output
+``hs``.
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+from torch.autograd import Function
+
+from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
+                                                 flash_attention_cuda)
+from repro_torch.kernels.ssm_scan import ssm_scan_bwd_cuda, ssm_scan_cuda
+
+__all__ = ["attention_function", "scan_function", "FlashAttention",
+           "SsmScan"]
+
+
+def _fold(info, in_dims, tensors) -> list[torch.Tensor]:
+    """Each tensor with its vmapped dimension (expanded where None) folded
+    into its leading axis, contiguous."""
+    out = []
+    for t, d in zip(tensors, in_dims):
+        t = (t.unsqueeze(0).expand(info.batch_size, *t.shape) if d is None
+             else t.movedim(d, 0))
+        out.append(t.reshape(-1, *t.shape[2:]).contiguous())
+    return out
+
+
+def _unfold(info, t: torch.Tensor) -> torch.Tensor:
+    return t.reshape(info.batch_size, -1, *t.shape[1:])
+
+
+def _no_double_backward(name: str):
+    def backward(ctx, *grads):
+        raise NotImplementedError(f"{name}'s backward has no backward of its "
+                                  f"own (no double differentiation)")
+    return staticmethod(backward)
+
+
+def attention_function(fwd: Callable, bwd: Callable) -> type[Function]:
+    """``Function.apply(q, k, v, causal, window, scale)`` computing
+    ``fwd(q, k, v, causal=, window=, scale=)``, its gradients by
+    ``bwd(q, k, v, o, do, causal=, window=, scale=) -> (dq, dk, dv)``."""
+
+    class FlashAttentionBwd(Function):
+        @staticmethod
+        def forward(q, k, v, o, do, causal, window, scale):
+            return tuple(bwd(q, k, v, o, do, causal=causal, window=window,
+                             scale=scale))
+
+        @staticmethod
+        def setup_context(ctx, inputs, output):
+            pass
+
+        backward = _no_double_backward("flash_attention")
+
+        @staticmethod
+        def vmap(info, in_dims, q, k, v, o, do, causal, window, scale):
+            folded = _fold(info, in_dims[:5], (q, k, v, o, do))
+            grads = FlashAttentionBwd.apply(*folded, causal, window, scale)
+            return tuple(_unfold(info, g) for g in grads), (0, 0, 0)
+
+    class FlashAttention(Function):
+        @staticmethod
+        def forward(q, k, v, causal, window, scale):
+            return fwd(q, k, v, causal=causal, window=window, scale=scale)
+
+        @staticmethod
+        def setup_context(ctx, inputs, output):
+            q, k, v, causal, window, scale = inputs
+            ctx.save_for_backward(q, k, v, output)
+            ctx.opts = (causal, window, scale)
+
+        @staticmethod
+        def backward(ctx, do):
+            q, k, v, o = ctx.saved_tensors
+            dq, dk, dv = FlashAttentionBwd.apply(
+                q, k, v, o, do.to(q.dtype).contiguous(), *ctx.opts)
+            return dq, dk, dv, None, None, None
+
+        @staticmethod
+        def vmap(info, in_dims, q, k, v, causal, window, scale):
+            q, k, v = _fold(info, in_dims[:3], (q, k, v))
+            out = FlashAttention.apply(q, k, v, causal, window, scale)
+            return _unfold(info, out), 0
+
+    return FlashAttention
+
+
+def scan_function(fwd: Callable, bwd: Callable) -> type[Function]:
+    """``Function.apply(da, dbx)`` computing ``fwd(da, dbx) -> hs``, its
+    gradients by ``bwd(da, hs, dhs) -> (dda, ddbx)``."""
+
+    class SsmScanBwd(Function):
+        @staticmethod
+        def forward(da, hs, dhs):
+            return tuple(bwd(da, hs, dhs))
+
+        @staticmethod
+        def setup_context(ctx, inputs, output):
+            pass
+
+        backward = _no_double_backward("ssm_scan")
+
+        @staticmethod
+        def vmap(info, in_dims, da, hs, dhs):
+            grads = SsmScanBwd.apply(*_fold(info, in_dims, (da, hs, dhs)))
+            return tuple(_unfold(info, g) for g in grads), (0, 0)
+
+    class SsmScan(Function):
+        @staticmethod
+        def forward(da, dbx):
+            return fwd(da, dbx)
+
+        @staticmethod
+        def setup_context(ctx, inputs, output):
+            ctx.save_for_backward(inputs[0], output)
+
+        @staticmethod
+        def backward(ctx, dhs):
+            da, hs = ctx.saved_tensors
+            return SsmScanBwd.apply(da, hs, dhs.to(hs.dtype).contiguous())
+
+        @staticmethod
+        def vmap(info, in_dims, da, dbx):
+            out = SsmScan.apply(*_fold(info, in_dims, (da, dbx)))
+            return _unfold(info, out), 0
+
+    return SsmScan
+
+
+#: The CUDA route of ``ops.flash_attention``.
+FlashAttention = attention_function(flash_attention_cuda,
+                                    flash_attention_bwd_cuda)
+#: The CUDA route of ``ops.ssm_scan``.
+SsmScan = scan_function(ssm_scan_cuda, ssm_scan_bwd_cuda)

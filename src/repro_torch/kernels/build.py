@@ -32,6 +32,7 @@ SOURCES = {"mix_aggregate": "mix_aggregate.cu", "stc_rows": "stc_rows.cu",
            "dol_bid_scores": "dol_bid_scores.cu",
            "bid_value_fuse": "bid_value_fuse.cu", "quant": "quant.cu",
            "flash_attention": "flash_attention.cu",
+           "flash_attention_bwd": "flash_attention_bwd.cu",
            "ssm_scan": "ssm_scan.cu", "ssd_scan": "ssd_scan.cu",
            "launch_floor": "launch_floor.cu"}
 
@@ -78,8 +79,13 @@ _SIGNATURES = {
     "flash_attention": {
         "repro_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                   _F, _I, _I, _P]},
+    "flash_attention_bwd": {
+        "repro_flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                      _I, _I, _I, _I, _I, _I, _F, _I, _I,
+                                      _P]},
     "ssm_scan": {
-        "repro_ssm_scan_f32": [_P, _P, _P, _I, _I, _I, _P]},
+        "repro_ssm_scan_f32": [_P, _P, _P, _I, _I, _I, _P],
+        "repro_ssm_scan_bwd_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _P]},
     "ssd_scan": {
         "repro_ssd_scan_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                _I, _I, _I, _P],

@@ -59,6 +59,53 @@ ssm_scan_kernel(const float* __restrict__ da, const float* __restrict__ dbx,
   }
 }
 
+// The backward, in reverse time from g = 0 with da_S = 0:
+//   g = dhs_t + da_{t+1} * g,  ddbx_t = g,  dda_t = g * h_{t-1} (h_{-1} = 0),
+// __fmul_rn then __fadd_rn as in ssm_scan_bwd_ref, so the two agree bit
+// for bit.  It replaces no TPU kernel (the reference differentiates its
+// inline XLA scan) and is bound by memory too: three (B, S, D, N) reads
+// (dhs, da, hs) and two writes.  The same one thread per channel, walking
+// the sequence backwards kUnroll steps at a time with every load of the
+// group issued first; da_t is carried to the next (earlier) step.
+__global__ void __launch_bounds__(kThreads)
+ssm_scan_bwd_kernel(const float* __restrict__ da,
+                    const float* __restrict__ hs,
+                    const float* __restrict__ dhs, float* __restrict__ dda,
+                    float* __restrict__ ddbx, int S, int DN) {
+  const int c = blockIdx.x * kThreads + threadIdx.x;
+  if (c >= DN) return;
+  const long long step = DN;
+  const long long base = (long long)blockIdx.y * S * step + c;
+  float g = 0.f, a_next = 0.f;
+  int t = S - 1;
+  for (; t + 1 >= kUnroll; t -= kUnroll) {
+    float dh[kUnroll], a[kUnroll], hp[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long off = base + (long long)(t - u) * step;
+      dh[u] = __ldg(dhs + off);
+      a[u] = __ldg(da + off);
+      hp[u] = t - u > 0 ? __ldg(hs + off - step) : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long off = base + (long long)(t - u) * step;
+      g = __fadd_rn(dh[u], __fmul_rn(a_next, g));
+      ddbx[off] = g;
+      dda[off] = __fmul_rn(g, hp[u]);
+      a_next = a[u];
+    }
+  }
+  for (; t >= 0; --t) {
+    const long long off = base + (long long)t * step;
+    const float hp = t > 0 ? __ldg(hs + off - step) : 0.f;
+    g = __fadd_rn(__ldg(dhs + off), __fmul_rn(a_next, g));
+    ddbx[off] = g;
+    dda[off] = __fmul_rn(g, hp);
+    a_next = __ldg(da + off);
+  }
+}
+
 }  // namespace
 
 // Returns cudaGetLastError() after the launch.
@@ -71,5 +118,21 @@ extern "C" int repro_ssm_scan_f32(const void* da, const void* dbx, void* hs,
   ssm_scan_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(da), static_cast<const float*>(dbx),
       static_cast<float*>(hs), S, DN);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The backward; returns cudaGetLastError() after the launch.
+extern "C" int repro_ssm_scan_bwd_f32(const void* da, const void* hs,
+                                      const void* dhs, void* dda, void* ddbx,
+                                      int B, int S, int DN, void* stream) {
+  if (B <= 0 || B > 65535 || S <= 0 || DN <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid((DN + kThreads - 1) / kThreads, B);
+  ssm_scan_bwd_kernel<<<grid, kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(da), static_cast<const float*>(hs),
+      static_cast<const float*>(dhs), static_cast<float*>(dda),
+      static_cast<float*>(ddbx), S, DN);
   return static_cast<int>(cudaGetLastError());
 }

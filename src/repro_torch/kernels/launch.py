@@ -19,9 +19,9 @@ LAUNCHES = {"mix_aggregate": 0, "mix_tree": 0, "stc_rows_reduce": 0, "stc_rows_a
             "stc_fused": 0, "dol_bid_scores": 0, "bid_value_fuse": 0,
             "bid_fused": 0,
             "quant_pack": 0, "quant_unpack": 0, "quant_roundtrip": 0,
-            "flash_attention": 0,
-            "ssm_scan": 0, "ssd_scan_state": 0, "ssd_scan_pass": 0,
-            "ssd_scan": 0}
+            "flash_attention": 0, "flash_attention_bwd": 0,
+            "ssm_scan": 0, "ssm_scan_bwd": 0, "ssd_scan_state": 0,
+            "ssd_scan_pass": 0, "ssd_scan": 0}
 
 
 def reset_launch_counts() -> None:

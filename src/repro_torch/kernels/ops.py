@@ -4,17 +4,22 @@ A CPU tensor goes to the plain PyTorch version (``kernels/ref.py``); a CUDA
 tensor goes to the hand-written kernel (``kernels/diffusion.py``,
 ``kernels/stc_compress.py``, ``kernels/quant.py``, ``kernels/flash_attention.py``, ``kernels/ssm_scan.py``,
 ``kernels/ssd_scan.py``), or the call raises.  There is no override and no
-fallback.  The LM zoo's kernels have no backward yet: on a CUDA tensor they
-raise if autograd would need one (ROADMAP A13c).
+fallback.  On a CUDA tensor ``flash_attention`` and ``ssm_scan`` go through
+the ``torch.autograd.Function``s of ``kernels/autograd.py``, whose
+backward is a hand-written kernel too (and whose ``vmap`` rule folds a
+client axis into the kernel's batch); on the CPU they are the plain
+forwards under ordinary autograd.  ``ssd_scan`` has no backward kernel
+yet: on a CUDA tensor it raises if autograd would need one (ROADMAP
+A13c-2).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import diffusion, quant, ref
-from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.autograd import FlashAttention, SsmScan
+from repro_torch.kernels.flash_attention import BF16_HEAD_DIMS
 from repro_torch.kernels.ssd_scan import ssd_scan_cuda
-from repro_torch.kernels.ssm_scan import ssm_scan_cuda
 from repro_torch.kernels.stc_compress import stc_compress_cuda
 from repro_torch.tree import tree_leaves
 
@@ -30,13 +35,15 @@ def _route(t: torch.Tensor) -> str:
 
 
 def _forward_only(name: str, *tensors: torch.Tensor) -> None:
-    """The LM kernels have no backward: refuse a call autograd would need
-    to differentiate, rather than return a result without gradients."""
+    """Refuse a call autograd would need to differentiate through a kernel
+    that has no backward yet, rather than return a result without
+    gradients."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise NotImplementedError(
-            f"{name} on the card is forward-only: training through the zoo "
-            f"(backward kernels) is queued as ROADMAP item A13c; run the "
-            f"forward under torch.inference_mode() or torch.no_grad()")
+            f"{name} on the card has no backward kernel yet: training "
+            f"through it (the Mamba-2 family, zamba2) is queued as ROADMAP "
+            f"item A13c-2; run the forward under torch.inference_mode() or "
+            f"torch.no_grad()")
 
 
 def mix_aggregate(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -211,22 +218,31 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     scale: float | None = None) -> torch.Tensor:
     """Causal / sliding-window attention, q (B, Sq, H, D) right-aligned to
     k/v (B, Sk, H, D) with heads pre-repeated for GQA; bf16 or fp32 in, q's
-    dtype out, fp32 softmax."""
+    dtype out, fp32 softmax.  Differentiable on either device.  On the card
+    bf16 at D in ``BF16_HEAD_DIMS`` takes the tensor-core kernel; bf16 at
+    another D runs the fp32 kernel (and its backward) on operands widened
+    to fp32, the output rounded to bf16."""
     if _route(q) == "cuda":
-        _forward_only("flash_attention", q, k, v)
-        return flash_attention_cuda(q.contiguous(), k.to(q.dtype).contiguous(),
-                                    v.to(q.dtype).contiguous(), causal=causal,
-                                    window=window, scale=scale)
+        dtype = q.dtype
+        if dtype == torch.bfloat16 and q.shape[-1] not in BF16_HEAD_DIMS:
+            # The tensor-core kernel takes the zoo's head dims; at another
+            # width (the smoke configs' 32) the fp32 kernel runs on the
+            # widened operands, and its output is rounded back.
+            dtype = torch.float32
+        out = FlashAttention.apply(*(t.to(dtype).contiguous()
+                                     for t in (q, k, v)),
+                                   causal, window, scale)
+        return out.to(q.dtype)
     return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                    scale=scale)
 
 
 def ssm_scan(da: torch.Tensor, dbx: torch.Tensor) -> torch.Tensor:
     """Mamba-1 recurrence ``h_t = da_t ⊙ h_{t−1} + dbx_t`` from 0: da/dbx
-    (B, S, D, N) → every state (B, S, D, N) fp32."""
+    (B, S, D, N) → every state (B, S, D, N) fp32.  Differentiable on either
+    device."""
     if _route(da) == "cuda":
-        _forward_only("ssm_scan", da, dbx)
-        return ssm_scan_cuda(da.to(torch.float32).contiguous(),
+        return SsmScan.apply(da.to(torch.float32).contiguous(),
                              dbx.to(torch.float32).contiguous())
     return ref.ssm_scan_ref(da, dbx)
 

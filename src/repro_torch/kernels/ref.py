@@ -28,7 +28,9 @@ __all__ = ["mix_aggregate_ref", "stack_ravel", "stack_unravel",
            "dol_bid_scores_ref", "dol_bid_scores_fused_ref",
            "bid_value_fuse_ref", "bid_fused_ref", "quant_pack_ref",
            "quant_unpack_ref",
-           "quant_roundtrip_ref", "flash_attention_ref", "ssm_scan_ref", "ssd_scan_ref",
+           "quant_roundtrip_ref", "flash_attention_ref",
+           "flash_attention_bwd_ref", "ssm_scan_ref", "ssm_scan_bwd_ref",
+           "ssd_scan_ref",
            "ssd_chunk_states_ref", "ssd_state_pass_ref",
            "ssd_chunk_output_ref", "ssd_scan_stages_ref"]
 
@@ -463,18 +465,58 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scale = 1.0 / d ** 0.5 if scale is None else scale
     s = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32),
                      k.to(torch.float32)) * scale
-    q_pos = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
-    k_pos = torch.arange(sk, device=q.device)[None, :]
-    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= k_pos <= q_pos
-    if window is not None:
-        mask &= k_pos > q_pos - window
+    mask = _attention_mask(sq, sk, causal, window, q.device)
     s = s.masked_fill(~mask, float("-inf"))
     p = torch.softmax(s, dim=-1)
     p = torch.nan_to_num(p, nan=0.0)                # fully masked rows
     out = torch.einsum("bhqk,bkhd->bqhd", p, v.to(torch.float32))
     return out.to(q.dtype)
+
+
+def _attention_mask(sq: int, sk: int, causal: bool, window: int | None,
+                    device) -> torch.Tensor:
+    """(Sq, Sk) bool: the keys each query sees, q right-aligned to the end
+    of the keys."""
+    q_pos = torch.arange(sq, device=device)[:, None] + (sk - sq)
+    k_pos = torch.arange(sk, device=device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=device)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window is not None:
+        mask &= k_pos > q_pos - window
+    return mask
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, o: torch.Tensor,
+                            do: torch.Tensor, *, causal: bool = True,
+                            window: int | None = None,
+                            scale: float | None = None
+                            ) -> tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """The backward of :func:`flash_attention_ref`, as formulas: ``o`` is
+    the forward's output and ``do`` the gradient reaching it.
+
+    fp32 scores over the whole rectangle recompute ``P``; ``Δ =
+    rowsum(dO ∘ O)`` in fp32; ``dV = Pᵀ·dO``, ``dP = dO·Vᵀ``, ``dS = P ∘
+    (dP − Δ)``, ``dQ = scale·dS·K``, ``dK = scale·dSᵀ·Q``.  A row that sees
+    no key has ``P = 0``, so it adds nothing to any gradient.  Each result
+    comes back in its input's dtype."""
+    d = q.shape[-1]
+    scale = 1.0 / d ** 0.5 if scale is None else scale
+    f32 = torch.float32
+    qf, kf, vf, of, dof = (t.to(f32) for t in (q, k, v, o, do))
+    mask = _attention_mask(q.shape[1], k.shape[1], causal, window, q.device)
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    p = torch.softmax(s.masked_fill(~mask, float("-inf")), dim=-1)
+    p = torch.nan_to_num(p, nan=0.0)                # fully masked rows
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    delta = (dof * of).sum(-1).transpose(1, 2)[..., None]    # (B,H,Sq,1)
+    ds = p * (dp - delta)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def ssm_scan_ref(da: torch.Tensor, dbx: torch.Tensor) -> torch.Tensor:
@@ -490,6 +532,29 @@ def ssm_scan_ref(da: torch.Tensor, dbx: torch.Tensor) -> torch.Tensor:
         h = da[:, t] * h + dbx[:, t]
         hs[:, t] = h
     return hs
+
+
+def ssm_scan_bwd_ref(da: torch.Tensor, hs: torch.Tensor,
+                     dhs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The backward of :func:`ssm_scan_ref`: ``da`` and the forward's
+    states ``hs``, ``dhs`` the gradient reaching them, all (B, S, D, N)
+    fp32 → ``(dda, ddbx)``.
+
+    In reverse time from ``g = 0``: ``g = dhs_t + da_{t+1}·g`` (a multiply,
+    then an add, each rounded; ``da_S = 0``), ``ddbx_t = g`` and ``dda_t =
+    g·h_{t−1}`` with ``h_{−1} = 0`` — the CUDA kernel's arithmetic, so the
+    two agree bit for bit."""
+    da, hs, dhs = (t.to(torch.float32) for t in (da, hs, dhs))
+    dda = torch.empty_like(da)
+    ddbx = torch.empty_like(da)
+    zero = torch.zeros_like(da[:, 0])
+    g = zero
+    for t in reversed(range(da.shape[1])):
+        a_next = da[:, t + 1] if t + 1 < da.shape[1] else zero
+        g = dhs[:, t] + a_next * g
+        ddbx[:, t] = g
+        dda[:, t] = g * (hs[:, t - 1] if t > 0 else zero)
+    return dda, ddbx
 
 
 def ssd_scan_ref(xh: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,

@@ -10,6 +10,13 @@ does (a multiply, then an add), so the two agree bit for bit.  The wrapper
 takes CUDA tensors only, checks them, allocates the output, launches on
 PyTorch's current stream, raises on a launch error and adds one to
 ``LAUNCHES["ssm_scan"]``.
+
+:func:`ssm_scan_bwd_cuda` is its backward (no TPU counterpart: the
+reference differentiates its inline XLA scan): from ``da``, the forward's
+states ``hs`` and their gradient ``dhs``, the gradients ``(dda, ddbx)``,
+one thread per channel in reverse time, bit for bit
+``ref.ssm_scan_bwd_ref``; each call adds one to
+``LAUNCHES["ssm_scan_bwd"]``.
 """
 from __future__ import annotations
 
@@ -18,7 +25,7 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.launch import LAUNCHES, check_tensor, int32, raise_on
 
-__all__ = ["ssm_scan_cuda"]
+__all__ = ["ssm_scan_cuda", "ssm_scan_bwd_cuda"]
 
 
 def ssm_scan_cuda(da: torch.Tensor, dbx: torch.Tensor) -> torch.Tensor:
@@ -43,3 +50,29 @@ def ssm_scan_cuda(da: torch.Tensor, dbx: torch.Tensor) -> torch.Tensor:
     raise_on(err, "ssm_scan")
     LAUNCHES["ssm_scan"] += 1
     return hs
+
+
+def ssm_scan_bwd_cuda(da: torch.Tensor, hs: torch.Tensor,
+                      dhs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """da, hs, dhs (B, S, D, N) fp32 → (dda, ddbx) (B, S, D, N) fp32."""
+    for name, t in (("da", da), ("hs", hs), ("dhs", dhs)):
+        check_tensor(t, name, 4)
+        if t.shape != da.shape or t.device != da.device:
+            raise ValueError(f"{name} {tuple(t.shape)} does not match da "
+                             f"{tuple(da.shape)}")
+    b, s, d, n = da.shape
+    if b > 65535 or s == 0:
+        raise ValueError(f"ssm_scan backward takes B <= 65535 and S > 0, "
+                         f"got {tuple(da.shape)}")
+    dda = torch.empty_like(da)
+    ddbx = torch.empty_like(da)
+    lib = build.load("ssm_scan")
+    with torch.cuda.device(da.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.repro_ssm_scan_bwd_f32(
+            da.data_ptr(), hs.data_ptr(), dhs.data_ptr(), dda.data_ptr(),
+            ddbx.data_ptr(), int32(b, "B"), int32(s, "S"),
+            int32(d * n, "D·N"), stream)
+    raise_on(err, "ssm_scan_bwd")
+    LAUNCHES["ssm_scan_bwd"] += 1
+    return dda, ddbx

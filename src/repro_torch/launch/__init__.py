@@ -1,2 +1,2 @@
-"""Command-line entry points of the port (``python -m repro_torch.launch.sweep``,
-``python -m repro_torch.launch.serve``)."""
+"""Command-line entry points of the port (``python -m
+repro_torch.launch.sweep``, ``serve``, ``train`` and ``fl_spmd``)."""

@@ -14,6 +14,8 @@ from typing import Any
 
 import torch
 
+from repro_torch.models.remat import checkpoint
+
 Params = Any
 
 __all__ = ["silu", "init_dense", "dense", "init_rmsnorm", "rmsnorm",
@@ -129,16 +131,30 @@ def swiglu(p: Params, x: torch.Tensor,
 
 # ---------------------------------------------------------------- loss
 
+def _ce_chunk(h: torch.Tensor, w: torch.Tensor, y: torch.Tensor,
+              msk: torch.Tensor) -> torch.Tensor:
+    """One chunk's masked CE sum: (B, c, D) hidden against the (D, V)
+    readout, fp32 logits."""
+    logits = (h.to(w.dtype) @ w).to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, y[..., None])[..., 0]
+    return torch.sum((logz - gold) * msk)
+
+
 def chunked_cross_entropy(emb_or_head: Params, hidden: torch.Tensor,
                           labels: torch.Tensor, *, tie: bool,
                           chunk: int = 512,
                           compute_dtype: torch.dtype = torch.bfloat16,
-                          mask: torch.Tensor | None = None) -> torch.Tensor:
+                          mask: torch.Tensor | None = None,
+                          remat: bool = True) -> torch.Tensor:
     """Mean next-token cross-entropy without materializing (B, S, V) logits.
 
     ``hidden``: (B, S, D); ``labels``: (B, S) int.  The loop runs over
     sequence chunks with the batch intact, as the reference's default; one
-    chunk's (B, chunk, V) fp32 logits is the largest live tensor."""
+    chunk's (B, chunk, V) fp32 logits is the largest live tensor.  With
+    ``remat`` (the reference's, which checkpoints every chunk) each chunk
+    is a :func:`~repro_torch.models.remat.checkpoint`, so the backward
+    recomputes its logits instead of keeping all of them."""
     b, s, _ = hidden.shape
     m = (torch.ones((b, s), dtype=torch.float32, device=hidden.device)
          if mask is None else mask.to(torch.float32))
@@ -150,12 +166,9 @@ def chunked_cross_entropy(emb_or_head: Params, hidden: torch.Tensor,
     loss_sum = torch.zeros((), dtype=torch.float32, device=hidden.device)
     count = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for s0 in range(0, s, chunk):
-        h = hidden[:, s0:s0 + chunk].to(compute_dtype)
-        y = labels[:, s0:s0 + chunk].long()
-        msk = m[:, s0:s0 + chunk]
-        logits = (h @ w).to(torch.float32)
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, y[..., None])[..., 0]
-        loss_sum = loss_sum + torch.sum((logz - gold) * msk)
-        count = count + torch.sum(msk)
+        args = (hidden[:, s0:s0 + chunk], w,
+                labels[:, s0:s0 + chunk].long(), m[:, s0:s0 + chunk])
+        loss_sum = loss_sum + (checkpoint(_ce_chunk, *args) if remat
+                               else _ce_chunk(*args))
+        count = count + torch.sum(args[3])
     return loss_sum / torch.clamp(count, min=1.0)

@@ -6,7 +6,10 @@ Counterpart of ``repro.models.transformer``.  A segment is
 ``count`` times with stacked parameters (leading axis ``count``), in the
 reference's params layout.  The reference scans a body with ``lax.scan``;
 here a Python loop walks the stacked layers, in the forward and in
-single-token decode (:func:`init_cache`, :func:`decode_step`) alike.
+single-token decode (:func:`init_cache`, :func:`decode_step`) alike.  With
+``remat`` each body is one :func:`~repro_torch.models.remat.checkpoint`
+(the reference's ``jax.checkpoint`` of its scan body): the backward
+recomputes the body's activations instead of keeping them.
 
 Layer kinds ported: ``attn`` (full-causal GQA attention + SwiGLU),
 ``mamba1``, ``mamba2`` and ``shared`` (the hybrid's one attention + MLP
@@ -26,7 +29,8 @@ from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.attention import (AttnSpec, attn_decode,
                                           attn_forward, init_attention,
                                           init_kv_cache)
-from repro_torch.tree import tree_map
+from repro_torch.models.remat import checkpoint
+from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
 
 Params = Any
 
@@ -172,19 +176,52 @@ def _layer(stacked: Params, i: int) -> Params:
     return stacked[i]
 
 
+def _unstack(stacked: Params, count: int) -> list[Params]:
+    """A segment's stacked params as ``count`` per-layer trees of views
+    (one ``unbind`` per leaf, so the gradients stack back in one copy)."""
+    leaves, treedef = tree_flatten(stacked)
+    cols = [leaf.unbind(0) for leaf in leaves]
+    return [tree_unflatten(treedef, [c[i] for c in cols])
+            for i in range(count)]
+
+
+def _body(cfg: ModelConfig, kinds: tuple, layer: Params, shared: Params,
+          x: torch.Tensor, positions: torch.Tensor | None) -> torch.Tensor:
+    """One repeat of a segment's kinds."""
+    for pi, kind in enumerate(kinds):
+        p = shared if kind == "shared" else layer[f"{pi}_{kind}"]
+        x = _apply_layer(p, kind, cfg, x, positions)
+    return x
+
+
+def _remat_body(cfg: ModelConfig, kinds: tuple, layer: Params,
+                shared: Params, x: torch.Tensor,
+                positions: torch.Tensor | None) -> torch.Tensor:
+    """:func:`_body` as one checkpoint: its inputs are x, the positions and
+    the body's params, nothing captured."""
+    leaves, treedef = tree_flatten((layer, shared))
+    has_pos = positions is not None
+
+    def fn(x, *rest):
+        pos = rest[0] if has_pos else None
+        layer_, shared_ = tree_unflatten(treedef, list(rest[has_pos:]))
+        return _body(cfg, kinds, layer_, shared_, x, pos)
+
+    return checkpoint(fn, x, *((positions,) if has_pos else ()), *leaves)
+
+
 def forward_hidden(params: Params, cfg: ModelConfig, x: torch.Tensor,
                    positions: torch.Tensor | None = None, *,
                    remat: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
     """Embedded inputs (B,S,D) -> final hidden (B,S,D), aux loss (0: no
-    MoE).  ``remat`` is accepted for the reference's signature and has no
-    effect in a forward-only pass."""
+    MoE).  ``remat`` checkpoints each layer body: the backward recomputes
+    its activations (under ``torch.func`` transforms and ``vmap`` too)."""
     check_supported(cfg)
     for seg_p, (kinds, count) in zip(params["segments"], build_plan(cfg)):
-        for i in range(count):
-            for pi, kind in enumerate(kinds):
-                p = (params["shared_block"] if kind == "shared"
-                     else _layer(seg_p[f"{pi}_{kind}"], i))
-                x = _apply_layer(p, kind, cfg, x, positions)
+        shared = params["shared_block"] if "shared" in kinds else {}
+        body = _remat_body if remat else _body
+        for layer in _unstack(seg_p, count):
+            x = body(cfg, kinds, layer, shared, x, positions)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
@@ -210,7 +247,7 @@ def lm_loss(params: Params, cfg: ModelConfig, batch: dict, *,
     # reference (its lm_loss leaves chunked_cross_entropy at the default).
     ce = L.chunked_cross_entropy(head, hidden, batch["labels"],
                                  tie=cfg.tie_embeddings,
-                                 mask=batch.get("mask"))
+                                 mask=batch.get("mask"), remat=remat)
     return ce + aux
 
 

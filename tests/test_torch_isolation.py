@@ -48,11 +48,13 @@ def test_every_port_module_imports_without_jax_or_repro():
                          text=True, timeout=300, cwd=ROOT)
     assert out.returncode == 0, out.stderr
     *_, names, count = out.stdout.strip().splitlines()
-    assert int(count) >= 80
+    assert int(count) >= 84
     for sub in ("experiments", "launch", "experiments.durability",
                 "fl.resume", "train.checkpoint", "fl.async_plane",
                 "fl.population", "core.threefry", "serving",
-                "serving.engine", "serving.sampler", "launch.serve"):
+                "serving.engine", "serving.sampler", "launch.serve",
+                "kernels.autograd", "models.remat", "launch.train",
+                "launch.fl_spmd"):
         assert f"repro_torch.{sub}" in names.split()
 
 

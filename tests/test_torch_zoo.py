@@ -38,6 +38,7 @@ from repro_torch.configs import ARCH_IDS, SHAPES, get_config, get_smoke_config
 from repro_torch.models import transformer as ttf
 from repro_torch.models.zoo import build_model, params_from_numpy
 from repro_torch.train import trainstep as tts
+from repro_torch.train.optimizer import sgd
 
 PORTED = ["qwen3_0_6b", "smollm_360m", "zamba2_2_7b", "falcon_mamba_7b"]
 UNPORTED = [a for a in J_ARCH_IDS if a not in PORTED]
@@ -160,7 +161,10 @@ def test_unported_families_raise(arch):
 
 def test_decode_and_training_raise():
     """Decode through the zoo is ported (ROADMAP A13b): ``init_cache`` and
-    ``decode_step`` return; training through it (A13c) still raises."""
+    ``decode_step`` return; so is training the dense and Mamba-1 families
+    (A13c): ``make_train_step`` builds a step.  What still raises, training
+    zamba2 through ``ssd_scan`` on the card (A13c-2), is held by
+    ``tests/test_torch_train.py``."""
     model = build_model(get_smoke_config("qwen3_0_6b"))
     params = model.init(torch.Generator().manual_seed(0))
     cache = model.init_cache(params, 1, 16)
@@ -170,5 +174,4 @@ def test_decode_and_training_raise():
     assert logits.shape == (1, 1, model.cfg.vocab_size)
     assert logits.dtype == torch.float32 and cache2 is cache
     assert callable(tts.make_serve_step(model))
-    with pytest.raises(NotImplementedError, match="A13c"):
-        tts.make_train_step(model, None)
+    assert callable(tts.make_train_step(model, sgd()))

@@ -1,0 +1,355 @@
+"""Gradients through the port's LM zoo against the JAX package's, on the CPU.
+
+* ``torch.func.grad`` of the port's ``lm_loss`` (remat on) against
+  ``jax.grad`` of the reference's ``model.loss`` at qwen3-smoke,
+  smollm-smoke and falcon-mamba-smoke, from the reference's init carried
+  across with ``params_from_numpy``.  Per leaf, max|Δg| / max|g| and
+  ‖Δg‖ / ‖g‖.  ``compute_dtype="float32"``: within 2e-3 and 5e-4
+  (measured ≤ 3.2e-4 and ≤ 9.1e-5; the readout is bf16 in both packages,
+  its rounding lands on other sums).  ``"bfloat16"``: within 0.1 and 0.05
+  (measured ≤ 0.022 and ≤ 0.019; XLA fuses bf16 chains in fp32, torch
+  rounds per op).
+* ``remat=True`` against ``remat=False``: equal gradients, under ``grad``,
+  ``vmap`` over a client axis and plain autograd, and the layer bodies run
+  twice (the backward's recompute).
+* The backward twins ``ref.flash_attention_bwd_ref`` and
+  ``ref.ssm_scan_bwd_ref`` against ``jax.vjp`` of ``repro.kernels.ref``'s
+  forwards (causal, windowed, Sq < Sk, non-causal, GQA-repeated heads, a
+  fully masked row; within 2e-5 · (1 + max|g|): fp32 sums in another
+  order) and against torch autograd of the forward twins (1e-5).
+* The ``Function``s of ``kernels/autograd.py`` built on the plain twins
+  (the seam the CUDA route uses): ``grad``, ``grad_and_value`` and
+  ``vmap`` over a client axis with an unbatched operand, against autograd
+  of the plain forwards; and ``ops.flash_attention``'s card route (forced
+  on the CPU) widening bf16 at a head dim the tensor-core kernel does not
+  take to the fp32 kernels.
+"""
+import dataclasses
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from torch.func import grad, grad_and_value, vmap
+
+from repro.configs import get_smoke_config as j_get_smoke
+from repro.kernels import ref as jref
+from repro.models.zoo import build_model as j_build
+from repro_torch.configs import get_smoke_config
+from repro_torch.kernels import autograd as kag
+from repro_torch.kernels import ref as tref
+from repro_torch.models import transformer as ttf
+from repro_torch.models.zoo import build_model, params_from_numpy
+from repro_torch.tree import tree_leaves, tree_map
+
+ARCHS = ["qwen3_0_6b", "smollm_360m", "falcon_mamba_7b"]
+BATCH, SEQ = 2, 24
+GRAD_BARS = {"float32": (2e-3, 5e-4), "bfloat16": (0.1, 0.05)}
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+def _batch(vocab):
+    rng = np.random.default_rng(3)
+    tokens = rng.integers(0, vocab, (BATCH, SEQ)).astype(np.int32)
+    labels = rng.integers(0, vocab, (BATCH, SEQ)).astype(np.int32)
+    mask = (rng.uniform(size=(BATCH, SEQ)) < 0.8).astype(np.float32)
+    return {"tokens": tokens, "labels": labels, "mask": mask}
+
+
+@functools.lru_cache(maxsize=None)
+def _reference(arch, dtype):
+    """The reference's params, loss and gradients (numpy)."""
+    jcfg = dataclasses.replace(j_get_smoke(arch), compute_dtype=dtype)
+    model = j_build(jcfg)
+    params = model.init(jax.random.PRNGKey(0))
+    batch = {k: jnp.asarray(v) for k, v in _batch(jcfg.vocab_size).items()}
+    loss, grads = jax.value_and_grad(
+        lambda p: model.loss(p, batch, remat=False))(params)
+    to_np = functools.partial(jax.tree.map, lambda x: np.asarray(x))
+    return to_np(params), float(loss), to_np(grads)
+
+
+def _port(arch, dtype):
+    cfg = dataclasses.replace(get_smoke_config(arch), compute_dtype=dtype)
+    return build_model(cfg), cfg
+
+
+def _tbatch(vocab):
+    return {k: torch.from_numpy(v) for k, v in _batch(vocab).items()}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_grad_matches_reference(arch, dtype):
+    params_np, want_loss, want_grads = _reference(arch, dtype)
+    model, cfg = _port(arch, dtype)
+    batch = _tbatch(cfg.vocab_size)
+    grads, loss = grad_and_value(
+        lambda p: model.loss(p, batch, remat=True))(
+            params_from_numpy(params_np))
+    loss_tol = 2e-5 if dtype == "float32" else 3e-3
+    assert abs(float(loss) - want_loss) <= loss_tol
+    max_bar, l2_bar = GRAD_BARS[dtype]
+    want_leaves = jax.tree.leaves(want_grads)
+    got_leaves = tree_leaves(grads)
+    assert len(got_leaves) == len(want_leaves)
+    for w, g in zip(want_leaves, got_leaves):
+        w = np.asarray(w, np.float32)
+        g = g.float().numpy()
+        assert g.shape == w.shape and np.isfinite(g).all()
+        err = np.abs(g - w)
+        assert err.max() <= max_bar * np.abs(w).max() + 1e-12, err.max()
+        assert (np.linalg.norm(g - w)
+                <= l2_bar * np.linalg.norm(w) + 1e-12)
+
+
+# ------------------------------------------------------------------ remat
+
+@pytest.mark.parametrize("arch", ["qwen3_0_6b", "falcon_mamba_7b"])
+def test_remat_equals_no_remat_and_recomputes(arch, monkeypatch):
+    model, cfg = _port(arch, "float32")
+    params = model.init(torch.Generator().manual_seed(0))
+    batch = _tbatch(cfg.vocab_size)
+    calls = []
+    apply_layer = ttf._apply_layer
+
+    def counted(*args, **kw):
+        calls.append(1)
+        return apply_layer(*args, **kw)
+
+    monkeypatch.setattr(ttf, "_apply_layer", counted)
+
+    def grads(remat):
+        calls.clear()
+        g = grad(lambda p: model.loss(p, batch, remat=remat))(params)
+        return g, len(calls)
+
+    g_on, n_on = grads(True)
+    g_off, n_off = grads(False)
+    assert n_off == cfg.num_layers and n_on == 2 * cfg.num_layers
+    for a, b in zip(tree_leaves(g_on), tree_leaves(g_off)):
+        assert torch.equal(a, b)
+    # Plain autograd takes the same checkpoints.
+    leaves = tree_map(lambda x: x.clone().requires_grad_(True), params)
+    model.loss(leaves, batch, remat=True).backward()
+    for a, b in zip(tree_leaves(leaves), tree_leaves(g_off)):
+        assert torch.equal(a.grad, b)
+    # Under vmap over a client axis of two perturbed copies.
+    stacked = tree_map(lambda x: torch.stack([x, x * 1.01]), params)
+    sbatch = tree_map(lambda x: torch.stack([x, x.flip(0)]), batch)
+
+    def fleet(remat):
+        return vmap(grad(lambda p, b: model.loss(p, b, remat=remat)))(
+            stacked, sbatch)
+
+    for a, b in zip(tree_leaves(fleet(True)), tree_leaves(fleet(False))):
+        assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------- twins
+
+ATTN_CASES = [
+    # (B, Sq, Sk, KH, G, D, causal, window)
+    (2, 24, 24, 2, 1, 16, True, None),        # causal
+    (1, 40, 40, 2, 1, 8, True, 7),            # sliding window
+    (1, 12, 30, 2, 1, 16, True, None),        # Sq < Sk, right-aligned
+    (2, 20, 20, 1, 1, 12, False, None),       # non-causal
+    (1, 16, 16, 2, 3, 8, True, None),         # GQA: heads repeated 3×
+    (1, 10, 6, 1, 1, 8, True, None),          # Sq > Sk: rows 0-3 see none
+]
+
+
+def _attn_inputs(b, sq, sk, kh, g, d, seed=0):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, sq, kh * g, d)).astype(np.float32)
+    k = rng.standard_normal((b, sk, kh, d)).astype(np.float32)
+    v = rng.standard_normal((b, sk, kh, d)).astype(np.float32)
+    do = rng.standard_normal((b, sq, kh * g, d)).astype(np.float32)
+    # heads pre-repeated for GQA, h = kh·G + g
+    return q, np.repeat(k, g, axis=2), np.repeat(v, g, axis=2), do
+
+
+def _close(got, want, rel=2e-5):
+    got = np.asarray(got, np.float32)
+    want = np.asarray(want, np.float32)
+    assert np.abs(got - want).max() <= rel * (1.0 + np.abs(want).max())
+
+
+@pytest.mark.parametrize("b,sq,sk,kh,g,d,causal,window", ATTN_CASES)
+def test_flash_attention_bwd_ref_matches_reference_vjp(b, sq, sk, kh, g, d,
+                                                       causal, window):
+    q, k, v, do = _attn_inputs(b, sq, sk, kh, g, d)
+    kw = dict(causal=causal, window=window)
+    out, pull = jax.vjp(lambda q, k, v: jref.flash_attention_ref(
+        q, k, v, **kw), *(jnp.asarray(x) for x in (q, k, v)))
+    want = pull(jnp.asarray(do))
+    tq, tk, tv, tdo = (torch.from_numpy(x) for x in (q, k, v, do))
+    o = tref.flash_attention_ref(tq, tk, tv, **kw)
+    _close(o.numpy(), out, 3e-6)
+    got = tref.flash_attention_bwd_ref(tq, tk, tv, o, tdo, **kw)
+    for x, w in zip(got, want):
+        _close(x.numpy(), w)
+    # ... and against torch autograd of the forward twin.
+    leaves = [t.clone().requires_grad_(True) for t in (tq, tk, tv)]
+    tref.flash_attention_ref(*leaves, **kw).backward(tdo)
+    for x, t in zip(got, leaves):
+        _close(x.numpy(), t.grad.numpy(), 1e-5)
+    if sq > sk and causal:
+        # Rows that see no key output 0 and send no gradient.
+        assert float(o[:, :sq - sk].abs().max()) == 0.0
+        assert float(got[0][:, :sq - sk].abs().max()) == 0.0
+
+
+def test_flash_attention_bwd_ref_keeps_bf16():
+    q, k, v, do = (torch.from_numpy(x).to(torch.bfloat16)
+                   for x in _attn_inputs(1, 16, 16, 2, 1, 16))
+    o = tref.flash_attention_ref(q, k, v)
+    grads = tref.flash_attention_bwd_ref(q, k, v, o, do)
+    assert all(x.dtype == torch.bfloat16 for x in grads)
+    want = tref.flash_attention_bwd_ref(*(t.float() for t in (q, k, v)),
+                                        o.float(), do.float())
+    for x, w in zip(grads, want):
+        _close(x.float().numpy(), w.numpy(), 1e-2)
+
+
+@pytest.mark.parametrize("shape", [(2, 17, 3, 4), (1, 40, 8, 2)])
+def test_ssm_scan_bwd_ref_matches_reference_vjp(shape):
+    rng = np.random.default_rng(5)
+    da = np.exp(-rng.uniform(size=shape)).astype(np.float32)
+    dbx = (0.1 * rng.standard_normal(shape)).astype(np.float32)
+    dhs = rng.standard_normal(shape).astype(np.float32)
+    _, pull = jax.vjp(jref.ssm_scan_ref, jnp.asarray(da), jnp.asarray(dbx))
+    want = pull(jnp.asarray(dhs))
+    tda, tdbx, tdhs = (torch.from_numpy(x) for x in (da, dbx, dhs))
+    hs = tref.ssm_scan_ref(tda, tdbx)
+    got = tref.ssm_scan_bwd_ref(tda, hs, tdhs)
+    for x, w in zip(got, want):
+        _close(x.numpy(), w, 1e-5)
+    leaves = [t.clone().requires_grad_(True) for t in (tda, tdbx)]
+    tref.ssm_scan_ref(*leaves).backward(tdhs)
+    for x, t in zip(got, leaves):
+        _close(x.numpy(), t.grad.numpy(), 1e-6)
+    # The first step's decay meets h_{-1} = 0.
+    assert float(got[0][:, 0].abs().max()) == 0.0
+
+
+# --------------------------------------------------------- the Functions
+
+PlainAttention = kag.attention_function(tref.flash_attention_ref,
+                                        tref.flash_attention_bwd_ref)
+PlainScan = kag.scan_function(tref.ssm_scan_ref, tref.ssm_scan_bwd_ref)
+
+
+def _attn_loss(fn, w, causal, window):
+    def loss(q, k, v):
+        return (fn(q, k, v, causal, window) * w).sum()
+    return loss
+
+
+def _through_function(q, k, v, causal, window):
+    return PlainAttention.apply(q, k, v, causal, window, None)
+
+
+def _through_plain(q, k, v, causal, window):
+    return tref.flash_attention_ref(q, k, v, causal=causal, window=window)
+
+
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 5),
+                                           (False, None)])
+def test_attention_function_grad_and_vmap(causal, window):
+    q, k, v, do = (torch.from_numpy(x)
+                   for x in _attn_inputs(2, 12, 12, 2, 1, 8, seed=1))
+    args = (0, 1, 2)
+    got = grad(_attn_loss(_through_function, do, causal, window),
+               argnums=args)(q, k, v)
+    want = grad(_attn_loss(_through_plain, do, causal, window),
+                argnums=args)(q, k, v)
+    for x, w in zip(got, want):
+        _close(x.numpy(), w.numpy(), 1e-5)
+    (g_q, _), value = grad_and_value(
+        _attn_loss(_through_function, do, causal, window),
+        argnums=(0, 1))(q, k, v)
+    _close(value.numpy(), _attn_loss(_through_plain, do, causal,
+                                     window)(q, k, v).numpy(), 1e-6)
+    # A client axis of 3 on q and v; k unbatched (expanded in the rule).
+    qs, vs = q[None] * torch.tensor([1.0, 0.5, -1.0])[:, None, None, None,
+                                                      None], v[None].repeat(
+        3, 1, 1, 1, 1)
+    got = vmap(grad(_attn_loss(_through_function, do, causal, window),
+                    argnums=args), in_dims=(0, None, 0))(qs, k, vs)
+    want = vmap(grad(_attn_loss(_through_plain, do, causal, window),
+                     argnums=args), in_dims=(0, None, 0))(qs, k, vs)
+    for x, w in zip(got, want):
+        assert x.shape[0] == 3
+        _close(x.numpy(), w.numpy(), 1e-5)
+
+
+def test_scan_function_grad_and_vmap():
+    rng = np.random.default_rng(2)
+    da = torch.from_numpy(np.exp(-rng.uniform(size=(2, 9, 3, 2))).astype(
+        np.float32))
+    dbx = torch.from_numpy(rng.standard_normal((2, 9, 3, 2)).astype(
+        np.float32))
+    w = torch.from_numpy(rng.standard_normal((2, 9, 3, 2)).astype(
+        np.float32))
+
+    def through(fn):
+        return lambda a, b: (fn(a, b) * w).sum()
+
+    got = grad(through(PlainScan.apply), argnums=(0, 1))(da, dbx)
+    want = grad(through(tref.ssm_scan_ref), argnums=(0, 1))(da, dbx)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+    _, value = grad_and_value(through(PlainScan.apply))(da, dbx)
+    assert torch.equal(value, through(tref.ssm_scan_ref)(da, dbx))
+    das = torch.stack([da, da * 0.5, da.flip(1)])
+    got = vmap(grad(through(PlainScan.apply), argnums=(0, 1)),
+               in_dims=(0, None))(das, dbx)
+    want = vmap(grad(through(tref.ssm_scan_ref), argnums=(0, 1)),
+                in_dims=(0, None))(das, dbx)
+    for x, y in zip(got, want):
+        assert x.shape[0] == 3 and torch.equal(x, y)
+
+
+def test_card_route_widens_bf16_at_other_head_dims(monkeypatch):
+    """On the card, bf16 attention at a head dim the tensor-core kernel
+    does not take (the smoke configs' 32) runs the fp32 kernel and its
+    backward on operands widened to fp32, the output rounded to bf16; at
+    the zoo's head dims it stays bf16.  Checked through the seam with the
+    plain twins and the route forced to ``cuda``."""
+    from repro_torch.kernels import ops
+    seen = []
+
+    def fwd(q, k, v, **kw):
+        seen.append(("fwd", q.dtype))
+        return tref.flash_attention_ref(q, k, v, **kw)
+
+    def bwd(q, k, v, o, do, **kw):
+        seen.append(("bwd", q.dtype))
+        return tref.flash_attention_bwd_ref(q, k, v, o, do, **kw)
+
+    monkeypatch.setattr(ops, "_route", lambda t: "cuda")
+    monkeypatch.setattr(ops, "FlashAttention",
+                        kag.attention_function(fwd, bwd))
+    for d, inner in ((32, torch.float32), (64, torch.bfloat16)):
+        q, k, v, do = (torch.from_numpy(x).to(torch.bfloat16)
+                       for x in _attn_inputs(1, 8, 8, 2, 1, d, seed=d))
+        seen.clear()
+        dq = grad(lambda q: (ops.flash_attention(q, k, v).float()
+                             * do.float()).sum())(q)
+        assert seen == [("fwd", inner), ("bwd", inner)]
+        assert dq.dtype == torch.bfloat16
+        out = ops.flash_attention(q, k, v)
+        assert out.dtype == torch.bfloat16
+        want = tref.flash_attention_ref(q.to(inner), k.to(inner),
+                                        v.to(inner)).to(torch.bfloat16)
+        assert torch.equal(out, want)
