@@ -13,7 +13,10 @@ nothing of JAX.  Phases, each of which fails loudly:
    report (the bf16 attention kernel, every ssd_scan kernel and every
    mix_tree kernel must not spill); the launch floor, an empty kernel
    timed as every kernel is, on a ``launch_floor`` line of its own;
-2. every kernel against its plain PyTorch version on the card, at the main
+2. the attention backward at qwen3's, smollm's and zamba2's bf16 shapes
+   under ``torch.profiler`` before anything else is profiled (each device
+   kernel's µs, a measurement); then
+   every kernel against its plain PyTorch version on the card, at the main
    path's shapes and one larger shape: max abs error against the stated
    tolerance, kernel / plain / library time (CUDA events) and the bound.
    The host plane's ``stc_reduce`` / ``stc_apply`` run at every fcn leaf
@@ -100,7 +103,8 @@ nothing of JAX.  Phases, each of which fails loudly:
    arm rerun with every block decoded at twice its scale (a planted
    control) must fail.
    Then the host plane (``executor="host"``, the reference's default): the
-   quickstart's fedavg and feddif (FedDif's peak must beat FedAvg's), two
+   quickstart's fedavg and feddif at 4 of its 8 rounds (FedDif's peak must
+   beat FedAvg's), two
    rounds each of stc, feddif_stc, fedswap, d2d_random_walk, fedprox and
    feddif_prox, gossip (2 rounds) and tthf (4 rounds) on both planes, and
    feddif with int8 hops.  On the host plane ``stc_fused`` must launch
@@ -112,8 +116,9 @@ nothing of JAX.  Phases, each of which fails loudly:
    ``quant_roundtrip`` once per PermuteOp (all 8 slots and the move).
    Then the sweep layer (``sweep_path``, artifacts under ``build/sweeps``),
    all on the fleet plane: ``fig3_alpha``'s full grid (α ∈ {0.1, 0.2, 0.5,
-   1, 100} × fedavg / feddif, N = M = 10, 8000 samples, 20 rounds, seed 0,
-   ``planner="jax"``), its 100 FedDif rounds first planned by
+   1, 100} × fedavg / feddif, N = M = 10, 8000 samples, seed 0,
+   ``planner="jax"``) cut to FIG3_ROUNDS of its 20 rounds, its 50 FedDif
+   rounds first planned by
    ``prepopulate_plan_cache`` (``bid_fused`` once per bid round, the
    planner's summed ``loop_iterations``, and no other kernel), then
    ``run_sweep`` on that cache: every cell replays (plan-cache misses 0,
@@ -155,8 +160,8 @@ nothing of JAX.  Phases, each of which fails loudly:
    count as main-path launches.
    The appendix and world phase (``appendix_path``, state under
    ``build/appendix``), on the fleet plane: (a) the ``appendix_scenarios``
-   bench's full cells (fcn, α = 0.5, 4000 samples, N = M = 8, 12 rounds,
-   the host planner): FedDif (baseline), gossip, the ``kld``, ``jsd`` and
+   bench's full cells (fcn, α = 0.5, 4000 samples, N = M = 8, 6 of their
+   12 rounds, the host planner): FedDif (baseline), gossip, the ``kld``, ``jsd`` and
    ``w1_true`` metrics, retrainable FedDif (12 diffusion rounds at most)
    and the underlay, with peak accuracy, sub-frames and mean diffusion
    rounds; the underlay must charge more sub-frames per hop than the
@@ -189,7 +194,7 @@ nothing of JAX.  Phases, each of which fails loudly:
    the host plane params bit-equal, equal ledger and curves, on the fleet
    plane params within atol 2e-4, rtol 2e-3 and equal ledger, the virtual
    clock [0, 0] on both; (b) the ``async`` and ``async_barrier`` presets,
-   FedDif, 6 rounds: equal ledgers, the buffered arm's first tick before
+   FedDif, 4 rounds: equal ledgers, the buffered arm's first tick before
    the barrier's, its staleness above 0 and the barrier's 0, one line per
    arm with the clock, arrivals and staleness of every tick, the virtual
    seconds to 0.98 of the lower peak and the round wall; (c) feddif_stc
@@ -199,11 +204,11 @@ nothing of JAX.  Phases, each of which fails loudly:
    on the degenerate engine and under ``async`` (``bid_fused`` once per
    bid round), each launching its kernel as often as the sync run of the
    same schedules (equal ledgers; the value-driven ``async`` plans are its
-   own); (d) ``buffer_k=2``, ``checkpoint_every=1``, killed after round 3
-   of 6 with contributions pending, on each plane, resumed bit-equal
+   own); (d) ``buffer_k=2``, ``checkpoint_every=1``, killed after round 2
+   of 4 with contributions pending, on each plane, resumed bit-equal
    (params, ledger, clock, arrivals, staleness, curves, launches), with
    seconds and bytes per save; (e) cohorts of 16 drawn from a population
-   of 100,000, 4 rounds, with seconds per cohort draw; (f) ``fig_async``'s
+   of 100,000, 2 rounds, with seconds per cohort draw; (f) ``fig_async``'s
    full grid (N = 16, 10 rounds, 5 % churn, fedavg and d2d_random_walk ×
    ``async_barrier`` and ``async``): no failed cell, finite params, one
    line per cell with its virtual clock; its smoke grid on the card and on
@@ -241,7 +246,7 @@ nothing of JAX.  Phases, each of which fails loudly:
    final params; then the device planner
    on the card (with its
    kernels) against the host planner on the CPU, on the N=M=C=10
-   default-config inputs (seeds 0-2) and the 16 plans of the N=M=20
+   default-config inputs (seeds 0-2) and 4 of the 16 plans of the N=M=20
    ``planner_speedup`` cells: exact hop-list agreement is printed, and the
    plans must be equivalent (same rounds, same hop count, total Eq.-17
    decrement within 1e-6 relative);
@@ -261,7 +266,9 @@ nothing of JAX.  Phases, each of which fails loudly:
    and two odd shapes, P 72 / N 128 and P 18 / N 9 / chunk 48), with
    attention held per element against its row's scale and normwise, and
    a planted fault (one kv tile dropped for the rows past S/2) that the
-   attention bars must reject; every ssd_scan row must give the same bits
+   attention bars must reject; at every attention row the output with
+   ``return_lse=True`` bit-equal to the one without, and the row
+   log-sum-exp within LSE_BAR of ``torch.logsumexp``'s; every ssd_scan row must give the same bits
    on two calls, and at near-unit decay a planted fault (the carried state
    applied one chunk late) must fail its bar; then ``make_prefill_step``
    of qwen3_0_6b (28 layers, B = 2,
@@ -306,9 +313,11 @@ nothing of JAX.  Phases, each of which fails loudly:
    kernels against their plain twins on the card — flash_attention's at
    qwen3's (2, 4096, 16, 128), smollm's (2, 4096, 15, 64), D = 80
    (1, 4096, 32, 80), a 1000-key window, fp32 (2, 1024, 16, 128) and
-   ragged rows, within ATTN_BWD_BARS; ssm_scan's at falcon's
-   (1, 4096, 8192, 16) and three more, bit-equal; the same bits on two
-   calls; a planted fault each (a key tile dropped; ``h_t`` for
+   ragged rows, within ATTN_BWD_BARS, the kernel fed the forward
+   kernel's lse and its twin ``torch.logsumexp``'s, the profiler showing
+   each row's device kernels (bf16: the ``wgmma`` dK/dV and dQ kernels);
+   ssm_scan's at falcon's (1, 4096, 8192, 16) and three more, bit-equal;
+   the same bits on two calls; a planted fault each (a key tile dropped; ``h_t`` for
    ``h_{t−1}``) that must fail its bar by ≥ 10×; kernel, plain and library
    ms and the bound; (b) ``make_train_step`` at full width: qwen3_0_6b
    (B = 2 × 4096, AdamW, ``warmup_cosine_lr``, clip 1.0, 6 steps: the loss
@@ -336,6 +345,7 @@ import itertools
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -362,9 +372,11 @@ CARD_VS_CPU_RUN = ("feddif_stc", "fcn", 2, 5)
 DEVICE_PLANNER_RUN = ("feddif", "fcn", 8, 8)
 VALUE_WEIGHT = 0.5
 NUM_CLASSES = 10
+# planner_speedup: 4 of the bench's 16 plans (data seeds 0-1 × channel
+# seeds 0-1), cut to keep the script inside its time limit.
 PLANNER_CASES = (
     ("default_config", 10, None, [(s, s) for s in range(3)]),
-    ("planner_speedup", 20, 24, [(i, t) for i in range(8) for t in range(2)]),
+    ("planner_speedup", 20, 24, [(i, t) for i in range(2) for t in range(2)]),
 )
 # The adapter hop plane: the lm_hops bench's full cell (benchmarks/run.py)
 # and its arms, arm -> (adapter_hops, hop_quant); feddif/fcn with int8 hops
@@ -450,6 +462,15 @@ FULL_DEPTH_BF16_LOSS_OF_RECORD = 10.9261
 # fp32: the same softmax summed in another order.
 ATTN_BARS = {"bfloat16": (2.0 ** -7, 2.0 ** -5, 1e-2),
              "float32": (2e-5, 4e-5, 1e-5)}
+# The forward's row log-sum-exp (``return_lse=True``) against the plain
+# one (``torch.logsumexp`` of the fp32 masked scores): |Δ| ≤ LSE_BAR·(1 +
+# |plain|), +inf in the same rows.  Both form fp32 scores from the same
+# inputs in another order (≈ 1e-6 at |s| ≲ 10); the bf16 kernel adds
+# ex2.approx (2 ulps) and a sum of up to 4096 terms in another order, and
+# carries m in log2 units (one more rounding): a few 1e-6 of 1 + |lse|,
+# under the bar by ≥ 10×.  A wrong row, tile or unit (a missing ln 2 is
+# 44 % of lse) fails it by orders of magnitude.
+LSE_BAR = 5e-5
 BF16_FLOPS_PER_S = 989e12    # H100 SXM dense bf16 tensor-core peak
 # The host plane (phase 3b): FLConfig.stc_sparsity's default, which every
 # STC run here uses; the quickstart and the two-round runs of every
@@ -457,15 +478,20 @@ BF16_FLOPS_PER_S = 989e12    # H100 SXM dense bf16 tensor-core peak
 # (TT-HF for 4 rounds, so its global MixOp runs once); the host-vs-fleet
 # parity run.
 STC_SPARSITY = 0.01
-HOST_QUICKSTART = (("fedavg", 8), ("feddif", 8))
+HOST_QUICKSTART = (("fedavg", 4), ("feddif", 4))   # the quickstart's 8, cut
 HOST_TWO_ROUND = ("stc", "feddif_stc", "fedswap", "d2d_random_walk",
                   "fedprox", "feddif_prox")
 MIX_RUNS = (("gossip", 2), ("tthf", 4))
 HOST_VS_FLEET_RUN = ("feddif", "fcn", 2, 8)
 # The sweep phase (3c): fig3_alpha's full grid (5 α × fedavg / feddif,
-# N = M = 10, 8000 samples, 20 rounds) pre-planned with the device planner,
-# the smoke grids of the other paper sweeps, all on the fleet plane.
-# Artifacts go under build/.
+# N = M = 10, 8000 samples) pre-planned with the device planner, the smoke
+# grids of the other paper sweeps, all on the fleet plane.  The grid runs
+# FIG3_ROUNDS of its 20 rounds, as the sweep ``fig3_alpha_r10`` registered
+# here (a copy of ``fig3_alpha`` with fewer rounds): the script ran past
+# its 1,200 s limit on a slow host (NVIDIA H100 80GB HBM3, 700.00 W; the
+# FL phases host-bound), so those phases were cut in depth.  Artifacts go
+# under build/.
+FIG3_ROUNDS = 10
 SWEEP_DIR = ROOT / "build" / "sweeps"
 SWEEP_SMOKE = ("fig4_epsilon", "fig5_gamma_min", "fig6_tasks",
                "table2_strategies", "fig_lm")
@@ -483,11 +509,11 @@ SEED_VMAP_ROUNDS = 1
 SEED_VMAP_ACC = 2e-3         # the reference's seed_vmap-vs-loop bar
 # The appendix and world phase: the appendix_scenarios bench's full cells
 # (benchmarks/run.py: fcn, α = 0.5, 4000 samples, N = M = 8, 12 rounds,
-# seed 0) on the fleet plane with the host planner, as (label, FLConfig
-# changes); fig_scenarios' full grid; resume and churn; the phase profile.
+# seed 0; 6 of the 12 here) on the fleet plane with the host planner, as
+# (label, FLConfig changes); fig_scenarios' full grid; resume and churn; the phase profile.
 APPENDIX_DIR = ROOT / "build" / "appendix"
 APPENDIX_DATA = dict(task="fcn", alpha=0.5, num_samples=4000)
-APPENDIX_FL = dict(executor="fleet", strategy="feddif", rounds=12,
+APPENDIX_FL = dict(executor="fleet", strategy="feddif", rounds=6,
                    num_clients=8, num_models=8, seed=0)
 APPENDIX_CELLS = (("baseline", {}), ("fully_decentralized",
                                      {"strategy": "gossip"}),
@@ -505,18 +531,18 @@ SCENARIO_PROFILE_ROUNDS = 2
 WORLD_RESUME = (("mobile", {}, 6, 3),
                 ("energy_capped", {"energy_budget_j": 1.0}, 6, 3))
 # The async phase: the buffered-async plane at the quickstart's width
-# (fcn, α = 0.3, 6000 samples, N = M = 8, 6 rounds of FedDif) on each
+# (fcn, α = 0.3, 6000 samples, N = M = 8, 4 rounds of FedDif) on each
 # inner plane; degeneracy at N = 20, 2 rounds; kill/resume (rounds, killed
 # after) with K = 2 of the async preset's knobs; the population front end
 # (population, cohort, rounds); fig_async's full and smoke grids.
 ASYNC_DIR = ROOT / "build" / "async"
 ASYNC_DATA = dict(task="fcn", alpha=0.3, num_samples=6000)
-ASYNC_FL = dict(strategy="feddif", rounds=6, num_clients=8, num_models=8,
-                seed=0)           # 8 rounds before the training phase
+ASYNC_FL = dict(strategy="feddif", rounds=4, num_clients=8, num_models=8,
+                seed=0)
 ASYNC_PLANES = ("host", "fleet")
 ASYNC_DEGENERATE_N = 20
-ASYNC_RESUME = (6, 3)
-ASYNC_POPULATION = (100_000, 16, 4)
+ASYNC_RESUME = (4, 2)
+ASYNC_POPULATION = (100_000, 16, 2)
 ASYNC_KERNEL_ROUNDS = 2
 ASYNC_ACC = 0.05             # accuracy bar of the fleet plane and card-CPU
 
@@ -563,6 +589,35 @@ def _check_wgmma_spills(log: str | None) -> None:
                       "spill_store_bytes": spills, "ok": ok}))
     if not ok:
         _fail(f"flash_attention_wgmma_kernel: ptxas spill bytes {spills}")
+
+
+def _check_bwd_spills(log: str | None) -> None:
+    """The attention backward's tensor-core kernels (dK/dV and dQ at D =
+    64, 80, 128) and its Δ kernel (bf16, fp32) must build without spills:
+    dK/dV holds two 64×D fp32 accumulators, Sᵀ and dPᵀ on setmaxnreg's
+    240 registers.  The fp32 CUDA-core kernels' spills are printed."""
+    if log is None:
+        print(json.dumps({"check": "flash_attention_bwd spills", "ok": None,
+                          "note": "built before this run"}))
+        return
+    spills = {}
+    for entry, stores, loads in _ptxas_spills(log):
+        name = next((k for k in ("fa_bwd_dkdv_wgmma_kernel",
+                                 "fa_bwd_dq_wgmma_kernel",
+                                 "fa_bwd_delta_kernel", "fa_bwd_dkdv_kernel",
+                                 "fa_bwd_dq_kernel") if k in entry), entry)
+        if "ILi" in entry:
+            name += "<" + entry.split("ILi")[1].split("E")[0] + ">"
+        elif "delta" in name:
+            name += "<bf16>" if "bfloat16" in entry else "<f32>"
+        spills[name] = [stores, loads]
+    hot = {k: v for k, v in spills.items()
+           if "wgmma" in k or "delta" in k}
+    ok = len(hot) == 8 and not any(any(v) for v in hot.values())
+    print(json.dumps({"check": "flash_attention_bwd spills",
+                      "spill_bytes": spills, "ok": ok}))
+    if not ok:
+        _fail(f"flash_attention_bwd: ptxas spill bytes {hot}")
 
 
 def _check_ssd_spills(log: str | None) -> None:
@@ -3093,6 +3148,22 @@ def _ssd_flops(b, s, h, p, n, chunk) -> float:
     return flops
 
 
+def _lse_err(torch, lse, plain) -> dict:
+    """The forward's lse against the plain one under LSE_BAR: the max abs
+    error and the largest ratio of an element's error to its bar, over
+    rows that see a key; +inf in the same rows."""
+    none = torch.isposinf(plain)
+    same_none = bool(torch.equal(torch.isposinf(lse), none))
+    seen = ~none
+    err = (lse - plain)[seen].abs()
+    ratio = float((err / (LSE_BAR * (1.0 + plain[seen].abs()))).max()) \
+        if bool(seen.any()) else 0.0
+    return {"lse_max_abs_err": float(err.max()) if err.numel() else 0.0,
+            "lse_bar_ratio": ratio, "lse_bar": LSE_BAR,
+            "lse_inf_rows_match": same_none,
+            "lse_ok": same_none and ratio <= 1.0}
+
+
 def _attn_err(torch, out, plain, dt: str) -> dict:
     """flash_attention's output against its plain version under
     ATTN_BARS[dt]: the max abs error, the largest ratio of an element's
@@ -3184,9 +3255,16 @@ def check_lm_kernels(torch, kref) -> list[dict]:
         v = torch.randn((b, sk, h, d), generator=gen, device="cuda").to(dtype)
         kw = dict(causal=causal, window=window)
         out = flash_attention_cuda(q, k, v, **kw)
-        plain = kref.flash_attention_ref(q, k, v, **kw)
+        out_l, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+        plain, lse_plain = kref.flash_attention_ref(q, k, v, return_lse=True,
+                                                    **kw)
         torch.cuda.synchronize()
         check = _attn_err(torch, out, plain, dt)
+        check.update(_lse_err(torch, lse, lse_plain))
+        check["o_same_bits_with_lse"] = bool(torch.equal(out, out_l))
+        check["ok"] = (check["ok"] and check["lse_ok"]
+                       and check["o_same_bits_with_lse"])
+        del out_l, lse, lse_plain
         if (b, sq, h, d, dt) in ((2, 4096, 16, 128, "bfloat16"),
                                  (1, 4096, 32, 80, "bfloat16")):
             check["control_tile_dropped"] = _attn_err(
@@ -3712,6 +3790,16 @@ def _sweep(torch, kd, runs, name, **kw) -> tuple[dict, list, float]:
     return art, per_cell, wall
 
 
+def _fig3_cut() -> str:
+    """The name of ``fig3_alpha`` at FIG3_ROUNDS rounds, registered once."""
+    from repro_torch.experiments import registry
+    name = f"fig3_alpha_r{FIG3_ROUNDS}"
+    if name not in registry.REGISTRY:
+        registry.register(dataclasses.replace(
+            registry.get_sweep("fig3_alpha"), name=name, rounds=FIG3_ROUNDS))
+    return name
+
+
 def sweep_path(torch, port) -> dict:
     """Phase 3c: the sweep layer on the card.  Returns its launches."""
     from repro_torch.core.diffusion import PlanCache
@@ -3726,9 +3814,10 @@ def sweep_path(torch, port) -> dict:
             total[k] += counts[k]
 
     with _ObservedRuns(torch, port) as runs:
-        # fig3_alpha's full grid: the device pre-planner plans all 100
-        # FedDif rounds first; the cells then replay them.
-        cells = expand_sweep("fig3_alpha", smoke=False, executor="fleet",
+        # fig3_alpha's full grid at FIG3_ROUNDS: the device pre-planner
+        # plans all its FedDif rounds first; the cells then replay them.
+        fig3 = _fig3_cut()
+        cells = expand_sweep(fig3, smoke=False, executor="fleet",
                              planner="jax")
         cache = PlanCache()
         kd.reset_launch_counts()
@@ -3742,23 +3831,23 @@ def sweep_path(torch, port) -> dict:
         feddif_rounds = sum(c.spec.fl.rounds for c in cells
                             if c.strategy == "feddif")
         print(json.dumps({
-            "sweep_preplan": "fig3_alpha", "planned": pre["planned"],
+            "sweep_preplan": fig3, "planned": pre["planned"],
             "skipped": pre["skipped"], "batches": pre["batches"],
             "seconds": pre_s, "s_per_planned_round": pre_s / max(
                 pre["planned"], 1),
             "loop_iterations": st.get("loop_iterations", 0),
             "auction_iterations": st.get("auction_iterations", 0),
             "launches": {k: v for k, v in counts.items() if v}}))
-        if pre["planned"] != feddif_rounds or feddif_rounds != 100:
+        if pre["planned"] != feddif_rounds or feddif_rounds != 5 * FIG3_ROUNDS:
             _fail(f"fig3 pre-plan planned {pre['planned']} rounds, want "
-                  f"{feddif_rounds} (= 100)")
+                  f"{feddif_rounds} (= {5 * FIG3_ROUNDS})")
         if (counts["bid_fused"] != st.get("loop_iterations", -1)
                 or counts["bid_fused"] == 0
                 or sum(counts.values()) != counts["bid_fused"]):
             _fail(f"fig3 pre-plan launched {counts} over "
                   f"{st.get('loop_iterations')} bid rounds")
         art, per_cell, wall = _sweep(
-            torch, kd, runs, "fig3_alpha", smoke=False, executor="fleet",
+            torch, kd, runs, fig3, smoke=False, executor="fleet",
             planner="jax", plan_cache=cache)
         add(dict(kd.LAUNCHES))
         for cell, c in zip(art["cells"], per_cell):
@@ -4567,7 +4656,7 @@ def _async_degeneracy(torch, kd, port, device=None) -> dict:
 
 
 def _async_presets(torch, kd, port, device=None) -> dict:
-    """(b): the ``async`` and ``async_barrier`` presets, FedDif, 6 rounds,
+    """(b): the ``async`` and ``async_barrier`` presets, FedDif, 4 rounds,
     on each inner plane: equal ledgers, the buffered arm's first tick
     before the barrier's, its staleness above 0 and the barrier's 0."""
     total = {k: 0 for k in kd.LAUNCHES}
@@ -4664,7 +4753,7 @@ def _async_kernels(torch, kd, port, device=None) -> dict:
 
 
 def _async_resume(torch, kd, port, device=None) -> dict:
-    """(d): K = 2, ``checkpoint_every=1``, killed after round 3 of 6 with
+    """(d): K = 2, ``checkpoint_every=1``, killed after round 2 of 4 with
     contributions pending, on each inner plane; resumed bit-equal."""
     from repro_torch.fl.resume import Preempted, RoundCheckpointer
     from repro_torch.train.checkpoint import load_metadata
@@ -4725,7 +4814,7 @@ def _async_resume(torch, kd, port, device=None) -> dict:
 
 
 def _async_population(torch, kd, port, device=None) -> dict:
-    """(e): cohorts of 16 drawn from a population of 100,000, 4 rounds;
+    """(e): cohorts of 16 drawn from a population of 100,000, 2 rounds;
     the seconds of each cohort draw."""
     from repro_torch.fl.population import Population
     size, cohort, rounds = ASYNC_POPULATION
@@ -5273,6 +5362,9 @@ ATTN_BWD_ROWS = (
     (1, 1000, 1000, 4, 80, True, None, "bfloat16"),     # S % 64 != 0
     (1, 300, 1000, 4, 64, True, 128, "bfloat16"),       # Sq < Sk, window
     (2, 200, 200, 2, 12, False, None, "float32"))       # non-causal, D 12
+# The rows phase 2 profiles, (B, S, H, D): the first three of ATTN_BWD_ROWS.
+ATTN_BWD_ROWS_PROFILED = ((2, 4096, 16, 128), (2, 4096, 15, 64),
+                          (1, 4096, 32, 80))
 SSM_BWD_ROWS = ((1, 4096, 8192, 16), (1, 256, 8192, 16), (2, 100, 1000, 16),
                 (1, 37, 3, 5))
 # (b) make_train_step at full width: qwen3_0_6b, B = 2 × 4096 (one
@@ -5337,6 +5429,68 @@ def _attn_bwd_err(torch, got, want, dt: str) -> dict:
             "ok": worst <= 1.0}
 
 
+# The device kernels one flash_attention_bwd call runs, by route: bf16 on
+# the tensor cores (wgmma), fp32 on the CUDA cores; each after the Δ pass.
+# (torch.profiler, which phase 2 uses for their device µs, saw none of them
+# in phase 8 of a full run, so the route is read from the library's launch
+# counts.)
+ATTN_BWD_KERNELS = {
+    "wgmma": ["fa_bwd_delta_kernel", "fa_bwd_dkdv_wgmma_kernel",
+              "fa_bwd_dq_wgmma_kernel"],
+    "cuda_cores": ["fa_bwd_delta_kernel", "fa_bwd_dkdv_kernel",
+                   "fa_bwd_dq_kernel"]}
+
+
+def profile_attention_bwd(torch) -> None:
+    """Phase 2 (a measurement): the attention backward at the zoo's three
+    bf16 shapes (qwen3, smollm, zamba2's D = 80) under ``torch.profiler``,
+    each device kernel's µs a launch beside the call's ms (CUDA events).
+    It runs before any other profile: after phases 5 and 6 had profiled,
+    the profiler recorded only the last of the call's three kernels."""
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
+                                                     flash_attention_cuda)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    for b, s, h, d in ATTN_BWD_ROWS_PROFILED:
+        q, k, v, do = (torch.randn((b, s, h, d), generator=gen,
+                                   device="cuda").to(torch.bfloat16)
+                       for _ in range(4))
+        o, lse = flash_attention_cuda(q, k, v, return_lse=True)
+
+        def fn():
+            flash_attention_bwd_cuda(q, k, v, o, do, lse)
+
+        print(json.dumps({"profile": "flash_attention_bwd",
+                          "shape": [b, s, s, h, d], "dtype": "bfloat16",
+                          "device_kernels_us": _cuda_kernels(torch, fn),
+                          "ms": _events_ms(torch, fn, 10)}))
+        del q, k, v, do, o, lse
+
+
+def _cuda_kernels(torch, fn, calls: int = 3) -> dict[str, float]:
+    """The attention backward's device kernels (by function name) that
+    ``fn`` launches, each with its mean device µs a launch, from
+    ``torch.profiler`` (CPU and CUDA activities, as ``profile_round``)
+    over ``calls`` calls after a warm-up kernel: after an earlier profile
+    in the same process a window's first kernels went unrecorded."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.ones(1, device="cuda").add_(1)
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us, seen = {}, {}
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for name in re.findall(r"fa_bwd_[a-z0-9_]*?kernel", ev.name):
+            us[name] = us.get(name, 0.0) + (ev.time_range.end
+                                            - ev.time_range.start)
+            seen[name] = seen.get(name, 0) + 1
+    return {name: us[name] / seen[name] for name in sorted(us)}
+
+
 def _attn_bwd_tile_dropped(torch, q, k, v, do, tile: int = 64):
     """The gradients of causal attention, by autograd of the plain form,
     with keys [Sk/2, Sk/2 + tile) hidden from every query: what a backward
@@ -5360,7 +5514,11 @@ def _attn_bwd_tile_dropped(torch, q, k, v, do, tile: int = 64):
 def check_train_kernels(torch, kref) -> list[dict]:
     """Phase 8a: the backward kernels against their plain twins on the
     card (ATTN_BWD_ROWS, SSM_BWD_ROWS), the same bits on two calls, and a
-    planted fault per kernel that must fail its bar by ≥ 10×: at the
+    planted fault per kernel that must fail its bar by ≥ 10×.  The
+    attention backward takes the forward kernel's lse and its twin
+    ``torch.logsumexp``'s; one call must launch the route's device kernels
+    once each and no other (ATTN_BWD_KERNELS: bf16 on ``wgmma``; the
+    library's own counts, ``bwd_kernel_launches``).  The faults: at the
     summary row, flash_attention's gradients with the key tile [S/2,
     S/2 + 64) dropped, and ssm_scan's ``dda`` from ``h_t`` in place of
     ``h_{t−1}``.  Kernel and plain ms, and for attention the library's
@@ -5370,7 +5528,8 @@ def check_train_kernels(torch, kref) -> list[dict]:
     read and dq, dk, dv written once; ssm_scan's five (B, S, D, N) fp32
     tensors against three flops an element."""
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
+    from repro_torch.kernels.flash_attention import (bwd_kernel_launches,
+                                                     flash_attention_bwd_cuda,
                                                      flash_attention_cuda)
     from repro_torch.kernels.ssm_scan import ssm_scan_bwd_cuda, ssm_scan_cuda
     gen = torch.Generator(device="cuda").manual_seed(8)
@@ -5393,17 +5552,30 @@ def check_train_kernels(torch, kref) -> list[dict]:
         k, v = (torch.randn((b, sk, h, d), generator=gen, device="cuda")
                 .to(dtype) for _ in range(2))
         kw = dict(causal=causal, window=window)
-        o = flash_attention_cuda(q, k, v, **kw)
-        got = flash_attention_bwd_cuda(q, k, v, o, do, **kw)
-        again = flash_attention_bwd_cuda(q, k, v, o, do, **kw)
-        want = kref.flash_attention_bwd_ref(q, k, v, o, do, **kw)
+        # The kernel takes the forward kernel's lse, the plain twin
+        # torch.logsumexp's: a wrong lse shows as a gradient off its bar.
+        o, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+        lse_plain = kref.flash_attention_ref(q, k, v, return_lse=True,
+                                             **kw)[1]
+        got = flash_attention_bwd_cuda(q, k, v, o, do, lse, **kw)
+        again = flash_attention_bwd_cuda(q, k, v, o, do, lse, **kw)
+        want = kref.flash_attention_bwd_ref(q, k, v, o, do, lse=lse_plain,
+                                            **kw)
         torch.cuda.synchronize()
+        before = bwd_kernel_launches()
+        flash_attention_bwd_cuda(q, k, v, o, do, lse, **kw)
+        after = bwd_kernel_launches()
+        kernels = {k_: after[k_] - before[k_] for k_ in after
+                   if after[k_] != before[k_]}
+        route = "wgmma" if dt == "bfloat16" else "cuda_cores"
         row = {"name": "flash_attention_bwd", "shape": [b, sq, sk, h, d],
                "dtype": dt, "causal": causal, "window": window,
                **_attn_bwd_err(torch, got, want, dt),
                "same_bits": all(torch.equal(x, y)
-                                for x, y in zip(got, again))}
-        row["ok"] = row["ok"] and row["same_bits"]
+                                for x, y in zip(got, again)),
+               "device_kernels": kernels, "route": route}
+        row["ok"] = (row["ok"] and row["same_bits"]
+                     and kernels == dict.fromkeys(ATTN_BWD_KERNELS[route], 1))
         control = None
         if i == 0:
             fault = _attn_bwd_tile_dropped(torch, q, k, v, do)
@@ -5421,9 +5593,9 @@ def check_train_kernels(torch, kref) -> list[dict]:
         del got, again, want
         big = sq * sk >= 2 ** 20
         row["ms"] = _events_ms(torch, lambda: flash_attention_bwd_cuda(
-            q, k, v, o, do, **kw), 5 if big else 20)
+            q, k, v, o, do, lse, **kw), 5 if big else 20)
         row["plain_ms"] = _events_ms(torch, lambda: kref.flash_attention_bwd_ref(
-            q, k, v, o, do, **kw), 1 if big else 5)
+            q, k, v, o, do, lse=lse_plain, **kw), 1 if big else 5)
         qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
                       for x in (q, k, v))
         dot = do.transpose(1, 2).contiguous()
@@ -5441,7 +5613,7 @@ def check_train_kernels(torch, kref) -> list[dict]:
             lib_out, (qt, kt, vt), dot, retain_graph=True),
             5 if big else 20)
         row.update({"bound_ms": bound, "bound_by": by, "flops": flops})
-        del lib_out, qt, kt, vt, dot, q, k, v, o, do
+        del lib_out, qt, kt, vt, dot, q, k, v, o, do, lse, lse_plain
         record(row, control)
 
     for i, (b, s, d, n) in enumerate(SSM_BWD_ROWS):
@@ -5771,9 +5943,11 @@ def main() -> None:
     for name, log in sorted(build.PTXAS_INFO.items()):
         for line in log.splitlines():
             if ("registers" in line or "Compiling entry" in line
-                    or "spill" in line):
+                    or "spill" in line or "Performance" in line
+                    or "setmaxnreg" in line):
                 print(f"ptxas[{name}]: {line.strip()}")
     _check_wgmma_spills(build.PTXAS_INFO.get("flash_attention"))
+    _check_bwd_spills(build.PTXAS_INFO.get("flash_attention_bwd"))
     _check_ssd_spills(build.PTXAS_INFO.get("ssd_scan"))
     _check_mix_tree_spills(build.PTXAS_INFO.get("mix_aggregate"))
 
@@ -5787,6 +5961,7 @@ def main() -> None:
         t_prev[0] = now
 
     floor = launch_floor(torch)
+    profile_attention_bwd(torch)
     rows = check_kernels(torch, kd, kq, kref, port)
     rows += check_mix_tree(torch, kd, kref, port,
                            torch.Generator(device="cuda").manual_seed(8),

@@ -22,8 +22,10 @@ kernel once and unfolds the result: the fleet plane's vmapped train step
 launches each kernel once per layer, not once per client.  The backward
 itself is a second ``Function`` with the same ``vmap`` rule (it has no
 backward of its own: no double differentiation).  ``flash_attention``
-saves q, k, v and its output; ``ssm_scan`` saves ``da`` and its output
-``hs``.
+returns ``(o, lse)`` — the row log-sum-exp is an output, marked
+non-differentiable, because ``torch.func`` takes only inputs and outputs
+as saved tensors — and saves q, k, v, o and lse, so its backward
+recomputes P from lse; ``ssm_scan`` saves ``da`` and its output ``hs``.
 """
 from __future__ import annotations
 
@@ -63,15 +65,16 @@ def _no_double_backward(name: str):
 
 
 def attention_function(fwd: Callable, bwd: Callable) -> type[Function]:
-    """``Function.apply(q, k, v, causal, window, scale)`` computing
-    ``fwd(q, k, v, causal=, window=, scale=)``, its gradients by
-    ``bwd(q, k, v, o, do, causal=, window=, scale=) -> (dq, dk, dv)``."""
+    """``Function.apply(q, k, v, causal, window, scale) -> (o, lse)``
+    computing ``fwd(q, k, v, causal=, window=, scale=, return_lse=True)``,
+    its gradients by ``bwd(q, k, v, o, do, lse=, causal=, window=, scale=)
+    -> (dq, dk, dv)``; ``lse`` (B, H, Sq) takes no gradient."""
 
     class FlashAttentionBwd(Function):
         @staticmethod
-        def forward(q, k, v, o, do, causal, window, scale):
-            return tuple(bwd(q, k, v, o, do, causal=causal, window=window,
-                             scale=scale))
+        def forward(q, k, v, o, do, lse, causal, window, scale):
+            return tuple(bwd(q, k, v, o, do, lse=lse, causal=causal,
+                             window=window, scale=scale))
 
         @staticmethod
         def setup_context(ctx, inputs, output):
@@ -80,34 +83,37 @@ def attention_function(fwd: Callable, bwd: Callable) -> type[Function]:
         backward = _no_double_backward("flash_attention")
 
         @staticmethod
-        def vmap(info, in_dims, q, k, v, o, do, causal, window, scale):
-            folded = _fold(info, in_dims[:5], (q, k, v, o, do))
+        def vmap(info, in_dims, q, k, v, o, do, lse, causal, window, scale):
+            folded = _fold(info, in_dims[:6], (q, k, v, o, do, lse))
             grads = FlashAttentionBwd.apply(*folded, causal, window, scale)
             return tuple(_unfold(info, g) for g in grads), (0, 0, 0)
 
     class FlashAttention(Function):
         @staticmethod
         def forward(q, k, v, causal, window, scale):
-            return fwd(q, k, v, causal=causal, window=window, scale=scale)
+            return tuple(fwd(q, k, v, causal=causal, window=window,
+                             scale=scale, return_lse=True))
 
         @staticmethod
         def setup_context(ctx, inputs, output):
             q, k, v, causal, window, scale = inputs
-            ctx.save_for_backward(q, k, v, output)
+            o, lse = output
+            ctx.mark_non_differentiable(lse)
+            ctx.save_for_backward(q, k, v, o, lse)
             ctx.opts = (causal, window, scale)
 
         @staticmethod
-        def backward(ctx, do):
-            q, k, v, o = ctx.saved_tensors
+        def backward(ctx, do, _dlse):
+            q, k, v, o, lse = ctx.saved_tensors
             dq, dk, dv = FlashAttentionBwd.apply(
-                q, k, v, o, do.to(q.dtype).contiguous(), *ctx.opts)
+                q, k, v, o, do.to(q.dtype).contiguous(), lse, *ctx.opts)
             return dq, dk, dv, None, None, None
 
         @staticmethod
         def vmap(info, in_dims, q, k, v, causal, window, scale):
             q, k, v = _fold(info, in_dims[:3], (q, k, v))
-            out = FlashAttention.apply(q, k, v, causal, window, scale)
-            return _unfold(info, out), 0
+            o, lse = FlashAttention.apply(q, k, v, causal, window, scale)
+            return (_unfold(info, o), _unfold(info, lse)), (0, 0)
 
     return FlashAttention
 

@@ -3,8 +3,9 @@
 Each source has a plain C interface and is compiled by ``nvcc`` into its own
 shared library for ``sm_90a``, then loaded with ``ctypes`` — no PyTorch
 headers, so a build takes seconds.  Libraries go to ``_build/`` next to this
-file (ignored by git), named by a digest of the source and the flags, so an
-edited source rebuilds and an unchanged one is reused.  :func:`build_all`
+file (ignored by git), named by a digest of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source rebuilds and an
+unchanged one is reused.  :func:`build_all`
 starts one ``nvcc`` per source at once and waits for all of them.
 
 Nothing here runs at import time: the CPU path never needs ``nvcc``.
@@ -41,7 +42,8 @@ _L = ctypes.c_longlong
 # C entry points of each library: name -> argument types (pointers and the
 # stream as void*, sizes as int or long long, scalars as float); every
 # launching entry point returns cudaError_t (repro_ssd_scan_smem_bytes
-# returns bytes, repro_stc_reduce_max_blocks a block count,
+# returns bytes, repro_flash_attention_bwd_kernel_launches a count of
+# kernels, repro_stc_reduce_max_blocks a block count,
 # repro_stc_fused_max_n an element count, repro_stc_rows_max_chunks a
 # chunk count, repro_quant_roundtrip_max_entries / _max_leaves the
 # roundtrip's table capacity and repro_mix_tree_max_leaves / _max_w /
@@ -77,12 +79,13 @@ _SIGNATURES = {
         "repro_quant_roundtrip_max_entries": [],
         "repro_quant_roundtrip_max_leaves": []},
     "flash_attention": {
-        "repro_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                  _F, _I, _I, _P]},
+        "repro_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                  _I, _F, _I, _I, _P]},
     "flash_attention_bwd": {
         "repro_flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                       _I, _I, _I, _I, _I, _I, _F, _I, _I,
-                                      _P]},
+                                      _P],
+        "repro_flash_attention_bwd_kernel_launches": [_P]},
     "ssm_scan": {
         "repro_ssm_scan_f32": [_P, _P, _P, _I, _I, _I, _P],
         "repro_ssm_scan_bwd_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _P]},
@@ -113,6 +116,8 @@ def _nvcc() -> str:
 def _target(name: str) -> Path:
     src = CSRC / SOURCES[name]
     h = hashlib.sha1(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):   # what a source may include
+        h.update(header.read_bytes())
     h.update(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 

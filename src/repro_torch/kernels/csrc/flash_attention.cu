@@ -5,7 +5,10 @@
 //   by the caller.  Query i sits at position i + Sk - Sq (right-aligned to
 //   the end of the keys); key j is visible to it when j <= q_pos (causal)
 //   and j > q_pos - window (window > 0).  Softmax in fp32 with scale
-//   1/sqrt(D) unless given; a row that sees no key returns 0.
+//   1/sqrt(D) unless given; a row that sees no key returns 0.  On request
+//   (a non-null lse) the epilogue also stores each row's natural-log
+//   log-sum-exp from the (m, l) it carries, +inf for a row that sees no
+//   key: the backward (flash_attention_bwd.cu) recomputes P from it.
 //
 // Replaces the TPU kernel repro/kernels/flash_attention.py::_attn_kernel
 // (the pallas_call in flash_attention_pallas): a (batch*heads, q-block,
@@ -36,7 +39,10 @@
 #include <cuda.h>           // CUtensorMap and its enums; libcuda is not linked
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -46,6 +52,7 @@ constexpr int kThreads = kBQ * kTPR;    // 256
 constexpr int kBK = 32;                 // keys per shared-memory tile
 constexpr int kDMax = 128;              // largest head dim
 constexpr float kNegInf = -1e30f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 __device__ __forceinline__ float dot4(float4 a, float4 b) {
   return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
@@ -57,7 +64,7 @@ __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const float* __restrict__ q,
                        const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ o,
-                       int H,
+                       float* __restrict__ lse, int H,
                        int Sq, int Sk, int D, float scale, int causal,
                        int window) {
   __shared__ __align__(16) float k_s[kBK][kDMax];
@@ -163,6 +170,9 @@ flash_attention_kernel(const float* __restrict__ q,
   }
 
   if (!valid_q) return;
+  if (lse != nullptr && sub == 0) {
+    lse[(long long)bh * Sq + i] = l > 0.f ? m + logf(l) : INFINITY;
+  }
   const float inv = 1.f / fmaxf(l, 1e-20f);
   float* orow = o + ((long long)b * Sq + i) * row_stride + (long long)h * D;
 #pragma unroll
@@ -240,240 +250,15 @@ struct WgmmaConfig {
   static constexpr int kSmemBytes = kBarOffset + 8 * (1 + 2 * kStages) + 1024;
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(bar) : "memory");
-}
-
-// Spin until the phase of parity `parity` has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int d0, int h, int s,
-                                         int b) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(d0),
-         "r"(h), "r"(s), "r"(b)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src,
-                                          int d0, int h, int s, int b) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group "
-      "[%0, {%2, %3, %4, %5}], [%1];\n"
-      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(d0), "r"(h),
-         "r"(s), "r"(b)
-      : "memory");
-}
-
-// Shared-memory matrix descriptor of a 128-byte-swizzled operand: start
-// address, leading and stride byte offsets (16-byte units), layout B128.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4)
-         | static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16
-         | static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32
-         | 1ull << 62;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Keeps the compiler from moving reads or writes of these registers across
-// this point (into or out of an in-flight wgmma).
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j]) :: "memory");
-  }
-}
-
-// 2^x by the SFU (ex2.approx, flushes subnormal results to 0).
-__device__ __forceinline__ float exp2_fast(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// d (64 x 128 fp32) = a (64 x 16) * b (16 x 128) [+ d]: both operands in
-// shared memory, K-major, 128-byte swizzle.
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
-                                             uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      :
-      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-      "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-      "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-      "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-      "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-      "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-      "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-      "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-      "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-      "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d (64 x 128 fp32) += a (64 x 16, bf16 A-fragments in registers) * b (16 x
-// 128, shared memory, MN-major, 128-byte swizzle).
-__device__ __forceinline__ void wgmma_rs(float (&d)[64],
-                                         const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      :
-      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-      "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-      "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-      "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-      "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-      "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-      "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-      "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-      "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-      "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// d (64 x 80 fp32) += a (64 x 16, bf16 A-fragments in registers) * b (16 x
-// 80, shared memory, MN-major, 128-byte swizzle).
-__device__ __forceinline__ void wgmma_rs(float (&d)[40],
-                                         const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39"
-      "}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
-      :
-      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-      "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-      "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-      "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-      "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// d (64 x 64 fp32) += a (64 x 16, bf16 A-fragments in registers) * b (16 x
-// 64, shared memory, MN-major, 128-byte swizzle).
-__device__ __forceinline__ void wgmma_rs(float (&d)[32],
-                                         const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      :
-      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-      "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-      "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
 
 template <int kD>
 __global__ void __launch_bounds__(kWgThreads, 1)
 flash_attention_wgmma_kernel(__grid_constant__ const CUtensorMap tm_q,
                              __grid_constant__ const CUtensorMap tm_k,
                              __grid_constant__ const CUtensorMap tm_v,
-                             __grid_constant__ const CUtensorMap tm_o, int H,
-                             int Sq, int Sk, float scale_log2, int causal,
-                             int window) {
+                             __grid_constant__ const CUtensorMap tm_o,
+                             float* __restrict__ lse, int H, int Sq, int Sk,
+                             float scale_log2, int causal, int window) {
   using Cfg = WgmmaConfig<kD>;
   extern __shared__ uint8_t smem_raw[];
   // 1024-byte alignment: the 128-byte swizzle repeats every 8 rows.
@@ -563,7 +348,7 @@ flash_attention_wgmma_kernel(__grid_constant__ const CUtensorMap tm_q,
 #pragma unroll
       for (int ks = 0; ks < Cfg::kKSteps; ++ks) {
         const uint32_t off = (ks / 4) * kChunkBytes + (ks % 4) * 32;
-        wgmma_ss_n128(sc, sw128_desc(q_at + off, 16, 1024),
+        wgmma_ss(sc, sw128_desc(q_at + off, 16, 1024),
                       sw128_desc(k_tile(s) + off, 16, 1024), ks > 0);
       }
       wgmma_commit();
@@ -730,6 +515,16 @@ flash_attention_wgmma_kernel(__grid_constant__ const CUtensorMap tm_q,
       l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
       const float inv0 = 1.f / fmaxf(l0, 1e-20f);
       const float inv1 = 1.f / fmaxf(l1, 1e-20f);
+      if (lse != nullptr && t == 0) {
+        // m is in log2 units of scaled scores: lse = ln 2 * (m + log2 l).
+        float* at = lse + (long long)bh * Sq;
+        if (row0 < Sq) {
+          at[row0] = l0 > 0.f ? kLn2 * (m0 + log2f(l0)) : INFINITY;
+        }
+        if (row0 + 8 < Sq) {
+          at[row0 + 8] = l1 > 0.f ? kLn2 * (m1 + log2f(l1)) : INFINITY;
+        }
+      }
       const int r = 16 * warp + g;
 #pragma unroll
       for (int j = 0; j < Cfg::kN / 8; ++j) {
@@ -758,58 +553,11 @@ flash_attention_wgmma_kernel(__grid_constant__ const CUtensorMap tm_q,
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, through the runtime (no libcuda
-// link); null if the driver does not have it.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) {
-      fn = reinterpret_cast<EncodeTiled>(p);
-    }
-  }
-  return fn;
-}
-
-// A (B, S, H, D) bf16 tensor as a 4-d TMA map (D, H, S, B) with boxes of
-// 64 columns by `rows` rows, 128-byte swizzle, zero fill out of bounds.
-bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int H, int D,
-              int rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
-                              static_cast<cuuint64_t>(H),
-                              static_cast<cuuint64_t>(S),
-                              static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {2ull * D, 2ull * H * D, 2ull * S * H * D};
-  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                const_cast<void*>(ptr), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
 
 template <int kD>
-int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
-                 int H, int Sq, int Sk, float scale, int causal, int window,
-                 cudaStream_t stream) {
+int launch_wgmma(const void* q, const void* k, const void* v, void* o,
+                 float* lse, int B, int H, int Sq, int Sk, float scale,
+                 int causal, int window, cudaStream_t stream) {
   using Cfg = WgmmaConfig<kD>;
   CUtensorMap tq, tk, tv, to;
   if (!make_map(&tq, q, B, Sq, H, kD, kWgBQ)
@@ -829,16 +577,16 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
   const dim3 grid((Sq + kWgBQ - 1) / kWgBQ, B * H);
   flash_attention_wgmma_kernel<kD>
       <<<grid, kWgThreads, Cfg::kSmemBytes, stream>>>(
-          tq, tk, tv, to, H, Sq, Sk, scale * 1.4426950408889634f, causal,
-          window);
+          tq, tk, tv, to, lse, H, Sq, Sk, scale * 1.4426950408889634f,
+          causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
 // bf16: the wgmma kernel for D in {64, 80, 128}, 16-byte aligned q, k, v
 // and o (TMA) and scale > 0; anything else is cudaErrorInvalidValue.
-int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
-                int H, int Sq, int Sk, int D, float scale, int causal,
-                int window, cudaStream_t stream) {
+int launch_bf16(const void* q, const void* k, const void* v, void* o,
+                float* lse, int B, int H, int Sq, int Sk, int D, float scale,
+                int causal, int window, cudaStream_t stream) {
   const uintptr_t align =
       reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k)
       | reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o);
@@ -847,43 +595,43 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
   }
   switch (D) {
     case 64:
-      return launch_wgmma<64>(q, k, v, o, B, H, Sq, Sk, scale, causal,
-                              window, stream);
+      return launch_wgmma<64>(q, k, v, o, lse, B, H, Sq, Sk, scale,
+                              causal, window, stream);
     case 80:
-      return launch_wgmma<80>(q, k, v, o, B, H, Sq, Sk, scale, causal,
-                              window, stream);
+      return launch_wgmma<80>(q, k, v, o, lse, B, H, Sq, Sk, scale,
+                              causal, window, stream);
     case 128:
-      return launch_wgmma<128>(q, k, v, o, B, H, Sq, Sk, scale, causal,
-                               window, stream);
+      return launch_wgmma<128>(q, k, v, o, lse, B, H, Sq, Sk, scale,
+                               causal, window, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 template <int kG4>
-void launch(const void* q, const void* k, const void* v, void* o, int B,
-            int H, int Sq, int Sk, int D, float scale, int causal, int window,
-            cudaStream_t stream) {
+void launch(const void* q, const void* k, const void* v, void* o, float* lse,
+            int B, int H, int Sq, int Sk, int D, float scale, int causal,
+            int window, cudaStream_t stream) {
   const dim3 grid((Sq + kBQ - 1) / kBQ, B * H);
   flash_attention_kernel<kG4><<<grid, kThreads, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), H, Sq, Sk, D,
-      scale, causal, window);
+      static_cast<const float*>(v), static_cast<float*>(o), lse, H, Sq, Sk,
+      D, scale, causal, window);
 }
 
 // fp32: the CUDA-core kernel for D % 4 == 0, D <= 128.
-int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
-               int H, int Sq, int Sk, int D, float scale, int causal,
-               int window, cudaStream_t stream) {
+int launch_f32(const void* q, const void* k, const void* v, void* o,
+               float* lse, int B, int H, int Sq, int Sk, int D, float scale,
+               int causal, int window, cudaStream_t stream) {
   switch ((D + 15) / 16) {
-    case 1: launch<1>(q, k, v, o, B, H, Sq, Sk, D, scale, causal, window, stream); break;
-    case 2: launch<2>(q, k, v, o, B, H, Sq, Sk, D, scale, causal, window, stream); break;
-    case 3: launch<3>(q, k, v, o, B, H, Sq, Sk, D, scale, causal, window, stream); break;
-    case 4: launch<4>(q, k, v, o, B, H, Sq, Sk, D, scale, causal, window, stream); break;
-    case 5: launch<5>(q, k, v, o, B, H, Sq, Sk, D, scale, causal, window, stream); break;
-    case 6: launch<6>(q, k, v, o, B, H, Sq, Sk, D, scale, causal, window, stream); break;
-    case 7: launch<7>(q, k, v, o, B, H, Sq, Sk, D, scale, causal, window, stream); break;
-    case 8: launch<8>(q, k, v, o, B, H, Sq, Sk, D, scale, causal, window, stream); break;
+    case 1: launch<1>(q, k, v, o, lse, B, H, Sq, Sk, D, scale, causal, window, stream); break;
+    case 2: launch<2>(q, k, v, o, lse, B, H, Sq, Sk, D, scale, causal, window, stream); break;
+    case 3: launch<3>(q, k, v, o, lse, B, H, Sq, Sk, D, scale, causal, window, stream); break;
+    case 4: launch<4>(q, k, v, o, lse, B, H, Sq, Sk, D, scale, causal, window, stream); break;
+    case 5: launch<5>(q, k, v, o, lse, B, H, Sq, Sk, D, scale, causal, window, stream); break;
+    case 6: launch<6>(q, k, v, o, lse, B, H, Sq, Sk, D, scale, causal, window, stream); break;
+    case 7: launch<7>(q, k, v, o, lse, B, H, Sq, Sk, D, scale, causal, window, stream); break;
+    case 8: launch<8>(q, k, v, o, lse, B, H, Sq, Sk, D, scale, causal, window, stream); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
@@ -893,22 +641,28 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
 
 // dtype: 0 = fp32 (D % 4 == 0, D <= 128), 1 = bf16 (D in {64, 80, 128},
 // q/k/v/o 16-byte aligned, scale > 0); window <= 0 means no window; causal
-// is 0 or 1.  Returns cudaGetLastError() after the launch.
+// is 0 or 1.  lse: null, or (B, H, Sq) fp32 that receives each row's
+// natural-log log-sum-exp of its scaled visible scores (+inf for a row that
+// sees no key); o does not depend on it.  Returns cudaGetLastError() after
+// the launch.
 extern "C" int repro_flash_attention(const void* q, const void* k,
-                                     const void* v, void* o, int dtype, int B,
-                                     int H, int Sq, int Sk, int D,
-                                     float scale, int causal, int window,
-                                     void* stream) {
+                                     const void* v, void* o, void* lse,
+                                     int dtype, int B, int H, int Sq, int Sk,
+                                     int D, float scale, int causal,
+                                     int window, void* stream) {
   if (D <= 0 || D % 4 != 0 || D > kDMax || B * H > 65535 || Sq <= 0
       || Sk <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* lse_ = static_cast<float*>(lse);
   if (dtype == 0) {
-    return launch_f32(q, k, v, o, B, H, Sq, Sk, D, scale, causal, window, s);
+    return launch_f32(q, k, v, o, lse_, B, H, Sq, Sk, D, scale, causal,
+                      window, s);
   }
   if (dtype == 1) {
-    return launch_bf16(q, k, v, o, B, H, Sq, Sk, D, scale, causal, window, s);
+    return launch_bf16(q, k, v, o, lse_, B, H, Sq, Sk, D, scale, causal,
+                       window, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -18,16 +18,25 @@ wrapper takes CUDA tensors only, checks them, allocates the output,
 launches on PyTorch's current stream, raises on a launch error and adds one
 to ``LAUNCHES["flash_attention"]``.
 
+With ``return_lse=True`` the forward also returns each row's natural-log
+log-sum-exp of its scaled visible scores, (B, H, Sq) fp32, +inf for a row
+that sees no key; ``o`` is the same either way.
+
 :func:`flash_attention_bwd_cuda` is its backward (``csrc/
 flash_attention_bwd.cu``, no TPU counterpart: the reference differentiates
-its inline XLA attention): from q, k, v, the forward's output o and the
-gradient do, the three gradients in the inputs' dtype, by three launches
-(row statistics, dK/dV over key tiles, dQ over query tiles) with no float
-atomics, so two calls give the same bits.  It takes what the forward
-takes; its plain version is ``ref.flash_attention_bwd_ref``.  Each call
-adds one to ``LAUNCHES["flash_attention_bwd"]``.
+its inline XLA attention): from q, k, v, the forward's output o and lse
+and the gradient do, the three gradients in the inputs' dtype, by three
+launches (Δ = rowsum(dO ∘ O), dK/dV over key blocks, dQ over query
+blocks) with no float atomics, so two calls give the same bits.  bf16
+runs on the tensor cores (``wgmma`` fed by TMA, the forward's skeleton)
+and takes what the bf16 forward takes, do and the gradients 16-byte
+aligned too; fp32 runs on the CUDA cores.  Its plain version is
+``ref.flash_attention_bwd_ref``.  Each call adds one to
+``LAUNCHES["flash_attention_bwd"]``.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -35,13 +44,18 @@ from repro_torch.kernels import build
 from repro_torch.kernels.launch import LAUNCHES, check_tensor, int32, raise_on
 
 __all__ = ["flash_attention_cuda", "flash_attention_bwd_cuda", "HEAD_DIM_MAX",
-           "BF16_HEAD_DIMS"]
+           "BF16_HEAD_DIMS", "BWD_DEVICE_KERNELS", "bwd_kernel_launches"]
 
 #: Largest head dim the fp32 kernel takes (it also needs D % 4 == 0).
 HEAD_DIM_MAX = 128
 #: Head dims the bf16 (tensor-core) kernel takes.
 BF16_HEAD_DIMS = (64, 80, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: The backward's device kernels, in the order of the library's counts: Δ,
+#: then dK/dV and dQ on the tensor cores (bf16) or the CUDA cores (fp32).
+BWD_DEVICE_KERNELS = ("fa_bwd_delta_kernel", "fa_bwd_dkdv_wgmma_kernel",
+                      "fa_bwd_dq_wgmma_kernel", "fa_bwd_dkdv_kernel",
+                      "fa_bwd_dq_kernel")
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -74,63 +88,89 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return 1.0 / d ** 0.5 if scale is None else float(scale)
 
 
+def _check_bf16(d: int, scale: float, tensors: dict) -> None:
+    """Raise unless the bf16 (TMA) kernels take these operands."""
+    offsets = {name: t.data_ptr() % 16 for name, t in tensors.items()}
+    if d not in BF16_HEAD_DIMS or any(offsets.values()) or not scale > 0.0:
+        raise ValueError(
+            f"the bf16 flash_attention kernels take D in {BF16_HEAD_DIMS}, "
+            f"16-byte aligned {'/'.join(offsets)} and scale > 0, got D={d}, "
+            f"bytes past 16 {offsets}, scale={scale}")
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, window: int | None = None,
-                         scale: float | None = None) -> torch.Tensor:
-    """q (B, Sq, H, D), k/v (B, Sk, H, D) → (B, Sq, H, D) in q's dtype."""
+                         scale: float | None = None, return_lse: bool = False):
+    """q (B, Sq, H, D), k/v (B, Sk, H, D) → o (B, Sq, H, D) in q's dtype,
+    or ``(o, lse)`` with ``return_lse``: lse (B, H, Sq) fp32."""
     scale = _check(q, k, v, window, scale)
     b, sq, h, d = q.shape
     sk = k.shape[1]
     out = torch.empty_like(q)
+    lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     if q.dtype == torch.bfloat16:
-        offsets = [t.data_ptr() % 16 for t in (q, k, v, out)]
-        if d not in BF16_HEAD_DIMS or any(offsets) or not scale > 0.0:
-            raise ValueError(
-                f"the bf16 flash_attention kernel takes D in "
-                f"{BF16_HEAD_DIMS}, 16-byte aligned q/k/v/o and scale > 0, "
-                f"got D={d}, q/k/v/o at {offsets} bytes past 16, "
-                f"scale={scale}")
+        _check_bf16(d, scale, {"q": q, "k": k, "v": v, "o": out})
     lib = build.load("flash_attention")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.repro_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(),
             _DTYPES[q.dtype], int32(b, "B"), int32(h, "H"), int32(sq, "Sq"),
             int32(sk, "Sk"), int32(d, "D"), scale, int(bool(causal)),
             0 if window is None else int32(window, "window"), stream)
     raise_on(err, "flash_attention")
     LAUNCHES["flash_attention"] += 1
-    return out
+    return out if lse is None else (out, lse)
 
 
 def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, o: torch.Tensor,
-                             do: torch.Tensor, *, causal: bool = True,
-                             window: int | None = None,
+                             do: torch.Tensor,
+                             lse: torch.Tensor | None = None, *,
+                             causal: bool = True, window: int | None = None,
                              scale: float | None = None
                              ) -> tuple[torch.Tensor, torch.Tensor,
                                         torch.Tensor]:
     """The gradients (dq, dk, dv) of :func:`flash_attention_cuda` at
-    (q, k, v), given its output ``o`` and the gradient ``do`` reaching it
-    (both shaped and typed as q)."""
+    (q, k, v), given its output ``o`` and ``lse`` (``return_lse=True``)
+    and the gradient ``do`` reaching ``o`` (shaped and typed as q)."""
     scale = _check(q, k, v, window, scale, (("o", o), ("do", do)))
     b, sq, h, d = q.shape
     sk = k.shape[1]
-    if q.dtype == torch.bfloat16 and d not in BF16_HEAD_DIMS:
-        raise ValueError(f"the bf16 flash_attention backward takes D in "
-                         f"{BF16_HEAD_DIMS}, got D={d}")
+    if lse is None:
+        raise ValueError("flash_attention_bwd takes the forward's lse "
+                         "(flash_attention_cuda(..., return_lse=True))")
+    check_tensor(lse, "lse", 3)
+    if lse.shape != (b, h, sq) or lse.device != q.device:
+        raise ValueError(f"lse {tuple(lse.shape)} is not (B, H, Sq) = "
+                         f"{(b, h, sq)} on {q.device}")
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    stats = torch.empty((2, b, h, sq), dtype=torch.float32, device=q.device)
+    if q.dtype == torch.bfloat16:
+        _check_bf16(d, scale, {"q": q, "k": k, "v": v, "o": o, "do": do,
+                               "dq": dq, "dk": dk, "dv": dv})
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     lib = build.load("flash_attention_bwd")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.repro_flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            stats[0].data_ptr(), stats[1].data_ptr(), _DTYPES[q.dtype],
+            do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), delta.data_ptr(), _DTYPES[q.dtype],
             int32(b, "B"), int32(h, "H"), int32(sq, "Sq"), int32(sk, "Sk"),
             int32(d, "D"), scale, int(bool(causal)),
             0 if window is None else int32(window, "window"), stream)
     raise_on(err, "flash_attention_bwd")
     LAUNCHES["flash_attention_bwd"] += 1
     return dq, dk, dv
+
+
+def bwd_kernel_launches() -> dict[str, int]:
+    """Launches of each of the backward's device kernels since its library
+    was loaded (counted in ``csrc/flash_attention_bwd.cu`` where a launch
+    succeeds): which kernels a call went through."""
+    lib = build.load("flash_attention_bwd")
+    counts = (ctypes.c_longlong * len(BWD_DEVICE_KERNELS))()
+    lib.repro_flash_attention_bwd_kernel_launches(counts)
+    return dict(zip(BWD_DEVICE_KERNELS, counts))

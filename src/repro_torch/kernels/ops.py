@@ -229,9 +229,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             # width (the smoke configs' 32) the fp32 kernel runs on the
             # widened operands, and its output is rounded back.
             dtype = torch.float32
-        out = FlashAttention.apply(*(t.to(dtype).contiguous()
-                                     for t in (q, k, v)),
-                                   causal, window, scale)
+        out, _ = FlashAttention.apply(*(t.to(dtype).contiguous()
+                                        for t in (q, k, v)),
+                                      causal, window, scale)
         return out.to(q.dtype)
     return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                    scale=scale)

@@ -454,12 +454,14 @@ def quant_roundtrip_ref(rows_of_leaves, src_of_dst=None
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, window: int | None = None,
-                        scale: float | None = None) -> torch.Tensor:
+                        scale: float | None = None, return_lse: bool = False):
     """Naive softmax attention.  q: (B, Sq, H, D); k/v: (B, Sk, H, D).
 
     fp32 scores over the whole (Sq, Sk) rectangle, q right-aligned to the
     end of the keys; a fully masked row returns 0; output in q's dtype —
-    ``repro.kernels.ref.flash_attention_ref``."""
+    ``repro.kernels.ref.flash_attention_ref``.  With ``return_lse`` also
+    each row's natural-log log-sum-exp of its scaled visible scores, (B, H,
+    Sq) fp32, +inf for a fully masked row (the output is unchanged)."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
     scale = 1.0 / d ** 0.5 if scale is None else scale
@@ -469,8 +471,11 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     s = s.masked_fill(~mask, float("-inf"))
     p = torch.softmax(s, dim=-1)
     p = torch.nan_to_num(p, nan=0.0)                # fully masked rows
-    out = torch.einsum("bhqk,bkhd->bqhd", p, v.to(torch.float32))
-    return out.to(q.dtype)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, v.to(torch.float32)).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.logsumexp(s, dim=-1)
+    return out, lse.masked_fill(lse == float("-inf"), float("inf"))
 
 
 def _attention_mask(sq: int, sk: int, causal: bool, window: int | None,
@@ -489,27 +494,33 @@ def _attention_mask(sq: int, sk: int, causal: bool, window: int | None,
 
 def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, o: torch.Tensor,
-                            do: torch.Tensor, *, causal: bool = True,
-                            window: int | None = None,
+                            do: torch.Tensor, *,
+                            lse: torch.Tensor | None = None,
+                            causal: bool = True, window: int | None = None,
                             scale: float | None = None
                             ) -> tuple[torch.Tensor, torch.Tensor,
                                        torch.Tensor]:
     """The backward of :func:`flash_attention_ref`, as formulas: ``o`` is
     the forward's output and ``do`` the gradient reaching it.
 
-    fp32 scores over the whole rectangle recompute ``P``; ``Δ =
-    rowsum(dO ∘ O)`` in fp32; ``dV = Pᵀ·dO``, ``dP = dO·Vᵀ``, ``dS = P ∘
-    (dP − Δ)``, ``dQ = scale·dS·K``, ``dK = scale·dSᵀ·Q``.  A row that sees
-    no key has ``P = 0``, so it adds nothing to any gradient.  Each result
-    comes back in its input's dtype."""
+    fp32 scores over the whole rectangle recompute ``P``: by a softmax, or
+    given the forward's ``lse`` (B, H, Sq), as ``exp(s·scale − lse)`` (0 on
+    masked entries and on a row with lse = +inf), as the kernel does;
+    ``Δ = rowsum(dO ∘ O)`` in fp32; ``dV = Pᵀ·dO``, ``dP = dO·Vᵀ``, ``dS =
+    P ∘ (dP − Δ)``, ``dQ = scale·dS·K``, ``dK = scale·dSᵀ·Q``.  A row that
+    sees no key has ``P = 0``, so it adds nothing to any gradient.  Each
+    result comes back in its input's dtype."""
     d = q.shape[-1]
     scale = 1.0 / d ** 0.5 if scale is None else scale
     f32 = torch.float32
     qf, kf, vf, of, dof = (t.to(f32) for t in (q, k, v, o, do))
     mask = _attention_mask(q.shape[1], k.shape[1], causal, window, q.device)
     s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
-    p = torch.softmax(s.masked_fill(~mask, float("-inf")), dim=-1)
-    p = torch.nan_to_num(p, nan=0.0)                # fully masked rows
+    s = s.masked_fill(~mask, float("-inf"))
+    if lse is None:
+        p = torch.nan_to_num(torch.softmax(s, dim=-1), nan=0.0)
+    else:
+        p = torch.exp(s - lse.to(f32)[..., None])   # -inf - lse: 0
     dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
     dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
     delta = (dof * of).sum(-1).transpose(1, 2)[..., None]    # (B,H,Sq,1)

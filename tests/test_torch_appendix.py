@@ -205,6 +205,43 @@ def test_tensor_bids_match_reference_planner_expression(metric, c):
             _assert_bits(got, want)
 
 
+# kld's bid expression at C = 100 where XLA-CPU splits the (M, N, C)
+# candidate fusion over both M and N for its threads (on an 8-thread host
+# ``outer_dimension_partitions`` [3, 2] at M = 4, N = 28 or 32): the last
+# partition contracts D_i·d_i, as the port does, the other five D_{k−1}·ψ
+# (ROADMAP C7).  The largest gap measured there, 1–2 ulps of the bids.
+_C7_PARTITIONED_GAP = 1.2e-7
+
+
+def _partitioned_over_m_and_n(args, metric) -> bool:
+    """Whether XLA-CPU splits the bid expression's candidate fusion over
+    both of its outer dimensions on this host."""
+    hlo = jax.jit(partial(_jit_bids, metric=metric)).lower(
+        *args).compile().as_text()
+    return any(line.count('"outer_dimension_partitions":["') == 1
+               and '","' in line.split("outer_dimension_partitions")[1]
+               for line in hlo.splitlines() if "add_multiply_fusion =" in line)
+
+
+@pytest.mark.parametrize("m,n", [(4, 16), (4, 28), (4, 32), (32, 32),
+                                 (8, 64)])
+def test_kld_bids_at_100_classes_by_partitioning(m, n):
+    """kld bids at C = 100 against the reference's jitted bid expression:
+    bit for bit where XLA-CPU partitions the candidate fusion over M alone
+    (or not at all), within _C7_PARTITIONED_GAP where it splits M and N."""
+    rng = np.random.default_rng(m * 100 + n)
+    args = _bid_inputs(rng, m, n, 100)
+    want = np.asarray(jax.jit(partial(_jit_bids, metric="kld"))(*args))
+    t = [torch.from_numpy(a) for a in args]
+    got = tops.bid_fused(tdol.iid_distance_t(t[0], "kld"), *t,
+                         metric="kld").numpy()
+    if _partitioned_over_m_and_n(args, "kld"):
+        np.testing.assert_allclose(got, want, rtol=0,
+                                   atol=_C7_PARTITIONED_GAP)
+    else:
+        _assert_bits(got, want)
+
+
 def test_ops_bid_fused_refuses_other_metrics():
     """The Appendix-C metrics do not reach the ``bid_fused`` kernel: on
     either device they take the composite (the candidate Eq. 2, the

@@ -184,18 +184,22 @@ def _close(got, want, rel=2e-5):
     assert np.abs(got - want).max() <= rel * (1.0 + np.abs(want).max())
 
 
+@pytest.mark.parametrize("use_lse", [False, True], ids=["softmax", "lse"])
 @pytest.mark.parametrize("b,sq,sk,kh,g,d,causal,window", ATTN_CASES)
 def test_flash_attention_bwd_ref_matches_reference_vjp(b, sq, sk, kh, g, d,
-                                                       causal, window):
+                                                       causal, window,
+                                                       use_lse):
+    """``use_lse``: P from the forward's lse, as the kernels form it."""
     q, k, v, do = _attn_inputs(b, sq, sk, kh, g, d)
     kw = dict(causal=causal, window=window)
     out, pull = jax.vjp(lambda q, k, v: jref.flash_attention_ref(
         q, k, v, **kw), *(jnp.asarray(x) for x in (q, k, v)))
     want = pull(jnp.asarray(do))
     tq, tk, tv, tdo = (torch.from_numpy(x) for x in (q, k, v, do))
-    o = tref.flash_attention_ref(tq, tk, tv, **kw)
+    o, lse = tref.flash_attention_ref(tq, tk, tv, return_lse=True, **kw)
     _close(o.numpy(), out, 3e-6)
-    got = tref.flash_attention_bwd_ref(tq, tk, tv, o, tdo, **kw)
+    got = tref.flash_attention_bwd_ref(tq, tk, tv, o, tdo,
+                                       lse=lse if use_lse else None, **kw)
     for x, w in zip(got, want):
         _close(x.numpy(), w)
     # ... and against torch autograd of the forward twin.
@@ -207,6 +211,50 @@ def test_flash_attention_bwd_ref_matches_reference_vjp(b, sq, sk, kh, g, d,
         # Rows that see no key output 0 and send no gradient.
         assert float(o[:, :sq - sk].abs().max()) == 0.0
         assert float(got[0][:, :sq - sk].abs().max()) == 0.0
+
+
+def _masked_scores64(q, k, causal, window):
+    """float64 scaled scores, -inf where the mask hides a key."""
+    d = q.shape[-1]
+    s = torch.einsum("bqhd,bkhd->bhqk", q.double(), k.double()) / d ** 0.5
+    q_pos = torch.arange(q.shape[1])[:, None] + (k.shape[1] - q.shape[1])
+    k_pos = torch.arange(k.shape[1])[None, :]
+    hide = (k_pos > q_pos) if causal else torch.zeros_like(k_pos > q_pos)
+    if window is not None:
+        hide |= k_pos <= q_pos - window
+    return s.masked_fill(hide, float("-inf"))
+
+
+@pytest.mark.parametrize("b,sq,sk,kh,g,d,causal,window", ATTN_CASES)
+def test_flash_attention_ref_lse_matches_float64(b, sq, sk, kh, g, d, causal,
+                                                  window):
+    """The plain lse against float64 ``torch.logsumexp`` of the masked
+    scores (fp32 scores and exp: within 2e-6·(1 + |lse|)); +inf exactly
+    where a row sees no key; (B, H, Sq) fp32."""
+    q, k, v, _ = (torch.from_numpy(x) for x in _attn_inputs(b, sq, sk, kh,
+                                                            g, d, seed=3))
+    _, lse = tref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                      return_lse=True)
+    want = torch.logsumexp(_masked_scores64(q, k, causal, window), dim=-1)
+    assert lse.dtype == torch.float32 and lse.shape == (b, kh * g, sq)
+    none = torch.isneginf(want)
+    assert torch.equal(torch.isposinf(lse), none)
+    assert bool(none.any()) == (sq > sk and causal)
+    seen = ~none
+    err = (lse.double() - want)[seen].abs()
+    assert float((err / (1.0 + want[seen].abs())).max()) <= 2e-6
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,sk,kh,g,d,causal,window", ATTN_CASES)
+def test_flash_attention_ref_output_same_bits_with_lse(b, sq, sk, kh, g, d,
+                                                       causal, window, dtype):
+    """``o`` is bit-equal with and without ``return_lse``."""
+    q, k, v, _ = (torch.from_numpy(x).to(dtype)
+                  for x in _attn_inputs(b, sq, sk, kh, g, d, seed=4))
+    kw = dict(causal=causal, window=window)
+    o, _ = tref.flash_attention_ref(q, k, v, return_lse=True, **kw)
+    assert torch.equal(o, tref.flash_attention_ref(q, k, v, **kw))
 
 
 def test_flash_attention_bwd_ref_keeps_bf16():
@@ -256,7 +304,8 @@ def _attn_loss(fn, w, causal, window):
 
 
 def _through_function(q, k, v, causal, window):
-    return PlainAttention.apply(q, k, v, causal, window, None)
+    o, _ = PlainAttention.apply(q, k, v, causal, window, None)
+    return o
 
 
 def _through_plain(q, k, v, causal, window):
@@ -275,6 +324,7 @@ def test_attention_function_grad_and_vmap(causal, window):
                 argnums=args)(q, k, v)
     for x, w in zip(got, want):
         _close(x.numpy(), w.numpy(), 1e-5)
+    want_q = want[0]
     (g_q, _), value = grad_and_value(
         _attn_loss(_through_function, do, causal, window),
         argnums=(0, 1))(q, k, v)
@@ -291,6 +341,30 @@ def test_attention_function_grad_and_vmap(causal, window):
     for x, w in zip(got, want):
         assert x.shape[0] == 3
         _close(x.numpy(), w.numpy(), 1e-5)
+    # The lse output: the plain twin's, under grad_and_value (as an aux
+    # output) and vmap (the client axis folded and unfolded), and no
+    # gradient flows through it.
+    kw = dict(causal=causal, window=window)
+
+    def with_lse(q, k, v):
+        o, lse = PlainAttention.apply(q, k, v, causal, window, None)
+        return (o * do).sum(), lse
+
+    (g_q, _), (_, lse) = grad_and_value(with_lse, argnums=(0, 1),
+                                        has_aux=True)(q, k, v)
+    assert torch.equal(lse, tref.flash_attention_ref(
+        q, k, v, return_lse=True, **kw)[1])
+    _close(g_q.numpy(), want_q.numpy(), 1e-5)
+    lses = vmap(lambda q, v: PlainAttention.apply(q, k, v, causal, window,
+                                                  None)[1],
+                in_dims=(0, 0))(qs, vs)
+    assert lses.shape == (3,) + lse.shape
+    for c in range(3):
+        assert torch.equal(lses[c], tref.flash_attention_ref(
+            qs[c], k, vs[c], return_lse=True, **kw)[1])
+    _, lse_alone = PlainAttention.apply(q.clone().requires_grad_(True), k, v,
+                                        causal, window, None)
+    assert not lse_alone.requires_grad
 
 
 def test_scan_function_grad_and_vmap():
