@@ -10,8 +10,9 @@ nothing of JAX.  Phases, each of which fails loudly:
 1. the card's name and power limit; build every CUDA kernel of the main
    path from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, all
    at once) and print the build seconds and ptxas' register and spill
-   report (the bf16 attention kernel, every ssd_scan kernel and every
-   mix_tree kernel must not spill); the launch floor, an empty kernel
+   report (the bf16 attention kernel, every ssd_scan kernel, forward and
+   backward, and every mix_tree kernel must not spill; the SSD backward's
+   SASS must hold no atomic); the launch floor, an empty kernel
    timed as every kernel is, on a ``launch_floor`` line of its own;
 2. the attention backward at qwen3's, smollm's and zamba2's bf16 shapes
    under ``torch.profiler`` before anything else is profiled (each device
@@ -117,7 +118,7 @@ nothing of JAX.  Phases, each of which fails loudly:
    Then the sweep layer (``sweep_path``, artifacts under ``build/sweeps``),
    all on the fleet plane: ``fig3_alpha``'s full grid (α ∈ {0.1, 0.2, 0.5,
    1, 100} × fedavg / feddif, N = M = 10, 8000 samples, seed 0,
-   ``planner="jax"``) cut to FIG3_ROUNDS of its 20 rounds, its 50 FedDif
+   ``planner="jax"``) cut to FIG3_ROUNDS of its 20 rounds, its 25 FedDif
    rounds first planned by
    ``prepopulate_plan_cache`` (``bid_fused`` once per bid round, the
    planner's summed ``loop_iterations``, and no other kernel), then
@@ -173,7 +174,8 @@ nothing of JAX.  Phases, each of which fails loudly:
    rounds); (b)
    ``fig_scenarios``' full grid (fedavg / d2d_random_walk / feddif ×
    static / mobile / multicell / energy_capped, N = 20, 8000 samples,
-   12 rounds) with the host planner, its joules per cell, and its mobile
+   6 of its 12 rounds) with the host planner, its joules per cell, and
+   its mobile
    and multicell FedDif cells with the device planner, which must agree
    with the host planner's on sub-frames and diffusion rounds and on
    accuracy within 0.05; FedDif at that width for 2 rounds per scenario
@@ -209,7 +211,8 @@ nothing of JAX.  Phases, each of which fails loudly:
    (params, ledger, clock, arrivals, staleness, curves, launches), with
    seconds and bytes per save; (e) cohorts of 16 drawn from a population
    of 100,000, 2 rounds, with seconds per cohort draw; (f) ``fig_async``'s
-   full grid (N = 16, 10 rounds, 5 % churn, fedavg and d2d_random_walk ×
+   full grid (N = 16, 5 of its 10 rounds, 5 % churn, fedavg and
+   d2d_random_walk ×
    ``async_barrier`` and ``async``): no failed cell, finite params, one
    line per cell with its virtual clock; its smoke grid on the card and on
    the CPU: equal ``comm``, virtual clock and arrivals, accuracy within
@@ -237,22 +240,25 @@ nothing of JAX.  Phases, each of which fails loudly:
    and with the hop put back to the chain ``quant_roundtrip`` replaced:
    equal ledgers, bit-equal final params; the device planner as shipped
    (``bid_fused``) and with the bid round put back to the chain it
-   replaced, on the quickstart device-planner run and every plan of the
+   replaced, on the quickstart device-planner run (at
+   CHAIN_PARITY_ROUNDS of its 8 rounds) and every plan of the
    planner checks below: the same rounds, hops and ``scheduled``,
    bit-equal ``decrement``, ``weight`` and ``efficiency`` (and, in the
-   run, equal ledgers and bit-equal final params); fleet-plane FedDif,
-   gossip, tthf and the lm full fp32 arm as shipped and with Eq. 10/11
+   run, equal ledgers and bit-equal final params); fleet-plane FedDif
+   (CHAIN_PARITY_ROUNDS rounds), gossip, tthf and the lm full fp32 arm as
+   shipped and with Eq. 10/11
    put back to the chain ``mix_tree`` replaced: equal ledgers, bit-equal
    final params; then the device planner
    on the card (with its
    kernels) against the host planner on the CPU, on the N=M=C=10
-   default-config inputs (seeds 0-2) and 4 of the 16 plans of the N=M=20
+   default-config inputs (seeds 0-2) and 2 of the 16 plans of the N=M=20
    ``planner_speedup`` cells: exact hop-list agreement is printed, and the
    plans must be equivalent (same rounds, same hop count, total Eq.-17
    decrement within 1e-6 relative);
 5. a measurement, not a check: one FedDif round with each planner, one on
    the host plane, one gossip round on the fleet plane and one of the lm
-   int8 arm, under ``torch.profiler`` (the feddif_stc and int8-hop rounds
+   int8 arm, under ``torch.profiler`` with device activity alone (the
+   feddif_stc and int8-hop rounds
    of each plane left the phase to make room for phase 8: their kernels
    run, and are checked, in phases 3–4; ``profile_round`` still takes
    them)
@@ -317,20 +323,28 @@ nothing of JAX.  Phases, each of which fails loudly:
    kernel's lse and its twin ``torch.logsumexp``'s, the profiler showing
    each row's device kernels (bf16: the ``wgmma`` dK/dV and dQ kernels);
    ssm_scan's at falcon's (1, 4096, 8192, 16) and three more, bit-equal;
-   the same bits on two calls; a planted fault each (a key tile dropped; ``h_t`` for
-   ``h_{t−1}``) that must fail its bar by ≥ 10×; kernel, plain and library
-   ms and the bound; (b) ``make_train_step`` at full width: qwen3_0_6b
-   (B = 2 × 4096, AdamW, ``warmup_cosine_lr``, clip 1.0, 6 steps: the loss
-   falls, peak GB with remat below the peak without) and falcon_mamba_7b
-   at 8 of its 64 layers (B = 1 × 4096, SGD, 3 steps), seconds a step,
-   tokens/s and launches (the forward kernel twice a layer a step under
-   remat, the backward once); one step at qwen3-smoke in fp32 on the card
-   against the CPU, params within 1e-5; (c) ``launch/train`` at full width
-   (smollm_360m, 2 rounds, 4 clients, 4 steps a round) in process and the
-   CLI at ``--smoke`` as a subprocess; (d) ``run_spmd_feddif`` on the card
-   against the CPU: equal ledgers, loss histories within SPMD_LOSS_BAR, one
-   forward and one backward launch per layer per vmapped step.  The
-   launches of (b)–(d) count as main-path launches.
+   ssd_scan's (five launches) at zamba2's (1, 4096, 80, 64, 64, 128), its
+   cut at S = 256, a ragged S, the smoke width, near-unit decay and B = 4,
+   each gradient within SSD_BWD_BAR·(1 + max|plain|), with ptxas' registers
+   and spills (none, and no atomic in its SASS: phase 1);
+   the same bits on two calls; a planted fault each (a key tile dropped;
+   ``h_t`` for ``h_{t−1}``; G one chunk late, at every ssd_scan row) that
+   must fail its bar by ≥ 10×; kernel, plain and library ms and the bound;
+   (b) ``make_train_step`` at full width: qwen3_0_6b (B = 2 × 4096, AdamW,
+   ``warmup_cosine_lr``, clip 1.0, 6 steps: the loss falls, peak GB with
+   remat below the peak without), falcon_mamba_7b at 8 of its 64 layers
+   (B = 1 × 4096, SGD, 3 steps) and zamba2_2_7b at full width and depth
+   (54 mamba2 + 9 shared, B = 1 × 4096, AdamW, 3 steps: the loss falls),
+   seconds a step, tokens/s, peak GB and launches (the forward kernels
+   twice a layer a step under remat, the backward once); one step at
+   qwen3-smoke and at zamba2-smoke in fp32 on the card against the CPU,
+   params within 1e-5; (c) ``launch/train`` at full width (smollm_360m, 1
+   round, 4 clients, 4 steps a round) in process and the CLI at
+   ``--smoke`` as a subprocess; (d) ``run_spmd_feddif`` at smollm-smoke
+   and zamba2-smoke on the card against the CPU: equal ledgers, loss
+   histories within SPMD_LOSS_BAR, one forward and one backward launch set
+   per layer per vmapped step.  The launches of (b)–(d) count as
+   main-path launches.
 
 Then one ``{"kernels": [...]}`` line, the card line, and as the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -338,6 +352,7 @@ repository around it, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import gc
@@ -372,12 +387,20 @@ CARD_VS_CPU_RUN = ("feddif_stc", "fcn", 2, 5)
 DEVICE_PLANNER_RUN = ("feddif", "fcn", 8, 8)
 VALUE_WEIGHT = 0.5
 NUM_CLASSES = 10
-# planner_speedup: 4 of the bench's 16 plans (data seeds 0-1 × channel
-# seeds 0-1), cut to keep the script inside its time limit.
+# planner_speedup: 2 of the bench's 16 plans (data seeds 0-1, channel
+# seed 0), cut to keep the script inside its time limit (4 until the SSD
+# backward's training phase: a plan takes ~2.4 s on the card and runs
+# three times, in two arms of phase 4's chain parity and in its planner
+# check).
 PLANNER_CASES = (
     ("default_config", 10, None, [(s, s) for s in range(3)]),
-    ("planner_speedup", 20, 24, [(i, t) for i in range(2) for t in range(2)]),
+    ("planner_speedup", 20, 24, [(i, 0) for i in range(2)]),
 )
+# Rounds of the runs of phase 4's chain parity, each run twice: the
+# quickstart cell's FedDif (the device-planner run's bid rounds, the fleet
+# plane's Eq. 10/11; 8 rounds cut) and the lm_hops arms (int8 and full
+# fp32; 6 rounds cut).
+CHAIN_PARITY_ROUNDS = 4
 # The adapter hop plane: the lm_hops bench's full cell (benchmarks/run.py)
 # and its arms, arm -> (adapter_hops, hop_quant); feddif/fcn with int8 hops
 # at the quickstart configuration; phase 4's small lm int8 cell (the
@@ -486,12 +509,13 @@ HOST_VS_FLEET_RUN = ("feddif", "fcn", 2, 8)
 # The sweep phase (3c): fig3_alpha's full grid (5 α × fedavg / feddif,
 # N = M = 10, 8000 samples) pre-planned with the device planner, the smoke
 # grids of the other paper sweeps, all on the fleet plane.  The grid runs
-# FIG3_ROUNDS of its 20 rounds, as the sweep ``fig3_alpha_r10`` registered
+# FIG3_ROUNDS of its 20 rounds, as the sweep ``fig3_alpha_r5`` registered
 # here (a copy of ``fig3_alpha`` with fewer rounds): the script ran past
-# its 1,200 s limit on a slow host (NVIDIA H100 80GB HBM3, 700.00 W; the
-# FL phases host-bound), so those phases were cut in depth.  Artifacts go
-# under build/.
-FIG3_ROUNDS = 10
+# its 1,200 s limit on slow hosts (NVIDIA H100 80GB HBM3, 700.00 W; the
+# FL phases host-bound), so those phases were cut in depth (20 → 10, then
+# 10 → 5: at 5 rounds FedDif's peak at α = 0.1 is 0.668 against FedAvg's
+# 0.347 on the CPU).  Artifacts go under build/.
+FIG3_ROUNDS = 5
 SWEEP_DIR = ROOT / "build" / "sweeps"
 SWEEP_SMOKE = ("fig4_epsilon", "fig5_gamma_min", "fig6_tasks",
                "table2_strategies", "fig_lm")
@@ -525,6 +549,10 @@ APPENDIX_CELLS = (("baseline", {}), ("fully_decentralized",
                   ("underlay", {"underlay": True}))
 # (3 rounds until the training phase came.)
 SCENARIO_PROFILE_ROUNDS = 2
+# fig_scenarios' full grid and its device-planner cells run 6 of its 12
+# rounds (the copy ``fig_scenarios_r6``), cut to keep the script inside its
+# time limit.
+SCENARIO_GRID_ROUNDS = 6
 # (scenario, FLConfig changes, rounds, killed after): the energy budget
 # binds before the kill (clients deplete in round 3), so the resumed run
 # needs the spent energy the checkpoint saved.
@@ -544,6 +572,9 @@ ASYNC_DEGENERATE_N = 20
 ASYNC_RESUME = (4, 2)
 ASYNC_POPULATION = (100_000, 16, 2)
 ASYNC_KERNEL_ROUNDS = 2
+# fig_async's full grid runs 5 of its 10 rounds (the copy ``fig_async_r5``),
+# cut to keep the script inside its time limit.
+ASYNC_SWEEP_ROUNDS = 5
 ASYNC_ACC = 0.05             # accuracy bar of the fleet plane and card-CPU
 
 
@@ -559,6 +590,82 @@ def _card_line() -> str:
     if out.returncode != 0:
         _fail(f"nvidia-smi failed: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
+
+
+# --------------------------------------------------- commands run alongside
+# The CLI checks (the sweep CLI's SIGTERM / --resume, the serve and train
+# CLIs) spend most of their time starting Python and torch in a process of
+# their own, so main() starts them together after phase 2 and each phase
+# reads its result where it checks it.  Every process started here is
+# recorded, and ended at exit if it still runs.
+CLI_DIR = ROOT / "build" / "cli"
+_CHILDREN: list = []
+
+
+def _stop_children() -> None:
+    for proc in _CHILDREN:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def _src_env() -> dict:
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src")] + [p for p in [env.get("PYTHONPATH")] if p])
+    return env
+
+
+def _popen(args: list, out_path: Path, err_path: Path | None = None):
+    """``args`` started from the repo root with ``src`` on the path, its
+    standard output (and error, unless ``err_path`` is given) to files."""
+    out_path.parent.mkdir(parents=True, exist_ok=True)
+    with open(out_path, "w") as out, open(err_path or os.devnull, "w") as err:
+        proc = subprocess.Popen(
+            args, cwd=ROOT, env=_src_env(), stdout=out,
+            stderr=err if err_path else subprocess.STDOUT)
+    _CHILDREN.append(proc)
+    return proc
+
+
+def _run_cli(name: str, args: list, timeout: float) -> dict:
+    """Runs ``args`` to its end: exit code, standard output and error, and
+    seconds from start to exit (-9 if it outlived ``timeout``)."""
+    t0 = time.perf_counter()
+    out, err = CLI_DIR / f"{name}.out", CLI_DIR / f"{name}.err"
+    proc = _popen(args, out, err)
+    try:
+        proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    return {"returncode": proc.returncode, "stdout": out.read_text(),
+            "stderr": err.read_text(), "seconds": time.perf_counter() - t0}
+
+
+class _Alongside:
+    """``fn()`` on a thread of its own, begun now; ``result()`` waits for
+    it and returns what it returned (or raises what it raised).  ``fn``
+    only starts processes and reads files: the checks stay with the
+    caller."""
+
+    def __init__(self, fn):
+        import threading
+        self._out: dict = {}
+
+        def body():
+            try:
+                self._out["value"] = fn()
+            except BaseException as exc:   # noqa: BLE001 — re-raised below
+                self._out["error"] = exc
+        self._thread = threading.Thread(target=body, daemon=True)
+        self._thread.start()
+
+    def result(self):
+        self._thread.join()
+        if "error" in self._out:
+            raise self._out["error"]
+        return self._out["value"]
 
 
 def _ptxas_spills(log: str) -> list[tuple[str, int, int]]:
@@ -620,26 +727,72 @@ def _check_bwd_spills(log: str | None) -> None:
         _fail(f"flash_attention_bwd: ptxas spill bytes {hot}")
 
 
-def _check_ssd_spills(log: str | None) -> None:
-    """Every ssd_scan kernel (the state kernel at 2 and 4 n-tiles per unit,
-    the pass, the scan kernel at one and two units per warp) must build
-    without spills."""
-    if log is None:
-        print(json.dumps({"check": "ssd_scan spills", "ok": None,
-                          "note": "built before this run"}))
-        return
-    spills = {}
+def _ptxas_table(log: str, names) -> dict:
+    """Each kernel entry of one library's ptxas report by its name in
+    ``names`` (with its template argument): [spill store bytes, spill load
+    bytes, registers]."""
+    regs, entry = {}, None
+    for line in log.splitlines():
+        if "Compiling entry" in line:
+            entry = line
+        elif "Used" in line and "registers" in line and entry:
+            regs[entry] = int(line.split("Used")[1].split("registers")[0])
+    table = {}
     for entry, stores, loads in _ptxas_spills(log):
-        name = next((k for k in ("ssd_state_kernel", "ssd_pass_kernel",
-                                 "ssd_scan_kernel") if k in entry), entry)
+        name = next((k for k in names if k in entry), entry)
         if "ILi" in entry:
             name += "<" + entry.split("ILi")[1].split("E")[0] + ">"
-        spills[name] = [stores, loads]
-    ok = len(spills) == 5 and not any(any(v) for v in spills.values())
-    print(json.dumps({"check": "ssd_scan spills", "spill_bytes": spills,
-                      "ok": ok}))
-    if not ok:
-        _fail(f"ssd_scan: ptxas spill bytes {spills}")
+        full = next((e for e in regs if entry in e), None)
+        table[name] = [stores, loads, regs.get(full)]
+    return table
+
+
+SSD_BWD_KERNELS = ("ssd_bwd_local_kernel", "ssd_bwd_pass_kernel",
+                   "ssd_bwd_intra_kernel", "ssd_bwd_state_kernel",
+                   "ssd_bwd_reduce_kernel")
+
+
+def _check_ssd_spills(log: str | None, bwd_log: str | None) -> None:
+    """Every ssd_scan kernel (the state kernel at 2 and 4 n-tiles per unit,
+    the pass, the scan kernel at one and two units per warp) and every
+    kernel of its backward (the local term at 2 and 4 n-tiles per unit,
+    the reverse pass, the intra-chunk, state and reduction kernels) must
+    build without spills; the backward's SASS must hold no atomic
+    (``cuobjdump``; its source is searched too)."""
+    from repro_torch.kernels import build
+    for label, text, names, count in (
+            ("ssd_scan", log, ("ssd_state_kernel", "ssd_pass_kernel",
+                               "ssd_scan_kernel"), 5),
+            ("ssd_scan_bwd", bwd_log, SSD_BWD_KERNELS, 6)):
+        if text is None:
+            print(json.dumps({"check": f"{label} spills", "ok": None,
+                              "note": "built before this run"}))
+            continue
+        spills = _ptxas_table(text, names)
+        ok = len(spills) == count and not any(v[0] or v[1]
+                                              for v in spills.values())
+        print(json.dumps({"check": f"{label} spills",
+                          "spill_store_load_registers": spills, "ok": ok}))
+        if not ok:
+            _fail(f"{label}: ptxas spill bytes {spills}")
+    src = (ROOT / KERNEL_SOURCE / "ssd_scan_bwd.cu").read_text()
+    sass_atomics = None
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if Path(tool).exists():
+        out = subprocess.run([tool, "-sass", str(build._target(
+            "ssd_scan_bwd"))], capture_output=True, text=True, timeout=120)
+        sass_atomics = len(re.findall(r"\b(?:ATOM|ATOMS|ATOMG|RED)\.",
+                                      out.stdout))
+        if out.returncode != 0 or "FFMA" not in out.stdout:
+            sass_atomics = None
+    line = {"check": "ssd_scan_bwd float atomics",
+            "source_atomics": len(re.findall(
+                r"\batomic[A-Z]\w*\(|\b(?:red|atom)\.", src)),
+            "sass_atomics": sass_atomics}
+    line["ok"] = line["source_atomics"] == 0 and sass_atomics in (0, None)
+    print(json.dumps(line))
+    if not line["ok"]:
+        _fail(f"ssd_scan_bwd holds atomics: {line}")
 
 
 def _check_mix_tree_spills(log: str | None) -> None:
@@ -2689,18 +2842,21 @@ def bid_chain_parity(torch, port) -> None:
     value): identical plans (``_plan_diff``)."""
     from repro_torch.core.diffusion import DiffusionPlanner
     from repro_torch.tree import tree_leaves
-    strategy, task, rounds, clients = DEVICE_PLANNER_RUN
+    strategy, task, _, clients = DEVICE_PLANNER_RUN
+    rounds = CHAIN_PARITY_ROUNDS
     spec = port.ExperimentSpec(
         task=task, alpha=0.3, num_samples=6000,
         fl=port.FLConfig(executor="fleet", strategy=strategy, rounds=rounds,
                          num_clients=clients, num_models=clients,
                          epsilon=0.04, gamma_min=1.0, seed=0, planner="jax",
                          uncertainty_weight=VALUE_WEIGHT))
+    t0 = time.perf_counter()
     res, plans, counts = _planner_arms(torch,
                                        lambda: port.run_experiment(spec))
     a, b = res["shipped"], res["old_chain"]
     row = {"check": f"bid_fused vs the old chain, {strategy}/{task} "
                     f"planner=jax w={VALUE_WEIGHT}",
+           "seconds": time.perf_counter() - t0,
            "plans": len(plans["shipped"]),
            "plan_diff": _plan_diff(torch, plans["shipped"],
                                    plans["old_chain"]),
@@ -2723,9 +2879,11 @@ def bid_chain_parity(torch, port) -> None:
     for case, n, max_rounds, seeds in PLANNER_CASES:
         planner = DiffusionPlanner(epsilon=0.04, max_rounds=max_rounds,
                                    mode="jax", device="cuda")
+        t0 = time.perf_counter()
         _, plans, counts = _planner_arms(torch, lambda: [
             _planner_case(planner, case, n, *seed) for seed in seeds])
         row = {"check": f"bid_fused vs the old chain, planner {case}",
+               "seconds": time.perf_counter() - t0,
                "clients": n, "plans": len(plans["shipped"]),
                "plan_diff": _plan_diff(torch, plans["shipped"],
                                        plans["old_chain"]),
@@ -2741,7 +2899,8 @@ def bid_chain_parity(torch, port) -> None:
 
 
 def mix_chain_parity(torch, port) -> None:
-    """Phase 4: the fleet plane's FedDif quickstart run, gossip (2 rounds),
+    """Phase 4: the fleet plane's FedDif quickstart cell at
+    CHAIN_PARITY_ROUNDS rounds, gossip (2 rounds),
     tthf (4 rounds) and the lm_hops full fp32 arm, each run twice on the
     card: as shipped (one ``mix_tree`` launch per MixOp and per round) and
     with ``ops.mix_aggregate_tree`` put back to the chain it replaced
@@ -2758,13 +2917,15 @@ def mix_chain_parity(torch, port) -> None:
                                           rounds=rounds, num_clients=8,
                                           num_models=8, epsilon=0.04,
                                           gamma_min=1.0, seed=0))
-    cells = [("feddif/fcn", fcn("feddif", 8))]
+    cells = [("feddif/fcn", fcn("feddif", CHAIN_PARITY_ROUNDS))]
     cells += [(f"{st}/fcn", fcn(st, r)) for st, r in MIX_RUNS]
     cells.append(("feddif/lm full_f32", ExperimentSpec(
-        **LM_DATA, adapter_hops=False, fl=FLConfig(**LM_FL))))
+        **LM_DATA, adapter_hops=False,
+        fl=FLConfig(**{**LM_FL, "rounds": CHAIN_PARITY_ROUNDS}))))
     shipped = ops.mix_aggregate_tree
     for name, spec in cells:
         res, counts = {}, {}
+        t0 = time.perf_counter()
         for arm in ("shipped", "old_chain"):
             if arm == "old_chain":
                 ops.mix_aggregate_tree = _old_mix_chain
@@ -2778,6 +2939,7 @@ def mix_chain_parity(torch, port) -> None:
                 ops.mix_aggregate_tree = shipped
         a, b = res["shipped"], res["old_chain"]
         row = {"check": f"mix_tree vs the old chain, {name}",
+               "seconds": time.perf_counter() - t0,
                "ledgers_equal": a.ledger.as_dict() == b.ledger.as_dict(),
                "final_params_bit_equal": _bits_equal(torch, a.final_params,
                                                      b.final_params),
@@ -2809,7 +2971,9 @@ def old_chain_parity(torch, port) -> None:
     from repro_torch.tree import tree_leaves
     FLConfig, ExperimentSpec = port.FLConfig, port.ExperimentSpec
     cells = [("feddif/lm adapter_int8", ExperimentSpec(
-        **LM_DATA, adapter_hops=True, fl=FLConfig(**LM_FL, hop_quant="int8"))),
+        **LM_DATA, adapter_hops=True,
+        fl=FLConfig(**{**LM_FL, "rounds": CHAIN_PARITY_ROUNDS},
+                    hop_quant="int8"))),
         ("feddif/fcn host hop_quant=int8", ExperimentSpec(
             task="fcn", alpha=0.3, num_samples=6000, fl=FLConfig(
                 strategy="feddif", rounds=2, num_clients=8, num_models=8,
@@ -2818,6 +2982,7 @@ def old_chain_parity(torch, port) -> None:
     shipped = (executors.quant_roundtrip_tree, executors.quant_roundtrip_slots)
     for name, spec in cells:
         res, counts = {}, {}
+        t0 = time.perf_counter()
         for arm in ("shipped", "old_chain"):
             if arm == "old_chain":
                 executors.quant_roundtrip_tree = _old_tree_hop
@@ -2838,6 +3003,7 @@ def old_chain_parity(torch, port) -> None:
                                         tree_leaves(b.final_params)))
         hops = sum(a.diffusion_rounds)
         row = {"check": f"quant_roundtrip vs the old chain, {name}",
+               "seconds": time.perf_counter() - t0,
                "ledgers_equal": a.ledger.as_dict() == b.ledger.as_dict(),
                "final_params_bit_equal": bit_equal,
                "diffusion_rounds": a.diffusion_rounds, "launches": counts,
@@ -3059,6 +3225,10 @@ def profile_round(torch, port, planner: str = "host",
     intervals), idle share of the span from the first to the last kernel,
     kernel count and the kernels with the most device time."""
     from torch.profiler import ProfilerActivity, profile
+    # Device activity alone: the summary reads only kernel events, and with
+    # the host-side events of a round (every op of the clients' training)
+    # the five profiles of phase 5 took 81 s, against 24 s without them
+    # (NVIDIA H100 80GB HBM3, 700.00 W).
     if lm_int8:
         spec = port.ExperimentSpec(**LM_DATA, fl=port.FLConfig(
             **{**LM_FL, "rounds": 1}, hop_quant="int8"))
@@ -3074,8 +3244,7 @@ def profile_round(torch, port, planner: str = "host",
                  f"plane, planner={planner} w={weight}"
                  + (f" hop_quant={hop_quant}" if hop_quant != "none" else ""))
     try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             res = port.run_experiment(spec)
             torch.cuda.synchronize()
         print(json.dumps({
@@ -3145,6 +3314,39 @@ def _ssd_flops(b, s, h, p, n, chunk) -> float:
         lv = min(chunk, s - t0)
         tri = lv * (lv + 1) / 2
         flops += 2.0 * b * (n * tri + h * p * tri + 2 * h * p * n * lv)
+    return flops
+
+
+def _ssd_inputs(torch, gen, shape, kind: str):
+    """(xh, a, b, c) on the card, shaped as the model's streams: Δ =
+    softplus(·), a = −Δ·A with A in [1, 16] by head, x scaled by Δ, b and
+    c through SiLU; at near-unit decay a = −1e-3·U(0.5, 1.5)."""
+    import torch.nn.functional as F
+    b, s, h, p, n = shape
+    dt_ = F.softplus(0.5 * torch.randn((b, s, h), generator=gen,
+                                       device="cuda") - 1.0)
+    a = -dt_ * torch.exp(torch.linspace(0.0, 2.772588722, h, device="cuda"))
+    if kind == "near_unit":
+        a = -1e-3 * (0.5 + torch.rand((b, s, h), generator=gen,
+                                      device="cuda"))
+    xh = torch.randn((b, s, h, p), generator=gen,
+                     device="cuda") * dt_[..., None]
+    bm = F.silu(torch.randn((b, s, n), generator=gen, device="cuda"))
+    cm = F.silu(torch.randn((b, s, n), generator=gen, device="cuda"))
+    return xh, a, bm, cm
+
+
+def _ssd_bwd_flops(b, s, h, p, n, chunk) -> float:
+    """Operations of ssd_scan's backward on this shape, as its kernels form
+    them (2 flops per FMA): per chunk and head, the chunk's own state
+    gradient dYᵀ·C (L·P·N), B·Gᵀ (L·N·P), Wᵀ·dY and dY·Xᵀ on the triangle
+    (P each a visible pair), dY·h and X·G (L·P·N each); per chunk C·Bᵀ, E·B
+    and Eᵀ·C on the triangle (N each)."""
+    flops = 0.0
+    for t0 in range(0, s, chunk):
+        lv = min(chunk, s - t0)
+        tri = lv * (lv + 1) / 2
+        flops += 2.0 * b * (h * (4 * lv * p * n + 2 * p * tri) + 3 * n * tri)
     return flops
 
 
@@ -3317,21 +3519,9 @@ def check_lm_kernels(torch, kref) -> list[dict]:
                               else light)),
                 "bound_ms": bound, "bound_by": by})
 
-    # ssd_scan: SSD_ROWS.  Inputs shaped as the model's streams: Δ =
-    # softplus(·), a = −Δ·A with A in [1, 16] by head, x scaled by Δ; at
-    # near-unit decay a = −1e-3·U(0.5, 1.5).
+    # ssd_scan: SSD_ROWS.
     for (b, s, h, p, n, chunk), kind in SSD_ROWS:
-        dt_ = F.softplus(0.5 * torch.randn((b, s, h), generator=gen,
-                                           device="cuda") - 1.0)
-        a = -dt_ * torch.exp(torch.linspace(0.0, 2.772588722, h,
-                                            device="cuda"))
-        if kind == "near_unit":
-            a = -1e-3 * (0.5 + torch.rand((b, s, h), generator=gen,
-                                          device="cuda"))
-        xh = torch.randn((b, s, h, p), generator=gen,
-                         device="cuda") * dt_[..., None]
-        bm = F.silu(torch.randn((b, s, n), generator=gen, device="cuda"))
-        cm = F.silu(torch.randn((b, s, n), generator=gen, device="cuda"))
+        xh, a, bm, cm = _ssd_inputs(torch, gen, (b, s, h, p, n), kind)
         out = ssd_scan_cuda(xh, a, bm, cm, chunk=chunk)
         again = ssd_scan_cuda(xh, a, bm, cm, chunk=chunk)
         plain = kref.ssd_scan_ref(xh, a, bm, cm, chunk)
@@ -3790,13 +3980,14 @@ def _sweep(torch, kd, runs, name, **kw) -> tuple[dict, list, float]:
     return art, per_cell, wall
 
 
-def _fig3_cut() -> str:
-    """The name of ``fig3_alpha`` at FIG3_ROUNDS rounds, registered once."""
+def _cut_sweep(sweep: str, rounds: int) -> str:
+    """The name of a copy of ``sweep`` whose full grid runs ``rounds``
+    rounds, registered once."""
     from repro_torch.experiments import registry
-    name = f"fig3_alpha_r{FIG3_ROUNDS}"
+    name = f"{sweep}_r{rounds}"
     if name not in registry.REGISTRY:
         registry.register(dataclasses.replace(
-            registry.get_sweep("fig3_alpha"), name=name, rounds=FIG3_ROUNDS))
+            registry.get_sweep(sweep), name=name, rounds=rounds))
     return name
 
 
@@ -3816,7 +4007,7 @@ def sweep_path(torch, port) -> dict:
     with _ObservedRuns(torch, port) as runs:
         # fig3_alpha's full grid at FIG3_ROUNDS: the device pre-planner
         # plans all its FedDif rounds first; the cells then replay them.
-        fig3 = _fig3_cut()
+        fig3 = _cut_sweep("fig3_alpha", FIG3_ROUNDS)
         cells = expand_sweep(fig3, smoke=False, executor="fleet",
                              planner="jax")
         cache = PlanCache()
@@ -4117,11 +4308,11 @@ def _durable_sweep(torch, kd) -> dict:
     return total
 
 
-def _sigterm_cli(torch) -> None:
-    """(c): SIGTERM the sweep CLI once a round checkpoint is committed,
-    rerun it with --resume, and compare with a clean in-process run."""
+def _sigterm_cli_runs() -> dict:
+    """(c)'s two processes: the sweep CLI sent SIGTERM once a round
+    checkpoint is committed, then rerun with --resume.  Starts and reads
+    processes only (it runs alongside other phases, ``_Alongside``)."""
     import signal
-    from repro_torch.experiments import run_sweep
     root = DURABLE_DIR / "cli"
     shutil.rmtree(root, ignore_errors=True)
     root.mkdir(parents=True)
@@ -4130,9 +4321,6 @@ def _sigterm_cli(torch) -> None:
             "--sweep", "fig4_epsilon", "--executor", "fleet",
             "--checkpoint-every", "1", "--state-dir", str(state),
             "--out-dir", str(out)]
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        [str(ROOT / "src")] + [p for p in [os.environ.get("PYTHONPATH")]
-                               if p]))
 
     def committed():
         return any(f.startswith("ckpt_") and f.endswith(".json")
@@ -4140,46 +4328,58 @@ def _sigterm_cli(torch) -> None:
                    for f in files)
 
     t0 = time.perf_counter()
-    with open(root / "killed.log", "w") as logf:
-        proc = subprocess.Popen(args, env=env, cwd=ROOT, stdout=logf,
-                                stderr=subprocess.STDOUT)
-        try:
-            deadline = time.time() + 120
-            while (time.time() < deadline and proc.poll() is None
-                   and not committed()):
-                time.sleep(0.005)
-            was_committed = committed()
-            if proc.poll() is None:
-                proc.send_signal(signal.SIGTERM)
-            proc.wait(timeout=60)
-        finally:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
+    proc = _popen(args, root / "killed.log")
+    deadline = time.time() + 120
+    while (time.time() < deadline and proc.poll() is None
+           and not committed()):
+        time.sleep(0.005)
+    was_committed = committed()
+    if proc.poll() is None:
+        proc.send_signal(signal.SIGTERM)
+    try:
+        proc.wait(timeout=60)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
     killed_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    r = subprocess.run(args + ["--resume"], env=env, cwd=ROOT,
-                       capture_output=True, text=True, timeout=300)
-    resume_s = time.perf_counter() - t0
-    (root / "resumed.log").write_text(r.stdout + r.stderr)
-    clean = run_sweep("fig4_epsilon", executor="fleet", out_dir=None)
+    resume = _popen(args + ["--resume"], root / "resumed.log")
+    try:
+        resume.wait(timeout=300)
+    except subprocess.TimeoutExpired:
+        resume.kill()
+        resume.wait()
     resumed = None
-    if r.returncode == 0:
+    if resume.returncode == 0:
         with open(out / "BENCH_feddif_fig4_epsilon.json") as f:
             resumed = json.load(f)
+    return {"checkpoint_committed": was_committed,
+            "killed_returncode": proc.returncode,
+            "resume_returncode": resume.returncode, "killed_s": killed_s,
+            "resume_s": time.perf_counter() - t0, "resumed": resumed,
+            "logs": str(root)}
+
+
+def _sigterm_cli(torch, runs: _Alongside | None = None) -> None:
+    """(c): the sweep CLI sent SIGTERM once a round checkpoint is
+    committed, rerun with --resume (``_sigterm_cli_runs``, begun here
+    unless ``runs`` already holds it), against a clean in-process run."""
+    import signal
+    from repro_torch.experiments import run_sweep
+    clean = run_sweep("fig4_epsilon", executor="fleet", out_dir=None)
+    r = (runs or _Alongside(_sigterm_cli_runs)).result()
+    resumed = r.pop("resumed")
     same = resumed is not None and _same_artifact(clean, resumed)
     print(json.dumps({
         "check": "fig4_epsilon CLI: SIGTERM after a committed round "
-                 "checkpoint, then --resume",
-        "checkpoint_committed": was_committed,
-        "killed_returncode": proc.returncode,
-        "resume_returncode": r.returncode, "killed_s": killed_s,
-        "resume_s": resume_s, "equal_after_strip_volatile": same,
-        "failed_cells": None if resumed is None else resumed["failed_cells"],
-        "logs": str(root)}))
-    if (not was_committed or proc.returncode != -signal.SIGTERM
-            or r.returncode != 0 or not same or resumed["failed_cells"]):
-        _fail(f"fig4 CLI SIGTERM / --resume check failed (see {root})")
+                 "checkpoint, then --resume", **r,
+        "equal_after_strip_volatile": same,
+        "failed_cells": None if resumed is None else resumed["failed_cells"]}))
+    if (not r["checkpoint_committed"]
+            or r["killed_returncode"] != -signal.SIGTERM
+            or r["resume_returncode"] != 0 or not same
+            or resumed["failed_cells"]):
+        _fail(f"fig4 CLI SIGTERM / --resume check failed (see {r['logs']})")
 
 
 def _seed_vmap_vs_loop(torch, kd) -> None:
@@ -4250,24 +4450,34 @@ def _seed_vmap_card_vs_cpu(torch, kd) -> None:
         _fail(f"seed_vmap card vs CPU {cell.label}: comm or accuracy apart")
 
 
-def durable_path(torch, port) -> dict:
+def _parts_line(phase: str, t0: float, parts: dict, total: dict) -> None:
+    print(json.dumps({"phase": phase, "seconds": time.perf_counter() - t0,
+                      "part_seconds": parts,
+                      "launches": {k: v for k, v in total.items() if v}}))
+
+
+def durable_path(torch, port, sigterm: _Alongside | None = None) -> dict:
     """Phase 3d: durable runs and sweeps, and the seed-stacked replicate
-    engine, on the card.  Returns the launches of (a) and (b)."""
+    engine, on the card.  Returns the launches of (a) and (b).
+    ``sigterm``: (c)'s processes, if main() began them earlier."""
     from repro_torch.kernels import diffusion as kd
     total = {k: 0 for k in kd.LAUNCHES}
-    t0 = time.perf_counter()
+    t0, parts = time.perf_counter(), {}
+    ts = t0
     for executor, strategy, rounds, kill in DURABLE_RUNS:
         for k, v in _durable_run(torch, kd, port, executor, strategy,
                                  rounds, kill).items():
             total[k] += v
+    parts["runs"], ts = time.perf_counter() - ts, time.perf_counter()
     for k, v in _durable_sweep(torch, kd).items():
         total[k] += v
-    _sigterm_cli(torch)
+    parts["sweep"], ts = time.perf_counter() - ts, time.perf_counter()
+    _sigterm_cli(torch, sigterm)
+    parts["sigterm_cli"], ts = time.perf_counter() - ts, time.perf_counter()
     _seed_vmap_vs_loop(torch, kd)
     _seed_vmap_card_vs_cpu(torch, kd)
-    print(json.dumps({"phase": "durable_path",
-                      "seconds": time.perf_counter() - t0,
-                      "launches": {k: v for k, v in total.items() if v}}))
+    parts["seed_vmap"] = time.perf_counter() - ts
+    _parts_line("durable_path", t0, parts, total)
     return total
 
 
@@ -4393,9 +4603,10 @@ def _world_sweeps(torch, kd, port, device=None) -> dict:
         for k in total:
             total[k] += counts[k]
 
+    grid = _cut_sweep("fig_scenarios", SCENARIO_GRID_ROUNDS)
     with _ObservedRuns(torch, port) as runs:
         art, per_cell, wall = _sweep(
-            torch, kd, runs, "fig_scenarios", smoke=False, executor="fleet",
+            torch, kd, runs, grid, smoke=False, executor="fleet",
             out_dir=APPENDIX_DIR / "sweeps", device=device)
         add(dict(kd.LAUNCHES))
         for cell, c in zip(art["cells"], per_cell):
@@ -4406,8 +4617,8 @@ def _world_sweeps(torch, kd, port, device=None) -> dict:
             c["label"]: c["comm"]["energy_j"] for c in art["cells"]},
             "wall_s": wall}))
         host = {c["label"]: c for c in art["cells"]}
-        for cell in expand_sweep("fig_scenarios", smoke=False,
-                                 executor="fleet", planner="jax"):
+        for cell in expand_sweep(grid, smoke=False, executor="fleet",
+                                 planner="jax"):
             if cell.strategy != "feddif" or cell.value not in ("mobile",
                                                                "multicell"):
                 continue
@@ -4570,14 +4781,16 @@ def appendix_path(torch, port, device=None) -> dict:
     card.  Returns the launches of (a)–(c)."""
     from repro_torch.kernels import diffusion as kd
     total = {k: 0 for k in kd.LAUNCHES}
-    t0 = time.perf_counter()
+    t0, parts = time.perf_counter(), {}
     for part in (_appendix_cells, _world_sweeps, _world_resume):
+        ts = time.perf_counter()
         for k, v in part(torch, kd, port, device).items():
             total[k] += v
+        parts[part.__name__] = time.perf_counter() - ts
+    ts = time.perf_counter()
     _phase_profile(torch, kd, port, device)
-    print(json.dumps({"phase": "appendix_path",
-                      "seconds": time.perf_counter() - t0,
-                      "launches": {k: v for k, v in total.items() if v}}))
+    parts["_phase_profile"] = time.perf_counter() - ts
+    _parts_line("appendix_path", t0, parts, total)
     return total
 
 
@@ -4851,8 +5064,9 @@ def _async_population(torch, kd, port, device=None) -> dict:
 
 
 def _async_sweeps(torch, kd, port, device=None) -> dict:
-    """(f): fig_async's full grid (N = 16, 10 rounds, 5 % churn, fedavg /
-    d2d_random_walk × async_barrier / async) with one line per cell, and
+    """(f): fig_async's full grid (N = 16, ASYNC_SWEEP_ROUNDS of its 10
+    rounds, 5 % churn, fedavg / d2d_random_walk × async_barrier / async)
+    with one line per cell, and
     its smoke grid on the card against the CPU."""
     from repro_torch.experiments import run_sweep
     total = {k: 0 for k in kd.LAUNCHES}
@@ -4865,7 +5079,8 @@ def _async_sweeps(torch, kd, port, device=None) -> dict:
 
         kd.reset_launch_counts()
         t0 = time.perf_counter()
-        art = run_sweep("fig_async", smoke=False, device=device, log=log,
+        art = run_sweep(_cut_sweep("fig_async", ASYNC_SWEEP_ROUNDS),
+                        smoke=False, device=device, log=log,
                         out_dir=str(ASYNC_DIR / "sweeps"))
         wall = time.perf_counter() - t0
         for k in total:
@@ -4918,15 +5133,16 @@ def async_path(torch, port, device=None) -> dict:
     launches of (b)–(f)."""
     from repro_torch.kernels import diffusion as kd
     total = {k: 0 for k in kd.LAUNCHES}
-    t0 = time.perf_counter()
+    t0, parts = time.perf_counter(), {}
     _async_degeneracy(torch, kd, port, device)
+    parts["_async_degeneracy"] = time.perf_counter() - t0
     for part in (_async_presets, _async_kernels, _async_resume,
                  _async_population, _async_sweeps):
+        ts = time.perf_counter()
         for k, v in part(torch, kd, port, device).items():
             total[k] += v
-    print(json.dumps({"phase": "async_path",
-                      "seconds": time.perf_counter() - t0,
-                      "launches": {k: v for k, v in total.items() if v}}))
+        parts[part.__name__] = time.perf_counter() - ts
+    _parts_line("async_path", t0, parts, total)
     return total
 
 
@@ -5016,21 +5232,21 @@ def _serve_engines(torch, kd, card: str) -> None:
     torch.cuda.empty_cache()
 
 
-def _serve_cli(card: str) -> None:
-    """(b): ``python -m repro_torch.launch.serve`` at full width."""
-    env = dict(os.environ)
-    env["PYTHONPATH"] = str(ROOT / "src") + os.pathsep + env.get(
-        "PYTHONPATH", "")
-    t0 = time.perf_counter()
-    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
-                          *SERVE_CLI], capture_output=True, text=True,
-                         timeout=600, cwd=ROOT, env=env)
-    wall = time.perf_counter() - t0
-    if out.returncode != 0:
-        _fail(f"serve CLI exited {out.returncode}: {out.stderr[-2000:]}")
-    lines = out.stdout.strip().splitlines()
+def _serve_cli_run() -> dict:
+    return _run_cli("serve", [sys.executable, "-m",
+                              "repro_torch.launch.serve", *SERVE_CLI], 600)
+
+
+def _serve_cli(card: str, run: _Alongside | None = None) -> None:
+    """(b): ``python -m repro_torch.launch.serve`` at full width (begun
+    here unless ``run`` already holds it)."""
+    out = (run or _Alongside(_serve_cli_run)).result()
+    if out["returncode"] != 0:
+        _fail(f"serve CLI exited {out['returncode']}: "
+              f"{out['stderr'][-2000:]}")
+    lines = out["stdout"].strip().splitlines()
     print(json.dumps({"serve_cli": " ".join(SERVE_CLI), "card": card,
-                      "seconds": wall, "output": lines}))
+                      "seconds": out["seconds"], "output": lines}))
     if not any(x.startswith("decode:") and "tok/s aggregate" in x
                for x in lines):
         _fail(f"serve CLI printed no decode rate: {lines}")
@@ -5310,14 +5526,15 @@ def _serve_powf(torch, card: str) -> None:
         _fail(f"xla_powf_t: {diff} of {n} differ between card and CPU")
 
 
-def serve_path(torch, kd) -> dict:
+def serve_path(torch, kd, cli: _Alongside | None = None) -> dict:
     """Phase 7: decode and serving on the card ((a)–(f)).  Decode reaches
-    no kernel, so the main-path launches it adds are all 0."""
+    no kernel, so the main-path launches it adds are all 0.  ``cli``: (b)'s
+    process, if main() began it earlier."""
     card = _card_line()
     t0 = time.perf_counter()
     parts = {}
     for name, fn in (("engines", lambda: _serve_engines(torch, kd, card)),
-                     ("cli", lambda: _serve_cli(card)),
+                     ("cli", lambda: _serve_cli(card, cli)),
                      ("card_vs_cpu", lambda: _serve_card_vs_cpu(torch, kd,
                                                                 card)),
                      ("decode_vs_prefill",
@@ -5367,12 +5584,29 @@ ATTN_BWD_ROWS_PROFILED = ((2, 4096, 16, 128), (2, 4096, 15, 64),
                           (1, 4096, 32, 80))
 SSM_BWD_ROWS = ((1, 4096, 8192, 16), (1, 256, 8192, 16), (2, 100, 1000, 16),
                 (1, 37, 3, 5))
+# ssd_scan's backward, (B, S, H, P, N, chunk) and inputs (_ssd_inputs, dy
+# drawn N(0, 1)): zamba2's (1, 4096, 80, 64, 64, 128) (the summary row),
+# its cut at S = 256, a ragged S at B = 2 with 8 heads, the smoke width
+# (1, 37, 4, 32, 16, 16), zamba2's shape at near-unit decay, and B = 4 as
+# the fleet step's client fold hands it.  dxh, da, db and dc each within
+# SSD_BWD_BAR·(1 + max|plain|) of the plain twin (the forward's bar: fp32
+# sums in another order, 3×TF32 products); a planted fault per row, every
+# chunk handed the state gradient of the chunk after it (G one chunk
+# late), must fail it by ≥ 10×.
+SSD_BWD_ROWS = (((1, 4096, 80, 64, 64, 128), "model"),
+                ((1, 256, 80, 64, 64, 128), "model"),
+                ((2, 1000, 8, 64, 64, 128), "model"),
+                ((1, 37, 4, 32, 16, 16), "model"),
+                ((1, 4096, 80, 64, 64, 128), "near_unit"),
+                ((4, 256, 80, 64, 64, 128), "model"))
+SSD_BWD_BAR = 5e-5
 # (b) make_train_step at full width: qwen3_0_6b, B = 2 × 4096 (one
 # lm_batches batch), AdamW under warmup_cosine_lr, clip 1.0, 6 steps with
 # remat, then one without; falcon_mamba_7b at 8 of its 64 layers (at 64 the
 # fp32 params, gradients and momentum alone are ≈ 87 GB), B = 1 × 4096,
 # SGD, 3 steps.  (c) launch/train at full width: smollm_360m in process,
-# 2 rounds, 4 clients, 4 steps a round; the CLI once at --smoke.  (d)
+# TRAIN_LAUNCH's round, 4 clients, 4 steps a round; the CLI once at
+# --smoke.  (d)
 # run_spmd_feddif (smollm-smoke, 4 clients, 2 rounds) on the card and on
 # the CPU: equal ledgers, loss histories within SPMD_LOSS_BAR (bf16 compute
 # on both; the CPU tests hold the port to the reference within 2e-3).
@@ -5380,7 +5614,18 @@ TRAIN_QWEN = {"arch": "qwen3_0_6b", "batch": 2, "seq": 4096, "steps": 6,
               "peak_lr": 3e-4, "warmup": 2}
 TRAIN_FALCON = {"arch": "falcon_mamba_7b", "layers": 8, "batch": 1,
                 "seq": 4096, "steps": 3, "lr": 1e-3}
-TRAIN_LAUNCH = {"arch": "smollm_360m", "rounds": 2, "clients": 4,
+# zamba2_2_7b at full width and depth (54 mamba2 layers through ssd_scan
+# and its backward, 9 shared attention blocks at D = 80), B = 1 × 4096,
+# AdamW under warmup_cosine_lr as qwen3's run (one warm-up step of the
+# three: the first step's lr is 0), remat on.
+TRAIN_ZAMBA2 = {"arch": "zamba2_2_7b", "batch": 1, "seq": 4096, "steps": 3,
+                "peak_lr": 3e-4, "warmup": 1}
+# The card-against-CPU step of phase 8b, at each of these smoke configs.
+TRAIN_CARD_VS_CPU = ("qwen3_0_6b", "zamba2_2_7b")
+# run_spmd_feddif's configs in phase 8d (their smoke configs).
+SPMD_ARCHS = ("smollm_360m", "zamba2_2_7b")
+# (1 round since the SSD backward's phase: 2 until then.)
+TRAIN_LAUNCH = {"arch": "smollm_360m", "rounds": 1, "clients": 4,
                 "steps_per_round": 4}
 TRAIN_CLI = ["--smoke", "--rounds", "1", "--clients", "2",
              "--steps-per-round", "2"]
@@ -5513,8 +5758,9 @@ def _attn_bwd_tile_dropped(torch, q, k, v, do, tile: int = 64):
 
 def check_train_kernels(torch, kref) -> list[dict]:
     """Phase 8a: the backward kernels against their plain twins on the
-    card (ATTN_BWD_ROWS, SSM_BWD_ROWS), the same bits on two calls, and a
-    planted fault per kernel that must fail its bar by ≥ 10×.  The
+    card (ATTN_BWD_ROWS, SSM_BWD_ROWS, SSD_BWD_ROWS), the same bits on two
+    calls, and a planted fault per kernel that must fail its bar by ≥ 10×
+    (ssd_scan's at every row: G one chunk late).  The
     attention backward takes the forward kernel's lse and its twin
     ``torch.logsumexp``'s; one call must launch the route's device kernels
     once each and no other (ATTN_BWD_KERNELS: bf16 on ``wgmma``; the
@@ -5526,11 +5772,17 @@ def check_train_kernels(torch, kref) -> list[dict]:
     graph), by CUDA events.  The bound: the backward's five products
     (10·D flops a visible pair) at the dtype's peak against q, k, v, o, dO
     read and dq, dk, dv written once; ssm_scan's five (B, S, D, N) fp32
-    tensors against three flops an element."""
+    tensors against three flops an element; ssd_scan's products
+    (_ssd_bwd_flops) as fp32 FMAs (``bound_tc_ms``: three TF32 products
+    each at the tensor cores' peak) against xh, dy, dxh, a, da, b, c, db,
+    dc and the forward's saved states and decays, each once.  Each
+    ssd_scan row carries ptxas' registers and spill bytes of its
+    kernels."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (bwd_kernel_launches,
                                                      flash_attention_bwd_cuda,
                                                      flash_attention_cuda)
+    from repro_torch.kernels.ssd_scan import ssd_scan_bwd_cuda, ssd_scan_cuda
     from repro_torch.kernels.ssm_scan import ssm_scan_bwd_cuda, ssm_scan_cuda
     gen = torch.Generator(device="cuda").manual_seed(8)
     rows = []
@@ -5653,7 +5905,90 @@ def check_train_kernels(torch, kref) -> list[dict]:
         del da, hs, dhs
         record(row, control)
         torch.cuda.empty_cache()
+
+    from repro_torch.kernels import build
+    ptxas = _ptxas_table(build.PTXAS_INFO.get("ssd_scan_bwd") or "",
+                         SSD_BWD_KERNELS)
+    for (b, s, h, p, n, chunk), kind in SSD_BWD_ROWS:
+        xh, a, bm, cm = _ssd_inputs(torch, gen, (b, s, h, p, n), kind)
+        dy = torch.randn((b, s, h, p), generator=gen, device="cuda")
+        _, st, ac = ssd_scan_cuda(xh, a, bm, cm, chunk=chunk,
+                                  return_state=True)
+        kw = dict(states=st, acum=ac, chunk=chunk)
+        got = ssd_scan_bwd_cuda(xh, a, bm, cm, dy, **kw)
+        again = ssd_scan_bwd_cuda(xh, a, bm, cm, dy, **kw)
+        want = kref.ssd_scan_bwd_ref(xh, a, bm, cm, dy, chunk)
+        # The planted fault, from the plain stages: G one chunk late.
+        acum, own = kref.ssd_chunk_states_ref(xh, a, bm, chunk)
+        entering = kref.ssd_state_pass_ref(own, acum)
+        grads = kref.ssd_bwd_pass_ref(
+            kref.ssd_bwd_local_ref(dy, acum, cm, chunk), acum)
+        late = torch.cat([grads[:, 1:], torch.zeros_like(grads[:, :1])], 1)
+        fault = kref.ssd_bwd_chunks_ref(xh, acum, bm, cm, dy, entering, late,
+                                        chunk)
+        del acum, own, entering, grads, late
+        torch.cuda.synchronize()
+        per, worst, fault_ratio = {}, 0.0, 0.0
+        for name, g, w, g2, f in zip(("dxh", "da", "db", "dc"), got, want,
+                                     again, fault):
+            tol = SSD_BWD_BAR * (1.0 + float(w.abs().max()))
+            err = float((g - w).abs().max())
+            per[name] = {"max_abs_err": err, "tol": tol,
+                         "bar_ratio": err / tol,
+                         "same_bits": bool(torch.equal(g, g2))}
+            worst = max(worst, err / tol)
+            fault_ratio = max(fault_ratio,
+                              float((f - w).abs().max()) / tol)
+        control = {"fault": "G one chunk late", "bar_ratio": fault_ratio,
+                   "rejected": fault_ratio >= 10.0}
+        row = {"name": "ssd_scan_bwd", "shape": [b, s, h, p, n, chunk],
+               "inputs": kind, "grads": per, "bar_ratio": worst,
+               "max_abs_err": max(v["max_abs_err"] for v in per.values()),
+               "same_bits": all(v["same_bits"] for v in per.values()),
+               "control_grad_late": control}
+        row["ok"] = worst <= 1.0 and row["same_bits"]
+        del got, again, want, fault
+        flops = _ssd_bwd_flops(b, s, h, p, n, chunk)
+        nbytes = 4.0 * (3 * b * s * h * p + 2 * b * s * h + 4 * b * s * n
+                        + st.numel() + ac.numel())
+        bound, by = _bound(nbytes, flops)
+        bound_tc, by_tc = _bound(nbytes, 3.0 * flops, TF32_FLOPS_PER_S)
+        big = s * h >= 100_000
+        row["ms"] = _events_ms(torch, lambda: ssd_scan_bwd_cuda(
+            xh, a, bm, cm, dy, **kw), 10 if big else 20)
+        row["plain_ms"] = _events_ms(torch, lambda: kref.ssd_scan_bwd_ref(
+            xh, a, bm, cm, dy, chunk), 2 if big else 5)
+        row.update({"library_ms": None, "bound_ms": bound, "bound_by": by,
+                    "bound_tc_ms": bound_tc, "bound_tc_by": by_tc,
+                    "flops": flops,
+                    "ptxas_spill_store_load_registers": ptxas})
+        del xh, a, bm, cm, dy, st, ac
+        record(row, control)
+        torch.cuda.empty_cache()
     return rows
+
+
+def _zoo_launches(cfg, steps: int, remat: bool) -> dict:
+    """Each kernel's launches in ``steps`` train steps of ``cfg``'s layer
+    plan: a layer's forward kernels once a step, twice under remat (the
+    recompute), its backward kernels once."""
+    from repro_torch.kernels.ssd_scan import BWD_LAUNCHES
+    from repro_torch.models.transformer import build_plan
+    fwd = 2 if remat else 1
+    kernels = {"attn": (("flash_attention",), ("flash_attention_bwd",)),
+               "shared": (("flash_attention",), ("flash_attention_bwd",)),
+               "mamba1": (("ssm_scan",), ("ssm_scan_bwd",)),
+               "mamba2": (("ssd_scan_state", "ssd_scan_pass", "ssd_scan"),
+                          BWD_LAUNCHES)}
+    want: dict = {}
+    for kinds, count in build_plan(cfg):
+        for kind in kinds:
+            f, b = kernels[kind]
+            for k in f:
+                want[k] = want.get(k, 0) + fwd * count * steps
+            for k in b:
+                want[k] = want.get(k, 0) + count * steps
+    return want
 
 
 def _train_run(torch, kd, label, model, params, opt, lr_fn, batch, steps,
@@ -5661,7 +5996,10 @@ def _train_run(torch, kd, label, model, params, opt, lr_fn, batch, steps,
     """``steps`` train steps from ``params`` on one batch (an untimed step
     on a copy first), the counters zeroed before the timed steps: seconds
     a step (host clock, ending in a synchronize), tokens/s, the losses and
-    gradient norms, and the peak memory (the collector run first)."""
+    gradient norms, and the peak memory (the collector run first).  Past
+    the first timed step the run keeps no reference to ``params``: a
+    caller that keeps none either (zamba2's) leaves the step its old state,
+    gradients and new state, 7× the fp32 params under AdamW."""
     from repro_torch.train.trainstep import TrainState, make_train_step
     step = make_train_step(model, opt, lr_fn, clip_norm=clip, remat=remat)
     zero = torch.zeros((), dtype=torch.int32, device="cuda")
@@ -5672,6 +6010,7 @@ def _train_run(torch, kd, label, model, params, opt, lr_fn, batch, steps,
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     state = TrainState(params, opt.init(params), zero)
+    del params
     kd.reset_launch_counts()
     losses, norms, secs = [], [], []
     for _ in range(steps):
@@ -5696,11 +6035,12 @@ def _train_run(torch, kd, label, model, params, opt, lr_fn, batch, steps,
 
 def train_step_path(torch, kd) -> dict:
     """Phase 8b: ``make_train_step`` at full width (TRAIN_QWEN,
-    TRAIN_FALCON) and one step at qwen3-smoke in fp32 on the card against
-    the CPU (plain twins) from one init: params within 1e-5.  The qwen3
-    loss must fall over its steps and remat must lower the peak; each
-    kernel launches as the layers say: the forward twice a layer a step
-    with remat (the recompute), once without, the backward once."""
+    TRAIN_FALCON, TRAIN_ZAMBA2) and one step at each TRAIN_CARD_VS_CPU
+    smoke config in fp32 on the card against the CPU (plain twins) from
+    one init: params within 1e-5.  The qwen3 and zamba2 losses must fall
+    over their steps and remat must lower qwen3's peak; each kernel
+    launches as the layers say (_zoo_launches): the forward twice a layer
+    a step with remat (the recompute), once without, the backward once."""
     import dataclasses as dc
 
     import numpy as np
@@ -5718,10 +6058,6 @@ def train_step_path(torch, kd) -> dict:
         for k, v in counts.items():
             launches[k] += v
 
-    def want(layers, steps, fwd, bwd, remat):
-        return {fwd: layers * steps * (2 if remat else 1),
-                bwd: layers * steps}
-
     q = TRAIN_QWEN
     cfg = get_config(q["arch"])
     model = build_model(cfg)
@@ -5736,8 +6072,7 @@ def train_step_path(torch, kd) -> dict:
     off = _train_run(torch, kd, f"train {q['arch']}", model, params, opt,
                      lr_fn, batch, 1, remat=False)
     for run, remat in ((on, True), (off, False)):
-        w = want(cfg.num_layers, run["steps"], "flash_attention",
-                 "flash_attention_bwd", remat)
+        w = _zoo_launches(cfg, run["steps"], remat)
         if run["launches"] != w:
             _fail(f"train {q['arch']} remat={remat}: launches "
                   f"{run['launches']}, want {w}")
@@ -5766,7 +6101,7 @@ def train_step_path(torch, kd) -> dict:
     run = _train_run(torch, kd, f"train {f['arch']} at {f['layers']} of 64 "
                      f"layers", model, params, opt_lib.sgd(),
                      opt_lib.constant_lr(f["lr"]), batch, f["steps"])
-    w = want(f["layers"], f["steps"], "ssm_scan", "ssm_scan_bwd", True)
+    w = _zoo_launches(cfg, f["steps"], True)
     if run["launches"] != w:
         _fail(f"train {f['arch']}: launches {run['launches']}, want {w}")
     add(run["launches"])
@@ -5774,41 +6109,78 @@ def train_step_path(torch, kd) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # Card against CPU, one step at qwen3-smoke in fp32 from one init.
-    cfg = dc.replace(get_smoke_config("qwen3_0_6b"), compute_dtype="float32")
+    z = TRAIN_ZAMBA2
+    cfg = get_config(z["arch"])
     model = build_model(cfg)
-    host = model.init(torch.Generator().manual_seed(0))
-    rng = np.random.default_rng(0)
-    toks = rng.integers(0, cfg.vocab_size, (2, 64)).astype(np.int64)
-    cpu_batch = {"tokens": torch.from_numpy(toks),
-                 "labels": torch.from_numpy(np.roll(toks, -1, axis=1))}
-    opt = opt_lib.sgd()
-    step = make_train_step(model, opt, opt_lib.constant_lr(0.05))
-    kd.reset_launch_counts()
-    got, _ = step(TrainState(tree_map(lambda x: x.cuda(), host),
-                             opt.init(tree_map(lambda x: x.cuda(), host)),
-                             torch.zeros((), dtype=torch.int32,
-                                         device="cuda")),
-                  {k: v.cuda() for k, v in cpu_batch.items()})
-    counts = {k: v for k, v in kd.LAUNCHES.items() if v}
-    ref, _ = step(TrainState(host, opt.init(host),
-                             torch.zeros((), dtype=torch.int32)), cpu_batch)
-    err = max(float((a.cpu() - b).abs().max()) for a, b in zip(
-        tree_leaves(got.params), tree_leaves(ref.params)))
-    print(json.dumps({"train_card_vs_cpu": "qwen3-smoke fp32", "card": card,
-                      "params_max_abs_err": err, "bar": 1e-5,
-                      "launches": counts}))
-    if err > 1e-5:
-        _fail(f"train step card vs CPU: params differ by {err} > 1e-5")
-    add(counts)
+    tokens = lm_corpus(100_000, vocab=cfg.vocab_size, seed=2)
+    batch = {k: torch.from_numpy(v).to("cuda") for k, v in next(lm_batches(
+        tokens, z["batch"], z["seq"], seed=2)).items()}
+    # The params go to the run alone: AdamW's functional step holds the
+    # old and the new state at once (≈ 63 GiB of the card's 79).
+    run = _train_run(torch, kd, f"train {z['arch']}", model,
+                     model.init(torch.Generator(device="cuda").manual_seed(0)),
+                     opt_lib.adamw(), opt_lib.warmup_cosine_lr(
+                         z["peak_lr"], z["warmup"], z["steps"]),
+                     batch, z["steps"])
+    w = _zoo_launches(cfg, z["steps"], True)
+    if run["launches"] != w:
+        _fail(f"train {z['arch']}: launches {run['launches']}, want {w}")
+    if not run["losses"][-1] < run["losses"][0]:
+        _fail(f"train {z['arch']}: the loss did not fall: {run['losses']}")
+    add(run["launches"])
+    del batch, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Card against CPU, one step at each smoke config in fp32 from one init.
+    for arch in TRAIN_CARD_VS_CPU:
+        cfg = dc.replace(get_smoke_config(arch), compute_dtype="float32")
+        model = build_model(cfg)
+        host = model.init(torch.Generator().manual_seed(0))
+        rng = np.random.default_rng(0)
+        toks = rng.integers(0, cfg.vocab_size, (2, 64)).astype(np.int64)
+        cpu_batch = {"tokens": torch.from_numpy(toks),
+                     "labels": torch.from_numpy(np.roll(toks, -1, axis=1))}
+        opt = opt_lib.sgd()
+        step = make_train_step(model, opt, opt_lib.constant_lr(0.05))
+        kd.reset_launch_counts()
+        got, _ = step(TrainState(tree_map(lambda x: x.cuda(), host),
+                                 opt.init(tree_map(lambda x: x.cuda(), host)),
+                                 torch.zeros((), dtype=torch.int32,
+                                             device="cuda")),
+                      {k: v.cuda() for k, v in cpu_batch.items()})
+        counts = {k: v for k, v in kd.LAUNCHES.items() if v}
+        ref, _ = step(TrainState(host, opt.init(host),
+                                 torch.zeros((), dtype=torch.int32)),
+                      cpu_batch)
+        err = max(float((a.cpu() - b).abs().max()) for a, b in zip(
+            tree_leaves(got.params), tree_leaves(ref.params)))
+        w = _zoo_launches(cfg, 1, True)
+        print(json.dumps({"train_card_vs_cpu": f"{arch} smoke fp32",
+                          "card": card, "params_max_abs_err": err,
+                          "bar": 1e-5, "launches": counts,
+                          "want_launches": w}))
+        if err > 1e-5:
+            _fail(f"train step card vs CPU, {arch}: params differ by {err} "
+                  f"> 1e-5")
+        if counts != w:
+            _fail(f"train step card vs CPU, {arch}: launches {counts}, "
+                  f"want {w}")
+        add(counts)
     return launches
 
 
-def launch_train_path(torch, kd) -> dict:
+def _train_cli_run() -> dict:
+    return _run_cli("train", [sys.executable, "-m",
+                              "repro_torch.launch.train", *TRAIN_CLI], 600)
+
+
+def launch_train_path(torch, kd, cli: _Alongside | None = None) -> dict:
     """Phase 8c: ``launch/train`` at full width in process (TRAIN_LAUNCH,
     the host plane's FedDif through the FL client's ``grad_and_value``):
     finite eval losses, the flash_attention backward launched; then the
-    CLI once at --smoke as a subprocess, exit 0."""
+    CLI once at --smoke as a subprocess (begun here unless ``cli`` already
+    holds it), exit 0."""
     from repro_torch.launch.train import run_train
     card = _card_line()
     t = TRAIN_LAUNCH
@@ -5833,76 +6205,79 @@ def launch_train_path(torch, kd) -> dict:
     del res
     gc.collect()
     torch.cuda.empty_cache()
-    env = dict(os.environ)
-    env["PYTHONPATH"] = str(ROOT / "src") + os.pathsep + env.get(
-        "PYTHONPATH", "")
-    t0 = time.perf_counter()
-    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
-                          *TRAIN_CLI], capture_output=True, text=True,
-                         timeout=600, cwd=ROOT, env=env)
+    out = (cli or _Alongside(_train_cli_run)).result()
     print(json.dumps({"train_cli": " ".join(TRAIN_CLI), "card": card,
-                      "exit": out.returncode,
-                      "seconds": time.perf_counter() - t0,
-                      "output": out.stdout.strip().splitlines()}))
-    if out.returncode != 0:
-        _fail(f"train CLI exited {out.returncode}: {out.stderr[-2000:]}")
+                      "exit": out["returncode"], "seconds": out["seconds"],
+                      "output": out["stdout"].strip().splitlines()}))
+    if out["returncode"] != 0:
+        _fail(f"train CLI exited {out['returncode']}: "
+              f"{out['stderr'][-2000:]}")
     return launches
 
 
 def spmd_path(torch, kd) -> dict:
-    """Phase 8d: ``run_spmd_feddif`` (smollm-smoke, 4 clients, 2 rounds)
-    on the card and on the CPU from one init (drawn on the CPU): equal
-    ledgers and diffusion rounds, loss histories within SPMD_LOSS_BAR, and
-    on the card one flash_attention forward and one backward launch per
-    layer per vmapped fleet step (not one per client)."""
+    """Phase 8d: ``run_spmd_feddif`` (each SPMD_ARCHS smoke config, 4
+    clients, 2 rounds) on the card and on the CPU from one init (drawn on
+    the CPU): equal ledgers and diffusion rounds, loss histories within
+    SPMD_LOSS_BAR, and on the card each layer's forward and backward
+    kernels launched once per vmapped fleet step (not once per client)."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.launch.fl_spmd import run_spmd_feddif
     from repro_torch.models.zoo import build_model
-    model = build_model(get_smoke_config("smollm_360m"))
-    init = model.init(torch.Generator().manual_seed(0))
-    runs = {}
-    for dev in ("cuda", "cpu"):
-        lines = []
-        kd.reset_launch_counts()
-        t0 = time.perf_counter()
-        _, hist, ledger = run_spmd_feddif(
-            clients=4, rounds=2, device=dev, log=lines.append,
-            init_fn=lambda gen: init)
-        runs[dev] = {"history": hist, "seconds": time.perf_counter() - t0,
-                     "ledger": [ledger.subframes, ledger.transmitted_models,
-                                ledger.transmitted_bits],
-                     "dif_rounds": [int(ln.split("diffusion_rounds=")[1]
-                                        .split()[0]) for ln in lines],
-                     "launches": {k: v for k, v in kd.LAUNCHES.items()
-                                  if v}}
-    card, cpu = runs["cuda"], runs["cpu"]
-    steps = sum(1 + r for r in card["dif_rounds"])
-    layers = model.cfg.num_layers
-    want = {"flash_attention": layers * steps,
-            "flash_attention_bwd": layers * steps}
-    gap = max(abs(a - b) for a, b in zip(card["history"], cpu["history"]))
-    print(json.dumps({"spmd_feddif": "smollm-smoke, 4 clients, 2 rounds",
-                      "card": _card_line(), "runs": runs, "loss_gap": gap,
-                      "bar": SPMD_LOSS_BAR, "fleet_steps": steps,
-                      "want_launches": want}))
-    if card["ledger"] != cpu["ledger"] or card["dif_rounds"] != cpu[
-            "dif_rounds"]:
-        _fail(f"run_spmd_feddif: the card's ledger {card['ledger']} / "
-              f"rounds differ from the CPU's {cpu['ledger']}")
-    if gap > SPMD_LOSS_BAR:
-        _fail(f"run_spmd_feddif: loss histories {gap} apart")
-    if card["launches"] != want:
-        _fail(f"run_spmd_feddif: launches {card['launches']}, want {want}")
-    return card["launches"]
+    launches = {}
+    for arch in SPMD_ARCHS:
+        model = build_model(get_smoke_config(arch))
+        init = model.init(torch.Generator().manual_seed(0))
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            lines = []
+            kd.reset_launch_counts()
+            t0 = time.perf_counter()
+            _, hist, ledger = run_spmd_feddif(
+                arch, clients=4, rounds=2, device=dev, log=lines.append,
+                init_fn=lambda gen: init)
+            runs[dev] = {"history": hist,
+                         "seconds": time.perf_counter() - t0,
+                         "ledger": [ledger.subframes,
+                                    ledger.transmitted_models,
+                                    ledger.transmitted_bits],
+                         "dif_rounds": [int(ln.split("diffusion_rounds=")[1]
+                                            .split()[0]) for ln in lines],
+                         "launches": {k: v for k, v in kd.LAUNCHES.items()
+                                      if v}}
+        card, cpu = runs["cuda"], runs["cpu"]
+        steps = sum(1 + r for r in card["dif_rounds"])
+        want = _zoo_launches(model.cfg, steps, False)
+        gap = max(abs(a - b) for a, b in zip(card["history"],
+                                             cpu["history"]))
+        print(json.dumps({"spmd_feddif": f"{arch} smoke, 4 clients, 2 rounds",
+                          "card": _card_line(), "runs": runs,
+                          "loss_gap": gap, "bar": SPMD_LOSS_BAR,
+                          "fleet_steps": steps, "want_launches": want}))
+        if card["ledger"] != cpu["ledger"] or card["dif_rounds"] != cpu[
+                "dif_rounds"]:
+            _fail(f"run_spmd_feddif {arch}: the card's ledger "
+                  f"{card['ledger']} / rounds differ from the CPU's "
+                  f"{cpu['ledger']}")
+        if gap > SPMD_LOSS_BAR:
+            _fail(f"run_spmd_feddif {arch}: loss histories {gap} apart")
+        if card["launches"] != want:
+            _fail(f"run_spmd_feddif {arch}: launches {card['launches']}, "
+                  f"want {want}")
+        for k, v in card["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    return launches
 
 
-def train_path(torch, kd) -> dict:
-    """Phase 8 (b)–(d); returns their launches (the main path's)."""
+def train_path(torch, kd, cli: _Alongside | None = None) -> dict:
+    """Phase 8 (b)–(d); returns their launches (the main path's).
+    ``cli``: (c)'s CLI process, if main() began it earlier."""
     t0 = time.perf_counter()
     launches = {name: 0 for name in kd.LAUNCHES}
     parts = {}
     for name, fn in (("train_step", train_step_path),
-                     ("launch_train", launch_train_path),
+                     ("launch_train", lambda torch, kd: launch_train_path(
+                         torch, kd, cli)),
                      ("spmd", spmd_path)):
         ts = time.perf_counter()
         for k, v in fn(torch, kd).items():
@@ -5948,26 +6323,42 @@ def main() -> None:
                 print(f"ptxas[{name}]: {line.strip()}")
     _check_wgmma_spills(build.PTXAS_INFO.get("flash_attention"))
     _check_bwd_spills(build.PTXAS_INFO.get("flash_attention_bwd"))
-    _check_ssd_spills(build.PTXAS_INFO.get("ssd_scan"))
+    _check_ssd_spills(build.PTXAS_INFO.get("ssd_scan"),
+                      build.PTXAS_INFO.get("ssd_scan_bwd"))
     _check_mix_tree_spills(build.PTXAS_INFO.get("mix_aggregate"))
 
     # Each step's seconds on the host clock, so the script's budget can be
-    # split by step.
+    # split by step; "part" lines split a step.
     t_prev = [time.perf_counter()]
+    t_part = [time.perf_counter()]
 
     def mark(step: str) -> None:
         now = time.perf_counter()
         print(json.dumps({"step": step, "seconds": now - t_prev[0]}))
-        t_prev[0] = now
+        t_prev[0] = t_part[0] = now
+
+    def part(name: str) -> None:
+        now = time.perf_counter()
+        print(json.dumps({"part": name, "seconds": now - t_part[0]}))
+        t_part[0] = now
 
     floor = launch_floor(torch)
     profile_attention_bwd(torch)
+    part("profile_attention_bwd")
     rows = check_kernels(torch, kd, kq, kref, port)
+    part("check_kernels")
     rows += check_mix_tree(torch, kd, kref, port,
                            torch.Generator(device="cuda").manual_seed(8),
                            floor["ms"])
+    part("check_mix_tree")
     rows += check_stc_compress(torch, kref, port)
     mark("phase 2: kernel checks")
+    # The CLI checks' processes, begun now (after phase 2's timings) and
+    # read by phases 3, 7 and 8.
+    atexit.register(_stop_children)
+    sigterm = _Alongside(_sigterm_cli_runs)
+    serve_cli = _Alongside(_serve_cli_run)
+    train_cli = _Alongside(_train_cli_run)
     launches = main_path(torch, kd, port)
     for k, v in hop_plane_path(torch, kd, port).items():
         launches[k] += v
@@ -5977,7 +6368,7 @@ def main() -> None:
     for k, v in sweep_path(torch, port).items():
         launches[k] += v
     mark("phase 3: sweeps")
-    for k, v in durable_path(torch, port).items():
+    for k, v in durable_path(torch, port, sigterm).items():
         launches[k] += v
     for k, v in appendix_path(torch, port).items():
         launches[k] += v
@@ -5996,7 +6387,9 @@ def main() -> None:
     card_vs_cpu(torch, port, "host")
     host_vs_fleet(torch, port)
     lm_card_vs_cpu(torch, port)
+    part("card_vs_cpu, host_vs_fleet, lm_card_vs_cpu")
     old_chain_parity(torch, port)
+    part("old_chain_parity")
     planners_card_vs_cpu(torch)
     mark("phase 4: parity")
     profile_round(torch, port)
@@ -6006,15 +6399,19 @@ def main() -> None:
     profile_round(torch, port, lm_int8=True)
     mark("phase 5: profiles")
     rows += check_lm_kernels(torch, kref)
+    part("check_lm_kernels")
     for k, v in zoo_prefill(torch, kd).items():
         launches[k] += v
+    part("zoo_prefill")
     zoo_card_vs_cpu(torch)
+    part("zoo_card_vs_cpu")
     zoo_full_depth(torch)
     mark("phase 6: the zoo's prefill")
-    serve_path(torch, kd)
+    serve_path(torch, kd, serve_cli)
     mark("phase 7: serve")
     rows += check_train_kernels(torch, kref)
-    for k, v in train_path(torch, kd).items():
+    part("check_train_kernels")
+    for k, v in train_path(torch, kd, train_cli).items():
         launches[k] += v
     mark("phase 8: training")
 
@@ -6062,6 +6459,10 @@ def main() -> None:
             "ssm_scan.cu",
             "no pallas_call: the reference differentiates its inline XLA "
             "scan (src/repro/models/ssm.py:137) with jax.grad"),
+        "ssd_scan_bwd": (
+            "ssd_scan_bwd.cu",
+            "no pallas_call: the reference differentiates its inline XLA "
+            "chunked scan (src/repro/models/ssm.py:263) with jax.grad"),
     }
     # The summary row of each kernel is its main-path shape: the (8, 26122)
     # Eq.-11 row of the fcn fleet (mix_tree: the fcn tree of 6 leaves, 8
@@ -6078,8 +6479,8 @@ def main() -> None:
     # blocks (quant_roundtrip, which took the hop from them), and the
     # zoo's prefill shapes: qwen3's bf16 attention (B, Sq, Sk, H, D),
     # zamba2's SSD (B, S, H, P, N, chunk) and falcon's scan (B, S, D, N);
-    # the backward kernels at the training runs' shapes: qwen3's attention
-    # and falcon's scan.
+    # the backward kernels at the training runs' shapes: qwen3's attention,
+    # falcon's scan and zamba2's SSD.
     main_shape = {"mix_aggregate": [8, 26122, 1], "mix_tree": [8, 26122, 1],
                   "stc_rows_reduce": [8, 262144],
                   "stc_rows_apply": [8, 262144], "stc_rows_fused": [8, 16384],
@@ -6093,10 +6494,13 @@ def main() -> None:
                   "ssd_scan": [1, 4096, 80, 64, 64, 128],
                   "ssm_scan": [1, 4096, 8192, 16],
                   "flash_attention_bwd": [2, 4096, 4096, 16, 128],
-                  "ssm_scan_bwd": [1, 4096, 8192, 16]}
+                  "ssm_scan_bwd": [1, 4096, 8192, 16],
+                  "ssd_scan_bwd": [1, 4096, 80, 64, 64, 128]}
     # Kernels that another kernel's wrapper launches in the same call: their
-    # launches stand in that kernel's row, whose times cover both.
-    helpers = {"ssd_scan": ("ssd_scan_state", "ssd_scan_pass")}
+    # launches stand in that kernel's row, whose times cover them all.
+    helpers = {"ssd_scan": ("ssd_scan_state", "ssd_scan_pass"),
+               "ssd_scan_bwd": ("ssd_scan_bwd_local", "ssd_scan_bwd_pass",
+                                "ssd_scan_bwd_intra", "ssd_scan_bwd_state")}
     # Kernels that no main-path run launches, with the kernel that took
     # their work, and the routing check above that drove them (and failed
     # unless they launched as it expects): stc_fused (host plane) and

@@ -35,6 +35,7 @@ SOURCES = {"mix_aggregate": "mix_aggregate.cu", "stc_rows": "stc_rows.cu",
            "flash_attention": "flash_attention.cu",
            "flash_attention_bwd": "flash_attention_bwd.cu",
            "ssm_scan": "ssm_scan.cu", "ssd_scan": "ssd_scan.cu",
+           "ssd_scan_bwd": "ssd_scan_bwd.cu",
            "launch_floor": "launch_floor.cu"}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -42,7 +43,9 @@ _L = ctypes.c_longlong
 # C entry points of each library: name -> argument types (pointers and the
 # stream as void*, sizes as int or long long, scalars as float); every
 # launching entry point returns cudaError_t (repro_ssd_scan_smem_bytes
-# returns bytes, repro_flash_attention_bwd_kernel_launches a count of
+# and repro_ssd_scan_bwd_smem_bytes return bytes,
+# repro_ssd_scan_bwd_groups a count of runs of heads,
+# repro_flash_attention_bwd_kernel_launches a count of
 # kernels, repro_stc_reduce_max_blocks a block count,
 # repro_stc_fused_max_n an element count, repro_stc_rows_max_chunks a
 # chunk count, repro_quant_roundtrip_max_entries / _max_leaves the
@@ -93,6 +96,12 @@ _SIGNATURES = {
         "repro_ssd_scan_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                _I, _I, _I, _P],
         "repro_ssd_scan_smem_bytes": [_I, _I, _I]},
+    "ssd_scan_bwd": {
+        "repro_ssd_scan_bwd_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                   _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                   _P],
+        "repro_ssd_scan_bwd_smem_bytes": [_I, _I, _I],
+        "repro_ssd_scan_bwd_groups": [_I, _I, _I]},
     "launch_floor": {"repro_launch_floor": [_P]},
 }
 

@@ -4,22 +4,19 @@ A CPU tensor goes to the plain PyTorch version (``kernels/ref.py``); a CUDA
 tensor goes to the hand-written kernel (``kernels/diffusion.py``,
 ``kernels/stc_compress.py``, ``kernels/quant.py``, ``kernels/flash_attention.py``, ``kernels/ssm_scan.py``,
 ``kernels/ssd_scan.py``), or the call raises.  There is no override and no
-fallback.  On a CUDA tensor ``flash_attention`` and ``ssm_scan`` go through
-the ``torch.autograd.Function``s of ``kernels/autograd.py``, whose
-backward is a hand-written kernel too (and whose ``vmap`` rule folds a
-client axis into the kernel's batch); on the CPU they are the plain
-forwards under ordinary autograd.  ``ssd_scan`` has no backward kernel
-yet: on a CUDA tensor it raises if autograd would need one (ROADMAP
-A13c-2).
+fallback.  On a CUDA tensor ``flash_attention``, ``ssm_scan`` and
+``ssd_scan`` go through the ``torch.autograd.Function``s of
+``kernels/autograd.py``, whose backward is a hand-written kernel too (and
+whose ``vmap`` rule folds a client axis into the kernel's batch); on the
+CPU they are the plain forwards under ordinary autograd.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import diffusion, quant, ref
-from repro_torch.kernels.autograd import FlashAttention, SsmScan
+from repro_torch.kernels.autograd import FlashAttention, SsdScan, SsmScan
 from repro_torch.kernels.flash_attention import BF16_HEAD_DIMS
-from repro_torch.kernels.ssd_scan import ssd_scan_cuda
 from repro_torch.kernels.stc_compress import stc_compress_cuda
 from repro_torch.tree import tree_leaves
 
@@ -32,18 +29,6 @@ def _route(t: torch.Tensor) -> str:
     if t.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no kernel route for device {t.device}")
     return t.device.type
-
-
-def _forward_only(name: str, *tensors: torch.Tensor) -> None:
-    """Refuse a call autograd would need to differentiate through a kernel
-    that has no backward yet, rather than return a result without
-    gradients."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            f"{name} on the card has no backward kernel yet: training "
-            f"through it (the Mamba-2 family, zamba2) is queued as ROADMAP "
-            f"item A13c-2; run the forward under torch.inference_mode() or "
-            f"torch.no_grad()")
 
 
 def mix_aggregate(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -250,11 +235,10 @@ def ssm_scan(da: torch.Tensor, dbx: torch.Tensor) -> torch.Tensor:
 def ssd_scan(xh: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
              cmat: torch.Tensor, *, chunk: int = 128) -> torch.Tensor:
     """Mamba-2 SSD chunk scan from a zero state: xh (B, S, H, P), a
-    (B, S, H), b/c (B, S, N) → y (B, S, H, P) fp32."""
+    (B, S, H), b/c (B, S, N) → y (B, S, H, P) fp32.  Differentiable on
+    either device."""
     if _route(xh) == "cuda":
-        _forward_only("ssd_scan", xh, a, bmat, cmat)
         f32 = torch.float32
-        return ssd_scan_cuda(xh.to(f32).contiguous(), a.to(f32).contiguous(),
-                             bmat.to(f32).contiguous(),
-                             cmat.to(f32).contiguous(), chunk=chunk)
+        return SsdScan.apply(*(t.to(f32).contiguous()
+                               for t in (xh, a, bmat, cmat)), chunk)[0]
     return ref.ssd_scan_ref(xh, a, bmat, cmat, chunk)

@@ -32,7 +32,9 @@ __all__ = ["mix_aggregate_ref", "stack_ravel", "stack_unravel",
            "flash_attention_bwd_ref", "ssm_scan_ref", "ssm_scan_bwd_ref",
            "ssd_scan_ref",
            "ssd_chunk_states_ref", "ssd_state_pass_ref",
-           "ssd_chunk_output_ref", "ssd_scan_stages_ref"]
+           "ssd_chunk_output_ref", "ssd_scan_stages_ref",
+           "ssd_bwd_local_ref", "ssd_bwd_pass_ref", "ssd_bwd_intra_ref",
+           "ssd_bwd_state_ref", "ssd_bwd_chunks_ref", "ssd_scan_bwd_ref"]
 
 
 def mix_aggregate_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -569,14 +571,17 @@ def ssm_scan_bwd_ref(da: torch.Tensor, hs: torch.Tensor,
 
 
 def ssd_scan_ref(xh: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
-                 cmat: torch.Tensor, chunk: int = 128) -> torch.Tensor:
+                 cmat: torch.Tensor, chunk: int = 128, *,
+                 return_state: bool = False):
     """Chunked SSD (Mamba-2) scan from a zero state — the model layer's
     form, ``repro.models.ssm._ssd_chunk_scan`` with ``h0 = 0``.
 
     xh (B, S, H, P) value stream, a (B, S, H) per-step log decay, bmat /
     cmat (B, S, N) input / output projections, all fp32 → y (B, S, H, P).
     S is padded to a multiple of ``chunk``; the triangle is masked before
-    ``exp``, as the reference does."""
+    ``exp``, as the reference does.  ``return_state=True`` also returns
+    what the backward takes: the state entering each chunk (B, nc, H, P,
+    N) and the chunks' cumulative decays (B, nc, H, chunk)."""
     b, s, h, p = xh.shape
     n = bmat.shape[-1]
     f32 = torch.float32
@@ -595,10 +600,12 @@ def ssd_scan_ref(xh: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
     ltri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                  device=xh.device))[None, :, :, None]
     hprev = torch.zeros((b, h, p, n), dtype=f32, device=xh.device)
-    ys = []
+    ys, entering, acums = [], [], []
     for i in range(nc):
         x_i, a_i, b_i, c_i = x_c[:, i], a_c[:, i], b_c[:, i], c_c[:, i]
         acum = torch.cumsum(a_i, dim=1)                      # (B,L,H)
+        entering.append(hprev)
+        acums.append(acum.transpose(1, 2))
         rel = acum[:, :, None, :] - acum[:, None, :, :]      # (B,Lq,Lk,H)
         dec = torch.exp(torch.where(ltri, rel, -1e30))
         cb = torch.einsum("bqn,bkn->bqk", c_i, b_i)          # (B,Lq,Lk)
@@ -611,7 +618,10 @@ def ssd_scan_ref(xh: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
         hprev = tot[:, :, None, None] * hprev + torch.einsum(
             "bkn,bkhp,bkh->bhpn", b_i, x_i, decay_k)
         ys.append(y_intra + y_state)
-    return torch.cat(ys, dim=1)[:, :s]
+    y = torch.cat(ys, dim=1)[:, :s]
+    if return_state:
+        return y, torch.stack(entering, dim=1), torch.stack(acums, dim=1)
+    return y
 
 
 # The SSD scan in its state-passing form, stage by stage, as the CUDA
@@ -688,3 +698,133 @@ def ssd_scan_stages_ref(xh: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
     acum, states = ssd_chunk_states_ref(xh, a, bmat, chunk, mm=mm)
     entering = ssd_state_pass_ref(states, acum)
     return ssd_chunk_output_ref(xh, acum, bmat, cmat, entering, chunk, mm=mm)
+
+
+# The backward of the SSD scan, stage by stage as the CUDA kernels
+# (csrc/ssd_scan_bwd.cu) compute it, from the forward's entering states and
+# cumulative decays: each chunk's own term of G (the gradient reaching the
+# state a chunk leaves), the reverse carry over the chunks, then per chunk
+# the intra-chunk terms (dX, the C·Bᵀ gradient E's products, dacum from
+# dW ∘ W) and the state terms (through the entering and leaving states),
+# and da, the reverse cumulative sum of dacum in the chunk.  ``mm`` as
+# above.  Layouts: chunked (B, nc, H, L, ·), rows past S zeros.
+
+def ssd_bwd_local_ref(dy: torch.Tensor, acum: torch.Tensor,
+                      cmat: torch.Tensor, chunk: int = 128, *,
+                      mm=torch.matmul) -> torch.Tensor:
+    """Each chunk's own term of G: ``dYᵀ·diag(exp(acum))·C`` → (B, nc, H,
+    P, N)."""
+    dy_c = _ssd_chunks(dy, chunk).permute(0, 1, 3, 4, 2)  # (B,nc,H,P,L)
+    c_c = _ssd_chunks(cmat, chunk)[:, :, None]            # (B,nc,1,L,N)
+    return mm(dy_c * torch.exp(acum)[..., None, :], c_c)
+
+
+def ssd_bwd_pass_ref(local: torch.Tensor, acum: torch.Tensor) -> torch.Tensor:
+    """``G_{c−1} = local_c + exp(acum_L^c)·G_c`` over the chunks in reverse
+    order from zero: local (B, nc, H, P, N) → G of each chunk, zeros for
+    the last."""
+    tot = torch.exp(acum[..., -1])[..., None, None]       # (B,nc,H,1,1)
+    g = torch.zeros_like(local[:, 0])
+    out = torch.empty_like(local)
+    for c in reversed(range(local.shape[1])):
+        out[:, c] = g
+        g = local[:, c] + tot[:, c] * g
+    return out
+
+
+def _ssd_decay(acum: torch.Tensor) -> torch.Tensor:
+    """D[q, k] = exp(acum_q − acum_k) on k ≤ q, the exponent masked to
+    −1e30 off the triangle before ``exp``."""
+    chunk = acum.shape[-1]
+    ltri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                 device=acum.device))
+    rel = acum[..., :, None] - acum[..., None, :]
+    return torch.exp(torch.where(ltri, rel, -1e30))
+
+
+def ssd_bwd_intra_ref(xh: torch.Tensor, acum: torch.Tensor,
+                      bmat: torch.Tensor, cmat: torch.Tensor,
+                      dy: torch.Tensor, grads: torch.Tensor, chunk: int = 128,
+                      *, mm=torch.matmul):
+    """The intra-chunk terms: ``dX = Wᵀ·dY + diag(dk)·B·Gᵀ`` (B, nc, H, L,
+    P), ``E = Σ_h (dY·Xᵀ) ∘ D``'s products ``Eᵀ·C`` (dB) and ``E·B`` (dC)
+    (B, nc, L, N), and ``rowsum − colsum`` of ``dW ∘ W`` (B, nc, H, L);
+    W = (C·Bᵀ) ∘ D, dk = exp(acum_L − acum), G the chunks' gradients."""
+    x_c = _ssd_chunks(xh, chunk).transpose(2, 3)          # (B,nc,H,L,P)
+    dy_c = _ssd_chunks(dy, chunk).transpose(2, 3)
+    b_c = _ssd_chunks(bmat, chunk)                        # (B,nc,L,N)
+    c_c = _ssd_chunks(cmat, chunk)
+    dec = _ssd_decay(acum)                                # (B,nc,H,L,L)
+    w = mm(c_c, b_c.transpose(-1, -2))[:, :, None] * dec
+    dk = torch.exp(acum[..., -1:] - acum)                 # (B,nc,H,L)
+    dx = (dk[..., None] * mm(b_c[:, :, None], grads.transpose(-1, -2))
+          + mm(w.transpose(-1, -2), dy_c))
+    dw = mm(dy_c, x_c.transpose(-1, -2))                  # (B,nc,H,L,L)
+    dww = dw * w
+    dacum = dww.sum(-1) - dww.sum(-2)
+    e = (dw * dec).sum(2)                                 # (B,nc,L,L)
+    return dx, mm(e.transpose(-1, -2), c_c), mm(e, b_c), dacum
+
+
+def ssd_bwd_state_ref(xh: torch.Tensor, acum: torch.Tensor,
+                      bmat: torch.Tensor, cmat: torch.Tensor,
+                      dy: torch.Tensor, states: torch.Tensor,
+                      grads: torch.Tensor, chunk: int = 128, *,
+                      mm=torch.matmul):
+    """The terms through the states: ``diag(exp(acum))·dY·h`` (dC) and
+    ``diag(dk)·X·G`` (dB), each summed over the heads (B, nc, L, N), and
+    their part of dacum (B, nc, H, L): the row dots with C and −B, and
+    ``⟨G, h_out⟩`` at the chunk's last row (h_out the state entering the
+    next chunk)."""
+    x_c = _ssd_chunks(xh, chunk).transpose(2, 3)          # (B,nc,H,L,P)
+    dy_c = _ssd_chunks(dy, chunk).transpose(2, 3)
+    b_c = _ssd_chunks(bmat, chunk)[:, :, None]            # (B,nc,1,L,N)
+    c_c = _ssd_chunks(cmat, chunk)[:, :, None]
+    dk = torch.exp(acum[..., -1:] - acum)
+    dcs = torch.exp(acum)[..., None] * mm(dy_c, states)   # (B,nc,H,L,N)
+    dbs = dk[..., None] * mm(x_c, grads)
+    dacum = (dcs * c_c).sum(-1) - (dbs * b_c).sum(-1)
+    h_out = torch.cat([states[:, 1:], torch.zeros_like(states[:, :1])], 1)
+    dacum[..., -1] += (grads * h_out).sum((-1, -2))
+    return dbs.sum(2), dcs.sum(2), dacum
+
+
+def ssd_bwd_chunks_ref(xh: torch.Tensor, acum: torch.Tensor,
+                       bmat: torch.Tensor, cmat: torch.Tensor,
+                       dy: torch.Tensor, states: torch.Tensor,
+                       grads: torch.Tensor, chunk: int = 128, *,
+                       mm=torch.matmul):
+    """``(dxh, da, db, dc)`` from the chunks' gradients ``grads`` (what
+    :func:`ssd_bwd_pass_ref` returns): the intra-chunk and state terms,
+    and da the reverse cumulative sum of dacum in each chunk."""
+    b, s, h, p = xh.shape
+    dx, db, dc, dacum = ssd_bwd_intra_ref(xh, acum, bmat, cmat, dy, grads,
+                                          chunk, mm=mm)
+    db_s, dc_s, dacum_s = ssd_bwd_state_ref(xh, acum, bmat, cmat, dy, states,
+                                            grads, chunk, mm=mm)
+    da = torch.flip(torch.cumsum(torch.flip(dacum + dacum_s, (-1,)), -1),
+                    (-1,))                                # (B,nc,H,L)
+    return (dx.transpose(2, 3).reshape(b, -1, h, p)[:, :s],
+            da.transpose(2, 3).reshape(b, -1, h)[:, :s],
+            (db + db_s).reshape(b, -1, bmat.shape[-1])[:, :s],
+            (dc + dc_s).reshape(b, -1, cmat.shape[-1])[:, :s])
+
+
+def ssd_scan_bwd_ref(xh: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
+                     cmat: torch.Tensor, dy: torch.Tensor, chunk: int = 128,
+                     *, states: torch.Tensor | None = None,
+                     acum: torch.Tensor | None = None, mm=torch.matmul):
+    """The backward of :func:`ssd_scan_ref` (fp32): the gradients ``(dxh,
+    da, db, dc)`` that ``dy`` (B, S, H, P) sends to xh, a, bmat and cmat,
+    through the stages above.  ``states`` and ``acum`` are the forward's
+    (``ssd_scan_ref(..., return_state=True)``), recomputed when not
+    given."""
+    xh, a, bmat, cmat, dy = (t.to(torch.float32)
+                             for t in (xh, a, bmat, cmat, dy))
+    if states is None or acum is None:
+        acum, own = ssd_chunk_states_ref(xh, a, bmat, chunk, mm=mm)
+        states = ssd_state_pass_ref(own, acum)
+    grads = ssd_bwd_pass_ref(
+        ssd_bwd_local_ref(dy, acum, cmat, chunk, mm=mm), acum)
+    return ssd_bwd_chunks_ref(xh, acum, bmat, cmat, dy, states, grads, chunk,
+                              mm=mm)

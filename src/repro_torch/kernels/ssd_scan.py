@@ -28,7 +28,26 @@ the scratch (the chunk states, B·⌈S/chunk⌉·H·P·N floats at the tile
 padding; C·Bᵀ per chunk; the cumulative decays), launches on PyTorch's
 current stream, raises on a launch error and adds one to each launch's
 count: ``LAUNCHES["ssd_scan_state"]``, ``LAUNCHES["ssd_scan_pass"]`` and
-``LAUNCHES["ssd_scan"]``.
+``LAUNCHES["ssd_scan"]``.  With ``return_state=True`` it also returns the
+states entering each chunk and the cumulative decays, which the backward
+takes.
+
+:func:`ssd_scan_bwd_cuda` is its backward (no TPU counterpart: the
+reference differentiates its inline XLA chunked scan): from the inputs,
+``dy`` and the forward's states and decays, the gradients ``(dxh, da, db,
+dc)``, in five launches of ``csrc/ssd_scan_bwd.cu`` (each chunk's own term
+of the state gradient and its C·Bᵀ; the reverse carry over the chunks; per
+chunk and run of heads the intra-chunk terms, dX among them, then the
+terms through the states and da; dB and dC summed over the runs of heads
+in order), every product in 3×TF32, no float atomics.  Its plain version
+is ``ref.ssd_scan_bwd_ref`` (stage by stage ``ref.ssd_bwd_local_ref``,
+``ssd_bwd_pass_ref``, ``ssd_bwd_intra_ref``, ``ssd_bwd_state_ref``).  It
+takes (chunk / 16)·(N / 16) ≤ 32 (N ≤ 64 at chunk 128) and shapes whose
+tiles fit the 227 KB of shared memory a block has (P ≤ 80 at chunk 128,
+N 64), zamba2's among them; each call adds one to
+``LAUNCHES["ssd_scan_bwd_local"]``, ``["ssd_scan_bwd_pass"]``,
+``["ssd_scan_bwd_intra"]``, ``["ssd_scan_bwd_state"]`` and
+``["ssd_scan_bwd"]`` (the last, the reduction, stands for the call).
 """
 from __future__ import annotations
 
@@ -37,10 +56,14 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.launch import LAUNCHES, check_tensor, int32, raise_on
 
-__all__ = ["ssd_scan_cuda", "SMEM_LIMIT"]
+__all__ = ["ssd_scan_cuda", "ssd_scan_bwd_cuda", "SMEM_LIMIT"]
 
 #: Shared memory one block may use on an H100 (bytes).
 SMEM_LIMIT = 232_448
+#: The backward's launches, in order: ``ssd_scan_bwd`` (the last, the
+#: reduction of dB and dC) stands for the call.
+BWD_LAUNCHES = ("ssd_scan_bwd_local", "ssd_scan_bwd_pass",
+                "ssd_scan_bwd_intra", "ssd_scan_bwd_state", "ssd_scan_bwd")
 
 
 def _round_up(x: int, m: int) -> int:
@@ -48,8 +71,12 @@ def _round_up(x: int, m: int) -> int:
 
 
 def ssd_scan_cuda(xh: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
-                  cmat: torch.Tensor, *, chunk: int = 128) -> torch.Tensor:
-    """xh (B, S, H, P), a (B, S, H), b/c (B, S, N) fp32 → y (B, S, H, P)."""
+                  cmat: torch.Tensor, *, chunk: int = 128,
+                  return_state: bool = False):
+    """xh (B, S, H, P), a (B, S, H), b/c (B, S, N) fp32 → y (B, S, H, P);
+    with ``return_state`` ``(y, states, acum)``: the state entering each
+    chunk (B, nc, H, P', N') and the cumulative decays (B, nc, H, chunk'),
+    P', N' and chunk' rounded up to 16."""
     check_tensor(xh, "xh", 4)
     check_tensor(a, "a", 3)
     check_tensor(bmat, "bmat", 3)
@@ -92,4 +119,67 @@ def ssd_scan_cuda(xh: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
     LAUNCHES["ssd_scan_state"] += 1
     LAUNCHES["ssd_scan_pass"] += 1
     LAUNCHES["ssd_scan"] += 1
-    return y
+    return (y, states, acum) if return_state else y
+
+
+def ssd_scan_bwd_cuda(xh: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
+                      cmat: torch.Tensor, dy: torch.Tensor, *,
+                      states: torch.Tensor, acum: torch.Tensor,
+                      chunk: int = 128):
+    """xh, dy (B, S, H, P), a (B, S, H), b/c (B, S, N) fp32 and the
+    forward's ``states`` and ``acum`` (``ssd_scan_cuda(...,
+    return_state=True)``) → (dxh, da, db, dc), each shaped as its input."""
+    check_tensor(xh, "xh", 4)
+    check_tensor(a, "a", 3)
+    check_tensor(bmat, "bmat", 3)
+    check_tensor(cmat, "cmat", 3)
+    check_tensor(dy, "dy", 4)
+    check_tensor(states, "states", 5)
+    check_tensor(acum, "acum", 4)
+    b, s, h, p = xh.shape
+    n = bmat.shape[-1]
+    nc = -(-s // chunk) if chunk >= 1 else 0
+    lp, pp, np_ = (_round_up(v, 16) for v in (chunk, p, n))
+    if (a.shape != (b, s, h) or bmat.shape != (b, s, n)
+            or cmat.shape != bmat.shape or dy.shape != xh.shape
+            or states.shape != (b, nc, h, pp, np_)
+            or acum.shape != (b, nc, h, lp)
+            or {t.device for t in (a, bmat, cmat, dy, states, acum)}
+            != {xh.device}):
+        raise ValueError(f"ssd_scan backward shapes do not match: xh "
+                         f"{tuple(xh.shape)}, a {tuple(a.shape)}, b "
+                         f"{tuple(bmat.shape)}, c {tuple(cmat.shape)}, dy "
+                         f"{tuple(dy.shape)}, states {tuple(states.shape)}, "
+                         f"acum {tuple(acum.shape)}, chunk {chunk}")
+    if b > 65535 or s == 0 or not 1 <= chunk <= 128 or nc > 65535:
+        raise ValueError(f"ssd_scan backward takes B <= 65535, S > 0, "
+                         f"1 <= chunk <= 128 and ⌈S/chunk⌉ <= 65535, got "
+                         f"{tuple(xh.shape)}, chunk {chunk}")
+    lib = build.load("ssd_scan_bwd")
+    smem = lib.repro_ssd_scan_bwd_smem_bytes(chunk, int32(p, "P"),
+                                             int32(n, "N"))
+    if smem == 0 or smem > SMEM_LIMIT:
+        raise ValueError(f"ssd_scan backward does not take chunk {chunk}, P "
+                         f"{p}, N {n} (shared memory {smem} bytes, limit "
+                         f"{SMEM_LIMIT}; (chunk / 16)·(N / 16) <= 32)")
+    groups = lib.repro_ssd_scan_bwd_groups(int32(h, "H"), nc, int32(b, "B"))
+    f32 = dict(device=xh.device, dtype=torch.float32)
+    dxh = torch.empty_like(xh)
+    da = torch.empty_like(a)
+    db = torch.empty_like(bmat)
+    dc = torch.empty_like(cmat)
+    gs = torch.empty_like(states)
+    cb = torch.empty((b, nc, lp, lp), **f32)
+    dag = torch.empty_like(acum)
+    part = torch.empty((b, nc, groups, 2, lp, np_), **f32)
+    with torch.cuda.device(xh.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.repro_ssd_scan_bwd_f32(
+            xh.data_ptr(), bmat.data_ptr(), cmat.data_ptr(), dy.data_ptr(),
+            states.data_ptr(), acum.data_ptr(), gs.data_ptr(), cb.data_ptr(),
+            dag.data_ptr(), part.data_ptr(), dxh.data_ptr(), da.data_ptr(),
+            db.data_ptr(), dc.data_ptr(), b, s, h, p, n, chunk, stream)
+    raise_on(err, "ssd_scan_bwd")
+    for name in BWD_LAUNCHES:
+        LAUNCHES[name] += 1
+    return dxh, da, db, dc

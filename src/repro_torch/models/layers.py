@@ -33,8 +33,35 @@ def init_normal(gen: torch.Generator, shape, scale: float) -> torch.Tensor:
     return torch.randn(shape, generator=gen, device=gen.device).mul_(scale)
 
 
+class _Silu(torch.autograd.Function):
+    """``x·σ(x)`` as the reference's ``x * jax.nn.sigmoid(x)`` rounds it:
+    σ = 1 / (1 + exp(−x)), ``lax.logistic``'s expansion, each op rounded in
+    x's dtype, and the gradient by its JVP rule, ``g·σ + (g·x)·(σ·(1 −
+    σ))``.  In bf16 ``torch.sigmoid`` and autograd's own gradient round at
+    other places, which alone sent zamba2's bf16 gradients 0.06 (rel-L2)
+    from the reference's (``tests/test_torch_zoo_grad.py``).  Returns
+    ``(y, σ)``; σ takes no gradient."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(x):
+        s = 1.0 / (1.0 + torch.exp(-x))
+        return x * s, s
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.mark_non_differentiable(output[1])
+        ctx.save_for_backward(inputs[0], output[1])
+
+    @staticmethod
+    def backward(ctx, g, _gs):
+        x, s = ctx.saved_tensors
+        return g * s + (g * x) * (s * (1.0 - s))
+
+
 def silu(x: torch.Tensor) -> torch.Tensor:
-    return x * torch.sigmoid(x)
+    return _Silu.apply(x)[0]
 
 
 # ---------------------------------------------------------------- dense

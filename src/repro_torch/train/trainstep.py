@@ -12,8 +12,6 @@ backward.  :func:`make_prefill_step` (the prefill target: full-context
 forward, no gradient) and :func:`make_eval_step` return plain functions
 ``(params, batch) -> loss``; :func:`make_serve_step` returns ``(params,
 tokens, cache, pos) -> (logits, cache)``, the cache updated in place.
-Training the Mamba-2 family (zamba2) waits for ``ssd_scan``'s backward
-kernel (ROADMAP A13c-2).
 """
 from __future__ import annotations
 
@@ -101,6 +99,7 @@ def make_train_step(model: Model, opt: opt_lib.Optimizer,
         lr = lr_fn(state.step)
         updates, opt_state = opt.update(grads, state.opt_state,
                                         state.params, lr)
+        del grads           # not held while the new params are formed
         params = opt_lib.apply_updates(state.params, updates)
         return (TrainState(params=params, opt_state=opt_state,
                            step=state.step + 1),

@@ -17,35 +17,37 @@ __all__ = ["tree_leaves", "tree_map", "tree_flatten", "tree_unflatten",
            "params_from_numpy", "params_to_numpy", "cache_from_numpy"]
 
 
+def _flatten(node: Any, leaves: list) -> Any:
+    if isinstance(node, dict):
+        keys = sorted(node)
+        return ("dict", keys, [_flatten(node[k], leaves) for k in keys])
+    if isinstance(node, (list, tuple)):
+        return (type(node).__name__, None, [_flatten(x, leaves) for x in node])
+    leaves.append(node)
+    return ("leaf", None, None)
+
+
 def tree_flatten(tree: Any) -> tuple[list, Any]:
-    """``(leaves, treedef)``; ``treedef`` rebuilds the nesting."""
+    """``(leaves, treedef)``; ``treedef`` rebuilds the nesting.  The walk
+    is a module-level function: a recursive closure is a reference cycle
+    that would hold the leaves until the garbage collector's next full
+    pass (at zamba2_2_7b's width, a train step's 9 GiB of gradients)."""
     leaves: list = []
+    return leaves, _flatten(tree, leaves)
 
-    def walk(node):
-        if isinstance(node, dict):
-            keys = sorted(node)
-            return ("dict", keys, [walk(node[k]) for k in keys])
-        if isinstance(node, (list, tuple)):
-            return (type(node).__name__, None, [walk(x) for x in node])
-        leaves.append(node)
-        return ("leaf", None, None)
 
-    return leaves, walk(tree)
+def _build(node: Any, it) -> Any:
+    kind, keys, children = node
+    if kind == "leaf":
+        return next(it)
+    built = [_build(c, it) for c in children]
+    if kind == "dict":
+        return dict(zip(keys, built))
+    return built if kind == "list" else tuple(built)
 
 
 def tree_unflatten(treedef: Any, leaves: list) -> Any:
-    it = iter(leaves)
-
-    def build(node):
-        kind, keys, children = node
-        if kind == "leaf":
-            return next(it)
-        built = [build(c) for c in children]
-        if kind == "dict":
-            return dict(zip(keys, built))
-        return built if kind == "list" else tuple(built)
-
-    return build(treedef)
+    return _build(treedef, iter(leaves))
 
 
 def tree_leaves(tree: Any) -> list:

@@ -11,7 +11,9 @@
 * ``run_spmd_feddif(clients=4, rounds=2)`` from the reference's init
   against ``repro.launch.fl_spmd.run_spmd_feddif``: each round's diffusion
   rounds, final IID distance and ledger sub-frames bit for bit, the mean
-  client losses within 2e-3 (bf16 compute; measured ≤ 1.1e-4).
+  client losses within 2e-3 (bf16 compute; measured ≤ 1.1e-4); the same
+  at zamba2-smoke, its ``mamba2`` layers through ``ssd_scan``'s gradient
+  (measured ≤ 8.8e-5).
 * Without a GPU the entry points raise unless given ``device="cpu"``; the
   client-sharded mesh raises naming A12.
 """
@@ -42,9 +44,8 @@ def _one_thread():
     torch.set_num_threads(prev)
 
 
-def _reference_init(seed=0):
-    params = j_build(j_get_smoke("smollm_360m")).init(
-        jax.random.PRNGKey(seed))
+def _reference_init(seed=0, arch="smollm_360m"):
+    params = j_build(j_get_smoke(arch)).init(jax.random.PRNGKey(seed))
     return jax.tree.map(np.asarray, params)
 
 
@@ -95,13 +96,13 @@ def test_launch_train_cli_on_the_cpu(capsys):
     assert "round 1: eval_loss=" in out and "ledger: subframes=" in out
 
 
-def test_fl_spmd_matches_reference():
+def _spmd_matches_reference(arch):
     want_lines, got_lines = [], []
-    _, want_hist = j_spmd.run_spmd_feddif(clients=4, rounds=2,
+    _, want_hist = j_spmd.run_spmd_feddif(arch, clients=4, rounds=2,
                                           log=want_lines.append)
-    init = _reference_init()
+    init = _reference_init(arch=arch)
     state, hist, ledger = fl_spmd.run_spmd_feddif(
-        clients=4, rounds=2, log=got_lines.append, device="cpu",
+        arch, clients=4, rounds=2, log=got_lines.append, device="cpu",
         init_fn=lambda gen: params_from_numpy(init))
     assert len(got_lines) == len(want_lines) == 2
     for got, ref in zip(got_lines, want_lines):
@@ -113,6 +114,14 @@ def test_fl_spmd_matches_reference():
     assert all(bool(torch.isfinite(x).all())
                for x in jax.tree.leaves(state.params,
                                         is_leaf=torch.is_tensor))
+
+
+def test_fl_spmd_matches_reference():
+    _spmd_matches_reference("smollm_360m")
+
+
+def test_fl_spmd_zamba2_matches_reference():
+    _spmd_matches_reference("zamba2_2_7b")
 
 
 def test_entry_points_refuse_without_a_gpu():

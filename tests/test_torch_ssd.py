@@ -17,7 +17,20 @@ hi·lo + hi·hi accumulate in fp32.  An emulation (the same bit operations; a
 product of two TF32 values is exact in fp32) shows that this keeps the
 stages inside the card's bar, 5e-5·(1 + max|y|) against ``ssd_scan_ref``,
 at zamba2's width, where a single TF32 pass does not.
+
+The backward's twin ``ref.ssd_scan_bwd_ref`` (the stages
+``ssd_bwd_local_ref``, ``ssd_bwd_pass_ref``, ``ssd_bwd_intra_ref``,
+``ssd_bwd_state_ref``, as ``csrc/ssd_scan_bwd.cu`` computes them) against
+``jax.vjp`` of ``_ssd_chunk_scan`` from h0 = 0 (its y) and against torch
+autograd of ``ssd_scan_ref``, on the same shapes, within 2e-5·(1 +
+max|g|), the other backward twins' bar (fp32 sums in another order); fed
+the forward's saved states and decays, or recomputing them.  Its stages
+emulated in 3×TF32 stay within the card's backward bar SSD_BWD_BAR (the
+forward's, 5e-5·(1 + max|plain|)) at zamba2's width, one TF32 pass does
+not, and the planted fault of ``chip_smoke.py``'s phase 8a (each chunk
+handed the gradient of the chunk after it, G one chunk late) fails it.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -182,3 +195,105 @@ def test_state_one_chunk_late_fails_the_bar():
     bad = tref.ssd_chunk_output_ref(xh, acum, bm, cm, late, chunk)
     assert float((good - plain).abs().max()) <= tol
     assert float((bad - plain).abs().max()) > 100 * tol
+
+
+# ------------------------------------------------------------ the backward
+
+BWD_BAR = 2e-5       # the backward twins' bar against jax.vjp and autograd
+
+
+def _close(got, want, rel=BWD_BAR):
+    got = np.asarray(got, np.float32)
+    want = np.asarray(want, np.float32)
+    err = np.abs(got - want).max()
+    assert err <= rel * (1.0 + np.abs(want).max()), (err, np.abs(want).max())
+
+
+@pytest.mark.parametrize("saved", [False, True], ids=["recomputed", "saved"])
+@pytest.mark.parametrize("shape,kind", CASES, ids=str)
+def test_ssd_scan_bwd_ref_matches_reference_vjp(shape, kind, saved):
+    b, s, h, p, n, chunk = shape
+    inputs = _inputs(shape, kind, seed=sum(shape) + 1)
+    dy = np.random.default_rng(sum(shape)).normal(
+        size=(b, s, h, p)).astype(np.float32)
+    h0 = jnp.zeros((b, h, p, n), jnp.float32)
+    _, pull = jax.vjp(lambda *t: _ssd_chunk_scan(*t, h0, chunk)[0],
+                      *(jnp.asarray(x) for x in inputs))
+    want = pull(jnp.asarray(dy))
+    t_in = [torch.from_numpy(x) for x in inputs]
+    tdy = torch.from_numpy(dy)
+    kw = {}
+    if saved:
+        _, states, acum = tref.ssd_scan_ref(*t_in, chunk, return_state=True)
+        kw = dict(states=states, acum=acum)
+    got = tref.ssd_scan_bwd_ref(*t_in, tdy, chunk, **kw)
+    for x, w, t_ in zip(got, want, t_in):
+        assert x.shape == t_.shape and x.dtype == torch.float32
+        _close(x.numpy(), w)
+    # ... and against torch autograd of the forward twin.
+    leaves = [t_.clone().requires_grad_(True) for t_ in t_in]
+    tref.ssd_scan_ref(*leaves, chunk).backward(tdy)
+    for x, t_ in zip(got, leaves):
+        _close(x.numpy(), t_.grad.numpy())
+
+
+def test_ssd_scan_ref_returns_the_saved_state():
+    """``return_state``: y unchanged, the entering states and decays the
+    stages compute."""
+    shape = (2, 100, 3, 8, 4, 32)
+    t_in = [torch.from_numpy(x) for x in _inputs(shape, "plain", seed=4)]
+    y, states, acum = tref.ssd_scan_ref(*t_in, 32, return_state=True)
+    assert torch.equal(y, tref.ssd_scan_ref(*t_in, 32))
+    want_acum, own = tref.ssd_chunk_states_ref(t_in[0], t_in[1], t_in[2], 32)
+    assert acum.shape == (2, 4, 3, 32) and states.shape == (2, 4, 3, 8, 4)
+    torch.testing.assert_close(acum, want_acum, atol=1e-6, rtol=1e-6)
+    torch.testing.assert_close(states, tref.ssd_state_pass_ref(own, acum),
+                               atol=5e-5, rtol=1e-4)
+
+
+def _bwd_err(grads, want) -> float:
+    """The worst of the four gradients' max error over its bar's scale,
+    1 + max|plain|."""
+    return max(float((g - w).abs().max()) / (1.0 + float(w.abs().max()))
+               for g, w in zip(grads, want))
+
+
+def _zamba2_bwd(kind, seed):
+    t_in = [torch.from_numpy(x) for x in _inputs(ZAMBA2, kind, seed=seed)]
+    dy = torch.from_numpy(np.random.default_rng(seed).normal(
+        size=ZAMBA2[:4]).astype(np.float32))
+    return t_in, dy
+
+
+@pytest.mark.parametrize("kind", ["model", "unit"])
+def test_bwd_3xtf32_holds_the_bar_and_1xtf32_does_not(kind):
+    """The backward's stages with every product emulated in 3×TF32 stay
+    inside the card's bar against the plain twin at zamba2's width; one
+    TF32 pass does not."""
+    chunk = ZAMBA2[-1]
+    t_in, dy = _zamba2_bwd(kind, 12)
+    plain = tref.ssd_scan_bwd_ref(*t_in, dy, chunk)
+    err3 = _bwd_err(tref.ssd_scan_bwd_ref(*t_in, dy, chunk, mm=_mm_3xtf32),
+                    plain)
+    err1 = _bwd_err(tref.ssd_scan_bwd_ref(*t_in, dy, chunk, mm=_mm_1xtf32),
+                    plain)
+    assert err3 <= BAR / 10, err3
+    assert err1 > BAR, err1
+
+
+def test_gradient_one_chunk_late_fails_the_bar():
+    """The planted fault of chip_smoke.py's phase 8a: every chunk handed
+    the state gradient of the chunk after it must fail the bar by 10x."""
+    chunk = ZAMBA2[-1]
+    t_in, dy = _zamba2_bwd("unit", 13)
+    xh, a, bm, cm = t_in
+    plain = tref.ssd_scan_bwd_ref(xh, a, bm, cm, dy, chunk)
+    acum, own = tref.ssd_chunk_states_ref(xh, a, bm, chunk)
+    states = tref.ssd_state_pass_ref(own, acum)
+    grads = tref.ssd_bwd_pass_ref(tref.ssd_bwd_local_ref(dy, acum, cm, chunk),
+                                  acum)
+    late = torch.cat([grads[:, 1:], torch.zeros_like(grads[:, :1])], dim=1)
+    good = tref.ssd_bwd_chunks_ref(xh, acum, bm, cm, dy, states, grads, chunk)
+    bad = tref.ssd_bwd_chunks_ref(xh, acum, bm, cm, dy, states, late, chunk)
+    assert _bwd_err(good, plain) <= BAR
+    assert _bwd_err(bad, plain) > 10 * BAR

@@ -18,10 +18,12 @@
   ``accum_steps=2`` against one step on the whole batch
   (``tests/test_train_substrate.py``'s bar); the step under ``vmap``
   against a loop over clients.
+  The vmapped step also at zamba2-smoke (its ``mamba2`` layers through
+  ``ssd_scan``), port only, against the loop over clients.
 * The refusals without a GPU: the backward CUDA wrappers take CUDA tensors
-  only, and ``ops.ssd_scan`` on a CUDA tensor that needs a gradient raises
-  naming A13c-2 (checked with the route forced to ``cuda``: the refusal
-  comes before any CUDA work).
+  only.  ``ops.ssd_scan``'s card route, forced on the CPU with the plain
+  twins in its ``Function``, runs the forward and the backward through it
+  and gives autograd's gradient.
 """
 import dataclasses
 import functools
@@ -268,8 +270,9 @@ def test_accum_steps_two_matches_one():
         two(s1, batch)
 
 
-def test_train_step_vmaps_over_clients():
-    _, cfg = _cfgs()
+@pytest.mark.parametrize("arch", [ARCH, "zamba2_2_7b"])
+def test_train_step_vmaps_over_clients(arch):
+    cfg = dataclasses.replace(get_smoke_config(arch), compute_dtype="float32")
     model = build_model(cfg)
     opt = topt.adamw()
     params = model.init(torch.Generator().manual_seed(1))
@@ -299,6 +302,7 @@ def test_train_step_vmaps_over_clients():
 def test_backward_wrappers_refuse_cpu_tensors():
     from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda
     from repro_torch.kernels.launch import LAUNCHES
+    from repro_torch.kernels.ssd_scan import BWD_LAUNCHES, ssd_scan_bwd_cuda
     from repro_torch.kernels.ssm_scan import ssm_scan_bwd_cuda
     x = torch.zeros((1, 8, 2, 16))
     with pytest.raises(ValueError, match="CUDA"):
@@ -307,12 +311,51 @@ def test_backward_wrappers_refuse_cpu_tensors():
         flash_attention_bwd_cuda(*(x.to(torch.bfloat16),) * 5)
     with pytest.raises(ValueError, match="CUDA"):
         ssm_scan_bwd_cuda(x, x, x)
-    assert {"flash_attention_bwd", "ssm_scan_bwd"} <= set(LAUNCHES)
-
-
-def test_ssd_scan_refuses_a_gradient_on_the_card(monkeypatch):
-    monkeypatch.setattr(ops, "_route", lambda t: "cuda")
-    xh = torch.zeros((1, 8, 2, 4), requires_grad=True)
     a, bm = torch.zeros((1, 8, 2)), torch.zeros((1, 8, 4))
-    with pytest.raises(NotImplementedError, match="A13c-2"):
-        ops.ssd_scan(xh, a, bm, bm)
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd_scan_bwd_cuda(x, a, bm, bm, x, states=torch.zeros(
+            (1, 1, 2, 16, 16)), acum=torch.zeros((1, 1, 2, 16)), chunk=8)
+    assert {"flash_attention_bwd", "ssm_scan_bwd", *BWD_LAUNCHES} <= set(
+        LAUNCHES)
+
+
+def test_ssd_scan_card_route_runs_the_function(monkeypatch):
+    """With the route forced to ``cuda`` and ``SsdScan`` built on the plain
+    twins, ``ops.ssd_scan`` returns y alone, its forward and backward run
+    through the ``Function`` once each, and the gradient is autograd's of
+    the plain forward (the CPU route)."""
+    from repro_torch.kernels import autograd as kag
+    from repro_torch.kernels import ref as tref
+    seen = []
+
+    def fwd(*t, **kw):
+        seen.append("fwd")
+        return tref.ssd_scan_ref(*t, kw["chunk"],
+                                 return_state=kw["return_state"])
+
+    def bwd(*t, **kw):
+        seen.append("bwd")
+        return tref.ssd_scan_bwd_ref(*t, **kw)
+
+    rng = np.random.default_rng(9)
+    xh, w = (torch.from_numpy(rng.standard_normal((2, 20, 3, 4)).astype(
+        np.float32)) for _ in range(2))
+    a = torch.from_numpy((-0.5 * rng.uniform(size=(2, 20, 3))).astype(
+        np.float32))
+    bm, cm = (torch.from_numpy(rng.standard_normal((2, 20, 5)).astype(
+        np.float32)) for _ in range(2))
+
+    def loss(*t):
+        return (ops.ssd_scan(*t, chunk=8) * w).sum()
+
+    want = torch.func.grad(loss, argnums=(0, 1, 2, 3))(xh, a, bm, cm)
+    monkeypatch.setattr(ops, "_route", lambda t: "cuda")
+    monkeypatch.setattr(ops, "SsdScan", kag.ssd_function(fwd, bwd))
+    y = ops.ssd_scan(xh, a, bm, cm, chunk=8)
+    assert isinstance(y, torch.Tensor) and y.shape == xh.shape
+    seen.clear()
+    got = torch.func.grad(loss, argnums=(0, 1, 2, 3))(xh, a, bm, cm)
+    assert seen == ["fwd", "bwd"]
+    for x, y_ in zip(got, want):
+        np.testing.assert_allclose(x.numpy(), y_.numpy(), atol=1e-5,
+                                   rtol=1e-5)

@@ -161,9 +161,9 @@ def test_unported_families_raise(arch):
 
 def test_decode_and_training_raise():
     """Decode through the zoo is ported (ROADMAP A13b): ``init_cache`` and
-    ``decode_step`` return; so is training the dense and Mamba-1 families
-    (A13c): ``make_train_step`` builds a step.  What still raises, training
-    zamba2 through ``ssd_scan`` on the card (A13c-2), is held by
+    ``decode_step`` return; so is training (A13c, and zamba2's through
+    ``ssd_scan``'s backward, A13c-2): ``make_train_step`` builds a step.
+    ``ssd_scan``'s card route under a gradient is held by
     ``tests/test_torch_train.py``."""
     model = build_model(get_smoke_config("qwen3_0_6b"))
     params = model.init(torch.Generator().manual_seed(0))
