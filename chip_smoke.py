@@ -76,10 +76,10 @@ nothing of JAX.  Phases, each of which fails loudly:
    ``chain_ms`` and ``w @ x``; one leaf written from its neighbour's
    weights row (a planted fault) must fail the bit check;
 3. the main path — ``run_experiment`` on the fleet plane: the quickstart
-   configuration (fcn, α=0.3, 6000 samples, N=M=8, 8 rounds) for fedavg,
-   feddif with the host planner and feddif with the device planner
-   (``planner="jax"``) and learning-value bids (``uncertainty_weight=0.5``),
-   2 rounds each of feddif_stc and stc, 2 rounds of feddif on cnn.  Launch
+   configuration (fcn, α=0.3, 6000 samples, N=M=8, 8 rounds) for fedavg
+   and feddif with the host planner, 4 of its rounds for feddif with the
+   device planner (``planner="jax"``) and learning-value bids
+   (``uncertainty_weight=0.5``), 2 rounds each of feddif_stc and stc, 2 rounds of feddif on cnn.  Launch
    counters are zeroed right before each run and read right after; every
    run must launch ``mix_tree`` once per round (Eq. 11; these strategies
    run no MixOp) and ``mix_aggregate`` never, the STC runs
@@ -118,7 +118,7 @@ nothing of JAX.  Phases, each of which fails loudly:
    Then the sweep layer (``sweep_path``, artifacts under ``build/sweeps``),
    all on the fleet plane: ``fig3_alpha``'s full grid (α ∈ {0.1, 0.2, 0.5,
    1, 100} × fedavg / feddif, N = M = 10, 8000 samples, seed 0,
-   ``planner="jax"``) cut to FIG3_ROUNDS of its 20 rounds, its 25 FedDif
+   ``planner="jax"``) cut to FIG3_ROUNDS of its 20 rounds, its 15 FedDif
    rounds first planned by
    ``prepopulate_plan_cache`` (``bid_fused`` once per bid round, the
    planner's summed ``loop_iterations``, and no other kernel), then
@@ -159,6 +159,11 @@ nothing of JAX.  Phases, each of which fails loudly:
    on the card against the CPU on ``fig3_alpha``'s smoke FedDif cell:
    equal ``comm``, accuracy within 0.05.  The launches of (a) and (b)
    count as main-path launches.
+   The appendix and async phases below each run in a process of their
+   own (``chip_smoke.py --path appendix`` / ``async``), begun after phase
+   2 beside the main process's phase 3 and read where they stood; their
+   lines are printed there, and their launches are counted in the child
+   as in process.
    The appendix and world phase (``appendix_path``, state under
    ``build/appendix``), on the fleet plane: (a) the ``appendix_scenarios``
    bench's full cells (fcn, α = 0.5, 4000 samples, N = M = 8, 6 of their
@@ -211,7 +216,7 @@ nothing of JAX.  Phases, each of which fails loudly:
    (params, ledger, clock, arrivals, staleness, curves, launches), with
    seconds and bytes per save; (e) cohorts of 16 drawn from a population
    of 100,000, 2 rounds, with seconds per cohort draw; (f) ``fig_async``'s
-   full grid (N = 16, 5 of its 10 rounds, 5 % churn, fedavg and
+   full grid (N = 16, 3 of its 10 rounds, 5 % churn, fedavg and
    d2d_random_walk ×
    ``async_barrier`` and ``async``): no failed cell, finite params, one
    line per cell with its virtual clock; its smoke grid on the card and on
@@ -241,7 +246,7 @@ nothing of JAX.  Phases, each of which fails loudly:
    equal ledgers, bit-equal final params; the device planner as shipped
    (``bid_fused``) and with the bid round put back to the chain it
    replaced, on the quickstart device-planner run (at
-   CHAIN_PARITY_ROUNDS of its 8 rounds) and every plan of the
+   CHAIN_PARITY_ROUNDS of the quickstart's 8 rounds) and every plan of the
    planner checks below: the same rounds, hops and ``scheduled``,
    bit-equal ``decrement``, ``weight`` and ``efficiency`` (and, in the
    run, equal ledgers and bit-equal final params); fleet-plane FedDif
@@ -323,7 +328,7 @@ nothing of JAX.  Phases, each of which fails loudly:
    kernel's lse and its twin ``torch.logsumexp``'s, the profiler showing
    each row's device kernels (bf16: the ``wgmma`` dK/dV and dQ kernels);
    ssm_scan's at falcon's (1, 4096, 8192, 16) and three more, bit-equal;
-   ssd_scan's (five launches) at zamba2's (1, 4096, 80, 64, 64, 128), its
+   ssd_scan's (four launches) at zamba2's (1, 4096, 80, 64, 64, 128), its
    cut at S = 256, a ragged S, the smoke width, near-unit decay and B = 4,
    each gradient within SSD_BWD_BAR·(1 + max|plain|), with ptxas' registers
    and spills (none, and no atomic in its SASS: phase 1);
@@ -381,10 +386,11 @@ MAIN_RUNS = (("fedavg", "fcn", 8, 8), ("feddif", "fcn", 8, 8),
              ("feddif_stc", "fcn", 2, 8), ("stc", "fcn", 2, 8),
              ("feddif", "cnn", 2, 8))
 CARD_VS_CPU_RUN = ("feddif_stc", "fcn", 2, 5)
-# The device-planner run of phase 3 (planner="jax", uncertainty_weight=0.5),
-# and the planner checks of phase 4: (clients = models, classes, max
-# diffusion rounds, [(data seed, channel seed), ...]).
-DEVICE_PLANNER_RUN = ("feddif", "fcn", 8, 8)
+# The device-planner run of phase 3 (planner="jax", uncertainty_weight=0.5;
+# 4 of the quickstart's 8 rounds, cut to keep the script inside its time
+# limit), and the planner checks of phase 4: (clients = models, classes,
+# max diffusion rounds, [(data seed, channel seed), ...]).
+DEVICE_PLANNER_RUN = ("feddif", "fcn", 4, 8)
 VALUE_WEIGHT = 0.5
 NUM_CLASSES = 10
 # planner_speedup: 2 of the bench's 16 plans (data seeds 0-1, channel
@@ -399,8 +405,8 @@ PLANNER_CASES = (
 # Rounds of the runs of phase 4's chain parity, each run twice: the
 # quickstart cell's FedDif (the device-planner run's bid rounds, the fleet
 # plane's Eq. 10/11; 8 rounds cut) and the lm_hops arms (int8 and full
-# fp32; 6 rounds cut).
-CHAIN_PARITY_ROUNDS = 4
+# fp32; 6 rounds cut), cut to keep the script inside its time limit.
+CHAIN_PARITY_ROUNDS = 2
 # The adapter hop plane: the lm_hops bench's full cell (benchmarks/run.py)
 # and its arms, arm -> (adapter_hops, hop_quant); feddif/fcn with int8 hops
 # at the quickstart configuration; phase 4's small lm int8 cell (the
@@ -509,13 +515,13 @@ HOST_VS_FLEET_RUN = ("feddif", "fcn", 2, 8)
 # The sweep phase (3c): fig3_alpha's full grid (5 α × fedavg / feddif,
 # N = M = 10, 8000 samples) pre-planned with the device planner, the smoke
 # grids of the other paper sweeps, all on the fleet plane.  The grid runs
-# FIG3_ROUNDS of its 20 rounds, as the sweep ``fig3_alpha_r5`` registered
+# FIG3_ROUNDS of its 20 rounds, as the sweep ``fig3_alpha_r3`` registered
 # here (a copy of ``fig3_alpha`` with fewer rounds): the script ran past
 # its 1,200 s limit on slow hosts (NVIDIA H100 80GB HBM3, 700.00 W; the
-# FL phases host-bound), so those phases were cut in depth (20 → 10, then
-# 10 → 5: at 5 rounds FedDif's peak at α = 0.1 is 0.668 against FedAvg's
-# 0.347 on the CPU).  Artifacts go under build/.
-FIG3_ROUNDS = 5
+# FL phases host-bound), so those phases were cut in depth (20 → 10 → 5
+# → 3: at 3 rounds FedDif's peak at α = 0.1 is 0.570 against FedAvg's
+# 0.270 on the CPU, seed 0).  Artifacts go under build/.
+FIG3_ROUNDS = 3
 SWEEP_DIR = ROOT / "build" / "sweeps"
 SWEEP_SMOKE = ("fig4_epsilon", "fig5_gamma_min", "fig6_tasks",
                "table2_strategies", "fig_lm")
@@ -572,10 +578,28 @@ ASYNC_DEGENERATE_N = 20
 ASYNC_RESUME = (4, 2)
 ASYNC_POPULATION = (100_000, 16, 2)
 ASYNC_KERNEL_ROUNDS = 2
-# fig_async's full grid runs 5 of its 10 rounds (the copy ``fig_async_r5``),
-# cut to keep the script inside its time limit.
-ASYNC_SWEEP_ROUNDS = 5
+# fig_async's full grid runs 3 of its 10 rounds (the copy ``fig_async_r3``),
+# cut to keep the script inside its time limit (10 → 5 → 3).
+ASYNC_SWEEP_ROUNDS = 3
 ASYNC_ACC = 0.05             # accuracy bar of the fleet plane and card-CPU
+
+
+def _host() -> dict:
+    """The host this run shares: its CPU model and cores, the load average
+    (1, 5, 15 min) and the CPU seconds of this process and of its ended
+    children so far, read where the script's wall moves with its host."""
+    model = None
+    try:
+        with open("/proc/cpuinfo") as f:
+            model = next((line.split(":", 1)[1].strip() for line in f
+                          if line.startswith("model name")), None)
+    except OSError:
+        pass
+    t = os.times()
+    return {"cpu": model, "cores": os.cpu_count(),
+            "loadavg": list(os.getloadavg()),
+            "cpu_s": t.user + t.system,
+            "children_cpu_s": t.children_user + t.children_system}
 
 
 def _fail(msg: str) -> None:
@@ -747,23 +771,25 @@ def _ptxas_table(log: str, names) -> dict:
     return table
 
 
-SSD_BWD_KERNELS = ("ssd_bwd_local_kernel", "ssd_bwd_pass_kernel",
-                   "ssd_bwd_intra_kernel", "ssd_bwd_state_kernel",
-                   "ssd_bwd_reduce_kernel")
+SSD_BWD_KERNELS = ("ssd_bwd_local_wide_kernel", "ssd_bwd_local_kernel",
+                   "ssd_bwd_pass_kernel", "ssd_bwd_wide_kernel",
+                   "ssd_bwd_tile_kernel", "ssd_bwd_finish_kernel")
 
 
 def _check_ssd_spills(log: str | None, bwd_log: str | None) -> None:
     """Every ssd_scan kernel (the state kernel at 2 and 4 n-tiles per unit,
     the pass, the scan kernel at one and two units per warp) and every
-    kernel of its backward (the local term at 2 and 4 n-tiles per unit,
-    the reverse pass, the intra-chunk, state and reduction kernels) must
+    kernel of its backward (the local term on TF32 wgmma and at 2 and 4
+    n-tiles per unit on mma.sync, the reverse pass, the middle launch's
+    wide (TF32 wgmma) and tile (mma.sync) kernels, the finishing kernel)
+    must
     build without spills; the backward's SASS must hold no atomic
     (``cuobjdump``; its source is searched too)."""
     from repro_torch.kernels import build
     for label, text, names, count in (
             ("ssd_scan", log, ("ssd_state_kernel", "ssd_pass_kernel",
                                "ssd_scan_kernel"), 5),
-            ("ssd_scan_bwd", bwd_log, SSD_BWD_KERNELS, 6)):
+            ("ssd_scan_bwd", bwd_log, SSD_BWD_KERNELS, 7)):
         if text is None:
             print(json.dumps({"check": f"{label} spills", "ok": None,
                               "note": "built before this run"}))
@@ -6170,6 +6196,57 @@ def train_step_path(torch, kd) -> dict:
     return launches
 
 
+# Phase 3's appendix and async paths each run in a process of its own
+# (this script with ``--path NAME``), begun with the CLI checks after phase
+# 2: both are host-bound FL runs that leave the card idle most of the time,
+# so they overlap the main process's phase 3 on the host's other cores.
+# Each child zeroes the launch counts before each run and reads them after,
+# as in process, and its last line hands its totals to main().
+CHILD_PATHS = ("appendix", "async")
+PATHS_DIR = ROOT / "build" / "paths"
+
+
+def _path_child(name: str) -> dict:
+    """This script's ``name`` path run to its end in a child process."""
+    t0 = time.perf_counter()
+    out, err = PATHS_DIR / f"{name}.out", PATHS_DIR / f"{name}.err"
+    proc = _popen([sys.executable, str(ROOT / "chip_smoke.py"), "--path",
+                   name], out, err)
+    try:
+        proc.wait(timeout=1000)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    return {"returncode": proc.returncode, "stdout": out.read_text(),
+            "stderr": err.read_text(), "seconds": time.perf_counter() - t0}
+
+
+def _path_launches(name: str, child: _Alongside) -> dict:
+    """Waits for the ``name`` path's child, prints its lines, fails with it
+    and returns the launches it counted."""
+    out = child.result()
+    lines = out["stdout"].strip().splitlines()
+    last = {}
+    if lines and lines[-1].startswith('{"child_launches"'):
+        last = json.loads(lines.pop())
+    for line in lines:
+        print(line)
+    print(json.dumps({"part": f"{name}_path (child process)",
+                      "seconds": out["seconds"],
+                      "exit": out["returncode"]}))
+    if out["returncode"] != 0 or "child_launches" not in last:
+        _fail(f"the {name} path's process exited {out['returncode']}: "
+              f"{out['stderr'][-3000:]}")
+    return last["child_launches"]
+
+
+def _child_main(name: str, torch, port) -> None:
+    """``--path NAME``: one of CHILD_PATHS in this process; its lines, then
+    ``{"child_launches": {...}}`` as the last line."""
+    fn = {"appendix": appendix_path, "async": async_path}[name]
+    print(json.dumps({"child_launches": fn(torch, port)}))
+
+
 def _train_cli_run() -> dict:
     return _run_cli("train", [sys.executable, "-m",
                               "repro_torch.launch.train", *TRAIN_CLI], 600)
@@ -6306,11 +6383,15 @@ def main() -> None:
     from repro_torch.kernels import ref as kref
     import repro_torch.fl as port
     set_full_fp32()
+    if sys.argv[1:2] == ["--path"]:
+        _child_main(sys.argv[2], torch, port)
+        return
 
     card = _card_line()
     print(f"card: {card}")
     print(json.dumps({"torch": torch.__version__, "cuda": torch.version.cuda,
                       "device": torch.cuda.get_device_name(0)}))
+    print(json.dumps({"host": _host()}))
 
     build_s = build.build_all()
     print(json.dumps({"phase": "build", "seconds": build_s,
@@ -6353,12 +6434,14 @@ def main() -> None:
     part("check_mix_tree")
     rows += check_stc_compress(torch, kref, port)
     mark("phase 2: kernel checks")
-    # The CLI checks' processes, begun now (after phase 2's timings) and
-    # read by phases 3, 7 and 8.
+    # The CLI checks' processes and phase 3's child paths, begun now (after
+    # phase 2's timings) and read by phases 3, 7 and 8.
     atexit.register(_stop_children)
     sigterm = _Alongside(_sigterm_cli_runs)
     serve_cli = _Alongside(_serve_cli_run)
     train_cli = _Alongside(_train_cli_run)
+    children = {name: _Alongside(lambda name=name: _path_child(name))
+                for name in CHILD_PATHS}
     launches = main_path(torch, kd, port)
     for k, v in hop_plane_path(torch, kd, port).items():
         launches[k] += v
@@ -6370,10 +6453,9 @@ def main() -> None:
     mark("phase 3: sweeps")
     for k, v in durable_path(torch, port, sigterm).items():
         launches[k] += v
-    for k, v in appendix_path(torch, port).items():
-        launches[k] += v
-    for k, v in async_path(torch, port).items():
-        launches[k] += v
+    for name, child in children.items():
+        for k, v in _path_launches(name, child).items():
+            launches[k] += v
     routing = stc_routing(torch, kd)
     routing.update({k: v for k, v in stc_rows_routing(torch, kd).items()
                     if k.startswith("stc_rows")})
@@ -6500,7 +6582,7 @@ def main() -> None:
     # launches stand in that kernel's row, whose times cover them all.
     helpers = {"ssd_scan": ("ssd_scan_state", "ssd_scan_pass"),
                "ssd_scan_bwd": ("ssd_scan_bwd_local", "ssd_scan_bwd_pass",
-                                "ssd_scan_bwd_intra", "ssd_scan_bwd_state")}
+                                "ssd_scan_bwd_main")}
     # Kernels that no main-path run launches, with the kernel that took
     # their work, and the routing check above that drove them (and failed
     # unless they launched as it expects): stc_fused (host plane) and
@@ -6550,6 +6632,7 @@ def main() -> None:
                         f"{off_path[name][2]}"}
                if name in off_path else {}),
             "ok": all(r["ok"] for r in rows if r["name"] == name)})
+    print(json.dumps({"host_end": _host()}))
     print(json.dumps({"kernels": summary}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -2,9 +2,12 @@
 // mbarriers, TMA tensor loads and stores, 128-byte-swizzled shared-memory
 // descriptors, warpgroup MMA (wgmma) wrappers and the tensor maps that view
 // a (B, S, H, D) bf16 tensor in place.  Used by flash_attention.cu (the
-// forward) and flash_attention_bwd.cu (its backward).  Everything sits in
+// forward) and flash_attention_bwd.cu (its backward); ssd_scan_bwd.cu takes
+// its mbarriers and wgmma fences.  Everything sits in
 // an anonymous namespace: each source compiles its own copy.
 #pragma once
+// Tells ssd_tiles.cuh, included after this header, that smem_u32 is here.
+#define REPRO_HOPPER_CUH
 
 #include <cuda.h>           // CUtensorMap and its enums; libcuda is not linked
 #include <cuda_bf16.h>

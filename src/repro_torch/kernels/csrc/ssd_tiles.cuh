@@ -30,9 +30,11 @@ __host__ __device__ inline Dims dims(int L, int P, int N) {
   return {round_up(L, 16), round_up(P, 16), round_up(N, 16)};
 }
 
+#ifndef REPRO_HOPPER_CUH   // else hopper.cuh's, the same
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
+#endif
 
 __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"

@@ -22,8 +22,8 @@ LAUNCHES = {"mix_aggregate": 0, "mix_tree": 0, "stc_rows_reduce": 0, "stc_rows_a
             "flash_attention": 0, "flash_attention_bwd": 0,
             "ssm_scan": 0, "ssm_scan_bwd": 0, "ssd_scan_state": 0,
             "ssd_scan_pass": 0, "ssd_scan": 0, "ssd_scan_bwd_local": 0,
-            "ssd_scan_bwd_pass": 0, "ssd_scan_bwd_intra": 0,
-            "ssd_scan_bwd_state": 0, "ssd_scan_bwd": 0}
+            "ssd_scan_bwd_pass": 0, "ssd_scan_bwd_main": 0,
+            "ssd_scan_bwd": 0}
 
 
 def reset_launch_counts() -> None:

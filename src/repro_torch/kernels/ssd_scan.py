@@ -35,19 +35,23 @@ takes.
 :func:`ssd_scan_bwd_cuda` is its backward (no TPU counterpart: the
 reference differentiates its inline XLA chunked scan): from the inputs,
 ``dy`` and the forward's states and decays, the gradients ``(dxh, da, db,
-dc)``, in five launches of ``csrc/ssd_scan_bwd.cu`` (each chunk's own term
+dc)``, in four launches of ``csrc/ssd_scan_bwd.cu``: each chunk's own term
 of the state gradient and its C·Bᵀ; the reverse carry over the chunks; per
-chunk and run of heads the intra-chunk terms, dX among them, then the
-terms through the states and da; dB and dC summed over the runs of heads
-in order), every product in 3×TF32, no float atomics.  Its plain version
-is ``ref.ssd_scan_bwd_ref`` (stage by stage ``ref.ssd_bwd_local_ref``,
+chunk and run of heads the intra-chunk and state terms; da's reverse scan
+and dB and dC summed over the runs of heads in order.  At chunk 128,
+P = N = 64 (zamba2's shape) with two heads or more a block the first and
+third launches run on TF32 ``wgmma`` (``tf32_wgmma.cuh``; the third in
+four kinds of block fed by a producer warpgroup); otherwise on
+``mma.sync``.
+Every product is 3×TF32, no atomics.  Its plain version is
+``ref.ssd_scan_bwd_ref`` (stage by stage ``ref.ssd_bwd_local_ref``,
 ``ssd_bwd_pass_ref``, ``ssd_bwd_intra_ref``, ``ssd_bwd_state_ref``).  It
 takes (chunk / 16)·(N / 16) ≤ 32 (N ≤ 64 at chunk 128) and shapes whose
 tiles fit the 227 KB of shared memory a block has (P ≤ 80 at chunk 128,
 N 64), zamba2's among them; each call adds one to
 ``LAUNCHES["ssd_scan_bwd_local"]``, ``["ssd_scan_bwd_pass"]``,
-``["ssd_scan_bwd_intra"]``, ``["ssd_scan_bwd_state"]`` and
-``["ssd_scan_bwd"]`` (the last, the reduction, stands for the call).
+``["ssd_scan_bwd_main"]`` and ``["ssd_scan_bwd"]`` (the last, the
+finishing launch, stands for the call).
 """
 from __future__ import annotations
 
@@ -60,10 +64,13 @@ __all__ = ["ssd_scan_cuda", "ssd_scan_bwd_cuda", "SMEM_LIMIT"]
 
 #: Shared memory one block may use on an H100 (bytes).
 SMEM_LIMIT = 232_448
-#: The backward's launches, in order: ``ssd_scan_bwd`` (the last, the
-#: reduction of dB and dC) stands for the call.
+#: The backward's launches, in order: ``ssd_scan_bwd`` (the last, da's
+#: scan and the sums of dB and dC) stands for the call.
 BWD_LAUNCHES = ("ssd_scan_bwd_local", "ssd_scan_bwd_pass",
-                "ssd_scan_bwd_intra", "ssd_scan_bwd_state", "ssd_scan_bwd")
+                "ssd_scan_bwd_main", "ssd_scan_bwd")
+#: Parts of dacum and partials of dB / dC the middle launch leaves per
+#: chunk (``csrc/ssd_scan_bwd.cu``: kDacumSlots, kPartSlots).
+BWD_DACUM_SLOTS, BWD_PART_SLOTS = 3, 4
 
 
 def _round_up(x: int, m: int) -> int:
@@ -128,7 +135,10 @@ def ssd_scan_bwd_cuda(xh: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
                       chunk: int = 128):
     """xh, dy (B, S, H, P), a (B, S, H), b/c (B, S, N) fp32 and the
     forward's ``states`` and ``acum`` (``ssd_scan_cuda(...,
-    return_state=True)``) → (dxh, da, db, dc), each shaped as its input."""
+    return_state=True)``) → (dxh, da, db, dc), each shaped as its input.
+    Scratch: the chunks' state gradients (as ``states``), C·Bᵀ per chunk,
+    dacum's ``BWD_DACUM_SLOTS`` parts per chunk and head, and
+    ``BWD_PART_SLOTS`` partials of dB and dC per chunk and run of heads."""
     check_tensor(xh, "xh", 4)
     check_tensor(a, "a", 3)
     check_tensor(bmat, "bmat", 3)
@@ -170,8 +180,8 @@ def ssd_scan_bwd_cuda(xh: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
     dc = torch.empty_like(cmat)
     gs = torch.empty_like(states)
     cb = torch.empty((b, nc, lp, lp), **f32)
-    dag = torch.empty_like(acum)
-    part = torch.empty((b, nc, groups, 2, lp, np_), **f32)
+    dag = torch.empty((b, nc, h, BWD_DACUM_SLOTS, lp), **f32)
+    part = torch.empty((b, nc, groups, BWD_PART_SLOTS, lp, np_), **f32)
     with torch.cuda.device(xh.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.repro_ssd_scan_bwd_f32(

@@ -28,8 +28,18 @@ the forward's saved states and decays, or recomputing them.  Its stages
 emulated in 3×TF32 stay within the card's backward bar SSD_BWD_BAR (the
 forward's, 5e-5·(1 + max|plain|)) at zamba2's width, one TF32 pass does
 not, and the planted fault of ``chip_smoke.py``'s phase 8a (each chunk
-handed the gradient of the chunk after it, G one chunk late) fails it.
+handed the gradient of the chunk after it, G one chunk late) fails it.  The
+wide path of ``csrc/ssd_scan_bwd.cu`` (chunk 128, P = N = 64) is emulated
+as it orders its sums: every product by k-steps of 8, lo·hi, hi·lo and
+hi·hi into one fp32 accumulator, dX's two terms in one accumulator with
+dk folded into B before the split, and ⟨G, h_out⟩ formed from
+exp(acum_L)·⟨G, h⟩ and the row dots it already has; it holds the bar, one
+TF32 pass does not, and that form of ⟨G, h_out⟩ agrees with the saved
+state.
 """
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -40,6 +50,9 @@ from repro.kernels import ops as jops
 from repro.kernels.ssd_scan import ssd_scan_ref as j_ssd_seq
 from repro.models.ssm import _ssd_chunk_scan
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels.launch import LAUNCHES
+from repro_torch.kernels.ssd_scan import (BWD_DACUM_SLOTS, BWD_LAUNCHES,
+                                          BWD_PART_SLOTS)
 
 ZAMBA2 = (1, 256, 80, 64, 64, 128)      # (B, S, H, P, N, chunk), S cut
 BAR = 5e-5                              # chip_smoke.py's ssd_scan bar
@@ -297,3 +310,116 @@ def test_gradient_one_chunk_late_fails_the_bar():
     bad = tref.ssd_bwd_chunks_ref(xh, acum, bm, cm, dy, states, late, chunk)
     assert _bwd_err(good, plain) <= BAR
     assert _bwd_err(bad, plain) > 10 * BAR
+
+
+# ---------------------------------------------- the wide path's sum order
+
+def _mm_ksteps(split: bool):
+    """A product as TF32 wgmma (or mma.sync) issues it: per k-step of 8,
+    lo·hi, hi·lo, then hi·hi (``split``; else hi·hi alone) added in turn to
+    one fp32 accumulator."""
+    def mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        a_hi, b_hi = _tf32(a), _tf32(b)
+        a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+        acc = None
+        for k0 in range(0, a.shape[-1], 8):
+            ks = slice(k0, k0 + 8)
+            terms = [a_hi[..., ks] @ b_hi[..., ks, :]]
+            if split:
+                terms = [a_lo[..., ks] @ b_hi[..., ks, :],
+                         a_hi[..., ks] @ b_lo[..., ks, :]] + terms
+            for t in terms:
+                acc = t if acc is None else acc + t
+        return acc
+    return mm
+
+
+def _wide_bwd(xh, a, bm, cm, dy, chunk, mm, state_tail=False):
+    """The backward as the wide path forms it, every product through
+    ``mm``: dX = [diag(dk) B | Wᵀ]·[Gᵀ ; dY] in one accumulator (B·Gᵀ's
+    k-steps first), dW, E and its products, the state terms, and dacum's
+    last row from exp(acum_L)·⟨G, h⟩ + Σ dk∘rowsum((X·G)∘B).  With
+    ``state_tail`` it returns that tail and ⟨G, h_out⟩ from the saved
+    states instead."""
+    b, s, h, p = xh.shape
+    acum, own = tref.ssd_chunk_states_ref(xh, a, bm, chunk)
+    states = tref.ssd_state_pass_ref(own, acum)
+    grads = tref.ssd_bwd_pass_ref(
+        tref.ssd_bwd_local_ref(dy, acum, cm, chunk, mm=mm), acum)
+    x_c = tref._ssd_chunks(xh, chunk).transpose(2, 3)     # (B,nc,H,L,P)
+    dy_c = tref._ssd_chunks(dy, chunk).transpose(2, 3)
+    b_c = tref._ssd_chunks(bm, chunk)                     # (B,nc,L,N)
+    c_c = tref._ssd_chunks(cm, chunk)
+    dec = tref._ssd_decay(acum)                           # (B,nc,H,L,L)
+    w = mm(c_c, b_c.transpose(-1, -2))[:, :, None] * dec
+    dk = torch.exp(acum[..., -1:] - acum)                 # (B,nc,H,L)
+    lhs = torch.cat([dk[..., None] * b_c[:, :, None].expand(
+        *dk.shape, b_c.shape[-1]), w.transpose(-1, -2)], -1)
+    dx = mm(lhs, torch.cat([grads.transpose(-1, -2), dy_c], -2))
+    dw = mm(dy_c, x_c.transpose(-1, -2))
+    dww = dw * w
+    e = (dw * dec).sum(2)
+    dcs = torch.exp(acum)[..., None] * mm(dy_c, states)
+    dbs = dk[..., None] * mm(x_c, grads)
+    rb = (dbs * b_c[:, :, None]).sum(-1)                  # (B,nc,H,L)
+    tail = (torch.exp(acum[..., -1]) * (grads * states).sum((-1, -2))
+            + rb.sum(-1))
+    if state_tail:
+        h_out = torch.cat([states[:, 1:], torch.zeros_like(states[:, :1])],
+                          1)
+        return tail, (grads * h_out).sum((-1, -2))
+    dacum = (dww.sum(-1) - dww.sum(-2) + (dcs * c_c[:, :, None]).sum(-1)
+             - rb)
+    dacum[..., -1] += tail
+    da = torch.flip(torch.cumsum(torch.flip(dacum, (-1,)), -1), (-1,))
+    return (dx.transpose(2, 3).reshape(b, -1, h, p)[:, :s],
+            da.transpose(2, 3).reshape(b, -1, h)[:, :s],
+            (mm(e.transpose(-1, -2), c_c) + dbs.sum(2)).reshape(
+                b, -1, bm.shape[-1])[:, :s],
+            (mm(e, b_c) + dcs.sum(2)).reshape(b, -1, cm.shape[-1])[:, :s])
+
+
+@pytest.mark.parametrize("kind", ["model", "unit"])
+def test_bwd_wide_path_order_holds_the_bar_and_1xtf32_does_not(kind):
+    """The wide path's arithmetic (its split points and its order of sums)
+    stays inside the card's bar against the plain twin at zamba2's width;
+    the same order with one TF32 pass does not."""
+    chunk = ZAMBA2[-1]
+    t_in, dy = _zamba2_bwd(kind, 14)
+    plain = tref.ssd_scan_bwd_ref(*t_in, dy, chunk)
+    err3 = _bwd_err(_wide_bwd(*t_in, dy, chunk, _mm_ksteps(True)), plain)
+    err1 = _bwd_err(_wide_bwd(*t_in, dy, chunk, _mm_ksteps(False)), plain)
+    assert err3 <= BAR / 10, err3
+    assert err1 > BAR, err1
+
+
+@pytest.mark.parametrize("shape,kind", [((1, 96, 3, 16, 8, 32), "model"),
+                                        ((2, 100, 4, 8, 16, 32), "plain"),
+                                        ((1, 300, 3, 16, 8, 16), "unit")],
+                         ids=str)
+def test_state_tail_equals_g_dot_h_out(shape, kind):
+    """⟨G, h_out⟩ as the wide path forms it, exp(acum_L)·⟨G, h⟩ plus the
+    sum of dk∘rowsum((X·G)∘B), against the dot with the next chunk's
+    saved state (zero at the last chunk, whose G is zero)."""
+    chunk = shape[-1]
+    t_in = [torch.from_numpy(x) for x in _inputs(shape, kind, seed=15)]
+    dy = torch.from_numpy(np.random.default_rng(15).normal(
+        size=shape[:4]).astype(np.float32))
+    tail, want = _wide_bwd(*t_in, dy, chunk, torch.matmul, state_tail=True)
+    scale = 1.0 + float(want.abs().max())
+    assert float((tail - want).abs().max()) <= 2e-5 * scale
+    assert float(want[:, -1].abs().max()) == 0.0
+
+
+def test_bwd_launch_names_and_scratch_slots_match_the_source():
+    """The wrapper counts the four launches and sizes its scratch with the
+    slot counts the CUDA source uses."""
+    src = (Path(tref.__file__).parent / "csrc" / "ssd_scan_bwd.cu").read_text()
+    slots = {m.group(1): int(m.group(2)) for m in re.finditer(
+        r"constexpr int (kDacumSlots|kPartSlots) = (\d+);", src)}
+    assert slots == {"kDacumSlots": BWD_DACUM_SLOTS,
+                     "kPartSlots": BWD_PART_SLOTS}
+    assert BWD_LAUNCHES == ("ssd_scan_bwd_local", "ssd_scan_bwd_pass",
+                            "ssd_scan_bwd_main", "ssd_scan_bwd")
+    assert set(BWD_LAUNCHES) <= set(LAUNCHES)
+    assert not {"ssd_scan_bwd_intra", "ssd_scan_bwd_state"} & set(LAUNCHES)
