@@ -430,18 +430,33 @@ LM_SMALL_FL = dict(executor="fleet", strategy="feddif", rounds=2,
 LM_LOSS_GAP = 0.01
 HOP_RATIO_GATE = 50.0        # full-f32 hop / int8 adapter hop
 # Phase 6, the LM zoo's prefill: (arch, batch, sequence, launches of each
-# kernel per forward).  4096 is SHAPES["train_4k"]'s sequence.  The batch
-# is small so that the plain versions in the kernel checks, at the same
-# shapes, stay small (flash_attention_ref holds fp32 (B, H, S, S) scores).
-ZOO_RUNS = (("qwen3_0_6b", 2, 4096, {"flash_attention": 28}),
+# kernel per forward, layers run: None for all).  4096 is
+# SHAPES["train_4k"]'s sequence.  The batch is small so that the plain
+# versions in the kernel checks, at the same shapes, stay small
+# (flash_attention_ref holds fp32 (B, H, S, S) scores).  The MoE configs
+# run at published widths with their depth cut so that the fp32 params
+# fit beside the dropless dispatch buffers: mixtral 4 of 56 layers (41.7
+# GB) at prefill_32k's sequence cut to 8192, so its 4096-key window masks
+# half of each row; qwen3-moe 2 of 94 (24.9 GB); moonshot 8 of 48 (21.5
+# GB).
+ZOO_RUNS = (("qwen3_0_6b", 2, 4096, {"flash_attention": 28}, None),
             ("zamba2_2_7b", 1, 4096, {"ssd_scan_state": 54,
                                       "ssd_scan_pass": 54, "ssd_scan": 54,
-                                      "flash_attention": 9}),
-            ("falcon_mamba_7b", 1, 4096, {"ssm_scan": 64}))
+                                      "flash_attention": 9}, None),
+            ("falcon_mamba_7b", 1, 4096, {"ssm_scan": 64}, None),
+            ("mixtral_8x22b", 1, 8192, {"flash_attention": 4}, 4),
+            ("qwen3_moe_235b_a22b", 1, 4096, {"flash_attention": 2}, 2),
+            ("moonshot_v1_16b_a3b", 1, 4096, {"flash_attention": 8}, 8))
 # The card-vs-CPU cuts: 2 layers of each full-width config (zamba2's with
-# attn_period 2, so the cut keeps the shared attention block), B=1, S=256.
+# attn_period 2, so the cut keeps the shared attention block), B=1, S=256;
+# the MoE configs' smoke configs (2 layers; mixtral-smoke's window 32 <
+# S).  ZOO_PREFILL_CUTS run in phase 6c alone: moonshot at 2 layers and
+# full width (the CPU's decode at that width would outlast the phase).
 ZOO_CUTS = (("qwen3_0_6b", {}), ("zamba2_2_7b", {"attn_period": 2}),
-            ("falcon_mamba_7b", {}))
+            ("falcon_mamba_7b", {}), ("mixtral_8x22b", {"smoke": True}),
+            ("qwen3_moe_235b_a22b", {"smoke": True}),
+            ("moonshot_v1_16b_a3b", {"smoke": True}))
+ZOO_PREFILL_CUTS = (("moonshot_v1_16b_a3b", {}),)
 ZOO_CUT_SEQ = 256
 # Card against CPU on the cuts, by compute dtype: the prefill loss within
 # loss_abs, the final hidden states within hidden_rel_l2 normwise
@@ -460,7 +475,24 @@ CONTROLS_REJECTED = {"bfloat16": ("one_step_late",),
                      "float32": ("one_step_late", "halves_apart")}
 # The op each cut's control runs wrongly (its two sequence halves apart).
 ZOO_CONTROL_OP = {"qwen3_0_6b": "flash_attention", "zamba2_2_7b": "ssd_scan",
-                  "falcon_mamba_7b": "ssm_scan"}
+                  "falcon_mamba_7b": "ssm_scan",
+                  "mixtral_8x22b": "flash_attention",
+                  "qwen3_moe_235b_a22b": "flash_attention",
+                  "moonshot_v1_16b_a3b": "flash_attention"}
+# An MoE cut's card runs take the CPU's experts where their own router
+# nearly ties (_Routing): the largest gap log(p_k / p_{k+1}) between the
+# k-th and (k+1)-th probabilities at which they do.  bf16 moves a router's
+# logits by ~1e-3 at the smoke widths (the CPU tests' flips: 2.6e-4 to
+# 2.6e-3) and by ~1e-2 at moonshot's full width, where the hidden states
+# of card and CPU differ by ~1 % (ZOO_BARS' readings) and 64 experts'
+# logits sit ~0.05 apart.
+ROUTE_NEAR_TIE = 5e-2
+# The MoE cuts' planted controls, which the bars of both dtypes must
+# reject: every token's first two top-k weights exchanged (expert_swapped),
+# and the sliding window one key wider (window_wide).
+ZOO_MOE_CONTROLS = {"mixtral_8x22b": ("expert_swapped", "window_wide"),
+                    "qwen3_moe_235b_a22b": ("expert_swapped",),
+                    "moonshot_v1_16b_a3b": ("expert_swapped",)}
 # ssd_scan's rows in phase 6a, (B, S, H, P, N, chunk) and inputs: zamba2's
 # prefill and its cut, S not a multiple of the chunk, P not a multiple of
 # 16 at N 16 and chunk 64, zamba2's prefill at near-unit decay (a ≈ −1e-3,
@@ -3462,7 +3494,9 @@ def check_lm_kernels(torch, kref) -> list[dict]:
     # prefill shapes also run the planted-fault control.  The last two rows
     # are smollm_360m's full-length shape (H = 15, D = 64: the TMA strides)
     # and a window that is not a multiple of the 128-key tile (its lower
-    # edge masked off the diagonal).
+    # edge masked off the diagonal); then mixtral's prefill (S = 8192,
+    # window 4096) with its 48 heads cut to 8, so that the plain version's
+    # fp32 scores fit.
     for b, sq, sk, h, d, causal, window, dt in (
             (2, 4096, 4096, 16, 128, True, None, "bfloat16"),  # qwen3
             (1, 4096, 4096, 32, 80, True, None, "bfloat16"),   # zamba2
@@ -3476,7 +3510,8 @@ def check_lm_kernels(torch, kref) -> list[dict]:
             (1, 200, 700, 4, 80, True, None, "bfloat16"),      # Sq < Sk, D=80
             (2, 100, 100, 2, 128, False, None, "bfloat16"),    # non-causal
             (2, 4096, 4096, 15, 64, True, None, "bfloat16"),   # smollm, odd H
-            (1, 4096, 4096, 8, 128, True, 1000, "bfloat16")):  # window 1000
+            (1, 4096, 4096, 8, 128, True, 1000, "bfloat16"),   # window 1000
+            (1, 8192, 8192, 8, 128, True, 4096, "bfloat16")):  # mixtral
         dtype = getattr(torch, dt)
         q = torch.randn((b, sq, h, d), generator=gen, device="cuda").to(dtype)
         k = torch.randn((b, sk, h, d), generator=gen, device="cuda").to(dtype)
@@ -3601,7 +3636,12 @@ def check_lm_kernels(torch, kref) -> list[dict]:
 # one a slot) of SERVE_PROMPT tokens (drawn from
 # default_rng(0)) and SERVE_NEW new tokens; qwen3 also serves them sampled
 # at examples/continuous_batching.py's temperature 0.8 and top-k 40.
-SERVE_ARCHS = ("qwen3_0_6b", "zamba2_2_7b", "falcon_mamba_7b")
+SERVE_ARCHS = ("qwen3_0_6b", "zamba2_2_7b", "falcon_mamba_7b",
+               "mixtral_8x22b", "qwen3_moe_235b_a22b")
+# The MoE engines' depth, cut as their prefill runs' (ZOO_RUNS) so that the
+# fp32 params fit: mixtral 4 of 56 layers (its swa rings 4352 positions),
+# qwen3-moe 2 of 94.
+SERVE_LAYERS = {"mixtral_8x22b": 4, "qwen3_moe_235b_a22b": 2}
 SERVE_SLOTS = 8
 SERVE_MAX_SEQ = 32768
 SERVE_REQUESTS = 8
@@ -3627,7 +3667,10 @@ SERVE_BARS = {"float32": {"logits_rel": 2e-5, "cache_rel": 2e-5},
 # one position late, and the recurrent state not carried between steps.
 SERVE_CONTROLS = {"qwen3_0_6b": ("kv_one_late",),
                   "zamba2_2_7b": ("kv_one_late", "state_not_carried"),
-                  "falcon_mamba_7b": ("state_not_carried",)}
+                  "falcon_mamba_7b": ("state_not_carried",),
+                  "mixtral_8x22b": ("kv_one_late",),
+                  "qwen3_moe_235b_a22b": ("kv_one_late",),
+                  "moonshot_v1_16b_a3b": ("kv_one_late",)}
 # (d) decode against the prefill forward (its kernels) on the fp32 cuts at
 # S = 64, at the reference's own bar (tests/test_models_consistency.py).
 SERVE_PREFILL_SEQ = 64
@@ -3663,31 +3706,56 @@ def _profile_prefill(torch, step, params, batch, label: str) -> None:
                           "error": f"{type(exc).__name__}: {exc}"}))
 
 
+def _moe_work(cfg, tokens: int, wall: float) -> dict:
+    """An MoE config's expert SwiGLU work in one forward of ``tokens``
+    tokens (2 flops per FMA, three products a row): the dropless
+    dispatch's E·capacity rows against the T·k rows the router sends, and
+    the dispatch's rate over the forward's wall (an upper bound on the
+    experts' share); {} without MoE."""
+    from repro_torch.models.transformer import specs_for
+    m = specs_for(cfg)[2]
+    if m is None:
+        return {}
+    per_row = 6.0 * cfg.d_model * m.d_ff_expert * cfg.num_layers
+    dispatch = per_row * m.num_experts * m.capacity(tokens)
+    active = per_row * tokens * m.top_k
+    return {"moe_dispatch_tflop": dispatch / 1e12,
+            "moe_active_tflop": active / 1e12,
+            "moe_dispatch_over_active": dispatch / active,
+            "moe_dispatch_tflops_over_wall": dispatch / 1e12 / wall}
+
+
 def zoo_prefill(torch, kd) -> dict:
     """Phase 6b: ``make_prefill_step`` of each full-width config on the
     card, from random params drawn there, under inference_mode.  One
     untimed forward first (cuBLAS handles, first launches), then the
     counters are zeroed, one forward is timed on the host clock (ending in
     a synchronize), and the counters are read: each kernel must have
-    launched once per layer that runs it.  The qwen3 run is then profiled.
-    Each model is freed, and the garbage collector run, before the next
-    run's peak-memory reset (a reference cycle keeps a model's params
-    allocated until the collector runs).  Last, zamba2 is built again from
-    the same init and one forward profiled."""
+    launched once per layer that runs it.  The qwen3 and mixtral runs are
+    then profiled.  Each model is freed, and the garbage collector run,
+    before the next run's peak-memory reset (a reference cycle keeps a
+    model's params allocated until the collector runs).  Last, zamba2 is
+    built again from the same init and one forward profiled.  The configs
+    run at published widths, the MoE ones at ZOO_RUNS' depth; an MoE run
+    also prints its dropless dispatch work beside its active work
+    (_moe_work), and its two forwards must give the same loss bits."""
+    import dataclasses
     from repro_torch.configs import SHAPES, get_config
     from repro_torch.models.zoo import build_model
     from repro_torch.train.trainstep import make_prefill_step
     from repro_torch.tree import tree_leaves
     launches = {name: 0 for name in kd.LAUNCHES}
 
-    def setup(arch):
+    def setup(arch, layers=None):
         cfg = get_config(arch)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
         model = build_model(cfg)
         gen = torch.Generator(device="cuda").manual_seed(0)
         return cfg, model, gen
 
-    for arch, b, s, want in ZOO_RUNS:
-        cfg, model, gen = setup(arch)
+    for arch, b, s, want, layers in ZOO_RUNS:
+        cfg, model, gen = setup(arch, layers)
         step = make_prefill_step(model)
         # An earlier run's params stay allocated until the collector breaks
         # a reference cycle: collect first, so the peak is this run's.
@@ -3701,7 +3769,7 @@ def zoo_prefill(torch, kd) -> dict:
             init_s = time.perf_counter() - t0
             batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s),
                                              generator=gen, device="cuda")}
-            step(params, batch)
+            first = float(step(params, batch))
             torch.cuda.synchronize()
             kd.reset_launch_counts()
             t0 = time.perf_counter()
@@ -3712,24 +3780,31 @@ def zoo_prefill(torch, kd) -> dict:
             n_params = sum(x.numel() for x in tree_leaves(params))
             print(json.dumps({
                 "run": f"prefill {arch}", "layers": cfg.num_layers,
+                "published_layers": get_config(arch).num_layers,
                 "batch": b, "seq": s, "train_4k_seq":
                     SHAPES["train_4k"].seq_len, "params": n_params,
                 "compute_dtype": cfg.compute_dtype, "loss": loss,
                 "prefill_s": wall, "tokens_per_s": b * s / wall,
                 "init_s": init_s, "peak_memory_gb": peak / 2 ** 30,
-                "launches": counts, "want_launches": want}))
+                "launches": counts, "want_launches": want,
+                **_moe_work(cfg, b * s, wall),
+                **({"same_loss_twice": first == loss} if cfg.moe is not None
+                   else {})}))
+            if cfg.moe is not None and first != loss:
+                _fail(f"prefill {arch}: two forwards gave losses {first} "
+                      f"and {loss} (the MoE combine must be deterministic)")
             if not math.isfinite(loss):
                 _fail(f"prefill {arch}: loss {loss} is not finite")
             if counts != want:
                 _fail(f"prefill {arch}: launches {counts}, want {want}")
             for k, v in counts.items():
                 launches[k] += v
-            if arch == "qwen3_0_6b":
+            if arch in ("qwen3_0_6b", "mixtral_8x22b"):
                 _profile_prefill(torch, step, params, batch,
                                  f"{arch} B={b} S={s}")
         del params, batch
         torch.cuda.empty_cache()
-    arch, b, s, _ = next(r for r in ZOO_RUNS if r[0] == "zamba2_2_7b")
+    arch, b, s, _, _ = next(r for r in ZOO_RUNS if r[0] == "zamba2_2_7b")
     cfg, model, gen = setup(arch)
     step = make_prefill_step(model)
     with torch.inference_mode():
@@ -3782,61 +3857,147 @@ def _hidden_check(got, want, bars: dict) -> dict:
                    and float(err.max()) <= bars["hidden_max_abs"])}
 
 
+class _Routing:
+    """The MoE router's top-k choices of one run (the CPU's: ``record``),
+    handed to later runs (``follow``) at the tokens where their own choice
+    differs at a near tie: log(p_k / p_{k+1}) within ROUTE_NEAR_TIE.  In
+    bf16 one ulp of a router's input moves its logits by ~1e-3, and a token
+    routed to another expert differs by the size of its output; the
+    comparison holds everything else.  Calls are matched in order (the same
+    code path on both sides); ``followed`` counts the tokens handed over
+    since the last ``follow`` and ``max_gap`` the largest gap among them."""
+
+    def __init__(self, moe_lib):
+        self.real = moe_lib._top_k
+        self.calls: list = []
+        self.i = self.followed = 0
+        self.max_gap = 0.0
+
+    def record(self):
+        def top_k(a, k):
+            vals, idx = self.real(a, k)
+            self.calls.append(idx.cpu())
+            return vals, idx
+        return top_k
+
+    def follow(self):
+        import torch
+        self.i = self.followed = 0
+        self.max_gap = 0.0
+
+        def top_k(a, k):
+            vals, idx = self.real(a, k)
+            if self.i >= len(self.calls):
+                return vals, idx
+            want = self.calls[self.i].to(idx.device)
+            self.i += 1
+            top = torch.sort(a, dim=-1, descending=True).values
+            gap = torch.log(top[:, k - 1] / top[:, k])
+            differ = (torch.sort(idx, dim=-1).values
+                      != torch.sort(want, dim=-1).values).any(-1)
+            take = (gap <= ROUTE_NEAR_TIE) & differ
+            self.followed += int(take.sum())
+            if bool(take.any()):
+                self.max_gap = max(self.max_gap, float(gap[take].max()))
+            idx = torch.where(take[:, None], want, idx)
+            return torch.gather(a, -1, idx), idx
+        return top_k
+
+
+def _expert_swapped(torch, real):
+    """The MoE router's top-k with each token's first two weights exchanged
+    and its experts kept: a combine that weighs the experts the wrong way
+    round."""
+    def wrong(a, k):
+        vals, idx = real(a, k)
+        return torch.cat([vals[..., 1:2], vals[..., :1], vals[..., 2:]],
+                         dim=-1), idx
+    return wrong
+
+
+def _window_wide(op):
+    """flash_attention with its sliding window one key wider."""
+    def wrong(*args, window=None, **kw):
+        return op(*args, window=None if window is None else window + 1, **kw)
+    return wrong
+
+
 def zoo_card_vs_cpu(torch) -> None:
     """Phase 6c: a 2-layer cut of each full-width config (B = 1, S = 256)
-    on the card (its kernels) against the CPU (plain versions), from one
-    init drawn on the card, in the config's bf16 compute and in fp32
-    compute (where card and CPU differ only by fp32 sum orders): the
-    prefill loss and the final hidden states within ZOO_BARS.  Then two
-    controls on the card with the family's kernel op (ZOO_CONTROL_OP)
-    swapped for a wrong variant: its output one step late, and its
-    sequence halves run apart.  The bars must reject the controls named in
-    CONTROLS_REJECTED; the others' readings are printed (in bf16 a Mamba
-    state dropped at S/2 fades within a few steps, below the bf16 noise of
-    the final hidden states)."""
-    import dataclasses
+    and the MoE smoke configs (ZOO_CUTS, ZOO_PREFILL_CUTS) on the card (its
+    kernels) against the CPU (plain versions), from one init drawn on the
+    card, in the config's bf16 compute and in fp32 compute (where card and
+    CPU differ only by fp32 sum orders): the prefill loss and the final
+    hidden states within ZOO_BARS.  Then two controls on the card with the
+    family's kernel op (ZOO_CONTROL_OP) swapped for a wrong variant: its
+    output one step late, and its sequence halves run apart; and on an MoE
+    cut its ZOO_MOE_CONTROLS.  The bars must reject the controls named in
+    CONTROLS_REJECTED and every MoE control; the others' readings are
+    printed (in bf16 a Mamba state dropped at S/2 fades within a few
+    steps, below the bf16 noise of the final hidden states)."""
     from unittest import mock
-    from repro_torch.configs import get_config
     from repro_torch.kernels import ops
+    from repro_torch.models import moe as moe_lib
     from repro_torch.models import transformer as tf
     from repro_torch.models.zoo import build_model
     from repro_torch.train.trainstep import make_prefill_step
     from repro_torch.tree import tree_map
-    for (arch, extra), dtype in itertools.product(ZOO_CUTS, ZOO_BARS):
-        cfg = dataclasses.replace(get_config(arch), num_layers=2,
-                                  compute_dtype=dtype, **extra)
+    for (arch, extra), dtype in itertools.product(
+            ZOO_CUTS + ZOO_PREFILL_CUTS, ZOO_BARS):
+        cfg = _cut_config(arch, extra, dtype)
         model = build_model(cfg)
         gen = torch.Generator(device="cuda").manual_seed(1)
         op = ZOO_CONTROL_OP[arch]
-        out = {}
+        real = getattr(ops, op)
+        moe_controls = ZOO_MOE_CONTROLS.get(arch, ())
+        patches = {"one_step_late": [(ops, op, _one_step_late(torch, real))],
+                   "halves_apart": [(ops, op, _halves_apart(torch, real))],
+                   "window_wide": [(ops, "flash_attention",
+                                    _window_wide(ops.flash_attention))]}
+        # The CPU first: an MoE cut's card runs follow its near ties.
+        names = ("cpu", "card", "one_step_late", "halves_apart",
+                 *moe_controls)
+        routing = _Routing(moe_lib)
+        out, followed = {}, {}
         with torch.inference_mode():
             params = model.init(gen)
             tokens = torch.randint(0, cfg.vocab_size, (1, ZOO_CUT_SEQ),
                                    generator=gen, device="cuda")
-            variants = {"card": getattr(ops, op), "cpu": getattr(ops, op),
-                        "one_step_late": _one_step_late(torch, getattr(ops, op)),
-                        "halves_apart": _halves_apart(torch, getattr(ops, op))}
-            for where, variant in variants.items():
+            for where in names:
                 p = params if where != "cpu" else tree_map(
                     lambda x: x.cpu(), params)
                 t = tokens if where != "cpu" else tokens.cpu()
                 batch = {"tokens": t, "labels": torch.roll(t, -1, dims=1)}
-                with mock.patch.object(ops, op, variant):
+                with contextlib.ExitStack() as stack:
+                    for obj, attr, fn in patches.get(where, ()):
+                        stack.enter_context(mock.patch.object(obj, attr, fn))
+                    if cfg.moe is not None:
+                        top_k = (routing.record() if where == "cpu"
+                                 else routing.follow())
+                        if where == "expert_swapped":
+                            top_k = _expert_swapped(torch, top_k)
+                        stack.enter_context(mock.patch.object(
+                            moe_lib, "_top_k", top_k))
                     x = tf._embed_inputs(p, cfg, batch)
                     pos = torch.arange(ZOO_CUT_SEQ, device=t.device)[None]
                     hidden, _ = tf.forward_hidden(p, cfg, x, pos)
                     loss = float(make_prefill_step(model)(p, batch))
                 out[where] = (hidden.float().cpu(), loss)
+                followed[where] = [routing.followed, routing.max_gap]
+                del p
         bars = ZOO_BARS[dtype]
         check = _hidden_check(out["card"], out["cpu"], bars)
         controls = {name: {**_hidden_check(out[name], out["cpu"], bars),
-                           "must_fail": name in CONTROLS_REJECTED[dtype]}
-                    for name in ("one_step_late", "halves_apart")}
+                           "must_fail": (name in CONTROLS_REJECTED[dtype]
+                                         or name in moe_controls)}
+                    for name in names[2:]}
         print(json.dumps({
-            "check": f"card_vs_cpu prefill {arch} 2-layer cut {dtype}",
+            "check": f"card_vs_cpu prefill {cfg.name} 2-layer cut {dtype}",
             "plan": [[list(k), c] for k, c in tf.build_plan(cfg)],
             "loss": [out["card"][1], out["cpu"][1]], "bars": bars,
-            **check, "control_op": op, "controls": controls}))
+            **check, "control_op": op, "controls": controls,
+            **({"near_ties_followed_and_max_gap": followed}
+               if cfg.moe is not None else {})}))
         if not check["ok"]:
             _fail(f"card_vs_cpu prefill {arch} {dtype}: card and CPU "
                   f"disagree")
@@ -5194,7 +5355,9 @@ def _no_launches(kd, what: str) -> None:
 
 
 def _serve_engines(torch, kd, card: str) -> None:
-    """(a): the full-width engines, 8 slots of 32,768 positions."""
+    """(a): the full-width engines, 8 slots of 32,768 positions (the MoE
+    configs at SERVE_LAYERS' depth)."""
+    import dataclasses
     from repro_torch.configs import SHAPES, get_config
     from repro_torch.models.zoo import build_model
     from repro_torch.serving import Request, SamplerConfig, ServingEngine
@@ -5204,6 +5367,8 @@ def _serve_engines(torch, kd, card: str) -> None:
     params = model = None
     for arch, samp in runs:
         cfg = get_config(arch)
+        if arch in SERVE_LAYERS:
+            cfg = dataclasses.replace(cfg, num_layers=SERVE_LAYERS[arch])
         if model is None or model.cfg.name != cfg.name:
             params = model = None
             gc.collect()
@@ -5235,7 +5400,8 @@ def _serve_engines(torch, kd, card: str) -> None:
         ingested = sum(len(p) for p in prompts)
         first = step_s[0]
         step_s.sort()
-        line = {"serve": arch, "sampler": samp, "card": card,
+        line = {"serve": arch, "layers": cfg.num_layers,
+                "sampler": samp, "card": card,
                 "slots": SERVE_SLOTS, "max_seq": SERVE_MAX_SEQ,
                 "decode_32k": [shape.seq_len, shape.global_batch],
                 "requests": len(done), "prompt_tokens": ingested,
@@ -5314,8 +5480,15 @@ def _state_not_carried(real):
 
 
 def _cut_config(arch: str, extra: dict, dtype: str):
+    """A card-vs-CPU cut in ``dtype`` compute: 2 layers of the full-width
+    config with ``extra``'s changes, or the smoke config (2 layers) where
+    ``extra`` holds ``smoke``."""
     import dataclasses
-    from repro_torch.configs import get_config
+    from repro_torch.configs import get_config, get_smoke_config
+    extra = dict(extra)
+    if extra.pop("smoke", False):
+        return dataclasses.replace(get_smoke_config(arch),
+                                   compute_dtype=dtype, **extra)
     return dataclasses.replace(get_config(arch), num_layers=2,
                                compute_dtype=dtype, **extra)
 
@@ -5344,7 +5517,11 @@ def _rel_err(torch, got, want) -> float:
 
 def _serve_card_vs_cpu(torch, kd, card: str) -> None:
     """(c): the 2-layer cuts on the card against the CPU, from one init;
-    then the planted controls, which the same bars must reject."""
+    then the planted controls, which the same bars must reject.  An MoE
+    cut's card runs take the CPU's experts at its router's near ties
+    (_Routing)."""
+    from unittest import mock
+    from repro_torch.models import moe as moe_lib
     from repro_torch.models import ssm as ssm_lib
     from repro_torch.models.zoo import build_model
     from repro_torch.tree import tree_leaves, tree_map
@@ -5369,7 +5546,15 @@ def _serve_card_vs_cpu(torch, kd, card: str) -> None:
         tokens = prompt.cpu()
         want_cache = model.init_cache(p_cpu, b, steps)
         want = []
-        with torch.no_grad():
+        routing = _Routing(moe_lib)
+        moe = cfg.moe is not None
+
+        def follow():
+            return ([("repro_torch.models.moe._top_k", routing.follow())]
+                    if moe else [])
+
+        with torch.no_grad(), mock.patch.object(moe_lib, "_top_k",
+                                                routing.record()):
             for t in range(steps):
                 lg, want_cache = model.decode_step(
                     p_cpu, tokens[:, t:t + 1], want_cache, t)
@@ -5380,7 +5565,8 @@ def _serve_card_vs_cpu(torch, kd, card: str) -> None:
         want = torch.stack(want)
         kd.reset_launch_counts()
         got, got_cache = _teacher_forced(torch, model, params,
-                                         tokens.cuda())
+                                         tokens.cuda(), follow())
+        followed = [routing.followed, routing.max_gap]
         _no_launches(kd, f"decode {arch} cut")
         bars = SERVE_BARS[dtype]
         cache_err = max(_rel_err(torch, g.cpu(), w) for g, w in zip(
@@ -5391,14 +5577,17 @@ def _serve_card_vs_cpu(torch, kd, card: str) -> None:
         ok = logit_err <= bars["logits_rel"] and cache_err <= bars["cache_rel"]
         if dtype == "float32":
             ok = ok and agree == b * SERVE_GREEDY
-        line = {"check": f"serve card_vs_cpu {arch} 2-layer cut {dtype}",
+        line = {"check": f"serve card_vs_cpu {cfg.name} 2-layer cut {dtype}",
                 "card": card, "batch": b, "forced": SERVE_FORCED,
                 "greedy": SERVE_GREEDY, "bars": bars,
                 "logits_rel_err": logit_err, "cache_rel_err": cache_err,
-                "greedy_tokens_agree": agree, "ok": ok, "controls": {}}
+                "greedy_tokens_agree": agree, "ok": ok, "controls": {},
+                **({"near_ties_followed_and_max_gap": followed}
+                   if moe else {})}
         for name in SERVE_CONTROLS[arch]:
             bad, bad_cache = _teacher_forced(torch, model, params,
-                                             tokens.cuda(), controls[name]())
+                                             tokens.cuda(),
+                                             controls[name]() + follow())
             c_logit = _rel_err(torch, bad, want)
             c_cache = max(_rel_err(torch, g.cpu(), w) for g, w in zip(
                 tree_leaves(bad_cache), tree_leaves(want_cache)))
@@ -5448,7 +5637,7 @@ def _serve_decode_vs_prefill(torch, kd, card: str) -> None:
         _no_launches(kd, f"decode {arch} vs prefill")
         err = (got - want).abs()
         excess = float((err - SERVE_PREFILL_TOL * (1 + want.abs())).max())
-        line = {"check": f"serve decode_vs_prefill {arch} 2-layer cut "
+        line = {"check": f"serve decode_vs_prefill {cfg.name} 2-layer cut "
                          f"float32", "card": card, "batch": b, "seq": s,
                 "prefill_launches": kernels,
                 "max_abs_err": float(err.max()),
@@ -5500,7 +5689,7 @@ def _serve_engine_and_sampler(torch, kd, card: str) -> None:
                 last_logits = lg[:, -1]
         _no_launches(kd, f"engine {arch}")
         ok = got == alone
-        print(json.dumps({"check": f"serve engine slot reuse {arch} "
+        print(json.dumps({"check": f"serve engine slot reuse {cfg.name} "
                                    "2-layer cut float32", "card": card,
                           "slots": 2, "requests": len(prompts),
                           "engine_steps": eng.steps, "engine": got,
@@ -5647,7 +5836,7 @@ TRAIN_FALCON = {"arch": "falcon_mamba_7b", "layers": 8, "batch": 1,
 TRAIN_ZAMBA2 = {"arch": "zamba2_2_7b", "batch": 1, "seq": 4096, "steps": 3,
                 "peak_lr": 3e-4, "warmup": 1}
 # The card-against-CPU step of phase 8b, at each of these smoke configs.
-TRAIN_CARD_VS_CPU = ("qwen3_0_6b", "zamba2_2_7b")
+TRAIN_CARD_VS_CPU = ("qwen3_0_6b", "zamba2_2_7b", "mixtral_8x22b")
 # run_spmd_feddif's configs in phase 8d (their smoke configs).
 SPMD_ARCHS = ("smollm_360m", "zamba2_2_7b")
 # (1 round since the SSD backward's phase: 2 until then.)
@@ -6002,6 +6191,7 @@ def _zoo_launches(cfg, steps: int, remat: bool) -> dict:
     from repro_torch.models.transformer import build_plan
     fwd = 2 if remat else 1
     kernels = {"attn": (("flash_attention",), ("flash_attention_bwd",)),
+               "swa": (("flash_attention",), ("flash_attention_bwd",)),
                "shared": (("flash_attention",), ("flash_attention_bwd",)),
                "mamba1": (("ssm_scan",), ("ssm_scan_bwd",)),
                "mamba2": (("ssd_scan_state", "ssd_scan_pass", "ssd_scan"),

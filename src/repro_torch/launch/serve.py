@@ -16,7 +16,7 @@ with ``--seed``, or from the newest checkpoint under ``--ckpt-dir`` in the
 reference's format (either package's).  The prompts are ``torch.randint``
 draws, and sampling (``--temperature`` > 0) draws with the reference's
 threefry key ``PRNGKey(seed)``, split once per token.  The audio family
-(the encoder-decoder decode) is ROADMAP item A13d.
+(the encoder-decoder decode) is ROADMAP item A13d-3.
 """
 from __future__ import annotations
 
@@ -59,7 +59,7 @@ def main(argv: list[str] | None = None) -> None:
     if cfg.family == "audio":
         raise NotImplementedError(
             "serving the audio family (encoder-decoder decode, cross "
-            "attention) is queued as ROADMAP item A13d")
+            "attention) is queued as ROADMAP item A13d-3")
     device = resolve_device(args.device)
     model = build_model(cfg)
     gen = torch.Generator(device=device).manual_seed(args.seed)

@@ -16,7 +16,7 @@ products are cuBLAS batched GEMMs over each row's cache, read in place.
 Unlike the reference's functional update, the new K/V are written into the
 cache in place.
 
-Not ported yet: cross-attention (the audio family; ROADMAP A13d).
+Not ported yet: cross-attention (the audio family; ROADMAP A13d-3).
 """
 from __future__ import annotations
 
@@ -99,7 +99,7 @@ def attn_forward(p: Params, spec: AttnSpec, x: torch.Tensor,
     if context is not None:
         raise NotImplementedError(
             "cross-attention (the audio family) is queued as ROADMAP item "
-            "A13d")
+            "A13d-3")
     b, s, _ = x.shape
     q, k, v = _project_qkv(p, spec, x, positions)
     g = spec.q_groups

@@ -14,13 +14,15 @@ graph: ``torch.func.grad`` differentiates with ``create_graph=True``, and a
 recompute recorded into that graph would keep every layer's activations
 alive until the end, more than no remat at all.  The floating-point
 arguments are differentiated, the others (token ids, positions) are
-constants.  ``generate_vmap_rule`` lets ``torch.func.vmap`` batch the
-whole thing, so a checkpointed layer runs under the fleet plane's vmap and
-the kernels inside it still see one folded batch.
+constants.  ``fn`` returns one tensor or a tuple of them (an MoE body
+returns its hidden states and its running aux loss).
+``generate_vmap_rule`` lets ``torch.func.vmap`` batch the whole thing, so a
+checkpointed layer runs under the fleet plane's vmap and the kernels inside
+it still see one folded batch.
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Any, Callable
 
 import torch
 from torch.autograd import Function
@@ -39,10 +41,11 @@ class _Checkpoint(Function):
     def setup_context(ctx, inputs, output):
         fn, diff_at, *args = inputs
         ctx.fn, ctx.diff_at, ctx.n_args = fn, diff_at, len(args)
+        ctx.multi = isinstance(output, tuple)
         ctx.save_for_backward(*args)
 
     @staticmethod
-    def backward(ctx, grad):
+    def backward(ctx, *grads):
         args = list(ctx.saved_tensors)
 
         def part(*diff):
@@ -56,17 +59,16 @@ class _Checkpoint(Function):
         # recomputed activation (no double differentiation through here).
         with torch.no_grad():
             _, pull = torch.func.vjp(part, *(args[i] for i in ctx.diff_at))
-            pulled = pull(grad)
+            pulled = pull(grads if ctx.multi else grads[0])
         grads = [None] * ctx.n_args
         for i, g in zip(ctx.diff_at, pulled):
             grads[i] = g
         return (None, None, *grads)
 
 
-def checkpoint(fn: Callable[..., torch.Tensor],
-               *args: torch.Tensor) -> torch.Tensor:
-    """``fn(*args)`` (one tensor out), its intermediates recomputed in the
-    backward instead of saved."""
+def checkpoint(fn: Callable[..., Any], *args: torch.Tensor) -> Any:
+    """``fn(*args)`` (a tensor or a tuple of tensors out), its
+    intermediates recomputed in the backward instead of saved."""
     diff_at = tuple(i for i, a in enumerate(args)
                     if torch.is_floating_point(a))
     return _Checkpoint.apply(fn, diff_at, *args)

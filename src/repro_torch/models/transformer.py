@@ -11,11 +11,16 @@ single-token decode (:func:`init_cache`, :func:`decode_step`) alike.  With
 (the reference's ``jax.checkpoint`` of its scan body): the backward
 recomputes the body's activations instead of keeping them.
 
-Layer kinds ported: ``attn`` (full-causal GQA attention + SwiGLU),
-``mamba1``, ``mamba2`` and ``shared`` (the hybrid's one attention + MLP
-block, ``params["shared_block"]``, reused at every occurrence).  The MoE
-MLP, ``swa`` (sliding window) and the local/global pattern raise
-:class:`NotImplementedError` naming ROADMAP item A13d.
+Layer kinds ported: ``attn`` (full-causal GQA attention + MLP), ``swa``
+(sliding-window GQA attention + MLP; its decode cache a ring), ``mamba1``,
+``mamba2`` and ``shared`` (the hybrid's one attention + MLP block,
+``params["shared_block"]``, reused at every occurrence).  The MLP of an
+``attn`` or ``swa`` layer is the MoE (:mod:`repro_torch.models.moe`) when
+the config has one, else SwiGLU; the MoE's load-balance loss is summed over
+the layers and returned beside the hidden states.  The local/global
+pattern (gemma3), head dims the attention kernels do not take, and the
+vision and audio families raise :class:`NotImplementedError` naming
+ROADMAP item A13d-2 or A13d-3.
 """
 from __future__ import annotations
 
@@ -23,8 +28,12 @@ from typing import Any
 
 import torch
 
+import dataclasses
+
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.flash_attention import HEAD_DIM_MAX
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.attention import (AttnSpec, attn_decode,
                                           attn_forward, init_attention,
@@ -42,16 +51,23 @@ Segment = tuple[tuple[str, ...], int]
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for the families and layer kinds this slice does not port."""
-    what = None
-    if cfg.family in ("audio", "vlm") or cfg.frontend is not None:
+    what = item = None
+    if cfg.family == "audio":
+        what, item = "the audio family (encoder-decoder)", "A13d-3"
+    elif cfg.family == "vlm" or cfg.frontend is not None:
         what = f"the {cfg.family} family ({cfg.frontend} frontend)"
-    elif cfg.moe is not None:
-        what = "the MoE family"
-    elif cfg.sliding_window or cfg.local_global_ratio:
-        what = "sliding-window and local/global attention (swa)"
+        item = "A13d-2"
+    elif cfg.local_global_ratio:
+        what, item = "the local/global attention pattern", "A13d-2"
+    elif cfg.resolved_head_dim > HEAD_DIM_MAX and any(
+            kind in ("attn", "swa", "shared")
+            for kinds, _ in build_plan(cfg) for kind in kinds):
+        what = (f"head_dim {cfg.resolved_head_dim} (the attention kernels "
+                f"take at most {HEAD_DIM_MAX})")
+        item = "A13d-2"
     if what is not None:
         raise NotImplementedError(
-            f"{cfg.name}: {what} is queued as ROADMAP item A13d")
+            f"{cfg.name}: {what} is queued as ROADMAP item {item}")
 
 
 def build_plan(cfg: ModelConfig) -> list[Segment]:
@@ -81,8 +97,9 @@ def build_plan(cfg: ModelConfig) -> list[Segment]:
 
 
 def specs_for(cfg: ModelConfig):
-    """Attention and SSM specs of a ModelConfig: ``(attn, m1, m2)`` (the
-    reference's windowed ``swa`` spec and MoE spec are A13d)."""
+    """Attention / MoE / SSM specs of a ModelConfig: ``(attn, swa, moe, m1,
+    m2)``; ``swa`` is ``attn`` with the window ``cfg.sliding_window or
+    4096``, ``moe`` None without an MoE config."""
     cd = L.torch_dtype(cfg.compute_dtype)
     attn = AttnSpec(
         d_model=cfg.d_model, num_heads=cfg.num_heads,
@@ -90,6 +107,16 @@ def specs_for(cfg: ModelConfig):
         qk_norm=cfg.qk_norm, rope_theta=cfg.rope_theta,
         use_rope=cfg.family != "audio", causal=True, window=None,
         norm_eps=cfg.norm_eps, compute_dtype=cd)
+    swa = dataclasses.replace(attn, window=cfg.sliding_window or 4096)
+    moe = None
+    if cfg.moe is not None:
+        moe = moe_lib.MoESpec(
+            d_model=cfg.d_model, num_experts=cfg.moe.num_experts,
+            top_k=cfg.moe.top_k, d_ff_expert=cfg.moe.d_ff_expert,
+            capacity_factor=cfg.moe.capacity_factor,
+            router_aux_coef=cfg.moe.router_aux_coef,
+            num_shared_experts=cfg.moe.num_shared_experts,
+            dropless=cfg.moe.dropless, compute_dtype=cd)
     m1 = m2 = None
     if cfg.ssm is not None:
         if cfg.ssm.version == 1:
@@ -103,21 +130,26 @@ def specs_for(cfg: ModelConfig):
                 d_conv=cfg.ssm.d_conv, expand=cfg.ssm.expand,
                 head_dim=cfg.ssm.head_dim, chunk=cfg.ssm.chunk,
                 compute_dtype=cd)
-    return attn, m1, m2
+    return attn, swa, moe, m1, m2
 
 
 # ------------------------------------------------------------------ init
 
 def _init_layer(gen: torch.Generator, kind: str, cfg: ModelConfig,
                 stack: tuple = ()) -> Params:
-    attn, m1, m2 = specs_for(cfg)
+    attn, swa, moe, m1, m2 = specs_for(cfg)
     dev = gen.device
-    if kind in ("attn", "shared"):
-        return {"ln1": L.init_rmsnorm(cfg.d_model, stack, dev),
-                "attn": init_attention(gen, attn, stack),
-                "ln2": L.init_rmsnorm(cfg.d_model, stack, dev),
-                "mlp": L.init_swiglu(gen, cfg.d_model,
-                                     cfg.d_ff or 4 * cfg.d_model, stack)}
+    if kind in ("attn", "swa", "shared"):
+        p = {"ln1": L.init_rmsnorm(cfg.d_model, stack, dev),
+             "attn": init_attention(gen, swa if kind == "swa" else attn,
+                                    stack),
+             "ln2": L.init_rmsnorm(cfg.d_model, stack, dev)}
+        if moe is not None and kind != "shared":
+            p["moe"] = moe_lib.init_moe(gen, moe, stack)
+        else:
+            p["mlp"] = L.init_swiglu(gen, cfg.d_model,
+                                     cfg.d_ff or 4 * cfg.d_model, stack)
+        return p
     if kind == "mamba1":
         return {"ln": L.init_rmsnorm(cfg.d_model, stack, dev),
                 "mamba": ssm_lib.init_mamba1(gen, m1, stack)}
@@ -153,19 +185,25 @@ def init_lm(gen: torch.Generator, cfg: ModelConfig) -> Params:
 # ------------------------------------------------------------------ forward
 
 def _apply_layer(p: Params, kind: str, cfg: ModelConfig, x: torch.Tensor,
-                 positions: torch.Tensor | None) -> torch.Tensor:
-    attn, m1, m2 = specs_for(cfg)
-    if kind in ("attn", "shared"):
-        x = x + attn_forward(p["attn"], attn,
+                 positions: torch.Tensor | None
+                 ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """One layer: ``(x, aux)``, aux the MoE's load-balance loss or None."""
+    attn, swa, moe, m1, m2 = specs_for(cfg)
+    if kind in ("attn", "swa", "shared"):
+        spec = swa if kind == "swa" else attn
+        x = x + attn_forward(p["attn"], spec,
                              L.rmsnorm(p["ln1"], x, cfg.norm_eps), positions)
         h = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
-        return x + L.swiglu(p["mlp"], h, attn.compute_dtype)
+        if "moe" in p:
+            y, aux = moe_lib.moe_forward(p["moe"], moe, h)
+            return x + y, aux
+        return x + L.swiglu(p["mlp"], h, spec.compute_dtype), None
     if kind == "mamba1":
         return x + ssm_lib.mamba1_forward(
-            p["mamba"], m1, L.rmsnorm(p["ln"], x, cfg.norm_eps))
+            p["mamba"], m1, L.rmsnorm(p["ln"], x, cfg.norm_eps)), None
     if kind == "mamba2":
         return x + ssm_lib.mamba2_forward(
-            p["mamba"], m2, L.rmsnorm(p["ln"], x, cfg.norm_eps))
+            p["mamba"], m2, L.rmsnorm(p["ln"], x, cfg.norm_eps)), None
     raise ValueError(kind)
 
 
@@ -186,44 +224,58 @@ def _unstack(stacked: Params, count: int) -> list[Params]:
 
 
 def _body(cfg: ModelConfig, kinds: tuple, layer: Params, shared: Params,
-          x: torch.Tensor, positions: torch.Tensor | None) -> torch.Tensor:
-    """One repeat of a segment's kinds."""
+          x: torch.Tensor, positions: torch.Tensor | None,
+          aux: torch.Tensor | None = None):
+    """One repeat of a segment's kinds: x, or ``(x, aux)`` when ``aux`` (the
+    running MoE loss, carried as the reference's scan carries it) is
+    given."""
     for pi, kind in enumerate(kinds):
         p = shared if kind == "shared" else layer[f"{pi}_{kind}"]
-        x = _apply_layer(p, kind, cfg, x, positions)
-    return x
+        x, a = _apply_layer(p, kind, cfg, x, positions)
+        if a is not None:
+            aux = aux + a
+    return x if aux is None else (x, aux)
 
 
 def _remat_body(cfg: ModelConfig, kinds: tuple, layer: Params,
                 shared: Params, x: torch.Tensor,
-                positions: torch.Tensor | None) -> torch.Tensor:
-    """:func:`_body` as one checkpoint: its inputs are x, the positions and
-    the body's params, nothing captured."""
+                positions: torch.Tensor | None,
+                aux: torch.Tensor | None = None):
+    """:func:`_body` as one checkpoint: its inputs are x, the positions, the
+    running aux and the body's params, nothing captured."""
     leaves, treedef = tree_flatten((layer, shared))
-    has_pos = positions is not None
+    extra = tuple(a for a in (positions, aux) if a is not None)
+    has_pos, has_aux = positions is not None, aux is not None
 
     def fn(x, *rest):
         pos = rest[0] if has_pos else None
-        layer_, shared_ = tree_unflatten(treedef, list(rest[has_pos:]))
-        return _body(cfg, kinds, layer_, shared_, x, pos)
+        a = rest[has_pos] if has_aux else None
+        layer_, shared_ = tree_unflatten(treedef, list(rest[len(extra):]))
+        return _body(cfg, kinds, layer_, shared_, x, pos, a)
 
-    return checkpoint(fn, x, *((positions,) if has_pos else ()), *leaves)
+    return checkpoint(fn, x, *extra, *leaves)
 
 
 def forward_hidden(params: Params, cfg: ModelConfig, x: torch.Tensor,
                    positions: torch.Tensor | None = None, *,
                    remat: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
-    """Embedded inputs (B,S,D) -> final hidden (B,S,D), aux loss (0: no
-    MoE).  ``remat`` checkpoints each layer body: the backward recomputes
-    its activations (under ``torch.func`` transforms and ``vmap`` too)."""
+    """Embedded inputs (B,S,D) -> final hidden (B,S,D), aux loss (the MoE
+    layers' load-balance losses summed; 0 without MoE).  ``remat``
+    checkpoints each layer body: the backward recomputes its activations
+    (under ``torch.func`` transforms and ``vmap`` too)."""
     check_supported(cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    moe = cfg.moe is not None
     for seg_p, (kinds, count) in zip(params["segments"], build_plan(cfg)):
         shared = params["shared_block"] if "shared" in kinds else {}
         body = _remat_body if remat else _body
         for layer in _unstack(seg_p, count):
-            x = body(cfg, kinds, layer, shared, x, positions)
+            if moe:
+                x, aux = body(cfg, kinds, layer, shared, x, positions, aux)
+            else:
+                x = body(cfg, kinds, layer, shared, x, positions)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
 
 
 def _embed_inputs(params: Params, cfg: ModelConfig,
@@ -259,10 +311,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
     one dict per segment of ``{"{i}_{kind}": cache}`` with every leaf
     stacked on the segment's leading count axis.  An ``attn`` or
     ``shared`` layer holds a KV cache of ``max_seq`` positions in
-    ``compute_dtype`` (a ``shared`` block one per occurrence); a Mamba
-    layer its fp32 conv history and state."""
+    ``compute_dtype`` (a ``shared`` block one per occurrence); an ``swa``
+    layer a ring of ``min(ceil((window + 1) / 256)·256, max_seq)``
+    positions (it only reads the last ``window``); a Mamba layer its fp32
+    conv history and state."""
     check_supported(cfg)
-    attn, m1, m2 = specs_for(cfg)
+    attn, swa, _, m1, m2 = specs_for(cfg)
     segs = []
     for kinds, count in build_plan(cfg):
         seg: Params = {}
@@ -270,6 +324,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
             if kind in ("attn", "shared"):
                 one = init_kv_cache(attn, count * batch, max_seq,
                                     device=device)
+            elif kind == "swa":
+                ring = min(-(-(swa.window + 1) // 256) * 256, max_seq)
+                one = init_kv_cache(swa, count * batch, ring, device=device)
             elif kind == "mamba1":
                 one = ssm_lib.init_mamba1_cache(m1, count * batch, device)
             elif kind == "mamba2":
@@ -290,9 +347,10 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
 
     Returns (logits (B, 1, V) fp32, cache).  The cache is updated in
     place (the reference returns a new one): each layer writes its new K/V
-    or state into its slice of the stacked leaves."""
+    or state into its slice of the stacked leaves; an ``swa`` layer writes
+    its ring at ``pos mod length``.  An MoE layer's aux loss is dropped."""
     check_supported(cfg)
-    attn, m1, m2 = specs_for(cfg)
+    attn, swa, moe, m1, m2 = specs_for(cfg)
     cd = L.torch_dtype(cfg.compute_dtype)
     x = L.embed(params["embed"], tokens, cd)
     eps = cfg.norm_eps
@@ -303,14 +361,16 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             for pi, kind in enumerate(kinds):
                 name = f"{pi}_{kind}"
                 c = _layer(seg_c[name], i)
-                if kind in ("attn", "shared"):
+                if kind in ("attn", "swa", "shared"):
                     p = (params["shared_block"] if kind == "shared"
                          else _layer(seg_p[name], i))
-                    y, _ = attn_decode(p["attn"], attn,
-                                       L.rmsnorm(p["ln1"], x, eps), c, pos)
+                    y, _ = attn_decode(p["attn"], swa if kind == "swa"
+                                       else attn, L.rmsnorm(p["ln1"], x, eps),
+                                       c, pos, ring=kind == "swa")
                     x = x + y
-                    x = x + L.swiglu(p["mlp"], L.rmsnorm(p["ln2"], x, eps),
-                                     cd)
+                    h = L.rmsnorm(p["ln2"], x, eps)
+                    x = x + (moe_lib.moe_forward(p["moe"], moe, h)[0]
+                             if "moe" in p else L.swiglu(p["mlp"], h, cd))
                 else:
                     p = _layer(seg_p[name], i)
                     step = (ssm_lib.mamba1_decode if kind == "mamba1"

@@ -6,9 +6,10 @@ params on the generator's device, ``loss(params, batch)`` is the
 full-context (train / prefill) forward, ``init_cache(params, batch,
 max_seq)`` allocates the decode cache on the params' device and
 ``decode_step(params, tokens, cache, pos)`` decodes one token, updating the
-cache in place.  This slice ports the dense (``attn`` layers), ssm
-(``mamba1``) and hybrid (``mamba2`` + ``shared``) families; the MoE,
-sliding-window, local/global, vision and audio families raise at
+cache in place.  The dense (``attn`` layers), MoE (``attn`` or ``swa``
+layers with the MoE MLP: mixtral, qwen3-moe, moonshot), ssm (``mamba1``)
+and hybrid (``mamba2`` + ``shared``) families are ported; the local/global
+pattern (gemma3), the vision and the audio families raise at
 :func:`build_model` naming ROADMAP item A13d.
 
 Params and caches keep the reference's tree layouts, so

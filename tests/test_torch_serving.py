@@ -9,16 +9,17 @@
   softmax and cumulative sum bit for bit as well);
 * every contract of ``tests/test_serving.py`` on the port;
 * the port's ``ServingEngine`` against the reference's, token for token
-  from the reference's params: qwen3 and smollm greedy and sampled; the
-  Mamba families on the requests that reuse no slot;
+  from the reference's params: qwen3, smollm and the MoE configs
+  (mixtral's ``swa`` rings) greedy and sampled; the Mamba families on the
+  requests that reuse no slot;
 * the reference's slot-reuse defect pinned: on falcon-mamba-smoke and
   zamba2-smoke its engine's request 2, the first to take a used slot,
   diverges from that request decoded alone; the port's engine, which zeroes
   the slot's recurrent state on admission, equals unbatched greedy decode
   for every family;
 * ``python -m repro_torch.launch.serve`` with ``--smoke --device cpu``,
-  fresh and restoring a checkpoint the reference wrote, and the refusals
-  without a GPU.
+  fresh (qwen3 and the MoE configs) and restoring a checkpoint the
+  reference wrote, and the refusals without a GPU.
 """
 import dataclasses
 import functools
@@ -45,7 +46,8 @@ from repro_torch.serving import Request, SamplerConfig, ServingEngine, sample
 from repro_torch.serving.sampler import _softmax
 
 SEEDS = range(5)
-PORTED = ["qwen3_0_6b", "smollm_360m", "zamba2_2_7b", "falcon_mamba_7b"]
+PORTED = ["qwen3_0_6b", "smollm_360m", "zamba2_2_7b", "falcon_mamba_7b",
+          "mixtral_8x22b", "qwen3_moe_235b_a22b", "moonshot_v1_16b_a3b"]
 SAMPLERS = [dict(temperature=0.0), dict(temperature=0.8),
             dict(temperature=1.0, top_k=40), dict(temperature=0.7, top_p=0.9),
             dict(temperature=0.8, top_k=40, top_p=0.9),
@@ -285,7 +287,8 @@ def test_engine_matches_reference_engine(arch, sampler_kw):
     _, want, want_steps = _reference_engine(arch, sampler_kw)
     _, _, got, steps = _port_engine(arch, sampler_kw)
     assert steps == want_steps
-    uids = (0, 1, 2) if arch in ("qwen3_0_6b", "smollm_360m") else (0, 1)
+    uids = ((0, 1) if arch in ("falcon_mamba_7b", "zamba2_2_7b")
+            else (0, 1, 2))
     assert {u: got[u] for u in uids} == {u: want[u] for u in uids}
 
 
@@ -351,6 +354,18 @@ def test_serve_cli_fresh_on_cpu(capsys):
     assert "arch=qwen3-smoke batch=2 context=8" in out
     assert "tok/s/seq" in out and "tok/s aggregate (6 new tokens/seq)" in out
     cfg = get_smoke_config("qwen3_0_6b")
+    params = build_model(cfg).init(torch.Generator().manual_seed(0))
+    assert _sample_ids(out) == _cli_expected_ids(cfg, params, 2, 8, 6, 0)
+
+
+@pytest.mark.parametrize("arch", ["mixtral_8x22b", "qwen3_moe_235b_a22b",
+                                  "moonshot_v1_16b_a3b"])
+def test_serve_cli_moe_smoke_on_cpu(arch, capsys):
+    serve.main(["--arch", arch, "--smoke", "--device", "cpu", "--batch", "2",
+                "--context", "8", "--new-tokens", "6", "--temperature", "0"])
+    out = capsys.readouterr().out
+    cfg = get_smoke_config(arch)
+    assert f"arch={cfg.name} batch=2 context=8" in out
     params = build_model(cfg).init(torch.Generator().manual_seed(0))
     assert _sample_ids(out) == _cli_expected_ids(cfg, params, 2, 8, 6, 0)
 

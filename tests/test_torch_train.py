@@ -270,7 +270,7 @@ def test_accum_steps_two_matches_one():
         two(s1, batch)
 
 
-@pytest.mark.parametrize("arch", [ARCH, "zamba2_2_7b"])
+@pytest.mark.parametrize("arch", [ARCH, "zamba2_2_7b", "mixtral_8x22b"])
 def test_train_step_vmaps_over_clients(arch):
     cfg = dataclasses.replace(get_smoke_config(arch), compute_dtype="float32")
     model = build_model(cfg)

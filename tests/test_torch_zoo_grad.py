@@ -2,8 +2,11 @@
 
 * ``torch.func.grad`` of the port's ``lm_loss`` (remat on) against
   ``jax.grad`` of the reference's ``model.loss`` at qwen3-smoke,
-  smollm-smoke, falcon-mamba-smoke and zamba2-smoke (its ``mamba2`` layers
-  through ``ssd_scan``), from the reference's init carried across with
+  smollm-smoke, falcon-mamba-smoke, zamba2-smoke (its ``mamba2`` layers
+  through ``ssd_scan``) and the MoE smoke configs (mixtral's ``swa``
+  layers; each body's running aux loss carried through remat's
+  checkpoint; in bf16 the reference's experts at near ties,
+  ``tests/test_torch_moe.py``), from the reference's init carried across with
   ``params_from_numpy``.  Per leaf, max|Δg| / max|g| and ‖Δg‖ / ‖g‖.
   ``compute_dtype="float32"``: within 2e-3 and 5e-4 (measured ≤ 3.2e-4
   and ≤ 9.1e-5; the readout is bf16 in both packages, its rounding lands
@@ -34,6 +37,7 @@
   on the CPU) widening bf16 at a head dim the tensor-core kernel does not
   take to the fp32 kernels.
 """
+import contextlib
 import dataclasses
 import functools
 
@@ -53,8 +57,10 @@ from repro_torch.kernels import ref as tref
 from repro_torch.models import transformer as ttf
 from repro_torch.models.zoo import build_model, params_from_numpy
 from repro_torch.tree import tree_leaves, tree_map
+from test_torch_moe import capture_reference_routing, follow_reference_routing
 
-ARCHS = ["qwen3_0_6b", "smollm_360m", "falcon_mamba_7b", "zamba2_2_7b"]
+ARCHS = ["qwen3_0_6b", "smollm_360m", "falcon_mamba_7b", "zamba2_2_7b",
+         "mixtral_8x22b", "qwen3_moe_235b_a22b", "moonshot_v1_16b_a3b"]
 BATCH, SEQ = 2, 24
 GRAD_BARS = {"float32": (2e-3, 5e-4), "bfloat16": (0.1, 0.05)}
 
@@ -77,15 +83,17 @@ def _batch(vocab):
 
 @functools.lru_cache(maxsize=None)
 def _reference(arch, dtype):
-    """The reference's params, loss and gradients (numpy)."""
+    """The reference's params, loss and gradients (numpy), and the experts
+    its MoE layers chose (an empty list without MoE)."""
     jcfg = dataclasses.replace(j_get_smoke(arch), compute_dtype=dtype)
     model = j_build(jcfg)
     params = model.init(jax.random.PRNGKey(0))
     batch = {k: jnp.asarray(v) for k, v in _batch(jcfg.vocab_size).items()}
-    loss, grads = jax.value_and_grad(
-        lambda p: model.loss(p, batch, remat=False))(params)
+    (loss, grads), routings = capture_reference_routing(
+        lambda: jax.value_and_grad(
+            lambda p: model.loss(p, batch, remat=False))(params))
     to_np = functools.partial(jax.tree.map, lambda x: np.asarray(x))
-    return to_np(params), float(loss), to_np(grads)
+    return to_np(params), float(loss), to_np(grads), routings
 
 
 def _port(arch, dtype):
@@ -100,12 +108,21 @@ def _tbatch(vocab):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("arch", ARCHS)
 def test_grad_matches_reference(arch, dtype):
-    params_np, want_loss, want_grads = _reference(arch, dtype)
+    params_np, want_loss, want_grads, routings = _reference(arch, dtype)
     model, cfg = _port(arch, dtype)
     batch = _tbatch(cfg.vocab_size)
-    grads, loss = grad_and_value(
-        lambda p: model.loss(p, batch, remat=True))(
-            params_from_numpy(params_np))
+    # bf16 MoE: the reference's experts where the router nearly ties
+    # (tests/test_torch_moe.py); the forward and remat's recompute alike.
+    follow = dtype == "bfloat16" and cfg.moe is not None
+    with (follow_reference_routing(routings) if follow
+          else contextlib.nullcontext([])) as flips:
+        grads, loss = grad_and_value(
+            lambda p: model.loss(p, batch, remat=True))(
+                params_from_numpy(params_np))
+    # Near ties are rare: at most 10 % of a call's tokens (measured: 2 of
+    # 48 in qwen3-moe-smoke's second layer, in the forward and its
+    # recompute).
+    assert max(flips, default=0) <= 0.1 * BATCH * SEQ, flips
     loss_tol = 2e-5 if dtype == "float32" else 3e-3
     assert abs(float(loss) - want_loss) <= loss_tol
     max_bar, l2_bar = GRAD_BARS[dtype]
