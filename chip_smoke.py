@@ -260,40 +260,51 @@ nothing of JAX.  Phases, each of which fails loudly:
    ``planner_speedup`` cells: exact hop-list agreement is printed, and the
    plans must be equivalent (same rounds, same hop count, total Eq.-17
    decrement within 1e-6 relative);
-5. a measurement, not a check: one FedDif round with each planner, one on
-   the host plane, one gossip round on the fleet plane and one of the lm
-   int8 arm, under ``torch.profiler`` with device activity alone (the
-   feddif_stc and int8-hop rounds
-   of each plane left the phase to make room for phase 8: their kernels
-   run, and are checked, in phases 3–4; ``profile_round`` still takes
-   them)
-   (device busy time,
-   idle share, kernel count, top kernels);
+5. a measurement, not a check: one FedDif round with each planner and
+   one gossip round on the fleet plane, under ``torch.profiler`` with
+   device activity alone (the feddif_stc and int8-hop rounds of each plane
+   left the phase to make room for phase 8, the host-plane and lm int8
+   rounds for gemma3's and pixtral's phases: their kernels run, and are
+   checked, in phases 3–4; ``profile_round`` still takes them) (device
+   busy time, idle share, kernel count, top kernels);
 6. the LM zoo's prefill forward at the published widths: flash_attention,
    ssm_scan and ssd_scan against their plain versions on the card (at the
    zoo's shapes and a few more: bf16 and fp32, a window, Sq < Sk, D = 80,
-   smollm_360m's (2, 4096, 15, 64), a 1000-key window at S = 4096, a
+   smollm_360m's (2, 4096, 15, 64), a 1000-key window at S = 4096,
+   mixtral's 4096-key window at S = 8192, gemma3's D = 256 at
+   (1, 8192, 8, 256) causal and with its 1,024-key window and pixtral's
+   D = 160 at (1, 5120, 32, 160), bf16 and fp32, each row's route read
+   from the library's launch counts, a
    ragged chunk, a ragged channel block; ssd_scan also at near-unit decay
    and two odd shapes, P 72 / N 128 and P 18 / N 9 / chunk 48), with
    attention held per element against its row's scale and normwise, and
-   a planted fault (one kv tile dropped for the rows past S/2) that the
-   attention bars must reject; at every attention row the output with
+   a planted fault (one kv tile dropped for the rows past S/2; at D = 160
+   the third 64-column chunk of the head dim dropped from the scores)
+   that the attention bars must reject; at every attention row the
+   output with
    ``return_lse=True`` bit-equal to the one without, and the row
    log-sum-exp within LSE_BAR of ``torch.logsumexp``'s; every ssd_scan row must give the same bits
    on two calls, and at near-unit decay a planted fault (the carried state
    applied one chunk late) must fail its bar; then ``make_prefill_step``
    of qwen3_0_6b (28 layers, B = 2,
    S = 4096), zamba2_2_7b (54 mamba2 + 9 shared attention, B = 1,
-   S = 4096) and falcon_mamba_7b (64 mamba1 layers, B = 1, S = 4096) from
+   S = 4096), falcon_mamba_7b (64 mamba1 layers, B = 1, S = 4096), the
+   MoE configs at cut depths, gemma3_4b (34 layers, B = 1, S = 32,768: 29
+   windowed launches) and pixtral_12b (40 layers, B = 1, 1,024 seeded
+   patch embeddings ahead of 4,096 text tokens) from
    random params drawn on the card, one after another, under
    ``torch.inference_mode()``: loss finite, prefill tokens/s, peak memory
    (the garbage collector run before each reset),
-   and each kernel launched exactly once per layer that runs it; a 2-layer
-   cut of each config at B = 1, S = 256 on the card against the CPU (plain
+   and each kernel launched exactly once per layer that runs it, through
+   its head dim's instance; a 2-layer
+   cut of each config at B = 1, S = 256 (gemma3 with local_global_ratio 1
+   at S = 1,536; pixtral on 1,024 patches and 64 text tokens) on the card
+   against the CPU (plain
    versions) from one init, in bf16 and in fp32 compute, loss and final
    hidden states within bars set from readings, and the same cut with the
    family's kernel output one step late (and in fp32 also with its
-   sequence halves run apart, a kernel that loses its context at S/2),
+   sequence halves run apart, a kernel that loses its context at S/2;
+   gemma3 unscaled and all-global, pixtral's text positions from 0),
    which those bars must reject; one qwen3 and one zamba2 prefill under
    ``torch.profiler``; zamba2_2_7b at full width and full depth (B = 1,
    S = 4096) from one init through the ssd_scan kernels and through its
@@ -303,12 +314,15 @@ nothing of JAX.  Phases, each of which fails loudly:
    (a) ``ServingEngine`` at full width with 8 slots of 32,768 positions
    (``SHAPES["decode_32k"]``' cache length; its batch of 128 cut to 8)
    for qwen3_0_6b (greedy, and sampled at temperature 0.8, top-k 40),
-   zamba2_2_7b and falcon_mamba_7b, 8 requests of 64–128 prompt tokens
+   zamba2_2_7b, falcon_mamba_7b, the MoE configs at cut depths, gemma3_4b
+   and pixtral_12b (its 8 slots of 8,192), 8 requests of 64–128 prompt
+   tokens
    and 32 new tokens each: engine steps, seconds, ms per step, generated
    tokens/s, peak and cache GB, and every kernel launched 0 times; (b)
    ``python -m repro_torch.launch.serve`` at full width as a subprocess,
    exit 0 and its rates; (c) the 2-layer cuts at B = 2, 24 teacher-forced
-   steps then 8 greedy ones, card against CPU in fp32 and bf16 compute,
+   steps then 8 greedy ones (gemma3's and pixtral's full-width cuts 6 and
+   2), card against CPU in fp32 and bf16 compute,
    logits and caches within SERVE_BARS, and two planted controls (the new
    K/V written one position late; the recurrent state not carried between
    steps) that the bars must reject; (d) on the fp32 cuts at S = 64,
@@ -335,6 +349,9 @@ nothing of JAX.  Phases, each of which fails loudly:
    the same bits on two calls; a planted fault each (a key tile dropped;
    ``h_t`` for ``h_{t−1}``; G one chunk late, at every ssd_scan row) that
    must fail its bar by ≥ 10×; kernel, plain and library ms and the bound;
+   the attention backward at D = 256 and 160 (gemma3's and pixtral's
+   heads; ROADMAP A13d-2b) raising NotImplementedError naming A13d-2b
+   before any launch, called directly and through autograd;
    (b) ``make_train_step`` at full width: qwen3_0_6b (B = 2 × 4096, AdamW,
    ``warmup_cosine_lr``, clip 1.0, 6 steps: the loss falls, peak GB with
    remat below the peak without), falcon_mamba_7b at 8 of its 64 layers
@@ -342,7 +359,8 @@ nothing of JAX.  Phases, each of which fails loudly:
    (54 mamba2 + 9 shared, B = 1 × 4096, AdamW, 3 steps: the loss falls),
    seconds a step, tokens/s, peak GB and launches (the forward kernels
    twice a layer a step under remat, the backward once); one step at
-   qwen3-smoke and at zamba2-smoke in fp32 on the card against the CPU,
+   qwen3-, zamba2-, mixtral-, gemma3- and pixtral-smoke (its patch
+   embeddings ahead of the text) in fp32 on the card against the CPU,
    params within 1e-5; (c) ``launch/train`` at full width (smollm_360m, 1
    round, 4 clients, 4 steps a round) in process and the CLI at
    ``--smoke`` as a subprocess; (d) ``run_spmd_feddif`` at smollm-smoke
@@ -393,14 +411,14 @@ CARD_VS_CPU_RUN = ("feddif_stc", "fcn", 2, 5)
 DEVICE_PLANNER_RUN = ("feddif", "fcn", 4, 8)
 VALUE_WEIGHT = 0.5
 NUM_CLASSES = 10
-# planner_speedup: 2 of the bench's 16 plans (data seeds 0-1, channel
-# seed 0), cut to keep the script inside its time limit (4 until the SSD
-# backward's training phase: a plan takes ~2.4 s on the card and runs
-# three times, in two arms of phase 4's chain parity and in its planner
-# check).
+# planner_speedup: 1 of the bench's 16 plans (data seed 0, channel seed
+# 0), cut to keep the script inside its time limit (4 until the SSD
+# backward's training phase, 2 until gemma3's and pixtral's phases: a plan
+# takes ~2.4 s on the card and runs three times, in two arms of phase 4's
+# chain parity and in its planner check).
 PLANNER_CASES = (
     ("default_config", 10, None, [(s, s) for s in range(3)]),
-    ("planner_speedup", 20, 24, [(i, 0) for i in range(2)]),
+    ("planner_speedup", 20, 24, [(i, 0) for i in range(1)]),
 )
 # Rounds of the runs of phase 4's chain parity, each run twice: the
 # quickstart cell's FedDif (the device-planner run's bid rounds, the fleet
@@ -438,7 +456,11 @@ HOP_RATIO_GATE = 50.0        # full-f32 hop / int8 adapter hop
 # fit beside the dropless dispatch buffers: mixtral 4 of 56 layers (41.7
 # GB) at prefill_32k's sequence cut to 8192, so its 4096-key window masks
 # half of each row; qwen3-moe 2 of 94 (24.9 GB); moonshot 8 of 48 (21.5
-# GB).
+# GB).  gemma3_4b runs all 34 layers at prefill_32k's sequence (its batch
+# of 32 cut to 1): five bodies of 5 swa + 1 attn and 4 swa layers, 29 of
+# its 34 launches windowed (1,024 keys); pixtral_12b all 40 layers (51.1
+# GB of fp32 params) at B = 1 on ZOO_PATCHES seeded patch embeddings ahead
+# of 4,096 text tokens.
 ZOO_RUNS = (("qwen3_0_6b", 2, 4096, {"flash_attention": 28}, None),
             ("zamba2_2_7b", 1, 4096, {"ssd_scan_state": 54,
                                       "ssd_scan_pass": 54, "ssd_scan": 54,
@@ -446,18 +468,32 @@ ZOO_RUNS = (("qwen3_0_6b", 2, 4096, {"flash_attention": 28}, None),
             ("falcon_mamba_7b", 1, 4096, {"ssm_scan": 64}, None),
             ("mixtral_8x22b", 1, 8192, {"flash_attention": 4}, 4),
             ("qwen3_moe_235b_a22b", 1, 4096, {"flash_attention": 2}, 2),
-            ("moonshot_v1_16b_a3b", 1, 4096, {"flash_attention": 8}, 8))
+            ("moonshot_v1_16b_a3b", 1, 4096, {"flash_attention": 8}, 8),
+            ("gemma3_4b", 1, 32768, {"flash_attention": 34}, None),
+            ("pixtral_12b", 1, 4096, {"flash_attention": 40}, None))
+# The vision family's patch embeddings per sequence: pixtral's
+# num_frontend_tokens (one image's 1,024 patches), drawn N(0, 1) in bf16.
+ZOO_PATCHES = 1024
 # The card-vs-CPU cuts: 2 layers of each full-width config (zamba2's with
 # attn_period 2, so the cut keeps the shared attention block), B=1, S=256;
 # the MoE configs' smoke configs (2 layers; mixtral-smoke's window 32 <
 # S).  ZOO_PREFILL_CUTS run in phase 6c alone: moonshot at 2 layers and
 # full width (the CPU's decode at that width would outlast the phase).
+# ZOO_WIDE_CUTS run in 6c and in phase 7 (with fewer decode steps,
+# SERVE_WIDE_STEPS): gemma3 at 2 layers of full width with
+# local_global_ratio 1 (one swa layer, one global) over ZOO_CUT_SEQS'
+# 1,536 tokens, so its 1,024-key window hides keys from a third of the
+# rows; pixtral at 2 layers of full width on ZOO_PATCHES patch
+# embeddings ahead of 64 text tokens.
 ZOO_CUTS = (("qwen3_0_6b", {}), ("zamba2_2_7b", {"attn_period": 2}),
             ("falcon_mamba_7b", {}), ("mixtral_8x22b", {"smoke": True}),
             ("qwen3_moe_235b_a22b", {"smoke": True}),
             ("moonshot_v1_16b_a3b", {"smoke": True}))
 ZOO_PREFILL_CUTS = (("moonshot_v1_16b_a3b", {}),)
+ZOO_WIDE_CUTS = (("gemma3_4b", {"local_global_ratio": 1}),
+                 ("pixtral_12b", {}))
 ZOO_CUT_SEQ = 256
+ZOO_CUT_SEQS = {"gemma3_4b": 1536, "pixtral_12b": 64}
 # Card against CPU on the cuts, by compute dtype: the prefill loss within
 # loss_abs, the final hidden states within hidden_rel_l2 normwise
 # (‖card − cpu‖₂ / ‖cpu‖₂) and hidden_max_abs at any element.  Set from
@@ -471,6 +507,14 @@ ZOO_BARS = {"bfloat16": {"loss_abs": 3e-3, "hidden_rel_l2": 2e-2,
                          "hidden_max_abs": 0.1},
             "float32": {"loss_abs": 1e-4, "hidden_rel_l2": 1e-4,
                         "hidden_max_abs": 1e-3}}
+# The wide cuts' loss bars where they are wider than ZOO_BARS' (their
+# hidden-state bars stay ZOO_BARS'): the readout is a bf16 GEMM on each side, summed in another
+# order on the card than on the CPU and rounded to bf16 logits.  gemma3's
+# tied, scaled embeddings put its largest logits near 51, where a bf16 ulp
+# is 0.25: its fp32 loss moved 3.2e-4 on an H100 with hidden states 1.7e-6
+# apart (normwise); pixtral's loss averages 64 text tokens alone: 2.1e-4
+# with hidden states 1.4e-6 apart.
+ZOO_LOSS_ABS = {"gemma3_4b": 3e-3, "pixtral_12b": 1e-3}
 CONTROLS_REJECTED = {"bfloat16": ("one_step_late",),
                      "float32": ("one_step_late", "halves_apart")}
 # The op each cut's control runs wrongly (its two sequence halves apart).
@@ -478,7 +522,9 @@ ZOO_CONTROL_OP = {"qwen3_0_6b": "flash_attention", "zamba2_2_7b": "ssd_scan",
                   "falcon_mamba_7b": "ssm_scan",
                   "mixtral_8x22b": "flash_attention",
                   "qwen3_moe_235b_a22b": "flash_attention",
-                  "moonshot_v1_16b_a3b": "flash_attention"}
+                  "moonshot_v1_16b_a3b": "flash_attention",
+                  "gemma3_4b": "flash_attention",
+                  "pixtral_12b": "flash_attention"}
 # An MoE cut's card runs take the CPU's experts where their own router
 # nearly ties (_Routing): the largest gap log(p_k / p_{k+1}) between the
 # k-th and (k+1)-th probabilities at which they do.  bf16 moves a router's
@@ -493,6 +539,12 @@ ROUTE_NEAR_TIE = 5e-2
 ZOO_MOE_CONTROLS = {"mixtral_8x22b": ("expert_swapped", "window_wide"),
                     "qwen3_moe_235b_a22b": ("expert_swapped",),
                     "moonshot_v1_16b_a3b": ("expert_swapped",)}
+# The wide cuts' planted controls, which the bars of both dtypes must
+# reject: gemma3's embeddings left unscaled (embed_unscaled) and its
+# window dropped, every layer global (all_global); pixtral's text
+# positions restarting at 0 after the patches (text_positions_from_zero).
+ZOO_FAMILY_CONTROLS = {"gemma3_4b": ("embed_unscaled", "all_global"),
+                       "pixtral_12b": ("text_positions_from_zero",)}
 # ssd_scan's rows in phase 6a, (B, S, H, P, N, chunk) and inputs: zamba2's
 # prefill and its cut, S not a multiple of the chunk, P not a multiple of
 # 16 at N 16 and chunk 64, zamba2's prefill at near-unit decay (a ≈ −1e-3,
@@ -739,15 +791,17 @@ def _ptxas_spills(log: str) -> list[tuple[str, int, int]]:
 
 
 def _check_wgmma_spills(log: str | None) -> None:
-    """The bf16 attention kernel holds two 64×128 fp32 tiles and P per
-    thread on setmaxnreg's 240-register budget: ptxas must report no spill
-    for any of its instances (None: built before this run, no report)."""
+    """The bf16 attention kernel holds its 64×D fp32 O tile, a tile of
+    scores and P per thread on setmaxnreg's 240-register budget (at D =
+    256 on 64-key tiles): ptxas must report no spill for any of its five
+    instances, D = 64, 80, 128, 160, 256 (None: built before this run, no
+    report)."""
     if log is None:
         print(json.dumps({"check": "flash_attention_wgmma_kernel spills",
                           "ok": None, "note": "built before this run"}))
         return
     spills = [st for e, st, _ in _ptxas_spills(log) if "wgmma_kernel" in e]
-    ok = len(spills) == 3 and not any(spills)
+    ok = len(spills) == 5 and not any(spills)
     print(json.dumps({"check": "flash_attention_wgmma_kernel spills",
                       "spill_store_bytes": spills, "ok": ok}))
     if not ok:
@@ -3440,6 +3494,17 @@ def _attn_err(torch, out, plain, dt: str) -> dict:
             "ok": ratio <= 1.0 and l2 <= rel_l2}
 
 
+def _attention_chunk_dropped(kref, q, k, v, **kw):
+    """Attention as the plain version computes it, except that the scores
+    leave out head-dim columns 128 and up (the third 64-column chunk at D =
+    160): what a kernel that skipped that chunk's k-steps of Q·Kᵀ would
+    return."""
+    qd, kd_ = q.clone(), k.clone()
+    qd[..., 128:] = 0
+    kd_[..., 128:] = 0
+    return kref.flash_attention_ref(qd, kd_, v, **kw)
+
+
 def _attention_tile_dropped(torch, q, k, v, tile: int = 64):
     """Causal attention as the plain version computes it, except that keys
     [Sk/4, Sk/4 + tile) are hidden from the queries past Sq/2: what a kernel
@@ -3470,7 +3535,9 @@ def check_lm_kernels(torch, kref) -> list[dict]:
     ssd_scan row also prints ``bound_tc_ms``: the bytes against the
     products as three TF32 passes at the tensor cores' peak."""
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.flash_attention import (BF16_HEAD_DIMS,
+                                                     flash_attention_cuda,
+                                                     fwd_kernel_launches)
     from repro_torch.kernels.ssd_scan import ssd_scan_cuda
     from repro_torch.kernels.ssm_scan import ssm_scan_cuda
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -3481,14 +3548,16 @@ def check_lm_kernels(torch, kref) -> list[dict]:
         if not row["ok"]:
             _fail(f"{row['name']} {row['shape']} disagrees with its plain "
                   f"version beyond its bars: {json.dumps(row)}")
-        control = row.get("control_tile_dropped")
-        if control is not None and control["ok"]:
-            _fail(f"{row['name']} {row['shape']}: the bars did not reject "
-                  f"a dropped kv tile: {json.dumps(control)}")
+        for key, control in row.items():
+            if key.startswith("control_") and control["ok"]:
+                _fail(f"{row['name']} {row['shape']}: the bars did not "
+                      f"reject the planted fault {key}: "
+                      f"{json.dumps(control)}")
         rows.append(row)
 
     heavy = dict(inner=5, reps=4, iters=10)
     light = dict(inner=10, reps=5, iters=20)
+    slow = dict(inner=2, reps=2, iters=3)      # fp32 past D = 128: ~35 ms
     # flash_attention: (B, Sq, Sk, H, D, causal, window, dtype).  The bf16
     # qwen3 prefill shape comes first: it is the summary row.  The two
     # prefill shapes also run the planted-fault control.  The last two rows
@@ -3496,7 +3565,14 @@ def check_lm_kernels(torch, kref) -> list[dict]:
     # and a window that is not a multiple of the 128-key tile (its lower
     # edge masked off the diagonal); then mixtral's prefill (S = 8192,
     # window 4096) with its 48 heads cut to 8, so that the plain version's
-    # fp32 scores fit.
+    # fp32 scores fit; then gemma3's global and local layers at prefill_32k's
+    # sequence cut to 8192 (8 heads of D = 256, the local layers' 1024-key
+    # window) and pixtral's prefill (1024 patches + 4096 text positions, 32
+    # heads of D = 160), bf16 and fp32.  Each row's route is read from the
+    # library's counts (fwd_kernel_launches): bf16 at a head dim of
+    # BF16_HEAD_DIMS through that wgmma instance, fp32 through the CUDA-core
+    # kernel.  The pixtral bf16 row also runs a planted fault, the scores
+    # without the third 64-column chunk of D.
     for b, sq, sk, h, d, causal, window, dt in (
             (2, 4096, 4096, 16, 128, True, None, "bfloat16"),  # qwen3
             (1, 4096, 4096, 32, 80, True, None, "bfloat16"),   # zamba2
@@ -3511,27 +3587,45 @@ def check_lm_kernels(torch, kref) -> list[dict]:
             (2, 100, 100, 2, 128, False, None, "bfloat16"),    # non-causal
             (2, 4096, 4096, 15, 64, True, None, "bfloat16"),   # smollm, odd H
             (1, 4096, 4096, 8, 128, True, 1000, "bfloat16"),   # window 1000
-            (1, 8192, 8192, 8, 128, True, 4096, "bfloat16")):  # mixtral
+            (1, 8192, 8192, 8, 128, True, 4096, "bfloat16"),   # mixtral
+            (1, 8192, 8192, 8, 256, True, None, "bfloat16"),   # gemma3
+            (1, 8192, 8192, 8, 256, True, 1024, "bfloat16"),   # its local
+            (1, 5120, 5120, 32, 160, True, None, "bfloat16"),  # pixtral
+            (1, 8192, 8192, 8, 256, True, None, "float32"),
+            (1, 8192, 8192, 8, 256, True, 1024, "float32"),
+            (1, 5120, 5120, 32, 160, True, None, "float32")):
         dtype = getattr(torch, dt)
         q = torch.randn((b, sq, h, d), generator=gen, device="cuda").to(dtype)
         k = torch.randn((b, sk, h, d), generator=gen, device="cuda").to(dtype)
         v = torch.randn((b, sk, h, d), generator=gen, device="cuda").to(dtype)
         kw = dict(causal=causal, window=window)
+        before = fwd_kernel_launches()
         out = flash_attention_cuda(q, k, v, **kw)
         out_l, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+        after = fwd_kernel_launches()
         plain, lse_plain = kref.flash_attention_ref(q, k, v, return_lse=True,
                                                     **kw)
         torch.cuda.synchronize()
         check = _attn_err(torch, out, plain, dt)
         check.update(_lse_err(torch, lse, lse_plain))
         check["o_same_bits_with_lse"] = bool(torch.equal(out, out_l))
+        check["routes"] = {n: after[n] - before[n] for n in after
+                           if after[n] != before[n]}
+        want_route = (f"flash_attention_wgmma_kernel<{d}>"
+                      if dt == "bfloat16" and d in BF16_HEAD_DIMS
+                      else "flash_attention_kernel")
         check["ok"] = (check["ok"] and check["lse_ok"]
-                       and check["o_same_bits_with_lse"])
+                       and check["o_same_bits_with_lse"]
+                       and check["routes"] == {want_route: 2})
         del out_l, lse, lse_plain
         if (b, sq, h, d, dt) in ((2, 4096, 16, 128, "bfloat16"),
                                  (1, 4096, 32, 80, "bfloat16")):
             check["control_tile_dropped"] = _attn_err(
                 torch, _attention_tile_dropped(torch, q, k, v), plain, dt)
+        if (d, dt) == (160, "bfloat16"):
+            check["control_chunk_dropped"] = _attn_err(
+                torch, _attention_chunk_dropped(kref, q, k, v, **kw), plain,
+                dt)
         pairs = b * h * _visible_pairs(sq, sk, causal, window)
         bound, by = _bound(q.element_size() * 2.0 * h * d * b * (sq + sk),
                            4.0 * d * pairs,
@@ -3546,7 +3640,8 @@ def check_lm_kernels(torch, kref) -> list[dict]:
             mask = k_pos <= q_pos
             if window is not None:
                 mask &= k_pos > q_pos - window
-        sizes = heavy if sq * sk >= 2 ** 20 else light
+        sizes = (slow if dt == "float32" and d > 128
+                 else heavy if sq * sk >= 2 ** 20 else light)
         record({"name": "flash_attention", "shape": [b, sq, sk, h, d],
                 "dtype": dt, "causal": causal, "window": window, **check,
                 **_timings(torch,
@@ -3637,13 +3732,19 @@ def check_lm_kernels(torch, kref) -> list[dict]:
 # default_rng(0)) and SERVE_NEW new tokens; qwen3 also serves them sampled
 # at examples/continuous_batching.py's temperature 0.8 and top-k 40.
 SERVE_ARCHS = ("qwen3_0_6b", "zamba2_2_7b", "falcon_mamba_7b",
-               "mixtral_8x22b", "qwen3_moe_235b_a22b")
+               "mixtral_8x22b", "qwen3_moe_235b_a22b", "gemma3_4b",
+               "pixtral_12b")
 # The MoE engines' depth, cut as their prefill runs' (ZOO_RUNS) so that the
 # fp32 params fit: mixtral 4 of 56 layers (its swa rings 4352 positions),
 # qwen3-moe 2 of 94.
 SERVE_LAYERS = {"mixtral_8x22b": 4, "qwen3_moe_235b_a22b": 2}
 SERVE_SLOTS = 8
 SERVE_MAX_SEQ = 32768
+# pixtral's cache at 8 × 32,768 positions would be 53.7 GB beside its 51.1
+# GB of fp32 params: it serves 8 slots of 8,192 (a 13.4 GB cache).  gemma3
+# serves the full 32,768: 5.4 GB for its five global layers, 1.2 GB for
+# its 29 rings of 1,280.
+SERVE_MAX_SEQS = {"pixtral_12b": 8192}
 SERVE_REQUESTS = 8
 SERVE_PROMPT = (64, 128)              # (64, 256) before the training phase
 SERVE_NEW = 32
@@ -3661,6 +3762,9 @@ SERVE_CLI = ("--arch", "qwen3_0_6b", "--batch", "4", "--context", "64",
 # (caches) in fp32, 0.030 and 0.76 in bf16.
 SERVE_FORCED = 24
 SERVE_GREEDY = 8
+# The wide cuts (ZOO_WIDE_CUTS) decode fewer steps, (forced, greedy): on
+# the CPU each bf16 step casts their 671M-entry readout to bf16.
+SERVE_WIDE_STEPS = (6, 2)
 SERVE_BARS = {"float32": {"logits_rel": 2e-5, "cache_rel": 2e-5},
               "bfloat16": {"logits_rel": 0.05, "cache_rel": 0.08}}
 # The planted controls each cut's bars must reject: the new K/V written
@@ -3670,7 +3774,9 @@ SERVE_CONTROLS = {"qwen3_0_6b": ("kv_one_late",),
                   "falcon_mamba_7b": ("state_not_carried",),
                   "mixtral_8x22b": ("kv_one_late",),
                   "qwen3_moe_235b_a22b": ("kv_one_late",),
-                  "moonshot_v1_16b_a3b": ("kv_one_late",)}
+                  "moonshot_v1_16b_a3b": ("kv_one_late",),
+                  "gemma3_4b": ("kv_one_late",),
+                  "pixtral_12b": ("kv_one_late",)}
 # (d) decode against the prefill forward (its kernels) on the fp32 cuts at
 # S = 64, at the reference's own bar (tests/test_models_consistency.py).
 SERVE_PREFILL_SEQ = 64
@@ -3731,8 +3837,10 @@ def zoo_prefill(torch, kd) -> dict:
     untimed forward first (cuBLAS handles, first launches), then the
     counters are zeroed, one forward is timed on the host clock (ending in
     a synchronize), and the counters are read: each kernel must have
-    launched once per layer that runs it.  The qwen3 and mixtral runs are
-    then profiled.  Each model is freed, and the garbage collector run,
+    launched once per layer that runs it, through the wgmma instance of
+    its head dim (fwd_kernel_launches), once windowed per ``swa`` layer.
+    A vision config's batch carries ZOO_PATCHES seeded patch embeddings
+    ahead of its text.  The qwen3 and mixtral runs are then profiled.  Each model is freed, and the garbage collector run,
     before the next run's peak-memory reset (a reference cycle keeps a
     model's params allocated until the collector runs).  Last, zamba2 is
     built again from the same init and one forward profiled.  The configs
@@ -3740,11 +3848,22 @@ def zoo_prefill(torch, kd) -> dict:
     also prints its dropless dispatch work beside its active work
     (_moe_work), and its two forwards must give the same loss bits."""
     import dataclasses
+    from unittest import mock
     from repro_torch.configs import SHAPES, get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import (BF16_HEAD_DIMS,
+                                                     fwd_kernel_launches)
+    from repro_torch.models.transformer import build_plan
     from repro_torch.models.zoo import build_model
     from repro_torch.train.trainstep import make_prefill_step
     from repro_torch.tree import tree_leaves
     launches = {name: 0 for name in kd.LAUNCHES}
+    real_attention = ops.flash_attention
+    windowed = [0]
+
+    def counting_attention(*args, window=None, **kw):
+        windowed[0] += window is not None
+        return real_attention(*args, window=window, **kw)
 
     def setup(arch, layers=None):
         cfg = get_config(arch)
@@ -3769,24 +3888,46 @@ def zoo_prefill(torch, kd) -> dict:
             init_s = time.perf_counter() - t0
             batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s),
                                              generator=gen, device="cuda")}
+            if cfg.frontend == "vision":
+                batch["patch_embeddings"] = torch.randn(
+                    (b, ZOO_PATCHES, cfg.d_model), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+            positions = s + (ZOO_PATCHES if cfg.frontend == "vision" else 0)
             first = float(step(params, batch))
             torch.cuda.synchronize()
             kd.reset_launch_counts()
+            routes = fwd_kernel_launches()
+            windowed[0] = 0
             t0 = time.perf_counter()
-            loss = float(step(params, batch))
+            with mock.patch.object(ops, "flash_attention",
+                                   counting_attention):
+                loss = float(step(params, batch))
             wall = time.perf_counter() - t0
             counts = {k: v for k, v in kd.LAUNCHES.items() if v}
+            after = fwd_kernel_launches()
+            routes = {n: after[n] - routes[n] for n in after
+                      if after[n] != routes[n]}
+            d = cfg.resolved_head_dim
+            want_routes = ({} if "flash_attention" not in want else {
+                f"flash_attention_wgmma_kernel<{d}>" if d in BF16_HEAD_DIMS
+                else "flash_attention_kernel": want["flash_attention"]})
+            want_windowed = sum(count for kinds, count in build_plan(cfg)
+                                for kind in kinds if kind == "swa")
             peak = torch.cuda.max_memory_allocated()
             n_params = sum(x.numel() for x in tree_leaves(params))
             print(json.dumps({
                 "run": f"prefill {arch}", "layers": cfg.num_layers,
                 "published_layers": get_config(arch).num_layers,
-                "batch": b, "seq": s, "train_4k_seq":
-                    SHAPES["train_4k"].seq_len, "params": n_params,
+                "batch": b, "seq": s, "positions": positions,
+                "train_4k_seq": SHAPES["train_4k"].seq_len,
+                "prefill_32k_seq": SHAPES["prefill_32k"].seq_len,
+                "params": n_params,
                 "compute_dtype": cfg.compute_dtype, "loss": loss,
-                "prefill_s": wall, "tokens_per_s": b * s / wall,
+                "prefill_s": wall, "tokens_per_s": b * positions / wall,
                 "init_s": init_s, "peak_memory_gb": peak / 2 ** 30,
                 "launches": counts, "want_launches": want,
+                "routes": routes, "windowed_launches": windowed[0],
+                "want_windowed": want_windowed,
                 **_moe_work(cfg, b * s, wall),
                 **({"same_loss_twice": first == loss} if cfg.moe is not None
                    else {})}))
@@ -3797,6 +3938,10 @@ def zoo_prefill(torch, kd) -> dict:
                 _fail(f"prefill {arch}: loss {loss} is not finite")
             if counts != want:
                 _fail(f"prefill {arch}: launches {counts}, want {want}")
+            if routes != want_routes or windowed[0] != want_windowed:
+                _fail(f"prefill {arch}: routes {routes} with "
+                      f"{windowed[0]} windowed, want {want_routes} with "
+                      f"{want_windowed}")
             for k, v in counts.items():
                 launches[k] += v
             if arch in ("qwen3_0_6b", "mixtral_8x22b"):
@@ -3922,52 +4067,90 @@ def _window_wide(op):
     return wrong
 
 
+def _all_global(op):
+    """flash_attention with its sliding window dropped."""
+    def wrong(*args, window=None, **kw):
+        return op(*args, window=None, **kw)
+    return wrong
+
+
+def _text_positions_from_zero(real, n_patches: int):
+    """forward_hidden with the text's positions restarting at 0 after the
+    patch embeddings, as a prefix that kept its own position count would
+    leave them."""
+    def wrong(params, cfg, x, positions=None, **kw):
+        past = (positions >= n_patches).to(positions.dtype)
+        return real(params, cfg, x, positions - n_patches * past, **kw)
+    return wrong
+
+
 def zoo_card_vs_cpu(torch) -> None:
     """Phase 6c: a 2-layer cut of each full-width config (B = 1, S = 256)
-    and the MoE smoke configs (ZOO_CUTS, ZOO_PREFILL_CUTS) on the card (its
+    and the MoE smoke configs (ZOO_CUTS, ZOO_PREFILL_CUTS), and the wide
+    cuts (ZOO_WIDE_CUTS: gemma3 over 1,536 tokens, pixtral over 1,024
+    patches and 64 text tokens) on the card (its
     kernels) against the CPU (plain versions), from one init drawn on the
     card, in the config's bf16 compute and in fp32 compute (where card and
     CPU differ only by fp32 sum orders): the prefill loss and the final
-    hidden states within ZOO_BARS.  Then two controls on the card with the
+    hidden states (read from the prefill step's forward) within ZOO_BARS,
+    the wide cuts' losses within ZOO_LOSS_ABS.  Then two controls on the card with the
     family's kernel op (ZOO_CONTROL_OP) swapped for a wrong variant: its
     output one step late, and its sequence halves run apart; and on an MoE
-    cut its ZOO_MOE_CONTROLS.  The bars must reject the controls named in
-    CONTROLS_REJECTED and every MoE control; the others' readings are
+    cut its ZOO_MOE_CONTROLS, on a wide cut its ZOO_FAMILY_CONTROLS.  The
+    bars must reject the controls named in CONTROLS_REJECTED and every MoE
+    and family control; the others' readings are
     printed (in bf16 a Mamba state dropped at S/2 fades within a few
     steps, below the bf16 noise of the final hidden states)."""
     from unittest import mock
     from repro_torch.kernels import ops
+    from repro_torch.models import layers as L
     from repro_torch.models import moe as moe_lib
     from repro_torch.models import transformer as tf
     from repro_torch.models.zoo import build_model
     from repro_torch.train.trainstep import make_prefill_step
     from repro_torch.tree import tree_map
     for (arch, extra), dtype in itertools.product(
-            ZOO_CUTS + ZOO_PREFILL_CUTS, ZOO_BARS):
+            ZOO_CUTS + ZOO_PREFILL_CUTS + ZOO_WIDE_CUTS, ZOO_BARS):
+        t_cut = time.perf_counter()
         cfg = _cut_config(arch, extra, dtype)
         model = build_model(cfg)
         gen = torch.Generator(device="cuda").manual_seed(1)
         op = ZOO_CONTROL_OP[arch]
         real = getattr(ops, op)
+        seq = ZOO_CUT_SEQS.get(arch, ZOO_CUT_SEQ)
+        n_patches = ZOO_PATCHES if cfg.frontend == "vision" else 0
         moe_controls = ZOO_MOE_CONTROLS.get(arch, ())
+        family_controls = ZOO_FAMILY_CONTROLS.get(arch, ())
         patches = {"one_step_late": [(ops, op, _one_step_late(torch, real))],
                    "halves_apart": [(ops, op, _halves_apart(torch, real))],
                    "window_wide": [(ops, "flash_attention",
-                                    _window_wide(ops.flash_attention))]}
+                                    _window_wide(ops.flash_attention))],
+                   "all_global": [(ops, "flash_attention",
+                                   _all_global(ops.flash_attention))],
+                   "embed_unscaled": [(L, "embed_scale",
+                                       lambda d_model, dtype: 1.0)],
+                   "text_positions_from_zero": [
+                       (tf, "forward_hidden", _text_positions_from_zero(
+                           tf.forward_hidden, n_patches))]}
         # The CPU first: an MoE cut's card runs follow its near ties.
         names = ("cpu", "card", "one_step_late", "halves_apart",
-                 *moe_controls)
+                 *moe_controls, *family_controls)
         routing = _Routing(moe_lib)
         out, followed = {}, {}
         with torch.inference_mode():
             params = model.init(gen)
-            tokens = torch.randint(0, cfg.vocab_size, (1, ZOO_CUT_SEQ),
+            tokens = torch.randint(0, cfg.vocab_size, (1, seq),
                                    generator=gen, device="cuda")
+            prefix = (torch.randn((1, n_patches, cfg.d_model), generator=gen,
+                                  device="cuda").to(torch.bfloat16)
+                      if n_patches else None)
             for where in names:
                 p = params if where != "cpu" else tree_map(
                     lambda x: x.cpu(), params)
                 t = tokens if where != "cpu" else tokens.cpu()
                 batch = {"tokens": t, "labels": torch.roll(t, -1, dims=1)}
+                if prefix is not None:
+                    batch["patch_embeddings"] = prefix.to(t.device)
                 with contextlib.ExitStack() as stack:
                     for obj, attr, fn in patches.get(where, ()):
                         stack.enter_context(mock.patch.object(obj, attr, fn))
@@ -3978,22 +4161,36 @@ def zoo_card_vs_cpu(torch) -> None:
                             top_k = _expert_swapped(torch, top_k)
                         stack.enter_context(mock.patch.object(
                             moe_lib, "_top_k", top_k))
-                    x = tf._embed_inputs(p, cfg, batch)
-                    pos = torch.arange(ZOO_CUT_SEQ, device=t.device)[None]
-                    hidden, _ = tf.forward_hidden(p, cfg, x, pos)
+                    # One forward: the prefill step, its final hidden
+                    # states read on the way out of forward_hidden.
+                    seen = []
+                    inner = tf.forward_hidden
+
+                    def capture(*args, inner=inner, seen=seen, **kw):
+                        result = inner(*args, **kw)
+                        seen.append(result[0])
+                        return result
+
+                    stack.enter_context(mock.patch.object(
+                        tf, "forward_hidden", capture))
                     loss = float(make_prefill_step(model)(p, batch))
+                    hidden = seen[-1]
                 out[where] = (hidden.float().cpu(), loss)
                 followed[where] = [routing.followed, routing.max_gap]
                 del p
-        bars = ZOO_BARS[dtype]
+        bars = dict(ZOO_BARS[dtype])
+        bars["loss_abs"] = max(bars["loss_abs"], ZOO_LOSS_ABS.get(arch, 0.0))
         check = _hidden_check(out["card"], out["cpu"], bars)
         controls = {name: {**_hidden_check(out[name], out["cpu"], bars),
                            "must_fail": (name in CONTROLS_REJECTED[dtype]
-                                         or name in moe_controls)}
+                                         or name in moe_controls
+                                         or name in family_controls)}
                     for name in names[2:]}
         print(json.dumps({
             "check": f"card_vs_cpu prefill {cfg.name} 2-layer cut {dtype}",
             "plan": [[list(k), c] for k, c in tf.build_plan(cfg)],
+            "seq": seq, "patches": n_patches,
+            "seconds": time.perf_counter() - t_cut,
             "loss": [out["card"][1], out["cpu"][1]], "bars": bars,
             **check, "control_op": op, "controls": controls,
             **({"near_ties_followed_and_max_gap": followed}
@@ -5356,7 +5553,7 @@ def _no_launches(kd, what: str) -> None:
 
 def _serve_engines(torch, kd, card: str) -> None:
     """(a): the full-width engines, 8 slots of 32,768 positions (the MoE
-    configs at SERVE_LAYERS' depth)."""
+    configs at SERVE_LAYERS' depth, pixtral at SERVE_MAX_SEQS' 8,192)."""
     import dataclasses
     from repro_torch.configs import SHAPES, get_config
     from repro_torch.models.zoo import build_model
@@ -5382,8 +5579,9 @@ def _serve_engines(torch, kd, card: str) -> None:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         kd.reset_launch_counts()
+        max_seq = SERVE_MAX_SEQS.get(arch, SERVE_MAX_SEQ)
         eng = ServingEngine(model, params, num_slots=SERVE_SLOTS,
-                            max_seq=SERVE_MAX_SEQ,
+                            max_seq=max_seq,
                             sampler=SamplerConfig(**samp), seed=0)
         prompts = _serve_prompts(cfg.vocab_size)
         for uid, pr in enumerate(prompts):
@@ -5402,7 +5600,7 @@ def _serve_engines(torch, kd, card: str) -> None:
         step_s.sort()
         line = {"serve": arch, "layers": cfg.num_layers,
                 "sampler": samp, "card": card,
-                "slots": SERVE_SLOTS, "max_seq": SERVE_MAX_SEQ,
+                "slots": SERVE_SLOTS, "max_seq": max_seq,
                 "decode_32k": [shape.seq_len, shape.global_batch],
                 "requests": len(done), "prompt_tokens": ingested,
                 "generated_tokens": gen, "engine_steps": eng.steps,
@@ -5533,13 +5731,17 @@ def _serve_card_vs_cpu(torch, kd, card: str) -> None:
              _state_not_carried(ssm_lib.mamba1_decode)),
             ("repro_torch.models.ssm.mamba2_decode",
              _state_not_carried(ssm_lib.mamba2_decode))]}
-    b, steps = 2, SERVE_FORCED + SERVE_GREEDY
-    for (arch, extra), dtype in itertools.product(ZOO_CUTS, SERVE_BARS):
+    b = 2
+    for (arch, extra), dtype in itertools.product(ZOO_CUTS + ZOO_WIDE_CUTS,
+                                                  SERVE_BARS):
+        forced, greedy = (SERVE_WIDE_STEPS if (arch, extra) in ZOO_WIDE_CUTS
+                          else (SERVE_FORCED, SERVE_GREEDY))
+        steps = forced + greedy
         cfg = _cut_config(arch, extra, dtype)
         model = build_model(cfg)
         gen = torch.Generator(device="cuda").manual_seed(1)
         params = model.init(gen)
-        prompt = torch.randint(0, cfg.vocab_size, (b, SERVE_FORCED),
+        prompt = torch.randint(0, cfg.vocab_size, (b, forced),
                                generator=gen, device="cuda")
         p_cpu = tree_map(lambda x: x.cpu(), params)
         # The CPU decides the greedy tokens; every card run is fed them.
@@ -5559,7 +5761,7 @@ def _serve_card_vs_cpu(torch, kd, card: str) -> None:
                 lg, want_cache = model.decode_step(
                     p_cpu, tokens[:, t:t + 1], want_cache, t)
                 want.append(lg[:, 0])
-                if SERVE_FORCED - 1 <= t < steps - 1:
+                if forced - 1 <= t < steps - 1:
                     tokens = torch.cat([tokens, lg[:, -1].argmax(-1)[:, None]],
                                        dim=1)
         want = torch.stack(want)
@@ -5572,14 +5774,14 @@ def _serve_card_vs_cpu(torch, kd, card: str) -> None:
         cache_err = max(_rel_err(torch, g.cpu(), w) for g, w in zip(
             tree_leaves(got_cache), tree_leaves(want_cache)))
         logit_err = _rel_err(torch, got, want)
-        agree = int((got[SERVE_FORCED - 1:-1].argmax(-1)
-                     == tokens[:, SERVE_FORCED:].T).sum())
+        agree = int((got[forced - 1:-1].argmax(-1)
+                     == tokens[:, forced:].T).sum())
         ok = logit_err <= bars["logits_rel"] and cache_err <= bars["cache_rel"]
         if dtype == "float32":
-            ok = ok and agree == b * SERVE_GREEDY
+            ok = ok and agree == b * greedy
         line = {"check": f"serve card_vs_cpu {cfg.name} 2-layer cut {dtype}",
-                "card": card, "batch": b, "forced": SERVE_FORCED,
-                "greedy": SERVE_GREEDY, "bars": bars,
+                "card": card, "batch": b, "forced": forced,
+                "greedy": greedy, "bars": bars,
                 "logits_rel_err": logit_err, "cache_rel_err": cache_err,
                 "greedy_tokens_agree": agree, "ok": ok, "controls": {},
                 **({"near_ties_followed_and_max_gap": followed}
@@ -5615,7 +5817,7 @@ def _serve_decode_vs_prefill(torch, kd, card: str) -> None:
     from repro_torch.models import transformer as tf
     from repro_torch.models.zoo import build_model
     b, s = 2, SERVE_PREFILL_SEQ
-    for arch, extra in ZOO_CUTS:
+    for arch, extra in ZOO_CUTS + ZOO_WIDE_CUTS:
         cfg = _cut_config(arch, extra, "float32")
         model = build_model(cfg)
         gen = torch.Generator(device="cuda").manual_seed(2)
@@ -5660,7 +5862,8 @@ def _serve_engine_and_sampler(torch, kd, card: str) -> None:
     from repro_torch.serving import (Request, SamplerConfig, ServingEngine,
                                      sample)
     last_logits = None
-    for arch, extra in ZOO_CUTS:
+    # The sampler check reads the last cut's logits: moonshot-smoke's.
+    for arch, extra in ZOO_WIDE_CUTS + ZOO_CUTS:
         cfg = _cut_config(arch, extra, "float32")
         model = build_model(cfg)
         params = model.init(torch.Generator(device="cuda").manual_seed(3))
@@ -5836,7 +6039,8 @@ TRAIN_FALCON = {"arch": "falcon_mamba_7b", "layers": 8, "batch": 1,
 TRAIN_ZAMBA2 = {"arch": "zamba2_2_7b", "batch": 1, "seq": 4096, "steps": 3,
                 "peak_lr": 3e-4, "warmup": 1}
 # The card-against-CPU step of phase 8b, at each of these smoke configs.
-TRAIN_CARD_VS_CPU = ("qwen3_0_6b", "zamba2_2_7b", "mixtral_8x22b")
+TRAIN_CARD_VS_CPU = ("qwen3_0_6b", "zamba2_2_7b", "mixtral_8x22b",
+                     "gemma3_4b", "pixtral_12b")
 # run_spmd_feddif's configs in phase 8d (their smoke configs).
 SPMD_ARCHS = ("smollm_360m", "zamba2_2_7b")
 # (1 round since the SSD backward's phase: 2 until then.)
@@ -6183,6 +6387,44 @@ def check_train_kernels(torch, kref) -> list[dict]:
     return rows
 
 
+def check_bwd_refusal(torch, kd) -> None:
+    """Phase 8a: the attention backward at a head dim past
+    BWD_HEAD_DIM_MAX (gemma3's 256, pixtral's 160; ROADMAP A13d-2b) on the
+    card raises NotImplementedError naming A13d-2b before any launch —
+    called directly, and reached by autograd through ``ops.flash_attention``
+    — while the forward at those head dims runs."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import (bwd_kernel_launches,
+                                                     flash_attention_bwd_cuda)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    for d in (256, 160):
+        q, k, v = (torch.randn((1, 128, 2, d), generator=gen, device="cuda")
+                   .to(torch.bfloat16) for _ in range(3))
+        lse = torch.zeros((1, 2, 128), device="cuda")
+        raised = []
+        before = (bwd_kernel_launches(), kd.LAUNCHES["flash_attention_bwd"])
+        for how, fn in (
+                ("direct", lambda: flash_attention_bwd_cuda(
+                    q, k, v, q, q, lse)),
+                ("autograd", lambda: torch.autograd.grad(
+                    ops.flash_attention(q.requires_grad_(), k, v)
+                    .float().sum(), q))):
+            try:
+                fn()
+                raised.append(None)
+            except NotImplementedError as exc:
+                raised.append(str(exc))
+        after = (bwd_kernel_launches(), kd.LAUNCHES["flash_attention_bwd"])
+        ok = (all(r is not None and "A13d-2b" in r for r in raised)
+              and after == before)
+        print(json.dumps({"check": f"flash_attention_bwd refuses D={d}",
+                          "raised": raised, "no_launch": after == before,
+                          "ok": ok}))
+        if not ok:
+            _fail(f"flash_attention_bwd at D={d}: {raised}, launches "
+                  f"{before} -> {after}")
+
+
 def _zoo_launches(cfg, steps: int, remat: bool) -> dict:
     """Each kernel's launches in ``steps`` train steps of ``cfg``'s layer
     plan: a layer's forward kernels once a step, twice under remat (the
@@ -6357,6 +6599,10 @@ def train_step_path(torch, kd) -> dict:
         toks = rng.integers(0, cfg.vocab_size, (2, 64)).astype(np.int64)
         cpu_batch = {"tokens": torch.from_numpy(toks),
                      "labels": torch.from_numpy(np.roll(toks, -1, axis=1))}
+        if cfg.frontend == "vision":
+            cpu_batch["patch_embeddings"] = torch.from_numpy(rng.normal(
+                size=(2, cfg.num_frontend_tokens, cfg.d_model)).astype(
+                    np.float32))
         opt = opt_lib.sgd()
         step = make_train_step(model, opt, opt_lib.constant_lr(0.05))
         kd.reset_launch_counts()
@@ -6667,8 +6913,6 @@ def main() -> None:
     profile_round(torch, port)
     profile_round(torch, port, strategy="gossip")
     profile_round(torch, port, "jax", VALUE_WEIGHT)
-    profile_round(torch, port, executor="host")
-    profile_round(torch, port, lm_int8=True)
     mark("phase 5: profiles")
     rows += check_lm_kernels(torch, kref)
     part("check_lm_kernels")
@@ -6682,6 +6926,7 @@ def main() -> None:
     serve_path(torch, kd, serve_cli)
     mark("phase 7: serve")
     rows += check_train_kernels(torch, kref)
+    check_bwd_refusal(torch, kd)
     part("check_train_kernels")
     for k, v in train_path(torch, kd, train_cli).items():
         launches[k] += v

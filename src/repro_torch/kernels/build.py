@@ -45,8 +45,9 @@ _L = ctypes.c_longlong
 # launching entry point returns cudaError_t (repro_ssd_scan_smem_bytes
 # and repro_ssd_scan_bwd_smem_bytes return bytes,
 # repro_ssd_scan_bwd_groups a count of runs of heads,
-# repro_flash_attention_bwd_kernel_launches a count of
-# kernels, repro_stc_reduce_max_blocks a block count,
+# repro_flash_attention_kernel_launches and
+# repro_flash_attention_bwd_kernel_launches a count of kernels,
+# repro_stc_reduce_max_blocks a block count,
 # repro_stc_fused_max_n an element count, repro_stc_rows_max_chunks a
 # chunk count, repro_quant_roundtrip_max_entries / _max_leaves the
 # roundtrip's table capacity and repro_mix_tree_max_leaves / _max_w /
@@ -83,7 +84,8 @@ _SIGNATURES = {
         "repro_quant_roundtrip_max_leaves": []},
     "flash_attention": {
         "repro_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                  _I, _F, _I, _I, _P]},
+                                  _I, _F, _I, _I, _P],
+        "repro_flash_attention_kernel_launches": [_P]},
     "flash_attention_bwd": {
         "repro_flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                       _I, _I, _I, _I, _I, _I, _F, _I, _I,

@@ -19,18 +19,19 @@
 // pair against a few bytes per element of q, k, v and o; at the zoo's
 // prefill shapes (S = 4096) that is hundreds of flops per byte.
 //
-// Two kernels, one per input type.  bf16 (D in {64, 80, 128}, every call
-// the zoo makes; q, k, v and o 16-byte aligned; scale > 0) runs on Hopper's
-// warpgroup tensor cores, fed by TMA (flash_attention_wgmma_kernel, below).
-// fp32 (D % 4 == 0, D <= 128) runs as fp32 FMAs on the CUDA cores
-// (flash_attention_kernel):
+// Two kernels, one per input type.  bf16 (D in {64, 80, 128, 160, 256},
+// every call the zoo makes; q, k, v and o 16-byte aligned; scale > 0) runs
+// on Hopper's warpgroup tensor cores, fed by TMA
+// (flash_attention_wgmma_kernel, below).  fp32 (D % 4 == 0, D <= 256) runs
+// as fp32 FMAs on the CUDA cores (flash_attention_kernel):
 //
 // One block per (64-query tile, b*h); the heaviest (last) causal tiles are
 // scheduled first.  Four threads share a query row: each keeps a quarter of
 // the head dim of q and of the fp32 accumulator in registers (float4 groups
 // g = sub + 4j), so a row's score is four partial dots joined by two warp
-// shuffles.  K and V tiles of 32 keys are staged through shared memory; the
-// 8 rows of a warp read the same float4s (broadcast).  Only tiles between
+// shuffles.  K and V tiles of 32 keys are staged through dynamic shared
+// memory (rows of 16·ceil(D / 16) floats: 64 KB at D = 256); the 8 rows of
+// a warp read the same float4s (broadcast).  Only tiles between
 // the block's first and last visible key are loaded, so wholly masked tiles
 // are skipped.  Per tile: 32 scores in registers, one max, one rescale of
 // (l, acc) by exp(m_old - m_new), then p = exp(s - m) accumulated against
@@ -50,7 +51,7 @@ constexpr int kBQ = 64;                 // query rows per block
 constexpr int kTPR = 4;                 // threads per query row
 constexpr int kThreads = kBQ * kTPR;    // 256
 constexpr int kBK = 32;                 // keys per shared-memory tile
-constexpr int kDMax = 128;              // largest head dim
+constexpr int kDMax = 256;              // largest head dim
 constexpr float kNegInf = -1e30f;
 constexpr float kLn2 = 0.6931471805599453f;
 
@@ -67,8 +68,11 @@ flash_attention_kernel(const float* __restrict__ q,
                        float* __restrict__ lse, int H,
                        int Sq, int Sk, int D, float scale, int causal,
                        int window) {
-  __shared__ __align__(16) float k_s[kBK][kDMax];
-  __shared__ __align__(16) float v_s[kBK][kDMax];
+  // Rows of kRow = 16·kG4 >= D floats (a compile-time stride).
+  constexpr int kRow = 16 * kG4;
+  extern __shared__ __align__(16) float kv_smem[];
+  float* k_s = kv_smem;                  // [kBK][kRow]
+  float* v_s = kv_smem + kBK * kRow;     // [kBK][kRow]
 
   const int bh = blockIdx.y;
   const int b = bh / H;
@@ -118,8 +122,8 @@ flash_attention_kernel(const float* __restrict__ q,
         kv = k[off];
         vv = v[off];
       }
-      k_s[r][c] = kv;
-      v_s[r][c] = vv;
+      k_s[r * kRow + c] = kv;
+      v_s[r * kRow + c] = vv;
     }
     __syncthreads();
 
@@ -127,7 +131,7 @@ flash_attention_kernel(const float* __restrict__ q,
     float m_cur = kNegInf;
 #pragma unroll
     for (int jj = 0; jj < kBK; ++jj) {
-      const float4* krow = reinterpret_cast<const float4*>(k_s[jj]);
+      const float4* krow = reinterpret_cast<const float4*>(k_s + jj * kRow);
       float part = 0.f;
 #pragma unroll
       for (int j = 0; j < kG4; ++j) {
@@ -155,7 +159,7 @@ flash_attention_kernel(const float* __restrict__ q,
     for (int jj = 0; jj < kBK; ++jj) {
       const float p = s[jj] <= 0.5f * kNegInf ? 0.f : expf(s[jj] - safe_m);
       l += p;
-      const float4* vrow = reinterpret_cast<const float4*>(v_s[jj]);
+      const float4* vrow = reinterpret_cast<const float4*>(v_s + jj * kRow);
 #pragma unroll
       for (int j = 0; j < kG4; ++j) {
         const int g = sub + kTPR * j;
@@ -195,10 +199,14 @@ flash_attention_kernel(const float* __restrict__ q,
 // registers): one thread loads the block's Q tile once, then streams K/V
 // tiles of 128 keys into a ring of shared-memory stages with TMA
 // (cp.async.bulk.tensor), each stage guarded by a "full" mbarrier (TMA
-// bytes landed) and an "empty" one (both consumers done with it).
+// bytes landed) and an "empty" one (both consumers done with it).  Past
+// D = 128 the tiles hold 64 keys (WgmmaConfig::kBK): 128-key tiles would
+// not fit two stages beside the Q tile in the 227 KB a block may use, and
+// their scores and P would not fit a consumer's registers beside O.
 // Warpgroups 1 and 2 are consumers (setmaxnreg.inc to 240) of 64 query rows
 // each.  Per tile a consumer runs
-//   S = Q K^T    wgmma m64n128k16, Q and K from shared memory (K-major),
+//   S = Q K^T    wgmma m64n128k16 (m64n64k16 on 64-key tiles), Q and K
+//                from shared memory (K-major),
 //   online softmax on S in registers: row maxima over the lane quad (the
 //                wgmma accumulator layout gives lane l rows l/4 and l/4 + 8
 //                of its warp's 16), p = exp2(s * scale*log2e - m) as one
@@ -212,7 +220,7 @@ flash_attention_kernel(const float* __restrict__ q,
 // barriers), so one's softmax runs under the other's products.  O is
 // rescaled only in warps where a row maximum moved.  A stage is
 // released once tile j-1's P V is done, so the ring holds 3 stages (4 at
-// D = 64).  The element mask runs only on tiles that cross the causal
+// D = 64, 2 at D = 256).  The element mask runs only on tiles that cross the causal
 // diagonal, the window's lower edge or the ragged end of Sk (TMA zero-fills
 // keys past Sk, and a zero key scores 0, not -inf, so that tail keeps its
 // mask); both consumers visit every tile of the block's range, so their
@@ -223,31 +231,34 @@ flash_attention_kernel(const float* __restrict__ q,
 //
 // Tensor maps view q, k, v and o in place as 4-d (D, H, S, B) arrays with
 // byte strides (2D, 2HD, 2SHD): no transpose pass.  A box is 64 columns of D
-// (128 bytes, the 128-byte swizzle atom) by 128 rows (64 for the output),
-// so a tile is one or two such chunks.  D = 80 is zero-padded to 128 in
-// shared memory by TMA's out-of-bounds fill: Q K^T skips the three all-zero
-// k-steps, P V runs at N = 80 (its B operand spans one whole swizzle atom
-// and 16 columns of the next) and the store drops columns past 80.  The
+// (128 bytes, the 128-byte swizzle atom) by 128 rows (Q), kBK rows (K, V)
+// or 64 (the output), so a tile is ceil(D / 64) such chunks.  D = 80 is
+// zero-padded to 128 and D = 160 to 192 in shared memory by TMA's
+// out-of-bounds fill: Q K^T skips the all-zero k-steps, P V runs at N = D
+// (its B operand spans whole swizzle atoms and 16 or 32 columns of the
+// next) and the store drops columns past D.  The
 // maps come from cuTensorMapEncodeTiled, fetched through the runtime's
 // driver entry point (no libcuda link), and reach the kernel as
 // __grid_constant__ parameters.
 constexpr int kWgThreads = 384;          // producer + two consumer warpgroups
 constexpr int kWgBQ = 128;               // query rows per block
-constexpr int kWgBK = 128;               // keys per K/V tile
-constexpr int kChunkRows = 128;          // rows of a Q/K/V chunk
-constexpr int kChunkBytes = kChunkRows * 128;   // 64 bf16 columns per row
+constexpr int kQChunkBytes = kWgBQ * 128;   // 64 bf16 columns of the Q tile
 constexpr int kConsumerThreads = 256;
+constexpr int kBlockSmemMax = 232448;    // 227 KB: a block's shared memory
 
 template <int kD>
 struct WgmmaConfig {
-  static constexpr int kChunks = kD <= 64 ? 1 : 2;      // 64-column chunks
-  static constexpr int kDP = 64 * kChunks;              // padded head dim
-  static constexpr int kN = kD == 80 ? 80 : kDP;        // P V width
+  static constexpr int kChunks = (kD + 63) / 64;        // 64-column chunks
+  static constexpr int kBK = kD <= 128 ? 128 : 64;      // keys per K/V tile
+  static constexpr int kKVChunkBytes = kBK * 128;
   static constexpr int kKSteps = kD / 16;               // k-steps of Q K^T
-  static constexpr int kTileBytes = kChunks * kChunkBytes;
-  static constexpr int kStages = kChunks == 1 ? 4 : 3;  // K/V ring depth
-  static constexpr int kBarOffset = kTileBytes * (1 + 2 * kStages);
+  static constexpr int kQBytes = kChunks * kQChunkBytes;
+  static constexpr int kTileBytes = kChunks * kKVChunkBytes;  // K or V
+  static constexpr int kStages =                        // K/V ring depth
+      kChunks == 1 ? 4 : kChunks == 4 ? 2 : 3;
+  static constexpr int kBarOffset = kQBytes + 2 * kTileBytes * kStages;
   static constexpr int kSmemBytes = kBarOffset + 8 * (1 + 2 * kStages) + 1024;
+  static_assert(kSmemBytes <= kBlockSmemMax, "K/V ring past shared memory");
 };
 
 
@@ -263,8 +274,9 @@ flash_attention_wgmma_kernel(__grid_constant__ const CUtensorMap tm_q,
   extern __shared__ uint8_t smem_raw[];
   // 1024-byte alignment: the 128-byte swizzle repeats every 8 rows.
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  constexpr int kBK = Cfg::kBK;
   const uint32_t q_s = base;                        // Q tile, then O
-  const uint32_t kv_s = base + Cfg::kTileBytes;     // stage s: K, then V
+  const uint32_t kv_s = base + Cfg::kQBytes;        // stage s: K, then V
   const uint32_t bars = base + Cfg::kBarOffset;
   const uint32_t q_full = bars;
   auto full = [&](int s) { return bars + 8u * (1 + s); };
@@ -280,8 +292,8 @@ flash_attention_wgmma_kernel(__grid_constant__ const CUtensorMap tm_q,
   const int last_q = min(q0 + kWgBQ, Sq) - 1;
   const int k_hi = causal ? min(Sk, last_q + shift + 1) : Sk;
   const int k_lo =
-      window > 0 ? max(0, q0 + shift - window + 1) / kWgBK * kWgBK : 0;
-  const int n_tiles = k_hi > k_lo ? (k_hi - k_lo + kWgBK - 1) / kWgBK : 0;
+      window > 0 ? max(0, q0 + shift - window + 1) / kBK * kBK : 0;
+  const int n_tiles = k_hi > k_lo ? (k_hi - k_lo + kBK - 1) / kBK : 0;
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
@@ -298,20 +310,19 @@ flash_attention_wgmma_kernel(__grid_constant__ const CUtensorMap tm_q,
     // ---- producer: one thread issues every TMA load ----
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
     if (threadIdx.x == 0) {
-      mbar_expect_tx(q_full, Cfg::kTileBytes);
+      mbar_expect_tx(q_full, Cfg::kQBytes);
       for (int c = 0; c < Cfg::kChunks; ++c) {
-        tma_load(q_s + c * kChunkBytes, &tm_q, q_full, 64 * c, h, q0, b);
+        tma_load(q_s + c * kQChunkBytes, &tm_q, q_full, 64 * c, h, q0, b);
       }
       for (int j = 0; j < n_tiles; ++j) {
         const int s = j % Cfg::kStages;
         mbar_wait(empty(s), ((j / Cfg::kStages) & 1) ^ 1);
         mbar_expect_tx(full(s), 2 * Cfg::kTileBytes);
-        const int kt = k_lo + j * kWgBK;
+        const int kt = k_lo + j * kBK;
         for (int c = 0; c < Cfg::kChunks; ++c) {
-          tma_load(k_tile(s) + c * kChunkBytes, &tm_k, full(s), 64 * c, h,
-                   kt, b);
-          tma_load(k_tile(s) + Cfg::kTileBytes + c * kChunkBytes, &tm_v,
-                   full(s), 64 * c, h, kt, b);
+          const uint32_t at = k_tile(s) + c * Cfg::kKVChunkBytes;
+          tma_load(at, &tm_k, full(s), 64 * c, h, kt, b);
+          tma_load(at + Cfg::kTileBytes, &tm_v, full(s), 64 * c, h, kt, b);
         }
       }
     }
@@ -330,14 +341,14 @@ flash_attention_wgmma_kernel(__grid_constant__ const CUtensorMap tm_q,
     const int p_last = min(wg_first + 63, Sq - 1) + shift;
     const uint32_t q_wg = q_s + 64 * 128 * cw;       // this warpgroup's rows
 
-    float acc[Cfg::kN / 2];
+    float acc[kD / 2];
 #pragma unroll
-    for (int i = 0; i < Cfg::kN / 2; ++i) acc[i] = 0.f;
+    for (int i = 0; i < kD / 2; ++i) acc[i] = 0.f;
     float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;  // l: lane partials
-    float sc[64];          // one tile's scores, then its probabilities
-    uint32_t pa[8][4];     // the previous tile's P, bf16 A-fragments
+    float sc[kBK / 2];        // one tile's scores, then its probabilities
+    uint32_t pa[kBK / 16][4]; // the previous tile's P, bf16 A-fragments
 
-    // S = Q K^T over stage s's 128 keys (issued, not waited for).
+    // S = Q K^T over stage s's kBK keys (issued, not waited for).
     auto issue_qk = [&](int s) {
       fence_regs(sc);
       wgmma_fence();
@@ -347,23 +358,25 @@ flash_attention_wgmma_kernel(__grid_constant__ const CUtensorMap tm_q,
       asm volatile("mov.b32 %0, %1;\n" : "=r"(q_at) : "r"(q_wg));
 #pragma unroll
       for (int ks = 0; ks < Cfg::kKSteps; ++ks) {
-        const uint32_t off = (ks / 4) * kChunkBytes + (ks % 4) * 32;
-        wgmma_ss(sc, sw128_desc(q_at + off, 16, 1024),
-                      sw128_desc(k_tile(s) + off, 16, 1024), ks > 0);
+        const uint32_t col = (ks % 4) * 32;
+        wgmma_ss(sc, sw128_desc(q_at + (ks / 4) * kQChunkBytes + col, 16,
+                                1024),
+                 sw128_desc(k_tile(s) + (ks / 4) * Cfg::kKVChunkBytes + col,
+                            16, 1024), ks > 0);
       }
       wgmma_commit();
     };
     // O += P V over stage s: V is MN-major (D contiguous), 64-column
-    // chunks kChunkBytes apart, 8-key groups 1024 bytes apart.
+    // chunks kKVChunkBytes apart, 8-key groups 1024 bytes apart.
     auto issue_pv = [&](int s) {
       fence_regs(acc);
       fence_regs(pa);
       wgmma_fence();
       const uint32_t v_tile = k_tile(s) + Cfg::kTileBytes;
 #pragma unroll
-      for (int kk = 0; kk < kWgBK / 16; ++kk) {
-        wgmma_rs(acc, pa[kk],
-                 sw128_desc(v_tile + kk * 16 * 128, kChunkBytes, 1024));
+      for (int kk = 0; kk < kBK / 16; ++kk) {
+        wgmma_rs(acc, pa[kk], sw128_desc(v_tile + kk * 16 * 128,
+                                         Cfg::kKVChunkBytes, 1024));
       }
       wgmma_commit();
     };
@@ -372,7 +385,7 @@ flash_attention_wgmma_kernel(__grid_constant__ const CUtensorMap tm_q,
     // sc[4j + e]: key kt + 8j + 2t + (e & 1), row pos0 (e < 2) or pos1.
     auto softmax = [&](int kt, float& al0, float& al1) {
       const bool masked =
-          kt + kWgBK > Sk || (causal && kt + kWgBK - 1 > p_first)
+          kt + kBK > Sk || (causal && kt + kBK - 1 > p_first)
           || (window > 0 && kt <= p_last - window);
       float mx0 = kNegInf, mx1 = kNegInf;
       if (masked) {
@@ -380,10 +393,10 @@ flash_attention_wgmma_kernel(__grid_constant__ const CUtensorMap tm_q,
         const int base = kt + 2 * t;
         const int hi0 = (causal ? min(Sk, pos0 + 1) : Sk) - base;
         const int hi1 = (causal ? min(Sk, pos1 + 1) : Sk) - base;
-        const int lo0 = window > 0 ? pos0 - window + 1 - base : -kWgBK;
-        const int lo1 = window > 0 ? pos1 - window + 1 - base : -kWgBK;
+        const int lo0 = window > 0 ? pos0 - window + 1 - base : -kBK;
+        const int lo1 = window > 0 ? pos1 - window + 1 - base : -kBK;
 #pragma unroll
-        for (int i = 0; i < 64; ++i) {
+        for (int i = 0; i < kBK / 2; ++i) {
           const int off = 8 * (i / 4) + (i & 1);
           const bool vis = (i & 2) ? (off < hi1 && off >= lo1)
                                    : (off < hi0 && off >= lo0);
@@ -391,7 +404,7 @@ flash_attention_wgmma_kernel(__grid_constant__ const CUtensorMap tm_q,
         }
       }
 #pragma unroll
-      for (int i = 0; i < 64; i += 4) {
+      for (int i = 0; i < kBK / 2; i += 4) {
         mx0 = fmaxf(mx0, fmaxf(sc[i], sc[i + 1]));
         mx1 = fmaxf(mx1, fmaxf(sc[i + 2], sc[i + 3]));
       }
@@ -410,7 +423,7 @@ flash_attention_wgmma_kernel(__grid_constant__ const CUtensorMap tm_q,
         m0 = mn0;
         m1 = mn1;
 #pragma unroll
-        for (int i = 0; i < 64; ++i) {
+        for (int i = 0; i < kBK / 2; ++i) {
           const float sm = (i & 2) ? sm1 : sm0;
           sc[i] = sc[i] <= 0.5f * kNegInf ? 0.f : exp2_fast(sc[i] - sm);
         }
@@ -424,13 +437,13 @@ flash_attention_wgmma_kernel(__grid_constant__ const CUtensorMap tm_q,
         m0 = mn0;
         m1 = mn1;
 #pragma unroll
-        for (int i = 0; i < 64; ++i) {
+        for (int i = 0; i < kBK / 2; ++i) {
           sc[i] = exp2_fast(fmaf(sc[i], scale_log2, (i & 2) ? -mn1 : -mn0));
         }
       }
       float ls0 = 0.f, ls1 = 0.f;
 #pragma unroll
-      for (int i = 0; i < 64; i += 4) {
+      for (int i = 0; i < kBK / 2; i += 4) {
         ls0 += sc[i] + sc[i + 1];
         ls1 += sc[i + 2] + sc[i + 3];
       }
@@ -441,7 +454,7 @@ flash_attention_wgmma_kernel(__grid_constant__ const CUtensorMap tm_q,
     // in regs 0 (row g) and 1 (row g + 8), keys 8-15 in regs 2 and 3.
     auto pack_p = [&]() {
 #pragma unroll
-      for (int i = 0; i < 64; i += 4) {
+      for (int i = 0; i < kBK / 2; i += 4) {
         pa[i / 8][(i / 4) % 2 * 2] = pack_bf16(sc[i], sc[i + 1]);
         pa[i / 8][(i / 4) % 2 * 2 + 1] = pack_bf16(sc[i + 2], sc[i + 3]);
       }
@@ -482,7 +495,7 @@ flash_attention_wgmma_kernel(__grid_constant__ const CUtensorMap tm_q,
         if (cw == 0 || j + 1 < n_tiles) hand_over();
         asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
         fence_regs(sc);
-        softmax(k_lo + j * kWgBK, al0, al1);
+        softmax(k_lo + j * kBK, al0, al1);
         wgmma_wait_all();
         fence_regs(acc);
         mbar_arrive(empty(prev));
@@ -490,7 +503,7 @@ flash_attention_wgmma_kernel(__grid_constant__ const CUtensorMap tm_q,
         // changes nothing), decided per warp.
         if (__any_sync(0xffffffffu, al0 != 1.f || al1 != 1.f)) {
 #pragma unroll
-          for (int i = 0; i < Cfg::kN / 2; i += 4) {
+          for (int i = 0; i < kD / 2; i += 4) {
             acc[i] *= al0;
             acc[i + 1] *= al0;
             acc[i + 2] *= al1;
@@ -527,8 +540,8 @@ flash_attention_wgmma_kernel(__grid_constant__ const CUtensorMap tm_q,
       }
       const int r = 16 * warp + g;
 #pragma unroll
-      for (int j = 0; j < Cfg::kN / 8; ++j) {
-        const uint32_t at = q_wg + (j / 8) * kChunkBytes
+      for (int j = 0; j < kD / 8; ++j) {
+        const uint32_t at = q_wg + (j / 8) * kQChunkBytes
                             + ((((j % 8) ^ g) << 4) | (4 * t));
         asm volatile("st.shared.b32 [%0], %1;\n" ::
                      "r"(at + r * 128),
@@ -544,7 +557,8 @@ flash_attention_wgmma_kernel(__grid_constant__ const CUtensorMap tm_q,
       asm volatile("bar.sync %0, 128;\n" :: "r"(1 + cw) : "memory");
       if (tid == 0) {
         for (int c = 0; c < Cfg::kChunks; ++c) {
-          tma_store(&tm_o, q_wg + c * kChunkBytes, 64 * c, h, wg_first, b);
+          tma_store(&tm_o, q_wg + c * kQChunkBytes, 64 * c, h, wg_first,
+                    b);
         }
         asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
         asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
@@ -561,8 +575,8 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o,
   using Cfg = WgmmaConfig<kD>;
   CUtensorMap tq, tk, tv, to;
   if (!make_map(&tq, q, B, Sq, H, kD, kWgBQ)
-      || !make_map(&tk, k, B, Sk, H, kD, kWgBK)
-      || !make_map(&tv, v, B, Sk, H, kD, kWgBK)
+      || !make_map(&tk, k, B, Sk, H, kD, Cfg::kBK)
+      || !make_map(&tv, v, B, Sk, H, kD, Cfg::kBK)
       || !make_map(&to, o, B, Sq, H, kD, kWgBQ / 2)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -582,8 +596,20 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o,
   return static_cast<int>(cudaGetLastError());
 }
 
-// bf16: the wgmma kernel for D in {64, 80, 128}, 16-byte aligned q, k, v
-// and o (TMA) and scale > 0; anything else is cudaErrorInvalidValue.
+// Launches of each device kernel and instance since the library was loaded,
+// counted where a launch succeeds: 0 the fp32 kernel (every D), 1-5 the
+// wgmma kernel at D = 64, 80, 128, 160, 256
+// (repro_flash_attention_kernel_launches).
+constexpr int kCountedKernels = 6;
+long long g_launches[kCountedKernels] = {0, 0, 0, 0, 0, 0};
+
+int counted(int err, int kind) {
+  if (err == static_cast<int>(cudaSuccess)) ++g_launches[kind];
+  return err;
+}
+
+// bf16: the wgmma kernel for D in {64, 80, 128, 160, 256}, 16-byte aligned
+// q, k, v and o (TMA) and scale > 0; anything else is cudaErrorInvalidValue.
 int launch_bf16(const void* q, const void* k, const void* v, void* o,
                 float* lse, int B, int H, int Sq, int Sk, int D, float scale,
                 int causal, int window, cudaStream_t stream) {
@@ -593,58 +619,75 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
   if (align % 16 != 0 || !(scale > 0.f)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+#define REPRO_WGMMA_CASE(d, kind)                                           \
+  case d:                                                                   \
+    return counted(launch_wgmma<d>(q, k, v, o, lse, B, H, Sq, Sk, scale,    \
+                                   causal, window, stream),                 \
+                   kind);
   switch (D) {
-    case 64:
-      return launch_wgmma<64>(q, k, v, o, lse, B, H, Sq, Sk, scale,
-                              causal, window, stream);
-    case 80:
-      return launch_wgmma<80>(q, k, v, o, lse, B, H, Sq, Sk, scale,
-                              causal, window, stream);
-    case 128:
-      return launch_wgmma<128>(q, k, v, o, lse, B, H, Sq, Sk, scale,
-                               causal, window, stream);
+    REPRO_WGMMA_CASE(64, 1)
+    REPRO_WGMMA_CASE(80, 2)
+    REPRO_WGMMA_CASE(128, 3)
+    REPRO_WGMMA_CASE(160, 4)
+    REPRO_WGMMA_CASE(256, 5)
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef REPRO_WGMMA_CASE
 }
 
+// One instance of the fp32 kernel: its K and V tiles take 2·kBK·16·kG4
+// floats of dynamic shared memory, past the 48 KB default from kG4 = 13
+// (D > 192) on.
 template <int kG4>
-void launch(const void* q, const void* k, const void* v, void* o, float* lse,
-            int B, int H, int Sq, int Sk, int D, float scale, int causal,
-            int window, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int H, int Sq, int Sk, int D, float scale, int causal,
+           int window, cudaStream_t stream) {
+  constexpr int kSmem = 2 * kBK * 16 * kG4 * static_cast<int>(sizeof(float));
+  static bool smem_set = false;
+  if (kSmem > 48 * 1024 && !smem_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_attention_kernel<kG4>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    smem_set = true;
+  }
   const dim3 grid((Sq + kBQ - 1) / kBQ, B * H);
-  flash_attention_kernel<kG4><<<grid, kThreads, 0, stream>>>(
+  flash_attention_kernel<kG4><<<grid, kThreads, kSmem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), lse, H, Sq, Sk,
       D, scale, causal, window);
+  return static_cast<int>(cudaGetLastError());
 }
 
-// fp32: the CUDA-core kernel for D % 4 == 0, D <= 128.
+// fp32: the CUDA-core kernel for D % 4 == 0, D <= 256.
 int launch_f32(const void* q, const void* k, const void* v, void* o,
                float* lse, int B, int H, int Sq, int Sk, int D, float scale,
                int causal, int window, cudaStream_t stream) {
+#define REPRO_F32_CASE(g4)                                                  \
+  case g4:                                                                  \
+    return counted(launch<g4>(q, k, v, o, lse, B, H, Sq, Sk, D, scale,      \
+                              causal, window, stream),                      \
+                   0);
   switch ((D + 15) / 16) {
-    case 1: launch<1>(q, k, v, o, lse, B, H, Sq, Sk, D, scale, causal, window, stream); break;
-    case 2: launch<2>(q, k, v, o, lse, B, H, Sq, Sk, D, scale, causal, window, stream); break;
-    case 3: launch<3>(q, k, v, o, lse, B, H, Sq, Sk, D, scale, causal, window, stream); break;
-    case 4: launch<4>(q, k, v, o, lse, B, H, Sq, Sk, D, scale, causal, window, stream); break;
-    case 5: launch<5>(q, k, v, o, lse, B, H, Sq, Sk, D, scale, causal, window, stream); break;
-    case 6: launch<6>(q, k, v, o, lse, B, H, Sq, Sk, D, scale, causal, window, stream); break;
-    case 7: launch<7>(q, k, v, o, lse, B, H, Sq, Sk, D, scale, causal, window, stream); break;
-    case 8: launch<8>(q, k, v, o, lse, B, H, Sq, Sk, D, scale, causal, window, stream); break;
+    REPRO_F32_CASE(1) REPRO_F32_CASE(2) REPRO_F32_CASE(3) REPRO_F32_CASE(4)
+    REPRO_F32_CASE(5) REPRO_F32_CASE(6) REPRO_F32_CASE(7) REPRO_F32_CASE(8)
+    REPRO_F32_CASE(9) REPRO_F32_CASE(10) REPRO_F32_CASE(11)
+    REPRO_F32_CASE(12) REPRO_F32_CASE(13) REPRO_F32_CASE(14)
+    REPRO_F32_CASE(15) REPRO_F32_CASE(16)
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+#undef REPRO_F32_CASE
 }
 
 }  // namespace
 
-// dtype: 0 = fp32 (D % 4 == 0, D <= 128), 1 = bf16 (D in {64, 80, 128},
-// q/k/v/o 16-byte aligned, scale > 0); window <= 0 means no window; causal
-// is 0 or 1.  lse: null, or (B, H, Sq) fp32 that receives each row's
-// natural-log log-sum-exp of its scaled visible scores (+inf for a row that
-// sees no key); o does not depend on it.  Returns cudaGetLastError() after
-// the launch.
+// dtype: 0 = fp32 (D % 4 == 0, D <= 256), 1 = bf16 (D in {64, 80, 128,
+// 160, 256}, q/k/v/o 16-byte aligned, scale > 0); window <= 0 means no
+// window; causal is 0 or 1.  lse: null, or (B, H, Sq) fp32 that receives
+// each row's natural-log log-sum-exp of its scaled visible scores (+inf for
+// a row that sees no key); o does not depend on it.  Returns
+// cudaGetLastError() after the launch.
 extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, void* o, void* lse,
                                      int dtype, int B, int H, int Sq, int Sk,
@@ -665,4 +708,10 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
                        window, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Copies the launch counts (see g_launches) into out; returns their number.
+extern "C" int repro_flash_attention_kernel_launches(long long* out) {
+  for (int i = 0; i < kCountedKernels; ++i) out[i] = g_launches[i];
+  return kCountedKernels;
 }

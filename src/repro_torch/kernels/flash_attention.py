@@ -10,13 +10,16 @@ Heads are pre-repeated for GQA by the caller.  The kernel is hand-written
 CUDA C++ for ``sm_90a`` (``csrc/flash_attention.cu``), built by ``nvcc`` and
 bound with ``ctypes``: bf16 runs on Hopper's warpgroup tensor cores
 (``wgmma``), fed by TMA loads through an ``mbarrier``-guarded ring, with a
-producer warpgroup and two consumer warpgroups; it takes D in {64, 80, 128}
-(the zoo's calls), q, k, v and o 16-byte aligned (TMA) and scale > 0.  fp32
-runs as FMAs on the CUDA cores and takes D % 4 == 0 up to 128.  The plain
+producer warpgroup and two consumer warpgroups; it takes D in {64, 80, 128,
+160, 256} (the zoo's calls; past 128 on K/V tiles of 64 keys), q, k, v and
+o 16-byte aligned (TMA) and scale > 0.  fp32 runs as FMAs on the CUDA cores
+and takes D % 4 == 0 up to 256.  The plain
 version is :func:`repro_torch.kernels.ref.flash_attention_ref`.  The
 wrapper takes CUDA tensors only, checks them, allocates the output,
 launches on PyTorch's current stream, raises on a launch error and adds one
-to ``LAUNCHES["flash_attention"]``.
+to ``LAUNCHES["flash_attention"]``; :func:`fwd_kernel_launches` reads the
+library's own count of each device kernel and instance, so a run shows
+which route it took.
 
 With ``return_lse=True`` the forward also returns each row's natural-log
 log-sum-exp of its scaled visible scores, (B, H, Sq) fp32, +inf for a row
@@ -29,8 +32,10 @@ and the gradient do, the three gradients in the inputs' dtype, by three
 launches (Δ = rowsum(dO ∘ O), dK/dV over key blocks, dQ over query
 blocks) with no float atomics, so two calls give the same bits.  bf16
 runs on the tensor cores (``wgmma`` fed by TMA, the forward's skeleton)
-and takes what the bf16 forward takes, do and the gradients 16-byte
-aligned too; fp32 runs on the CUDA cores.  Its plain version is
+and takes D in {64, 80, 128}, do and the gradients 16-byte aligned too;
+fp32 runs on the CUDA cores up to D = 128.  A CUDA tensor of a wider head
+raises ``NotImplementedError`` before any launch: the backward at D = 160
+and 256 is ROADMAP item A13d-2b.  Its plain version is
 ``ref.flash_attention_bwd_ref``.  Each call adds one to
 ``LAUNCHES["flash_attention_bwd"]``.
 """
@@ -43,14 +48,24 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.launch import LAUNCHES, check_tensor, int32, raise_on
 
-__all__ = ["flash_attention_cuda", "flash_attention_bwd_cuda", "HEAD_DIM_MAX",
-           "BF16_HEAD_DIMS", "BWD_DEVICE_KERNELS", "bwd_kernel_launches"]
+__all__ = ["flash_attention_cuda", "flash_attention_bwd_cuda",
+           "FWD_HEAD_DIM_MAX", "BWD_HEAD_DIM_MAX", "BF16_HEAD_DIMS",
+           "FWD_DEVICE_KERNELS", "BWD_DEVICE_KERNELS", "fwd_kernel_launches",
+           "bwd_kernel_launches"]
 
-#: Largest head dim the fp32 kernel takes (it also needs D % 4 == 0).
-HEAD_DIM_MAX = 128
-#: Head dims the bf16 (tensor-core) kernel takes.
-BF16_HEAD_DIMS = (64, 80, 128)
+#: Largest head dim the fp32 forward takes (it also needs D % 4 == 0).
+FWD_HEAD_DIM_MAX = 256
+#: Largest head dim the backward takes (bf16: BF16_HEAD_DIMS up to it).
+BWD_HEAD_DIM_MAX = 128
+#: Head dims the bf16 (tensor-core) forward takes.
+BF16_HEAD_DIMS = (64, 80, 128, 160, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: The forward's device kernels and instances, in the order of the
+#: library's counts: the fp32 kernel (every D), then the wgmma kernel at
+#: each head dim of BF16_HEAD_DIMS.
+FWD_DEVICE_KERNELS = ("flash_attention_kernel",
+                      *(f"flash_attention_wgmma_kernel<{d}>"
+                        for d in BF16_HEAD_DIMS))
 #: The backward's device kernels, in the order of the library's counts: Δ,
 #: then dK/dV and dQ on the tensor cores (bf16) or the CUDA cores (fp32).
 BWD_DEVICE_KERNELS = ("fa_bwd_delta_kernel", "fa_bwd_dkdv_wgmma_kernel",
@@ -79,10 +94,11 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             or k.device != q.device or v.device != q.device):
         raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not "
                          f"match q {tuple(q.shape)}")
-    if d % 4 or d > HEAD_DIM_MAX or b * h > 65535 or sq == 0 or sk == 0:
+    if d % 4 or d > FWD_HEAD_DIM_MAX or b * h > 65535 or sq == 0 or sk == 0:
         raise ValueError(f"flash_attention kernel takes D % 4 == 0, "
-                         f"D <= {HEAD_DIM_MAX}, B·H <= 65535 and non-empty "
-                         f"sequences, got {tuple(q.shape)} / {tuple(k.shape)}")
+                         f"D <= {FWD_HEAD_DIM_MAX}, B·H <= 65535 and "
+                         f"non-empty sequences, got {tuple(q.shape)} / "
+                         f"{tuple(k.shape)}")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
     return 1.0 / d ** 0.5 if scale is None else float(scale)
@@ -135,7 +151,13 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                                         torch.Tensor]:
     """The gradients (dq, dk, dv) of :func:`flash_attention_cuda` at
     (q, k, v), given its output ``o`` and ``lse`` (``return_lse=True``)
-    and the gradient ``do`` reaching ``o`` (shaped and typed as q)."""
+    and the gradient ``do`` reaching ``o`` (shaped and typed as q).
+    Raises ``NotImplementedError`` on a CUDA tensor at D >
+    BWD_HEAD_DIM_MAX (ROADMAP A13d-2b), before any launch."""
+    if q.device.type == "cuda" and q.shape[-1] > BWD_HEAD_DIM_MAX:
+        raise NotImplementedError(
+            f"flash_attention's backward at head dim {q.shape[-1]} (past "
+            f"{BWD_HEAD_DIM_MAX}) is queued as ROADMAP item A13d-2b")
     scale = _check(q, k, v, window, scale, (("o", o), ("do", do)))
     b, sq, h, d = q.shape
     sk = k.shape[1]
@@ -164,6 +186,16 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     raise_on(err, "flash_attention_bwd")
     LAUNCHES["flash_attention_bwd"] += 1
     return dq, dk, dv
+
+
+def fwd_kernel_launches() -> dict[str, int]:
+    """Launches of each of the forward's device kernels and instances since
+    its library was loaded (counted in ``csrc/flash_attention.cu`` where a
+    launch succeeds): which route a call went through."""
+    lib = build.load("flash_attention")
+    counts = (ctypes.c_longlong * len(FWD_DEVICE_KERNELS))()
+    lib.repro_flash_attention_kernel_launches(counts)
+    return dict(zip(FWD_DEVICE_KERNELS, counts))
 
 
 def bwd_kernel_launches() -> dict[str, int]:

@@ -10,6 +10,7 @@ hint) does not exist here.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import torch
@@ -19,9 +20,9 @@ from repro_torch.models.remat import checkpoint
 Params = Any
 
 __all__ = ["silu", "init_dense", "dense", "init_rmsnorm", "rmsnorm",
-           "init_embedding", "embed", "unembed_logits", "rope_freqs",
-           "apply_rope", "init_swiglu", "swiglu", "chunked_cross_entropy",
-           "torch_dtype", "init_normal"]
+           "init_embedding", "embed", "embed_scale", "unembed_logits",
+           "rope_freqs", "apply_rope", "init_swiglu", "swiglu",
+           "chunked_cross_entropy", "torch_dtype", "init_normal"]
 
 
 def torch_dtype(name: str | torch.dtype) -> torch.dtype:
@@ -106,6 +107,17 @@ def embed(p: Params, tokens: torch.Tensor,
     return p["table"][tokens].to(compute_dtype)
 
 
+@functools.lru_cache(maxsize=None)
+def embed_scale(d_model: int, compute_dtype: torch.dtype) -> float:
+    """The scale of gemma's embeddings as the reference computes it,
+    ``jnp.asarray(d_model, cd) ** 0.5``: a pow in the compute dtype, so in
+    bf16 50.5 at d_model 2560 (√2560 = 50.596… rounded to bf16) and
+    11.3125 at 128.  Returned as a Python float holding that value
+    exactly: a tensor in ``compute_dtype`` times it rounds as the
+    reference's product of two ``compute_dtype`` operands."""
+    return float(torch.tensor(float(d_model), dtype=compute_dtype) ** 0.5)
+
+
 def unembed_logits(p: Params, x: torch.Tensor,
                    compute_dtype: torch.dtype = torch.bfloat16
                    ) -> torch.Tensor:
@@ -115,15 +127,33 @@ def unembed_logits(p: Params, x: torch.Tensor,
 
 # ---------------------------------------------------------------- RoPE
 
+@functools.lru_cache(maxsize=None)
+def _rope_inv_freqs(head_dim: int, theta: float,
+                    device: torch.device) -> torch.Tensor:
+    """``θ^(−i/half)``, i < half, fp32, in the bits of the reference's
+    ``_rope_table`` on the CPU: XLA turns the division by ``half`` into a
+    product with its float32 reciprocal, and its pow is glibc's ``powf``
+    (:func:`~repro_torch.core.threefry.xla_powf_t`).  ``torch.pow`` and a
+    true division differ from it by an ulp at some i (pixtral's θ = 1e9 at
+    D = 160, qwen3's 1e6 at 128), which position 32,767 turns into 5e-4 of
+    a cos.  Made once per (head_dim, θ, device) on the CPU and copied
+    over, so a CUDA graph captured after the first call reads the cached
+    tensor and copies nothing."""
+    from repro_torch.core.threefry import xla_powf_t
+    half = head_dim // 2
+    with torch.inference_mode(False), torch.no_grad():
+        f32 = torch.float32
+        recip = torch.tensor(1.0, dtype=f32) / torch.tensor(float(half),
+                                                            dtype=f32)
+        exps = -torch.arange(0, half, dtype=f32) * recip
+        return xla_powf_t(float(theta), exps).to(device)
+
+
 def rope_freqs(head_dim: int, theta: float, positions: torch.Tensor):
     """cos / sin tables (..., S, head_dim/2) of the reference's
-    ``_rope_table``: ``freqs = θ^(−i/half)`` in fp32."""
-    half = head_dim // 2
-    exps = -torch.arange(0, half, dtype=torch.float32,
-                         device=positions.device) / half
-    # A Python base needs no host-to-device copy, so a CUDA graph can
-    # capture this (every theta of the configs is exact in float32).
-    freqs = torch.pow(float(theta), exps)
+    ``_rope_table``: ``freqs = θ^(−i/half)`` in fp32 (its bits:
+    :func:`_rope_inv_freqs`)."""
+    freqs = _rope_inv_freqs(head_dim, float(theta), positions.device)
     ang = positions.to(torch.float32)[..., None] * freqs    # (..., S, half)
     return torch.cos(ang), torch.sin(ang)
 

@@ -18,9 +18,12 @@ Layer kinds ported: ``attn`` (full-causal GQA attention + MLP), ``swa``
 ``attn`` or ``swa`` layer is the MoE (:mod:`repro_torch.models.moe`) when
 the config has one, else SwiGLU; the MoE's load-balance loss is summed over
 the layers and returned beside the hidden states.  The local/global
-pattern (gemma3), head dims the attention kernels do not take, and the
-vision and audio families raise :class:`NotImplementedError` naming
-ROADMAP item A13d-2 or A13d-3.
+pattern (gemma3: bodies of ``swa`` layers and one ``attn``) is a plan of
+these kinds; gemma's embeddings are scaled by √d_model rounded as the
+reference rounds it (:func:`~repro_torch.models.layers.embed_scale`); the
+vision family (pixtral) takes its patch embeddings ahead of the text, the
+loss over the text alone.  The audio family (encoder-decoder) raises
+:class:`NotImplementedError` naming ROADMAP item A13d-3.
 """
 from __future__ import annotations
 
@@ -31,7 +34,6 @@ import torch
 import dataclasses
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.flash_attention import HEAD_DIM_MAX
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
@@ -50,24 +52,11 @@ Segment = tuple[tuple[str, ...], int]
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for the families and layer kinds this slice does not port."""
-    what = item = None
+    """Raise for the family the port does not carry yet."""
     if cfg.family == "audio":
-        what, item = "the audio family (encoder-decoder)", "A13d-3"
-    elif cfg.family == "vlm" or cfg.frontend is not None:
-        what = f"the {cfg.family} family ({cfg.frontend} frontend)"
-        item = "A13d-2"
-    elif cfg.local_global_ratio:
-        what, item = "the local/global attention pattern", "A13d-2"
-    elif cfg.resolved_head_dim > HEAD_DIM_MAX and any(
-            kind in ("attn", "swa", "shared")
-            for kinds, _ in build_plan(cfg) for kind in kinds):
-        what = (f"head_dim {cfg.resolved_head_dim} (the attention kernels "
-                f"take at most {HEAD_DIM_MAX})")
-        item = "A13d-2"
-    if what is not None:
         raise NotImplementedError(
-            f"{cfg.name}: {what} is queued as ROADMAP item {item}")
+            f"{cfg.name}: the audio family (encoder-decoder) is queued as "
+            f"ROADMAP item A13d-3")
 
 
 def build_plan(cfg: ModelConfig) -> list[Segment]:
@@ -280,14 +269,24 @@ def forward_hidden(params: Params, cfg: ModelConfig, x: torch.Tensor,
 
 def _embed_inputs(params: Params, cfg: ModelConfig,
                   batch: dict) -> torch.Tensor:
-    # No ported family scales its embeddings (gemma3's scale is A13d).
-    return L.embed(params["embed"], batch["tokens"],
-                   L.torch_dtype(cfg.compute_dtype))
+    """The token embeddings in the compute dtype; a vision config's
+    ``patch_embeddings`` (B, P, D), when the batch has them, cast and put
+    ahead of them; then the whole sequence scaled where the config scales
+    its embeddings."""
+    cd = L.torch_dtype(cfg.compute_dtype)
+    x = L.embed(params["embed"], batch["tokens"], cd)
+    if cfg.frontend == "vision" and "patch_embeddings" in batch:
+        x = torch.cat([batch["patch_embeddings"].to(cd), x], dim=1)
+    if cfg.scale_embeddings:
+        x = x * L.embed_scale(cfg.d_model, cd)
+    return x
 
 
 def lm_loss(params: Params, cfg: ModelConfig, batch: dict, *,
             remat: bool = True) -> torch.Tensor:
-    """Next-token CE loss.  batch: tokens (B,S), labels (B,S) [, mask]."""
+    """Next-token CE loss.  batch: tokens (B,S), labels (B,S) [, mask,
+    patch_embeddings (B,P,D)]; positions run over the patches and the text,
+    the loss over the text alone."""
     x = _embed_inputs(params, cfg, batch)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
@@ -353,6 +352,8 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     attn, swa, moe, m1, m2 = specs_for(cfg)
     cd = L.torch_dtype(cfg.compute_dtype)
     x = L.embed(params["embed"], tokens, cd)
+    if cfg.scale_embeddings:
+        x = x * L.embed_scale(cfg.d_model, cd)
     eps = cfg.norm_eps
     for seg_p, seg_c, (kinds, count) in zip(params["segments"],
                                             cache["segments"],

@@ -6,11 +6,13 @@ params on the generator's device, ``loss(params, batch)`` is the
 full-context (train / prefill) forward, ``init_cache(params, batch,
 max_seq)`` allocates the decode cache on the params' device and
 ``decode_step(params, tokens, cache, pos)`` decodes one token, updating the
-cache in place.  The dense (``attn`` layers), MoE (``attn`` or ``swa``
-layers with the MoE MLP: mixtral, qwen3-moe, moonshot), ssm (``mamba1``)
-and hybrid (``mamba2`` + ``shared``) families are ported; the local/global
-pattern (gemma3), the vision and the audio families raise at
-:func:`build_model` naming ROADMAP item A13d.
+cache in place.  The dense (``attn`` layers; gemma3's local/global bodies
+of ``swa`` and ``attn`` layers), MoE (``attn`` or ``swa`` layers with the
+MoE MLP: mixtral, qwen3-moe, moonshot), ssm (``mamba1``), hybrid
+(``mamba2`` + ``shared``) and vision (pixtral: ``patch_embeddings`` (B,
+P, D) in the batch ahead of the text; decode takes text alone) families
+are ported; the audio family raises at :func:`build_model` naming ROADMAP
+item A13d-3.
 
 Params and caches keep the reference's tree layouts, so
 :func:`params_from_numpy` and :func:`cache_from_numpy` carry the

@@ -7,12 +7,14 @@
 * ``mamba1_decode`` / ``mamba2_decode`` from random conv histories and
   states: the output and the new cache;
 * ``init_cache``: the tree (paths, shapes, dtypes) of the qwen3, smollm,
-  zamba2, falcon-mamba, mixtral (``swa`` rings), qwen3-moe and moonshot
-  smoke configs;
+  zamba2, falcon-mamba, mixtral (``swa`` rings), qwen3-moe, moonshot,
+  gemma3 (a ring and a linear cache in one body) and pixtral smoke
+  configs;
 * ``decode_step`` teacher-forced for 20 steps from the same params (the
   reference's init, carried with ``params_from_numpy``) and the same cache,
   fp32 and bf16: logits at every step and the final cache; mixtral-smoke
-  also for 300 steps, past its rings' 256 positions;
+  and gemma3-smoke also for 300 steps, past their rings' 256 positions
+  (pixtral decodes text alone, as the reference's);
 * the port's decode against its own prefill forward, as
   ``tests/test_models_consistency.py::test_prefill_equals_decode`` holds
   the reference (atol = rtol = 2e-4, fp32).
@@ -50,7 +52,8 @@ from repro_torch.models.zoo import (build_model, cache_from_numpy,
 from repro_torch.tree import tree_flatten, tree_leaves, tree_map
 
 PORTED = ["qwen3_0_6b", "smollm_360m", "zamba2_2_7b", "falcon_mamba_7b",
-          "mixtral_8x22b", "qwen3_moe_235b_a22b", "moonshot_v1_16b_a3b"]
+          "mixtral_8x22b", "qwen3_moe_235b_a22b", "moonshot_v1_16b_a3b",
+          "gemma3_4b", "pixtral_12b"]
 DTYPES = ["float32", "bfloat16"]
 
 
@@ -291,6 +294,29 @@ def test_swa_decode_past_its_ring_matches_reference():
             toks[:, t:t + 1]), cache, t)
         _close(lg, want_logits[t], "float32", fp32_atol=4e-6)
     for a, b in zip(tree_leaves(cache), jax.tree.leaves(want_cache)):
+        _close(a, b, "float32", fp32_atol=4e-6)
+
+
+def test_local_global_decode_past_its_ring_matches_reference():
+    """gemma3-smoke (one ``swa`` layer, window 32, and one global ``attn``
+    layer; scaled embeddings) teacher-forced for 300 steps at max_seq 300:
+    its ring holds 256 positions and wraps from step 256 on, while the
+    global layer's linear cache holds all 300.  fp32: logits at every step
+    and both caches within 4e-6·(1 + max|·|), as the 20-step test."""
+    arch, steps = "gemma3_4b", 300
+    params_np, toks, want_logits, want_cache = _reference_decode(
+        arch, "float32", steps=steps)
+    _, cfg = _configs(arch, "float32")
+    model = build_model(cfg)
+    params = params_from_numpy(params_np)
+    cache = model.init_cache(params, toks.shape[0], steps)
+    assert [a.shape[2] for a in tree_leaves(cache)] == [256, 256, 300, 300]
+    for t in range(steps):
+        lg, cache = model.decode_step(params, torch.from_numpy(
+            toks[:, t:t + 1]), cache, t)
+        _close(lg, want_logits[t], "float32", fp32_atol=4e-6)
+    for a, b in zip(tree_leaves(cache), jax.tree.leaves(want_cache)):
+        assert a.shape == b.shape
         _close(a, b, "float32", fp32_atol=4e-6)
 
 

@@ -7,7 +7,8 @@ model layer's chunked SSD form and the Pallas bodies run in interpret mode,
 on the same numpy inputs.  The CUDA kernels are held to these plain versions
 on the card by ``chip_smoke.py``.
 
-Tolerances: fp32 attention within 3e-6 (the reference's own bar for its
+Attention runs at the zoo's head dims, 64 to pixtral's 160 and gemma3's
+256.  Tolerances: fp32 attention within 3e-6 (the reference's own bar for its
 kernel against its oracle; both sides are fp32 softmaxes summed in another
 order); bf16 attention within one bf16 ulp of the output's scale (2e-2,
 the reference's bar: both round an fp32 result to bf16).  The scans within
@@ -52,6 +53,15 @@ def _np(x):
     (2, 64, 64, 1, 64, False, None, "float32"),      # non-causal
     (2, 64, 64, 4, 64, True, None, "bfloat16"),
     (1, 40, 72, 2, 80, True, 24, "bfloat16"),
+    (1, 72, 72, 2, 160, True, None, "float32"),     # pixtral's D = 160
+    (1, 72, 72, 2, 256, True, None, "float32"),     # gemma3's D = 256
+    (1, 96, 96, 2, 256, True, 32, "float32"),       # gemma3's window < S
+    (1, 24, 88, 2, 160, True, None, "float32"),     # Sq < Sk at D = 160
+    (1, 40, 104, 1, 256, True, 48, "float32"),      # Sq < Sk, windowed
+    (1, 72, 72, 2, 160, True, None, "bfloat16"),
+    (1, 96, 96, 2, 256, True, 32, "bfloat16"),
+    (1, 40, 104, 2, 256, True, 48, "bfloat16"),
+    (1, 24, 88, 2, 160, True, 20, "bfloat16"),
 ], ids=str)
 def test_flash_attention_plain_matches_reference(b, sq, sk, h, d, causal,
                                                  window, dtype):

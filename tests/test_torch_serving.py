@@ -47,7 +47,8 @@ from repro_torch.serving.sampler import _softmax
 
 SEEDS = range(5)
 PORTED = ["qwen3_0_6b", "smollm_360m", "zamba2_2_7b", "falcon_mamba_7b",
-          "mixtral_8x22b", "qwen3_moe_235b_a22b", "moonshot_v1_16b_a3b"]
+          "mixtral_8x22b", "qwen3_moe_235b_a22b", "moonshot_v1_16b_a3b",
+          "gemma3_4b", "pixtral_12b"]
 SAMPLERS = [dict(temperature=0.0), dict(temperature=0.8),
             dict(temperature=1.0, top_k=40), dict(temperature=0.7, top_p=0.9),
             dict(temperature=0.8, top_k=40, top_p=0.9),
@@ -368,6 +369,26 @@ def test_serve_cli_moe_smoke_on_cpu(arch, capsys):
     assert f"arch={cfg.name} batch=2 context=8" in out
     params = build_model(cfg).init(torch.Generator().manual_seed(0))
     assert _sample_ids(out) == _cli_expected_ids(cfg, params, 2, 8, 6, 0)
+
+
+def test_serve_cli_gemma3_smoke_on_cpu(capsys):
+    """gemma3 (local/global, scaled embeddings) through the serve CLI: its
+    ids are the teacher-forced then greedy decode's."""
+    serve.main(["--arch", "gemma3_4b", "--smoke", "--device", "cpu",
+                "--batch", "2", "--context", "40", "--new-tokens", "6",
+                "--temperature", "0"])
+    out = capsys.readouterr().out
+    cfg = get_smoke_config("gemma3_4b")
+    assert f"arch={cfg.name} batch=2 context=40" in out
+    params = build_model(cfg).init(torch.Generator().manual_seed(0))
+    assert _sample_ids(out) == _cli_expected_ids(cfg, params, 2, 40, 6, 0)
+
+
+def test_serve_cli_refuses_the_vision_family():
+    """pixtral decodes text through the engine, but the serve CLI drives
+    text decoders alone, as the reference's refuses it."""
+    with pytest.raises(SystemExit, match="serve.py drives text decoders"):
+        serve.main(["--arch", "pixtral_12b", "--smoke", "--device", "cpu"])
 
 
 def test_serve_cli_restores_reference_checkpoint(tmp_path, capsys):

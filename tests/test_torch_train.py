@@ -359,3 +359,37 @@ def test_ssd_scan_card_route_runs_the_function(monkeypatch):
     for x, y_ in zip(got, want):
         np.testing.assert_allclose(x.numpy(), y_.numpy(), atol=1e-5,
                                    rtol=1e-5)
+
+
+@pytest.mark.parametrize("arch", ["gemma3_4b", "pixtral_12b"])
+def test_one_step_of_the_local_global_and_vision_families(arch):
+    """One fp32 SGD step (clip 1.0, remat on) at gemma3-smoke (a ``swa``
+    and an ``attn`` layer, tied and scaled embeddings) and pixtral-smoke
+    (16 patch embeddings ahead of the text, the loss over the text) from
+    the reference's init: params within 2e-5 of the reference's step,
+    loss within 2e-5, the gradient's norm within rel 1e-4."""
+    jcfg = dataclasses.replace(j_get_smoke(arch), compute_dtype="float32")
+    cfg = dataclasses.replace(get_smoke_config(arch), compute_dtype="float32")
+    batch = _lm_batch(cfg.vocab_size)
+    if cfg.frontend == "vision":
+        batch["patch_embeddings"] = np.random.default_rng(5).normal(size=(
+            4, cfg.num_frontend_tokens, cfg.d_model)).astype(np.float32)
+    jmodel = j_build(jcfg)
+    jopt_, jlr = _opt(jopt, "sgd")
+    jstate = jts.init_train_state(jmodel, jax.random.PRNGKey(0), jopt_)
+    jstate1, jmetrics = jts.make_train_step(
+        jmodel, jopt_, jlr, clip_norm=1.0, remat=True)(
+            jstate, {k: jnp.asarray(v) for k, v in batch.items()})
+    model = build_model(cfg)
+    opt, lr_fn = _opt(topt, "sgd")
+    params = params_from_numpy(jax.tree.map(np.asarray, jstate.params))
+    state = tts.TrainState(params=params, opt_state=opt.init(params),
+                           step=torch.zeros((), dtype=torch.int32))
+    state, metrics = tts.make_train_step(model, opt, lr_fn, clip_norm=1.0,
+                                         remat=True)(
+        state, {k: torch.from_numpy(v) for k, v in batch.items()})
+    _assert_trees_close(state.params, jstate1.params, atol=2e-5, rtol=0)
+    assert float(metrics["loss"]) == pytest.approx(float(jmetrics["loss"]),
+                                                   abs=2e-5)
+    assert float(metrics["grad_norm"]) == pytest.approx(
+        float(jmetrics["grad_norm"]), rel=1e-4)

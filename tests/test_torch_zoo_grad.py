@@ -3,10 +3,12 @@
 * ``torch.func.grad`` of the port's ``lm_loss`` (remat on) against
   ``jax.grad`` of the reference's ``model.loss`` at qwen3-smoke,
   smollm-smoke, falcon-mamba-smoke, zamba2-smoke (its ``mamba2`` layers
-  through ``ssd_scan``) and the MoE smoke configs (mixtral's ``swa``
+  through ``ssd_scan``), the MoE smoke configs (mixtral's ``swa``
   layers; each body's running aux loss carried through remat's
   checkpoint; in bf16 the reference's experts at near ties,
-  ``tests/test_torch_moe.py``), from the reference's init carried across with
+  ``tests/test_torch_moe.py``), gemma3-smoke (local/global, scaled tied
+  embeddings) and pixtral-smoke (patch embeddings ahead of the text),
+  from the reference's init carried across with
   ``params_from_numpy``.  Per leaf, max|Δg| / max|g| and ‖Δg‖ / ‖g‖.
   ``compute_dtype="float32"``: within 2e-3 and 5e-4 (measured ≤ 3.2e-4
   and ≤ 9.1e-5; the readout is bf16 in both packages, its rounding lands
@@ -60,7 +62,8 @@ from repro_torch.tree import tree_leaves, tree_map
 from test_torch_moe import capture_reference_routing, follow_reference_routing
 
 ARCHS = ["qwen3_0_6b", "smollm_360m", "falcon_mamba_7b", "zamba2_2_7b",
-         "mixtral_8x22b", "qwen3_moe_235b_a22b", "moonshot_v1_16b_a3b"]
+         "mixtral_8x22b", "qwen3_moe_235b_a22b", "moonshot_v1_16b_a3b",
+         "gemma3_4b", "pixtral_12b"]
 BATCH, SEQ = 2, 24
 GRAD_BARS = {"float32": (2e-3, 5e-4), "bfloat16": (0.1, 0.05)}
 
@@ -73,12 +76,19 @@ def _one_thread():
     torch.set_num_threads(prev)
 
 
-def _batch(vocab):
+def _batch(cfg):
+    """The shared batch; a vision config's also carries its patch
+    embeddings (B, P, d_model) ahead of the text."""
     rng = np.random.default_rng(3)
+    vocab = cfg.vocab_size
     tokens = rng.integers(0, vocab, (BATCH, SEQ)).astype(np.int32)
     labels = rng.integers(0, vocab, (BATCH, SEQ)).astype(np.int32)
     mask = (rng.uniform(size=(BATCH, SEQ)) < 0.8).astype(np.float32)
-    return {"tokens": tokens, "labels": labels, "mask": mask}
+    batch = {"tokens": tokens, "labels": labels, "mask": mask}
+    if cfg.frontend == "vision":
+        batch["patch_embeddings"] = rng.normal(size=(
+            BATCH, cfg.num_frontend_tokens, cfg.d_model)).astype(np.float32)
+    return batch
 
 
 @functools.lru_cache(maxsize=None)
@@ -88,7 +98,7 @@ def _reference(arch, dtype):
     jcfg = dataclasses.replace(j_get_smoke(arch), compute_dtype=dtype)
     model = j_build(jcfg)
     params = model.init(jax.random.PRNGKey(0))
-    batch = {k: jnp.asarray(v) for k, v in _batch(jcfg.vocab_size).items()}
+    batch = {k: jnp.asarray(v) for k, v in _batch(jcfg).items()}
     (loss, grads), routings = capture_reference_routing(
         lambda: jax.value_and_grad(
             lambda p: model.loss(p, batch, remat=False))(params))
@@ -101,8 +111,8 @@ def _port(arch, dtype):
     return build_model(cfg), cfg
 
 
-def _tbatch(vocab):
-    return {k: torch.from_numpy(v) for k, v in _batch(vocab).items()}
+def _tbatch(cfg):
+    return {k: torch.from_numpy(v) for k, v in _batch(cfg).items()}
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -110,7 +120,7 @@ def _tbatch(vocab):
 def test_grad_matches_reference(arch, dtype):
     params_np, want_loss, want_grads, routings = _reference(arch, dtype)
     model, cfg = _port(arch, dtype)
-    batch = _tbatch(cfg.vocab_size)
+    batch = _tbatch(cfg)
     # bf16 MoE: the reference's experts where the router nearly ties
     # (tests/test_torch_moe.py); the forward and remat's recompute alike.
     follow = dtype == "bfloat16" and cfg.moe is not None
@@ -123,9 +133,20 @@ def test_grad_matches_reference(arch, dtype):
     # 48 in qwen3-moe-smoke's second layer, in the forward and its
     # recompute).
     assert max(flips, default=0) <= 0.1 * BATCH * SEQ, flips
-    loss_tol = 2e-5 if dtype == "float32" else 3e-3
+    # fp32: 2e-5, and 1e-4 with pixtral's patch embeddings (N(0, 1) rows
+    # ahead of the text: its fp32 hidden-state noise flips more of the bf16
+    # readout's roundings; measured 2.6e-5).
+    loss_tol = ((1e-4 if cfg.frontend == "vision" else 2e-5)
+                if dtype == "float32" else 3e-3)
     assert abs(float(loss) - want_loss) <= loss_tol
     max_bar, l2_bar = GRAD_BARS[dtype]
+    if cfg.frontend == "vision" and dtype == "float32":
+        # One bf16 ulp of a leaf's largest entry (≤ 2^-7 of it): the
+        # readout's gradient (lm_head) is a bf16 product in both packages,
+        # and the patch rows' noise flips one of its roundings at max|g|
+        # (measured 4.1e-3; every other leaf ≤ 1.5e-4, every leaf's l2 ≤
+        # 2.8e-4).
+        max_bar = 2.0 ** -7
     want_leaves = jax.tree.leaves(want_grads)
     got_leaves = tree_leaves(grads)
     assert len(got_leaves) == len(want_leaves)
@@ -145,7 +166,7 @@ def test_grad_matches_reference(arch, dtype):
 def test_remat_equals_no_remat_and_recomputes(arch, monkeypatch):
     model, cfg = _port(arch, "float32")
     params = model.init(torch.Generator().manual_seed(0))
-    batch = _tbatch(cfg.vocab_size)
+    batch = _tbatch(cfg)
     calls = []
     apply_layer = ttf._apply_layer
 
@@ -498,7 +519,8 @@ def test_card_route_widens_bf16_at_other_head_dims(monkeypatch):
     """On the card, bf16 attention at a head dim the tensor-core kernel
     does not take (the smoke configs' 32) runs the fp32 kernel and its
     backward on operands widened to fp32, the output rounded to bf16; at
-    the zoo's head dims it stays bf16.  Checked through the seam with the
+    the zoo's head dims, pixtral's 160 and gemma3's 256 among them, it
+    stays bf16.  Checked through the seam with the
     plain twins and the route forced to ``cuda``."""
     from repro_torch.kernels import ops
     seen = []
@@ -514,7 +536,8 @@ def test_card_route_widens_bf16_at_other_head_dims(monkeypatch):
     monkeypatch.setattr(ops, "_route", lambda t: "cuda")
     monkeypatch.setattr(ops, "FlashAttention",
                         kag.attention_function(fwd, bwd))
-    for d, inner in ((32, torch.float32), (64, torch.bfloat16)):
+    for d, inner in ((32, torch.float32), (64, torch.bfloat16),
+                     (160, torch.bfloat16), (256, torch.bfloat16)):
         q, k, v, do = (torch.from_numpy(x).to(torch.bfloat16)
                        for x in _attn_inputs(1, 8, 8, 2, 1, d, seed=d))
         seen.clear()
