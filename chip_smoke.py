@@ -337,31 +337,38 @@ nothing of JAX.  Phases, each of which fails loudly:
 8. training (``check_train_kernels``, ``train_path``): (a) the backward
    kernels against their plain twins on the card — flash_attention's at
    qwen3's (2, 4096, 16, 128), smollm's (2, 4096, 15, 64), D = 80
-   (1, 4096, 32, 80), a 1000-key window, fp32 (2, 1024, 16, 128) and
-   ragged rows, within ATTN_BWD_BARS, the kernel fed the forward
-   kernel's lse and its twin ``torch.logsumexp``'s, the profiler showing
-   each row's device kernels (bf16: the ``wgmma`` dK/dV and dQ kernels);
+   (1, 4096, 32, 80), a 1000-key window, gemma3's (1, 4096, 8, 256)
+   causal and with its 1,024-key window, pixtral's (1, 5120, 32, 160),
+   fp32 at D = 128, 160 and 256 and ragged rows (S % 64 != 0, Sq < Sk) at
+   each bf16 head dim past 128, within ATTN_BWD_BARS, the kernel fed the
+   forward kernel's lse and its twin ``torch.logsumexp``'s, the library's
+   counts showing each row's device kernels (bf16: the ``wgmma`` dK/dV
+   and dQ instances of its head dim, dK/dV in two passes past D = 128);
    ssm_scan's at falcon's (1, 4096, 8192, 16) and three more, bit-equal;
    ssd_scan's (four launches) at zamba2's (1, 4096, 80, 64, 64, 128), its
    cut at S = 256, a ragged S, the smoke width, near-unit decay and B = 4,
    each gradient within SSD_BWD_BAR·(1 + max|plain|), with ptxas' registers
    and spills (none, and no atomic in its SASS: phase 1);
-   the same bits on two calls; a planted fault each (a key tile dropped;
-   ``h_t`` for ``h_{t−1}``; G one chunk late, at every ssd_scan row) that
-   must fail its bar by ≥ 10×; kernel, plain and library ms and the bound;
-   the attention backward at D = 256 and 160 (gemma3's and pixtral's
-   heads; ROADMAP A13d-2b) raising NotImplementedError naming A13d-2b
-   before any launch, called directly and through autograd;
+   the same bits on two calls; a planted fault each (a key tile dropped,
+   at D = 128, 256 and 160; ``h_t`` for ``h_{t−1}``; G one chunk late, at
+   every ssd_scan row) that must fail its bar by ≥ 10×; kernel, plain and
+   library ms and the bound;
    (b) ``make_train_step`` at full width: qwen3_0_6b (B = 2 × 4096, AdamW,
    ``warmup_cosine_lr``, clip 1.0, 6 steps: the loss falls, peak GB with
    remat below the peak without), falcon_mamba_7b at 8 of its 64 layers
    (B = 1 × 4096, SGD, 3 steps) and zamba2_2_7b at full width and depth
    (54 mamba2 + 9 shared, B = 1 × 4096, AdamW, 3 steps: the loss falls),
-   seconds a step, tokens/s, peak GB and launches (the forward kernels
-   twice a layer a step under remat, the backward once); one step at
-   qwen3-, zamba2-, mixtral-, gemma3- and pixtral-smoke (its patch
-   embeddings ahead of the text) in fp32 on the card against the CPU,
-   params within 1e-5; (c) ``launch/train`` at full width (smollm_360m, 1
+   gemma3_4b at 12 of its 34 layers (two bodies of 5 ``swa`` + 1 ``attn``,
+   B = 1 × 4096, AdamW, 3 steps) and pixtral_12b at 4 of its 40 (B = 1 ×
+   (1,024 patch embeddings + 4,096 tokens), SGD with momentum, 3 steps),
+   both losses falling, seconds a step, tokens/s, peak GB and launches
+   (the forward kernels twice a layer a step under remat, the backward
+   once, each through the instance of its head dim); one step at qwen3-,
+   zamba2-, mixtral-, gemma3- and pixtral-smoke (its patch embeddings
+   ahead of the text) in fp32 on the card against the CPU, params within
+   1e-5, and at the head-dim cuts (gemma3 at D = 256, pixtral at 160) in
+   fp32 (params within 1e-5, the CUDA-core kernels) and bf16 (gradients
+   within GRAD_BARS, the ``wgmma`` kernels); (c) ``launch/train`` at full width (smollm_360m, 1
    round, 4 clients, 4 steps a round) in process and the CLI at
    ``--smoke`` as a subprocess; (d) ``run_spmd_feddif`` at smollm-smoke
    and zamba2-smoke on the card against the CPU: equal ledgers, loss
@@ -810,9 +817,10 @@ def _check_wgmma_spills(log: str | None) -> None:
 
 def _check_bwd_spills(log: str | None) -> None:
     """The attention backward's tensor-core kernels (dK/dV and dQ at D =
-    64, 80, 128) and its Δ kernel (bf16, fp32) must build without spills:
-    dK/dV holds two 64×D fp32 accumulators, Sᵀ and dPᵀ on setmaxnreg's
-    240 registers.  The fp32 CUDA-core kernels' spills are printed."""
+    64, 80, 128, 160, 256) and its Δ kernel (bf16, fp32) must build
+    without spills: dK/dV holds two 64×D fp32 accumulators (one a pass
+    past D = 128), Sᵀ and dPᵀ on setmaxnreg's 240 registers.  The fp32
+    CUDA-core kernels' spills are printed."""
     if log is None:
         print(json.dumps({"check": "flash_attention_bwd spills", "ok": None,
                           "note": "built before this run"}))
@@ -830,7 +838,7 @@ def _check_bwd_spills(log: str | None) -> None:
         spills[name] = [stores, loads]
     hot = {k: v for k, v in spills.items()
            if "wgmma" in k or "delta" in k}
-    ok = len(hot) == 8 and not any(any(v) for v in hot.values())
+    ok = len(hot) == 12 and not any(any(v) for v in hot.values())
     print(json.dumps({"check": "flash_attention_bwd spills",
                       "spill_bytes": spills, "ok": ok}))
     if not ok:
@@ -5975,9 +5983,13 @@ def serve_path(torch, kd, cli: _Alongside | None = None) -> dict:
 # smollm's (2, 4096, 15, 64), zamba2's D = 80 (1, 4096, 32, 80), a
 # 1000-key window at (1, 4096, 8, 128), fp32 at (2, 1024, 16, 128), and
 # rows whose S is no multiple of the 64-row tile (one with Sq < Sk and a
-# window, one fp32 at D = 12, non-causal), as
-# (B, Sq, Sk, H, D, causal, window, dtype); the first row is the summary
-# row.  Each gradient is held per element to rel·|plain| + rel_row·(its
+# window, one fp32 at D = 12, non-causal); past D = 128 (gemma3's and
+# pixtral's heads) gemma3's (1, 4096, 8, 256) causal and with its
+# 1,024-key window, pixtral's (1, 5120, 32, 160), a ragged row with Sq <
+# Sk at each, and fp32 at both, as (B, Sq, Sk, H, D, causal, window,
+# dtype); the first row is the summary row.  The planted fault (a key
+# tile dropped) runs at the first causal, unwindowed bf16 row of each
+# head dim in ATTN_BWD_FAULT_DIMS.  Each gradient is held per element to rel·|plain| + rel_row·(its
 # row's rms over D) + rel_max·max|plain|, and normwise to rel_l2
 # (ATTN_BWD_BARS, as (rel, rel_row, rel_max, rel_l2)): bf16 rounds each
 # result once (one ulp is ≤ 2^-7 of it) from fp32 sums in another order;
@@ -5996,10 +6008,20 @@ ATTN_BWD_ROWS = (
     (2, 1024, 1024, 16, 128, True, None, "float32"),
     (1, 1000, 1000, 4, 80, True, None, "bfloat16"),     # S % 64 != 0
     (1, 300, 1000, 4, 64, True, 128, "bfloat16"),       # Sq < Sk, window
-    (2, 200, 200, 2, 12, False, None, "float32"))       # non-causal, D 12
-# The rows phase 2 profiles, (B, S, H, D): the first three of ATTN_BWD_ROWS.
+    (2, 200, 200, 2, 12, False, None, "float32"),       # non-causal, D 12
+    (1, 4096, 4096, 8, 256, True, None, "bfloat16"),    # gemma3's global
+    (1, 4096, 4096, 8, 256, True, 1024, "bfloat16"),    # gemma3's local
+    (1, 5120, 5120, 32, 160, True, None, "bfloat16"),   # pixtral
+    (1, 300, 1000, 4, 256, True, None, "bfloat16"),     # Sq < Sk, ragged
+    (1, 300, 1000, 4, 160, True, 128, "bfloat16"),      # the same, window
+    (1, 1024, 1024, 8, 256, True, None, "float32"),
+    (1, 1000, 1000, 8, 160, True, 200, "float32"))
+ATTN_BWD_FAULT_DIMS = (128, 256, 160)
+# The rows phase 2 profiles, (B, S, H, D), causal: the first three of
+# ATTN_BWD_ROWS, gemma3's and pixtral's.
 ATTN_BWD_ROWS_PROFILED = ((2, 4096, 16, 128), (2, 4096, 15, 64),
-                          (1, 4096, 32, 80))
+                          (1, 4096, 32, 80), (1, 4096, 8, 256),
+                          (1, 5120, 32, 160))
 SSM_BWD_ROWS = ((1, 4096, 8192, 16), (1, 256, 8192, 16), (2, 100, 1000, 16),
                 (1, 37, 3, 5))
 # ssd_scan's backward, (B, S, H, P, N, chunk) and inputs (_ssd_inputs, dy
@@ -6038,9 +6060,37 @@ TRAIN_FALCON = {"arch": "falcon_mamba_7b", "layers": 8, "batch": 1,
 # three: the first step's lr is 0), remat on.
 TRAIN_ZAMBA2 = {"arch": "zamba2_2_7b", "batch": 1, "seq": 4096, "steps": 3,
                 "peak_lr": 3e-4, "warmup": 1}
+# gemma3_4b at 12 of its 34 layers (two bodies of 5 ``swa`` + 1 ``attn``:
+# 10 windowed layers and 2 global, D = 256), B = 1 × 4096 (train_4k's
+# sequence), AdamW under warmup_cosine_lr as zamba2's run; pixtral_12b at
+# 4 of its 40 layers (D = 160), B = 1 × (1,024 seeded N(0, 1) patch
+# embeddings + 4,096 tokens), SGD with momentum 0.9 (the paper's local
+# optimizer) at a constant rate; clip 1.0 and remat, 3 timed steps.  The
+# depth is cut so that the functional optimizer step fits the card: at 34
+# layers gemma3's 3.88 B params under AdamW (7× the fp32 params) need ≈
+# 108 GB, and at 40 pixtral's params and gradients alone ≈ 102 GB.
+TRAIN_GEMMA3 = {"arch": "gemma3_4b", "layers": 12, "batch": 1, "seq": 4096,
+                "steps": 3, "peak_lr": 3e-4, "warmup": 1}
+TRAIN_PIXTRAL = {"arch": "pixtral_12b", "layers": 4, "batch": 1,
+                 "seq": 4096, "patches": 1024, "steps": 3, "lr": 1e-3}
 # The card-against-CPU step of phase 8b, at each of these smoke configs.
 TRAIN_CARD_VS_CPU = ("qwen3_0_6b", "zamba2_2_7b", "mixtral_8x22b",
                      "gemma3_4b", "pixtral_12b")
+# And at the head-dim cuts of tests/test_torch_zoo.py (HEAD_DIM_CUTS: the
+# smoke configs at gemma3's head dim 256 with a 16-key window, and at
+# pixtral's 160): one fp32 step (the CUDA-core kernels; params within
+# 1e-5) and the bf16 gradients (the wgmma instances; each leaf within
+# GRAD_BARS_BF16 of the CPU's, as max|Δg| / max|g| and ‖Δg‖ / ‖g‖, the
+# bars tests/test_torch_zoo_grad.py holds the port to the reference by).
+TRAIN_HEAD_DIM_CUTS = {
+    "gemma3_4b@256": ("gemma3_4b", dict(
+        name="gemma3-hd256", d_model=384, num_heads=2, num_kv_heads=1,
+        head_dim=256, d_ff=256, sliding_window=16, local_global_ratio=1)),
+    "pixtral_12b@160": ("pixtral_12b", dict(
+        name="pixtral-hd160", d_model=320, num_heads=2, num_kv_heads=1,
+        d_ff=256)),
+}
+GRAD_BARS_BF16 = (0.1, 0.05)
 # run_spmd_feddif's configs in phase 8d (their smoke configs).
 SPMD_ARCHS = ("smollm_360m", "zamba2_2_7b")
 # (1 round since the SSD backward's phase: 2 until then.)
@@ -6093,21 +6143,25 @@ def _attn_bwd_err(torch, got, want, dt: str) -> dict:
             "ok": worst <= 1.0}
 
 
-# The device kernels one flash_attention_bwd call runs, by route: bf16 on
-# the tensor cores (wgmma), fp32 on the CUDA cores; each after the Δ pass.
-# (torch.profiler, which phase 2 uses for their device µs, saw none of them
-# in phase 8 of a full run, so the route is read from the library's launch
-# counts.)
-ATTN_BWD_KERNELS = {
-    "wgmma": ["fa_bwd_delta_kernel", "fa_bwd_dkdv_wgmma_kernel",
-              "fa_bwd_dq_wgmma_kernel"],
-    "cuda_cores": ["fa_bwd_delta_kernel", "fa_bwd_dkdv_kernel",
-                   "fa_bwd_dq_kernel"]}
+def _attn_bwd_route(dt: str, d: int) -> tuple[str, list[str]]:
+    """The route one flash_attention_bwd call takes and the device kernels
+    it launches once each (``bwd_kernel_launches``' names): bf16 on the
+    tensor cores' ``wgmma`` instances of its head dim, fp32 on the CUDA
+    cores; each after the Δ pass.  (torch.profiler, which phase 2 uses for
+    their device µs, saw none of them in phase 8 of a full run, so the
+    route is read from the library's launch counts.)"""
+    if dt == "bfloat16":
+        return "wgmma", ["fa_bwd_delta_kernel",
+                         f"fa_bwd_dkdv_wgmma_kernel<{d}>",
+                         f"fa_bwd_dq_wgmma_kernel<{d}>"]
+    return "cuda_cores", ["fa_bwd_delta_kernel", "fa_bwd_dkdv_kernel",
+                          "fa_bwd_dq_kernel"]
 
 
 def profile_attention_bwd(torch) -> None:
-    """Phase 2 (a measurement): the attention backward at the zoo's three
-    bf16 shapes (qwen3, smollm, zamba2's D = 80) under ``torch.profiler``,
+    """Phase 2 (a measurement): the attention backward at the zoo's bf16
+    shapes (qwen3, smollm, zamba2's D = 80, gemma3's D = 256 and pixtral's
+    D = 160; ATTN_BWD_ROWS_PROFILED) under ``torch.profiler``,
     each device kernel's µs a launch beside the call's ms (CUDA events).
     It runs before any other profile: after phases 5 and 6 had profiled,
     the profiler recorded only the last of the call's three kernels."""
@@ -6182,11 +6236,13 @@ def check_train_kernels(torch, kref) -> list[dict]:
     (ssd_scan's at every row: G one chunk late).  The
     attention backward takes the forward kernel's lse and its twin
     ``torch.logsumexp``'s; one call must launch the route's device kernels
-    once each and no other (ATTN_BWD_KERNELS: bf16 on ``wgmma``; the
-    library's own counts, ``bwd_kernel_launches``).  The faults: at the
-    summary row, flash_attention's gradients with the key tile [S/2,
-    S/2 + 64) dropped, and ssm_scan's ``dda`` from ``h_t`` in place of
-    ``h_{t−1}``.  Kernel and plain ms, and for attention the library's
+    once each and no other (``_attn_bwd_route``: bf16 on the ``wgmma``
+    instances of its head dim; the library's own counts,
+    ``bwd_kernel_launches``).  The faults: flash_attention's gradients
+    with the key tile [S/2, S/2 + 64) dropped, at the first causal,
+    unwindowed bf16 row of each head dim in ATTN_BWD_FAULT_DIMS, and
+    ssm_scan's ``dda`` from ``h_t`` in place of ``h_{t−1}`` at its
+    summary row.  Kernel and plain ms, and for attention the library's
     (``scaled_dot_product_attention``'s backward alone, from a retained
     graph), by CUDA events.  The bound: the backward's five products
     (10·D flops a visible pair) at the dtype's peak against q, k, v, o, dO
@@ -6216,7 +6272,8 @@ def check_train_kernels(torch, kref) -> list[dict]:
                   f"passed within 10x of the bar: {json.dumps(control)}")
         rows.append(row)
 
-    for i, (b, sq, sk, h, d, causal, window, dt) in enumerate(ATTN_BWD_ROWS):
+    faulted = set()
+    for b, sq, sk, h, d, causal, window, dt in ATTN_BWD_ROWS:
         dtype = getattr(torch, dt)
         q, do = (torch.randn((b, sq, h, d), generator=gen, device="cuda")
                  .to(dtype) for _ in range(2))
@@ -6238,17 +6295,22 @@ def check_train_kernels(torch, kref) -> list[dict]:
         after = bwd_kernel_launches()
         kernels = {k_: after[k_] - before[k_] for k_ in after
                    if after[k_] != before[k_]}
-        route = "wgmma" if dt == "bfloat16" else "cuda_cores"
+        route, want_kernels = _attn_bwd_route(dt, d)
         row = {"name": "flash_attention_bwd", "shape": [b, sq, sk, h, d],
                "dtype": dt, "causal": causal, "window": window,
                **_attn_bwd_err(torch, got, want, dt),
                "same_bits": all(torch.equal(x, y)
                                 for x, y in zip(got, again)),
                "device_kernels": kernels, "route": route}
+        if route == "wgmma":
+            row["split"] = ("two passes over the query tiles (dK, then dV)"
+                            if d > 128 else "one pass")
         row["ok"] = (row["ok"] and row["same_bits"]
-                     and kernels == dict.fromkeys(ATTN_BWD_KERNELS[route], 1))
+                     and kernels == dict.fromkeys(want_kernels, 1))
         control = None
-        if i == 0:
+        if (dt == "bfloat16" and causal and window is None
+                and d in ATTN_BWD_FAULT_DIMS and d not in faulted):
+            faulted.add(d)
             fault = _attn_bwd_tile_dropped(torch, q, k, v, do)
             c = _attn_bwd_err(torch, fault, want, dt)
             control = {"fault": "key tile [S/2, S/2 + 64) dropped",
@@ -6286,6 +6348,10 @@ def check_train_kernels(torch, kref) -> list[dict]:
         row.update({"bound_ms": bound, "bound_by": by, "flops": flops})
         del lib_out, qt, kt, vt, dot, q, k, v, o, do, lse, lse_plain
         record(row, control)
+        torch.cuda.empty_cache()
+    if faulted != set(ATTN_BWD_FAULT_DIMS):
+        _fail(f"flash_attention_bwd: the planted fault ran at D in "
+              f"{sorted(faulted)}, want {sorted(ATTN_BWD_FAULT_DIMS)}")
 
     for i, (b, s, d, n) in enumerate(SSM_BWD_ROWS):
         da = torch.exp(-torch.rand((b, s, d, n), generator=gen,
@@ -6387,44 +6453,6 @@ def check_train_kernels(torch, kref) -> list[dict]:
     return rows
 
 
-def check_bwd_refusal(torch, kd) -> None:
-    """Phase 8a: the attention backward at a head dim past
-    BWD_HEAD_DIM_MAX (gemma3's 256, pixtral's 160; ROADMAP A13d-2b) on the
-    card raises NotImplementedError naming A13d-2b before any launch —
-    called directly, and reached by autograd through ``ops.flash_attention``
-    — while the forward at those head dims runs."""
-    from repro_torch.kernels import ops
-    from repro_torch.kernels.flash_attention import (bwd_kernel_launches,
-                                                     flash_attention_bwd_cuda)
-    gen = torch.Generator(device="cuda").manual_seed(9)
-    for d in (256, 160):
-        q, k, v = (torch.randn((1, 128, 2, d), generator=gen, device="cuda")
-                   .to(torch.bfloat16) for _ in range(3))
-        lse = torch.zeros((1, 2, 128), device="cuda")
-        raised = []
-        before = (bwd_kernel_launches(), kd.LAUNCHES["flash_attention_bwd"])
-        for how, fn in (
-                ("direct", lambda: flash_attention_bwd_cuda(
-                    q, k, v, q, q, lse)),
-                ("autograd", lambda: torch.autograd.grad(
-                    ops.flash_attention(q.requires_grad_(), k, v)
-                    .float().sum(), q))):
-            try:
-                fn()
-                raised.append(None)
-            except NotImplementedError as exc:
-                raised.append(str(exc))
-        after = (bwd_kernel_launches(), kd.LAUNCHES["flash_attention_bwd"])
-        ok = (all(r is not None and "A13d-2b" in r for r in raised)
-              and after == before)
-        print(json.dumps({"check": f"flash_attention_bwd refuses D={d}",
-                          "raised": raised, "no_launch": after == before,
-                          "ok": ok}))
-        if not ok:
-            _fail(f"flash_attention_bwd at D={d}: {raised}, launches "
-                  f"{before} -> {after}")
-
-
 def _zoo_launches(cfg, steps: int, remat: bool) -> dict:
     """Each kernel's launches in ``steps`` train steps of ``cfg``'s layer
     plan: a layer's forward kernels once a step, twice under remat (the
@@ -6449,6 +6477,39 @@ def _zoo_launches(cfg, steps: int, remat: bool) -> dict:
     return want
 
 
+# The attention library's device-kernel and instance launches of phase
+# 8b's counted steps (``_attn_instance_counts``), for the summary line.
+TRAIN_INSTANCES: dict[str, int] = {}
+
+
+def _attn_instance_counts(before: tuple | None = None) -> tuple:
+    """The forward's and backward's library counts of each device kernel
+    and instance; given an earlier reading, the launches since it (and
+    those are added to TRAIN_INSTANCES)."""
+    from repro_torch.kernels.flash_attention import (bwd_kernel_launches,
+                                                     fwd_kernel_launches)
+    now = (fwd_kernel_launches(), bwd_kernel_launches())
+    if before is None:
+        return now
+    diff = {k: n[k] - b[k] for n, b in zip(now, before) for k in n
+            if n[k] != b[k]}
+    for k, v in diff.items():
+        TRAIN_INSTANCES[k] = TRAIN_INSTANCES.get(k, 0) + v
+    return diff
+
+
+def _want_instances(cfg, steps: int) -> dict:
+    """The attention instances ``steps`` remat train steps of ``cfg``
+    launch in bf16 at a head dim of BF16_HEAD_DIMS: the forward's
+    ``wgmma`` instance twice a layer a step, the backward's Δ, dK/dV and
+    dQ instances once."""
+    w = _zoo_launches(cfg, steps, True)
+    d = cfg.resolved_head_dim
+    return {f"flash_attention_wgmma_kernel<{d}>": w["flash_attention"],
+            **dict.fromkeys(_attn_bwd_route("bfloat16", d)[1],
+                            w["flash_attention_bwd"])}
+
+
 def _train_run(torch, kd, label, model, params, opt, lr_fn, batch, steps,
                remat=True, clip=1.0) -> dict:
     """``steps`` train steps from ``params`` on one batch (an untimed step
@@ -6470,6 +6531,7 @@ def _train_run(torch, kd, label, model, params, opt, lr_fn, batch, steps,
     state = TrainState(params, opt.init(params), zero)
     del params
     kd.reset_launch_counts()
+    routes = _attn_instance_counts()
     losses, norms, secs = [], [], []
     for _ in range(steps):
         t0 = time.perf_counter()
@@ -6479,12 +6541,17 @@ def _train_run(torch, kd, label, model, params, opt, lr_fn, batch, steps,
         losses.append(float(m["loss"]))
         norms.append(float(m["grad_norm"]))
     tokens = batch["tokens"].numel()
+    patches = (batch["patch_embeddings"].shape[:2].numel()
+               if "patch_embeddings" in batch else 0)
     out = {"run": label, "remat": remat, "steps": steps,
            "step_s": secs, "mean_step_s": sum(secs) / steps,
            "tokens_per_s": tokens * steps / sum(secs),
+           **({"positions_per_s": (tokens + patches) * steps / sum(secs)}
+              if patches else {}),
            "losses": losses, "grad_norms": norms,
            "peak_memory_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
-           "launches": {k: v for k, v in kd.LAUNCHES.items() if v}}
+           "launches": {k: v for k, v in kd.LAUNCHES.items() if v},
+           "instances": _attn_instance_counts(routes)}
     print(json.dumps(out))
     if not all(math.isfinite(x) for x in losses + norms):
         _fail(f"{label}: a loss or gradient norm is not finite: {out}")
@@ -6493,22 +6560,19 @@ def _train_run(torch, kd, label, model, params, opt, lr_fn, batch, steps,
 
 def train_step_path(torch, kd) -> dict:
     """Phase 8b: ``make_train_step`` at full width (TRAIN_QWEN,
-    TRAIN_FALCON, TRAIN_ZAMBA2) and one step at each TRAIN_CARD_VS_CPU
-    smoke config in fp32 on the card against the CPU (plain twins) from
-    one init: params within 1e-5.  The qwen3 and zamba2 losses must fall
-    over their steps and remat must lower qwen3's peak; each kernel
+    TRAIN_FALCON, TRAIN_ZAMBA2, then ``wide_attention_train``'s gemma3 and
+    pixtral) and ``train_card_vs_cpu``'s steps on the card against the
+    CPU (plain twins) from one init.  The qwen3 and zamba2 losses must
+    fall over their steps and remat must lower qwen3's peak; each kernel
     launches as the layers say (_zoo_launches): the forward twice a layer
     a step with remat (the recompute), once without, the backward once."""
     import dataclasses as dc
 
-    import numpy as np
-    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.configs import get_config
     from repro_torch.data.pipeline import lm_batches
     from repro_torch.data.synthetic import lm_corpus
     from repro_torch.models.zoo import build_model
     from repro_torch.train import optimizer as opt_lib
-    from repro_torch.train.trainstep import TrainState, make_train_step
-    from repro_torch.tree import tree_leaves, tree_map
     launches = {name: 0 for name in kd.LAUNCHES}
     card = _card_line()
 
@@ -6590,46 +6654,215 @@ def train_step_path(torch, kd) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # Card against CPU, one step at each smoke config in fp32 from one init.
-    for arch in TRAIN_CARD_VS_CPU:
-        cfg = dc.replace(get_smoke_config(arch), compute_dtype="float32")
-        model = build_model(cfg)
-        host = model.init(torch.Generator().manual_seed(0))
-        rng = np.random.default_rng(0)
-        toks = rng.integers(0, cfg.vocab_size, (2, 64)).astype(np.int64)
-        cpu_batch = {"tokens": torch.from_numpy(toks),
-                     "labels": torch.from_numpy(np.roll(toks, -1, axis=1))}
-        if cfg.frontend == "vision":
-            cpu_batch["patch_embeddings"] = torch.from_numpy(rng.normal(
-                size=(2, cfg.num_frontend_tokens, cfg.d_model)).astype(
-                    np.float32))
-        opt = opt_lib.sgd()
-        step = make_train_step(model, opt, opt_lib.constant_lr(0.05))
-        kd.reset_launch_counts()
-        got, _ = step(TrainState(tree_map(lambda x: x.cuda(), host),
-                                 opt.init(tree_map(lambda x: x.cuda(), host)),
-                                 torch.zeros((), dtype=torch.int32,
-                                             device="cuda")),
-                      {k: v.cuda() for k, v in cpu_batch.items()})
-        counts = {k: v for k, v in kd.LAUNCHES.items() if v}
-        ref, _ = step(TrainState(host, opt.init(host),
-                                 torch.zeros((), dtype=torch.int32)),
-                      cpu_batch)
-        err = max(float((a.cpu() - b).abs().max()) for a, b in zip(
-            tree_leaves(got.params), tree_leaves(ref.params)))
-        w = _zoo_launches(cfg, 1, True)
-        print(json.dumps({"train_card_vs_cpu": f"{arch} smoke fp32",
-                          "card": card, "params_max_abs_err": err,
-                          "bar": 1e-5, "launches": counts,
-                          "want_launches": w}))
-        if err > 1e-5:
-            _fail(f"train step card vs CPU, {arch}: params differ by {err} "
-                  f"> 1e-5")
-        if counts != w:
-            _fail(f"train step card vs CPU, {arch}: launches {counts}, "
-                  f"want {w}")
-        add(counts)
+    add(wide_attention_train(torch, kd, card))
+    add(train_card_vs_cpu(torch, kd, card))
     return launches
+
+
+def wide_attention_train(torch, kd, card: str) -> dict:
+    """Phase 8b: gemma3_4b and pixtral_12b at full width, their depth cut
+    (TRAIN_GEMMA3, TRAIN_PIXTRAL): the attention backward at D = 256 and
+    160 on its ``wgmma`` instances.  Each run's launches and device
+    kernels as the layers say, its loss falling; returns the launches."""
+    import dataclasses as dc
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import lm_batches
+    from repro_torch.data.synthetic import lm_corpus
+    from repro_torch.models.zoo import build_model
+    from repro_torch.train import optimizer as opt_lib
+    launches = {name: 0 for name in kd.LAUNCHES}
+    # The params go to the run alone, as zamba2's.
+    g3, px = TRAIN_GEMMA3, TRAIN_PIXTRAL
+    for spec, opt, lr_fn, seed in (
+            (g3, opt_lib.adamw(), opt_lib.warmup_cosine_lr(
+                g3["peak_lr"], g3["warmup"], g3["steps"]), 3),
+            (px, opt_lib.sgd(momentum=0.9), opt_lib.constant_lr(px["lr"]),
+             4)):
+        full = get_config(spec["arch"])
+        cfg = dc.replace(full, num_layers=spec["layers"])
+        model = build_model(cfg)
+        tokens = lm_corpus(100_000, vocab=cfg.vocab_size, seed=seed)
+        batch = {k: torch.from_numpy(v).to("cuda") for k, v in next(
+            lm_batches(tokens, spec["batch"], spec["seq"], seed=seed)).items()}
+        if cfg.frontend == "vision":
+            batch["patch_embeddings"] = torch.randn(
+                (spec["batch"], spec["patches"], cfg.d_model),
+                generator=torch.Generator(device="cuda").manual_seed(seed),
+                device="cuda")
+        run = _train_run(
+            torch, kd, f"train {spec['arch']} at {spec['layers']} of "
+            f"{full.num_layers} layers", model,
+            model.init(torch.Generator(device="cuda").manual_seed(0)), opt,
+            lr_fn, batch, spec["steps"])
+        w = _zoo_launches(cfg, spec["steps"], True)
+        wi = _want_instances(cfg, spec["steps"])
+        if run["launches"] != w:
+            _fail(f"train {spec['arch']}: launches {run['launches']}, "
+                  f"want {w}")
+        if run["instances"] != wi:
+            _fail(f"train {spec['arch']}: device kernels "
+                  f"{run['instances']}, want {wi}")
+        # AdamW's first step runs at lr 0 (one warm-up step): its loss
+        # repeats once; no step may raise it.
+        losses = run["losses"]
+        if not (all(b_ <= a_ for a_, b_ in zip(losses, losses[1:]))
+                and losses[-1] < losses[0]):
+            _fail(f"train {spec['arch']}: the loss did not fall: {losses}")
+        print(json.dumps({"train_summary": spec["arch"], "card": card,
+                          "layers": cfg.num_layers,
+                          "published_layers": full.num_layers,
+                          "head_dim": cfg.resolved_head_dim,
+                          "params": cfg.param_count(),
+                          "mean_step_s": run["mean_step_s"],
+                          "peak_memory_gb": run["peak_memory_gb"],
+                          "losses": run["losses"]}))
+        for k, v in run["launches"].items():
+            launches[k] += v
+        del batch, model
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches
+
+
+def train_card_vs_cpu(torch, kd, card: str) -> dict:
+    """Phase 8b: one fp32 step on the card against the CPU at each
+    TRAIN_CARD_VS_CPU smoke config, then at each TRAIN_HEAD_DIM_CUTS cut
+    in fp32 (one step) and bf16 (the gradients); returns the launches."""
+    import dataclasses as dc
+    from repro_torch.configs import get_smoke_config
+    launches = {name: 0 for name in kd.LAUNCHES}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] += v
+
+    for arch in TRAIN_CARD_VS_CPU:
+        add(_step_card_vs_cpu(torch, kd, dc.replace(
+            get_smoke_config(arch), compute_dtype="float32"),
+            f"{arch} smoke fp32", card))
+    for name, (arch, change) in TRAIN_HEAD_DIM_CUTS.items():
+        base = dc.replace(get_smoke_config(arch), **change)
+        add(_step_card_vs_cpu(torch, kd, dc.replace(
+            base, compute_dtype="float32"), f"{name} fp32", card))
+        add(_grads_card_vs_cpu(torch, kd, dc.replace(
+            base, compute_dtype="bfloat16"), f"{name} bf16", card))
+    return launches
+
+
+def _cut_batch(torch, cfg):
+    """A (2, 64) token batch (labels the tokens shifted) from
+    ``default_rng(0)``, a vision config's patch embeddings N(0, 1) ahead
+    of it; CPU tensors."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab_size, (2, 64)).astype(np.int64)
+    batch = {"tokens": torch.from_numpy(toks),
+             "labels": torch.from_numpy(np.roll(toks, -1, axis=1))}
+    if cfg.frontend == "vision":
+        batch["patch_embeddings"] = torch.from_numpy(rng.normal(
+            size=(2, cfg.num_frontend_tokens, cfg.d_model)).astype(
+                np.float32))
+    return batch
+
+
+def _step_card_vs_cpu(torch, kd, cfg, label: str, card: str) -> dict:
+    """One SGD step of ``cfg`` (fp32 compute) on the card and on the CPU
+    (the plain twins) from one init: params within 1e-5, each kernel
+    launched as the layers say (the fp32 attention runs the CUDA-core
+    kernels).  Returns the card's launches."""
+    from repro_torch.models.zoo import build_model
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train.trainstep import TrainState, make_train_step
+    from repro_torch.tree import tree_leaves, tree_map
+    model = build_model(cfg)
+    host = model.init(torch.Generator().manual_seed(0))
+    cpu_batch = _cut_batch(torch, cfg)
+    opt = opt_lib.sgd()
+    step = make_train_step(model, opt, opt_lib.constant_lr(0.05))
+    kd.reset_launch_counts()
+    routes = _attn_instance_counts()
+    got, _ = step(TrainState(tree_map(lambda x: x.cuda(), host),
+                             opt.init(tree_map(lambda x: x.cuda(), host)),
+                             torch.zeros((), dtype=torch.int32,
+                                         device="cuda")),
+                  {k: v.cuda() for k, v in cpu_batch.items()})
+    counts = {k: v for k, v in kd.LAUNCHES.items() if v}
+    routes = _attn_instance_counts(routes)
+    ref, _ = step(TrainState(host, opt.init(host),
+                             torch.zeros((), dtype=torch.int32)),
+                  cpu_batch)
+    err = max(float((a.cpu() - b).abs().max()) for a, b in zip(
+        tree_leaves(got.params), tree_leaves(ref.params)))
+    w = _zoo_launches(cfg, 1, True)
+    print(json.dumps({"train_card_vs_cpu": label, "card": card,
+                      "head_dim": cfg.resolved_head_dim,
+                      "params_max_abs_err": err, "bar": 1e-5,
+                      "launches": counts, "want_launches": w,
+                      "device_kernels": routes}))
+    if err > 1e-5:
+        _fail(f"train step card vs CPU, {label}: params differ by {err} "
+              f"> 1e-5")
+    if counts != w:
+        _fail(f"train step card vs CPU, {label}: launches {counts}, "
+              f"want {w}")
+    if any("wgmma" in k for k in routes):
+        _fail(f"train step card vs CPU, {label}: fp32 reached a bf16 "
+              f"kernel: {routes}")
+    return counts
+
+
+def _grads_card_vs_cpu(torch, kd, cfg, label: str, card: str) -> dict:
+    """The gradients of ``cfg``'s loss (bf16 compute, remat) on the card
+    and on the CPU (the plain twins) from one init: each leaf within
+    GRAD_BARS_BF16 (max|Δg| / max|g|, ‖Δg‖ / ‖g‖), the attention through
+    the ``wgmma`` instances of the cut's head dim.  Returns the card's
+    launches."""
+    from torch.func import grad_and_value
+    from repro_torch.models.zoo import build_model
+    from repro_torch.tree import tree_leaves, tree_map
+    model = build_model(cfg)
+    host = model.init(torch.Generator().manual_seed(0))
+    cpu_batch = _cut_batch(torch, cfg)
+    card_batch = {k: v.cuda() for k, v in cpu_batch.items()}
+
+    def grads(params, batch):
+        return grad_and_value(lambda p: model.loss(p, batch, remat=True))(
+            params)
+
+    kd.reset_launch_counts()
+    routes = _attn_instance_counts()
+    got, loss = grads(tree_map(lambda x: x.cuda(), host), card_batch)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in kd.LAUNCHES.items() if v}
+    routes = _attn_instance_counts(routes)
+    want, want_loss = grads(host, cpu_batch)
+    max_bar, l2_bar = GRAD_BARS_BF16
+    worst = [0.0, 0.0]
+    for g, w_ in zip(tree_leaves(got), tree_leaves(want)):
+        g, w_ = g.float().cpu(), w_.float()
+        top = float(w_.abs().max())
+        norm = float(torch.linalg.vector_norm(w_))
+        if top > 0:
+            worst[0] = max(worst[0], float((g - w_).abs().max()) / top)
+        if norm > 0:
+            worst[1] = max(worst[1], float(torch.linalg.vector_norm(g - w_))
+                           / norm)
+    w = _zoo_launches(cfg, 1, True)
+    wi = _want_instances(cfg, 1)
+    ok = worst[0] <= max_bar and worst[1] <= l2_bar
+    print(json.dumps({"grads_card_vs_cpu": label, "card": card,
+                      "head_dim": cfg.resolved_head_dim,
+                      "loss": float(loss), "cpu_loss": float(want_loss),
+                      "worst_max_rel": worst[0], "worst_l2_rel": worst[1],
+                      "bars": list(GRAD_BARS_BF16), "launches": counts,
+                      "want_launches": w, "device_kernels": routes,
+                      "want_device_kernels": wi, "ok": ok}))
+    if not ok:
+        _fail(f"grads card vs CPU, {label}: {worst} past {GRAD_BARS_BF16}")
+    if counts != w or routes != wi:
+        _fail(f"grads card vs CPU, {label}: launches {counts} / {routes}, "
+              f"want {w} / {wi}")
+    return counts
 
 
 # Phase 3's appendix and async paths each run in a process of its own
@@ -6926,7 +7159,6 @@ def main() -> None:
     serve_path(torch, kd, serve_cli)
     mark("phase 7: serve")
     rows += check_train_kernels(torch, kref)
-    check_bwd_refusal(torch, kd)
     part("check_train_kernels")
     for k, v in train_path(torch, kd, train_cli).items():
         launches[k] += v
@@ -7041,6 +7273,10 @@ def main() -> None:
                 "stc_reduce": host_stc, "stc_apply": host_stc,
                 "stc_rows_reduce": fleet_stc, "stc_rows_apply": fleet_stc,
                 "quant_pack": wire, "quant_unpack": wire}
+    # The attention rows also carry each device kernel and instance's
+    # launches in phase 8b's counted training steps (TRAIN_INSTANCES).
+    instance_prefix = {"flash_attention": "flash_attention",
+                       "flash_attention_bwd": "fa_bwd"}
     summary = []
     for name, (src, rep) in replaces.items():
         row = next(r for r in rows
@@ -7061,6 +7297,10 @@ def main() -> None:
             **({"bound_tc_ms": row["bound_tc_ms"]}
                if "bound_tc_ms" in row else {}),
             **({"chain_ms": row["chain_ms"]} if "chain_ms" in row else {}),
+            **({"instances_phase_8b": {
+                k: v for k, v in TRAIN_INSTANCES.items()
+                if k.startswith(instance_prefix[name])}}
+               if name in instance_prefix else {}),
             **({"routing_launches": routing[name],
                 "note": f"0 on the main path: {off_path[name][0]} replaced "
                         f"it {off_path[name][1]}; routing_launches are "

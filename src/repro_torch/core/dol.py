@@ -490,7 +490,8 @@ def xla_cumsum_t(x: torch.Tensor) -> torch.Tensor:
 # Inside the reference's jitted programs XLA-CPU's LLVM back end compiles
 # each class sum of the divergences in one of three forms, by C, by metric
 # and by program (the standalone jitted ``iid_distance``, "iid", or the
-# planner's bid expression ``iid − dol_bid_scores``, "bid"):
+# planner's bid expression ``iid − dol_bid_scores``: its candidates, "bid",
+# and the model's own distance inside it, "bid_iid"):
 #
 # * "chain": ``acc = fma(a_j, b_j, acc)`` in class order;
 # * "vec8": eight lanes, lane l accumulating classes l, l + 8, … as fused
@@ -505,10 +506,16 @@ def xla_cumsum_t(x: torch.Tensor) -> torch.Tensor:
 # ``Σ p·(log p − log m)``, term 1 jsd's ``Σ u·(log u − log m)``.  Measured
 # on x86-64 against ``jax.jit(iid_distance)`` and the jitted bid expression
 # at C = 3 … 33 and 100 (``tests/test_torch_appendix.py``); the bid
-# expression's jsd at 18 ≤ C ≤ 32 is not matched (ROADMAP C7).
+# expression's jsd is matched at C = 24 and 32 (ROADMAP C7: its model
+# distance's forms, "bid_iid", read apart with every candidate uniform, and
+# the candidates' with every DoL uniform) and not at 18 ≤ C ≤ 22.  At
+# other C the model distance inside the bid expression takes the
+# standalone's forms (:data:`_BID_IID_MEASURED`).
 _VEC8_SUMS = {("iid", "kld", 0): (32,), ("iid", "jsd", 0): (24, 25, 32),
               ("iid", "jsd", 1): (25, 32), ("bid", "kld", 0): (24, 32),
-              ("bid", "jsd", 0): (17,)}
+              ("bid", "jsd", 0): (17, 24, 32), ("bid", "jsd", 1): (24, 32),
+              ("bid_iid", "jsd", 0): (32,)}
+_BID_IID_MEASURED = {"jsd": (24, 32)}
 _VEC8 = 8
 # Above this class count w1_true's bid numerator contracts the other
 # product.
@@ -522,7 +529,8 @@ _W1_TRUE_SWAP_ABOVE = 16
 _VECTOR_CLIENTS = (4, 8)
 _SMALL_C = 8
 _JSD_UNCONTRACTED = {10: ((8, 9), _VECTOR_CLIENTS),
-                     12: ((7, 8, 9, 10, 11), _VECTOR_CLIENTS), 17: ((16,), ())}
+                     12: ((7, 8, 9, 10, 11), _VECTOR_CLIENTS), 17: ((16,), ()),
+                     24: (tuple(range(24)), ()), 32: (tuple(range(32)), ())}
 
 
 def _uncontracted_classes(metric: str, c: int, n: int) -> tuple:
@@ -559,6 +567,8 @@ def _jit_dot_t(a: torch.Tensor, b: torch.Tensor, form: str = "chain"
 
 
 def _sum_form(site: str, metric: str, term: int, c: int) -> str:
+    if site == "bid_iid" and c not in _BID_IID_MEASURED.get(metric, ()):
+        site = "iid"
     if c > _WINDOW:
         return "windowed"
     return "vec8" if c in _VEC8_SUMS.get((site, metric, term), ()) \
@@ -595,8 +605,10 @@ def iid_distance_t(dol: torch.Tensor, metric: str = "w1_norm",
     """Tensor twin of :func:`iid_distance` in the bits of the reference's
     jitted programs: the same as the eager ones for ``w1_norm`` and
     ``w1_true``; for ``kld`` and ``jsd`` with the class sums as XLA
-    compiles them in the standalone ``iid_distance`` (``site="iid"``) or
-    the planner's bid expression (``"bid"``; :func:`_jit_dot_t`)."""
+    compiles them in the standalone ``iid_distance`` (``site="iid"``), or
+    in the planner's bid expression for its candidates (``"bid"``) and for
+    the model's own distance beside them (``"bid_iid"``;
+    :func:`_jit_dot_t`)."""
     _check_metric(metric)
     dol = dol.to(torch.float32)
     if metric == "w1_norm":

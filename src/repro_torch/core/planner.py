@@ -216,7 +216,9 @@ def _plan_rounds(inp: PlanInputs, *, metric: str, allow_retraining: bool,
         else:
             pout_k = pout
             gamma = inp.gamma_seq[k]
-        iid = iid_distance_t(st.dol, metric)
+        # One distance for the mask and the bids, in the bid expression's
+        # forms (the reference computes it once in that program).
+        iid = iid_distance_t(st.dol, metric, site="bid_iid")
         active = iid > inp.epsilon
         if not allow_retraining:
             # Models at chain length N visited everyone (full diffusion).

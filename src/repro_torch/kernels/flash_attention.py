@@ -32,12 +32,14 @@ and the gradient do, the three gradients in the inputs' dtype, by three
 launches (Δ = rowsum(dO ∘ O), dK/dV over key blocks, dQ over query
 blocks) with no float atomics, so two calls give the same bits.  bf16
 runs on the tensor cores (``wgmma`` fed by TMA, the forward's skeleton)
-and takes D in {64, 80, 128}, do and the gradients 16-byte aligned too;
-fp32 runs on the CUDA cores up to D = 128.  A CUDA tensor of a wider head
-raises ``NotImplementedError`` before any launch: the backward at D = 160
-and 256 is ROADMAP item A13d-2b.  Its plain version is
+and takes D in ``BF16_HEAD_DIMS``, do and the gradients 16-byte aligned
+too; past D = 128 the dK/dV kernel walks its query tiles twice (a dK
+pass, then a dV pass: both accumulators do not fit a consumer's
+registers together), and at D = 256 the streamed tiles hold 32 rows.
+fp32 runs on the CUDA cores up to D = 256.  Its plain version is
 ``ref.flash_attention_bwd_ref``.  Each call adds one to
-``LAUNCHES["flash_attention_bwd"]``.
+``LAUNCHES["flash_attention_bwd"]``; :func:`bwd_kernel_launches` reads the
+library's own count of each device kernel and instance.
 """
 from __future__ import annotations
 
@@ -55,8 +57,8 @@ __all__ = ["flash_attention_cuda", "flash_attention_bwd_cuda",
 
 #: Largest head dim the fp32 forward takes (it also needs D % 4 == 0).
 FWD_HEAD_DIM_MAX = 256
-#: Largest head dim the backward takes (bf16: BF16_HEAD_DIMS up to it).
-BWD_HEAD_DIM_MAX = 128
+#: Largest head dim the backward takes (bf16: BF16_HEAD_DIMS).
+BWD_HEAD_DIM_MAX = 256
 #: Head dims the bf16 (tensor-core) forward takes.
 BF16_HEAD_DIMS = (64, 80, 128, 160, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -66,11 +68,15 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 FWD_DEVICE_KERNELS = ("flash_attention_kernel",
                       *(f"flash_attention_wgmma_kernel<{d}>"
                         for d in BF16_HEAD_DIMS))
-#: The backward's device kernels, in the order of the library's counts: Δ,
-#: then dK/dV and dQ on the tensor cores (bf16) or the CUDA cores (fp32).
-BWD_DEVICE_KERNELS = ("fa_bwd_delta_kernel", "fa_bwd_dkdv_wgmma_kernel",
-                      "fa_bwd_dq_wgmma_kernel", "fa_bwd_dkdv_kernel",
-                      "fa_bwd_dq_kernel")
+#: The backward's device kernels and instances, in the order of the
+#: library's counts: Δ, then dK/dV and dQ on the tensor cores at each head
+#: dim of BF16_HEAD_DIMS (bf16), then on the CUDA cores (fp32, every D).
+BWD_DEVICE_KERNELS = ("fa_bwd_delta_kernel",
+                      *(f"fa_bwd_dkdv_wgmma_kernel<{d}>"
+                        for d in BF16_HEAD_DIMS),
+                      *(f"fa_bwd_dq_wgmma_kernel<{d}>"
+                        for d in BF16_HEAD_DIMS),
+                      "fa_bwd_dkdv_kernel", "fa_bwd_dq_kernel")
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -151,13 +157,7 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                                         torch.Tensor]:
     """The gradients (dq, dk, dv) of :func:`flash_attention_cuda` at
     (q, k, v), given its output ``o`` and ``lse`` (``return_lse=True``)
-    and the gradient ``do`` reaching ``o`` (shaped and typed as q).
-    Raises ``NotImplementedError`` on a CUDA tensor at D >
-    BWD_HEAD_DIM_MAX (ROADMAP A13d-2b), before any launch."""
-    if q.device.type == "cuda" and q.shape[-1] > BWD_HEAD_DIM_MAX:
-        raise NotImplementedError(
-            f"flash_attention's backward at head dim {q.shape[-1]} (past "
-            f"{BWD_HEAD_DIM_MAX}) is queued as ROADMAP item A13d-2b")
+    and the gradient ``do`` reaching ``o`` (shaped and typed as q)."""
     scale = _check(q, k, v, window, scale, (("o", o), ("do", do)))
     b, sq, h, d = q.shape
     sk = k.shape[1]
@@ -199,9 +199,9 @@ def fwd_kernel_launches() -> dict[str, int]:
 
 
 def bwd_kernel_launches() -> dict[str, int]:
-    """Launches of each of the backward's device kernels since its library
-    was loaded (counted in ``csrc/flash_attention_bwd.cu`` where a launch
-    succeeds): which kernels a call went through."""
+    """Launches of each of the backward's device kernels and instances
+    since its library was loaded (counted in ``csrc/flash_attention_bwd.cu``
+    where a launch succeeds): which route a call went through."""
     lib = build.load("flash_attention_bwd")
     counts = (ctypes.c_longlong * len(BWD_DEVICE_KERNELS))()
     lib.repro_flash_attention_bwd_kernel_launches(counts)

@@ -203,12 +203,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     scale: float | None = None) -> torch.Tensor:
     """Causal / sliding-window attention, q (B, Sq, H, D) right-aligned to
     k/v (B, Sk, H, D) with heads pre-repeated for GQA; bf16 or fp32 in, q's
-    dtype out, fp32 softmax.  Differentiable on either device (on the card
-    up to D = 128: the backward at 160 and 256 raises, ROADMAP A13d-2b).
-    On the card bf16 at D in ``BF16_HEAD_DIMS`` (64, 80, 128, 160, 256)
-    takes the tensor-core kernel; bf16 at another D (the smoke configs'
-    32) runs the fp32 kernel (and its backward) on operands widened to
-    fp32, the output rounded to bf16."""
+    dtype out, fp32 softmax.  Differentiable on either device.  On the
+    card bf16 at D in ``BF16_HEAD_DIMS`` (64, 80, 128, 160, 256) takes the
+    tensor-core kernels in both directions; bf16 at another D (the smoke
+    configs' 32) runs the fp32 kernels on operands widened to fp32, the
+    output rounded to bf16; fp32 runs the fp32 kernels up to D = 256."""
     if _route(q) == "cuda":
         dtype = q.dtype
         if dtype == torch.bfloat16 and q.shape[-1] not in BF16_HEAD_DIMS:

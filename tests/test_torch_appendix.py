@@ -179,30 +179,24 @@ def _jit_bids(dol, chain, dsi, sizes, metric):
         dol, chain, dsi, sizes, metric)
 
 
-# jsd's bid expression at these C is not matched yet (ROADMAP C7): the
-# largest gap measured, about 2 ulps of the distances.
-_C7_OPEN_GAP = {("jsd", 24): 1.2e-7, ("jsd", 32): 1.2e-7}
-
-
 @pytest.mark.parametrize("c", [5, 10, 17, 24, 32, 100])
 @pytest.mark.parametrize("metric", METRICS)
 def test_tensor_bids_match_reference_planner_expression(metric, c):
-    """The device planner's bids (``ops.bid_fused`` on the CPU) against the
-    reference's jitted bid expression, bit for bit (the vectorized client
-    loop at N = 4 and 8, the scalar one at every other N), but for jsd at
-    C = 24 and 32 (ROADMAP C7), held to their measured gap."""
+    """The device planner's bids (``ops.bid_fused`` on the CPU, given the
+    model distances in the bid expression's forms, ``site="bid_iid"``, as
+    the planner gives them) against the reference's jitted bid expression,
+    bit for bit (the vectorized client loop at N = 4 and 8, the scalar one
+    at every other N); jsd at C = 24 and 32 too since ROADMAP C7's
+    probes."""
     rng = np.random.default_rng(c + 3)
     for m, n in ((8, 8), (10, 10), (20, 20), (6, 4), (5, 2)):
         args = _bid_inputs(rng, m, n, c)
         want = np.asarray(jax.jit(partial(_jit_bids, metric=metric))(*args))
         t = [torch.from_numpy(a) for a in args]
-        got = tops.bid_fused(tdol.iid_distance_t(t[0], metric), *t,
-                             metric=metric).numpy()
-        if (metric, c) in _C7_OPEN_GAP:
-            np.testing.assert_allclose(got, want, rtol=0,
-                                       atol=_C7_OPEN_GAP[metric, c])
-        else:
-            _assert_bits(got, want)
+        got = tops.bid_fused(tdol.iid_distance_t(t[0], metric,
+                                                 site="bid_iid"),
+                             *t, metric=metric).numpy()
+        _assert_bits(got, want)
 
 
 # kld's bid expression at C = 100 where XLA-CPU splits the (M, N, C)

@@ -49,6 +49,7 @@ from repro_torch.models.zoo import build_model, params_from_numpy
 from repro_torch.train import optimizer as topt
 from repro_torch.train import trainstep as tts
 from repro_torch.tree import tree_leaves, tree_map
+from test_torch_zoo import HEAD_DIM_CUTS
 
 
 @pytest.fixture(autouse=True)
@@ -389,6 +390,80 @@ def test_one_step_of_the_local_global_and_vision_families(arch):
                                          remat=True)(
         state, {k: torch.from_numpy(v) for k, v in batch.items()})
     _assert_trees_close(state.params, jstate1.params, atol=2e-5, rtol=0)
+    assert float(metrics["loss"]) == pytest.approx(float(jmetrics["loss"]),
+                                                   abs=2e-5)
+    assert float(metrics["grad_norm"]) == pytest.approx(
+        float(jmetrics["grad_norm"]), rel=1e-4)
+
+
+@pytest.mark.parametrize("cut,opt_name", [("gemma3_4b@256", "adamw"),
+                                          ("pixtral_12b@160", "sgd")])
+def test_one_step_at_the_head_dim_cuts(cut, opt_name):
+    """One fp32 step (clip 1.0, remat on) at the head-dim cuts of
+    ``tests/test_torch_zoo.py`` (gemma3 at head dim 256 with a 16-key
+    window, pixtral at 160 with its 16 patch embeddings), the head dims
+    whose backward the card runs on its ``wgmma`` instances: AdamW at a
+    constant 1e-3 at the gemma3 cut (its first step moves every param),
+    SGD with Nesterov momentum at the pixtral cut, from the reference's
+    init.  The bars of ``test_one_step_of_the_local_global_and_vision_
+    families``: loss within 2e-5, the gradient's norm within rel 1e-4,
+    params within 2e-5 of the reference's step.  AdamW's first step moves
+    an entry by ≈ lr · g / (|g| + eps), lr whatever |g|: where the
+    reference's gradient is within fp32 noise of 0 its sign, and so the
+    entry's direction, is noise (measured: 11–62 entries a leaf of ~10^5,
+    at |g| ≤ 4.8e-7 against a leaf's largest 3.6e-3–2.0e-2, moved up to
+    1.6e-3 apart; in the tied table, whose gradient carries the bf16
+    readout's, entries below 1e-4 of its largest moved up to 7.5e-5).  So
+    there the 2e-5 bar holds where |g| ≥ 1e-3 of its leaf's largest (g
+    from the reference's first moment, (1 − b1) g; measured ≤ 7.5e-7
+    apart), which must be ≥ 90 % of each leaf (measured ≥ 90.7 %, the
+    table); every entry within 2 lr + 2e-5; the mean within
+    ``_assert_params_close``'s AdamW bar."""
+    arch, change = HEAD_DIM_CUTS[cut]
+    jcfg = dataclasses.replace(j_get_smoke(arch), compute_dtype="float32",
+                               **change)
+    cfg = dataclasses.replace(get_smoke_config(arch), compute_dtype="float32",
+                              **change)
+    batch = _lm_batch(cfg.vocab_size)
+    if cfg.frontend == "vision":
+        batch["patch_embeddings"] = np.random.default_rng(5).normal(size=(
+            4, cfg.num_frontend_tokens, cfg.d_model)).astype(np.float32)
+
+    def make(lib):
+        if opt_name == "adamw":
+            return lib.adamw(), lib.constant_lr(1e-3)
+        return _opt(lib, "sgd")
+
+    jmodel = j_build(jcfg)
+    jopt_, jlr = make(jopt)
+    jstate = jts.init_train_state(jmodel, jax.random.PRNGKey(0), jopt_)
+    jstate1, jmetrics = jts.make_train_step(
+        jmodel, jopt_, jlr, clip_norm=1.0, remat=True)(
+            jstate, {k: jnp.asarray(v) for k, v in batch.items()})
+    model = build_model(cfg)
+    opt, lr_fn = make(topt)
+    params = params_from_numpy(jax.tree.map(np.asarray, jstate.params))
+    state = tts.TrainState(params=params, opt_state=opt.init(params),
+                           step=torch.zeros((), dtype=torch.int32))
+    state, metrics = tts.make_train_step(model, opt, lr_fn, clip_norm=1.0,
+                                         remat=True)(
+        state, {k: torch.from_numpy(v) for k, v in batch.items()})
+    if opt_name == "sgd":
+        _assert_trees_close(state.params, jstate1.params, atol=2e-5, rtol=0)
+    else:
+        total, count = 0.0, 0
+        for got, want, m in zip(tree_leaves(state.params),
+                                jax.tree.leaves(jstate1.params),
+                                jax.tree.leaves(jstate1.opt_state["m"])):
+            d = np.abs(got.numpy() - np.asarray(want))
+            m = np.abs(np.asarray(m))
+            clear = m >= 1e-3 * m.max()
+            assert clear.mean() >= 0.9
+            assert d[clear].max(initial=0.0) <= 2e-5
+            assert d.max() <= 2 * 1e-3 + 2e-5
+            total += float(d.sum())
+            count += d.size
+        assert total <= 1e-6 * count
     assert float(metrics["loss"]) == pytest.approx(float(jmetrics["loss"]),
                                                    abs=2e-5)
     assert float(metrics["grad_norm"]) == pytest.approx(
