@@ -273,14 +273,17 @@ nothing of JAX.  Phases, each of which fails loudly:
    smollm_360m's (2, 4096, 15, 64), a 1000-key window at S = 4096,
    mixtral's 4096-key window at S = 8192, gemma3's D = 256 at
    (1, 8192, 8, 256) causal and with its 1,024-key window and pixtral's
-   D = 160 at (1, 5120, 32, 160), bf16 and fp32, each row's route read
+   D = 160 at (1, 5120, 32, 160), bf16 and fp32, whisper_base's encoder
+   (8, 1500, 1500, 8, 64) and cross-attention (8, 448 queries, 1500 keys)
+   non-causal in bf16, each row's route read
    from the library's launch counts, a
    ragged chunk, a ragged channel block; ssd_scan also at near-unit decay
    and two odd shapes, P 72 / N 128 and P 18 / N 9 / chunk 48), with
    attention held per element against its row's scale and normwise, and
    a planted fault (one kv tile dropped for the rows past S/2; at D = 160
-   the third 64-column chunk of the head dim dropped from the scores)
-   that the attention bars must reject; at every attention row the
+   the third 64-column chunk of the head dim dropped from the scores; at
+   whisper's rows the ragged last 92-key tile hidden from the rows past
+   Sq/2) that the attention bars must reject; at every attention row the
    output with
    ``return_lse=True`` bit-equal to the one without, and the row
    log-sum-exp within LSE_BAR of ``torch.logsumexp``'s; every ssd_scan row must give the same bits
@@ -290,8 +293,10 @@ nothing of JAX.  Phases, each of which fails loudly:
    S = 4096), zamba2_2_7b (54 mamba2 + 9 shared attention, B = 1,
    S = 4096), falcon_mamba_7b (64 mamba1 layers, B = 1, S = 4096), the
    MoE configs at cut depths, gemma3_4b (34 layers, B = 1, S = 32,768: 29
-   windowed launches) and pixtral_12b (40 layers, B = 1, 1,024 seeded
-   patch embeddings ahead of 4,096 text tokens) from
+   windowed launches), pixtral_12b (40 layers, B = 1, 1,024 seeded
+   patch embeddings ahead of 4,096 text tokens) and whisper_base (6 + 6
+   layers, B = 32 × (1,500 seeded frame embeddings + 448 tokens): 18
+   launches at D = 64, 12 non-causal) from
    random params drawn on the card, one after another, under
    ``torch.inference_mode()``: loss finite, prefill tokens/s, peak memory
    (the garbage collector run before each reset),
@@ -305,9 +310,14 @@ nothing of JAX.  Phases, each of which fails loudly:
    family's kernel output one step late (and in fp32 also with its
    sequence halves run apart, a kernel that loses its context at S/2;
    gemma3 unscaled and all-global, pixtral's text positions from 0),
-   which those bars must reject; one qwen3 and one zamba2 prefill under
-   ``torch.profiler``; zamba2_2_7b at full width and full depth (B = 1,
-   S = 4096) from one init through the ssd_scan kernels and through its
+   which those bars must reject; whisper-smoke and its cut at D = 64 over
+   200 frames (B = 2, 64 tokens) on the card against the CPU in both
+   dtypes, the encoder's states, the decoder's hidden states and the loss
+   within the same bars, and two controls they must reject (the encoder
+   causal, the cross-attention reading the next row's frames); one qwen3,
+   one zamba2 and one whisper prefill under ``torch.profiler``;
+   zamba2_2_7b at full width and full depth (B = 1, S = 4096) from one init
+   through the ssd_scan kernels and through its
    plain version, in fp32 compute (losses within ZOO_BARS' fp32 loss_abs)
    and in bf16 (both losses printed);
 7. decode and serving (``serve_path``), which reaches no kernel of ours:
@@ -322,7 +332,8 @@ nothing of JAX.  Phases, each of which fails loudly:
    ``python -m repro_torch.launch.serve`` at full width as a subprocess,
    exit 0 and its rates; (c) the 2-layer cuts at B = 2, 24 teacher-forced
    steps then 8 greedy ones (gemma3's and pixtral's full-width cuts 6 and
-   2), card against CPU in fp32 and bf16 compute,
+   2; whisper's D = 64 cut, its cache built from its frames), card
+   against CPU in fp32 and bf16 compute,
    logits and caches within SERVE_BARS, and two planted controls (the new
    K/V written one position late; the recurrent state not carried between
    steps) that the bars must reject; (d) on the fp32 cuts at S = 64,
@@ -332,7 +343,11 @@ nothing of JAX.  Phases, each of which fails loudly:
    unbatched greedy decode, and the sampler on card logits equal to the
    CPU's (greedy, temperature, top-k, top-p) with equal Gumbel bits; (f)
    glibc ``powf``'s tensor form (``xla_powf_t``) bit-equal on the card
-   and the CPU over 2^22 inputs.
+   and the CPU over 2^22 inputs; (g) whisper_base at full width: its cache
+   built from 8 rows of 1,500 frames (its encoder's 6 launches), 64
+   teacher-forced and 32 greedy steps over 448 positions, ms a step,
+   tokens/s, cache and peak GB; the serve CLI at ``--arch whisper_base``
+   is (b)'s second run.
 
 8. training (``check_train_kernels``, ``train_path``): (a) the backward
    kernels against their plain twins on the card — flash_attention's at
@@ -340,7 +355,8 @@ nothing of JAX.  Phases, each of which fails loudly:
    (1, 4096, 32, 80), a 1000-key window, gemma3's (1, 4096, 8, 256)
    causal and with its 1,024-key window, pixtral's (1, 5120, 32, 160),
    fp32 at D = 128, 160 and 256 and ragged rows (S % 64 != 0, Sq < Sk) at
-   each bf16 head dim past 128, within ATTN_BWD_BARS, the kernel fed the
+   each bf16 head dim past 128, whisper's two non-causal rows, within
+   ATTN_BWD_BARS, the kernel fed the
    forward kernel's lse and its twin ``torch.logsumexp``'s, the library's
    counts showing each row's device kernels (bf16: the ``wgmma`` dK/dV
    and dQ instances of its head dim, dK/dV in two passes past D = 128);
@@ -350,8 +366,9 @@ nothing of JAX.  Phases, each of which fails loudly:
    each gradient within SSD_BWD_BAR·(1 + max|plain|), with ptxas' registers
    and spills (none, and no atomic in its SASS: phase 1);
    the same bits on two calls; a planted fault each (a key tile dropped,
-   at D = 128, 256 and 160; ``h_t`` for ``h_{t−1}``; G one chunk late, at
-   every ssd_scan row) that must fail its bar by ≥ 10×; kernel, plain and
+   at D = 128, 256 and 160, and the ragged last one at whisper's rows;
+   ``h_t`` for ``h_{t−1}``; G one chunk late, at every ssd_scan row) that
+   must fail its bar by ≥ 10×; kernel, plain and
    library ms and the bound;
    (b) ``make_train_step`` at full width: qwen3_0_6b (B = 2 × 4096, AdamW,
    ``warmup_cosine_lr``, clip 1.0, 6 steps: the loss falls, peak GB with
@@ -360,15 +377,18 @@ nothing of JAX.  Phases, each of which fails loudly:
    (54 mamba2 + 9 shared, B = 1 × 4096, AdamW, 3 steps: the loss falls),
    gemma3_4b at 12 of its 34 layers (two bodies of 5 ``swa`` + 1 ``attn``,
    B = 1 × 4096, AdamW, 3 steps) and pixtral_12b at 4 of its 40 (B = 1 ×
-   (1,024 patch embeddings + 4,096 tokens), SGD with momentum, 3 steps),
-   both losses falling, seconds a step, tokens/s, peak GB and launches
-   (the forward kernels twice a layer a step under remat, the backward
+   (1,024 patch embeddings + 4,096 tokens), SGD with momentum, 3 steps)
+   and whisper_base at full width and depth (B = 64 × (1,500 frames + 448
+   tokens), AdamW, 3 steps), the losses falling, seconds a step,
+   tokens/s, peak GB and launches (the forward kernels twice a layer a step
+   under remat, the backward
    once, each through the instance of its head dim); one step at qwen3-,
    zamba2-, mixtral-, gemma3- and pixtral-smoke (its patch embeddings
    ahead of the text) in fp32 on the card against the CPU, params within
-   1e-5, and at the head-dim cuts (gemma3 at D = 256, pixtral at 160) in
-   fp32 (params within 1e-5, the CUDA-core kernels) and bf16 (gradients
-   within GRAD_BARS, the ``wgmma`` kernels); (c) ``launch/train`` at full width (smollm_360m, 1
+   1e-5, and at the head-dim cuts (gemma3 at D = 256, pixtral at 160,
+   whisper at 64; whisper-smoke in fp32 too) in fp32 (params within 1e-5,
+   the CUDA-core kernels) and bf16 (gradients within GRAD_BARS, the
+   ``wgmma`` kernels); (c) ``launch/train`` at full width (smollm_360m, 1
    round, 4 clients, 4 steps a round) in process and the CLI at
    ``--smoke`` as a subprocess; (d) ``run_spmd_feddif`` at smollm-smoke
    and zamba2-smoke on the card against the CPU: equal ledgers, loss
@@ -552,6 +572,32 @@ ZOO_MOE_CONTROLS = {"mixtral_8x22b": ("expert_swapped", "window_wide"),
 # positions restarting at 0 after the patches (text_positions_from_zero).
 ZOO_FAMILY_CONTROLS = {"gemma3_4b": ("embed_unscaled", "all_global"),
                        "pixtral_12b": ("text_positions_from_zero",)}
+# The audio family: whisper_base (configs/whisper_base.py,
+# arXiv:2212.04356: 6 encoder + 6 decoder layers, d_model 512, 8 heads of
+# D = 64, d_ff 2,048, vocab 51,865, 1,500 stubbed frame embeddings) at its
+# published width and depth.  Its text is WHISPER_TEXT tokens, the
+# decoder's published context (n_text_ctx in openai/whisper's
+# ModelDimensions), in place of SHAPES' 4,096.  Phase 6b prefills
+# SHAPES["prefill_32k"]'s batch of 32 × (1,500 frames + 448 tokens): each
+# forward launches flash_attention 18 times at D = 64 (6 encoder, 6
+# decoder and 6 cross-attention layers), 12 of them non-causal.
+WHISPER = "whisper_base"
+WHISPER_TEXT = 448
+WHISPER_ATTN = {"flash_attention": 18}
+WHISPER_NONCAUSAL = 12
+# Phases 6c, 7 and 8b's cuts: whisper-smoke (2 + 2 layers, d_model 128, 4
+# heads of D = 32, which the fp32 kernels take) and the same at 2 heads of
+# D = 64 (the wgmma<64> instances) over 200 frames, a key length that is no
+# whole number of 64- or 128-key tiles; B = 2 and WHISPER_CUT_TEXT tokens.
+WHISPER_CUTS = (("whisper-smoke", {}),
+                ("whisper-hd64", {"name": "whisper-hd64", "num_heads": 2,
+                                  "num_kv_heads": 2,
+                                  "num_frontend_tokens": 200}))
+WHISPER_CUT_TEXT = 64
+# Phase 6c's controls, which the bars of both dtypes must reject: the
+# encoder's spec causal (its self-attention and the cross-attention then
+# mask keys), and the cross-attention reading the next batch row's frames.
+WHISPER_CONTROLS = ("causal_encoder", "cross_wrong_frames")
 # ssd_scan's rows in phase 6a, (B, S, H, P, N, chunk) and inputs: zamba2's
 # prefill and its cut, S not a multiple of the chunk, P not a multiple of
 # 16 at N 16 and chunk 64, zamba2's prefill at near-unit decay (a ≈ −1e-3,
@@ -3513,17 +3559,22 @@ def _attention_chunk_dropped(kref, q, k, v, **kw):
     return kref.flash_attention_ref(qd, kd_, v, **kw)
 
 
-def _attention_tile_dropped(torch, q, k, v, tile: int = 64):
-    """Causal attention as the plain version computes it, except that keys
-    [Sk/4, Sk/4 + tile) are hidden from the queries past Sq/2: what a kernel
-    that skipped one kv tile for those rows would return."""
+def _attention_tile_dropped(torch, q, k, v, tile: int = 64,
+                            causal: bool = True, start: int | None = None):
+    """Attention as the plain version computes it, except that keys
+    [start, start + tile) (start Sk/4 by default) are hidden from the
+    queries past Sq/2: what a kernel that skipped one kv tile for those
+    rows would return."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
+    start = sk // 4 if start is None else start
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / d ** 0.5
     rows = torch.arange(sq, device=q.device)[:, None]
     k_pos = torch.arange(sk, device=q.device)[None, :]
-    dropped = (rows >= sq // 2) & (k_pos >= sk // 4) & (k_pos < sk // 4 + tile)
-    s = s.masked_fill(~(k_pos <= rows + (sk - sq)) | dropped, float("-inf"))
+    dropped = (rows >= sq // 2) & (k_pos >= start) & (k_pos < start + tile)
+    if causal:
+        dropped = dropped | ~(k_pos <= rows + (sk - sq))
+    s = s.masked_fill(dropped, float("-inf"))
     p = torch.softmax(s, dim=-1)
     del s
     return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
@@ -3576,11 +3627,16 @@ def check_lm_kernels(torch, kref) -> list[dict]:
     # fp32 scores fit; then gemma3's global and local layers at prefill_32k's
     # sequence cut to 8192 (8 heads of D = 256, the local layers' 1024-key
     # window) and pixtral's prefill (1024 patches + 4096 text positions, 32
-    # heads of D = 160), bf16 and fp32.  Each row's route is read from the
-    # library's counts (fwd_kernel_launches): bf16 at a head dim of
-    # BF16_HEAD_DIMS through that wgmma instance, fp32 through the CUDA-core
-    # kernel.  The pixtral bf16 row also runs a planted fault, the scores
-    # without the third 64-column chunk of D.
+    # heads of D = 160), bf16 and fp32; then whisper_base's encoder
+    # (8, 1500, 1500, 8, 64) and cross-attention (8, 448 queries, 1500
+    # keys), non-causal over a key length of 11 × 128 + 92 (its prefill's 32
+    # rows cut to 8, so that the plain version's fp32 scores stay small).
+    # Each row's route is read from the library's counts
+    # (fwd_kernel_launches): bf16 at a head dim of BF16_HEAD_DIMS through
+    # that wgmma instance, fp32 through the CUDA-core kernel.  The pixtral
+    # bf16 row also runs a planted fault, the scores without the third
+    # 64-column chunk of D; the whisper rows one, the ragged last 92-key
+    # tile hidden from the rows past Sq/2.
     for b, sq, sk, h, d, causal, window, dt in (
             (2, 4096, 4096, 16, 128, True, None, "bfloat16"),  # qwen3
             (1, 4096, 4096, 32, 80, True, None, "bfloat16"),   # zamba2
@@ -3601,7 +3657,9 @@ def check_lm_kernels(torch, kref) -> list[dict]:
             (1, 5120, 5120, 32, 160, True, None, "bfloat16"),  # pixtral
             (1, 8192, 8192, 8, 256, True, None, "float32"),
             (1, 8192, 8192, 8, 256, True, 1024, "float32"),
-            (1, 5120, 5120, 32, 160, True, None, "float32")):
+            (1, 5120, 5120, 32, 160, True, None, "float32"),
+            (8, 1500, 1500, 8, 64, False, None, "bfloat16"),   # whisper
+            (8, 448, 1500, 8, 64, False, None, "bfloat16")):   # its cross
         dtype = getattr(torch, dt)
         q = torch.randn((b, sq, h, d), generator=gen, device="cuda").to(dtype)
         k = torch.randn((b, sk, h, d), generator=gen, device="cuda").to(dtype)
@@ -3634,6 +3692,11 @@ def check_lm_kernels(torch, kref) -> list[dict]:
             check["control_chunk_dropped"] = _attn_err(
                 torch, _attention_chunk_dropped(kref, q, k, v, **kw), plain,
                 dt)
+        if not causal and dt == "bfloat16" and sk % 128:
+            check["control_tail_tile_dropped"] = _attn_err(
+                torch, _attention_tile_dropped(torch, q, k, v, sk % 128,
+                                               False, sk - sk % 128),
+                plain, dt)
         pairs = b * h * _visible_pairs(sq, sk, causal, window)
         bound, by = _bound(q.element_size() * 2.0 * h * d * b * (sq + sk),
                            4.0 * d * pairs,
@@ -3757,9 +3820,18 @@ SERVE_REQUESTS = 8
 SERVE_PROMPT = (64, 128)              # (64, 256) before the training phase
 SERVE_NEW = 32
 SERVE_SAMPLED = {"temperature": 0.8, "top_k": 40}
-# (b) the serve CLI at full width.
+# (b) the serve CLI at full width: qwen3_0_6b, and whisper_base (frames
+# drawn on the card, its cache built from them).
 SERVE_CLI = ("--arch", "qwen3_0_6b", "--batch", "4", "--context", "64",
              "--new-tokens", "32")
+SERVE_CLIS = (SERVE_CLI, ("--arch", WHISPER, "--batch", "4", "--context",
+                          "64", "--new-tokens", "32"))
+# (g) whisper_base's decode at full width: WHISPER_SLOTS slots of
+# WHISPER_TEXT positions with cross caches over its 1,500 frames,
+# WHISPER_FORCED teacher-forced steps then WHISPER_GREEDY greedy ones.
+WHISPER_SLOTS = 8
+WHISPER_FORCED = 64
+WHISPER_GREEDY = 32
 # (c) card against CPU on ZOO_CUTS: B = 2, SERVE_FORCED teacher-forced
 # prompt tokens then SERVE_GREEDY greedy tokens (the CPU's, fed to both).
 # Bars on the logits (max |card − cpu| over max |cpu| across all steps)
@@ -4210,6 +4282,186 @@ def zoo_card_vs_cpu(torch) -> None:
             if c["must_fail"] and c["ok"]:
                 _fail(f"card_vs_cpu prefill {arch} {dtype}: the bars did "
                       f"not reject the control {name} of {op}")
+        del params
+        torch.cuda.empty_cache()
+
+
+def _whisper_cut(change: dict, dtype: str):
+    """A WHISPER_CUTS config (whisper-smoke with ``change``) in ``dtype``
+    compute."""
+    from repro_torch.configs import get_smoke_config
+    return dataclasses.replace(get_smoke_config(WHISPER),
+                               compute_dtype=dtype, **change)
+
+
+def whisper_prefill(torch, kd) -> dict:
+    """Phase 6b, the audio family: ``make_prefill_step`` of whisper_base at
+    full width and depth, B = 32 × (1,500 frame embeddings drawn N(0, 1)
+    in bf16 + WHISPER_TEXT tokens), from random params drawn on the card,
+    under inference_mode: one untimed forward, then one timed on the host
+    clock with the counters zeroed.  flash_attention must launch
+    WHISPER_ATTN times through ``flash_attention_wgmma_kernel<64>``,
+    WHISPER_NONCAUSAL of them non-causal (the encoder's and the
+    cross-attention); the loss finite.  Prints seconds, tokens/s over
+    frames and tokens, peak memory (the collector run first) and the
+    loss; then one forward under ``torch.profiler``."""
+    from unittest import mock
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import fwd_kernel_launches
+    from repro_torch.models.zoo import build_model
+    from repro_torch.train.trainstep import make_prefill_step
+    from repro_torch.tree import tree_leaves
+    cfg = get_config(WHISPER)
+    b, s = SHAPES["prefill_32k"].global_batch, WHISPER_TEXT
+    frames = cfg.num_frontend_tokens
+    model = build_model(cfg)
+    step = make_prefill_step(model)
+    real = ops.flash_attention
+    noncausal = [0]
+
+    def counting(*args, causal=True, **kw):
+        noncausal[0] += not causal
+        return real(*args, causal=causal, **kw)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        params = model.init(gen)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        batch = {"frames": torch.randn((b, frames, cfg.d_model),
+                                       generator=gen, device="cuda"
+                                       ).to(torch.bfloat16),
+                 "tokens": torch.randint(0, cfg.vocab_size, (b, s),
+                                         generator=gen, device="cuda")}
+        first = float(step(params, batch))
+        torch.cuda.synchronize()
+        kd.reset_launch_counts()
+        before = fwd_kernel_launches()
+        t0 = time.perf_counter()
+        with mock.patch.object(ops, "flash_attention", counting):
+            loss = float(step(params, batch))
+        wall = time.perf_counter() - t0
+        counts = {k: v for k, v in kd.LAUNCHES.items() if v}
+        after = fwd_kernel_launches()
+        routes = {n: after[n] - before[n] for n in after
+                  if after[n] != before[n]}
+        peak = torch.cuda.max_memory_allocated()
+        want_routes = {"flash_attention_wgmma_kernel<64>":
+                       WHISPER_ATTN["flash_attention"]}
+        print(json.dumps({
+            "run": f"prefill {WHISPER}",
+            "encoder_layers": cfg.encoder_layers,
+            "decoder_layers": cfg.num_layers, "batch": b, "frames": frames,
+            "text": s, "positions": frames + s,
+            "prefill_32k_batch": SHAPES["prefill_32k"].global_batch,
+            "params": sum(x.numel() for x in tree_leaves(params)),
+            "compute_dtype": cfg.compute_dtype, "loss": loss,
+            "same_loss_twice": first == loss, "prefill_s": wall,
+            "tokens_per_s": b * (frames + s) / wall,
+            "text_tokens_per_s": b * s / wall, "init_s": init_s,
+            "peak_memory_gb": peak / 2 ** 30, "launches": counts,
+            "want_launches": WHISPER_ATTN, "routes": routes,
+            "noncausal_launches": noncausal[0],
+            "want_noncausal": WHISPER_NONCAUSAL}))
+        if not math.isfinite(loss):
+            _fail(f"prefill {WHISPER}: loss {loss} is not finite")
+        if (counts != WHISPER_ATTN or routes != want_routes
+                or noncausal[0] != WHISPER_NONCAUSAL):
+            _fail(f"prefill {WHISPER}: launches {counts}, routes {routes}, "
+                  f"{noncausal[0]} non-causal; want {WHISPER_ATTN}, "
+                  f"{want_routes}, {WHISPER_NONCAUSAL}")
+        _profile_prefill(torch, step, params, batch,
+                         f"{WHISPER} B={b} T={frames} S={s}")
+    del params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _roll_context(torch, real):
+    """``attn_forward`` whose cross-attention reads the next batch row's
+    context (its frames' encoder states)."""
+    def wrong(p, spec, x, positions=None, context=None):
+        if context is not None:
+            context = torch.roll(context, 1, dims=0)
+        return real(p, spec, x, positions, context)
+    return wrong
+
+
+def whisper_card_vs_cpu(torch) -> None:
+    """Phase 6c, the audio family: WHISPER_CUTS on the card (its kernels)
+    against the CPU (plain versions) from one init drawn on the card, B = 2
+    over the cut's frames and WHISPER_CUT_TEXT tokens, in bf16 and fp32
+    compute: the encoder's states (with the loss) and the decoder's final
+    hidden states (with the loss) each within ZOO_BARS.  Then
+    WHISPER_CONTROLS on the card, which the bars must reject: the encoder's
+    spec causal, and the cross-attention reading the next row's frames."""
+    from unittest import mock
+    from repro_torch.models import encdec as ed
+    from repro_torch.models.zoo import build_model
+    from repro_torch.train.trainstep import make_prefill_step
+    from repro_torch.tree import tree_map
+    real_spec = ed.enc_spec
+    patches = {"causal_encoder": (ed, "enc_spec", lambda cfg: (
+                   dataclasses.replace(real_spec(cfg), causal=True))),
+               "cross_wrong_frames": (ed, "attn_forward", _roll_context(
+                   torch, ed.attn_forward))}
+    for (label, change), dtype in itertools.product(WHISPER_CUTS, ZOO_BARS):
+        t_cut = time.perf_counter()
+        cfg = _whisper_cut(change, dtype)
+        model = build_model(cfg)
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        out = {}
+        with torch.inference_mode():
+            params = model.init(gen)
+            frames = torch.randn((2, cfg.num_frontend_tokens, cfg.d_model),
+                                 generator=gen, device="cuda")
+            tokens = torch.randint(0, cfg.vocab_size, (2, WHISPER_CUT_TEXT),
+                                   generator=gen, device="cuda")
+            for where in ("cpu", "card", *WHISPER_CONTROLS):
+                dev = "cpu" if where == "cpu" else "cuda"
+                p = tree_map(lambda x: x.to(dev), params)
+                f, t = frames.to(dev), tokens.to(dev)
+                with contextlib.ExitStack() as stack:
+                    if where in patches:
+                        stack.enter_context(mock.patch.object(
+                            *patches[where]))
+                    enc = ed.encode(p, cfg, f, remat=False)
+                    hid = ed._decode_hidden(p, cfg, t, enc, remat=False)
+                    loss = float(make_prefill_step(model)(p, {
+                        "frames": f, "tokens": t,
+                        "labels": torch.roll(t, -1, dims=1)}))
+                out[where] = (enc.float().cpu(), hid.float().cpu(), loss)
+                del p, enc, hid
+        bars = ZOO_BARS[dtype]
+
+        def check(where):
+            enc, hid, loss = out[where]
+            enc_ref, hid_ref, loss_ref = out["cpu"]
+            e = _hidden_check((enc, loss), (enc_ref, loss_ref), bars)
+            d = _hidden_check((hid, loss), (hid_ref, loss_ref), bars)
+            return {"encoder": e, "decoder": d, "ok": e["ok"] and d["ok"]}
+
+        line = {"check": f"card_vs_cpu prefill {label} {dtype}",
+                "head_dim": cfg.resolved_head_dim,
+                "frames": cfg.num_frontend_tokens, "text": WHISPER_CUT_TEXT,
+                "seconds": time.perf_counter() - t_cut,
+                "loss": [out["card"][2], out["cpu"][2]], "bars": bars,
+                **check("card"),
+                "controls": {name: check(name) for name in WHISPER_CONTROLS}}
+        print(json.dumps(line))
+        if not line["ok"]:
+            _fail(f"card_vs_cpu prefill {label} {dtype}: card and CPU "
+                  f"disagree")
+        for name, c in line["controls"].items():
+            if c["ok"]:
+                _fail(f"card_vs_cpu prefill {label} {dtype}: the bars did "
+                      f"not reject the control {name}")
         del params
         torch.cuda.empty_cache()
 
@@ -5630,24 +5882,27 @@ def _serve_engines(torch, kd, card: str) -> None:
     torch.cuda.empty_cache()
 
 
-def _serve_cli_run() -> dict:
-    return _run_cli("serve", [sys.executable, "-m",
-                              "repro_torch.launch.serve", *SERVE_CLI], 600)
+def _serve_cli_run() -> list:
+    return [_run_cli(f"serve{i}", [sys.executable, "-m",
+                                   "repro_torch.launch.serve", *args], 600)
+            for i, args in enumerate(SERVE_CLIS)]
 
 
 def _serve_cli(card: str, run: _Alongside | None = None) -> None:
-    """(b): ``python -m repro_torch.launch.serve`` at full width (begun
-    here unless ``run`` already holds it)."""
-    out = (run or _Alongside(_serve_cli_run)).result()
-    if out["returncode"] != 0:
-        _fail(f"serve CLI exited {out['returncode']}: "
-              f"{out['stderr'][-2000:]}")
-    lines = out["stdout"].strip().splitlines()
-    print(json.dumps({"serve_cli": " ".join(SERVE_CLI), "card": card,
-                      "seconds": out["seconds"], "output": lines}))
-    if not any(x.startswith("decode:") and "tok/s aggregate" in x
-               for x in lines):
-        _fail(f"serve CLI printed no decode rate: {lines}")
+    """(b): ``python -m repro_torch.launch.serve`` at full width, each of
+    SERVE_CLIS in turn (begun here unless ``run`` already holds them)."""
+    for args, out in zip(SERVE_CLIS,
+                         (run or _Alongside(_serve_cli_run)).result()):
+        if out["returncode"] != 0:
+            _fail(f"serve CLI {' '.join(args)} exited {out['returncode']}: "
+                  f"{out['stderr'][-2000:]}")
+        lines = out["stdout"].strip().splitlines()
+        print(json.dumps({"serve_cli": " ".join(args), "card": card,
+                          "seconds": out["seconds"], "output": lines}))
+        if not any(x.startswith("decode:") and "tok/s aggregate" in x
+                   for x in lines):
+            _fail(f"serve CLI {' '.join(args)} printed no decode rate: "
+                  f"{lines}")
 
 
 def _kv_one_late(torch):
@@ -5699,16 +5954,19 @@ def _cut_config(arch: str, extra: dict, dtype: str):
                                compute_dtype=dtype, **extra)
 
 
-def _teacher_forced(torch, model, params, tokens, patches=()):
+def _teacher_forced(torch, model, params, tokens, patches=(), frames=None):
     """Logits (S, B, V) fp32 on the CPU and the final cache of a decode
-    fed ``tokens`` (B, S), under ``mock.patch`` pairs ``patches``."""
+    fed ``tokens`` (B, S), under ``mock.patch`` pairs ``patches``; an
+    audio model's cache built from ``frames``."""
     from unittest import mock
-    cache = model.init_cache(params, tokens.shape[0], tokens.shape[1])
+    first = () if frames is None else (frames,)
     out = []
     with contextlib.ExitStack() as stack:
         for target, fn in patches:
             stack.enter_context(mock.patch(target, fn))
         with torch.no_grad():
+            cache = model.init_cache(params, *first, tokens.shape[0],
+                                     tokens.shape[1])
             for t in range(tokens.shape[1]):
                 lg, cache = model.decode_step(params, tokens[:, t:t + 1],
                                               cache, t)
@@ -5952,9 +6210,174 @@ def _serve_powf(torch, card: str) -> None:
         _fail(f"xla_powf_t: {diff} of {n} differ between card and CPU")
 
 
+def _serve_whisper(torch, kd, card: str) -> None:
+    """(g) the audio family.  whisper_base at full width: its cache built
+    from WHISPER_SLOTS rows of 1,500 frame embeddings (N(0, 1), bf16; the
+    encoder's 6 flash_attention launches, counted apart) for WHISPER_TEXT
+    positions, then WHISPER_FORCED teacher-forced and WHISPER_GREEDY greedy
+    decode steps, each timed to a synchronize: ms a step (mean and
+    median), tokens/s, cache and peak GB, no kernel launched by decode.
+    Then at the D = 64 cut (WHISPER_CUTS' second), B = 2: SERVE_FORCED
+    teacher-forced then SERVE_GREEDY greedy steps on the card against the
+    CPU in fp32 and bf16 within SERVE_BARS (logits, and every self and
+    cross cache leaf), the planted ``kv_one_late`` control rejected; and in
+    fp32 the same tokens' teacher-forced decode against the prefill forward
+    (its kernels) within SERVE_PREFILL_TOL."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import encdec as ed
+    from repro_torch.models import layers as L
+    from repro_torch.models.zoo import build_model
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = get_config(WHISPER)
+    model = build_model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    b, forced, greedy = WHISPER_SLOTS, WHISPER_FORCED, WHISPER_GREEDY
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = model.init(gen)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    frames = torch.randn((b, cfg.num_frontend_tokens, cfg.d_model),
+                         generator=gen, device="cuda").to(torch.bfloat16)
+    prompt = torch.randint(0, cfg.vocab_size, (b, forced), generator=gen,
+                           device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    kd.reset_launch_counts()
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        cache = model.init_cache(params, frames, b, WHISPER_TEXT)
+        torch.cuda.synchronize()
+        cache_s = time.perf_counter() - t0
+        cache_launches = {k: v for k, v in kd.LAUNCHES.items() if v}
+        kd.reset_launch_counts()
+        tok, step_s, finite = prompt[:, :1], [], True
+        t0 = time.perf_counter()
+        for t in range(forced + greedy):
+            ts = time.perf_counter()
+            lg, cache = model.decode_step(params, tok, cache, t)
+            tok = (prompt[:, t + 1:t + 2] if t + 1 < forced
+                   else lg[:, -1].argmax(-1, keepdim=True))
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - ts)
+        wall = time.perf_counter() - t0
+        finite = bool(torch.isfinite(lg).all())
+    _no_launches(kd, f"decode {WHISPER}")
+    first = step_s[0]
+    step_s.sort()
+    steps = forced + greedy
+    line = {"serve": f"{WHISPER} decode", "card": card,
+            "slots": b, "max_seq": WHISPER_TEXT,
+            "frames": cfg.num_frontend_tokens, "forced": forced,
+            "greedy": greedy, "seconds": wall,
+            "ms_per_step": 1e3 * wall / steps,
+            "median_step_ms": 1e3 * step_s[len(step_s) // 2],
+            "first_step_ms": 1e3 * first, "tokens_per_s": b * steps / wall,
+            "cache_build_s": cache_s, "cache_build_launches": cache_launches,
+            "cache_gb": _cache_bytes(cache) / 1e9,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "init_s": init_s, "finite": finite, "launches": 0}
+    print(json.dumps(line))
+    if not finite or cache_launches != {"flash_attention": cfg.encoder_layers}:
+        _fail(f"decode {WHISPER}: {json.dumps(line)}")
+    del params, cache, frames
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    late = [("repro_torch.models.encdec.attn_decode", _kv_one_late(torch))]
+    steps = SERVE_FORCED + SERVE_GREEDY
+    for dtype in SERVE_BARS:
+        label, change = WHISPER_CUTS[1]
+        cfg = _whisper_cut(change, dtype)
+        model = build_model(cfg)
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        params = model.init(gen)
+        frames = torch.randn((2, cfg.num_frontend_tokens, cfg.d_model),
+                             generator=gen, device="cuda")
+        tokens = torch.randint(0, cfg.vocab_size, (2, SERVE_FORCED),
+                               generator=gen, device="cuda").cpu()
+        p_cpu = tree_map(lambda x: x.cpu(), params)
+        # The CPU decides the greedy tokens; every card run is fed them.
+        want = []
+        with torch.no_grad():
+            want_cache = model.init_cache(p_cpu, frames.cpu(), 2, steps)
+            for t in range(steps):
+                lg, want_cache = model.decode_step(
+                    p_cpu, tokens[:, t:t + 1], want_cache, t)
+                want.append(lg[:, 0])
+                if SERVE_FORCED - 1 <= t < steps - 1:
+                    tokens = torch.cat(
+                        [tokens, lg[:, -1].argmax(-1)[:, None]], dim=1)
+        want = torch.stack(want)
+        kd.reset_launch_counts()
+        got, got_cache = _teacher_forced(torch, model, params, tokens.cuda(),
+                                         frames=frames)
+        bad, bad_cache = _teacher_forced(torch, model, params, tokens.cuda(),
+                                         late, frames)
+        bars = SERVE_BARS[dtype]
+
+        def errs(logits, cache):
+            return (_rel_err(torch, logits, want),
+                    max(_rel_err(torch, g.cpu(), w) for g, w in zip(
+                        tree_leaves(cache), tree_leaves(want_cache))))
+
+        logit_err, cache_err = errs(got, got_cache)
+        c_logit, c_cache = errs(bad, bad_cache)
+        agree = int((got[SERVE_FORCED - 1:-1].argmax(-1)
+                     == tokens[:, SERVE_FORCED:].T).sum())
+        ok = logit_err <= bars["logits_rel"] and cache_err <= bars["cache_rel"]
+        if dtype == "float32":
+            ok = ok and agree == 2 * SERVE_GREEDY
+        rejected = c_logit > bars["logits_rel"] or c_cache > bars["cache_rel"]
+        line = {"check": f"serve card_vs_cpu {label} {dtype}", "card": card,
+                "batch": 2, "frames": cfg.num_frontend_tokens,
+                "forced": SERVE_FORCED, "greedy": SERVE_GREEDY, "bars": bars,
+                "logits_rel_err": logit_err, "cache_rel_err": cache_err,
+                "greedy_tokens_agree": agree, "ok": ok,
+                "controls": {"kv_one_late": {"logits_rel_err": c_logit,
+                                             "cache_rel_err": c_cache,
+                                             "rejected": rejected}}}
+        print(json.dumps(line))
+        if not ok:
+            _fail(f"serve card_vs_cpu {label} {dtype}: {json.dumps(line)}")
+        if not rejected:
+            _fail(f"serve card_vs_cpu {label} {dtype}: the bars did not "
+                  f"reject the control kv_one_late")
+        if dtype == "float32":
+            toks = tokens.cuda()
+            kd.reset_launch_counts()
+            with torch.inference_mode():
+                enc = ed.encode(params, cfg, frames, remat=False)
+                hid = ed._decode_hidden(params, cfg, toks, enc, remat=False)
+                pre = L.unembed_logits(params["embed"], hid, torch.float32)
+                pre = pre.transpose(0, 1).float().cpu()
+            kernels = {k: v for k, v in kd.LAUNCHES.items() if v}
+            kd.reset_launch_counts()
+            dec, _ = _teacher_forced(torch, model, params, toks,
+                                     frames=frames)
+            err = (dec - pre).abs()
+            excess = float((err - SERVE_PREFILL_TOL * (1 + pre.abs())).max())
+            line = {"check": f"serve decode_vs_prefill {label} float32",
+                    "card": card, "batch": 2, "seq": toks.shape[1],
+                    "prefill_launches": kernels,
+                    "max_abs_err": float(err.max()),
+                    "max_abs_logit": float(pre.abs().max()),
+                    "atol": SERVE_PREFILL_TOL, "rtol": SERVE_PREFILL_TOL,
+                    "ok": bool(np.isfinite(excess) and excess <= 0)}
+            print(json.dumps(line))
+            if not line["ok"] or not kernels:
+                _fail(f"serve decode_vs_prefill {label}: "
+                      f"{json.dumps(line)}")
+        del params, p_cpu, got_cache, want_cache, bad_cache
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def serve_path(torch, kd, cli: _Alongside | None = None) -> dict:
-    """Phase 7: decode and serving on the card ((a)–(f)).  Decode reaches
-    no kernel, so the main-path launches it adds are all 0.  ``cli``: (b)'s
+    """Phase 7: decode and serving on the card ((a)–(g)).  Decode reaches
+    no kernel, so the main-path launches it adds are all 0 (whisper's
+    cache build runs its encoder's kernels, counted apart).  ``cli``: (b)'s
     process, if main() began it earlier."""
     card = _card_line()
     t0 = time.perf_counter()
@@ -5967,7 +6390,8 @@ def serve_path(torch, kd, cli: _Alongside | None = None) -> dict:
                       lambda: _serve_decode_vs_prefill(torch, kd, card)),
                      ("engine_and_sampler",
                       lambda: _serve_engine_and_sampler(torch, kd, card)),
-                     ("powf", lambda: _serve_powf(torch, card))):
+                     ("powf", lambda: _serve_powf(torch, card)),
+                     ("whisper", lambda: _serve_whisper(torch, kd, card))):
         ts = time.perf_counter()
         fn()
         parts[name] = time.perf_counter() - ts
@@ -6015,7 +6439,9 @@ ATTN_BWD_ROWS = (
     (1, 300, 1000, 4, 256, True, None, "bfloat16"),     # Sq < Sk, ragged
     (1, 300, 1000, 4, 160, True, 128, "bfloat16"),      # the same, window
     (1, 1024, 1024, 8, 256, True, None, "float32"),
-    (1, 1000, 1000, 8, 160, True, 200, "float32"))
+    (1, 1000, 1000, 8, 160, True, 200, "float32"),
+    (8, 1500, 1500, 8, 64, False, None, "bfloat16"),    # whisper's encoder
+    (8, 448, 1500, 8, 64, False, None, "bfloat16"))     # its cross
 ATTN_BWD_FAULT_DIMS = (128, 256, 160)
 # The rows phase 2 profiles, (B, S, H, D), causal: the first three of
 # ATTN_BWD_ROWS, gemma3's and pixtral's.
@@ -6091,6 +6517,13 @@ TRAIN_HEAD_DIM_CUTS = {
         d_ff=256)),
 }
 GRAD_BARS_BF16 = (0.1, 0.05)
+# whisper_base at full width and depth, B = 64 × (1,500 seeded N(0, 1)
+# frame embeddings + WHISPER_TEXT tokens): train_4k's batch of 256 cut to
+# 64 for the script's time; AdamW under warmup_cosine_lr as zamba2's run,
+# clip 1.0 and remat, 3 timed steps.  Its card-against-CPU steps run at
+# WHISPER_CUTS (one fp32 step each; the bf16 gradients at D = 64).
+TRAIN_WHISPER = {"arch": WHISPER, "batch": 64, "seq": WHISPER_TEXT,
+                 "steps": 3, "peak_lr": 3e-4, "warmup": 1}
 # run_spmd_feddif's configs in phase 8d (their smoke configs).
 SPMD_ARCHS = ("smollm_360m", "zamba2_2_7b")
 # (1 round since the SSD backward's phase: 2 until then.)
@@ -6209,20 +6642,23 @@ def _cuda_kernels(torch, fn, calls: int = 3) -> dict[str, float]:
     return {name: us[name] / seen[name] for name in sorted(us)}
 
 
-def _attn_bwd_tile_dropped(torch, q, k, v, do, tile: int = 64):
-    """The gradients of causal attention, by autograd of the plain form,
-    with keys [Sk/2, Sk/2 + tile) hidden from every query: what a backward
-    that dropped one key tile's contribution would return (their dK and dV
-    0, every dQ that saw them off)."""
+def _attn_bwd_tile_dropped(torch, q, k, v, do, tile: int = 64,
+                           causal: bool = True, start: int | None = None):
+    """The gradients of attention, by autograd of the plain form, with keys
+    [start, start + tile) (start Sk/2 by default) hidden from every query:
+    what a backward that dropped one key tile's contribution would return
+    (their dK and dV 0, every dQ that saw them off)."""
     leaves = [t.detach().float().requires_grad_(True) for t in (q, k, v)]
     qf, kf, vf = leaves
     sq, sk, d = q.shape[1], k.shape[1], q.shape[-1]
+    start = sk // 2 if start is None else start
     s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) / d ** 0.5
     q_pos = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
     k_pos = torch.arange(sk, device=q.device)[None, :]
-    hidden = (k_pos >= sk // 2) & (k_pos < sk // 2 + tile)
-    p = torch.softmax(s.masked_fill((k_pos > q_pos) | hidden,
-                                    float("-inf")), dim=-1)
+    hidden = (k_pos >= start) & (k_pos < start + tile)
+    if causal:
+        hidden = hidden | (k_pos > q_pos)
+    p = torch.softmax(s.masked_fill(hidden, float("-inf")), dim=-1)
     del s
     out = torch.einsum("bhqk,bkhd->bqhd", p, vf)
     grads = torch.autograd.grad(out, leaves, do.float())
@@ -6317,6 +6753,16 @@ def check_train_kernels(torch, kref) -> list[dict]:
                        "bar_ratio": c["bar_ratio"],
                        "rejected": c["bar_ratio"] >= 10.0}
             row["control_tile_dropped"] = control
+            del fault
+        elif dt == "bfloat16" and not causal and sk % 64:
+            fault = _attn_bwd_tile_dropped(torch, q, k, v, do, sk % 64,
+                                           False, sk - sk % 64)
+            c = _attn_bwd_err(torch, fault, want, dt)
+            control = {"fault": f"the ragged last key tile [{sk - sk % 64}"
+                                f", {sk}) dropped",
+                       "bar_ratio": c["bar_ratio"],
+                       "rejected": c["bar_ratio"] >= 10.0}
+            row["control_tail_tile_dropped"] = control
             del fault
         pairs = b * h * _visible_pairs(sq, sk, causal, window)
         flops = 10.0 * d * pairs
@@ -6460,6 +6906,11 @@ def _zoo_launches(cfg, steps: int, remat: bool) -> dict:
     from repro_torch.kernels.ssd_scan import BWD_LAUNCHES
     from repro_torch.models.transformer import build_plan
     fwd = 2 if remat else 1
+    if cfg.family == "audio":
+        # Each encoder layer one attention, each decoder layer two.
+        n = (cfg.encoder_layers or cfg.num_layers) + 2 * cfg.num_layers
+        return {"flash_attention": fwd * n * steps,
+                "flash_attention_bwd": n * steps}
     kernels = {"attn": (("flash_attention",), ("flash_attention_bwd",)),
                "swa": (("flash_attention",), ("flash_attention_bwd",)),
                "shared": (("flash_attention",), ("flash_attention_bwd",)),
@@ -6541,8 +6992,9 @@ def _train_run(torch, kd, label, model, params, opt, lr_fn, batch, steps,
         losses.append(float(m["loss"]))
         norms.append(float(m["grad_norm"]))
     tokens = batch["tokens"].numel()
-    patches = (batch["patch_embeddings"].shape[:2].numel()
-               if "patch_embeddings" in batch else 0)
+    # A vision batch's patch embeddings, an audio batch's frames.
+    patches = sum(batch[k].shape[:2].numel()
+                  for k in ("patch_embeddings", "frames") if k in batch)
     out = {"run": label, "remat": remat, "steps": steps,
            "step_s": secs, "mean_step_s": sum(secs) / steps,
            "tokens_per_s": tokens * steps / sum(secs),
@@ -6655,6 +7107,7 @@ def train_step_path(torch, kd) -> dict:
     torch.cuda.empty_cache()
 
     add(wide_attention_train(torch, kd, card))
+    add(whisper_train(torch, kd, card))
     add(train_card_vs_cpu(torch, kd, card))
     return launches
 
@@ -6724,6 +7177,63 @@ def wide_attention_train(torch, kd, card: str) -> dict:
     return launches
 
 
+def whisper_train(torch, kd, card: str) -> dict:
+    """Phase 8b, the audio family: ``make_train_step`` of whisper_base at
+    full width and depth (TRAIN_WHISPER: B = 64 × (1,500 seeded N(0, 1)
+    frame embeddings + 448 tokens from ``lm_corpus`` / ``lm_batches``),
+    AdamW under warmup_cosine_lr, clip 1.0, remat): the attention forward
+    and backward at D = 64 on their ``wgmma<64>`` instances, non-causal in
+    the encoder and the cross-attention.  Launches and device kernels as
+    the layers say, the loss falling; returns the launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import lm_batches
+    from repro_torch.data.synthetic import lm_corpus
+    from repro_torch.models.zoo import build_model
+    from repro_torch.train import optimizer as opt_lib
+    w = TRAIN_WHISPER
+    cfg = get_config(w["arch"])
+    model = build_model(cfg)
+    tokens = lm_corpus(200_000, vocab=cfg.vocab_size, seed=5)
+    batch = {k: torch.from_numpy(v).to("cuda") for k, v in next(lm_batches(
+        tokens, w["batch"], w["seq"], seed=5)).items()}
+    batch["frames"] = torch.randn(
+        (w["batch"], cfg.num_frontend_tokens, cfg.d_model),
+        generator=torch.Generator(device="cuda").manual_seed(5),
+        device="cuda")
+    run = _train_run(
+        torch, kd, f"train {w['arch']}", model,
+        model.init(torch.Generator(device="cuda").manual_seed(0)),
+        opt_lib.adamw(), opt_lib.warmup_cosine_lr(w["peak_lr"], w["warmup"],
+                                                  w["steps"]),
+        batch, w["steps"])
+    want = _zoo_launches(cfg, w["steps"], True)
+    wi = _want_instances(cfg, w["steps"])
+    if run["launches"] != want:
+        _fail(f"train {w['arch']}: launches {run['launches']}, want {want}")
+    if run["instances"] != wi:
+        _fail(f"train {w['arch']}: device kernels {run['instances']}, "
+              f"want {wi}")
+    # The first step runs at lr 0 (one warm-up step): its loss repeats
+    # once; no step may raise it.
+    losses = run["losses"]
+    if not (all(b_ <= a_ for a_, b_ in zip(losses, losses[1:]))
+            and losses[-1] < losses[0]):
+        _fail(f"train {w['arch']}: the loss did not fall: {losses}")
+    print(json.dumps({"train_summary": w["arch"], "card": card,
+                      "encoder_layers": cfg.encoder_layers,
+                      "decoder_layers": cfg.num_layers,
+                      "batch": w["batch"],
+                      "frames": cfg.num_frontend_tokens, "text": w["seq"],
+                      "mean_step_s": run["mean_step_s"],
+                      "positions_per_s": run["positions_per_s"],
+                      "peak_memory_gb": run["peak_memory_gb"],
+                      "losses": losses}))
+    del batch, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return run["launches"]
+
+
 def train_card_vs_cpu(torch, kd, card: str) -> dict:
     """Phase 8b: one fp32 step on the card against the CPU at each
     TRAIN_CARD_VS_CPU smoke config, then at each TRAIN_HEAD_DIM_CUTS cut
@@ -6746,20 +7256,31 @@ def train_card_vs_cpu(torch, kd, card: str) -> dict:
             base, compute_dtype="float32"), f"{name} fp32", card))
         add(_grads_card_vs_cpu(torch, kd, dc.replace(
             base, compute_dtype="bfloat16"), f"{name} bf16", card))
+    # The audio family: one fp32 step at each cut (whisper-smoke's D = 32
+    # and the D = 64 cut on the CUDA-core kernels), the bf16 gradients at
+    # D = 64 (the wgmma<64> instances).
+    for name, change in WHISPER_CUTS:
+        base = dc.replace(get_smoke_config(WHISPER), **change)
+        add(_step_card_vs_cpu(torch, kd, dc.replace(
+            base, compute_dtype="float32"), f"{name} fp32", card))
+        if base.resolved_head_dim == 64:
+            add(_grads_card_vs_cpu(torch, kd, dc.replace(
+                base, compute_dtype="bfloat16"), f"{name} bf16", card))
     return launches
 
 
 def _cut_batch(torch, cfg):
     """A (2, 64) token batch (labels the tokens shifted) from
     ``default_rng(0)``, a vision config's patch embeddings N(0, 1) ahead
-    of it; CPU tensors."""
+    of it, an audio config's frame embeddings N(0, 1); CPU tensors."""
     import numpy as np
     rng = np.random.default_rng(0)
     toks = rng.integers(0, cfg.vocab_size, (2, 64)).astype(np.int64)
     batch = {"tokens": torch.from_numpy(toks),
              "labels": torch.from_numpy(np.roll(toks, -1, axis=1))}
-    if cfg.frontend == "vision":
-        batch["patch_embeddings"] = torch.from_numpy(rng.normal(
+    if cfg.frontend is not None:
+        key = {"vision": "patch_embeddings", "audio": "frames"}[cfg.frontend]
+        batch[key] = torch.from_numpy(rng.normal(
             size=(2, cfg.num_frontend_tokens, cfg.d_model)).astype(
                 np.float32))
     return batch
@@ -7152,7 +7673,11 @@ def main() -> None:
     for k, v in zoo_prefill(torch, kd).items():
         launches[k] += v
     part("zoo_prefill")
+    for k, v in whisper_prefill(torch, kd).items():
+        launches[k] += v
+    part("whisper_prefill")
     zoo_card_vs_cpu(torch)
+    whisper_card_vs_cpu(torch)
     part("zoo_card_vs_cpu")
     zoo_full_depth(torch)
     mark("phase 6: the zoo's prefill")

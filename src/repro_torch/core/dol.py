@@ -488,34 +488,54 @@ def xla_cumsum_t(x: torch.Tensor) -> torch.Tensor:
 
 
 # Inside the reference's jitted programs XLA-CPU's LLVM back end compiles
-# each class sum of the divergences in one of three forms, by C, by metric
+# each class sum of the divergences in one of these forms, by C, by metric
 # and by program (the standalone jitted ``iid_distance``, "iid", or the
 # planner's bid expression ``iid − dol_bid_scores``: its candidates, "bid",
 # and the model's own distance inside it, "bid_iid"):
 #
 # * "chain": ``acc = fma(a_j, b_j, acc)`` in class order;
-# * "vec8": eight lanes, lane l accumulating classes l, l + 8, … as fused
-#   multiply-adds, the lanes then added in a halving tree (lanes 0–3 plus
-#   4–7, then 0–1 plus 2–3, then 0 plus 1), the classes past the last full
-#   vector added after it as fused multiply-adds;
+# * "vec8": eight lanes, lane l accumulating classes l, l + 8, … of the
+#   first C − C mod 8 as fused multiply-adds, the lanes then added in a
+#   halving tree (lanes 0–3 plus 4–7, then 0–1 plus 2–3, then 0 plus 1),
+#   the classes past the last full vector added after it as fused
+#   multiply-adds;
+# * "vec8m": "vec8" with the classes past the last full vector folded into
+#   lanes 0, 1, … (a masked last vector) before the tree;
+# * "vec8e2": "vec8", then the next two classes in a two-lane epilogue
+#   started from the tree's sum in lane 0, its lanes then added;
+# * "vec4e4": four lanes over the first C − C mod 8 classes (lane l
+#   accumulating l, l + 4, …) and their halving tree, then the next four
+#   classes in a four-lane epilogue started from that sum in lane 0, and
+#   its halving tree;
 # * "windowed": the products rounded and summed in XLA's windowed order, as
 #   eagerly (every C > 32).
 #
-# Up to 32 classes the sum is a chain except where :data:`_VEC8_SUMS` names
+# Up to 32 classes the sum is a chain except where :data:`_LANE_SUMS` names
 # C for (program, metric, term) — term 0 is kld's sum and jsd's
 # ``Σ p·(log p − log m)``, term 1 jsd's ``Σ u·(log u − log m)``.  Measured
 # on x86-64 against ``jax.jit(iid_distance)`` and the jitted bid expression
-# at C = 3 … 33 and 100 (``tests/test_torch_appendix.py``); the bid
-# expression's jsd is matched at C = 24 and 32 (ROADMAP C7: its model
-# distance's forms, "bid_iid", read apart with every candidate uniform, and
-# the candidates' with every DoL uniform) and not at 18 ≤ C ≤ 22.  At
-# other C the model distance inside the bid expression takes the
-# standalone's forms (:data:`_BID_IID_MEASURED`).
-_VEC8_SUMS = {("iid", "kld", 0): (32,), ("iid", "jsd", 0): (24, 25, 32),
-              ("iid", "jsd", 1): (25, 32), ("bid", "kld", 0): (24, 32),
-              ("bid", "jsd", 0): (17, 24, 32), ("bid", "jsd", 1): (24, 32),
-              ("bid_iid", "jsd", 0): (32,)}
-_BID_IID_MEASURED = {"jsd": (24, 32)}
+# at C = 3 … 33 and 100 (``tests/test_torch_appendix.py``).  The bid
+# expression's forms were read apart by black-box probes (ROADMAP C7): its
+# model distance ("bid_iid") with every candidate uniform, the candidates'
+# with every DoL uniform and chain = D_i = 64 (so Eq. 2 is exact), each
+# lane read from inputs with two or four non-uniform classes.  Where
+# :data:`_BID_IID_MEASURED` does not name C the model distance inside the
+# bid expression takes the standalone's forms.
+_LANE_SUMS = {("iid", "kld", 0): {32: "vec8"},
+              ("iid", "jsd", 0): {18: "vec8e2", 20: "vec4e4", 24: "vec8",
+                                  25: "vec8", 32: "vec8"},
+              ("iid", "jsd", 1): {25: "vec8", 32: "vec8"},
+              ("bid", "kld", 0): {20: "vec4e4", 24: "vec8", 32: "vec8"},
+              ("bid", "jsd", 0): {14: "vec8m", 15: "vec8m", 16: "vec8",
+                                  17: "vec8", 18: "vec8e2", 20: "vec4e4",
+                                  24: "vec8", 32: "vec8"},
+              ("bid", "jsd", 1): {18: "vec8e2", 20: "vec4e4", 24: "vec8",
+                                  32: "vec8"},
+              ("bid_iid", "jsd", 0): {32: "vec8"}}
+_BID_IID_MEASURED = {"jsd": (18, 20, 24, 32)}
+# Each lane form: (main lanes, the last vector masked, epilogue lanes).
+_LANE_FORMS = {"vec8": (8, False, 0), "vec8m": (8, True, 0),
+               "vec8e2": (8, False, 2), "vec4e4": (4, False, 4)}
 _VEC8 = 8
 # Above this class count w1_true's bid numerator contracts the other
 # product.
@@ -529,8 +549,12 @@ _W1_TRUE_SWAP_ABOVE = 16
 _VECTOR_CLIENTS = (4, 8)
 _SMALL_C = 8
 _JSD_UNCONTRACTED = {10: ((8, 9), _VECTOR_CLIENTS),
-                     12: ((7, 8, 9, 10, 11), _VECTOR_CLIENTS), 17: ((16,), ()),
-                     24: (tuple(range(24)), ()), 32: (tuple(range(32)), ())}
+                     11: ((8, 9, 10), _VECTOR_CLIENTS),
+                     12: ((7, 8, 9, 10, 11), _VECTOR_CLIENTS),
+                     13: ((7, 8, 9, 10, 11, 12), _VECTOR_CLIENTS),
+                     17: ((16,), ()), 18: (tuple(range(18)), ()),
+                     20: (tuple(range(20)), ()), 24: (tuple(range(24)), ()),
+                     32: (tuple(range(32)), ())}
 
 
 def _uncontracted_classes(metric: str, c: int, n: int) -> tuple:
@@ -542,6 +566,13 @@ def _uncontracted_classes(metric: str, c: int, n: int) -> tuple:
     return () if n in contracted_n else classes
 
 
+def _halving_tree(lanes: torch.Tensor) -> torch.Tensor:
+    while lanes.shape[-1] > 1:
+        half = lanes.shape[-1] // 2
+        lanes = lanes[..., :half] + lanes[..., half:]
+    return lanes[..., 0]
+
+
 def _jit_dot_t(a: torch.Tensor, b: torch.Tensor, form: str = "chain"
                ) -> torch.Tensor:
     """``Σ_j a_j·b_j`` over the last axis in one of XLA's compiled forms
@@ -551,17 +582,28 @@ def _jit_dot_t(a: torch.Tensor, b: torch.Tensor, form: str = "chain"
     if form == "windowed":
         return xla_sum_t(a * b)
     acc = torch.zeros(a.shape[:-1], dtype=torch.float32, device=a.device)
-    body = c // _VEC8 * _VEC8 if form == "vec8" else 0
-    if body:
-        lanes = torch.zeros(a.shape[:-1] + (_VEC8,), dtype=torch.float32,
+    done = 0
+    if form in _LANE_FORMS:
+        width, masked, epilogue = _LANE_FORMS[form]
+        done = c if masked else c // _VEC8 * _VEC8
+        lanes = torch.zeros(a.shape[:-1] + (width,), dtype=torch.float32,
                             device=a.device)
-        for j in range(0, body, _VEC8):
-            lanes = _fma_t(a[..., j:j + _VEC8], b[..., j:j + _VEC8], lanes)
-        while lanes.shape[-1] > 1:
-            half = lanes.shape[-1] // 2
-            lanes = lanes[..., :half] + lanes[..., half:]
-        acc = lanes[..., 0]
-    for j in range(body, c):
+        for j in range(0, done, width):
+            w = min(width, done - j)
+            lanes = torch.cat([_fma_t(a[..., j:j + w], b[..., j:j + w],
+                                      lanes[..., :w]), lanes[..., w:]], -1)
+        acc = _halving_tree(lanes)
+        w = min(epilogue, c - done)
+        if w:
+            tail = torch.zeros(a.shape[:-1] + (epilogue,),
+                               dtype=torch.float32, device=a.device)
+            tail[..., 0] = acc
+            tail = torch.cat([_fma_t(a[..., done:done + w],
+                                     b[..., done:done + w], tail[..., :w]),
+                              tail[..., w:]], -1)
+            acc = _halving_tree(tail)
+            done += w
+    for j in range(done, c):
         acc = _fma_t(a[..., j], b[..., j], acc)
     return acc
 
@@ -571,8 +613,7 @@ def _sum_form(site: str, metric: str, term: int, c: int) -> str:
         site = "iid"
     if c > _WINDOW:
         return "windowed"
-    return "vec8" if c in _VEC8_SUMS.get((site, metric, term), ()) \
-        else "chain"
+    return _LANE_SUMS.get((site, metric, term), {}).get(c, "chain")
 
 
 def _w1_true_t(p: torch.Tensor) -> torch.Tensor:

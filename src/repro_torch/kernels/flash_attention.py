@@ -1,11 +1,15 @@
-"""Causal / sliding-window attention on Hopper — the LM zoo's prefill.
+"""Causal, sliding-window and non-causal attention on Hopper — the LM zoo's
+prefill and training.
 
 Counterpart of ``repro.kernels.flash_attention``.
 :func:`flash_attention_cuda` computes what ``_attn_kernel``
 (``flash_attention_pallas``) computes: online-softmax attention of q
 (B, Sq, H, D) against k/v (B, Sk, H, D) in bf16 or fp32, with q
-right-aligned to the end of the keys, causal and sliding-window masks,
-fp32 softmax, and 0 for a row that sees no key; the output has q's dtype.
+right-aligned to the end of the keys, causal and sliding-window masks or
+none, fp32 softmax, and 0 for a row that sees no key; the output has q's
+dtype.  The zoo calls it causal (every decoder's self-attention, windowed
+in ``swa`` layers) and non-causal with Sq ≠ Sk (whisper's encoder over its
+1,500 frames and its cross-attention from the text to them).
 Heads are pre-repeated for GQA by the caller.  The kernel is hand-written
 CUDA C++ for ``sm_90a`` (``csrc/flash_attention.cu``), built by ``nvcc`` and
 bound with ``ctypes``: bf16 runs on Hopper's warpgroup tensor cores

@@ -201,9 +201,11 @@ def quant_roundtrip(rows_of_leaves, src_of_dst=None) -> list:
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int | None = None,
                     scale: float | None = None) -> torch.Tensor:
-    """Causal / sliding-window attention, q (B, Sq, H, D) right-aligned to
-    k/v (B, Sk, H, D) with heads pre-repeated for GQA; bf16 or fp32 in, q's
-    dtype out, fp32 softmax.  Differentiable on either device.  On the
+    """Causal, sliding-window or non-causal attention, q (B, Sq, H, D)
+    right-aligned to k/v (B, Sk, H, D) with heads pre-repeated for GQA
+    (the zoo's self-attention, and whisper's encoder and cross-attention,
+    non-causal with Sq ≠ Sk); bf16 or fp32 in, q's dtype out, fp32
+    softmax.  Differentiable on either device.  On the
     card bf16 at D in ``BF16_HEAD_DIMS`` (64, 80, 128, 160, 256) takes the
     tensor-core kernels in both directions; bf16 at another D (the smoke
     configs' 32) runs the fp32 kernels on operands widened to fp32, the

@@ -16,7 +16,11 @@ with ``--seed``, or from the newest checkpoint under ``--ckpt-dir`` in the
 reference's format (either package's).  The prompts are ``torch.randint``
 draws, and sampling (``--temperature`` > 0) draws with the reference's
 threefry key ``PRNGKey(seed)``, split once per token.  The audio family
-(the encoder-decoder decode) is ROADMAP item A13d-3.
+(whisper) draws N(0, 1) frame embeddings (B, T, d_model) in bf16 on the
+device, as the reference draws its stub front end's output, and builds the
+cache from them (the encoder runs once); its decoder then ingests and
+generates text as the others do.  The vision family is refused, as the
+reference refuses it.
 """
 from __future__ import annotations
 
@@ -56,10 +60,6 @@ def main(argv: list[str] | None = None) -> None:
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if cfg.frontend is not None and cfg.family != "audio":
         raise SystemExit("serve.py drives text decoders")
-    if cfg.family == "audio":
-        raise NotImplementedError(
-            "serving the audio family (encoder-decoder decode, cross "
-            "attention) is queued as ROADMAP item A13d-3")
     device = resolve_device(args.device)
     model = build_model(cfg)
     gen = torch.Generator(device=device).manual_seed(args.seed)
@@ -72,7 +72,12 @@ def main(argv: list[str] | None = None) -> None:
 
     max_seq = args.context + args.new_tokens
     b = args.batch
-    cache = model.init_cache(params, b, max_seq)
+    if cfg.family == "audio":
+        frames = torch.randn((b, cfg.num_frontend_tokens, cfg.d_model),
+                             generator=gen, device=device).to(torch.bfloat16)
+        cache = model.init_cache(params, frames, b, max_seq)
+    else:
+        cache = model.init_cache(params, b, max_seq)
     prompt = torch.randint(0, cfg.vocab_size, (b, args.context),
                            generator=gen, device=device)
     key = torch.from_numpy(PRNGKey(args.seed).astype("int64")).to(device)

@@ -1,10 +1,10 @@
 """Attention of the LM zoo: GQA/MHA with RoPE and qk-norm, full-context
-(prefill) forward.
+(prefill) forward, self- and cross-attention.
 
 Counterpart of ``repro.models.attention``.  The reference computes the
 self-attention inline in XLA (``chunked_attention``, a two-level chunked
 online softmax) and names the Pallas ``flash_attention`` kernel as its TPU
-form; here the self-attention branch calls
+form; here self- and cross-attention call
 :func:`repro_torch.kernels.ops.flash_attention`, which is the hand-written
 Hopper kernel on the card and its plain version on the CPU.  q is projected
 as (B, S, KH, G, Dh) with head ``h = kh·G + g``; the kernel takes k/v
@@ -16,7 +16,12 @@ products are cuBLAS batched GEMMs over each row's cache, read in place.
 Unlike the reference's functional update, the new K/V are written into the
 cache in place.
 
-Not ported yet: cross-attention (the audio family; ROADMAP A13d-3).
+Cross-attention (the audio family's decoder, :mod:`repro_torch.models.encdec`)
+takes q from x and k/v from the encoder's states, with no rope, under the
+spec's mask (``causal=False`` for the encoder's spec): :func:`attn_forward`
+with ``context``.  Its decode projects the encoder's states once
+(:func:`precompute_cross_kv`) and attends one query against that static
+cache with no mask (:func:`cross_attn_decode`), per-row GEMMs as above.
 """
 from __future__ import annotations
 
@@ -31,7 +36,8 @@ from repro_torch.models import layers as L
 Params = Any
 
 __all__ = ["AttnSpec", "init_attention", "attn_forward", "init_kv_cache",
-           "attn_decode", "NEG_INF"]
+           "attn_decode", "precompute_cross_kv", "cross_attn_decode",
+           "NEG_INF"]
 
 NEG_INF = -1e30
 
@@ -95,13 +101,14 @@ def _project_qkv(p: Params, spec: AttnSpec, x: torch.Tensor,
 def attn_forward(p: Params, spec: AttnSpec, x: torch.Tensor,
                  positions: torch.Tensor | None = None,
                  context: torch.Tensor | None = None) -> torch.Tensor:
-    """Self-attention over the whole context: x (B, S, D) → (B, S, D)."""
-    if context is not None:
-        raise NotImplementedError(
-            "cross-attention (the audio family) is queued as ROADMAP item "
-            "A13d-3")
+    """Self-attention over the whole context (``context`` None) or
+    cross-attention to ``context`` (B, Sc, D): x (B, S, D) → (B, S, D)."""
     b, s, _ = x.shape
-    q, k, v = _project_qkv(p, spec, x, positions)
+    if context is None:
+        q, k, v = _project_qkv(p, spec, x, positions)
+    else:
+        q = _project_q(p, spec, x)
+        k, v = _project_kv(p, spec, context)
     g = spec.q_groups
     out = ops.flash_attention(
         q.reshape(b, s, spec.num_heads, spec.head_dim),
@@ -110,6 +117,30 @@ def attn_forward(p: Params, spec: AttnSpec, x: torch.Tensor,
     out = out.to(spec.compute_dtype).reshape(b, s,
                                              spec.num_heads * spec.head_dim)
     return L.dense(p["wo"], out, spec.compute_dtype)
+
+
+def _project_q(p: Params, spec: AttnSpec, x: torch.Tensor) -> torch.Tensor:
+    """Cross-attention's q (B, S, KH, G, Dh): qk-norm where the spec has
+    it, no rope."""
+    b, s, _ = x.shape
+    q = L.dense(p["wq"], x, spec.compute_dtype).reshape(
+        b, s, spec.num_heads, spec.head_dim)
+    if spec.qk_norm:
+        q = L.rmsnorm(p["q_norm"], q, spec.norm_eps)
+    return q.reshape(b, s, spec.num_kv_heads, spec.q_groups, spec.head_dim)
+
+
+def _project_kv(p: Params, spec: AttnSpec, context: torch.Tensor):
+    """Cross-attention's k, v (B, Sc, KH, Dh) from the context."""
+    b, sc, _ = context.shape
+    cd = spec.compute_dtype
+    k = L.dense(p["wk"], context, cd).reshape(b, sc, spec.num_kv_heads,
+                                              spec.head_dim)
+    v = L.dense(p["wv"], context, cd).reshape(b, sc, spec.num_kv_heads,
+                                              spec.head_dim)
+    if spec.qk_norm:
+        k = L.rmsnorm(p["k_norm"], k, spec.norm_eps)
+    return k, v
 
 
 # ---------------------------------------------------------------- decode
@@ -179,3 +210,33 @@ def attn_decode(p: Params, spec: AttnSpec, x: torch.Tensor, cache: Params,
                        for i in range(b)])                    # (B,KH,G,Dh)
     out = out.reshape(b, 1, spec.num_heads * spec.head_dim)
     return L.dense(p["wo"], out, cd), cache
+
+
+def precompute_cross_kv(p: Params, spec: AttnSpec,
+                        context: torch.Tensor) -> Params:
+    """The static cross-attention cache ``{"k", "v"}`` (B, Sc, KH, Dh) in
+    ``compute_dtype``: the context projected once, as the reference's
+    (which applies no qk-norm here)."""
+    k, v = _project_kv(p, dataclasses.replace(spec, qk_norm=False), context)
+    return {"k": k, "v": v}
+
+
+def cross_attn_decode(p: Params, spec: AttnSpec, x: torch.Tensor,
+                      context_cache: Params) -> torch.Tensor:
+    """One-token cross-attention of x (B, 1, D) against the static cache
+    (:func:`precompute_cross_kv`), every key visible: fp32 scores, the
+    softmax's weights in ``compute_dtype``, each row's cache read in place
+    as :func:`attn_decode` reads it."""
+    b = x.shape[0]
+    cd = spec.compute_dtype
+    kc = context_cache["k"].to(cd)
+    vc = context_cache["v"].to(cd)
+    q = L.dense(p["wq"], x, cd).reshape(b, spec.num_kv_heads, spec.q_groups,
+                                        spec.head_dim)
+    scale = 1.0 / (spec.head_dim ** 0.5)
+    scores = torch.stack([torch.matmul(q[i], kc[i].permute(1, 2, 0))
+                          for i in range(b)]).to(torch.float32) * scale
+    probs = torch.softmax(scores, dim=-1).to(cd)              # (B,KH,G,Sc)
+    out = torch.stack([torch.matmul(probs[i], vc[i].transpose(0, 1))
+                       for i in range(b)])                    # (B,KH,G,Dh)
+    return L.dense(p["wo"], out.reshape(b, 1, -1), cd)

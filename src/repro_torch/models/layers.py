@@ -13,15 +13,17 @@ from __future__ import annotations
 import functools
 from typing import Any
 
+import numpy as np
 import torch
 
 from repro_torch.models.remat import checkpoint
 
 Params = Any
 
-__all__ = ["silu", "init_dense", "dense", "init_rmsnorm", "rmsnorm",
-           "init_embedding", "embed", "embed_scale", "unembed_logits",
-           "rope_freqs", "apply_rope", "init_swiglu", "swiglu",
+__all__ = ["silu", "gelu", "init_dense", "dense", "init_rmsnorm", "rmsnorm",
+           "init_layernorm", "layernorm", "init_embedding", "embed",
+           "embed_scale", "unembed_logits", "rope_freqs", "apply_rope",
+           "sinusoidal_positions", "init_swiglu", "swiglu",
            "chunked_cross_entropy", "torch_dtype", "init_normal"]
 
 
@@ -65,6 +67,52 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return _Silu.apply(x)[0]
 
 
+@functools.lru_cache(maxsize=None)
+def _gelu_constants(dtype: torch.dtype) -> tuple[float, float]:
+    """√(2/π) and 0.044715 rounded to ``dtype``, as the reference's
+    ``np.sqrt(2 / np.pi).astype(x.dtype)`` and its weakly typed literal
+    are; returned as Python floats holding those values exactly."""
+    return tuple(float(torch.tensor(v, dtype=dtype))
+                 for v in (float(np.sqrt(2.0 / np.pi)), 0.044715))
+
+
+class _Gelu(torch.autograd.Function):
+    """The tanh GELU as the reference's ``jax.nn.gelu`` (approximate, its
+    default) rounds it: ``x·(0.5·(1 + tanh(c·(x + k·x³))))`` with every op
+    rounded in x's dtype and tanh taken in fp32 and rounded once (bit for
+    bit in bf16; ``F.gelu(approximate="tanh")`` differs on 42.7 % of
+    ``tests/test_torch_encdec.py``'s bf16 inputs).  The gradient is JAX's
+    transpose of that expression, op by op: ``(g·cdf + s̄) +
+    (s̄·k)·(3·x²)`` with ``s̄ = c·(t̄ + t̄·th)`` and ``t̄ =
+    ((g·x)·0.5)·(1 − th)``.  Returns ``(y, th)``; th takes no gradient."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(x):
+        c, k = _gelu_constants(x.dtype)
+        a = c * (x + k * (x * x * x))
+        th = torch.tanh(a.to(torch.float32)).to(x.dtype)
+        return x * (0.5 * (1.0 + th)), th
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.mark_non_differentiable(output[1])
+        ctx.save_for_backward(inputs[0], output[1])
+
+    @staticmethod
+    def backward(ctx, g, _gth):
+        x, th = ctx.saved_tensors
+        c, k = _gelu_constants(x.dtype)
+        t = ((g * x) * 0.5) * (1.0 - th)
+        s = (t + t * th) * c
+        return (g * (0.5 * (1.0 + th)) + s) + (s * k) * (3.0 * (x * x))
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    return _Gelu.apply(x)[0]
+
+
 # ---------------------------------------------------------------- dense
 
 def init_dense(gen: torch.Generator, d_in: int, d_out: int,
@@ -91,6 +139,21 @@ def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     xf = x.to(torch.float32)
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps) * p["scale"]
+    return y.to(x.dtype)
+
+
+def init_layernorm(d: int, stack: tuple = (),
+                   device: torch.device | str = "cpu") -> Params:
+    return {"scale": torch.ones((*stack, d), device=device),
+            "bias": torch.zeros((*stack, d), device=device)}
+
+
+def layernorm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Statistics in fp32, the result in x's dtype, as the reference's."""
+    xf = x.to(torch.float32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean((xf - mu) ** 2, dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps) * p["scale"] + p["bias"]
     return y.to(x.dtype)
 
 
@@ -168,6 +231,25 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
     s = sin[..., :, None, :]
     out = torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
     return out.to(x.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _sinusoid_table(seq: int, d: int, device: torch.device) -> torch.Tensor:
+    with torch.inference_mode(False), torch.no_grad():
+        pos = np.arange(seq)[:, None]
+        dim = np.arange(d // 2)[None, :]
+        ang = pos / np.power(10000.0, 2 * dim / d)
+        out = np.concatenate([np.sin(ang), np.cos(ang)], axis=-1)
+        return torch.from_numpy(out.astype(np.float32)).to(device)
+
+
+def sinusoidal_positions(seq: int, d: int,
+                         device: torch.device | str = "cpu") -> torch.Tensor:
+    """(seq, d) fp32: sin then cos of ``pos / 10000^(2i/d)``, i < d/2,
+    taken in float64 with numpy and rounded once, as the reference's.
+    Made once per (seq, d, device) and shared: callers do not write to
+    it."""
+    return _sinusoid_table(seq, d, torch.device(device))
 
 
 # ---------------------------------------------------------------- SwiGLU

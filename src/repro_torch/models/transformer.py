@@ -22,8 +22,9 @@ pattern (gemma3: bodies of ``swa`` layers and one ``attn``) is a plan of
 these kinds; gemma's embeddings are scaled by √d_model rounded as the
 reference rounds it (:func:`~repro_torch.models.layers.embed_scale`); the
 vision family (pixtral) takes its patch embeddings ahead of the text, the
-loss over the text alone.  The audio family (encoder-decoder) raises
-:class:`NotImplementedError` naming ROADMAP item A13d-3.
+loss over the text alone.  The audio family is an encoder–decoder, not this
+stack: :mod:`repro_torch.models.encdec`, which
+:func:`repro_torch.models.zoo.build_model` routes it to.
 """
 from __future__ import annotations
 
@@ -41,22 +42,15 @@ from repro_torch.models.attention import (AttnSpec, attn_decode,
                                           attn_forward, init_attention,
                                           init_kv_cache)
 from repro_torch.models.remat import checkpoint
-from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
+from repro_torch.tree import (tree_flatten, tree_map, tree_unflatten,
+                              tree_unstack)
 
 Params = Any
 
 __all__ = ["Segment", "build_plan", "specs_for", "init_lm", "forward_hidden",
-           "lm_loss", "check_supported", "init_cache", "decode_step"]
+           "lm_loss", "init_cache", "decode_step"]
 
 Segment = tuple[tuple[str, ...], int]
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise for the family the port does not carry yet."""
-    if cfg.family == "audio":
-        raise NotImplementedError(
-            f"{cfg.name}: the audio family (encoder-decoder) is queued as "
-            f"ROADMAP item A13d-3")
 
 
 def build_plan(cfg: ModelConfig) -> list[Segment]:
@@ -154,7 +148,6 @@ def init_lm(gen: torch.Generator, cfg: ModelConfig) -> Params:
     layer params}), ``shared_block`` (hybrid), ``final_norm`` and
     ``lm_head`` (untied).  The values differ from the reference's
     ``jax.random`` draws; parity tests inject those instead."""
-    check_supported(cfg)
     params: Params = {"embed": L.init_embedding(gen, cfg.vocab_size,
                                                 cfg.d_model)}
     plan = build_plan(cfg)
@@ -203,15 +196,6 @@ def _layer(stacked: Params, i: int) -> Params:
     return stacked[i]
 
 
-def _unstack(stacked: Params, count: int) -> list[Params]:
-    """A segment's stacked params as ``count`` per-layer trees of views
-    (one ``unbind`` per leaf, so the gradients stack back in one copy)."""
-    leaves, treedef = tree_flatten(stacked)
-    cols = [leaf.unbind(0) for leaf in leaves]
-    return [tree_unflatten(treedef, [c[i] for c in cols])
-            for i in range(count)]
-
-
 def _body(cfg: ModelConfig, kinds: tuple, layer: Params, shared: Params,
           x: torch.Tensor, positions: torch.Tensor | None,
           aux: torch.Tensor | None = None):
@@ -252,13 +236,12 @@ def forward_hidden(params: Params, cfg: ModelConfig, x: torch.Tensor,
     layers' load-balance losses summed; 0 without MoE).  ``remat``
     checkpoints each layer body: the backward recomputes its activations
     (under ``torch.func`` transforms and ``vmap`` too)."""
-    check_supported(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     moe = cfg.moe is not None
     for seg_p, (kinds, count) in zip(params["segments"], build_plan(cfg)):
         shared = params["shared_block"] if "shared" in kinds else {}
         body = _remat_body if remat else _body
-        for layer in _unstack(seg_p, count):
+        for layer in tree_unstack(seg_p):
             if moe:
                 x, aux = body(cfg, kinds, layer, shared, x, positions, aux)
             else:
@@ -314,7 +297,6 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
     layer a ring of ``min(ceil((window + 1) / 256)·256, max_seq)``
     positions (it only reads the last ``window``); a Mamba layer its fp32
     conv history and state."""
-    check_supported(cfg)
     attn, swa, _, m1, m2 = specs_for(cfg)
     segs = []
     for kinds, count in build_plan(cfg):
@@ -348,7 +330,6 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     place (the reference returns a new one): each layer writes its new K/V
     or state into its slice of the stacked leaves; an ``swa`` layer writes
     its ring at ``pos mod length``.  An MoE layer's aux loss is dropped."""
-    check_supported(cfg)
     attn, swa, moe, m1, m2 = specs_for(cfg)
     cd = L.torch_dtype(cfg.compute_dtype)
     x = L.embed(params["embed"], tokens, cd)

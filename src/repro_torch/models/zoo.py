@@ -6,13 +6,16 @@ params on the generator's device, ``loss(params, batch)`` is the
 full-context (train / prefill) forward, ``init_cache(params, batch,
 max_seq)`` allocates the decode cache on the params' device and
 ``decode_step(params, tokens, cache, pos)`` decodes one token, updating the
-cache in place.  The dense (``attn`` layers; gemma3's local/global bodies
-of ``swa`` and ``attn`` layers), MoE (``attn`` or ``swa`` layers with the
-MoE MLP: mixtral, qwen3-moe, moonshot), ssm (``mamba1``), hybrid
-(``mamba2`` + ``shared``) and vision (pixtral: ``patch_embeddings`` (B,
-P, D) in the batch ahead of the text; decode takes text alone) families
-are ported; the audio family raises at :func:`build_model` naming ROADMAP
-item A13d-3.
+cache in place.  Every family of the reference's zoo is ported: the dense
+(``attn`` layers; gemma3's local/global bodies of ``swa`` and ``attn``
+layers), MoE (``attn`` or ``swa`` layers with the MoE MLP: mixtral,
+qwen3-moe, moonshot), ssm (``mamba1``), hybrid (``mamba2`` + ``shared``)
+and vision (pixtral: ``patch_embeddings`` (B, P, D) in the batch ahead of
+the text; decode takes text alone) families through
+:mod:`repro_torch.models.transformer`, and the audio family (whisper: the
+encoder–decoder of :mod:`repro_torch.models.encdec`, ``frames`` (B, T, D)
+in the batch) whose ``init_cache`` takes the reference's ``(params,
+frames, batch, max_seq)``: it runs the encoder once over the frames.
 
 Params and caches keep the reference's tree layouts, so
 :func:`params_from_numpy` and :func:`cache_from_numpy` carry the
@@ -26,6 +29,7 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import encdec as ed
 from repro_torch.models import transformer as tf
 from repro_torch.tree import cache_from_numpy, params_from_numpy, tree_leaves
 
@@ -39,7 +43,7 @@ class Model:
     cfg: ModelConfig
     init: Callable[[torch.Generator], Params]
     loss: Callable[..., torch.Tensor]           # (params, batch) -> scalar
-    init_cache: Callable[..., Params]           # (params, batch, max_seq)
+    init_cache: Callable[..., Params]   # (params, [frames,] batch, max_seq)
     decode_step: Callable[..., Any]             # -> (logits, cache)
 
 
@@ -48,7 +52,16 @@ def _device_of(params: Params) -> torch.device:
 
 
 def build_model(cfg: ModelConfig) -> Model:
-    tf.check_supported(cfg)
+    if cfg.family == "audio":
+        return Model(
+            cfg=cfg,
+            init=lambda gen: ed.init_encdec(gen, cfg),
+            loss=lambda params, batch, **kw: ed.encdec_loss(params, cfg,
+                                                            batch, **kw),
+            init_cache=lambda params, frames, batch, max_seq: (
+                ed.init_encdec_cache(params, cfg, frames, batch, max_seq)),
+            decode_step=lambda params, tokens, cache, pos: (
+                ed.encdec_decode_step(params, cfg, tokens, cache, pos)))
     return Model(
         cfg=cfg,
         init=lambda gen: tf.init_lm(gen, cfg),

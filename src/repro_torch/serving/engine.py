@@ -24,6 +24,12 @@ and ``mamba2`` layer).  The reference resets only the slot's position,
 which masks a KV cache's old entries but lets a Mamba layer's state carry
 over into the next request that takes the slot, so its output there is
 not the request's own greedy decode.
+
+The engine serves decoder-only models.  An encoder–decoder (the audio
+family) builds its cache from each request's audio frames, which a
+:class:`Request` does not carry, so the engine refuses it at construction
+with a ``ValueError``; the reference's engine calls the three-argument
+``init_cache`` there and fails with a ``TypeError``.
 """
 from __future__ import annotations
 
@@ -66,6 +72,12 @@ class ServingEngine:
     def __init__(self, model: Model, params, num_slots: int = 4,
                  max_seq: int = 256, sampler: SamplerConfig | None = None,
                  eos_id: int | None = None, seed: int = 0):
+        if model.cfg.family == "audio":
+            raise ValueError(
+                f"{model.cfg.name}: the serving engine takes decoder-only "
+                f"models; an encoder-decoder's cache needs each request's "
+                f"audio frames (init_cache(params, frames, batch, max_seq)), "
+                f"which a Request does not carry")
         self.model = model
         self.params = params
         self.num_slots = num_slots

@@ -14,7 +14,8 @@ import numpy as np
 import torch
 
 __all__ = ["tree_leaves", "tree_map", "tree_flatten", "tree_unflatten",
-           "params_from_numpy", "params_to_numpy", "cache_from_numpy"]
+           "tree_unstack", "params_from_numpy", "params_to_numpy",
+           "cache_from_numpy"]
 
 
 def _flatten(node: Any, leaves: list) -> Any:
@@ -60,6 +61,16 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
     return tree_unflatten(treedef,
                           [fn(x, *(o[i] for o in others))
                            for i, x in enumerate(leaves)])
+
+
+def tree_unstack(stacked: Any) -> list:
+    """A tree whose leaves share a leading axis (stacked layers) as one tree
+    of views per index along it: one ``unbind`` per leaf, so gradients
+    taken through the views stack back in one copy."""
+    leaves, treedef = tree_flatten(stacked)
+    cols = [leaf.unbind(0) for leaf in leaves]
+    return [tree_unflatten(treedef, [c[i] for c in cols])
+            for i in range(len(cols[0]))]
 
 
 def params_from_numpy(tree: Any, device: str | torch.device = "cpu") -> Any:

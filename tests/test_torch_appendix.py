@@ -148,12 +148,13 @@ def test_host_candidates_equal_reference_eager(metric, c):
                  jdol.iid_distance_candidates(dol, chain, dsi, sizes, metric))
 
 
-@pytest.mark.parametrize("c", [10, 17, 24, 32, 100])
+@pytest.mark.parametrize("c", [10, 17, 18, 20, 24, 32, 100])
 @pytest.mark.parametrize("metric", METRICS)
 def test_tensor_metrics_equal_reference_jit(metric, c):
     """``iid_distance_t`` gives the bits of the reference's jitted
     ``iid_distance`` (the class sums in XLA's compiled forms: a chain of
-    fused multiply-adds, eight lanes and a tree, or windows past 32)."""
+    fused multiply-adds, eight or four lanes and a tree with an epilogue
+    after it (jsd at C = 18 and 20), or windows past 32)."""
     rng = np.random.default_rng(c + 2)
     for shape in ((8,), (10,), (20,)):
         p = _simplex(rng, shape, c)
@@ -179,7 +180,8 @@ def _jit_bids(dol, chain, dsi, sizes, metric):
         dol, chain, dsi, sizes, metric)
 
 
-@pytest.mark.parametrize("c", [5, 10, 17, 24, 32, 100])
+@pytest.mark.parametrize("c", [5, 10, 11, 13, 14, 15, 16, 17, 18, 20, 24,
+                               32, 100])
 @pytest.mark.parametrize("metric", METRICS)
 def test_tensor_bids_match_reference_planner_expression(metric, c):
     """The device planner's bids (``ops.bid_fused`` on the CPU, given the
@@ -187,7 +189,8 @@ def test_tensor_bids_match_reference_planner_expression(metric, c):
     the planner gives them) against the reference's jitted bid expression,
     bit for bit (the vectorized client loop at N = 4 and 8, the scalar one
     at every other N); jsd at C = 24 and 32 too since ROADMAP C7's
-    probes."""
+    probes, and jsd at 11, 13–16, 18 and 20 and kld at 20 since its pairwise
+    probes read the lane forms (``core/dol.py::_LANE_SUMS``)."""
     rng = np.random.default_rng(c + 3)
     for m, n in ((8, 8), (10, 10), (20, 20), (6, 4), (5, 2)):
         args = _bid_inputs(rng, m, n, c)

@@ -53,7 +53,8 @@ def test_every_port_module_imports_without_jax_or_repro():
                 "fl.resume", "train.checkpoint", "fl.async_plane",
                 "fl.population", "core.threefry", "serving",
                 "serving.engine", "serving.sampler", "launch.serve",
-                "kernels.autograd", "models.remat", "launch.train",
+                "kernels.autograd", "models.remat", "models.encdec",
+                "launch.train",
                 "launch.fl_spmd"):
         assert f"repro_torch.{sub}" in names.split()
 

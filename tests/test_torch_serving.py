@@ -17,9 +17,12 @@
   diverges from that request decoded alone; the port's engine, which zeroes
   the slot's recurrent state on admission, equals unbatched greedy decode
   for every family;
+* the engine's refusal of the audio family (its cache needs each
+  request's frames);
 * ``python -m repro_torch.launch.serve`` with ``--smoke --device cpu``,
-  fresh (qwen3 and the MoE configs) and restoring a checkpoint the
-  reference wrote, and the refusals without a GPU.
+  fresh (qwen3, the MoE configs and whisper's encoder–decoder) and
+  restoring a checkpoint the reference wrote, and the refusals without a
+  GPU.
 """
 import dataclasses
 import functools
@@ -412,13 +415,63 @@ def test_serve_cli_samples_with_temperature(capsys):
     assert len(ids) == 6 and all(0 <= i < 256 for i in ids)
 
 
-def test_serve_refusals_without_gpu():
+def test_serve_refusals_without_gpu(capsys):
+    """Without a GPU the default device is refused, and whisper (the audio
+    family) serves on the CPU when asked; the vision family is refused, as
+    the reference refuses it."""
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is valid")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--smoke", "--batch", "1", "--context", "2",
                     "--new-tokens", "2"])
-    with pytest.raises(NotImplementedError, match="A13d"):
-        serve.main(["--arch", "whisper_base", "--smoke", "--device", "cpu"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "whisper_base", "--smoke", "--batch", "1",
+                    "--context", "2", "--new-tokens", "2"])
+    capsys.readouterr()
+    serve.main(["--arch", "whisper_base", "--smoke", "--device", "cpu",
+                "--batch", "2", "--context", "4", "--new-tokens", "3"])
+    out = capsys.readouterr().out
+    assert "arch=whisper-smoke batch=2 context=4" in out
+    assert "tok/s/seq" in out and "tok/s aggregate (3 new tokens/seq)" in out
+    ids = _sample_ids(out)
+    assert len(ids) == 3 and all(0 <= i < 256 for i in ids)
     with pytest.raises(SystemExit):
         serve.main(["--arch", "pixtral_12b", "--smoke", "--device", "cpu"])
+
+
+def test_serve_cli_whisper_smoke_on_cpu(capsys):
+    """whisper through the serve CLI: frames drawn from the seeded
+    generator after the params, the cache built from them, then the ids of
+    the teacher-forced then greedy decode."""
+    serve.main(["--arch", "whisper_base", "--smoke", "--device", "cpu",
+                "--batch", "2", "--context", "8", "--new-tokens", "6",
+                "--temperature", "0"])
+    out = capsys.readouterr().out
+    cfg = get_smoke_config("whisper_base")
+    assert f"arch={cfg.name} batch=2 context=8" in out
+    model = build_model(cfg)
+    gen = torch.Generator().manual_seed(0)
+    params = model.init(gen)
+    frames = torch.randn((2, cfg.num_frontend_tokens, cfg.d_model),
+                         generator=gen).to(torch.bfloat16)
+    prompt = torch.randint(0, cfg.vocab_size, (2, 8), generator=gen)
+    cache = model.init_cache(params, frames, 2, 14)
+    ids = []
+    with torch.no_grad():
+        for t in range(13):
+            tok = prompt[:, t:t + 1] if t < 8 else tok
+            lg, cache = model.decode_step(params, tok, cache, t)
+            if t >= 7:
+                tok = torch.argmax(lg[:, -1], dim=-1, keepdim=True)
+                ids.append(int(tok[0]))
+    assert _sample_ids(out) == ids
+
+
+def test_engine_refuses_the_audio_family():
+    """The engine takes decoder-only models: an encoder-decoder's cache is
+    built from each request's audio frames, which a Request does not
+    carry, so whisper is refused at construction with a clear error."""
+    model = build_model(get_smoke_config("whisper_base"))
+    params = model.init(torch.Generator().manual_seed(0))
+    with pytest.raises(ValueError, match="decoder-only"):
+        ServingEngine(model, params, num_slots=2, max_seq=16)

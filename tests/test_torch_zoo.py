@@ -5,14 +5,17 @@ hybrid (zamba2-smoke: mamba2 + the shared attention block), ssm
 (falcon-mamba-smoke: mamba1), MoE (mixtral-smoke: ``swa`` layers,
 window 32 < S; qwen3-moe-smoke: qk-norm; moonshot-smoke: a shared expert),
 local/global (gemma3-smoke: one ``swa`` and one ``attn`` layer, tied and
-scaled embeddings) and vision (pixtral-smoke: 16 patch embeddings ahead of
-the text) smoke configs, and two narrow 2-layer cuts at the real head dims
-(``HEAD_DIM_CUTS``: gemma3 at 256 with a 16-key window, pixtral at 160),
-the reference's
+scaled embeddings), vision (pixtral-smoke: 16 patch embeddings ahead of
+the text) and audio (whisper-smoke: the encoder–decoder over 32 frame
+embeddings) smoke configs, and three narrow 2-layer cuts at the real head
+dims (``HEAD_DIM_CUTS``: gemma3 at 256 with a 16-key window, pixtral at
+160, whisper at 64 over 200 frames), the reference's
 ``build_model(cfg).init(PRNGKey(0))`` is carried into the port with
 ``params_from_numpy``; then ``make_prefill_step``, ``make_eval_step`` and
 ``forward_hidden`` of both packages see the same numpy tokens (and patch
-embeddings).  S = 40 is no multiple of zamba2-smoke's SSD chunk (16).
+or frame embeddings; for the audio family the hidden states are the
+decoder's over the encoder's, ``encode`` then ``_decode_hidden``).
+S = 40 is no multiple of zamba2-smoke's SSD chunk (16).
 The scaled embeddings are held bit for bit, at the smoke widths here and
 at gemma3's d_model 2560 in ``test_embed_scale_matches_reference``; the
 rope tables at pixtral's θ = 1e9 and D = 160 within one ulp of a cos.
@@ -46,11 +49,14 @@ from repro.configs import ARCH_IDS as J_ARCH_IDS
 from repro.configs import SHAPES as J_SHAPES
 from repro.configs import get_config as j_get_config
 from repro.configs import get_smoke_config as j_get_smoke
+from repro.models import encdec as jed
+from repro.models import layers as jlayers
 from repro.models import transformer as jtf
 from repro.models.layers import _rope_table as j_rope_table
 from repro.models.zoo import build_model as j_build
 from repro.train import trainstep as jts
 from repro_torch.configs import ARCH_IDS, SHAPES, get_config, get_smoke_config
+from repro_torch.models import encdec as ted
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as ttf
 from repro_torch.models.zoo import build_model, params_from_numpy
@@ -60,12 +66,13 @@ from test_torch_moe import capture_reference_routing, follow_reference_routing
 
 PORTED = ["qwen3_0_6b", "smollm_360m", "zamba2_2_7b", "falcon_mamba_7b",
           "mixtral_8x22b", "qwen3_moe_235b_a22b", "moonshot_v1_16b_a3b",
-          "gemma3_4b", "pixtral_12b"]
-UNPORTED = [a for a in J_ARCH_IDS if a not in PORTED]
+          "gemma3_4b", "pixtral_12b", "whisper_base"]
 # Narrow 2-layer cuts at the published head dims, as changes to the smoke
 # configs: gemma3's 256 (one swa layer with a window shorter than S, one
-# global layer; d_model 384, so the bf16 embedding scale rounds) and
-# pixtral's 5120 / 32 = 160 (d_model 320 over 2 heads).
+# global layer; d_model 384, so the bf16 embedding scale rounds),
+# pixtral's 5120 / 32 = 160 (d_model 320 over 2 heads) and whisper's 512 /
+# 8 = 64 (d_model 128 over 2 heads) over 200 frames, a key length that is
+# no whole number of 64- or 128-key tiles.
 HEAD_DIM_CUTS = {
     "gemma3_4b@256": ("gemma3_4b", dict(
         name="gemma3-hd256", d_model=384, num_heads=2, num_kv_heads=1,
@@ -73,6 +80,9 @@ HEAD_DIM_CUTS = {
     "pixtral_12b@160": ("pixtral_12b", dict(
         name="pixtral-hd160", d_model=320, num_heads=2, num_kv_heads=1,
         d_ff=256)),
+    "whisper_base@64": ("whisper_base", dict(
+        name="whisper-hd64", num_heads=2, num_kv_heads=2,
+        num_frontend_tokens=200)),
 }
 BATCH, SEQ = 2, 40
 # The MoE configs' summed load-balance loss (≈ 0.04 at the smoke
@@ -116,15 +126,17 @@ def _configs(arch, dtype):
 
 def _batch(cfg):
     """tokens, labels, mask and the batch's other inputs: a vision
-    config's patch embeddings (B, P, d_model), fp32 numpy."""
+    config's patch embeddings (B, P, d_model), an audio config's frame
+    embeddings (B, T, d_model), fp32 numpy."""
     rng = np.random.default_rng(7)
     vocab = cfg.vocab_size
     tokens = rng.integers(0, vocab, (BATCH, SEQ)).astype(np.int32)
     labels = rng.integers(0, vocab, (BATCH, SEQ)).astype(np.int32)
     mask = (rng.uniform(size=(BATCH, SEQ)) < 0.8).astype(np.float32)
     extra = {}
-    if cfg.frontend == "vision":
-        extra["patch_embeddings"] = rng.normal(size=(
+    if cfg.frontend is not None:
+        key = {"vision": "patch_embeddings", "audio": "frames"}[cfg.frontend]
+        extra[key] = rng.normal(size=(
             BATCH, cfg.num_frontend_tokens, cfg.d_model)).astype(np.float32)
     return tokens, labels, mask, extra
 
@@ -153,11 +165,22 @@ def _reference(arch, dtype):
         lambda: float(jts.make_eval_step(model)(
             params, {"tokens": tokens, "labels": labels, "mask": mask,
                      **extra})))
-    x = jtf._embed_inputs(params, jcfg, {"tokens": tokens, **extra})
-    s = x.shape[1]
-    pos = jnp.broadcast_to(jnp.arange(s)[None], (BATCH, s))
-    (hidden, aux), r_hidden = capture_reference_routing(
-        lambda: jtf.forward_hidden(params, jcfg, x, pos, remat=False))
+    if jcfg.family == "audio":
+        # The decoder's input and its final hidden states over the
+        # encoder's.
+        cd = jnp.dtype(dtype)
+        x = (jlayers.embed(params["embed"], tokens, cd)
+             + jlayers.sinusoidal_positions(SEQ, jcfg.d_model).astype(cd))
+        enc = jed.encode(params, jcfg, extra["frames"], remat=False)
+        hidden, aux = jed._decode_hidden(params, jcfg, tokens, enc,
+                                         remat=False), 0.0
+        r_hidden = []
+    else:
+        x = jtf._embed_inputs(params, jcfg, {"tokens": tokens, **extra})
+        s = x.shape[1]
+        pos = jnp.broadcast_to(jnp.arange(s)[None], (BATCH, s))
+        (hidden, aux), r_hidden = capture_reference_routing(
+            lambda: jtf.forward_hidden(params, jcfg, x, pos, remat=False))
     return (jax.tree.map(np.asarray, params), prefill, evaluate,
             np.asarray(x.astype(jnp.float32)),
             np.asarray(hidden.astype(jnp.float32)), float(aux),
@@ -194,16 +217,25 @@ def test_prefill_eval_and_hidden_match_reference(arch, dtype):
                      **extra}))
     flips += f
     td = getattr(torch, dtype)
-    got_x = ttf._embed_inputs(params, cfg, {"tokens": tokens, **extra})
+    if cfg.family == "audio":
+        got_x = (L.embed(params["embed"], tokens, td)
+                 + L.sinusoidal_positions(SEQ, cfg.d_model).to(td))
+        enc = ted.encode(params, cfg, extra["frames"])
+        got_h = ted._decode_hidden(params, cfg, tokens, enc)
+        aux = torch.zeros(())
+    else:
+        got_x = ttf._embed_inputs(params, cfg, {"tokens": tokens, **extra})
     assert got_x.dtype == td
-    # The embeddings (patches ahead of the text, the scale) bit for bit.
+    # The embeddings (patches ahead of the text, the scale; the decoder's
+    # positions) bit for bit.
     np.testing.assert_array_equal(got_x.float().numpy(), x)
     s = got_x.shape[1]
     assert s == SEQ + cfg.num_frontend_tokens * (cfg.frontend == "vision")
     pos = torch.arange(s)[None].expand(BATCH, s)
-    with routed(2) as f:
-        got_h, aux = ttf.forward_hidden(params, cfg, got_x, pos)
-    flips += f
+    if cfg.family != "audio":
+        with routed(2) as f:
+            got_h, aux = ttf.forward_hidden(params, cfg, got_x, pos)
+        flips += f
     # Near ties are rare: at most 10 % of a call's tokens.
     assert max(flips, default=0) <= 0.1 * BATCH * SEQ, flips
     assert got_h.dtype == td and aux.dtype == torch.float32
@@ -284,10 +316,20 @@ def test_rope_tables_match_reference(theta, head_dim):
                                    rtol=0)
 
 
-@pytest.mark.parametrize("arch", UNPORTED)
-def test_unported_families_raise(arch):
-    with pytest.raises(NotImplementedError, match="A13d"):
-        build_model(get_smoke_config(arch))
+def test_every_family_is_ported():
+    """Every architecture of the reference's zoo builds in the port, the
+    audio family through the encoder–decoder (``init_cache`` takes its
+    frames)."""
+    assert sorted(PORTED) == sorted(J_ARCH_IDS)
+    whisper = build_model(get_smoke_config("whisper_base"))
+    params = whisper.init(torch.Generator().manual_seed(0))
+    cfg = whisper.cfg
+    frames = torch.zeros((1, cfg.num_frontend_tokens, cfg.d_model))
+    cache = whisper.init_cache(params, frames, 1, 4)
+    assert sorted(cache) == ["cross", "self"]
+    logits, cache2 = whisper.decode_step(
+        params, torch.zeros((1, 1), dtype=torch.long), cache, 0)
+    assert logits.shape == (1, 1, cfg.vocab_size) and cache2 is cache
 
 
 @pytest.mark.parametrize("arch", PORTED)

@@ -7,19 +7,23 @@
   layers; each body's running aux loss carried through remat's
   checkpoint; in bf16 the reference's experts at near ties,
   ``tests/test_torch_moe.py``), gemma3-smoke (local/global, scaled tied
-  embeddings) and pixtral-smoke (patch embeddings ahead of the text),
-  and at ``tests/test_torch_zoo.py``'s ``HEAD_DIM_CUTS`` (gemma3 at head
-  dim 256 with a 16-key window, pixtral at 160: the head dims whose
-  backward the card runs on the ``wgmma`` instances past D = 128), from
+  embeddings), pixtral-smoke (patch embeddings ahead of the text) and
+  whisper-smoke (the encoder–decoder: its encoder's gradient comes back
+  through the cross-attention), and at ``tests/test_torch_zoo.py``'s
+  ``HEAD_DIM_CUTS`` (gemma3 at head dim 256 with a 16-key window, pixtral
+  at 160: the head dims whose backward the card runs on the ``wgmma``
+  instances past D = 128; whisper at 64 over 200 frames), from
   the reference's init carried across with ``params_from_numpy``.  Per leaf, max|Δg| / max|g| and ‖Δg‖ / ‖g‖.
-  ``compute_dtype="float32"``: within 2e-3 and 5e-4 (measured ≤ 3.2e-4
-  and ≤ 9.1e-5; the readout is bf16 in both packages, its rounding lands
-  on other sums).  ``"bfloat16"``: within 0.1 and 0.05, every family.
-  Measured: qwen3 ≤ 0.022 / 0.022, smollm ≤ 0.019 / 0.018, falcon ≤
-  0.014 / 0.012, zamba2 ≤ 0.049 / 0.050 (0.087 / 0.081 before the port's
-  SiLU took the reference's rounding: σ = 1 / (1 + exp(−x)) with each op
-  rounded, and ``lax.logistic``'s gradient rule; a zamba2 layer's forward
-  is then bit-equal to the reference's).  What is left is where XLA sums a
+  ``compute_dtype="float32"``: within 2e-3 and 5e-4 (measured ≤ 4.4e-4,
+  whisper-smoke's, and ≤ 9.1e-5; the readout is bf16 in both packages,
+  its rounding lands on other sums).  ``"bfloat16"``: within 0.1 and
+  0.05, every family.  Measured: qwen3 ≤ 0.022 / 0.022, smollm ≤ 0.019 /
+  0.018, falcon ≤ 0.014 / 0.012, whisper ≤ 0.018 / 0.018 (0.020 / 0.020
+  at D = 64; its GELU takes the reference's per-op bf16 rounding), zamba2
+  ≤ 0.049 / 0.050 (0.087 / 0.081 before the port's SiLU took the
+  reference's rounding: σ = 1 / (1 + exp(−x)) with each op rounded, and
+  ``lax.logistic``'s gradient rule; a zamba2 layer's forward is then
+  bit-equal to the reference's).  What is left is where XLA sums a
   bf16 gradient over the batch and sequence (the per-channel leaves: the
   convs' weights and biases, ``a_log``, ``dt_bias``, ``d_skip``, the norm
   scales), in an order and precision no eager torch op takes.
@@ -68,7 +72,7 @@ from test_torch_zoo import HEAD_DIM_CUTS
 
 ARCHS = ["qwen3_0_6b", "smollm_360m", "falcon_mamba_7b", "zamba2_2_7b",
          "mixtral_8x22b", "qwen3_moe_235b_a22b", "moonshot_v1_16b_a3b",
-         "gemma3_4b", "pixtral_12b", *HEAD_DIM_CUTS]
+         "gemma3_4b", "pixtral_12b", "whisper_base", *HEAD_DIM_CUTS]
 BATCH, SEQ = 2, 24
 GRAD_BARS = {"float32": (2e-3, 5e-4), "bfloat16": (0.1, 0.05)}
 
@@ -83,15 +87,17 @@ def _one_thread():
 
 def _batch(cfg):
     """The shared batch; a vision config's also carries its patch
-    embeddings (B, P, d_model) ahead of the text."""
+    embeddings (B, P, d_model) ahead of the text, an audio config its
+    frame embeddings (B, T, d_model)."""
     rng = np.random.default_rng(3)
     vocab = cfg.vocab_size
     tokens = rng.integers(0, vocab, (BATCH, SEQ)).astype(np.int32)
     labels = rng.integers(0, vocab, (BATCH, SEQ)).astype(np.int32)
     mask = (rng.uniform(size=(BATCH, SEQ)) < 0.8).astype(np.float32)
     batch = {"tokens": tokens, "labels": labels, "mask": mask}
-    if cfg.frontend == "vision":
-        batch["patch_embeddings"] = rng.normal(size=(
+    if cfg.frontend is not None:
+        key = {"vision": "patch_embeddings", "audio": "frames"}[cfg.frontend]
+        batch[key] = rng.normal(size=(
             BATCH, cfg.num_frontend_tokens, cfg.d_model)).astype(np.float32)
     return batch
 
